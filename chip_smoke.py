@@ -12,25 +12,32 @@ exits non-zero):
 2. Build: the hand-written CUDA kernels from pgica_tpu_torch/csrc/ into the
    git-ignored build/pgica_tpu_torch/ (one nvcc per source, in parallel).
 3. Kernels vs plain: each kernel against its plain PyTorch version on the
-   card at the serving shapes, bf16 and f32, with its time (CUDA events,
-   median of 21 bursts, on input sets that rotate through more than twice
-   the L2, so they come from HBM), the plain version's, one PyTorch call's
-   as a yardstick (never used by the port) and the bound from the bytes and
-   flops that the inputs need at HBM rate and peak rate.
+   card at the serving and stage-1 shapes, bf16 and f32, with its time
+   (CUDA events, median of 21 bursts, on input sets that rotate through
+   more than twice the L2, so they come from HBM), the plain version's, one
+   PyTorch call's as a yardstick (never used by the port) and the bound from
+   the bytes and flops that the inputs need at HBM rate and peak rate.
 4. Full path vs plain: ViT-B/32 and GPT-2 Medium at full width, 2 layers
-   each, batch 2, f32 — the same seeded model on the card (kernels) and on
-   the CPU (plain versions): embeddings, prefix and step logits, 16 greedy
-   tokens.
-5. The slice: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab
-   50,262) in bf16 with random seeded weights answers caption requests
-   through ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
+   each, f32 — the same seeded model on the card (kernels) and on the CPU
+   (plain versions): embeddings, prefix and step logits, 16 greedy tokens;
+   then two stage-1 train steps (dropout 0), loss, gradient norm and every
+   trained parameter.
+5. Serving: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab 50,262)
+   in bf16 with random seeded weights answers caption requests through
+   ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
    early_stop (as the caption service calls it), then the batch 32 x 64
    fixed-length greedy decode of the eval benchmark (median of 5 after a
-   warm-up). Launch counts are reset just before and read just after.
+   warm-up).
+6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
+   ViT, dropout 0.1) takes stage-1 steps through ``make_stage1_train_step``
+   at bench.py's shapes: batch 128 x seq 128 with every token kept, and
+   caption lengths 8-28 cut to bucket 32 by ``bucket_batch``. Two warm-up
+   steps, then the median of three 5-step windows; one profiled step.
 
-The second-to-last line is the kernel summary as JSON; the last line is
-``{"ok": true, "device": {...}}``. Without a card, or without the package
-beside it, the script exits non-zero and prints no result.
+Launch counts are reset just before the main path of phases 5 and 6 and
+read just after. The second-to-last line is the kernel summary as JSON; the
+last line is ``{"ok": true, "device": {...}}``. Without a card, or without
+the package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -49,10 +56,13 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
-TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}  # (atol, rtol) on y / o
+TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}  # (atol, rtol) on y / o / dx
 ATTN_F32_ATOL = 2e-5
+ATTN_BWD_F32_TOL = (2e-5, 1e-5)  # dk/dv sum up to 128 rows' terms of size ~10: f32 rounding grows with both
+SUM_TOL = (1e-3, 1e-4)  # (atol, rtol) on LN's dgamma/dbeta: f32 sums over up to 16,384 rows
 GPT2_VOCAB = 50257 + 5  # GPT-2's vocab plus the five specials, as bench.py
 SLEEP_CYCLES = 20_000_000  # ~10 ms: keeps the card busy while the host queues a burst
+SERVING_KERNELS = ("layernorm_fwd", "flash_attn_fwd")  # serving runs no backward
 
 
 def log(msg: str) -> None:
@@ -154,6 +164,27 @@ def attention_inputs(b, h, sq, sk, d, dtype, valid, gen):
     return q, k, v, bias
 
 
+def kept_pairs(b, sq, sk, causal, valid) -> torch.Tensor:
+    """(b, sq, sk) bool: the (row, key) pairs whose p is not 0 (the key is kept and visible)."""
+    keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep.tril()
+    keep = keep[None].expand(b, sq, sk).clone()
+    if valid is not None:
+        keep &= (torch.arange(sk, device="cuda")[None, :] < valid[:, None])[:, None, :]
+    return keep
+
+
+def sdpa_mask(bias, b, sq, sk, causal, dtype):
+    """The key bias (+ causal) as one float mask for the SDPA yardstick."""
+    if bias is None and not causal:
+        return None
+    mask = torch.zeros(b, 1, sq, sk, device="cuda") if bias is None else bias[:, None, None, :].expand(b, 1, sq, sk).clone()
+    if causal:
+        mask = mask.masked_fill(~torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(), -1e9)
+    return mask.to(dtype)
+
+
 def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True) -> dict:
     from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref
 
@@ -171,14 +202,9 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
         return out
     # What this data needs: the (row, key) pairs it keeps, and the K/V rows of
     # the keys that some row keeps (a masked key's p is 0; the bias says
-    # which) or that a row with no kept key averages over.
-    visible = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
-    if causal:
-        visible = visible.tril()
-    keep = visible[None].expand(b, sq, sk).clone()
-    if valid is not None:
-        keep &= (torch.arange(sk, device="cuda")[None, :] < valid[:, None])[:, None, :]
-    need = keep | (visible[None] & ~keep.any(dim=2, keepdim=True))
+    # which) or that a row with no kept key averages over (all Sk of them).
+    keep = kept_pairs(b, sq, sk, causal, valid)
+    need = keep | ~keep.any(dim=2, keepdim=True)
     kv_rows = int(need.any(dim=1).sum())  # over batch rows; every head reads them
     esize = q.element_size()
     nbytes = esize * (2 * b * h * sq * d + 2 * h * kv_rows * d) + 4 * b * h * sq
@@ -187,15 +213,7 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
     n_sets = max(1, math.ceil(100e6 / nbytes))  # > 2x L2: inputs arrive from HBM
     sets = [attention_inputs(b, h, sq, sk, d, dtype, valid, gen) for _ in range(n_sets)]
     # the yardstick: one SDPA call with the same key bias (+ causal) as a float mask
-    lib_sets = []
-    for sq_, sk_, sv_, sb_ in sets:
-        mask = None
-        if sb_ is not None or causal:
-            mask = torch.zeros(b, 1, sq, sk, device="cuda") if sb_ is None else sb_[:, None, None, :].expand(b, 1, sq, sk).clone()
-            if causal:
-                mask = mask.masked_fill(~torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(), -1e9)
-            mask = mask.to(dtype)
-        lib_sets.append((sq_, sk_, sv_, mask))
+    lib_sets = [(sq_, sk_, sv_, sdpa_mask(sb_, b, sq, sk, causal, dtype)) for sq_, sk_, sv_, sb_ in sets]
     out.update(
         ms=time_ms(lambda *a: flash_attention_fwd(*a, causal), sets),
         plain_ms=time_ms(lambda *a: flash_attention_ref(*a, causal), sets),
@@ -206,39 +224,190 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
     return out
 
 
+def library_time(fn, arg_sets) -> float | None:
+    """A yardstick's time, or None where PyTorch refuses the call on these inputs."""
+    try:
+        return time_ms(fn, arg_sets)
+    except RuntimeError as err:
+        log(f"    (library call refused: {str(err).splitlines()[0][:120]})")
+        return None
+
+
+def layernorm_bwd_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Generator, timed=True) -> dict:
+    from pgica_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd
+
+    def inputs():
+        x = (3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(dtype)
+        w = 1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+        dy = torch.randn(rows, hidden, device="cuda", generator=gen).to(dtype)
+        _, mu, rstd = layer_norm_fwd(x, w, b, 1e-5)
+        return x, w, dy, mu, rstd
+
+    args = inputs()
+    got, again = layer_norm_bwd(*args), layer_norm_bwd(*args)
+    torch.cuda.synchronize()
+    want = layer_norm_bwd_ref(*args)
+    atol, rtol = TOL[dtype]
+    label = f"layernorm_bwd {rows}x{hidden} {dname(dtype)}"
+    err = check_close(label + " dx", got[0], want[0], atol, rtol)
+    sum_err = max(check_close(f"{label} {name}", got[i], want[i], *SUM_TOL)
+                  for i, name in ((1, "dweight"), (2, "dbias")))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
+    out = dict(shape=f"({rows}, {hidden})", dtype=dname(dtype), max_abs_err=err, sum_max_abs_err=sum_err,
+               atol=atol, rtol=rtol)
+    if not timed:
+        return out
+    esize = args[0].element_size()
+    nbytes = 3 * rows * hidden * esize + 12 * hidden + 8 * rows  # x, dy, dx; gamma, dgamma, dbeta; mu, rstd
+    flops = 12 * rows * hidden
+    n_sets = max(1, math.ceil(100e6 / nbytes))
+    sets = [args] + [inputs() for _ in range(n_sets - 1)]
+    lib_sets = [(dy, x, mu[:, None], rstd[:, None], w.to(dtype)) for x, w, dy, mu, rstd in sets]
+    out.update(
+        ms=time_ms(layer_norm_bwd, sets),
+        plain_ms=time_ms(layer_norm_bwd_ref, sets),
+        library_ms=library_time(lambda dy, x, mu, rs, w: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [hidden], mu, rs, w, w, [True, True, True]), lib_sets),
+        input_sets=n_sets,
+        **bound(nbytes, flops, dtype),
+    )
+    return out
+
+
+def attention_bwd_case(name, b, h, s, d, causal, valid, dtype, gen, timed=True):
+    """The dQ and the dK/dV kernels against the plain backward; one result dict for each."""
+    from pgica_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+    )
+
+    def inputs():
+        q, k, v, bias = attention_inputs(b, h, s, s, d, dtype, valid, gen)
+        do = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
+        o, lse = flash_attention_fwd(q, k, v, bias, causal)
+        return q, k, v, bias, o, lse, do
+
+    q, k, v, bias, o, lse, do = args = inputs()
+    dq, delta = flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do)
+    torch.cuda.synchronize()
+    rdq, rdk, rdv, rdelta = flash_attention_bwd_ref(q, k, v, bias, causal, o, lse, do)
+    atol, rtol = ATTN_BWD_F32_TOL if dtype == torch.float32 else TOL[dtype]
+    label = f"flash bwd {name} ({b * h}, {s}, {s}, {d}) {dname(dtype)}"
+    check_close(label + " delta", delta, rdelta, 1e-4, 1e-5)
+    err_dq = check_close(label + " dq", dq, rdq, atol, rtol)
+    err_dkv = max(check_close(label + " dk", dk, rdk, atol, rtol), check_close(label + " dv", dv, rdv, atol, rtol))
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"{label}: two runs of the dK/dV kernel differ")
+    common = dict(case=name, shape=f"({b * h}, {s}, {s}, {d})", dtype=dname(dtype), causal=causal, atol=atol, rtol=rtol)
+    res_dq, res_dkv = dict(common, max_abs_err=err_dq), dict(common, max_abs_err=err_dkv)
+    if not timed:
+        return res_dq, res_dkv
+    keep = kept_pairs(b, s, s, causal, valid)
+    kv_rows = int(keep.any(dim=1).sum())  # keys some row keeps: the only K/V rows either kernel reads
+    pairs = h * int(keep.sum())
+    esize = q.element_size()
+    rows = b * h * s * d
+    masks = 0 if bias is None else 4 * b * s
+    dq_bytes = esize * (3 * rows + 2 * h * kv_rows * d + rows) + 8 * b * h * s + masks  # q, do, o, k, v; dq; lse, delta
+    dkv_bytes = esize * (2 * rows + 2 * h * kv_rows * d + 2 * rows) + 8 * b * h * s + masks  # q, do, k, v; dk, dv
+    n_sets = max(1, math.ceil(100e6 / dkv_bytes))
+    sets = [args] + [inputs() for _ in range(n_sets - 1)]
+    dkv_sets = []
+    for q_, k_, v_, b_, o_, l_, do_ in sets:
+        dkv_sets.append((q_, k_, v_, b_, l_, flash_attention_bwd_dq(q_, k_, v_, b_, causal, o_, l_, do_)[1], do_))
+    plain_ms = time_ms(lambda q_, k_, v_, b_, o_, l_, do_: flash_attention_bwd_ref(q_, k_, v_, b_, causal, o_, l_, do_), sets)
+    # the yardstick: the backward of one SDPA call with the same mask, all three gradients
+    lib_sets = []
+    for q_, k_, v_, b_, _, _, do_ in sets:
+        leaves = [t.detach().clone().requires_grad_() for t in (q_, k_, v_)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask(b_, b, s, s, causal, dtype))
+        lib_sets.append((out, leaves, do_))
+    library_ms = library_time(lambda out, leaves, do_: torch.autograd.grad(out, leaves, do_, retain_graph=True), lib_sets)
+    res_dq.update(
+        ms=time_ms(lambda q_, k_, v_, b_, o_, l_, do_: flash_attention_bwd_dq(q_, k_, v_, b_, causal, o_, l_, do_), sets),
+        plain_ms=plain_ms, library_ms=library_ms, input_sets=n_sets,
+        **bound(dq_bytes, 6 * d * pairs, dtype),
+    )
+    res_dkv.update(
+        ms=time_ms(lambda q_, k_, v_, b_, l_, de_, do_: flash_attention_bwd_dkv(q_, k_, v_, b_, causal, l_, de_, do_), dkv_sets),
+        plain_ms=plain_ms, library_ms=library_ms, input_sets=n_sets,
+        **bound(dkv_bytes, 8 * d * pairs, dtype),
+    )
+    return res_dq, res_dkv
+
+
+def show_timed(kernel: str, r: dict) -> None:
+    lib = "refused" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+    log(f"  {kernel} {r.get('case', r.get('where', ''))} {r['shape']} {r['dtype']}: max_abs_err "
+        f"{r['max_abs_err']:.3e} (atol {r['atol']}, rtol {r['rtol']}); kernel_ms {r['ms']:.5f} plain_ms "
+        f"{r['plain_ms']:.5f} library_ms {lib} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}; "
+        f"{r['input_sets']} input sets)")
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"layernorm_fwd": [], "flash_attn_fwd": []}
+    results = {name: [] for name in ("layernorm_fwd", "flash_attn_fwd", "layernorm_bwd",
+                                     "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
     for dtype in (torch.bfloat16, torch.float32):
         for rows, hidden, where in ((32 * 50, 768, "ViT blocks"), (32, 512, "projection ln"),
-                                    (32, 1024, "decoder, per step")):
+                                    (32, 1024, "decoder, per step"), (128 * 50, 768, "ViT blocks, stage 1"),
+                                    (128, 768, "ViT post_ln, stage 1"), (128, 512, "projection ln, stage 1"),
+                                    (128 * 32, 1024, "text tower, bucketed"), (128 * 128, 1024, "text tower, stage 1")):
             r = layernorm_case(rows, hidden, dtype, gen)
             r["where"] = where
             results["layernorm_fwd"].append(r)
-            log(f"  layernorm {r['shape']} {r['dtype']} ({where}): max_abs_err {r['max_abs_err']:.3e} "
-                f"(atol {r['atol']}, rtol {r['rtol']}); kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
-                f"library_ms {r['library_ms']:.5f} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}; "
-                f"{r['input_sets']} input sets)")
+            show_timed("layernorm", r)
         # ragged and general cases for coverage of every template (not timed)
         r = layernorm_case(7, 2000, dtype, gen, timed=False)
         log(f"  layernorm (7, 2000) {dname(dtype)} loop path: max_abs_err {r['max_abs_err']:.3e}")
         decode_valid = torch.full((32,), 41, device="cuda")  # step 40 of 64: keys 0..40 kept
         ragged = torch.tensor([77, 50], device="cuda")
+        stage1_valid = {s: torch.randint(1, s + 1, (128,), device="cuda", generator=gen) for s in (128, 32)}
         for name, shape, causal, valid in (
             ("vit", (32, 12, 50, 50, 64), False, None),
             ("decode", (32, 16, 1, 65, 64), False, decode_valid),
             ("causal_ragged", (2, 16, 77, 77, 64), True, ragged),
+            ("vit_stage1", (128, 12, 50, 50, 64), False, None),
+            ("stage1", (128, 16, 128, 128, 64), True, stage1_valid[128]),
+            ("stage1_bucketed", (128, 16, 32, 32, 64), True, stage1_valid[32]),
         ):
             r = attention_case(name, *shape, causal, valid, dtype, gen)
             results["flash_attn_fwd"].append(r)
-            log(f"  flash {name} {r['shape']} {r['dtype']}: max_abs_err {r['max_abs_err']:.3e} "
-                f"(atol {r['atol']}, rtol {r['rtol']}); kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
-                f"library_ms {r['library_ms']:.5f} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}; "
-                f"{r['input_sets']} input sets)")
+            show_timed("flash", r)
         for d in (16, 32, 128):  # the other head dims, a fully masked batch row, ragged edges
             r = attention_case(f"d{d}", 2, 2, 33, 40, d, d == 32, torch.tensor([0, 29], device="cuda"),
                                dtype, gen, timed=False)
             log(f"  flash d={d} (4, 33, 40, {d}) {dname(dtype)} masked row: max_abs_err {r['max_abs_err']:.3e}")
+
+        for rows, hidden, where in ((128 * 128, 1024, "text tower, stage 1"), (128 * 32, 1024, "text tower, bucketed"),
+                                    (128, 512, "projection ln, stage 1")):
+            r = layernorm_bwd_case(rows, hidden, dtype, gen)
+            r["where"] = where
+            results["layernorm_bwd"].append(r)
+            show_timed("layernorm_bwd", r)
+            log(f"    dweight/dbias max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); "
+                f"identical over two runs")
+        for rows, hidden in ((7, 2000), (37, 768)):
+            r = layernorm_bwd_case(rows, hidden, dtype, gen, timed=False)
+            log(f"  layernorm_bwd ({rows}, {hidden}) {dname(dtype)}: max_abs_err {r['max_abs_err']:.3e}, "
+                f"sums {r['sum_max_abs_err']:.3e}")
+        for name, s in (("stage1_full", 128), ("stage1_bucketed", 32)):
+            r_dq, r_dkv = attention_bwd_case(name, 128, 16, s, 64, True, stage1_valid[s], dtype, gen)
+            results["flash_attn_bwd_dq"].append(r_dq)
+            results["flash_attn_bwd_dkv"].append(r_dkv)
+            show_timed("flash_bwd_dq", r_dq)
+            show_timed("flash_bwd_dkv", r_dkv)
+        for d in (16, 32, 128):  # other head dims; batch row 0 keeps no key; ragged edges
+            r_dq, r_dkv = attention_bwd_case(f"d{d}", 2, 2, 33, d, d != 32, torch.tensor([0, 29], device="cuda"),
+                                             dtype, gen, timed=False)
+            log(f"  flash bwd d={d} (4, 33, 33, {d}) {dname(dtype)} causal={d != 32}, a row without keys: "
+                f"max_abs_err dq {r_dq['max_abs_err']:.3e}, dk/dv {r_dkv['max_abs_err']:.3e}")
     return results
 
 
@@ -274,13 +443,13 @@ def phase_full_width(tokenizer) -> None:
         vision_model=dataclasses.replace(get_vision_config("openai/clip-vit-base-patch32"), num_layers=2),
         text_model=dataclasses.replace(get_text_config("gpt2-medium"), num_layers=2),
         projection_dim=512, tokenizer=tokenizer, max_caption_length=128, vocab_size=GPT2_VOCAB,
-        dtype=torch.float32, seed=0,
+        dtype=torch.float32, seed=0, dropout=0.0,  # dropout 0: the card's and the CPU's streams differ
     )
     cuda, cpu = (PreferenceGuidedCaptioningModel(device=dev, **kwargs) for dev in ("cuda", "cpu"))
     images = np.random.default_rng(1).integers(0, 256, size=(2, 224, 224, 3), dtype=np.uint8)
     _kernels.reset_launch_counts()
     emb_g, logits_g = decode_logits(cuda, images)
-    counts = _kernels.launch_counts()
+    counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}
     emb_c, logits_c = decode_logits(cpu, images)
     err = check_close("full width: embeddings", emb_g, emb_c, 1e-3, 0.0)
     log(f"  encode_image embeddings (2, 512): max_abs_err {err:.3e} (atol 1e-3)")
@@ -298,6 +467,123 @@ def phase_full_width(tokenizer) -> None:
     if not torch.equal(ids[0], ids[1]):
         raise AssertionError(f"full width: greedy tokens differ:\n{ids[0]}\n{ids[1]}")
     log(f"  greedy tokens, 16 steps: identical on card and CPU ({ids[0].tolist()})")
+    full_width_train(cuda, cpu)
+
+
+def stage1_batch(rng, batch: int, seq: int, lengths=None) -> dict:
+    """bench.py's stage-1 batch: normalized float images, GPT-2 ids; every token kept, or
+    lengths drawn from ``lengths`` and the columns cut to their bucket by ``bucket_batch``."""
+    from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
+
+    images = rng.normal(size=(batch, 224, 224, 3)).astype(np.float32)
+    ids = rng.integers(0, GPT2_VOCAB, (batch, seq)).astype(np.int64)
+    if lengths is None:
+        return {"image": images, "caption_ids": ids, "caption_mask": np.ones((batch, seq), np.int32)}
+    lens = rng.integers(lengths[0], lengths[1] + 1, batch)
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int32)
+    cut = bucket_batch({"caption_ids": ids * mask, "caption_mask": mask}, default_buckets(seq))
+    return {"image": images, **cut}
+
+
+def stage1_trainer(module, lr: float = 1e-3, warmup: int = 1, total: int = 10):
+    from pgica_tpu_torch.training.optim import create_optimizer
+    from pgica_tpu_torch.training.train_step import TrainState, make_stage1_train_step
+
+    opt = create_optimizer(lr, total, warmup, freeze_vision_backbone=True, frozen_prefixes=("caption_decoder",))
+    return TrainState.create(module, opt), make_stage1_train_step(module, opt, temperature=0.5), opt
+
+
+GRAD_NOISE = 1e-6  # phase 4's card-vs-CPU difference of one f32 gradient element reaches this much of its leaf's largest |g|
+NEAR_ZERO = 30 * GRAD_NOISE  # below this a gradient's sign and size are rounding: Adam's update is not determined
+
+
+def full_width_train(cuda, cpu) -> None:
+    """Stage 1 at full width, f32, dropout 0, on the card (kernels) and on the CPU (plain).
+
+    Each of two train steps (the first has lr 0) is preceded by the gradient
+    of its batch, compared leaf by leaf. After the steps the card's
+    parameters match, element by element, the CPU optimizer fed the card's
+    own gradients; and they agree with the CPU run to 1e-5, except where the
+    CPU's gradient is nonzero but within ``NEAR_ZERO`` of 0 in both steps:
+    there Adam's update, which divides by sqrt(v) + 1e-8, is set by rounding
+    and may be anything up to lr per update on each side. Those are counted
+    and held to that bound. Elements with no gradient (embedding rows of
+    absent tokens) are held to 1e-5 like the rest.
+    """
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.training.optim import OptState
+    from pgica_tpu_torch.training.train_step import _on_device, stage1_loss_fn
+
+    rng = np.random.default_rng(2)
+    batches = [stage1_batch(rng, 8, 32, (5, 32)) for _ in range(2)]
+    runs = {}
+    for name, model in (("card", cuda), ("cpu", cpu)):
+        state, step, opt = stage1_trainer(model.module)
+        params = state.opt_state.params
+        if name == "card":
+            initial = [p.detach().cpu().clone() for p in params]
+            _kernels.reset_launch_counts()
+        metrics, grads = [], []
+        for batch in batches:
+            loss, _ = stage1_loss_fn(model.module, _on_device(batch, params[0].device), None, 0.5)
+            grads.append([g.detach().cpu() for g in torch.autograd.grad(loss, params)])
+            state, m = step(state, batch, 0)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if name == "card":
+            counts = _kernels.launch_counts()
+        runs[name] = (metrics, state, grads)
+    names = runs["card"][1].opt_state.names
+    worst = (0.0, "")
+    for i, name in enumerate(names):
+        for gg, gc in ((runs["card"][2][s][i], runs["cpu"][2][s][i]) for s in range(2)):
+            if name.endswith("attn.k_proj.bias"):  # 0 in exact arithmetic: both sides must be tiny
+                if max(float(gg.abs().max()), float(gc.abs().max())) > 1e-6:
+                    raise AssertionError(f"full width train: {name} gradient is not ~0: {gg.abs().max()} {gc.abs().max()}")
+                continue
+            rel = float((gg - gc).norm() / gc.norm().clamp_min(1e-30))
+            if rel > 1e-3:
+                raise AssertionError(f"full width train: gradient of {name} differs by {rel:.3e} (relative L2)")
+            worst = max(worst, (rel, name))
+    log(f"  gradients of {len(names)} trained parameters on both batches, card vs CPU: worst relative L2 "
+        f"difference {worst[0]:.3e} ({worst[1]}; limit 1e-3); key-projection biases ~0 on both")
+    for i, ((lg, ng), (lc, nc)) in enumerate(zip(runs["card"][0], runs["cpu"][0])):
+        if not (abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-3 * abs(nc)):
+            raise AssertionError(f"full width train step {i}: loss {lg} vs {lc}, grad norm {ng} vs {nc}")
+        log(f"  stage-1 step {i} (batch 8 x 32, ragged): loss card {lg:.7f} cpu {lc:.7f}, grad norm card "
+            f"{ng:.6f} cpu {nc:.6f} (rtol 1e-4, 1e-3)")
+    state_g, state_c = runs["card"][1], runs["cpu"][1]
+    # the card's optimizer against the CPU's, both fed the card's gradients: exact, no element excused
+    replay = OptState(list(names), initial, 0, [torch.zeros_like(p) for p in initial],
+                      [torch.zeros_like(p) for p in initial])
+    for grads in runs["card"][2]:
+        opt.update(grads, replay)
+    replay_err = max(check_close(f"full width train: {name} against the CPU optimizer on the card's gradients",
+                                 pg.detach().cpu(), pr, 1e-6, 0.0)
+                     for name, pg, pr in zip(names, state_g.opt_state.params, replay.params))
+    log(f"  the card's parameters after 2 steps against the CPU optimizer fed the card's gradients: max abs "
+        f"diff {replay_err:.3e} (atol 1e-6, every element)")
+    adam_bound = 2 * 1e-3 * state_g.opt_state.count  # lr 1e-3 per update, each side
+    total = exempt = 0
+    held_err = exempt_err = exempt_g = 0.0
+    for i, (name, pg, pc) in enumerate(zip(names, state_g.opt_state.params, state_c.opt_state.params)):
+        g = torch.maximum(runs["cpu"][2][0][i].abs(), runs["cpu"][2][1][i].abs())
+        near_zero = (g > 0) & (g < NEAR_ZERO * g.max())
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        check_close(f"full width train: {name}, elements held to 1e-5", diff[~near_zero], torch.zeros(()), 1e-5, 0.0)
+        total += diff.numel()
+        exempt += int(near_zero.sum())
+        held_err = max(held_err, float(diff[~near_zero].max()))
+        if near_zero.any():
+            exempt_err = max(exempt_err, check_close(f"full width train: {name}, near-zero gradients",
+                                                     diff[near_zero], torch.zeros(()), adam_bound, 0.0))
+            exempt_g = max(exempt_g, float((g[near_zero] / g.max()).max()))
+    log(f"  {len(names)} trained parameters ({total:,} elements) after 2 steps: all but {exempt} within 1e-5 "
+        f"(max abs diff {held_err:.3e}); those {exempt} have a gradient nonzero but under {NEAR_ZERO:.0e} of "
+        f"their leaf's largest (largest {exempt_g:.2e} of it), max abs diff {exempt_err:.3e} (Adam's bound "
+        f"{adam_bound:.0e})")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"full width train: a kernel was not launched on the card: {counts}")
+    log(f"  kernel launches on the card, 2 train steps and the gradients beside them: {counts}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -329,7 +615,7 @@ def phase_slice(tokenizer) -> dict:
         if len(captions) != batch or not all(isinstance(c, str) for c in captions):
             raise AssertionError(f"generate_captions returned {captions!r}")
         after = _kernels.launch_counts()
-        launches = {k: after[k] - before[k] for k in after}
+        launches = {k: after[k] - before[k] for k in SERVING_KERNELS}
         forwards = (launches["flash_attn_fwd"] - 12) // 24  # prefix + steps run
         return dict(batch=batch, max_length=max_length, early_stop=early_stop, seconds=seconds,
                     captions_per_s=batch / seconds, launches=launches, decoder_forwards=forwards,
@@ -350,9 +636,9 @@ def phase_slice(tokenizer) -> dict:
     bench = [request(32, 64, False) for _ in range(5)]
     for r in bench:
         show("eval greedy", r)
-    main_counts = _kernels.launch_counts()  # ---- and ends here
+    main_counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}  # ---- and ends here
     if min(main_counts.values()) == 0:
-        raise AssertionError(f"the main path did not launch every kernel: {main_counts}")
+        raise AssertionError(f"the serving path did not launch every kernel: {main_counts}")
     want = {"layernorm_fwd": 27 + 64 * 49, "flash_attn_fwd": 12 + 64 * 24}
     if bench[0]["launches"] != want:
         raise AssertionError(f"one 32 x 64 greedy call launched {bench[0]['launches']}, expected {want}")
@@ -392,7 +678,99 @@ def phase_slice(tokenizer) -> dict:
 
     profile = profile_decode(model, images, median_s * 1e3)
     return dict(main_counts=main_counts, served=served, bench=bench, median_s=median_s,
-                sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile)
+                sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile, model=model)
+
+
+# ------------------------------------------------------------------ phase 6
+
+# launches of one flagship stage-1 step: ViT (frozen, forward only) pre_ln + 12 x 2 + post_ln and
+# its projection ln; text tower 24 x 2 + ln_f and its projection ln; the backward of every LN
+# that trains; 12 + 24 attention forwards, 24 backwards
+STAGE1_STEP_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "layernorm_bwd": 51,
+                        "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24}
+
+
+def phase_stage1(model) -> dict:
+    from pgica_tpu_torch.ops import _kernels
+
+    model._inference_cache = None  # serving's bf16 copy is not needed by training
+    torch.cuda.empty_cache()
+    state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=10, total=1000)  # bench.py's optimizer
+    rng = np.random.default_rng(0)
+    shapes = {"full-pad": stage1_batch(rng, 128, 128), "bucketed": stage1_batch(rng, 128, 128, (8, 28))}
+    batches = {}
+    for name, b in shapes.items():
+        batches[name] = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
+        log(f"  {name} batch: images {tuple(b['image'].shape)} f32, captions {tuple(b['caption_ids'].shape)}, "
+            f"tokens kept {int(b['caption_mask'].sum())}")
+    results = {}
+    _kernels.reset_launch_counts()  # ---- the main path starts here
+    for name, batch in batches.items():
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):  # warm-up
+            state, m = step(state, batch, 0)
+        before = _kernels.launch_counts()
+        state, m = step(state, batch, 0)
+        after = _kernels.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        if per_step != STAGE1_STEP_LAUNCHES:
+            raise AssertionError(f"stage 1 {name}: one step launched {per_step}, expected {STAGE1_STEP_LAUNCHES}")
+        losses, windows = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(5):
+                state, m = step(state, batch, 0)
+                losses.append(float(m["loss"]))  # a host sync every step, as bench.py
+            windows.append((time.perf_counter() - t) / 5)
+        if not all(math.isfinite(x) for x in losses) or state.skipped:
+            raise AssertionError(f"stage 1 {name}: losses {losses}, skipped {state.skipped}")
+        step_s = statistics.median(windows)
+        n, seq = batch["caption_ids"].shape
+        r = dict(batch=int(n), seq=int(seq), ms_per_step=step_s * 1e3, pairs_per_s=n / step_s,
+                 windows_ms=[w * 1e3 for w in windows], losses=losses, launches_per_step=per_step,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 grad_norm=float(m["grad_norm"]))
+        results[name] = r
+        log(f"  stage 1 {name} {r['batch']} x {r['seq']}: median {r['ms_per_step']:.1f} ms/step -> "
+            f"{r['pairs_per_s']:.1f} pairs/s (windows of 5 steps: "
+            f"{', '.join(f'{w:.1f}' for w in r['windows_ms'])} ms/step); losses {losses[0]:.4f} .. "
+            f"{losses[-1]:.4f} (all finite, 0 skipped); grad norm {r['grad_norm']:.3f}; "
+            f"peak {r['peak_mem_gib']:.2f} GiB; launches per step {per_step}")
+    main_counts = _kernels.launch_counts()  # ---- and ends here
+    if min(main_counts[k] for k in STAGE1_STEP_LAUNCHES) == 0:
+        raise AssertionError(f"the stage-1 path did not launch every kernel: {main_counts}")
+    log(f"  stage-1 main-path launch counts (2 x (2 + 1 + 15) steps): {main_counts}")
+    for name, batch in batches.items():
+        results[name]["profile"] = profile_step(step, state, batch, name, results[name]["ms_per_step"])
+    return dict(main_counts=main_counts, shapes=results)
+
+
+def profile_step(step, state, batch, name: str, unprofiled_ms: float) -> dict:
+    """Kernel time of one stage-1 step from torch.profiler, over the unprofiled median step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch, 0)
+        float(m["loss"])
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    if device_ms <= 0:
+        log(f"  profiler, stage 1 {name}: no device time recorded (busy share not measured)")
+        return {"device_ms": None}
+    busy = device_ms / unprofiled_ms
+    log(f"  profiler, one stage-1 step {name}: {sum(e.count for e in kernels)} kernel launches, kernel time "
+        f"{device_ms:.1f} ms of {unprofiled_ms:.1f} ms (unprofiled median) -> device busy {100 * busy:.1f}%")
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    for e in top:
+        log(f"    {_device_us(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    log("    host side, by self CPU time under the profiler (which inflates it):")
+    for e in host:
+        log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
+    return {"device_ms": device_ms, "busy": busy, "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
 
 
 def _device_us(event) -> float:
@@ -431,6 +809,18 @@ def profile_decode(model, images, unprofiled_ms: float) -> dict:
 # ------------------------------------------------------------------ main
 
 
+KERNEL_META = {  # name -> (source, the TPU kernel it replaces, the bf16 shape its summary row reports)
+    "layernorm_fwd": ("pgica_tpu_torch/csrc/layernorm_fwd.cu", "pgica_tpu/ops/layernorm.py:75", "(32, 1024)"),
+    "flash_attn_fwd": ("pgica_tpu_torch/csrc/flash_attn_fwd.cu", "pgica_tpu/ops/flash_attention.py:34",
+                       "(512, 1, 65, 64)"),
+    "layernorm_bwd": ("pgica_tpu_torch/csrc/layernorm_bwd.cu", "pgica_tpu/ops/layernorm.py:88", "(16384, 1024)"),
+    "flash_attn_bwd_dq": ("pgica_tpu_torch/csrc/flash_attn_bwd.cu", "pgica_tpu/ops/flash_attention.py:130",
+                          "(2048, 128, 128, 64)"),
+    "flash_attn_bwd_dkv": ("pgica_tpu_torch/csrc/flash_attn_bwd.cu", "pgica_tpu/ops/flash_attention.py:81",
+                           "(2048, 128, 128, 64)"),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only", file=sys.stderr)
@@ -445,7 +835,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), device 0: {torch.cuda.get_device_name(0)}, "
-        f"{torch.cuda.device_count()} visible")
+        f"{torch.cuda.device_count()} visible; {smi}")
 
     log("== phase 2: build")
     t = time.perf_counter()
@@ -453,37 +843,33 @@ def main() -> int:
     log(f"  built {sorted(built) or 'nothing (already built)'} in {time.perf_counter() - t:.1f} s "
         f"(per library: {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or '-'})")
 
+    tokenizer = CaptionTokenizer()
     log("== phase 3: kernels vs plain on the card")
     kernels = phase_kernels()
-
-    tokenizer = CaptionTokenizer()
     log("== phase 4: full width, 2 layers, f32: card (kernels) vs CPU (plain)")
     phase_full_width(tokenizer)
-
-    log("== phase 5: the slice (flagship, bf16, caption requests)")
+    log("== phase 5: serving (flagship, bf16, caption requests)")
     served = phase_slice(tokenizer)
+    log("== phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)")
+    trained = phase_stage1(served["model"])
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    meta = {
-        "layernorm_fwd": ("pgica_tpu_torch/csrc/layernorm_fwd.cu", "pgica_tpu/ops/layernorm.py:75",
-                          "(32, 1024)"),
-        "flash_attn_fwd": ("pgica_tpu_torch/csrc/flash_attn_fwd.cu", "pgica_tpu/ops/flash_attention.py:34",
-                           "(512, 1, 65, 64)"),
-    }
     summary = []
-    for name, (source, replaces, main_shape) in meta.items():
-        # times at the shape the main path launches most (the decoder's, per
-        # step) in bf16; the error is the worst over the bf16 serving shapes
+    for name, (source, replaces, main_shape) in KERNEL_META.items():
+        # times at the bf16 shape the main path launches most; the error is the
+        # worst over the bf16 shapes timed
         bf16 = [r for r in kernels[name] if r["dtype"] == "bfloat16"]
         at = next(r for r in bf16 if r["shape"] == main_shape)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": served["main_counts"][name],
+            "launches": trained["main_counts"][name],
+            "launches_by_path": {"serving": served["main_counts"].get(name, 0),
+                                 "stage1": trained["main_counts"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"], "shape": main_shape,
             "inputs": "cold: rotating sets > 2x L2, bound at HBM rate",
         })
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,11 @@
 //   bias (B, Sk) in f32 shared across heads, an optional causal mask with the
 //   JAX semantics `rows >= cols` (not offset by Sk - Sq), softmax statistics
 //   in f32; writes O in the input dtype and the row logsumexp in f32.
-//   The key-padding fill is the finite NEG_INF = -1e9 of the reference
-//   (flash_attention.py:31): a row whose keys are all masked averages V, as
-//   both JAX paths do, instead of giving 0 or NaN. Keys above the causal
-//   diagonal are left out altogether (p = 0), where the JAX kernel fills them
-//   with NEG_INF: the two agree except on a causal row whose keys are all
-//   padding, where the JAX kernel's average depends on its block size.
+//   A masked key (bias <= NEG_INF, or above the causal diagonal) scores
+//   exactly NEG_INF = -1e9, the finite fill of the plain JAX path
+//   (attention.py:_xla_attention): in a row that keeps any key its p is
+//   exp(-1e9 - m) = 0 in f32, and a row whose keys are all masked averages V
+//   over all Sk keys, as that path does, instead of giving 0 or NaN.
 //
 // What bounds it on the H100: memory, at both serving shapes. ViT-B/32:
 // Sq = Sk = 50, D = 64, about 9.8 MB of q, k, v and o per call at batch 32
@@ -19,6 +18,8 @@
 // kept keys only: 2 * 32 * 16 * (pos + 1) * 64 * 2 bytes at batch 32 in bf16
 // (8.5 MB at the last step, 64 max_length), with ~1 flop per byte. Both sit
 // far below the card's ~295 flops per byte, so the floor is bytes / 3.35 TB/s.
+// So does the stage-1 text tower: (B*H, S, D) = (2048, 128, 64) bf16 moves
+// ~134 MB of q, k, v and o for ~4.3 GFLOP of the causal half.
 //
 // Design (simple and correct first; wgmma, TMA and warp specialisation are
 // later work): one 128-thread block per (b*h, 16-row q tile). The q tile is
@@ -36,10 +37,11 @@
 // are the real shapes. Under `causal`, tiles wholly above the diagonal of the
 // q tile are skipped. Keys after the last one whose bias is above NEG_INF
 // (the empty cache slots of decode, the padding of a ragged batch row) are
-// neither loaded nor scored: with a padding bias (0 or NEG_INF) their p is
-// exp(-1e9 + ...) = 0 in f32 for every row that keeps any key, and under
-// `causal` a row before the last kept key never sees them. A batch row with
-// no kept key reads them all, to average V as the reference does.
+// neither loaded nor scored: their p is 0 for every row that keeps a key.
+// Both skips hold only for rows that keep a key. A q tile holding a row
+// that keeps none (no kept key in the batch row, or under `causal` none at
+// or before the row) reads all Sk keys, so that row averages V over all of
+// them; its other rows still give masked keys p = 0.
 #include <math.h>
 
 #include "common.cuh"
@@ -47,6 +49,8 @@
 namespace {
 
 using pgica::from_float;
+using pgica::load16;
+using pgica::unpack16;
 using pgica::warp_max;
 using pgica::warp_sum;
 
@@ -56,28 +60,6 @@ constexpr int kBlockQ = 16;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;
 constexpr int kBlockK = 32;  // one key per lane in the score step
 constexpr float kNegInf = -1.0e9f;
-
-// 16 bytes of global memory as floats: 4 f32 values or 8 bf16 values (a
-// bf16 is the top half of the f32 with the same value; element 0 is the low
-// half of the first word).
-__device__ __forceinline__ void unpack16(const uint4& r, float* out, const float*) {
-  out[0] = __uint_as_float(r.x);
-  out[1] = __uint_as_float(r.y);
-  out[2] = __uint_as_float(r.z);
-  out[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& r, float* out, const __nv_bfloat16*) {
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint4 load16(const void* p, bool valid) {
-  return valid ? *static_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -91,6 +73,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float v_s[kBlockK][kPad];
   __shared__ float b_s[kBlockK];
   __shared__ int last_kept_s[kWarps];
+  __shared__ int first_kept_s[kWarps];
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBlockQ;
@@ -122,12 +105,20 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / kRowVecs, c = (i % kRowVecs) * kVecN;
       raw[it] = load16(qg + static_cast<size_t>(q0 + r) * D + c, i < kQVecs && q0 + r < sq);
     }
-    if (bias_row != nullptr) {  // the last kept key, read while the q loads are in flight
-      int last_kept = -1;
-      for (int j = tid; j < kv_end; j += kThreads)
-        if (bias_row[j] > kNegInf) last_kept = j;
+    if (bias_row != nullptr) {  // first and last kept key, read while the q loads are in flight
+      int first_kept = sk, last_kept = -1;
+      for (int j = tid; j < kv_end; j += kThreads) {
+        if (bias_row[j] > kNegInf) {
+          first_kept = min(first_kept, j);
+          last_kept = j;
+        }
+      }
+      first_kept = __reduce_min_sync(0xffffffffu, first_kept);
       last_kept = __reduce_max_sync(0xffffffffu, last_kept);
-      if (lane == 0) last_kept_s[warp] = last_kept;
+      if (lane == 0) {
+        first_kept_s[warp] = first_kept;
+        last_kept_s[warp] = last_kept;
+      }
     }
 #pragma unroll
     for (int it = 0; it < kQLoads; ++it) {
@@ -151,11 +142,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (bias_row != nullptr) {  // block-uniform
-    __syncthreads();  // last_kept_s is complete
-    int last_kept = last_kept_s[0];
+    __syncthreads();  // first_kept_s and last_kept_s are complete
+    int first_kept = first_kept_s[0], last_kept = last_kept_s[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) last_kept = max(last_kept, last_kept_s[w]);
-    if (last_kept >= 0) kv_end = last_kept + 1;  // trailing padding adds p = 0 only
+    for (int w = 1; w < kWarps; ++w) {
+      first_kept = min(first_kept, first_kept_s[w]);
+      last_kept = max(last_kept, last_kept_s[w]);
+    }
+    // Row q0, the tile's first, keeps no key: it averages V over all Sk keys.
+    const bool row_without_key = last_kept < 0 || (causal && first_kept > q0);
+    kv_end = row_without_key ? sk : last_kept + 1;  // trailing padding adds p = 0 only
   }
   const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
   for (int t = 0; t < n_tiles; ++t) {
@@ -191,6 +187,7 @@ __global__ void __launch_bounds__(kThreads)
 
     const int col = k0 + lane;
     const bool col_ok = col < kv_end;
+    const bool col_kept = col_ok && b_s[lane] > kNegInf;  // b_s is 0 without a bias
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = rr * kWarps + warp;
@@ -199,10 +196,10 @@ __global__ void __launch_bounds__(kThreads)
       float s = 0.f;
 #pragma unroll
       for (int c = 0; c < D; ++c) s = fmaf(q_s[r][c], k_s[lane][c], s);
-      s += b_s[lane];
-      const bool keep = col_ok && (!causal || row >= col);
-      const float m_new = fmaxf(m[rr], warp_max(keep ? s : -INFINITY));
-      const float p = keep ? expf(s - m_new) : 0.f;
+      // a masked key scores NEG_INF exactly, as the reference's fill
+      s = col_kept && (!causal || row >= col) ? s + b_s[lane] : kNegInf;
+      const float m_new = fmaxf(m[rr], warp_max(col_ok ? s : -INFINITY));
+      const float p = col_ok ? expf(s - m_new) : 0.f;
       const float alpha = expf(m[rr] - m_new);
       l[rr] = l[rr] * alpha + warp_sum(p);
 #pragma unroll

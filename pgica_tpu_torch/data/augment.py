@@ -2,7 +2,7 @@
 
 Mirrors ``prepare_images`` of pgica_tpu/data/augment.py:221-231 with the
 ImageNet mean and std of pgica_tpu/data/preprocessing.py:30-31. The training
-augmentations of that module wait for the training slice.
+augmentations of that module wait for their own item (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations

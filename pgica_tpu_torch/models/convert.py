@@ -16,9 +16,10 @@ port never imports JAX, so it takes numpy only), and copies every leaf under
 * ``block_i`` -> ``blocks.i``, ``LayerNorm_0/1`` -> ``ln_0/1``,
   ``vision_projection/layers_0`` -> ``vision_projection``.
 
-The ``text_encoder/...`` subtree (and a shared text tower) is skipped: the
-port has no text tower yet. An unknown key, a parameter left unfilled, or a
-shape mismatch raises.
+Every subtree is filled: ``vision_encoder``, ``text_encoder`` and
+``caption_decoder``. An unknown key (a ``shared_lm`` tower among them: the
+port does not share a text tower yet), a parameter left unfilled, or a shape
+mismatch raises.
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
-
-SKIPPED_SUBTREES = ("text_encoder", "shared_lm")
-
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     for key, value in tree.items():
@@ -75,8 +73,6 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
     targets: Dict[str, nn.Parameter] = dict(module.named_parameters())
     filled = set()
     for path, value in _flatten(params):
-        if path[0] in SKIPPED_SUBTREES:
-            continue
         name = _port_name(path)
         if name not in targets:
             raise KeyError(f"JAX parameter {'/'.join(path)} has no counterpart ({name}) in the port")

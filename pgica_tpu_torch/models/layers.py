@@ -1,16 +1,22 @@
 """Core transformer building blocks (PyTorch).
 
-Mirrors pgica_tpu/models/layers.py:26-293 for the serving slice: the norm
-factory, multi-head attention with a KV cache written at one scalar position,
-the GELU MLPs, and the pre-norm block. Left out until their slices: RoPE,
-GQA, SwiGLU/RMSNorm (Llama configs), ring attention, int8 and per-row cache
+Mirrors pgica_tpu/models/layers.py:26-293: the norm factory, multi-head
+attention with a KV cache written at one scalar position, the GELU MLPs with
+dropout, and the pre-norm block. Left out until their slices: RoPE, GQA,
+SwiGLU/RMSNorm (Llama configs), ring attention, int8 and per-row cache
 positions (continuous batching).
 
-Computation runs in the dtype of the parameters: the model casts a copy of
-its float32 masters once for bf16 inference, as the JAX package does
-(model.py:370-387), and Flax's ``Dense(dtype=bf16)`` then computes exactly
-what ``nn.Linear`` with bf16 weights computes. LayerNorm parameters stay
-float32 (see ops/layernorm.py).
+Every module takes the compute ``dtype`` at construction, as the Flax
+modules do. :class:`Dense` is Flax's ``Dense(dtype, param_dtype=float32)``:
+it casts its input and its float32 master weights to ``dtype`` in every
+forward, inside the autograd graph, so training in bf16 sends gradients to
+the float32 masters. For bf16 inference the model casts a copy of the masters
+once instead (model.py), and the per-forward cast is then a no-op. LayerNorm
+parameters stay float32 (see ops/layernorm.py).
+
+Dropout follows the JAX modules' ``deterministic`` flag through an optional
+``generator`` argument: ``None`` is the deterministic call (eval, serving);
+training passes the step's ``torch.Generator`` (see ops/dropout.py).
 
 Parameter shapes follow PyTorch (``nn.Linear`` weight is (out, in));
 models/convert.py maps the JAX tree onto them.
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.flash_attention import flash_attention
 from pgica_tpu_torch.ops.layernorm import LayerNorm
 
@@ -34,26 +41,45 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 KVCaches = List[KVCache]
 
 
-def make_norm(kind: str, hidden: int, eps: float = 1e-5) -> nn.Module:
+def make_norm(kind: str, hidden: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32) -> nn.Module:
     """eps defaults to 1e-5 (HF GPT-2/CLIP convention)."""
     if kind != "layernorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet (Llama slice)")
-    return LayerNorm(hidden, eps)
+    return LayerNorm(hidden, eps, dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` from float32 master weights (Flax ``Dense``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with an optional KV cache (JAX layers.py:55-193)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, causal: bool = False):
+    def __init__(
+        self,
+        hidden_size: int,
+        num_heads: int,
+        causal: bool = False,
+        dropout: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.causal = causal
         inner = num_heads * self.head_dim
-        self.q_proj = nn.Linear(hidden_size, inner)
-        self.k_proj = nn.Linear(hidden_size, inner)
-        self.v_proj = nn.Linear(hidden_size, inner)
-        self.out_proj = nn.Linear(inner, hidden_size)
+        self.q_proj = Dense(hidden_size, inner, dtype)
+        self.k_proj = Dense(hidden_size, inner, dtype)
+        self.v_proj = Dense(hidden_size, inner, dtype)
+        self.out_proj = Dense(inner, hidden_size, dtype)
+        self.dropout = FastDropout(dropout)
 
     def forward(
         self,
@@ -61,6 +87,7 @@ class MultiHeadAttention(nn.Module):
         key_bias: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
         position: int = 0,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x (B, S, hidden); key_bias (B, Sk) float32 from ``key_padding_bias``, or None.
 
@@ -80,25 +107,33 @@ class MultiHeadAttention(nn.Module):
             k, v = k_cache, v_cache
         causal = self.causal and cache is None  # decode masks through `key_bias`
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_bias, causal)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, -1))
+        return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
 
 
 class MLP(nn.Module):
-    def __init__(self, hidden_size: int, intermediate_size: int, kind: str = "gelu"):
+    def __init__(
+        self,
+        hidden_size: int,
+        intermediate_size: int,
+        kind: str = "gelu",
+        dropout: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         if kind not in ("gelu", "quick_gelu"):
             raise NotImplementedError(f"MLP kind {kind!r} is not ported yet")
         self.kind = kind
-        self.fc_in = nn.Linear(hidden_size, intermediate_size)
-        self.fc_out = nn.Linear(intermediate_size, hidden_size)
+        self.fc_in = Dense(hidden_size, intermediate_size, dtype)
+        self.fc_out = Dense(intermediate_size, hidden_size, dtype)
+        self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.fc_in(x)
         if self.kind == "quick_gelu":  # CLIP's activation: x * sigmoid(1.702x)
             h = h * torch.sigmoid(1.702 * h)
         else:  # GPT-2: flax nn.gelu(approximate=True)
             h = F.gelu(h, approximate="tanh")
-        return self.fc_out(h)
+        return self.dropout(self.fc_out(h), generator)
 
 
 class TransformerBlock(nn.Module):
@@ -112,12 +147,14 @@ class TransformerBlock(nn.Module):
         causal: bool = False,
         norm_eps: float = 1e-5,
         mlp_kind: str = "gelu",
+        dropout: float = 0.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.ln_0 = make_norm("layernorm", hidden_size, norm_eps)
-        self.attn = MultiHeadAttention(hidden_size, num_heads, causal)
-        self.ln_1 = make_norm("layernorm", hidden_size, norm_eps)
-        self.mlp = MLP(hidden_size, intermediate_size or 4 * hidden_size, mlp_kind)
+        self.ln_0 = make_norm("layernorm", hidden_size, norm_eps, dtype)
+        self.attn = MultiHeadAttention(hidden_size, num_heads, causal, dropout, dtype)
+        self.ln_1 = make_norm("layernorm", hidden_size, norm_eps, dtype)
+        self.mlp = MLP(hidden_size, intermediate_size or 4 * hidden_size, mlp_kind, dropout, dtype)
 
     def forward(
         self,
@@ -125,6 +162,7 @@ class TransformerBlock(nn.Module):
         key_bias: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
         position: int = 0,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = x + self.attn(self.ln_0(x), key_bias, cache, position)
-        return x + self.mlp(self.ln_1(x))
+        x = x + self.attn(self.ln_0(x), key_bias, cache, position, generator)
+        return x + self.mlp(self.ln_1(x), generator)

@@ -1,10 +1,11 @@
 """Decoder-only transformer LM, GPT-2 architecture (PyTorch).
 
-Mirrors pgica_tpu/models/lm.py:27-209 for the decode path: token and learned
-position embeddings, causal pre-norm blocks, ``ln_f`` and the weight-tied
-head ``logits = h @ wte.T``. The head is one large matmul that the JAX
-package leaves to XLA outside any kernel, so it stays ``F.linear`` here.
-The Llama arch waits for its slice.
+Mirrors pgica_tpu/models/lm.py:27-209: token and learned position embeddings
+(the ``input_ids`` path of the text tower) or ``inputs_embeds`` (the
+decoder), causal pre-norm blocks, ``ln_f`` and, with ``with_lm_head``, the
+weight-tied head ``logits = h @ wte.T``. The head is one large matmul that
+the JAX package leaves to XLA outside any kernel, so it stays ``F.linear``
+here. The Llama arch waits for its slice.
 """
 
 from __future__ import annotations
@@ -36,41 +37,56 @@ def init_kv_cache(
 
 
 class TransformerLM(nn.Module):
-    """Causal transformer over input embeddings with the tied LM head."""
+    """Causal transformer over token ids or input embeddings, with an optional tied LM head."""
 
-    def __init__(self, config: LMConfig):
+    def __init__(self, config: LMConfig, with_lm_head: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         if cfg.arch != "gpt2":
             raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet (Llama slice)")
         self.config = cfg
+        self.with_lm_head = with_lm_head
+        self.dtype = dtype
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.blocks = nn.ModuleList(
             TransformerBlock(
                 cfg.hidden_size, cfg.num_heads, int(cfg.hidden_size * cfg.mlp_ratio),
-                causal=True, norm_eps=cfg.norm_eps, mlp_kind="gelu",
+                causal=True, norm_eps=cfg.norm_eps, mlp_kind="gelu", dropout=cfg.dropout, dtype=dtype,
             )
             for _ in range(cfg.num_layers)
         )
-        self.ln_f = make_norm("layernorm", cfg.hidden_size, cfg.norm_eps)
+        self.ln_f = make_norm("layernorm", cfg.hidden_size, cfg.norm_eps, dtype)
 
     def forward(
         self,
-        inputs_embeds: torch.Tensor,
+        input_ids: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         caches: Optional[KVCaches] = None,
         position: int = 0,
+        generator: Optional[torch.Generator] = None,
     ) -> dict:
-        """inputs_embeds (B, S, hidden); attention_mask (B, S), or (B, max_len) with caches.
+        """input_ids (B, S) or inputs_embeds (B, S, hidden); attention_mask (B, S), or (B, max_len) with caches.
 
-        Returns ``hidden_states``, ``logits`` (B, S, V) and ``caches`` (the
-        same list, written in place, or None).
+        Token ids get ``wte`` plus ``wpe`` of positions ``position ..
+        position + S - 1`` (JAX lm.py:172-181). Returns ``hidden_states``,
+        ``logits`` (B, S, V) with the LM head, and ``caches`` (the same list,
+        written in place, or None). ``generator`` drives dropout (None: off).
         """
-        x = inputs_embeds.to(self.wte.weight.dtype)
+        if inputs_embeds is None:
+            if input_ids is None:
+                raise ValueError("Provide input_ids or inputs_embeds")
+            positions = torch.arange(position, position + input_ids.shape[1], device=input_ids.device)
+            x = self.wte(input_ids).to(self.dtype) + self.wpe(positions).to(self.dtype)[None]
+        else:
+            x = inputs_embeds.to(self.dtype)
         # one key bias for the whole forward, shared by every layer's attention
         key_bias = None if attention_mask is None else key_padding_bias(attention_mask)
         for i, block in enumerate(self.blocks):
-            x = block(x, key_bias, None if caches is None else caches[i], position)
+            x = block(x, key_bias, None if caches is None else caches[i], position, generator)
         x = self.ln_f(x)
-        return {"hidden_states": x, "logits": F.linear(x, self.wte.weight), "caches": caches}
+        out = {"hidden_states": x, "caches": caches}
+        if self.with_lm_head:
+            out["logits"] = F.linear(x, self.wte.weight.to(self.dtype))
+        return out

@@ -1,16 +1,17 @@
-"""Top-level captioning model, serving slice (PyTorch).
+"""Top-level captioning model (PyTorch).
 
-Mirrors pgica_tpu/models/model.py:43-173,184-231,234-476:
+Mirrors pgica_tpu/models/model.py:43-231,234-476:
 
 * :class:`PreferenceGuidedCaptioningModule` — the composed ``nn.Module``
-  (vision tower + caption decoder) with ``encode_image``, ``decode_prefix``
-  and ``decode_step``.
+  (vision tower, text tower, caption decoder) with ``encode_image``,
+  ``encode_text``, ``compute_similarity``, ``decode_prefix``, ``decode_step``
+  and the contrastive forward of stage 1.
 * :class:`PreferenceGuidedCaptioningModel` — the runtime wrapper owning the
   module, its float32 masters and the tokenizer, with the JAX package's
   ``generate_captions`` signature and return type.
 
-Waiting for later slices: the text tower, ``compute_similarity``, the
-training forward, LoRA, int8 decode, beam search and
+Waiting for later slices: the generation and dual forward modes (stage 2),
+a shared text tower, LoRA, int8 decode, beam search and
 ``load_pretrained_towers``.
 """
 
@@ -31,30 +32,101 @@ from pgica_tpu_torch.data.augment import prepare_images
 from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.models.convert import load_jax_params
 from pgica_tpu_torch.models.decoder import CaptionDecoder
+from pgica_tpu_torch.models.encoders import TextEncoder
 from pgica_tpu_torch.models.presets import LMConfig, ViTConfig, get_text_config, get_vision_config
 from pgica_tpu_torch.models.vit import VisionEncoder
 from pgica_tpu_torch.ops.layernorm import LayerNorm
+from pgica_tpu_torch.ops.losses import l2_normalize
 
 logger = logging.getLogger(__name__)
 
 
 class PreferenceGuidedCaptioningModule(nn.Module):
-    """Vision tower + caption decoder (the text tower waits for the training slice)."""
+    """Vision tower + text tower + caption decoder, computing in ``dtype`` over float32 masters.
 
-    def __init__(self, vision_config: ViTConfig, decoder_config: LMConfig, projection_dim: int = 512):
+    The text tower is registered after the decoder (the JAX tree's order is
+    vision, text, decoder), so that one seed gives the serving towers the
+    same weights as before the text tower was ported; the weight bridge goes
+    by name.
+    """
+
+    def __init__(
+        self,
+        vision_config: ViTConfig,
+        text_config: LMConfig,
+        decoder_config: LMConfig,
+        projection_dim: int = 512,
+        temperature: float = 0.5,
+        dropout: float = 0.1,
+        freeze_vision_backbone: bool = False,
+        freeze_text_backbone: bool = False,
+        share_text_tower: bool = False,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
+        if share_text_tower:
+            raise NotImplementedError("share_text_tower is not ported yet (ROADMAP §1 item 12)")
         self.vision_config = vision_config
+        self.text_config = text_config
         self.decoder_config = decoder_config
-        self.vision_encoder = VisionEncoder(vision_config, projection_dim)
-        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim)
+        self.temperature = temperature
+        self.dtype = dtype
+        self.vision_encoder = VisionEncoder(
+            vision_config, projection_dim, dropout, freeze_vision_backbone, dtype)
+        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim, dtype=dtype)
+        self.text_encoder = TextEncoder(text_config, projection_dim, dropout, freeze_text_backbone, dtype)
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return self.caption_decoder.lm.wte.weight.dtype
+        return self.dtype
 
-    def encode_image(self, images: torch.Tensor) -> dict:
+    def encode_image(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> dict:
         """Normalized NHWC images -> ``features``, ``embeddings``, ``pooled_output``."""
-        return self.vision_encoder(images)
+        return self.vision_encoder(images, generator)
+
+    def encode_text(
+        self,
+        caption_ids: torch.Tensor,
+        caption_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> dict:
+        """Token ids (B, S) and mask -> ``hidden_states``, ``pooled_output``, ``embeddings``."""
+        return self.text_encoder(caption_ids, caption_mask, generator)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        caption_ids: Optional[torch.Tensor] = None,
+        caption_mask: Optional[torch.Tensor] = None,
+        mode: str = "contrastive",
+        generator: Optional[torch.Generator] = None,
+    ) -> dict:
+        """The contrastive forward (JAX model.py:142-173): l2-normalized image and text embeddings.
+
+        ``generator`` drives dropout (None: deterministic, as JAX's
+        ``deterministic=True``).
+        """
+        if mode in ("generation", "dual"):
+            raise NotImplementedError(f"mode {mode!r} waits for the stage-2 slice (ROADMAP §0)")
+        if mode != "contrastive":
+            raise ValueError(f"Unknown mode: {mode!r}")
+        if caption_ids is None:
+            raise ValueError("contrastive mode requires caption_ids")
+        vision = self.encode_image(images, generator)
+        text = self.encode_text(caption_ids, caption_mask, generator)
+        return {
+            "image_embeddings": l2_normalize(vision["embeddings"]),
+            "text_embeddings": l2_normalize(text["embeddings"]),
+            "vision_embeddings": vision["embeddings"],
+        }
+
+    def compute_similarity(
+        self, images: torch.Tensor, caption_ids: torch.Tensor, caption_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """(B_img, B_txt) cosine similarity / temperature (JAX model.py:175-181)."""
+        img = l2_normalize(self.encode_image(images)["embeddings"].to(torch.float32))
+        txt = l2_normalize(self.encode_text(caption_ids, caption_mask)["embeddings"].to(torch.float32))
+        return img @ txt.T / self.temperature
 
     def decode_prefix(self, vision_embeddings, caches, attention_mask):
         return self.caption_decoder.decode_prefix(vision_embeddings, caches, attention_mask)
@@ -67,15 +139,29 @@ def build_module(
     vision_model: Union[str, ViTConfig] = "openai/clip-vit-base-patch32",
     text_model: Union[str, LMConfig] = "gpt2-medium",
     projection_dim: int = 512,
+    temperature: float = 0.5,
+    dropout: float = 0.1,
     vocab_size: int = 50257,
     max_caption_length: int = 128,
+    freeze_vision_backbone: bool = False,
+    freeze_text_backbone: bool = False,
+    share_text_tower: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> PreferenceGuidedCaptioningModule:
-    """Resolve presets (or take configs as given, e.g. with a cut depth) and build the module."""
+    """Resolve presets (or take configs as given, e.g. with a cut depth) and build the module.
+
+    As in the JAX package (model.py:184-231), the text tower and the decoder
+    share one configuration: the text architecture with the tokenizer's
+    vocab, room for the caption plus the vision token, and ``dropout``.
+    """
     vision_config = vision_model if isinstance(vision_model, ViTConfig) else get_vision_config(vision_model)
     base = text_model if isinstance(text_model, LMConfig) else get_text_config(text_model)
     max_pos = max(base.max_position_embeddings, max_caption_length + 1)
-    decoder_config = dataclasses.replace(base, vocab_size=vocab_size, max_position_embeddings=max_pos)
-    return PreferenceGuidedCaptioningModule(vision_config, decoder_config, projection_dim)
+    text_config = dataclasses.replace(base, vocab_size=vocab_size, max_position_embeddings=max_pos, dropout=dropout)
+    return PreferenceGuidedCaptioningModule(
+        vision_config, text_config, text_config, projection_dim, temperature, dropout,
+        freeze_vision_backbone, freeze_text_backbone, share_text_tower, dtype,
+    )
 
 
 @torch.no_grad()
@@ -111,6 +197,10 @@ class PreferenceGuidedCaptioningModel:
         vision_model: Union[str, ViTConfig] = "openai/clip-vit-base-patch32",
         text_model: Union[str, LMConfig] = "gpt2-medium",
         projection_dim: int = 512,
+        temperature: float = 0.5,
+        dropout: float = 0.1,
+        freeze_vision_backbone: bool = True,
+        freeze_text_backbone: bool = False,
         tokenizer: Optional[CaptionTokenizer] = None,
         max_caption_length: int = 128,
         dtype: torch.dtype = torch.float32,
@@ -131,10 +221,13 @@ class PreferenceGuidedCaptioningModel:
         # whatever the target device.
         with torch.device("meta"):
             module = build_module(
-                vision_model, text_model, projection_dim,
+                vision_model, text_model, projection_dim, temperature, dropout,
                 # may pad the embedding beyond the tokenizer; never below it
                 vocab_size=max(vocab_size or 0, tokenizer.vocab_size),
                 max_caption_length=max_caption_length,
+                freeze_vision_backbone=freeze_vision_backbone,
+                freeze_text_backbone=freeze_text_backbone,
+                dtype=dtype,
             )
         module = module.to_empty(device="cpu")
         init_params(module, torch.Generator().manual_seed(seed))

@@ -2,12 +2,13 @@
 
 Each source in ``pgica_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface (no
-PyTorch headers, so a build takes seconds) and loaded with ``ctypes``. The
-build runs at first use — the first kernel launch builds every library, one
-``nvcc`` process per source, all started together — into ``build/pgica_tpu_torch/``
-at the root of the checkout (git-ignored). Each library's file name carries a
-hash of its source, the shared header and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+PyTorch headers, so a build takes seconds) and loaded with ``ctypes``; one
+source may hold several kernels' entry points. The build runs at first use —
+the first kernel launch builds every library, one ``nvcc`` process per
+source, all started together — into ``build/pgica_tpu_torch/`` at the root of
+the checkout (git-ignored). Each library's file name carries a hash of its
+source, the shared header and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.
 
 Every wrapper calls :func:`launch`, which raises if the C entry point returns a
 CUDA error and otherwise adds one to the kernel's launch count; the counts
@@ -49,7 +50,20 @@ KERNELS = {
         "flash_attn_fwd.cu", "pgica_flash_attn_fwd",
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     ),
+    "layernorm_bwd": (
+        "layernorm_bwd.cu", "pgica_layernorm_bwd",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    ),
+    "flash_attn_bwd_dq": (
+        "flash_attn_bwd.cu", "pgica_flash_attn_bwd_dq",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    ),
+    "flash_attn_bwd_dkv": (
+        "flash_attn_bwd.cu", "pgica_flash_attn_bwd_dkv",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    ),
 }
+SOURCES = sorted({source for source, _, _ in KERNELS.values()})
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _entry_points: Dict[str, Callable[..., int]] = {}
@@ -65,12 +79,12 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
-def library_path(name: str) -> Path:
+def library_path(source: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / KERNELS[name][0], CSRC / "common.cuh"):
+    for part in (CSRC / source, CSRC / "common.cuh"):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -87,27 +101,27 @@ def _nvcc() -> str:
 def build() -> Dict[str, float]:
     """Compile every kernel library that is not built yet, all at once.
 
-    Returns seconds per library built (empty if all were present). The
+    Returns seconds per source built (empty if all were present). The
     compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside each library as ``<name>-<hash>.log``.
+    kept beside each library as ``<source stem>-<hash>.log``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
-    for name in KERNELS:
-        out = library_path(name)
+    for source in SOURCES:
+        out = library_path(source)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started.append((name, out, tmp, proc, time.perf_counter()))
+        started.append((source, out, tmp, proc, time.perf_counter()))
     seconds = {}
-    for name, out, tmp, proc, t0 in started:
+    for source, out, tmp, proc, t0 in started:
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[source] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed for {source} (exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return seconds
 
@@ -116,7 +130,7 @@ def _entry_point(name: str):
     fn = _entry_points.get(name)
     if fn is None:
         build()
-        lib = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(KERNELS[name][0])))
         fn = getattr(lib, KERNELS[name][1])
         fn.argtypes = list(KERNELS[name][2])
         fn.restype = ctypes.c_int

@@ -8,7 +8,7 @@ plain softmax path that keeps the JAX function's name. The model builds the
 key bias once per forward with :func:`key_padding_bias` and hands it to every
 layer's attention. The JAX dispatch's TPU-tuned crossover
 (``_pallas_supported``: head_dim >= 128 and seq >= 256) is not carried over:
-every self-attention on the serving path runs through the kernel on the card.
+every self-attention of the port runs through the kernels on the card.
 """
 
 from __future__ import annotations

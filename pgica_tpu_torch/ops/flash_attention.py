@@ -1,30 +1,34 @@
-"""Flash-attention forward: the plain PyTorch version and the CUDA kernel's wrapper.
+"""Flash attention, forward and backward: plain PyTorch versions, CUDA kernel wrappers, autograd.
 
-Mirrors pgica_tpu/ops/flash_attention.py:34-78,183-217,295-326. Layout is
-(batch, heads, seq, head_dim), as in the JAX package. The kernel
-(csrc/flash_attn_fwd.cu) replaces the Pallas ``_fwd_kernel``
-(flash_attention.py:34): online softmax in float32, a per-key additive bias
-(B, Sk) in float32 shared across heads, an optional causal mask with the JAX
-kernel's semantics ``rows >= cols``, and it returns O in the input dtype
-plus the row logsumexp in float32.
+Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
+(batch, heads, seq, head_dim), as in the JAX package. Three kernels:
 
-Where the port is likely to differ from the JAX package:
+* ``csrc/flash_attn_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (:34):
+  online softmax in float32, a per-key additive bias (B, Sk) in float32
+  shared across heads, an optional causal mask ``rows >= cols``; it returns
+  O in the input dtype and the row logsumexp in float32.
+* ``csrc/flash_attn_bwd.cu`` replaces ``_bwd_dq_kernel`` (:130) and
+  ``_bwd_dkv_kernel`` (:81). ``delta = rowsum(dO * O)``, which the JAX
+  wrapper computes apart (:233), is folded into the dQ kernel: it runs first
+  and writes delta for the dK/dV kernel. The two stay split, as in the JAX
+  package, so neither needs atomics.
 
-* Finite mask fill. ``NEG_INF = -1e9`` is a finite additive bias, as in both
-  JAX paths (flash_attention.py:31,323, attention.py:22): a row whose keys
-  are all masked averages V instead of giving 0 or NaN. The port keeps it.
-* Causal exclusion. Keys above the causal diagonal get p = 0 here, where
-  the JAX kernel fills their scores with NEG_INF. Results agree except on a
-  causal row whose keys are all padding: the port averages V over the keys
-  at or before the row, the JAX kernel over the keys of the blocks it
-  visited (block-size dependent), the plain JAX path over all keys.
-* Scale and cast order. The kernel and :func:`flash_attention_ref` scale q
-  by 1/sqrt(d) before QK^T and keep p in float32 for PV; the plain JAX path
-  (attention.py:35,43) divides the scores and casts the softmax weights to
-  v's dtype first. In bf16 the two differ at bf16 rounding level.
+Masking follows the plain JAX path (attention.py:_xla_attention), which is
+what the JAX package runs at these shapes: a masked key (bias <= NEG_INF, or
+above the causal diagonal) scores exactly ``NEG_INF = -1e9``. A row that
+keeps any key gives it p = 0; a row whose keys are all masked averages V over
+all Sk keys. In the backward every masked key gets ds = 0, so such a row adds
+dO / Sk to every key's dV and nothing to dq or dk — what ``jax.grad`` of
+``_xla_attention`` gives. The Pallas backward zeroes such a row's p instead
+(:106-108) and so disagrees with XLA's own gradient there.
+
+Scale and cast order: the kernels and the plain versions scale q by
+1/sqrt(d) before QK^T and keep p in float32 for PV; the plain JAX path
+(attention.py:35,43) divides the scores and casts the softmax weights to v's
+dtype first. In bf16 the two differ at bf16 rounding level.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or raises), a
-CPU tensor runs :func:`flash_attention_ref`.
+CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -39,6 +43,20 @@ NEG_INF = -1.0e9
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel is templated on these
 
 
+def _scores(q, k, bias, causal):
+    """f32 scores of q scaled by 1/sqrt(d), masked keys at NEG_INF, and the keep mask."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = (q.to(torch.float32) * (1.0 / d**0.5)) @ k.to(torch.float32).transpose(-1, -2)
+    keep = torch.ones((1, 1, 1, sk), dtype=torch.bool, device=q.device)
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+        keep = (bias > NEG_INF)[:, None, None, :]
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        keep = keep & (rows >= torch.arange(sk, device=q.device)[None, :])
+    return torch.where(keep, s, NEG_INF), keep
+
+
 def flash_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -46,21 +64,79 @@ def flash_attention_ref(
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: (o in q's dtype, lse f32 (B, H, Sq))."""
-    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
-    s = (q.to(torch.float32) * (1.0 / d**0.5)) @ k.to(torch.float32).transpose(-1, -2)
-    if bias is not None:
-        s = s + bias[:, None, None, :]
-    if causal:  # keys above the diagonal are left out, not filled
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(rows >= cols, s, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)  # the kernel starts m at NEG_INF
+    """Plain version of the forward kernel: (o in q's dtype, lse f32 (B, H, Sq))."""
+    s, _ = _scores(q, k, bias, causal)
+    m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    o = (p @ v.to(torch.float32)) / l_safe
-    return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
+    o = (p @ v.to(torch.float32)) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    causal: bool,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: (dq, dk, dv in the input dtypes, delta f32).
+
+    A row whose keys are all masked is found from its lse (about NEG_INF,
+    as the Pallas kernels test it): it spreads dO evenly over the Sk keys'
+    dV and has ds = 0.
+    """
+    sk, d = k.shape[2], q.shape[3]
+    s, keep = _scores(q, k, bias, causal)
+    without_key = (lse <= 0.5 * NEG_INF)[..., None]
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    p = torch.where(without_key, 1.0 / sk, p)
+    dof = do.to(torch.float32)
+    delta = (dof * o.to(torch.float32)).sum(-1)
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ v.to(torch.float32).transpose(-1, -2)
+    ds = torch.where(keep & ~without_key, p * (dp - delta[..., None]), 0.0) * (1.0 / d**0.5)
+    dq = ds @ k.to(torch.float32)
+    dk = ds.transpose(-1, -2) @ q.to(torch.float32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), delta
+
+
+def _check(name: str, q, k, v, bias) -> None:
+    """Raise on what the kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {q.device}")
+    if q.dtype not in _kernels.DTYPE_CODES:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"{name}: expected (B, H, S, D) q, k, v with k.shape == v.shape, "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, _, d = q.shape
+    sk = k.shape[2]
+    if k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    if bias is not None and (
+        bias.shape != (b, sk) or bias.dtype != torch.float32
+        or bias.device != q.device or not bias.is_contiguous()
+    ):
+        raise ValueError(f"{name}: bias must be contiguous float32 ({b}, {sk}) on {q.device}")
+
+
+def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor, what: str) -> None:
+    if t.dtype != like.dtype or t.device != like.device or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous {like.dtype} on {like.device}")
+    if t.data_ptr() % 16:  # the kernels stage rows with 16-byte loads
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
+
+
+def _bias_ptr(bias: Optional[torch.Tensor]):
+    return None if bias is None else bias.data_ptr()
 
 
 def flash_attention_fwd(
@@ -70,45 +146,100 @@ def flash_attention_fwd(
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper: q (B, H, Sq, D), k and v (B, H, Sk, D), bias None or (B, Sk) f32."""
+    """Forward kernel wrapper: q (B, H, Sq, D), k and v (B, H, Sk, D), bias None or (B, Sk) f32."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, bias, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    if q.dtype not in _kernels.DTYPE_CODES:
-        raise TypeError(f"flash_attention_fwd: q must be float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(
-            f"flash_attention_fwd: expected (B, H, S, D) q, k, v with k.shape == v.shape, "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    _check("flash_attention_fwd", q, k, v, bias)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand("flash_attention_fwd", t, q, name)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} must be contiguous {q.dtype} on {q.device}")
-        if t.data_ptr() % 16:  # the kernel stages rows with 16-byte loads
-            raise ValueError(f"flash_attention_fwd: {name} must start on a 16-byte boundary")
-    if bias is not None and (
-        bias.shape != (b, sk) or bias.dtype != torch.float32
-        or bias.device != q.device or not bias.is_contiguous()
-    ):
-        raise ValueError(f"flash_attention_fwd: bias must be contiguous float32 ({b}, {sk}) on {q.device}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return o, lse
     _kernels.launch(
         "flash_attn_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
         o.data_ptr(), lse.data_ptr(), b * h, h, sq, sk, d, int(causal), 1.0 / d**0.5,
         _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q),
     )
     return o, lse
+
+
+def flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dQ kernel wrapper: returns (dq in q's dtype, delta = rowsum(dO * O) f32 (B, H, Sq))."""
+    _check("flash_attention_bwd_dq", q, k, v, bias)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_operand("flash_attention_bwd_dq", t, q, name)
+    b, h, sq, d = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd_dq: lse must be contiguous float32 ({b}, {h}, {sq}) on {q.device}")
+    dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
+    _kernels.launch(
+        "flash_attn_bwd_dq",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias), o.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), delta.data_ptr(), b * h, h, sq, k.shape[2], d, int(causal),
+        1.0 / d**0.5, _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q),
+    )
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK/dV kernel wrapper: returns (dk, dv) in k's dtype; ``delta`` from the dQ kernel."""
+    _check("flash_attention_bwd_dkv", q, k, v, bias)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_operand("flash_attention_bwd_dkv", t, q, name)
+    b, h, sq, d = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(
+                f"flash_attention_bwd_dkv: {name} must be contiguous float32 ({b}, {h}, {sq}) on {q.device}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _kernels.launch(
+        "flash_attn_bwd_dkv",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias), lse.data_ptr(), delta.data_ptr(),
+        do.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, k.shape[2], d, int(causal),
+        1.0 / d**0.5, _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q),
+    )
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, bias, causal, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the two backward kernels on the card, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, bias, causal, o, lse, do)[:3]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, delta = flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, saving o and lse; backward through the two backward kernels.
+
+    The bias is a mask, not a parameter: it gets no gradient, as in the JAX
+    package (flash_attention.py:288).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal):
+        o, lse = flash_attention_fwd(q, k, v, bias, causal)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, ctx.causal, o, lse, do.contiguous())
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -118,5 +249,7 @@ def flash_attention(
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Attention output only; see :func:`flash_attention_fwd`."""
+    """Attention output; differentiable in q, k and v through the backward kernels."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bias, causal)
     return flash_attention_fwd(q, k, v, bias, causal)[0]

@@ -1,0 +1,136 @@
+"""Backward passes of the port's kernels against the JAX package, on the CPU.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; the autograd
+Functions route their backward through the same wrappers. The JAX side is
+``jax.grad`` of the Pallas kernels in interpret mode (as the JAX package's
+own tests run them on the CPU) and of the plain references (``_ln_ref``,
+``_xla_attention``). Inputs are made from a numpy seed; every gradient is
+taken of sum(output * g) for a random cotangent g. Tolerances, float32
+throughout: 1e-5 for LayerNorm (dgamma/dbeta are sums over up to 74 rows:
+rtol 1e-5 beside it) and 2e-5 for attention (the JAX flash tests' bound) —
+sums taken in another order, nothing more.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pgica_tpu.ops.attention import _xla_attention
+from pgica_tpu.ops.flash_attention import flash_attention as jax_flash
+from pgica_tpu.ops.layernorm import _ln_ref, fused_layernorm
+from pgica_tpu_torch.ops import _kernels
+from pgica_tpu_torch.ops.attention import dot_product_attention, key_padding_bias
+from pgica_tpu_torch.ops.flash_attention import flash_attention_bwd_ref, flash_attention_fwd
+from pgica_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd
+
+LN_ATOL, LN_RTOL = 1e-5, 1e-5
+ATTN_ATOL = 2e-5
+
+
+def _np(rng, *shape, scale=1.0):
+    return (scale * rng.normal(size=shape)).astype(np.float32)
+
+
+# ---------------------------------------------------------------- LayerNorm
+
+
+@pytest.mark.parametrize("rows,hidden", [(10, 32), (74, 512), (3, 1024)])
+def test_layernorm_backward_matches_jax(rng, rows, hidden):
+    x, g = _np(rng, rows, hidden, scale=3.0), _np(rng, rows, hidden)
+    w, b = 1 + _np(rng, hidden, scale=0.1), _np(rng, hidden, scale=0.1)
+
+    def loss(fn):
+        return lambda jx, jw, jb: (fn(jx, jw, jb) * jnp.asarray(g)).sum()
+
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    kern = jax.grad(loss(lambda *a: fused_layernorm(*a, interpret=True)), argnums=(0, 1, 2))(*args)
+    ref = jax.grad(loss(lambda *a: _ln_ref(*a, 1e-5)), argnums=(0, 1, 2))(*args)
+
+    tx, tw, tb = (torch.from_numpy(t).requires_grad_() for t in (x, w, b))
+    (layer_norm(tx, tw, tb) * torch.from_numpy(g)).sum().backward()
+    _, mu, rstd = layer_norm_fwd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), 1e-5)
+    plain = layer_norm_bwd_ref(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(g), mu, rstd)
+    for i, name in enumerate(("dx", "dweight", "dbias")):
+        got = (tx.grad, tw.grad, tb.grad)[i].numpy()
+        np.testing.assert_allclose(got, np.asarray(kern[i]), atol=LN_ATOL, rtol=LN_RTOL, err_msg=name)
+        np.testing.assert_allclose(got, np.asarray(ref[i]), atol=LN_ATOL, rtol=LN_RTOL, err_msg=name)
+        np.testing.assert_array_equal(plain[i].numpy(), got, err_msg=name)  # autograd runs the plain bwd
+    assert tw.grad.dtype == tb.grad.dtype == torch.float32
+
+
+def test_layernorm_backward_keeps_x_dtype_and_launches_nothing_on_cpu(rng):
+    counts = _kernels.launch_counts()
+    x = torch.from_numpy(_np(rng, 6, 64)).to(torch.bfloat16)
+    w, b = torch.ones(64), torch.zeros(64)
+    _, mu, rstd = layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw, db = layer_norm_bwd(x, w, x, mu, rstd)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
+    assert _kernels.launch_counts() == counts
+
+
+# ---------------------------------------------------------------- attention
+
+# (B, H, Sq=Sk, D, valid key counts or None, causal)
+BWD_CASES = {
+    "plain": (2, 2, 16, 16, None, False),
+    "ragged": (2, 2, 16, 16, [9, 16], False),
+    "causal": (2, 2, 16, 16, None, True),
+    "causal_ragged": (3, 2, 8, 32, [5, 8, 1], True),
+}
+
+
+def _grads(fn, q, k, v, g):
+    return jax.grad(lambda a, b_, c: (fn(a, b_, c) * jnp.asarray(g)).sum(), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_backward_matches_jax(rng, case):
+    b, h, s, d, valid, causal = BWD_CASES[case]
+    q, k, v, g = (_np(rng, b, h, s, d) for _ in range(4))
+    mask = None if valid is None else (
+        (np.arange(s)[None, :] < np.asarray(valid)[:, None]).astype(np.int32)[:, None, None, :])
+    jmask = None if mask is None else jnp.asarray(mask)
+    kern = _grads(lambda *a: jax_flash(*a, mask=jmask, causal=causal, interpret=True), q, k, v, g)
+    ref = _grads(lambda *a: _xla_attention(*a, jmask, causal), q, k, v, g)
+
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = dot_product_attention(tq, tk, tv, tmask, causal)
+    (out * torch.from_numpy(g)).sum().backward()
+
+    bias = None if mask is None else key_padding_bias(tmask[:, 0, 0, :])
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(*(torch.from_numpy(t) for t in (q, k, v)), bias, causal)
+        plain = flash_attention_bwd_ref(*(torch.from_numpy(t) for t in (q, k, v)), bias, causal, o, lse,
+                                        torch.from_numpy(g))
+    np.testing.assert_allclose(plain[3].numpy(), (g * o.numpy()).sum(-1), rtol=1e-5, atol=1e-6)  # delta
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = (tq, tk, tv)[i].grad.numpy()
+        np.testing.assert_allclose(got, np.asarray(kern[i]), atol=ATTN_ATOL, err_msg=f"{name} vs Pallas")
+        np.testing.assert_allclose(got, np.asarray(ref[i]), atol=ATTN_ATOL, err_msg=f"{name} vs XLA")
+        np.testing.assert_array_equal(plain[i].numpy(), got, err_msg=name)
+
+
+def test_flash_backward_of_a_batch_row_without_keys_matches_xla(rng):
+    """Non-causal, one batch row with every key padded: its output is the mean
+    of V, so dV gets dO / Sk per key and dq, dk nothing (the Pallas backward
+    zeroes that row's p instead and disagrees with XLA's own gradient)."""
+    b, h, s, d = 2, 2, 8, 16
+    q, k, v, g = (_np(rng, b, h, s, d) for _ in range(4))
+    mask = (np.arange(s)[None, :] < np.array([0, 6])[:, None]).astype(np.int32)[:, None, None, :]
+    ref = _grads(lambda *a: _xla_attention(*a, jnp.asarray(mask), False), q, k, v, g)
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    (dot_product_attention(tq, tk, tv, torch.from_numpy(mask)) * torch.from_numpy(g)).sum().backward()
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose((tq, tk, tv)[i].grad.numpy(), np.asarray(ref[i]), atol=ATTN_ATOL, err_msg=name)
+    assert not tq.grad[0].any() and not tk.grad[0].any()
+
+
+def test_flash_serving_path_builds_no_graph(rng):
+    q, k, v = (torch.from_numpy(_np(rng, 1, 2, 5, 16)) for _ in range(3))
+    with torch.inference_mode():
+        out = dot_product_attention(q, k, v, causal=True)
+    assert out.grad_fn is None

@@ -2,9 +2,10 @@
 
 The JAX model is the shared ``tiny_model`` (tiny-vit + tiny-gpt2, conftest);
 its parameters go through ``load_jax_params`` into the port. Compared:
-``encode_image``, ``decode_prefix`` logits, three ``decode_step`` logits and
-every layer's KV cache after each call. Tolerance atol 1e-4: float32 through
-a few layers, sums taken in another order.
+``encode_image``, ``encode_text``, the contrastive forward,
+``compute_similarity``, ``decode_prefix`` logits, three ``decode_step``
+logits and every layer's KV cache after each call. Tolerance atol 1e-4:
+float32 through a few layers, sums taken in another order.
 """
 
 import jax
@@ -49,6 +50,42 @@ def test_encode_image_matches_jax(pair, images):
     for key in ("features", "pooled_output", "embeddings"):
         assert out[key].shape == ref[key].shape
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=ATOL, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def captions():
+    rng = np.random.default_rng(4)
+    lengths = np.array([3, 8, 1, 5])[:B]
+    ids = rng.integers(0, 261, size=(B, 8)).astype(np.int32)
+    return ids, (np.arange(8)[None, :] < lengths[:, None]).astype(np.int32)
+
+
+def test_encode_text_matches_jax(pair, captions):
+    jm, port = pair
+    ids, mask = captions
+    ref = _jax_apply(jm, jm.module.encode_text, jnp.asarray(ids), jnp.asarray(mask))
+    with torch.no_grad():
+        out = port.module.encode_text(torch.from_numpy(ids), torch.from_numpy(mask))
+    for key in ("hidden_states", "pooled_output", "embeddings"):
+        assert out[key].shape == ref[key].shape
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=ATOL, err_msg=key)
+
+
+def test_contrastive_forward_and_similarity_match_jax(pair, images, captions):
+    jm, port = pair
+    ids, mask = captions
+    jimages = jax_prepare_images(jnp.asarray(images))
+    ref = jm.module.apply({"params": jm.params}, jimages, jnp.asarray(ids), jnp.asarray(mask), mode="contrastive")
+    sim = _jax_apply(jm, jm.module.compute_similarity, jimages, jnp.asarray(ids), jnp.asarray(mask))
+    timages = torch.from_numpy(np.array(jimages))
+    with torch.no_grad():
+        out = port.module(timages, torch.from_numpy(ids), torch.from_numpy(mask), mode="contrastive")
+        tsim = port.module.compute_similarity(timages, torch.from_numpy(ids), torch.from_numpy(mask))
+    for key in ("image_embeddings", "text_embeddings", "vision_embeddings"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=ATOL, err_msg=key)
+    np.testing.assert_allclose(tsim.numpy(), np.asarray(sim), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="stage-2"):
+        port.module(timages, torch.from_numpy(ids), torch.from_numpy(mask), mode="generation")
 
 
 def test_decode_prefix_and_steps_match_jax(pair, images):

@@ -113,26 +113,39 @@ def test_attention_matches_jax(rng, case):
         np.testing.assert_allclose(out[0], np.broadcast_to(v[0].mean(axis=1, keepdims=True), out[0].shape), atol=1e-5)
 
 
-def test_causal_row_with_every_key_padded_diverges_from_jax(rng):
-    """Documented divergence: the port leaves keys above the causal diagonal
-    out (p = 0), so a causal row whose keys are all padding averages V over
-    keys 0..row; the plain JAX path averages all keys (NEG_INF fill)."""
-    b, h, s, d = 1, 2, 8, 16
-    q, k, v = (_np(rng, b, h, s, d) for _ in range(3))
-    mask = np.zeros((b, 1, 1, s), np.int32)
-    out = dot_product_attention(*(torch.from_numpy(t) for t in (q, k, v, mask)), causal=True).numpy()
-    prefix_mean = np.cumsum(v, axis=2) / np.arange(1, s + 1)[:, None]
-    np.testing.assert_allclose(out, prefix_mean, atol=1e-5)
+def test_causal_row_with_every_key_padded_matches_jax(rng):
+    """A causal batch row whose keys are all padding averages V over all Sk
+    keys, as the plain JAX path does, and its gradients are those of
+    ``jax.grad`` of that path: dO / Sk to every key's dV, nothing to dq or
+    dk. The other batch row is ragged. Tolerance 2e-5 (f32, the forward's)."""
+    b, h, s, d = 2, 2, 8, 16
+    q, k, v, g = (_np(rng, b, h, s, d) for _ in range(4))
+    mask = (np.arange(s)[None, :] < np.array([0, 5])[:, None]).astype(np.int32)[:, None, None, :]
+
+    def jax_loss(jq, jk, jv):
+        return (_xla_attention(jq, jk, jv, jnp.asarray(mask), True) * jnp.asarray(g)).sum()
+
     ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), True))
-    np.testing.assert_allclose(ref, np.broadcast_to(v.mean(axis=2, keepdims=True), ref.shape), atol=1e-5)
-    assert np.abs(out - ref).max() > 0.1
+    ref_grads = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = dot_product_attention(tq, tk, tv, torch.from_numpy(mask), causal=True)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATTN_ATOL)
+    np.testing.assert_allclose(out[0].detach().numpy(), np.broadcast_to(v[0].mean(axis=1, keepdims=True), (h, s, d)),
+                               atol=ATTN_ATOL)
+    for name, t, want in zip("qkv", (tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), atol=ATTN_ATOL, err_msg=f"d{name}")
+    np.testing.assert_allclose(tv.grad[0].numpy(), np.broadcast_to(g[0].sum(axis=1, keepdims=True) / s, (h, s, d)),
+                               atol=ATTN_ATOL)
+    assert not tq.grad[0].any() and not tk.grad[0].any()
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_trailing_padded_keys_add_nothing(rng, causal):
     """The kernel reads no key after a batch row's last kept one: with the
     padding bias those keys' p is exactly 0 (rows that keep a key) or they
-    lie above the causal diagonal. A row with no kept key reads them all."""
+    lie above the causal diagonal. A row with no kept key averages them all."""
     b, h, sq, sk, d = 3, 2, 12, 20, 16
     q, k, v = (torch.from_numpy(_np(rng, b, h, s, d)) for s in (sq, sk, sk))
     valid = torch.tensor([7, 20, 0])
@@ -144,8 +157,8 @@ def test_trailing_padded_keys_add_nothing(rng, causal):
                                        bias[i:i + 1, :n], causal)
         np.testing.assert_allclose(o[i:i + 1].numpy(), oi.numpy(), atol=1e-6)
         np.testing.assert_allclose(lse[i:i + 1].numpy(), lsei.numpy(), atol=1e-6)
-    want = v[2].cumsum(1)[:, :sq] / torch.arange(1, sq + 1)[:, None] if causal else v[2].mean(1, keepdim=True)
-    np.testing.assert_allclose(o[2].numpy(), np.broadcast_to(want.numpy(), o[2].shape), atol=1e-5)
+    np.testing.assert_allclose(o[2].numpy(), np.broadcast_to(v[2].mean(1, keepdim=True).numpy(), o[2].shape),
+                               atol=1e-5)
 
 
 def test_key_padding_mask_becomes_the_kernel_bias(rng):

@@ -138,11 +138,23 @@ def test_load_jax_params_raises_on_an_unknown_key(jax_params):
         load_jax_params(_port().module, params)
 
 
-def test_load_jax_params_skips_the_text_tower_and_fills_everything_else(jax_params):
-    assert "text_encoder" in jax_params
+def test_load_jax_params_fills_the_text_tower_and_raises_on_its_bad_keys(jax_params):
     port = _port()
     load_jax_params(port.module, jax_params)
+    tower = jax_params["text_encoder"]
+    np.testing.assert_array_equal(
+        port.module.text_encoder.backbone.wte.weight.detach().numpy(), tower["backbone"]["wte"]["embedding"])
+    np.testing.assert_array_equal(
+        port.module.text_encoder.projection.fc1.weight.detach().numpy(), tower["projection"]["fc1"]["kernel"].T)
     np.testing.assert_array_equal(
         port.module.caption_decoder.lm.wte.weight.detach().numpy(),
         jax_params["caption_decoder"]["lm"]["wte"]["embedding"],
     )
+    unknown = jax.tree.map(np.array, jax_params)
+    unknown["text_encoder"]["backbone"]["extra"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(KeyError, match="extra"):
+        load_jax_params(_port().module, unknown)
+    missing = jax.tree.map(np.array, jax_params)
+    del missing["text_encoder"]["projection"]["ln"]
+    with pytest.raises(KeyError, match="text_encoder.projection.ln"):
+        load_jax_params(_port().module, missing)
