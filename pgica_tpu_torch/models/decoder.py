@@ -1,21 +1,22 @@
-"""Vision-conditioned caption decoder, decode path (PyTorch).
+"""Vision-conditioned caption decoder (PyTorch).
 
-Mirrors pgica_tpu/models/decoder.py:41-183. The projected vision embedding
-(Dense + tanh) is the first position of the sequence and tokens extend it.
+Mirrors pgica_tpu/models/decoder.py:41-183.
 
-* ``decode_prefix`` adds ``wpe(0)`` to the vision token and primes the
-  caches at position 0 (decoder.py:142-153).
-* ``decode_step`` adds ``wpe(position)`` to the token embedding
-  (decoder.py:169-176).
-* ``cross_attention`` and ``cross_ln`` are kept so the parameter tree is
-  complete, but — as in the JAX package and the reference it mirrors — they
-  do NOT run at decode time (decoder.py:16-21). The teacher-forced training
-  forward that uses them waits for the stage-2 slice.
+* ``forward`` is the teacher-forced training forward (decoder.py:88-131):
+  the projected vision token (Dense, tanh, ``vision_dropout``); cross-
+  attention of the TOKEN-ONLY ``wte`` embeddings to it, residual and
+  ``cross_ln`` (eps 1e-5); then ``wpe`` positions, added after the LN; then
+  the LM over these ``inputs_embeds`` with the caption mask.
+* ``decode_prefix`` puts the vision token (plus ``wpe(0)``) at position 0
+  and primes the caches (decoder.py:142-153); ``decode_step`` adds
+  ``wpe(position)`` to the token embedding (decoder.py:169-176). As in the
+  JAX package and the reference it mirrors, cross-attention does NOT run at
+  decode time (decoder.py:16-21).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +24,7 @@ from torch import nn
 from pgica_tpu_torch.models.layers import Dense, KVCaches, MultiHeadAttention
 from pgica_tpu_torch.models.lm import TransformerLM
 from pgica_tpu_torch.models.presets import LMConfig
+from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.layernorm import LayerNorm
 
 
@@ -32,18 +34,51 @@ class CaptionDecoder(nn.Module):
         config: LMConfig,
         projection_dim: int = 512,
         num_cross_heads: int = 8,
+        dropout: float = 0.1,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.config = config
         self.vision_projection = Dense(projection_dim, config.hidden_size, dtype)
-        self.cross_attention = MultiHeadAttention(config.hidden_size, num_cross_heads, dtype=dtype)
+        self.vision_dropout = FastDropout(dropout)
+        self.cross_attention = MultiHeadAttention(config.hidden_size, num_cross_heads, dropout=dropout, dtype=dtype)
         self.cross_ln = LayerNorm(config.hidden_size, 1e-5, dtype)
         self.lm = TransformerLM(config, with_lm_head=True, dtype=dtype)
 
-    def project_vision(self, vision_embeddings: torch.Tensor) -> torch.Tensor:
+    def project_vision(
+        self, vision_embeddings: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         """(B, projection_dim) -> (B, 1, hidden) vision token."""
-        return torch.tanh(self.vision_projection(vision_embeddings))[:, None, :]
+        v = torch.tanh(self.vision_projection(vision_embeddings))
+        return self.vision_dropout(v, generator)[:, None, :]
+
+    def fuse(
+        self, token_embeds: torch.Tensor, vision_token: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """Cross-attend token embeddings to the vision token; residual + LN."""
+        attended = self.cross_attention(token_embeds, generator=generator, kv=vision_token)
+        return self.cross_ln(token_embeds + attended)
+
+    def forward(
+        self,
+        caption_ids: torch.Tensor,
+        caption_mask: Optional[torch.Tensor],
+        vision_embeddings: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        with_logits: bool = True,
+    ) -> dict:
+        """Teacher-forced forward: ``hidden_states`` (B, S, hidden) and, unless
+        ``with_logits`` is False, ``logits`` (B, S, V). ``generator`` drives dropout."""
+        if caption_mask is None:
+            caption_mask = torch.ones_like(caption_ids)
+        dtype = self.lm.dtype
+        vision_token = self.project_vision(vision_embeddings, generator)
+        token_embeds = self.lm.wte(caption_ids).to(dtype)
+        fused = self.fuse(token_embeds, vision_token, generator)
+        fused = fused + self.lm.wpe.weight[: caption_ids.shape[1]].to(dtype)[None]
+        out = self.lm(inputs_embeds=fused, attention_mask=caption_mask, generator=generator,
+                      with_logits=with_logits)
+        return {key: out[key] for key in ("hidden_states", "logits") if key in out}
 
     def decode_prefix(
         self, vision_embeddings: torch.Tensor, caches: KVCaches, attention_mask: torch.Tensor

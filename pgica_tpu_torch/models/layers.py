@@ -1,8 +1,9 @@
 """Core transformer building blocks (PyTorch).
 
 Mirrors pgica_tpu/models/layers.py:26-293: the norm factory, multi-head
-attention with a KV cache written at one scalar position, the GELU MLPs with
-dropout, and the pre-norm block. Left out until their slices: RoPE, GQA,
+attention (self-attention with a KV cache written at one scalar position, or
+cross-attention to a ``kv`` input), the GELU MLPs with dropout, and the
+pre-norm block. Left out until their slices: RoPE, GQA,
 SwiGLU/RMSNorm (Llama configs), ring attention, int8 and per-row cache
 positions (continuous batching).
 
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pgica_tpu_torch.ops.attention import xla_attention
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.flash_attention import flash_attention
 from pgica_tpu_torch.ops.layernorm import LayerNorm
@@ -60,7 +62,7 @@ class Dense(nn.Linear):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with an optional KV cache (JAX layers.py:55-193)."""
+    """Self-attention with an optional KV cache, or cross-attention to ``kv`` (JAX layers.py:55-193)."""
 
     def __init__(
         self,
@@ -88,18 +90,27 @@ class MultiHeadAttention(nn.Module):
         cache: Optional[KVCache] = None,
         position: int = 0,
         generator: Optional[torch.Generator] = None,
+        kv: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x (B, S, hidden); key_bias (B, Sk) float32 from ``key_padding_bias``, or None.
 
         With ``cache``, the new k/v are written into it at ``position`` (in
-        place) and attention runs over the whole cache.
+        place) and attention runs over the whole cache. With ``kv`` (B, Sk,
+        hidden), keys and values come from it (cross-attention, unmasked):
+        the decoder's single vision token, which the JAX package pins to the
+        plain attention (decoder.py:78), so it runs ``xla_attention`` here
+        too, outside any kernel.
         """
         b, s, _ = x.shape
 
         def heads(t: torch.Tensor) -> torch.Tensor:  # (B, S, H*D) -> (B, H, S, D)
-            return t.view(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+            return t.view(b, t.shape[1], self.num_heads, self.head_dim).transpose(1, 2)
 
-        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
+        src = x if kv is None else kv
+        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(src)), heads(self.v_proj(src))
+        if kv is not None:
+            out = xla_attention(q, k, v, None, False)
+            return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
         if cache is not None:
             k_cache, v_cache = cache
             k_cache[:, :, position:position + s] = k

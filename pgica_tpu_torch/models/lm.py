@@ -5,7 +5,11 @@ Mirrors pgica_tpu/models/lm.py:27-209: token and learned position embeddings
 decoder), causal pre-norm blocks, ``ln_f`` and, with ``with_lm_head``, the
 weight-tied head ``logits = h @ wte.T``. The head is one large matmul that
 the JAX package leaves to XLA outside any kernel, so it stays ``F.linear``
-here. The Llama arch waits for its slice.
+here. ``with_logits=False`` skips it for one call: the stage-2 step takes
+its log-probs from the hidden states through the fused linear-CE kernels,
+where XLA drops the unused logits from the JAX graph (train_step.py:268-269);
+eager PyTorch would compute and keep them. The Llama arch waits for its
+slice.
 """
 
 from __future__ import annotations
@@ -66,13 +70,15 @@ class TransformerLM(nn.Module):
         caches: Optional[KVCaches] = None,
         position: int = 0,
         generator: Optional[torch.Generator] = None,
+        with_logits: bool = True,
     ) -> dict:
         """input_ids (B, S) or inputs_embeds (B, S, hidden); attention_mask (B, S), or (B, max_len) with caches.
 
         Token ids get ``wte`` plus ``wpe`` of positions ``position ..
         position + S - 1`` (JAX lm.py:172-181). Returns ``hidden_states``,
-        ``logits`` (B, S, V) with the LM head, and ``caches`` (the same list,
-        written in place, or None). ``generator`` drives dropout (None: off).
+        ``logits`` (B, S, V) with the LM head unless ``with_logits`` is
+        False, and ``caches`` (the same list, written in place, or None).
+        ``generator`` drives dropout (None: off).
         """
         if inputs_embeds is None:
             if input_ids is None:
@@ -87,6 +93,6 @@ class TransformerLM(nn.Module):
             x = block(x, key_bias, None if caches is None else caches[i], position, generator)
         x = self.ln_f(x)
         out = {"hidden_states": x, "caches": caches}
-        if self.with_lm_head:
+        if self.with_lm_head and with_logits:
             out["logits"] = F.linear(x, self.wte.weight.to(self.dtype))
         return out

@@ -4,15 +4,17 @@ Mirrors pgica_tpu/models/model.py:43-231,234-476:
 
 * :class:`PreferenceGuidedCaptioningModule` — the composed ``nn.Module``
   (vision tower, text tower, caption decoder) with ``encode_image``,
-  ``encode_text``, ``compute_similarity``, ``decode_prefix``, ``decode_step``
-  and the contrastive forward of stage 1.
+  ``encode_text``, ``compute_similarity``, ``decode_train``,
+  ``decode_prefix``, ``decode_step`` and the forward in all three modes
+  (contrastive, generation, dual).
+* :func:`frozen_copy` — a frozen copy in a compute dtype: the bf16 serving
+  copy and the stage-2 DPO reference.
 * :class:`PreferenceGuidedCaptioningModel` — the runtime wrapper owning the
   module, its float32 masters and the tokenizer, with the JAX package's
   ``generate_captions`` signature and return type.
 
-Waiting for later slices: the generation and dual forward modes (stage 2),
-a shared text tower, LoRA, int8 decode, beam search and
-``load_pretrained_towers``.
+Waiting for later slices: a shared text tower, LoRA, int8 decode, beam
+search and ``load_pretrained_towers``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from pgica_tpu_torch.models.encoders import TextEncoder
 from pgica_tpu_torch.models.presets import LMConfig, ViTConfig, get_text_config, get_vision_config
 from pgica_tpu_torch.models.vit import VisionEncoder
 from pgica_tpu_torch.ops.layernorm import LayerNorm
-from pgica_tpu_torch.ops.losses import l2_normalize
+from pgica_tpu_torch.ops.losses import caption_cross_entropy, l2_normalize
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +75,7 @@ class PreferenceGuidedCaptioningModule(nn.Module):
         self.dtype = dtype
         self.vision_encoder = VisionEncoder(
             vision_config, projection_dim, dropout, freeze_vision_backbone, dtype)
-        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim, dtype=dtype)
+        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim, dropout=dropout, dtype=dtype)
         self.text_encoder = TextEncoder(text_config, projection_dim, dropout, freeze_text_backbone, dtype)
 
     @property
@@ -93,32 +95,52 @@ class PreferenceGuidedCaptioningModule(nn.Module):
         """Token ids (B, S) and mask -> ``hidden_states``, ``pooled_output``, ``embeddings``."""
         return self.text_encoder(caption_ids, caption_mask, generator)
 
+    def decode_train(
+        self,
+        caption_ids: torch.Tensor,
+        caption_mask: Optional[torch.Tensor],
+        vision_embeddings: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        with_logits: bool = True,
+    ) -> dict:
+        """The decoder's teacher-forced forward: ``hidden_states`` and (unless not asked) ``logits``."""
+        return self.caption_decoder(caption_ids, caption_mask, vision_embeddings, generator, with_logits)
+
     def forward(
         self,
         images: torch.Tensor,
         caption_ids: Optional[torch.Tensor] = None,
         caption_mask: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
         mode: str = "contrastive",
         generator: Optional[torch.Generator] = None,
     ) -> dict:
-        """The contrastive forward (JAX model.py:142-173): l2-normalized image and text embeddings.
+        """The main forward (JAX model.py:142-173) in ``mode`` contrastive, generation or dual.
 
-        ``generator`` drives dropout (None: deterministic, as JAX's
-        ``deterministic=True``).
+        Contrastive (and dual): l2-normalized ``image_embeddings`` and
+        ``text_embeddings``. Generation (and dual): the decoder's ``logits``
+        and, with ``labels``, the caption cross-entropy ``loss``. Always
+        ``vision_embeddings``. ``generator`` drives dropout (None:
+        deterministic, as JAX's ``deterministic=True``).
         """
-        if mode in ("generation", "dual"):
-            raise NotImplementedError(f"mode {mode!r} waits for the stage-2 slice (ROADMAP §0)")
-        if mode != "contrastive":
+        if mode not in ("contrastive", "generation", "dual"):
             raise ValueError(f"Unknown mode: {mode!r}")
         if caption_ids is None:
-            raise ValueError("contrastive mode requires caption_ids")
+            raise ValueError(f"{mode} mode requires caption_ids")
         vision = self.encode_image(images, generator)
-        text = self.encode_text(caption_ids, caption_mask, generator)
-        return {
-            "image_embeddings": l2_normalize(vision["embeddings"]),
-            "text_embeddings": l2_normalize(text["embeddings"]),
-            "vision_embeddings": vision["embeddings"],
-        }
+        outputs = {}
+        if mode in ("contrastive", "dual"):
+            text = self.encode_text(caption_ids, caption_mask, generator)
+            outputs["image_embeddings"] = l2_normalize(vision["embeddings"])
+            outputs["text_embeddings"] = l2_normalize(text["embeddings"])
+        if mode in ("generation", "dual"):
+            dec = self.decode_train(caption_ids, caption_mask, vision["embeddings"], generator)
+            outputs["logits"] = dec["logits"]
+            if labels is not None:
+                mask = caption_mask if caption_mask is not None else torch.ones_like(labels)
+                outputs["loss"] = caption_cross_entropy(dec["logits"], labels, mask)
+        outputs["vision_embeddings"] = vision["embeddings"]
+        return outputs
 
     def compute_similarity(
         self, images: torch.Tensor, caption_ids: torch.Tensor, caption_mask: Optional[torch.Tensor] = None
@@ -162,6 +184,21 @@ def build_module(
         vision_config, text_config, text_config, projection_dim, temperature, dropout,
         freeze_vision_backbone, freeze_text_backbone, share_text_tower, dtype,
     )
+
+
+def frozen_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` with every floating parameter cast to ``dtype``, frozen.
+
+    As the JAX package's ``cast_floating`` (model.py:370-387, trainer.py:
+    749-763); LayerNorm parameters are then put back in float32, holding the
+    rounded values that cast gives, because the LN kernel reads f32 gamma and
+    beta. The bf16 serving copy and the stage-2 DPO reference are made here.
+    """
+    copy = cast_floating(module, dtype)
+    for m in copy.modules():
+        if isinstance(m, LayerNorm):
+            m.float()
+    return copy.requires_grad_(False)
 
 
 @torch.no_grad()
@@ -243,19 +280,12 @@ class PreferenceGuidedCaptioningModel:
     def _inference_module(self) -> PreferenceGuidedCaptioningModule:
         """The module in the compute dtype for inference, cast once and cached.
 
-        Float32 runs on the masters. bf16 runs on a copy with every floating
-        parameter cast (JAX ``cast_floating``, model.py:370-387); LayerNorm
-        parameters are then put back in float32 — holding the bf16-rounded
-        values the JAX cast produces — because the kernel reads f32 gamma/beta.
+        Float32 runs on the masters; bf16 on a :func:`frozen_copy`.
         """
         if self.dtype == torch.float32:
             return self.module
         if self._inference_cache is None:
-            copy = cast_floating(self.module, self.dtype)
-            for m in copy.modules():
-                if isinstance(m, LayerNorm):
-                    m.float()
-            self._inference_cache = copy.requires_grad_(False)
+            self._inference_cache = frozen_copy(self.module, self.dtype)
         return self._inference_cache
 
     def _images(self, images) -> torch.Tensor:

@@ -62,6 +62,18 @@ KERNELS = {
         "flash_attn_bwd.cu", "pgica_flash_attn_bwd_dkv",
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     ),
+    "fused_ce_fwd": (
+        "fused_ce.cu", "pgica_fused_ce_fwd",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    ),
+    "fused_ce_bwd_dh": (
+        "fused_ce.cu", "pgica_fused_ce_bwd_dh",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    ),
+    "fused_ce_bwd_dw": (
+        "fused_ce.cu", "pgica_fused_ce_bwd_dw",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    ),
 }
 SOURCES = sorted({source for source, _, _ in KERNELS.values()})
 

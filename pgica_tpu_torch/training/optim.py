@@ -15,7 +15,8 @@ plain functions on tensors, in the same arithmetic order:
   does, at the count of updates applied so far;
 * freezing: frozen leaves get no update and no decay (they are left out of
   the optimizer, and their ``requires_grad`` is turned off so no gradient is
-  computed for them);
+  computed for them; ``init`` turns it on for every trained leaf, so one
+  module can pass from a stage's optimizer to the next's);
 * ``MultiSteps``: the running mean ``acc + (g - acc) / (n + 1)`` over k
   micro-steps, and one inner update on the k-th.
 
@@ -107,9 +108,9 @@ class Optimizer:
     def init(self, module: nn.Module) -> OptState:
         names, params = [], []
         for name, p in module.named_parameters():
-            if self.is_frozen(name):
-                p.requires_grad_(False)
-            else:
+            frozen = self.is_frozen(name)
+            p.requires_grad_(not frozen)
+            if not frozen:
                 names.append(name)
                 params.append(p)
         zeros = [torch.zeros_like(p) for p in params]

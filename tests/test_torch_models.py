@@ -84,8 +84,8 @@ def test_contrastive_forward_and_similarity_match_jax(pair, images, captions):
     for key in ("image_embeddings", "text_embeddings", "vision_embeddings"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=ATOL, err_msg=key)
     np.testing.assert_allclose(tsim.numpy(), np.asarray(sim), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="stage-2"):
-        port.module(timages, torch.from_numpy(ids), torch.from_numpy(mask), mode="generation")
+    with pytest.raises(ValueError, match="Unknown mode"):
+        port.module(timages, torch.from_numpy(ids), torch.from_numpy(mask), mode="captioning")
 
 
 def test_decode_prefix_and_steps_match_jax(pair, images):
