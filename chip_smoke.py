@@ -11,21 +11,23 @@ exits non-zero):
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: the hand-written CUDA kernels from pgica_tpu_torch/csrc/ into the
    git-ignored build/pgica_tpu_torch/ (one nvcc per source, in parallel).
-3. Kernels vs plain: each kernel against its plain PyTorch version on the
-   card at the serving, stage-1 and stage-2 shapes, bf16 and f32, with its
-   time (CUDA events, median of 21 bursts, on input sets that rotate through
-   more than twice the L2, so they come from HBM; the fused linear-CE
-   kernels, tens of ms a call over a W four times the L2: median of 5
-   single calls), the plain version's, one PyTorch call's as a yardstick
-   (never used by the port; for fused CE two calls, F.linear and
-   F.cross_entropy) and the bound from the bytes and flops that the inputs
-   need at HBM rate and peak rate.
-4. Full path vs plain: ViT-B/32 and GPT-2 Medium at full width, 2 layers
-   each, f32 — the same seeded model on the card (kernels) and on the CPU
-   (plain versions): embeddings, prefix and step logits, 16 greedy tokens;
-   then two stage-1 and two stage-2 (DPO) train steps (dropout 0): the
-   gradients, loss, reward metrics, gradient norm and every trained
-   parameter.
+3. Kernels vs plain: each of the ten kernels against its plain PyTorch
+   version on the card at the shapes the GPT-2 flagship's and the Llama
+   slice's serving, stage-1 and stage-2 paths give it, bf16 and f32, with
+   its time (CUDA events, median of 21 bursts, on input sets that rotate
+   through more than twice the L2, so they come from HBM; the fused
+   linear-CE kernels, tens to hundreds of ms a call over a W larger than the
+   L2: median of 5 single calls), the plain version's, one PyTorch call's
+   as a yardstick (never used by the port; for fused CE two calls, F.linear
+   and F.cross_entropy) and the bound from the bytes and flops that the
+   inputs need at HBM rate and peak rate.
+4. Full path vs plain, for each architecture at full width, 2 layers per
+   tower, f32 — ViT-B/32 + GPT-2 Medium, then SigLIP so400m + Llama-3-8B
+   (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
+   the card (kernels) and on the CPU (plain versions): embeddings, prefix
+   and step logits, 16 greedy tokens; then two stage-1 and two stage-2
+   (DPO) train steps (dropout 0): the gradients, loss, reward metrics,
+   gradient norm and every trained parameter.
 5. Serving: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab 50,262)
    in bf16 with random seeded weights answers caption requests through
    ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
@@ -43,16 +45,27 @@ exits non-zero):
    pairs x 128 with every token kept, and with chosen and rejected lengths
    8-28 cut to bucket 32; the chosen and rejected captions differ. Timing
    and profile as in phase 6, and the launches of one step are asserted.
+8. The Llama slice: the GPT-2 flagship is freed, then the SigLIP so400m +
+   Llama-3-8B configuration of configs/siglip_llama8b.yaml is built once at
+   full width in bf16 over f32 masters, with 4 of each Llama tower's 32
+   layers (``LLAMA_REDUCED`` says why) and random seeded weights. It serves
+   sampled caption requests through ``generate_captions`` at batch 1 and 8
+   (max_length 128, top-p 0.9, temperature 0.8, repetition penalty 1.1,
+   one beam), takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
+   under the JAX trainer's partitions, timed and profiled as in phase 6,
+   with every request's and step's launches asserted.
 
-Launch counts are reset just before the main path of phases 5, 6 and 7 and
-read just after. The second-to-last line is the kernel summary as JSON; the
-last line is ``{"ok": true, "device": {...}}``. Without a card, or without
-the package beside it, the script exits non-zero and prints no result.
+Launch counts are reset just before the main path of phases 5, 6, 7 and of
+each of phase 8's three paths, and read just after. The second-to-last line
+is the kernel summary as JSON; the last line is ``{"ok": true, "device":
+{...}}``. Without a card, or without the package beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -73,8 +86,11 @@ ATTN_F32_ATOL = 2e-5
 ATTN_BWD_F32_TOL = (2e-5, 1e-5)  # dk/dv sum up to 128 rows' terms of size ~10: f32 rounding grows with both
 SUM_TOL = (1e-3, 1e-4)  # (atol, rtol) on LN's dgamma/dbeta: f32 sums over up to 16,384 rows
 GPT2_VOCAB = 50257 + 5  # GPT-2's vocab plus the five specials, as bench.py
+LLAMA_VOCAB = 128_256  # configs/siglip_llama8b.yaml model.vocab_size
+SIGLIP, LLAMA = "google/siglip-so400m-patch14-384", "meta-llama/Meta-Llama-3-8B"
 SLEEP_CYCLES = 20_000_000  # ~10 ms: keeps the card busy while the host queues a burst
 SERVING_KERNELS = ("layernorm_fwd", "flash_attn_fwd")  # serving runs no backward
+LLAMA_SERVING_KERNELS = SERVING_KERNELS + ("rmsnorm_fwd",)
 
 
 def log(msg: str) -> None:
@@ -284,6 +300,82 @@ def layernorm_bwd_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Ge
             dy, x, [hidden], mu, rs, w, w, [True, True, True]), lib_sets),
         input_sets=n_sets,
         **bound(nbytes, flops, dtype),
+    )
+    return out
+
+
+def rmsnorm_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Generator, timed=True) -> dict:
+    from pgica_tpu_torch.ops.rmsnorm import rms_norm_fwd, rms_norm_ref
+
+    def inputs():
+        return ((3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(dtype),
+                1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen), 1e-5)
+
+    args = inputs()
+    y, rstd = rms_norm_fwd(*args)
+    torch.cuda.synchronize()
+    ry, rrstd = rms_norm_ref(*args)
+    atol, rtol = TOL[dtype]
+    err = check_close(f"rmsnorm {rows}x{hidden} {dname(dtype)} y", y, ry, atol, rtol)
+    check_close("rmsnorm rstd", rstd, rrstd, 0.0, 1e-5)
+    if not timed:
+        return dict(max_abs_err=err)
+    nbytes = 2 * rows * hidden * args[0].element_size() + 4 * hidden + 4 * rows  # x, y; g; rstd
+    n_sets = max(1, math.ceil(100e6 / nbytes))
+    sets = [args] + [inputs() for _ in range(n_sets - 1)]
+    lib_sets = [(x, w.to(dtype)) for x, w, _ in sets]
+    return dict(
+        shape=f"({rows}, {hidden})", dtype=dname(dtype), max_abs_err=err, atol=atol, rtol=rtol,
+        ms=time_ms(rms_norm_fwd, sets), plain_ms=time_ms(rms_norm_ref, sets),
+        library_ms=time_ms(lambda t, wl: F.rms_norm(t, (hidden,), wl, 1e-5), lib_sets),
+        input_sets=n_sets, **bound(nbytes, 4 * rows * hidden, dtype),
+    )
+
+
+def rmsnorm_bwd_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Generator, timed=True) -> dict:
+    """The backward kernel against its plain version; dweight bit-identical over two runs, and rows
+    whose dy is 0 give dx = 0 and leave dweight bit-identical."""
+    from pgica_tpu_torch.ops.rmsnorm import rms_norm_bwd, rms_norm_bwd_ref, rms_norm_fwd
+
+    def inputs():
+        x = (3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(dtype)
+        w = 1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+        dy = torch.randn(rows, hidden, device="cuda", generator=gen).to(dtype)
+        return x, w, dy, rms_norm_fwd(x, w, 1e-5)[1]
+
+    x, w, dy, rstd = args = inputs()
+    got, again = rms_norm_bwd(*args), rms_norm_bwd(*args)
+    torch.cuda.synchronize()
+    want = rms_norm_bwd_ref(*args)
+    atol, rtol = TOL[dtype]
+    label = f"rmsnorm_bwd {rows}x{hidden} {dname(dtype)}"
+    err = check_close(label + " dx", got[0], want[0], atol, rtol)
+    sum_err = check_close(label + " dweight", got[1], want[1], *SUM_TOL)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
+    if rows > 1:  # the second half of the rows with dy = 0
+        dead = torch.arange(rows, device="cuda") >= rows // 2
+        dx, dw = rms_norm_bwd(x, w, dy.masked_fill(dead[:, None], 0), rstd)
+        live = rms_norm_bwd(x[~dead].contiguous(), w, dy[~dead].contiguous(), rstd[~dead].contiguous())
+        if bool(dx[dead].any()) or not torch.equal(dw, live[1]):
+            raise AssertionError(f"{label}: rows with dy = 0 gave dx != 0 or changed dweight")
+    out = dict(shape=f"({rows}, {hidden})", dtype=dname(dtype), max_abs_err=err, sum_max_abs_err=sum_err,
+               atol=atol, rtol=rtol)
+    if not timed:
+        return out
+    nbytes = 3 * rows * hidden * x.element_size() + 8 * hidden + 4 * rows  # x, dy, dx; g, dg; rstd
+    n_sets = max(1, math.ceil(100e6 / nbytes))
+    sets = [args] + [inputs() for _ in range(n_sets - 1)]
+    # the yardstick: the autograd backward of one F.rms_norm call (dx and dweight)
+    lib_sets = []
+    for x_, w_, dy_, _ in sets:
+        leaves = [x_.detach().clone().requires_grad_(), w_.detach().to(dtype, copy=True).requires_grad_()]
+        lib_sets.append((F.rms_norm(leaves[0], (hidden,), leaves[1], 1e-5), leaves, dy_))
+    out.update(
+        ms=time_ms(rms_norm_bwd, sets), plain_ms=time_ms(rms_norm_bwd_ref, sets),
+        library_ms=library_time(lambda o, leaves, dy_: torch.autograd.grad(o, leaves, dy_, retain_graph=True),
+                                lib_sets),
+        input_sets=n_sets, **bound(nbytes, 8 * rows * hidden, dtype),
     )
     return out
 
@@ -550,10 +642,45 @@ def phase_kernels() -> dict:
             r = attention_case(name, *shape, causal, valid, dtype, gen)
             results["flash_attn_fwd"].append(r)
             show_timed("flash", r)
-        for d in (16, 32, 128):  # the other head dims, a fully masked batch row, ragged edges
+        # the Llama slice (phase 8): SigLIP's 730 tokens at D = 72 (batch 2 in stage 2, 8 serving), the
+        # Llama towers' 4 x 32 heads of 128 over 512 tokens, every one kept, and decode at batch 8 over a
+        # cache of max_length 128 + 1 slots, step 64 (keys 0..64 kept)
+        for name, shape, causal, valid in (
+            ("siglip_stage2", (2, 16, 730, 730, 72), False, None),
+            ("siglip_serving", (8, 16, 730, 730, 72), False, None),
+            ("llama", (4, 32, 512, 512, 128), True, torch.full((4,), 512, device="cuda")),
+            ("llama_decode", (8, 32, 1, 129, 128), False, torch.full((8,), 65, device="cuda")),
+        ):
+            r = attention_case(name, *shape, causal, valid, dtype, gen)
+            results["flash_attn_fwd"].append(r)
+            show_timed("flash", r)
+        for d in (16, 32, 72, 128):  # the other head dims, a fully masked batch row, ragged edges
             r = attention_case(f"d{d}", 2, 2, 33, 40, d, d == 32, torch.tensor([0, 29], device="cuda"),
                                dtype, gen, timed=False)
             log(f"  flash d={d} (4, 33, 40, {d}) {dname(dtype)} masked row: max_abs_err {r['max_abs_err']:.3e}")
+        for rows, hidden, where in ((2 * 730, 1152, "SigLIP, Llama stage 2"), (4 * 730, 1152, "SigLIP, Llama stage 1"),
+                                    (8 * 730, 1152, "SigLIP, Llama serving batch 8"),
+                                    (2048, 4096, "decoder cross_ln, Llama stage 2")):
+            r = layernorm_case(rows, hidden, dtype, gen)
+            r["where"] = where
+            results["layernorm_fwd"].append(r)
+            show_timed("layernorm", r)
+        for rows, hidden, where in ((2048, 4096, "Llama blocks, stage 1 and 2"), (8, 4096, "Llama decode, batch 8")):
+            r = rmsnorm_case(rows, hidden, dtype, gen)
+            r["where"] = where
+            results["rmsnorm_fwd"].append(r)
+            show_timed("rmsnorm", r)
+            r = rmsnorm_bwd_case(rows, hidden, dtype, gen)
+            r["where"] = where
+            results["rmsnorm_bwd"].append(r)
+            show_timed("rmsnorm_bwd", r)
+            log(f"    dweight max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); identical "
+                f"over two runs; rows with dy = 0 give dx 0 and leave dweight bit-identical")
+        for rows, hidden in ((37, 32), (5, 8200), (3, 16392)):  # ragged; the loop kernels (wide rows)
+            r, r_bwd = rmsnorm_case(rows, hidden, dtype, gen, timed=False), rmsnorm_bwd_case(rows, hidden, dtype, gen,
+                                                                                          timed=False)
+            log(f"  rmsnorm ({rows}, {hidden}) {dname(dtype)}: max_abs_err y {r['max_abs_err']:.3e}, dx "
+                f"{r_bwd['max_abs_err']:.3e}, dweight {r_bwd['sum_max_abs_err']:.3e}")
 
         for rows, hidden, where in ((128 * 128, 1024, "text tower, stage 1"), (128 * 32, 1024, "text tower, bucketed"),
                                     (128, 512, "projection ln, stage 1"), (64 * 128, 1024, "decoder, stage 2"),
@@ -577,7 +704,17 @@ def phase_kernels() -> dict:
             results["flash_attn_bwd_dkv"].append(r_dkv)
             show_timed("flash_bwd_dq", r_dq)
             show_timed("flash_bwd_dkv", r_dkv)
-        for d in (16, 32, 128):  # other head dims; batch row 0 keeps no key; ragged edges
+        r = layernorm_bwd_case(2048, 4096, dtype, gen)
+        r["where"] = "decoder cross_ln, Llama stage 2"
+        results["layernorm_bwd"].append(r)
+        show_timed("layernorm_bwd", r)
+        r_dq, r_dkv = attention_bwd_case("llama", 4, 32, 512, 128, True, torch.full((4,), 512, device="cuda"), dtype,
+                                         gen)
+        results["flash_attn_bwd_dq"].append(r_dq)
+        results["flash_attn_bwd_dkv"].append(r_dkv)
+        show_timed("flash_bwd_dq", r_dq)
+        show_timed("flash_bwd_dkv", r_dkv)
+        for d in (16, 32, 72, 128):  # other head dims; batch row 0 keeps no key; ragged edges
             r_dq, r_dkv = attention_bwd_case(f"d{d}", 2, 2, 33, d, d != 32, torch.tensor([0, 29], device="cuda"),
                                              dtype, gen, timed=False)
             log(f"  flash bwd d={d} (4, 33, 33, {d}) {dname(dtype)} causal={d != 32}, a row without keys: "
@@ -605,6 +742,18 @@ def phase_kernels() -> dict:
             f"{fce_errs(res)}")
     res = fused_ce_case("d1040", 300, 1000, 1040, torch.bfloat16, torch.float32, gen, timed=False)
     log(f"  fused_ce (300, 1040) x (1000, 1040) h bfloat16 W float32: max_abs_err {fce_errs(res)}")
+    # the Llama slice's stage 2 (phase 8): 2 pairs x 2 captions x 511 targets, every one kept, d = 4,096
+    # (dh and dW run four column passes), V = 128,256; the policy's W f32 and the reference's W bf16; then
+    # the same with the captions' tails masked (g = 0), untimed
+    for w_dtype in (torch.float32, torch.bfloat16):
+        res = fused_ce_case("llama", 4 * 511, LLAMA_VOCAB, 4096, torch.bfloat16, w_dtype, gen)
+        for kernel, r in res.items():
+            results[kernel].append(r)
+            show_timed(kernel, r)
+    res = fused_ce_case("llama masked", 4 * 511, LLAMA_VOCAB, 4096, torch.bfloat16, torch.float32, gen,
+                        caption_rows_mask(4, 512, (256, 512), gen), timed=False)
+    log(f"  fused_ce llama masked (2044, 4096) x ({LLAMA_VOCAB}, 4096) h bfloat16 W float32, lengths 256-512: "
+        f"max_abs_err {fce_errs(res)}")
     log("  fused_ce: dh and dW identical over two runs everywhere; rows with g = 0 give dh 0 and leave dW "
         "bit-identical")
     return results
@@ -636,30 +785,35 @@ def decode_logits(model, images, steps: int = 3):
     return emb.cpu(), out
 
 
-def phase_full_width(tokenizer) -> None:
+def phase_full_width(tokenizer, arch: str) -> None:
+    """Phase 4 for one architecture of ``FULL_WIDTH``."""
     from pgica_tpu_torch.generation.decode import generate
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
     from pgica_tpu_torch.models.presets import get_text_config, get_vision_config
     from pgica_tpu_torch.ops import _kernels
 
+    spec = FULL_WIDTH[arch]
+    t0 = time.perf_counter()
     kwargs = dict(
-        vision_model=dataclasses.replace(get_vision_config("openai/clip-vit-base-patch32"), num_layers=2),
-        text_model=dataclasses.replace(get_text_config("gpt2-medium"), num_layers=2),
-        projection_dim=512, tokenizer=tokenizer, max_caption_length=128, vocab_size=GPT2_VOCAB,
+        vision_model=dataclasses.replace(get_vision_config(spec["vision"]), num_layers=2),
+        text_model=dataclasses.replace(get_text_config(spec["text"]), num_layers=2),
+        projection_dim=512, tokenizer=tokenizer, max_caption_length=128, vocab_size=spec["vocab"],
         dtype=torch.float32, seed=0, dropout=0.0,  # dropout 0: the card's and the CPU's streams differ
     )
     cuda, cpu = (PreferenceGuidedCaptioningModel(device=dev, **kwargs) for dev in ("cuda", "cpu"))
-    images = np.random.default_rng(1).integers(0, 256, size=(2, 224, 224, 3), dtype=np.uint8)
+    log(f"  the card's and the CPU's models built in {time.perf_counter() - t0:.1f} s")
+    size = cuda.image_size
+    images = np.random.default_rng(1).integers(0, 256, size=(2, size, size, 3), dtype=np.uint8)
     _kernels.reset_launch_counts()
     emb_g, logits_g = decode_logits(cuda, images)
-    counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}
+    counts = {k: v for k, v in _kernels.launch_counts().items() if k in spec["serving"]}
     emb_c, logits_c = decode_logits(cpu, images)
     err = check_close("full width: embeddings", emb_g, emb_c, 1e-3, 0.0)
     log(f"  encode_image embeddings (2, 512): max_abs_err {err:.3e} (atol 1e-3)")
     for i, (g, c) in enumerate(zip(logits_g, logits_c)):
         name = "prefix" if i == 0 else f"step {i}"
         err = check_close(f"full width: {name} logits", g, c, 1e-3, 0.0)
-        log(f"  {name} logits (2, {GPT2_VOCAB}): max_abs_err {err:.3e} (atol 1e-3)")
+        log(f"  {name} logits (2, {spec['vocab']}): max_abs_err {err:.3e} (atol 1e-3)")
     if min(counts.values()) == 0:
         raise AssertionError(f"full width: a kernel was not launched on the card: {counts}")
     log(f"  kernel launches on the card: {counts}")
@@ -669,21 +823,26 @@ def phase_full_width(tokenizer) -> None:
                             pad_token_id=tokenizer.pad_token_id, max_length=16).cpu())
     if not torch.equal(ids[0], ids[1]):
         raise AssertionError(f"full width: greedy tokens differ:\n{ids[0]}\n{ids[1]}")
-    log(f"  greedy tokens, 16 steps: identical on card and CPU ({ids[0].tolist()})")
-    full_width_train(cuda, cpu)
+    log(f"  greedy tokens, 16 steps: identical on card and CPU ({ids[0].tolist()}); {time.perf_counter() - t0:.1f} s")
+    full_width_train(cuda, cpu, spec)
+    log(f"  stage 1 checked; {time.perf_counter() - t0:.1f} s")
     # the stage-2 check's reference: a frozen f32 model of another seed, so that the rewards are
     # far from 0 (a copy of the policy would make them exactly 0 at the first step)
     other = PreferenceGuidedCaptioningModel(device="cpu", **{**kwargs, "seed": 1})
-    full_width_stage2(cuda, cpu, frozen_copy(other.module, torch.float32))
+    ref = frozen_copy(other.module, torch.float32)
+    del other
+    log(f"  reference built; {time.perf_counter() - t0:.1f} s")
+    full_width_stage2(cuda, cpu, ref, spec)
+    log(f"  stage 2 checked; {time.perf_counter() - t0:.1f} s")
 
 
-def stage1_batch(rng, batch: int, seq: int, lengths=None) -> dict:
-    """bench.py's stage-1 batch: normalized float images, GPT-2 ids; every token kept, or
+def stage1_batch(rng, batch: int, seq: int, lengths=None, image: int = 224, vocab: int = GPT2_VOCAB) -> dict:
+    """bench.py's stage-1 batch: normalized float images, random ids; every token kept, or
     lengths drawn from ``lengths`` and the columns cut to their bucket by ``bucket_batch``."""
     from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
 
-    images = rng.normal(size=(batch, 224, 224, 3)).astype(np.float32)
-    ids = rng.integers(0, GPT2_VOCAB, (batch, seq)).astype(np.int64)
+    images = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.int64)
     if lengths is None:
         return {"image": images, "caption_ids": ids, "caption_mask": np.ones((batch, seq), np.int32)}
     lens = rng.integers(lengths[0], lengths[1] + 1, batch)
@@ -719,14 +878,16 @@ def train_on_both(cuda, cpu, make, batches, loss_of) -> dict:
 
     ``make(module) -> (state, step, optimizer, extra)``; ``loss_of(module,
     extra, batch)`` is the step's loss without dropout, whose gradient is
-    taken before each step and kept. Returns the metrics of every step, the
-    final states, the gradients, the card's initial parameters, the
-    optimizer and the card's launch counts over the steps and gradients.
+    taken before each step and kept (on its side's device). Returns the
+    metrics of every step, the final states, the gradients, the card's
+    initial parameters (on the CPU), the optimizer and the card's launch
+    counts over the steps and gradients.
     """
     from pgica_tpu_torch.ops import _kernels
 
     runs = {}
     for name, model in (("card", cuda), ("cpu", cpu)):
+        t0 = time.perf_counter()
         state, step, opt, extra = make(model.module)
         params = state.opt_state.params
         if name == "card":
@@ -735,13 +896,14 @@ def train_on_both(cuda, cpu, make, batches, loss_of) -> dict:
         metrics, grads = [], []
         for batch in batches:
             loss = loss_of(model.module, extra, batch)
-            grads.append([torch.zeros_like(p).cpu() if g is None else g.detach().cpu()
+            grads.append([torch.zeros_like(p) if g is None else g.detach()
                           for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))])
             state, m = step(state, extra, batch)
             metrics.append({k: float(v) for k, v in m.items()})
         if name == "card":
             counts = _kernels.launch_counts()
         runs[name] = (metrics, state, grads)
+        log(f"  {len(batches)} gradients and steps on the {name}: {time.perf_counter() - t0:.1f} s")
     return dict(runs=runs, initial=initial, opt=opt, counts=counts)
 
 
@@ -760,7 +922,8 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     ``PARAM_ATOL`` in some step the element is loose: counted, and held to
     Adam's own bound, lr per update on each side. The gradient check above
     bounds every element's difference, so a loose element cannot hide a
-    wrong gradient.
+    wrong gradient. The comparisons run on the card (the CPU side's tensors
+    are copied there); the replay of the optimizer runs on the CPU.
     """
     from pgica_tpu_torch.training.optim import OptState
 
@@ -771,8 +934,8 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     worst = (0.0, "")
     loose, loose_g = [], 0.0  # the largest |g| of a loose element, as a share of its leaf's largest
     for i, name in enumerate(names):
-        loose.append(torch.zeros(state_c.opt_state.params[i].shape, dtype=torch.bool))
-        for gg, gc in ((runs["card"][2][s][i], runs["cpu"][2][s][i]) for s in range(steps)):
+        loose.append(torch.zeros(state_c.opt_state.params[i].shape, dtype=torch.bool, device="cuda"))
+        for gg, gc in ((runs["card"][2][s][i], runs["cpu"][2][s][i].cuda()) for s in range(steps)):
             if name.endswith("attn.k_proj.bias"):  # 0 in exact arithmetic: both sides must be tiny
                 if max(float(gg.abs().max()), float(gc.abs().max())) > 1e-6:
                     raise AssertionError(f"{label}: {name} gradient is not ~0: {gg.abs().max()} {gc.abs().max()}")
@@ -803,9 +966,9 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     replay = OptState(list(names), initial, 0, [torch.zeros_like(p) for p in initial],
                       [torch.zeros_like(p) for p in initial])
     for grads in runs["card"][2]:
-        run["opt"].update(grads, replay)
+        run["opt"].update([g.cpu() for g in grads], replay)
     replay_err = max(check_close(f"{label}: {name} against the CPU optimizer on the card's gradients",
-                                 pg.detach().cpu(), pr, 1e-6, 0.0)
+                                 pg.detach(), pr.cuda(), 1e-6, 0.0)
                      for name, pg, pr in zip(names, state_g.opt_state.params, replay.params))
     log(f"  the card's parameters after {steps} steps against the CPU optimizer fed the card's gradients: max abs "
         f"diff {replay_err:.3e} (atol 1e-6, every element)")
@@ -814,7 +977,7 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     held_err = loose_err = 0.0
     by_leaf = {}
     for name, pg, pc, lo in zip(names, state_g.opt_state.params, state_c.opt_state.params, loose):
-        diff = (pg.detach().cpu() - pc.detach()).abs()
+        diff = (pg.detach() - pc.detach().cuda()).abs()
         total += diff.numel()
         n_loose += int(lo.sum())
         by_leaf[name] = int(lo.sum())
@@ -837,7 +1000,7 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     log(f"  kernel launches on the card, the train steps and the gradients beside them: {counts}")
 
 
-def full_width_train(cuda, cpu) -> None:
+def full_width_train(cuda, cpu, spec: dict) -> None:
     """Stage 1 at full width, f32, dropout 0: two train steps (the first has lr 0) on both sides."""
     from pgica_tpu_torch.training.train_step import _on_device, stage1_loss_fn
 
@@ -849,23 +1012,24 @@ def full_width_train(cuda, cpu) -> None:
         return stage1_loss_fn(module, _on_device(batch, next(module.parameters()).device), None, 0.5)[0]
 
     rng = np.random.default_rng(2)
-    batches = [stage1_batch(rng, 8, 32, (5, 32)) for _ in range(2)]
+    n = spec["stage1_batch"]
+    batches = [stage1_batch(rng, n, 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
     run = train_on_both(cuda, cpu, make, batches, loss_of)
-    run["counts"] = {k: v for k, v in run["counts"].items() if k in STAGE1_STEP_LAUNCHES}
-    log("  stage 1, batch 8 x 32 (ragged):")
+    run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage1"]}
+    log(f"  stage 1, batch {n} x 32 (ragged):")
     compare_training("full width stage 1", run, {"loss": (0.0, 1e-4), "grad_norm": (0.0, 1e-3)})
 
 
-def stage2_batch(rng, batch: int, seq: int, lengths=None) -> dict:
+def stage2_batch(rng, batch: int, seq: int, lengths=None, image: int = 224, vocab: int = GPT2_VOCAB) -> dict:
     """A preference batch: bench.py's normalized float images; chosen and rejected captions of
-    their own GPT-2 ids (identical pairs would make every DPO logit exactly 0); every token kept,
+    their own random ids (identical pairs would make every DPO logit exactly 0); every token kept,
     or lengths drawn from ``lengths`` and both sides cut to the bucket of the longest."""
     from pgica_tpu_torch.training.packing import default_buckets, pick_bucket
 
-    out = {"image": rng.normal(size=(batch, 224, 224, 3)).astype(np.float32)}
+    out = {"image": rng.normal(size=(batch, image, image, 3)).astype(np.float32)}
     width = seq
     for side in ("preferred", "rejected"):
-        ids = rng.integers(0, GPT2_VOCAB, (batch, seq)).astype(np.int64)
+        ids = rng.integers(0, vocab, (batch, seq)).astype(np.int64)
         mask = np.ones((batch, seq), np.int32)
         if lengths is not None:
             lens = rng.integers(lengths[0], lengths[1] + 1, batch)
@@ -879,21 +1043,22 @@ def stage2_batch(rng, batch: int, seq: int, lengths=None) -> dict:
     return out
 
 
-STAGE2_METRICS = ("reward_margin", "reward_accuracy", "chosen_reward", "rejected_reward",
-                  "policy_chosen_logp", "policy_rejected_logp")
+def stage2_trainer(module, ref, lr: float = 1e-3, warmup: int = 1, total: int = 10, frozen=None):
+    """``make`` for train_on_both: the stage-2 step against the frozen reference ``ref``.
 
-
-def stage2_trainer(module, ref, lr: float = 1e-3, warmup: int = 1, total: int = 10):
-    """``make`` for train_on_both: the stage-2 step against the frozen reference ``ref``."""
+    ``frozen=None`` is bench.py's stage-2 optimizer, which holds every parameter; ``"text_encoder"``
+    the JAX trainer's partition (trainer.py:232-237): the vision backbone and the text tower frozen.
+    """
     from pgica_tpu_torch.training.optim import create_optimizer
     from pgica_tpu_torch.training.train_step import TrainState, make_stage2_train_step
 
-    opt = create_optimizer(lr, total, warmup)  # bench.py's stage-2 optimizer holds every parameter
+    partition = {} if frozen is None else dict(freeze_vision_backbone=True, frozen_prefixes=(frozen,))
+    opt = create_optimizer(lr, total, warmup, **partition)
     step = make_stage2_train_step(module, opt, beta=0.1)
     return TrainState.create(module, opt), lambda st, ref_, batch: step(st, ref_, batch, 0), opt, ref
 
 
-def full_width_stage2(cuda, cpu, ref) -> None:
+def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
     """Stage 2 at full width, f32, dropout 0: two steps (the first has lr 0) on both sides, from the
     same parameters, against the frozen float32 reference ``ref`` (on the CPU; copied to the card)."""
     import copy
@@ -908,8 +1073,10 @@ def full_width_stage2(cuda, cpu, ref) -> None:
                               0.1, False, False, 0.0)[0]
 
     rng = np.random.default_rng(3)
-    batches = [stage2_batch(rng, 4, 32, (5, 32)) for _ in range(2)]
-    run = train_on_both(cuda, cpu, lambda m: stage2_trainer(m, refs[m]), batches, loss_of)
+    batches = [stage2_batch(rng, 4, 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
+    run = train_on_both(cuda, cpu, lambda m: stage2_trainer(m, refs[m], frozen=spec["stage2_frozen"]), batches,
+                        loss_of)
+    run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage2"]}
     log(f"  stage 2, batch 4 pairs x {batches[0]['preferred_ids'].shape[1]} (ragged), f32 reference:")
     # both steps see the same parameters on both sides (the first update has lr 0). A sequence's
     # log-prob sums <= 31 token log-probs of ~-11, each within ~1e-5 between the two sides; a reward
@@ -1011,9 +1178,98 @@ def phase_slice(tokenizer) -> dict:
             raise AssertionError(f"flagship {name} logits: shape {tuple(t.shape)}, finite {bool(torch.isfinite(t).all())}")
     log(f"  flagship logits (32, {GPT2_VOCAB}) bf16 at prefix and step 1: all finite (no NaN)")
 
-    profile = profile_decode(model, images, median_s * 1e3)
+    profile = profiled(lambda: model.generate_captions(images, max_length=64), "32 x 64 greedy call",
+                       median_s * 1e3)
     return dict(main_counts=main_counts, served=served, bench=bench, median_s=median_s,
                 sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile, model=model)
+
+
+def profiled(fn, label: str, unprofiled_ms: float) -> dict:
+    """Kernel time of one call of ``fn`` (which ends in a host sync) from torch.profiler, and the
+    device busy share: that kernel time over the call's wall time measured without the profiler
+    (which slows the host, not the kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    if device_ms <= 0:
+        log(f"  profiler, {label}: no device time recorded (busy share not measured)")
+        return {"device_ms": None}
+    launches = sum(e.count for e in kernels)
+    busy = device_ms / unprofiled_ms
+    log(f"  profiler, one {label}: {launches} kernel launches, kernel time {device_ms:.1f} ms of {unprofiled_ms:.1f} "
+        f"ms (unprofiled median) -> device busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%")
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    for e in top:
+        log(f"    {_device_us(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:8]
+    log("    host side, by self CPU time under the profiler (which inflates it):")
+    for e in host:
+        log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
+    return {"device_ms": device_ms, "launches": launches, "busy": busy,
+            "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+def on_card(batch: dict, label: str) -> dict:
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()}
+    log(f"  {label} batch: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in out.items())
+        + ", tokens kept " + " + ".join(str(int(v.sum())) for k, v in out.items() if k.endswith("mask")))
+    return out
+
+
+def timed_steps(step, state, expected: dict, label: str, rows: int, seq: int):
+    """Two warm-up steps, one step whose launches must be ``expected`` (every other kernel 0), then
+    three windows of 5 steps with a host sync per step, as bench.py. ``step(state) -> (state,
+    metrics)``. Returns the state and the result: the median ms per step and pairs/s (``rows``
+    pairs a step), the windows, losses, the last step's metrics, the launches per step and the
+    peak memory over all of it."""
+    from pgica_tpu_torch.ops import _kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, m = step(state)
+    before = _kernels.launch_counts()
+    state, m = step(state)
+    after = _kernels.launch_counts()
+    per_step = {k: after[k] - before[k] for k in after}
+    if per_step != {**dict.fromkeys(per_step, 0), **expected}:
+        raise AssertionError(f"{label}: one step launched {per_step}, expected {expected}")
+    losses, windows = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            state, m = step(state)
+            losses.append(float(m["loss"]))
+        windows.append((time.perf_counter() - t) / 5)
+    last = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(x) for x in losses + list(last.values())) or state.skipped:
+        raise AssertionError(f"{label}: losses {losses}, last metrics {last}, skipped {state.skipped}")
+    step_s = statistics.median(windows)
+    r = dict(batch=rows, seq=seq, ms_per_step=step_s * 1e3, pairs_per_s=rows / step_s,
+             windows_ms=[w * 1e3 for w in windows], losses=losses, metrics=last, launches_per_step=per_step,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {label} {rows} x {seq}: median {r['ms_per_step']:.1f} ms/step -> {r['pairs_per_s']:.1f} pairs/s (windows "
+        f"of 5 steps: {', '.join(f'{w:.1f}' for w in r['windows_ms'])} ms/step); losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f} (all finite, 0 skipped); last step: " + ", ".join(f"{k} {v:.4g}" for k, v in last.items())
+        + f"; peak {r['peak_mem_gib']:.2f} GiB; launches per step {per_step}")
+    return state, r
+
+
+def check_main_path(label: str, counts: dict, kernels) -> None:
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the {label} path did not launch {missing}: {counts}")
+    log(f"  {label} main-path launch counts: {counts}")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1032,114 +1288,19 @@ def phase_stage1(model) -> dict:
     torch.cuda.empty_cache()
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=10, total=1000)  # bench.py's optimizer
     rng = np.random.default_rng(0)
-    shapes = {"full-pad": stage1_batch(rng, 128, 128), "bucketed": stage1_batch(rng, 128, 128, (8, 28))}
-    batches = {}
-    for name, b in shapes.items():
-        batches[name] = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
-        log(f"  {name} batch: images {tuple(b['image'].shape)} f32, captions {tuple(b['caption_ids'].shape)}, "
-            f"tokens kept {int(b['caption_mask'].sum())}")
+    batches = {name: on_card(b, name) for name, b in (("full-pad", stage1_batch(rng, 128, 128)),
+                                                      ("bucketed", stage1_batch(rng, 128, 128, (8, 28))))}
     results = {}
     _kernels.reset_launch_counts()  # ---- the main path starts here
     for name, batch in batches.items():
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):  # warm-up
-            state, m = step(state, batch, 0)
-        before = _kernels.launch_counts()
-        state, m = step(state, batch, 0)
-        after = _kernels.launch_counts()
-        per_step = {k: after[k] - before[k] for k in after}
-        if per_step != {**dict.fromkeys(per_step, 0), **STAGE1_STEP_LAUNCHES}:  # and no fused CE
-            raise AssertionError(f"stage 1 {name}: one step launched {per_step}, expected {STAGE1_STEP_LAUNCHES}")
-        losses, windows = [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(5):
-                state, m = step(state, batch, 0)
-                losses.append(float(m["loss"]))  # a host sync every step, as bench.py
-            windows.append((time.perf_counter() - t) / 5)
-        if not all(math.isfinite(x) for x in losses) or state.skipped:
-            raise AssertionError(f"stage 1 {name}: losses {losses}, skipped {state.skipped}")
-        step_s = statistics.median(windows)
-        n, seq = batch["caption_ids"].shape
-        r = dict(batch=int(n), seq=int(seq), ms_per_step=step_s * 1e3, pairs_per_s=n / step_s,
-                 windows_ms=[w * 1e3 for w in windows], losses=losses, launches_per_step=per_step,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                 grad_norm=float(m["grad_norm"]))
-        results[name] = r
-        log(f"  stage 1 {name} {r['batch']} x {r['seq']}: median {r['ms_per_step']:.1f} ms/step -> "
-            f"{r['pairs_per_s']:.1f} pairs/s (windows of 5 steps: "
-            f"{', '.join(f'{w:.1f}' for w in r['windows_ms'])} ms/step); losses {losses[0]:.4f} .. "
-            f"{losses[-1]:.4f} (all finite, 0 skipped); grad norm {r['grad_norm']:.3f}; "
-            f"peak {r['peak_mem_gib']:.2f} GiB; launches per step {per_step}")
+        state, results[name] = timed_steps(lambda st: step(st, batch, 0), state, STAGE1_STEP_LAUNCHES,
+                                           f"stage 1 {name}", *batch["caption_ids"].shape)
     main_counts = _kernels.launch_counts()  # ---- and ends here
-    if min(main_counts[k] for k in STAGE1_STEP_LAUNCHES) == 0:
-        raise AssertionError(f"the stage-1 path did not launch every kernel: {main_counts}")
-    log(f"  stage-1 main-path launch counts (2 x (2 + 1 + 15) steps): {main_counts}")
+    check_main_path("stage-1 (2 x (2 + 1 + 15) steps)", main_counts, STAGE1_STEP_LAUNCHES)
     for name, batch in batches.items():
-        results[name]["profile"] = profile_step(lambda st: step(st, batch, 0), state, f"stage-1 step {name}",
-                                                results[name]["ms_per_step"])
+        results[name]["profile"] = profiled(lambda: float(step(state, batch, 0)[1]["loss"]), f"stage-1 step {name}",
+                                            results[name]["ms_per_step"])
     return dict(main_counts=main_counts, shapes=results)
-
-
-def profile_step(step, state, label: str, unprofiled_ms: float) -> dict:
-    """Kernel time of one train step (``step(state)``) from torch.profiler, over the unprofiled median step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, m = step(state)
-        float(m["loss"])
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    if device_ms <= 0:
-        log(f"  profiler, {label}: no device time recorded (busy share not measured)")
-        return {"device_ms": None}
-    busy = device_ms / unprofiled_ms
-    log(f"  profiler, one {label}: {sum(e.count for e in kernels)} kernel launches, kernel time "
-        f"{device_ms:.1f} ms of {unprofiled_ms:.1f} ms (unprofiled median) -> device busy {100 * busy:.1f}%")
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    for e in top:
-        log(f"    {_device_us(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    log("    host side, by self CPU time under the profiler (which inflates it):")
-    for e in host:
-        log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    return {"device_ms": device_ms, "busy": busy, "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
-
-
-def _device_us(event) -> float:
-    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
-
-
-def profile_decode(model, images, unprofiled_ms: float) -> dict:
-    """Kernel time of one 32 x 64 greedy call from torch.profiler, and the busy share.
-
-    The busy share divides the kernels' device time by the call's wall time
-    measured without the profiler (the profiler slows the host, not the
-    kernels).
-    """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.generate_captions(images, max_length=64)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    if device_ms <= 0:
-        log("  profiler: no device time recorded (device busy share not measured)")
-        return {"device_ms": None}
-    launches = sum(e.count for e in kernels)
-    busy = device_ms / unprofiled_ms
-    log(f"  profiler, one 32 x 64 greedy call: {launches} kernel launches, kernel time {device_ms:.1f} ms "
-        f"of {unprofiled_ms:.1f} ms wall (unprofiled median) -> device busy {100 * busy:.1f}%, "
-        f"idle {100 * (1 - busy):.1f}%")
-    top = sorted(kernels, key=_device_us, reverse=True)[:10]
-    for e in top:
-        log(f"    {_device_us(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    return {"device_ms": device_ms, "launches": launches, "busy": busy,
-            "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1154,6 +1315,11 @@ STAGE2_STEP_LAUNCHES = {"layernorm_fwd": 2 * (27 + 50), "flash_attn_fwd": 2 * (1
                         "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
 
 
+def check_dpo(label: str, r: dict) -> None:
+    if not all(x > 0 for x in r["losses"]) or not r["metrics"]["policy_chosen_logp"] < 0:
+        raise AssertionError(f"{label}: losses {r['losses']}, metrics {r['metrics']}")
+
+
 def phase_stage2(model) -> dict:
     from pgica_tpu_torch.models.model import frozen_copy
     from pgica_tpu_torch.ops import _kernels
@@ -1162,83 +1328,181 @@ def phase_stage2(model) -> dict:
     ref = frozen_copy(model.module, torch.bfloat16)  # the trainer's default: the policy at stage-2 start, bf16
     state, step, _, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=10, total=1000)  # bench.py's optimizer
     rng = np.random.default_rng(0)
-    shapes = {"full-pad": stage2_batch(rng, 32, 128), "bucketed": stage2_batch(rng, 32, 128, (8, 28))}
-    batches = {}
-    for name, b in shapes.items():
-        batches[name] = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
-        log(f"  {name} batch: images {tuple(b['image'].shape)} f32, chosen and rejected captions "
-            f"{tuple(b['preferred_ids'].shape)}, tokens kept {int(b['preferred_mask'].sum())} + "
-            f"{int(b['rejected_mask'].sum())}")
+    batches = {name: on_card(b, name) for name, b in (("full-pad", stage2_batch(rng, 32, 128)),
+                                                      ("bucketed", stage2_batch(rng, 32, 128, (8, 28))))}
     results = {}
     _kernels.reset_launch_counts()  # ---- the main path starts here
     for name, batch in batches.items():
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):  # warm-up
-            state, m = step(state, ref, batch)
-        before = _kernels.launch_counts()
-        state, m = step(state, ref, batch)
-        after = _kernels.launch_counts()
-        per_step = {k: after[k] - before[k] for k in after}
-        if per_step != STAGE2_STEP_LAUNCHES:
-            raise AssertionError(f"stage 2 {name}: one step launched {per_step}, expected {STAGE2_STEP_LAUNCHES}")
-        losses, metrics, windows = [], [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(5):
-                state, m = step(state, ref, batch)
-                losses.append(float(m["loss"]))  # a host sync every step, as bench.py
-                metrics.append(m)
-            windows.append((time.perf_counter() - t) / 5)
-        if not all(math.isfinite(x) and x > 0 for x in losses) or state.skipped:
-            raise AssertionError(f"stage 2 {name}: losses {losses}, skipped {state.skipped}")
-        last = {k: float(v) for k, v in metrics[-1].items()}
-        if not all(math.isfinite(v) for v in last.values()) or not last["policy_chosen_logp"] < 0:
-            raise AssertionError(f"stage 2 {name}: metrics {last}")
-        step_s = statistics.median(windows)
-        n, seq = batch["preferred_ids"].shape
-        r = dict(batch=int(n), seq=int(seq), ms_per_step=step_s * 1e3, pairs_per_s=n / step_s,
-                 windows_ms=[w * 1e3 for w in windows], losses=losses, launches_per_step=per_step,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, metrics=last)
-        results[name] = r
-        log(f"  stage 2 {name} {r['batch']} pairs x {r['seq']}: median {r['ms_per_step']:.1f} ms/step -> "
-            f"{r['pairs_per_s']:.1f} pairs/s (windows of 5 steps: "
-            f"{', '.join(f'{w:.1f}' for w in r['windows_ms'])} ms/step); losses {losses[0]:.4f} .. "
-            f"{losses[-1]:.4f} (all finite, 0 skipped); last step: "
-            + ", ".join(f"{k} {v:.4g}" for k, v in last.items()) + f"; peak {r['peak_mem_gib']:.2f} GiB; "
-            f"launches per step {per_step}")
+        state, results[name] = timed_steps(lambda st: step(st, ref, batch), state, STAGE2_STEP_LAUNCHES,
+                                           f"stage 2 {name}", *batch["preferred_ids"].shape)
+        check_dpo(f"stage 2 {name}", results[name])
     main_counts = _kernels.launch_counts()  # ---- and ends here
-    if min(main_counts[k] for k in STAGE2_STEP_LAUNCHES) == 0:
-        raise AssertionError(f"the stage-2 path did not launch every kernel: {main_counts}")
-    log(f"  stage-2 main-path launch counts (2 x (2 + 1 + 15) steps): {main_counts}")
+    check_main_path("stage-2 (2 x (2 + 1 + 15) steps)", main_counts, STAGE2_STEP_LAUNCHES)
     for name, batch in batches.items():
-        results[name]["profile"] = profile_step(lambda st: step(st, ref, batch), state, f"stage-2 step {name}",
-                                                results[name]["ms_per_step"])
+        results[name]["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), f"stage-2 step {name}",
+                                            results[name]["ms_per_step"])
     return dict(main_counts=main_counts, shapes=results)
+
+
+# ------------------------------------------------------------------ phase 8
+
+LLAMA_LAYERS = 4
+# What phase 8 cuts from configs/siglip_llama8b.yaml, and why (PERF.md §4 has the arithmetic)
+LLAMA_REDUCED = (
+    f"each Llama-3-8B tower (text tower and caption decoder) runs {LLAMA_LAYERS} of its 32 layers at full width: "
+    "stage 2 under the trainer's partition then holds the trained decoder (1.47 B parameters x 16 B of f32 "
+    "master, gradient and two Adam moments = 23.5 GB), the frozen text tower and SigLIP in f32 (1.81 B x 4 B = "
+    "7.2 GB) and the bf16 reference (3.28 B x 2 B = 6.6 GB), ~37 GB before activations and AdamW's temporaries; "
+    "8 layers would hold ~58 GB, and the full 32-layer decoder's training state alone ~120 GB, past one 80 GB card",
+    "serving samples with 1 beam where the config asks for 4: beam search is not ported",
+    "every train step is an update (gradient accumulation 1 where the config has 4); warmup 500 of 1,000 steps",
+)
+# launches of one image encode (SigLIP pre_ln + 27 x 2 + post_ln and the projection ln; 27
+# attentions) and of one decoder forward at decode (2 RMSNorms per block and ln_f; one attention
+# per block; the cross-attention does not run at decode, decoder.py:16-21)
+SIGLIP_ENCODE = {"layernorm_fwd": 1 + 2 * 27 + 1 + 1, "flash_attn_fwd": 27}
+LLAMA_FORWARD = {"rmsnorm_fwd": 2 * LLAMA_LAYERS + 1, "flash_attn_fwd": LLAMA_LAYERS}
+# one stage-1 step: the encode (frozen backbone, forward only), the text tower forward and
+# backward, the text projection's ln, and both projection lns' backward
+LLAMA_STAGE1_LAUNCHES = {"layernorm_fwd": SIGLIP_ENCODE["layernorm_fwd"] + 1,
+                         "flash_attn_fwd": SIGLIP_ENCODE["flash_attn_fwd"] + LLAMA_LAYERS, "layernorm_bwd": 2,
+                         "flash_attn_bwd_dq": LLAMA_LAYERS, "flash_attn_bwd_dkv": LLAMA_LAYERS,
+                         "rmsnorm_fwd": LLAMA_FORWARD["rmsnorm_fwd"], "rmsnorm_bwd": LLAMA_FORWARD["rmsnorm_fwd"]}
+# one stage-2 step: policy and reference each encode and run the decoder (cross_ln, the blocks,
+# ln_f) and one fused-CE forward; the policy's backward runs the blocks' and ln_f's RMSNorm and
+# attention backwards, cross_ln's and the vision projection ln's, and dh and dW
+LLAMA_STAGE2_LAUNCHES = {"layernorm_fwd": 2 * (SIGLIP_ENCODE["layernorm_fwd"] + 1),
+                         "flash_attn_fwd": 2 * (SIGLIP_ENCODE["flash_attn_fwd"] + LLAMA_LAYERS), "layernorm_bwd": 2,
+                         "flash_attn_bwd_dq": LLAMA_LAYERS, "flash_attn_bwd_dkv": LLAMA_LAYERS, "fused_ce_fwd": 2,
+                         "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1, "rmsnorm_fwd": 2 * LLAMA_FORWARD["rmsnorm_fwd"],
+                         "rmsnorm_bwd": LLAMA_FORWARD["rmsnorm_fwd"]}
+# phase 4's two architectures (2 layers per tower there)
+FULL_WIDTH = {
+    "gpt2": dict(vision="openai/clip-vit-base-patch32", text="gpt2-medium", vocab=GPT2_VOCAB, stage1_batch=8,
+                 serving=SERVING_KERNELS, stage1=STAGE1_STEP_LAUNCHES, stage2=STAGE2_STEP_LAUNCHES,
+                 stage2_frozen=None),
+    "llama": dict(vision=SIGLIP, text=LLAMA, vocab=LLAMA_VOCAB, stage1_batch=4, serving=LLAMA_SERVING_KERNELS,
+                  stage1=LLAMA_STAGE1_LAUNCHES, stage2=LLAMA_STAGE2_LAUNCHES, stage2_frozen="text_encoder"),
+}
+
+
+def phase_llama(tokenizer) -> dict:
+    from pgica_tpu_torch.models.lm import init_kv_cache
+    from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
+    from pgica_tpu_torch.models.presets import get_text_config
+    from pgica_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    model = PreferenceGuidedCaptioningModel(
+        vision_model=SIGLIP, text_model=dataclasses.replace(get_text_config(LLAMA), num_layers=LLAMA_LAYERS),
+        projection_dim=512, tokenizer=tokenizer, max_caption_length=512, vocab_size=LLAMA_VOCAB,
+        dtype=torch.bfloat16, seed=0, dropout=0.1, device="cuda",
+    )
+    size = model.image_size
+    images = np.random.default_rng(0).integers(0, 256, size=(8, size, size, 3), dtype=np.uint8)
+    sample = dict(max_length=128, do_sample=True, top_p=0.9, temperature=0.8, repetition_penalty=1.1, early_stop=True)
+    model.generate_captions(images[:1], **{**sample, "max_length": 4})  # the bf16 copy, cuBLAS handles
+    torch.cuda.synchronize()
+    log(f"  built (random weights, seed 0, f32 masters and a bf16 copy) and warmed in {time.perf_counter() - t0:.1f} "
+        f"s: {sum(p.numel() for p in model.module.parameters()):,} parameters, image {size} px; reduced: "
+        + "; ".join(LLAMA_REDUCED))
+
+    def request(batch: int, seed: int) -> dict:
+        before = _kernels.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        captions = model.generate_captions(images[:batch], seed=seed, **sample)
+        seconds = time.perf_counter() - t  # ends in a device->host copy of the ids
+        if len(captions) != batch or not all(isinstance(c, str) for c in captions):
+            raise AssertionError(f"generate_captions returned {captions!r}")
+        after = _kernels.launch_counts()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        forwards = (launches.get("flash_attn_fwd", 0) - SIGLIP_ENCODE["flash_attn_fwd"]) // LLAMA_LAYERS
+        want = {"layernorm_fwd": SIGLIP_ENCODE["layernorm_fwd"],
+                "flash_attn_fwd": SIGLIP_ENCODE["flash_attn_fwd"] + LLAMA_FORWARD["flash_attn_fwd"] * forwards,
+                "rmsnorm_fwd": LLAMA_FORWARD["rmsnorm_fwd"] * forwards}
+        if launches != want or not 1 <= forwards <= sample["max_length"]:
+            raise AssertionError(f"llama request, batch {batch}: launched {launches}, expected {want}")
+        r = dict(batch=batch, seconds=seconds, decoder_forwards=forwards, ms_per_forward=seconds * 1e3 / forwards,
+                 launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  request batch {batch} x max_length {sample['max_length']} (sampled, early_stop): {seconds * 1e3:.1f} ms, "
+            f"{batch / seconds:.2f} captions/s, {forwards} decoder forwards ({r['ms_per_forward']:.2f} ms each "
+            f"with the encode spread over them), launches {launches} (as expected), peak {r['peak_mem_gib']:.2f} GiB")
+        return r
+
+    _kernels.reset_launch_counts()  # ---- the serving path starts here
+    served = [request(batch, seed) for seed, batch in enumerate((1, 8, 1, 8))]  # the second of each is warm
+    serving_counts = _kernels.launch_counts()  # ---- and ends here
+    check_main_path("Llama serving", serving_counts, LLAMA_SERVING_KERNELS)
+    module = model._inference_module()
+    with torch.inference_mode():  # outputs: finite first-token logits of the expected shape
+        emb = model.encode_image(images)["embeddings"]
+        mask = torch.zeros(8, 2, dtype=torch.int32, device="cuda")
+        mask[:, 0] = 1
+        first, _ = module.decode_prefix(emb, init_kv_cache(module.decoder_config, 8, 2, torch.bfloat16, "cuda"), mask)
+    if first.shape != (8, LLAMA_VOCAB) or not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"llama prefix logits: shape {tuple(first.shape)}, finite {bool(torch.isfinite(first).all())}")
+    log(f"  prefix logits (8, {LLAMA_VOCAB}) bf16: all finite")
+    serving_profile = profiled(lambda: model.generate_captions(images, seed=9, **sample), "batch-8 sampled request",
+                               served[-1]["seconds"] * 1e3)
+
+    model._inference_cache = None
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(1)
+    state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=500, total=1000)
+    batch = on_card(stage1_batch(rng, 4, 512, image=size, vocab=LLAMA_VOCAB), "Llama stage-1")
+    _kernels.reset_launch_counts()  # ---- the stage-1 path starts here
+    state, stage1 = timed_steps(lambda st: step(st, batch, 0), state, LLAMA_STAGE1_LAUNCHES, "Llama stage 1", 4, 512)
+    stage1_counts = _kernels.launch_counts()  # ---- and ends here
+    check_main_path("Llama stage-1 (2 + 1 + 15 steps)", stage1_counts, LLAMA_STAGE1_LAUNCHES)
+    stage1["profile"] = profiled(lambda: float(step(state, batch, 0)[1]["loss"]), "Llama stage-1 step",
+                                 stage1["ms_per_step"])
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = frozen_copy(model.module, torch.bfloat16)  # the trainer's reference: the policy at stage-2 start, bf16
+    state, step, _, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=500, total=1000, frozen="text_encoder")
+    batch = on_card(stage2_batch(rng, 2, 512, image=size, vocab=LLAMA_VOCAB), "Llama stage-2")
+    _kernels.reset_launch_counts()  # ---- the stage-2 path starts here
+    state, stage2 = timed_steps(lambda st: step(st, ref, batch), state, LLAMA_STAGE2_LAUNCHES, "Llama stage 2", 2, 512)
+    stage2_counts = _kernels.launch_counts()  # ---- and ends here
+    check_dpo("Llama stage 2", stage2)
+    check_main_path("Llama stage-2 (2 + 1 + 15 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
+    stage2["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), "Llama stage-2 step",
+                                 stage2["ms_per_step"])
+    return dict(served=served, serving_profile=serving_profile, stage1=stage1, stage2=stage2,
+                counts={"llama_serving": serving_counts, "llama_stage1": stage1_counts, "llama_stage2": stage2_counts})
 
 
 # ------------------------------------------------------------------ main
 
 
-FCE_SHAPE = f"({64 * 127}, 1024) x ({GPT2_VOCAB}, 1024)"
-# name -> (source, the TPU kernel it replaces, the stage-2 flagship shape and type its summary row reports)
+FCE_SHAPE = f"({4 * 511}, 4096) x ({LLAMA_VOCAB}, 4096)"
+# name -> (source, the TPU kernel it replaces, the shape and type of the Llama stage-2 step (phase 8)
+# that its summary row reports: the one most of that step's launches take)
 KERNEL_META = {
-    "layernorm_fwd": ("pgica_tpu_torch/csrc/layernorm_fwd.cu", "pgica_tpu/ops/layernorm.py:75", "(8192, 1024)",
+    "layernorm_fwd": ("pgica_tpu_torch/csrc/layernorm_fwd.cu", "pgica_tpu/ops/layernorm.py:75", "(1460, 1152)",
                       "bfloat16"),
     "flash_attn_fwd": ("pgica_tpu_torch/csrc/flash_attn_fwd.cu", "pgica_tpu/ops/flash_attention.py:34",
-                       "(1024, 128, 128, 64)", "bfloat16"),
-    "layernorm_bwd": ("pgica_tpu_torch/csrc/layernorm_bwd.cu", "pgica_tpu/ops/layernorm.py:88", "(8192, 1024)",
+                       "(32, 730, 730, 72)", "bfloat16"),
+    "layernorm_bwd": ("pgica_tpu_torch/csrc/layernorm_bwd.cu", "pgica_tpu/ops/layernorm.py:88", "(2048, 4096)",
                       "bfloat16"),
     "flash_attn_bwd_dq": ("pgica_tpu_torch/csrc/flash_attn_bwd.cu", "pgica_tpu/ops/flash_attention.py:130",
-                          "(1024, 128, 128, 64)", "bfloat16"),
+                          "(128, 512, 512, 128)", "bfloat16"),
     "flash_attn_bwd_dkv": ("pgica_tpu_torch/csrc/flash_attn_bwd.cu", "pgica_tpu/ops/flash_attention.py:81",
-                           "(1024, 128, 128, 64)", "bfloat16"),
+                           "(128, 512, 512, 128)", "bfloat16"),
     "fused_ce_fwd": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:60", FCE_SHAPE,
                      "h bfloat16, W float32"),
     "fused_ce_bwd_dh": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:108", FCE_SHAPE,
                         "h bfloat16, W float32"),
     "fused_ce_bwd_dw": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:134", FCE_SHAPE,
                         "h bfloat16, W float32"),
+    "rmsnorm_fwd": ("pgica_tpu_torch/csrc/rmsnorm_fwd.cu", "pgica_tpu/ops/layernorm.py:119", "(2048, 4096)",
+                    "bfloat16"),
+    "rmsnorm_bwd": ("pgica_tpu_torch/csrc/rmsnorm_bwd.cu", "pgica_tpu/ops/layernorm.py:127", "(2048, 4096)",
+                    "bfloat16"),
 }
 
 
@@ -1265,30 +1529,44 @@ def main() -> int:
         f"(per library: {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or '-'})")
 
     tokenizer = CaptionTokenizer()
-    log("== phase 3: kernels vs plain on the card")
-    kernels = phase_kernels()
-    log("== phase 4: full width, 2 layers, f32: card (kernels) vs CPU (plain)")
-    phase_full_width(tokenizer)
-    log("== phase 5: serving (flagship, bf16, caption requests)")
-    served = phase_slice(tokenizer)
-    log("== phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)")
-    trained = phase_stage1(served["model"])
-    log("== phase 7: the slice, stage-2 DPO training (flagship, bf16 over f32 masters, bf16 reference)")
-    dpo = phase_stage2(served["model"])
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    phases = {}
 
+    def phase(name: str, fn, *args):
+        t = time.perf_counter()
+        log(f"== {name}")
+        out = fn(*args)
+        phases[name.split(":")[0]] = time.perf_counter() - t
+        return out
+
+    kernels = phase("phase 3: kernels vs plain on the card", phase_kernels)
+    for arch in FULL_WIDTH:
+        phase(f"phase 4 ({arch}): full width, 2 layers, f32: card (kernels) vs CPU (plain)", phase_full_width,
+              tokenizer, arch)
+        gc.collect()
+    served = phase("phase 5: serving (flagship, bf16, caption requests)", phase_slice, tokenizer)
+    trained = phase("phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)", phase_stage1,
+                    served["model"])
+    dpo = phase("phase 7: the slice, stage-2 DPO training (flagship, bf16 over f32 masters, bf16 reference)",
+                phase_stage2, served.pop("model"))
+    gc.collect()  # the GPT-2 flagship is free now
+    torch.cuda.empty_cache()
+    llama = phase(f"phase 8: the Llama slice (SigLIP so400m + Llama-3-8B, {LLAMA_LAYERS} of 32 layers, bf16 over f32 "
+                  "masters): serving, stage 1, stage 2", phase_llama, tokenizer)
+    log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
+        + ")")
+
+    paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
+             **llama["counts"]}
     summary = []
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
-        # times at the stage-2 flagship shape in the type the path gives it; the error is the
-        # worst over the bf16 shapes timed
+        # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over
+        # the bf16 shapes timed
         bf16 = [r for r in kernels[name] if r["dtype"].startswith(dtype.split(",")[0]) and "ms" in r]
         at = next(r for r in bf16 if r["shape"] == shape and r["dtype"] == dtype)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": dpo["main_counts"][name],
-            "launches_by_path": {"serving": served["main_counts"].get(name, 0),
-                                 "stage1": trained["main_counts"].get(name, 0),
-                                 "stage2": dpo["main_counts"][name]},
+            "launches": llama["counts"]["llama_stage2"][name],
+            "launches_by_path": {path: counts.get(name, 0) for path, counts in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"], "shape": shape, "dtype": dtype,

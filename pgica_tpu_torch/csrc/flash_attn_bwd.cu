@@ -337,6 +337,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias, con
     PGICA_DQ_CASE(16)
     PGICA_DQ_CASE(32)
     PGICA_DQ_CASE(64)
+    PGICA_DQ_CASE(72)
     PGICA_DQ_CASE(128)
 #undef PGICA_DQ_CASE
     default:
@@ -362,6 +363,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias, co
     PGICA_DKV_CASE(16)
     PGICA_DKV_CASE(32)
     PGICA_DKV_CASE(64)
+    PGICA_DKV_CASE(72)
     PGICA_DKV_CASE(128)
 #undef PGICA_DKV_CASE
     default:

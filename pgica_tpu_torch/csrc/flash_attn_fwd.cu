@@ -31,7 +31,9 @@
 // warps). For one row and one tile, lane j computes the score of key j with
 // scalar FMAs; the tile max and sum are warp shuffles; the PV product
 // broadcasts p_j by shuffle while lane l accumulates output columns l, l+32,
-// ... in registers. Ragged edges of Sq and Sk are masked in the kernel (keys
+// ... in registers (at SigLIP's D = 72 the third column group holds columns
+// 64..71 only: the PV product and the store skip columns >= D). Ragged edges
+// of Sq and Sk are masked in the kernel (keys
 // past Sk get p = 0 and never enter the max), which replaces the reference's
 // power-of-two block division (`_pick_block`, :170-174): S = 50 and Sk = 65
 // are the real shapes. Under `causal`, tiles wholly above the diagonal of the
@@ -252,6 +254,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
     PGICA_FA_CASE(16)
     PGICA_FA_CASE(32)
     PGICA_FA_CASE(64)
+    PGICA_FA_CASE(72)
     PGICA_FA_CASE(128)
 #undef PGICA_FA_CASE
     default:

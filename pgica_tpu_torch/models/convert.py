@@ -11,10 +11,13 @@ port never imports JAX, so it takes numpy only), and copies every leaf under
 * ``out_proj`` kernel (H, D, hidden) -> weight (hidden, H*D).
 * ``patch_embed/kernel`` (P, P, 3, width), HWIO -> weight (width, P*P*3) in
   (h, w, c) order, matching the port's patchify (models/vit.py).
-* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``; ``embedding`` -> ``weight``;
-  ``cls_token`` and ``pos_embed`` as they are.
-* ``block_i`` -> ``blocks.i``, ``LayerNorm_0/1`` -> ``ln_0/1``,
-  ``vision_projection/layers_0`` -> ``vision_projection``.
+* LayerNorm and RMSNorm ``scale`` (and LayerNorm ``bias``) -> ``weight``
+  (``bias``); ``embedding`` -> ``weight``; ``cls_token`` and ``pos_embed`` as
+  they are.
+* ``block_i`` -> ``blocks.i``, ``LayerNorm_0/1`` and ``RMSNorm_0/1`` ->
+  ``ln_0/1``, ``vision_projection/layers_0`` -> ``vision_projection``.
+* Llama blocks: q/k/v/o without biases, k and v of ``num_kv_heads * D``
+  columns, and the SwiGLU ``gate_proj``/``up_proj``/``down_proj`` kernels.
 
 Every subtree is filled: ``vision_encoder``, ``text_encoder`` and
 ``caption_decoder``. An unknown key (a ``shared_lm`` tower among them: the
@@ -45,7 +48,7 @@ def _port_name(path: Tuple[str, ...]) -> str:
         m = re.fullmatch(r"block_(\d+)", p)
         if m:
             parts += ["blocks", m.group(1)]
-        elif re.fullmatch(r"LayerNorm_(\d+)", p):
+        elif re.fullmatch(r"(LayerNorm|RMSNorm)_(\d+)", p):
             parts.append("ln_" + p.rsplit("_", 1)[1])
         elif p != "layers_0":  # nn.Sequential([Dense, tanh]) -> the Linear itself
             parts.append(p)

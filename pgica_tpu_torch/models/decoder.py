@@ -5,13 +5,17 @@ Mirrors pgica_tpu/models/decoder.py:41-183.
 * ``forward`` is the teacher-forced training forward (decoder.py:88-131):
   the projected vision token (Dense, tanh, ``vision_dropout``); cross-
   attention of the TOKEN-ONLY ``wte`` embeddings to it, residual and
-  ``cross_ln`` (eps 1e-5); then ``wpe`` positions, added after the LN; then
-  the LM over these ``inputs_embeds`` with the caption mask.
-* ``decode_prefix`` puts the vision token (plus ``wpe(0)``) at position 0
-  and primes the caches (decoder.py:142-153); ``decode_step`` adds
-  ``wpe(position)`` to the token embedding (decoder.py:169-176). As in the
-  JAX package and the reference it mirrors, cross-attention does NOT run at
-  decode time (decoder.py:16-21).
+  ``cross_ln`` (eps 1e-5); then, for GPT-2, ``wpe`` positions, added after
+  the LN; then the LM over these ``inputs_embeds`` with the caption mask.
+* ``decode_prefix`` puts the vision token (plus ``wpe(0)`` for GPT-2) at
+  position 0 and primes the caches (decoder.py:142-153); ``decode_step``
+  adds ``wpe(position)`` to the token embedding for GPT-2
+  (decoder.py:169-176). As in the JAX package and the reference it mirrors,
+  cross-attention does NOT run at decode time (decoder.py:16-21).
+
+Llama has no ``wpe``: its positions come from RoPE alone, so caption tokens
+sit at 0..S-1 in training and at 1.. after the vision token at decode. That
+asymmetry is the JAX package's, and the port keeps it.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ class CaptionDecoder(nn.Module):
         vision_token = self.project_vision(vision_embeddings, generator)
         token_embeds = self.lm.wte(caption_ids).to(dtype)
         fused = self.fuse(token_embeds, vision_token, generator)
-        fused = fused + self.lm.wpe.weight[: caption_ids.shape[1]].to(dtype)[None]
+        if self.lm.learned_positions:
+            fused = fused + self.lm.wpe.weight[: caption_ids.shape[1]].to(dtype)[None]
         out = self.lm(inputs_embeds=fused, attention_mask=caption_mask, generator=generator,
                       with_logits=with_logits)
         return {key: out[key] for key in ("hidden_states", "logits") if key in out}
@@ -84,7 +89,9 @@ class CaptionDecoder(nn.Module):
         self, vision_embeddings: torch.Tensor, caches: KVCaches, attention_mask: torch.Tensor
     ) -> Tuple[torch.Tensor, KVCaches]:
         """Vision token at position 0 -> (logits for the first token (B, V), caches)."""
-        vision_token = self.project_vision(vision_embeddings) + self.lm.wpe.weight[:1].to(self.lm.dtype)[None]
+        vision_token = self.project_vision(vision_embeddings)
+        if self.lm.learned_positions:
+            vision_token = vision_token + self.lm.wpe.weight[:1].to(self.lm.dtype)[None]
         out = self.lm(inputs_embeds=vision_token, attention_mask=attention_mask, caches=caches, position=0)
         return out["logits"][:, -1, :], out["caches"]
 
@@ -93,6 +100,8 @@ class CaptionDecoder(nn.Module):
     ) -> Tuple[torch.Tensor, KVCaches]:
         """One step: (B, 1) tokens written at cache slot ``position`` -> (B, V) next-token logits."""
         dtype = self.lm.dtype
-        embeds = self.lm.wte(token_ids).to(dtype) + self.lm.wpe.weight[position].to(dtype)[None, None]
+        embeds = self.lm.wte(token_ids).to(dtype)
+        if self.lm.learned_positions:
+            embeds = embeds + self.lm.wpe.weight[position].to(dtype)[None, None]
         out = self.lm(inputs_embeds=embeds, attention_mask=attention_mask, caches=caches, position=position)
         return out["logits"][:, -1, :], out["caches"]

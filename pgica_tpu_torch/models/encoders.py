@@ -1,9 +1,9 @@
 """Text encoder tower (port of pgica_tpu/models/encoders.py).
 
-A GPT-2 transformer over caption tokens (no LM head), masked mean pooling
-with the divisor clamped to at least 1, and the projection head. The JAX
-parameter tree names it ``text_encoder/backbone`` and
-``text_encoder/projection``; the port keeps the names. Freezing the text
+A transformer LM (GPT-2 or Llama, models/lm.py) over caption tokens (no LM
+head), masked mean pooling with the divisor clamped to at least 1, and the
+projection head. The JAX parameter tree names it ``text_encoder/backbone``
+and ``text_encoder/projection``; the port keeps the names. Freezing the text
 backbone and sharing one tower with the decoder wait for their slices.
 """
 

@@ -39,6 +39,9 @@ from pgica_tpu_torch.models.presets import LMConfig, ViTConfig, get_text_config,
 from pgica_tpu_torch.models.vit import VisionEncoder
 from pgica_tpu_torch.ops.layernorm import LayerNorm
 from pgica_tpu_torch.ops.losses import caption_cross_entropy, l2_normalize
+from pgica_tpu_torch.ops.rmsnorm import RMSNorm
+
+NORMS = (LayerNorm, RMSNorm)  # modules whose float32 parameters the kernels read as they are
 
 logger = logging.getLogger(__name__)
 
@@ -190,13 +193,15 @@ def frozen_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``module`` with every floating parameter cast to ``dtype``, frozen.
 
     As the JAX package's ``cast_floating`` (model.py:370-387, trainer.py:
-    749-763); LayerNorm parameters are then put back in float32, holding the
-    rounded values that cast gives, because the LN kernel reads f32 gamma and
-    beta. The bf16 serving copy and the stage-2 DPO reference are made here.
+    749-763); LayerNorm and RMSNorm parameters are then put back in float32,
+    holding the rounded values that cast gives, because the norm kernels read
+    f32 weights (JAX's ``_ln_ref`` and ``_rms_ref`` read the rounded values in
+    f32 too). The bf16 serving copy and the stage-2 DPO reference are made
+    here.
     """
     copy = cast_floating(module, dtype)
     for m in copy.modules():
-        if isinstance(m, LayerNorm):
+        if isinstance(m, NORMS):
             m.float()
     return copy.requires_grad_(False)
 
@@ -208,13 +213,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     The same distributions as the JAX package's Flax initialisers: Dense and
     the patch conv lecun-normal (std 1/sqrt(fan_in)) with zero bias,
     embeddings normal(0.02) (``wpe`` 0.01), ``cls_token``/``pos_embed``
-    normal(0.02), LayerNorm ones and zeros. The values differ from JAX's
+    normal(0.02), LayerNorm ones and zeros, RMSNorm ones. The values differ from JAX's
     (other generator); tests bridge JAX weights with models/convert.py.
     """
     for name, p in module.named_parameters():
         owner = module.get_submodule(name.rsplit(".", 1)[0])
         leaf = name.rsplit(".", 1)[-1]
-        if isinstance(owner, LayerNorm):
+        if isinstance(owner, NORMS):
             p.fill_(1.0 if leaf == "weight" else 0.0)
         elif leaf == "bias":
             p.zero_()

@@ -10,8 +10,9 @@ backward pass.
 
 The patch embedding is a non-overlapping patchify by reshape plus one matmul,
 flattening each patch in (h, w, c) order — exactly the JAX ``nn.Conv`` with
-kernel = stride = patch and VALID padding, and it keeps cuDNN's default TF32
-convolution out of float32 comparisons.
+kernel = stride = patch and VALID padding (which drops the last ``size %
+patch`` rows and columns of pixels: 6 of SigLIP's 384 at patch 14), and it
+keeps cuDNN's default TF32 convolution out of float32 comparisons.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class PatchEmbed(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         b, h, w, c = images.shape
         p = self.patch_size
+        images = images[:, : h - h % p, : w - w % p]  # VALID: whole patches only
         x = images.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, (h // p) * (w // p), p * p * c)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))

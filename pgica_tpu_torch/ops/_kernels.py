@@ -74,6 +74,14 @@ KERNELS = {
         "fused_ce.cu", "pgica_fused_ce_bwd_dw",
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
+    "rmsnorm_fwd": (
+        "rmsnorm_fwd.cu", "pgica_rmsnorm_fwd",
+        (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    ),
+    "rmsnorm_bwd": (
+        "rmsnorm_bwd.cu", "pgica_rmsnorm_bwd",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    ),
 }
 SOURCES = sorted({source for source, _, _ in KERNELS.values()})
 

@@ -40,7 +40,7 @@ import torch
 from pgica_tpu_torch.ops import _kernels
 
 NEG_INF = -1.0e9
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel is templated on these
+HEAD_DIMS = (16, 32, 64, 72, 128)  # the kernels are templated on these (72: SigLIP so400m)
 
 
 def _scores(q, k, bias, causal):

@@ -60,7 +60,15 @@ def warmup_cosine_schedule(learning_rate: float, warmup_steps: int, total_steps:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of every tensor (f32, on their device)."""
+    """sqrt of the sum of squares over every element of every tensor (f32, on their device).
+
+    On the CPU each tensor's norm is accumulated in float64: PyTorch's float32 CPU norm can lose
+    ~2% on a large, mostly zero gradient (the 525 M-element Llama-3-8B embedding, 128 rows of it
+    touched), where the card's reduction and optax's do not.
+    """
+    if tensors and tensors[0].device.type == "cpu":
+        norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors]
+        return torch.linalg.vector_norm(torch.stack(norms)).to(torch.float32)
     norms = torch._foreach_norm([t.to(torch.float32) for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
 
