@@ -20,7 +20,9 @@ exits non-zero):
    L2: median of 5 single calls), the plain version's, one PyTorch call's
    as a yardstick (never used by the port; for fused CE two calls, F.linear
    and F.cross_entropy) and the bound from the bytes and flops that the
-   inputs need at HBM rate and peak rate.
+   inputs need at HBM rate and peak rate (fused CE: the bf16 tensor-core peak,
+   one pass per product, for every type pair). It first reports the
+   tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA.
 4. Full path vs plain, for each architecture at full width, 2 layers per
    tower, f32 — ViT-B/32 + GPT-2 Medium, then SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
@@ -70,10 +72,12 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -561,11 +565,10 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
     del dh, dh2, dw, dw2
     if not timed:
         return res
-    # bounds: each input read once, each output written once; the products at the peak of their
-    # type (bf16 x bf16 on the tensor cores; an f32 operand keeps f32 on the CUDA cores); the
-    # backward needs only the rows whose g is not 0
-    both_bf16 = h_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
-    peak_dtype = torch.bfloat16 if both_bf16 else torch.float32
+    # bounds: each input read once, each output written once; the products at the bf16 tensor-core
+    # peak with one pass per product, whatever the type pair (the same work gets the same bound,
+    # whatever implements it); the backward needs only the rows whose g is not 0
+    peak_dtype = torch.bfloat16
     eh, ew = h.element_size(), w.element_size()
     live = int((g != 0).sum())
     fwd_bytes = rows * d * eh + vocab * d * ew + 4 * rows + 8 * rows  # h, W, y; logp, lse
@@ -607,7 +610,50 @@ def show_timed(kernel: str, r: dict) -> None:
         f"{r['input_sets']} input sets)")
 
 
+# the tensor-core kernels, by source: phase 3 reports their registers and spills from the build's
+# -Xptxas -v log and whether their SASS holds tensor-core instructions
+TC_KERNELS = {"flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc",),
+              "fused_ce_dh.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product")}
+
+
+def _demangle(names: list) -> list:
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def tensor_core_report() -> None:
+    """Logs each tensor-core kernel instance's registers and spill bytes (ptxas) and HMMA/HGMMA in its
+    SASS. Raises if an instance has no tensor-core instruction: these kernels exist to use them."""
+    from pgica_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or str(Path(_kernels._nvcc()).parent / "cuobjdump")
+    for source, names in TC_KERNELS.items():
+        lib = _kernels.library_path(source)
+        entries = {}
+        for part in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
+            name = part.split("'", 1)[0]
+            if any(n in name for n in names):
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+                regs = re.search(r"Used (\d+) registers", part)
+                entries[name] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
+                                     spill_loads=int(spill.group(2)))
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if name in entries:
+                entries[name]["sass"] = sorted({op for op in ("HGMMA", "HMMA") if op in part})
+        for (name, e), pretty in zip(entries.items(), _demangle(list(entries))):
+            log(f"  {pretty}: {e['registers']} registers, spill stores {e['spill_stores']} B, spill loads "
+                f"{e['spill_loads']} B; tensor-core SASS: {', '.join(e.get('sass', [])) or 'none'}")
+            if not e.get("sass"):
+                raise AssertionError(f"{pretty}: no HMMA/HGMMA in its SASS ({lib.name})")
+
+
 def phase_kernels() -> dict:
+    tensor_core_report()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: [] for name in KERNEL_META}
     stage1_valid = {s: torch.randint(1, s + 1, (128,), device="cuda", generator=gen) for s in (128, 32)}
@@ -734,7 +780,8 @@ def phase_kernels() -> dict:
                         timed=False)
     log(f"  fused_ce bucketed h float32, W float32: max_abs_err {fce_errs(res)}")
     # ragged edges (rows not a multiple of 8, V not of 128, targets in the last vocab tile, g = 0 on
-    # every 4th row) in all four type pairs; d = 1,040 runs two column passes of the backward
+    # every 4th row) in all four type pairs; d = 1,040 runs two column passes of dW
+    # and a k tile of dh that ends 8 columns in
     ragged = (torch.arange(37, device="cuda") % 4 != 0).float()
     for h_dtype, w_dtype in itertools.product((torch.float32, torch.bfloat16), repeat=2):
         res = fused_ce_case("ragged", 37, 261, 32, h_dtype, w_dtype, gen, ragged, timed=False)
@@ -743,8 +790,8 @@ def phase_kernels() -> dict:
     res = fused_ce_case("d1040", 300, 1000, 1040, torch.bfloat16, torch.float32, gen, timed=False)
     log(f"  fused_ce (300, 1040) x (1000, 1040) h bfloat16 W float32: max_abs_err {fce_errs(res)}")
     # the Llama slice's stage 2 (phase 8): 2 pairs x 2 captions x 511 targets, every one kept, d = 4,096
-    # (dh and dW run four column passes), V = 128,256; the policy's W f32 and the reference's W bf16; then
-    # the same with the captions' tails masked (g = 0), untimed
+    # (dW runs four column passes, dh four vocab chunks), V = 128,256; the policy's W f32 and the
+    # reference's W bf16; then the same with the captions' tails masked (g = 0), untimed
     for w_dtype in (torch.float32, torch.bfloat16):
         res = fused_ce_case("llama", 4 * 511, LLAMA_VOCAB, 4096, torch.bfloat16, w_dtype, gen)
         for kernel, r in res.items():
@@ -1495,7 +1542,7 @@ KERNEL_META = {
                            "(128, 512, 512, 128)", "bfloat16"),
     "fused_ce_fwd": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:60", FCE_SHAPE,
                      "h bfloat16, W float32"),
-    "fused_ce_bwd_dh": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:108", FCE_SHAPE,
+    "fused_ce_bwd_dh": ("pgica_tpu_torch/csrc/fused_ce_dh.cu", "pgica_tpu/ops/fused_ce.py:108", FCE_SHAPE,
                         "h bfloat16, W float32"),
     "fused_ce_bwd_dw": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:134", FCE_SHAPE,
                         "h bfloat16, W float32"),

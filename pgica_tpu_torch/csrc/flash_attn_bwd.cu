@@ -17,39 +17,69 @@
 //   folded into the dQ kernel: it runs first and writes delta (f32) for the
 //   dK/dV kernel. dq, dk and dv are written in the input dtype from f32 sums.
 //
-// What bounds it on the H100: memory at the stage-1 shapes. At
-// (B*H, S, D) = (2048, 128, 64) bf16 the dK/dV kernel must read q, k, v and
-// dO and write dk and dv, ~200 MB, ~60 us at 3.35 TB/s, against ~9 us of
-// tensor-core flops for the causal half. These kernels are simple: scalar
-// f32 FMAs on the CUDA cores, no tensor cores (wgmma is later work), so they
-// run well above that bound; their times are in PERF.md.
+// What bounds it on the H100. dK/dV does 4 products of (keys x rows x D):
+// 8 D flops per kept (row, key) pair, 17.2 GFLOP at the Llama shape
+// (B*H, S, D) = (128, 512, 128) causal, 17 us at the bf16 tensor-core peak,
+// against ~100 MB of bytes (30 us at 3.35 TB/s): both bounds are tens of
+// microseconds, so the products must run on the tensor cores.
 //
-// Design. Both kernels stage tiles in shared memory in f32 with 16-byte
-// global loads issued together (common.cuh:stage_rows); K and V tile rows
-// are padded to D + 4 floats, so that lane j's float4 reads of row j fall in
-// distinct bank groups within each quarter warp, while the q and dO rows are
-// read by all lanes at once (a broadcast). Scores use the forward's FMA order
-// with q pre-scaled, so p is the forward's p.
-// * dQ: one 128-thread block per (b*h, 16-row q tile; 8 rows at D = 128);
-//   each warp owns four rows (two), interleaved. For one row and a 32-key
-//   tile, lane j computes s and dp for key j; dq's columns are then summed
-//   over the tile's keys as the forward's PV product is: ds_j is broadcast
-//   by shuffle while lane l
-//   accumulates columns l, l+32, ... in registers. Tiles wholly above the
-//   diagonal, and keys after the batch row's last kept key, are skipped.
-// * dK/dV: one 128-thread block per (b*h, 32-key tile); lane j owns key j
-//   and keeps its dk and dv rows in registers (2 * D floats); the four warps
-//   take interleaved q rows (from the tile's diagonal on under `causal`),
-//   staged 16 rows at a time (8 at D = 128). The warps' partial sums then
-//   meet in shared memory in a fixed order, so results do not vary from run
-//   to run. A tile past the batch row's last kept key reads no k or v: its
-//   dk is 0 and its dv only the spread of the rows that keep no key.
+// dK/dV, bf16 (flash_attn_bwd_dkv_tc), FlashAttention-2's backward on
+// mma.sync m16n8k16 (mma.cuh). A 128-thread block owns 64 keys of one
+// (batch*head); K and V of the tile sit in shared memory as bf16. It walks
+// the q rows in tiles of 64 (from the tile's diagonal on under `causal`),
+// Q, dO and the rows' lse and delta double-buffered: the next tile's
+// cp.async copies fly while this one is multiplied. Rows are padded in
+// shared memory to D + 8 bf16 (16 bytes apart mod 128: ldmatrix reads no
+// bank twice); D = 72 is zero-filled to 80 columns, the mma depth being 16.
+// Each warp owns 16 keys and, per 16 rows of the tile:
+//   S^T = K Q^T and dP^T = V dO^T  (2 x D/16 mma pairs; scale on the f32 sum)
+//   P^T = exp(S^T + bias - lse), 0 where the key or the causal entry is
+//         masked or the row keeps no key; dS^T = P^T (dP^T - delta)
+//   dV += P^T dO and dK += dS^T Q, with P^T and dS^T repacked from the
+//         accumulator fragments to bf16 A fragments in registers (no trip
+//         through shared memory; two parts each, below) and dO, Q read by
+//         ldmatrix.trans.
+// The accumulators are 16 keys x D f32 per warp: D / 2 registers a thread
+// for each of dK and dV (64 at D = 128), so nothing spills. Chunks of 16
+// rows wholly above the diagonal are skipped. Every key has one owner
+// thread: no atomics, so dK/dV is the same from run to run.
+// Precision: P and dS go into their products as two bf16 parts each, x0 =
+// bf16(x) and x1 = bf16(x - x0) (x0 + x1 is x to ~2^-17), the passes x0 B
+// + x1 B: six products per 16 rows where the usual tensor-core backward
+// takes four. Rounding them once to bf16 holds phase 3's bf16 bound at the
+// Llama shape but not at GPT-2 stage 1's (2048, 128, 128, 64) causal with
+// ragged keys: there a dV element sums ~128 terms p dO that cancel, and
+// over its 16.7 M elements the rounding's tail passes the bound, on the
+// card and in the CPU emulation of tests/test_torch_backward.py, which
+// holds the two-part scheme to the bound there and at D = 72 and 128.
+// The f32 instance (flash_attn_bwd_dkv_simt) keeps the first design, which
+// f32 inputs need to hold 2e-5: scalar f32 FMAs, one key per lane with its
+// 2 x D accumulators in registers (they spill at D = 128; f32 runs only in
+// tests and phase 4's f32 parity runs, never on a bf16 training path). The
+// C entry point dispatches by dtype. Both share the prologue (dkv_prologue)
+// and the semantics below.
+//
+// dQ: one 128-thread block per (b*h, 16-row q tile;
+// 8 rows at D = 128), scalar f32 FMAs; each warp owns four rows (two),
+// interleaved. For one row and a 32-key tile, lane j computes s and dp for
+// key j; dq's columns are then summed over the tile's keys as the forward's
+// PV product is: ds_j is broadcast by shuffle while lane l accumulates
+// columns l, l+32, ... in registers. Tiles wholly above the diagonal, and
+// keys after the batch row's last kept key, are skipped. Tiles are staged
+// in f32 with 16-byte global loads (common.cuh:stage_rows), K and V rows
+// padded to D + 4 floats, q pre-scaled, so p is the forward's p.
+//
+// Both dK/dV instances: a tile past the batch row's last kept key reads no
+// k or v: its dk is 0 and its dv only the spread of the rows that keep no
+// key.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using pgica::from_float;
 using pgica::stage_rows;
 using pgica::to_float;
@@ -196,13 +226,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The dK/dV prologue, block-wide (all threads call it; it ends with a
+// barrier): returns the batch row's last kept key (sk - 1 without a bias)
+// and writes spread[c] = sum of dO[i][c] / Sk over the rows i that keep no
+// key. `scratch` holds 2 * kWarps ints.
+template <typename T, int D>
+__device__ int dkv_prologue(const float* lse_row, const T* dog, const float* bias_row, int sq, int sk,
+                            float* spread, int* scratch) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int no_key = 0;  // does any row keep no key? (block-uniform)
+  for (int i = threadIdx.x; i < sq; i += kThreads) no_key |= lse_row[i] <= kNoKeyLse;
+  no_key = __any_sync(0xffffffffu, no_key);
+  if (lane == 0) scratch[warp] = no_key;
+  const int last_kept = bias_row == nullptr ? sk - 1 : last_kept_key(bias_row, sk, scratch + kWarps);
+  __syncthreads();  // scratch (also when last_kept_key did not run)
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) no_key |= scratch[w];
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float sum = 0.f;
+    if (no_key)
+      for (int i = 0; i < sq; ++i)
+        if (lse_row[i] <= kNoKeyLse) sum += to_float(dog[static_cast<size_t>(i) * D + c]);
+    spread[c] = sum / static_cast<float>(sk);
+  }
+  __syncthreads();  // spread
+  return last_kept;
+}
+
+// f32 dK/dV: the first design, kept for f32 inputs (see the note above).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const float* __restrict__ bias, const float* __restrict__ lse,
-                       const float* __restrict__ delta, const T* __restrict__ dout,
-                       T* __restrict__ dk, T* __restrict__ dv, int heads, int sq, int sk,
-                       int causal, float sm_scale) {
+    flash_attn_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            const float* __restrict__ bias, const float* __restrict__ lse,
+                            const float* __restrict__ delta, const T* __restrict__ dout,
+                            T* __restrict__ dk, T* __restrict__ dv, int heads, int sq, int sk,
+                            int causal, float sm_scale) {
   constexpr int kLd = D + 4;
   constexpr int kChunk = rows_staged(D);
   // k_s and v_s hold the key tile, then the sums of the warps' dk and dv.
@@ -212,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float do_s[kChunk][D];
   __shared__ float lse_s[kChunk], delta_s[kChunk], b_s[kBlockK];
   __shared__ float spread_s[D];  // sum of dO / Sk over the rows that keep no key
-  __shared__ int flag_s[kWarps], last_kept_s[kWarps];
+  __shared__ int scratch_s[2 * kWarps];
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlockK;
@@ -224,28 +282,11 @@ __global__ void __launch_bounds__(kThreads)
   const T* dog = dout + q_base * D;
   const float* lse_row = lse + q_base;
   const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
-
-  // Does any row keep no key? (block-uniform)
-  int no_key = 0;
-  for (int i = threadIdx.x; i < sq; i += kThreads) no_key |= lse_row[i] <= kNoKeyLse;
-  no_key = __any_sync(0xffffffffu, no_key);
-  if (lane == 0) flag_s[warp] = no_key;
-  const int last_kept = bias_row == nullptr ? sk - 1 : last_kept_key(bias_row, sk, last_kept_s);
-  __syncthreads();  // flag_s (also when last_kept_key did not run)
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) no_key |= flag_s[w];
-  for (int c = threadIdx.x; c < D; c += kThreads) {
-    float sum = 0.f;
-    if (no_key)
-      for (int i = 0; i < sq; ++i)
-        if (lse_row[i] <= kNoKeyLse) sum += to_float(dog[static_cast<size_t>(i) * D + c]);
-    spread_s[c] = sum / static_cast<float>(sk);
-  }
+  const int last_kept = dkv_prologue<T, D>(lse_row, dog, bias_row, sq, sk, spread_s, scratch_s);
 
   float dk_acc[D], dv_acc[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-
   if (k0 <= last_kept) {  // block-uniform: the tile holds a key some row may keep
     const int kv_end = min(sk, last_kept + 1);
     stage_rows<kThreads, kBlockK, D, kLd>(k_s, k + k_base * D, k0, kv_end, 1.f);
@@ -320,6 +361,197 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// bf16 dK/dV on the tensor cores (see the note above). Dynamic shared
+// memory: K, V, Q[2], dO[2] tiles of 64 x (DP + 8) bf16, then f32 row
+// statistics [2][lse 64 | delta 64], the key bias [64], spread [D].
+constexpr int kTcKeys = 64;  // keys per block: 16 per warp
+constexpr int kTcRows = 64;  // q rows per staged tile
+__host__ __device__ constexpr int padded_dim(int d) { return (d + 15) / 16 * 16; }
+__host__ __device__ constexpr int tc_ld(int d) { return padded_dim(d) + 8; }
+__host__ __device__ constexpr int tc_smem_bytes(int d) {
+  return 6 * kTcRows * tc_ld(d) * 2 + (2 * 2 * kTcRows + kTcKeys + d) * 4 + 2 * kWarps * 4;
+}
+
+// acc (16 x DP, this warp's keys) += X^T B over 16 rows, where x holds X^T
+// as the C fragments of two 8-row tiles (16 keys x 16 rows, f32) and B is
+// rows r16.. of a tile in shared memory (16 x DP, read by ldmatrix.trans).
+// X^T goes in as two bf16 parts, x0 = bf16(x) and x1 = bf16(x - x0), the
+// passes x0 B + x1 B: x0 + x1 carries x to ~2^-17 of itself.
+template <int DP>
+__device__ __forceinline__ void pass_pair(const float (&x)[2][4], const bf16* tile, int r16, int lane,
+                                          float (&acc)[DP / 8][4]) {
+  uint32_t a0[4], a1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // A fragment register i: n-tile i / 2, rows (lane / 4) + 8 (i % 2)
+    const float u = x[i >> 1][2 * (i & 1)], w = x[i >> 1][2 * (i & 1) + 1];
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(u, w);
+    a0[i] = *reinterpret_cast<const uint32_t*>(&hi);
+    a1[i] = pgica::pack_bf16x2(u - __low2float(hi), w - __high2float(hi));
+  }
+#pragma unroll
+  for (int np = 0; np < DP / 16; ++np) {
+    uint32_t b[4];
+    pgica::ldsm_x4_trans(b, pgica::smem_u32(tile + (r16 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DP + 8) + np * 16 +
+                                              (lane >> 4) * 8));
+    pgica::mma_bf16(acc[2 * np], a0, b[0], b[1]);
+    pgica::mma_bf16(acc[2 * np + 1], a0, b[2], b[3]);
+    pgica::mma_bf16(acc[2 * np], a1, b[0], b[1]);
+    pgica::mma_bf16(acc[2 * np + 1], a1, b[2], b[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attn_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          const float* __restrict__ bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const bf16* __restrict__ dout,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk, int causal,
+                          float sm_scale) {
+  constexpr int kDp = padded_dim(D), kLd = tc_ld(D), kTile = kTcRows * kLd;
+  constexpr int kNt = kDp / 8;         // 8-column tiles of a warp's dk and dv
+  constexpr int kRowVecs = D / 8;      // 16-byte vectors of a row in global memory
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + kTile;
+  bf16* q_s = v_s + kTile;       // [2][kTile]
+  bf16* do_s = q_s + 2 * kTile;  // [2][kTile]
+  float* stat_s = reinterpret_cast<float*>(do_s + 2 * kTile);  // [2][lse 64 | delta 64]
+  float* b_s = stat_s + 2 * 2 * kTcRows;
+  float* spread_s = b_s + kTcKeys;
+  int* scratch_s = reinterpret_cast<int*>(spread_s + D);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t q_base = static_cast<size_t>(bh) * sq;
+  const size_t k_base = static_cast<size_t>(bh) * sk;
+  const bf16* qg = q + q_base * D;
+  const bf16* dog = dout + q_base * D;
+  const float* lse_row = lse + q_base;
+  const float* delta_row = delta + q_base;
+  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
+  const int last_kept = dkv_prologue<bf16, D>(lse_row, dog, bias_row, sq, sk, spread_s, scratch_s);
+
+  float dk_acc[kNt][4], dv_acc[kNt][4];
+#pragma unroll
+  for (int i = 0; i < kNt; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  const int q_first = causal ? k0 : 0;  // under `causal` no row above the tile's diagonal keeps a key
+  if (k0 <= last_kept && q_first < sq) {  // block-uniform
+    const int kv_end = min(sk, last_kept + 1);
+    const int n_tiles = (sq - q_first + kTcRows - 1) / kTcRows;
+    if constexpr (kDp > D) {  // zero the padded columns once: the copies never write them
+      for (int r = threadIdx.x; r < 6 * kTcRows; r += kThreads)
+        for (int c = D; c < kDp; c += 8) *reinterpret_cast<uint4*>(k_s + r * kLd + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    // rows [r0, r0 + 64) of a (n, D) array into a tile; rows at or past n as zeros
+    auto stage = [&](bf16* dst, const bf16* src, int r0, int n) {
+      for (int i = threadIdx.x; i < kTcRows * kRowVecs; i += kThreads) {
+        const int r = i / kRowVecs, c = (i % kRowVecs) * 8;
+        const bool ok = r0 + r < n;
+        pgica::cp_async16(pgica::smem_u32(dst + r * kLd + c), ok ? src + static_cast<size_t>(r0 + r) * D + c : src,
+                          ok);
+      }
+    };
+    // thread t < 64: lse of the tile's row t (NEG_INF past sq: p = 0); else delta of row t - 64
+    auto row_stat = [&](int r0) {
+      const int r = r0 + (threadIdx.x & (kTcRows - 1));
+      if (threadIdx.x < kTcRows) return r < sq ? lse_row[r] : kNegInf;
+      return r < sq ? delta_row[r] : 0.f;
+    };
+    stage(k_s, k + k_base * D, k0, kv_end);
+    stage(v_s, v + k_base * D, k0, kv_end);
+    stage(q_s, qg, q_first, sq);
+    stage(do_s, dog, q_first, sq);
+    pgica::cp_async_commit();
+    if (threadIdx.x < kTcKeys) {
+      const int key = k0 + threadIdx.x;
+      const float b = bias_row == nullptr || key >= kv_end ? 0.f : bias_row[key];
+      b_s[threadIdx.x] = key < kv_end ? b : 2.f * kNegInf;  // a key past kv_end is masked
+    }
+    stat_s[threadIdx.x] = row_stat(q_first);
+
+    const int key_w = k0 + warp * 16;  // the warp's first key
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t & 1;
+      const int row0 = q_first + t * kTcRows;
+      float next_stat = 0.f;
+      if (t + 1 < n_tiles) {  // the next tile's copies fly while this one is multiplied
+        stage(q_s + (buf ^ 1) * kTile, qg, row0 + kTcRows, sq);
+        stage(do_s + (buf ^ 1) * kTile, dog, row0 + kTcRows, sq);
+        next_stat = row_stat(row0 + kTcRows);
+      }
+      pgica::cp_async_commit();
+      pgica::cp_async_wait<1>();
+      __syncthreads();  // this tile (and the first time, K, V, b_s, stat_s) is in place
+      const bf16* qt = q_s + buf * kTile;
+      const bf16* dot = do_s + buf * kTile;
+      const float* lse_t = stat_s + buf * 2 * kTcRows;
+      const float* delta_t = lse_t + kTcRows;
+#pragma unroll 1
+      for (int qc = 0; qc < kTcRows / 16; ++qc) {
+        const int r16 = qc * 16;  // the chunk's first row in the tile
+        if (row0 + r16 >= sq) break;                            // warp-uniform
+        if (causal && row0 + r16 + 15 < key_w) continue;        // every row above every key: p = 0
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kDp / 16; ++kk) {
+          uint32_t ka[4], va[4], qb[4], ob[4];
+          const int a_off = (warp * 16 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8;
+          const int b_off = (r16 + (lane & 7) + (lane >> 4) * 8) * kLd + kk * 16 + ((lane >> 3) & 1) * 8;
+          pgica::ldsm_x4(ka, pgica::smem_u32(k_s + a_off));
+          pgica::ldsm_x4(va, pgica::smem_u32(v_s + a_off));
+          pgica::ldsm_x4(qb, pgica::smem_u32(qt + b_off));
+          pgica::ldsm_x4(ob, pgica::smem_u32(dot + b_off));
+          pgica::mma_bf16(s[0], ka, qb[0], qb[1]);
+          pgica::mma_bf16(s[1], ka, qb[2], qb[3]);
+          pgica::mma_bf16(dp[0], va, ob[0], ob[1]);
+          pgica::mma_bf16(dp[1], va, ob[2], ob[3]);
+        }
+        // P^T and dS^T in place of S^T and dP^T: element e of n-tile nt is key
+        // (lane / 4 + 8 (e / 2)), row r16 + 8 nt + 2 (lane % 4) + e % 2
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = warp * 16 + (lane >> 2) + 8 * (e >> 1);  // key in the tile
+            const int rl = r16 + nt * 8 + (lane & 3) * 2 + (e & 1);   // row in the tile
+            const float b = b_s[kl], row_lse = lse_t[rl];
+            const bool keep = b > kNegInf && row_lse > kNoKeyLse && (!causal || row0 + rl >= k0 + kl);
+            s[nt][e] = keep ? expf(s[nt][e] * sm_scale + b - row_lse) : 0.f;
+            dp[nt][e] = s[nt][e] * (dp[nt][e] - delta_t[rl]);
+          }
+        }
+        // dV += P^T dO, then dK += dS^T Q, over the chunk's 16 rows, each A in two bf16 parts
+        pass_pair<kDp>(s, dot, r16, lane, dv_acc);
+        pass_pair<kDp>(dp, qt, r16, lane, dk_acc);
+      }
+      if (t + 1 < n_tiles) stat_s[(buf ^ 1) * 2 * kTcRows + threadIdx.x] = next_stat;  // read last in tile t - 1
+      __syncthreads();  // this tile is consumed before its buffers are refilled
+    }
+  }
+
+  // dk = sm_scale * acc, dv = acc + spread; columns past D (D = 72) are not stored
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + warp * 16 + (lane >> 2) + 8 * half;
+    if (key >= sk) continue;
+    const size_t row = (k_base + key) * D;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const int c = nt * 8 + (lane & 3) * 2;
+      if (D % 16 != 0 && c >= D) continue;
+      *reinterpret_cast<uint32_t*>(dk + row + c) =
+          pgica::pack_bf16x2(dk_acc[nt][2 * half] * sm_scale, dk_acc[nt][2 * half + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + row + c) =
+          pgica::pack_bf16x2(dv_acc[nt][2 * half] + spread_s[c], dv_acc[nt][2 * half + 1] + spread_s[c + 1]);
+    }
+  }
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* o,
               const void* lse, const void* dout, void* dq, void* delta, int bh, int heads, int sq,
@@ -346,19 +578,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias, con
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* bias, const void* lse,
-               const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq,
-               int sk, int head_dim, int causal, float sm_scale, cudaStream_t stream) {
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* bias, const void* lse,
+                   const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk,
+                   int head_dim, int causal, float sm_scale, cudaStream_t stream) {
   const dim3 grid(bh, (sk + kBlockK - 1) / kBlockK);
   switch (head_dim) {
 #define PGICA_DKV_CASE(DIM)                                                                     \
   case DIM:                                                                                     \
-    flash_attn_bwd_dkv<T, DIM><<<grid, kThreads, 0, stream>>>(                                  \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),           \
+    flash_attn_bwd_dkv_simt<float, DIM><<<grid, kThreads, 0, stream>>>(                         \
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), \
         static_cast<const float*>(bias), static_cast<const float*>(lse),                        \
-        static_cast<const float*>(delta), static_cast<const T*>(dout), static_cast<T*>(dk),     \
-        static_cast<T*>(dv), heads, sq, sk, causal, sm_scale);                                  \
+        static_cast<const float*>(delta), static_cast<const float*>(dout),                      \
+        static_cast<float*>(dk), static_cast<float*>(dv), heads, sq, sk, causal, sm_scale);     \
     break;
     PGICA_DKV_CASE(16)
     PGICA_DKV_CASE(32)
@@ -370,6 +601,41 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias, co
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* bias, const void* lse,
+                  const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk,
+                  int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int kSmem = tc_smem_bytes(D);
+  static const cudaError_t attr =  // once per instance: above 48 KB, dynamic shared memory must be asked for
+      cudaFuncSetAttribute(flash_attn_bwd_dkv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sk + kTcKeys - 1) / kTcKeys);
+  flash_attn_bwd_dkv_tc<D><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, sq, sk, causal,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* bias, const void* lse,
+                    const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk,
+                    int head_dim, int causal, float sm_scale, cudaStream_t stream) {
+  switch (head_dim) {
+#define PGICA_DKV_CASE(DIM) \
+  case DIM:                 \
+    return launch_dkv_tc<DIM>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, causal, sm_scale, stream);
+    PGICA_DKV_CASE(16)
+    PGICA_DKV_CASE(32)
+    PGICA_DKV_CASE(64)
+    PGICA_DKV_CASE(72)
+    PGICA_DKV_CASE(128)
+#undef PGICA_DKV_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 bool bad_shape(int bh, int heads, int sq, int sk) {
@@ -399,7 +665,9 @@ extern "C" int pgica_flash_attn_bwd_dq(const void* q, const void* k, const void*
 }
 
 // As above, with delta from pgica_flash_attn_bwd_dq; writes dk and dv
-// (bh, sk, head_dim) in `dtype`. Returns a cudaError_t code.
+// (bh, sk, head_dim) in `dtype`: bf16 on the tensor cores
+// (flash_attn_bwd_dkv_tc), f32 on the CUDA cores (flash_attn_bwd_dkv_simt).
+// Returns a cudaError_t code.
 extern "C" int pgica_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* bias, const void* lse, const void* delta,
                                         const void* dout, void* dk, void* dv, int bh, int heads,
@@ -408,10 +676,10 @@ extern "C" int pgica_flash_attn_bwd_dkv(const void* q, const void* k, const void
   if (bad_shape(bh, heads, sq, sk)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == pgica::kFloat32)
-    return launch_dkv<float>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim,
-                             causal, sm_scale, s);
+    return launch_dkv_f32(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim, causal,
+                          sm_scale, s);
   if (dtype == pgica::kBFloat16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk,
-                                     head_dim, causal, sm_scale, s);
+    return launch_dkv_bf16(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim, causal,
+                           sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

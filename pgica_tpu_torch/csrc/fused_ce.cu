@@ -1,25 +1,25 @@
-// Fused linear + cross-entropy for Hopper (sm_90a): forward, dh and dW.
+// Fused linear + cross-entropy for Hopper (sm_90a): forward and dW.
 //
-// Replaces: pgica_tpu/ops/fused_ce.py:60 `_fwd_kernel`, :108 `_bwd_dh_kernel`
-// and :134 `_bwd_dw_kernel` (Pallas, TPU). With the scores s = h W^T (N x V,
-// never stored), lse = logsumexp over the vocab of s, p = exp(s - lse) and
+// Replaces: pgica_tpu/ops/fused_ce.py:60 `_fwd_kernel` and :134
+// `_bwd_dw_kernel` (Pallas, TPU); dh (:108 `_bwd_dh_kernel`) runs on the
+// tensor cores in fused_ce_dh.cu. With the scores s = h W^T (N x V, never
+// stored), lse = logsumexp over the vocab of s, p = exp(s - lse) and
 // onehot[r, v] = (v == y[r]):
 //   forward  logp[r] = s[r, y[r]] - lse[r], and lse[r]        (f32)
-//   dh       dh = g * ((onehot - p) @ W)                      (h's dtype)
 //   dW       dW = ((onehot - p) * g)^T @ h                    (W's dtype)
 // h (N, d) and W (V, d) are each f32 or bf16 (four instantiations of each
 // kernel, so nothing is converted or copied before a launch); every product
 // is taken in f32 from the inputs as given, as the TPU body does
 // (astype(f32), preferred_element_type=f32).
 //
-// What bounds it on the H100: operations. Each kernel does one (dh and dW:
-// two) N x V x d products: 2 N V d = 0.84 TFLOP at the stage-2 flagship
+// What bounds it on the H100: operations. The forward does one N x V x d
+// product, dW two: 2 N V d = 0.84 TFLOP at the stage-2 flagship
 // shape (N = 8,128, d = 1,024, V = 50,262) against ~0.2 GB of bytes. This
 // first version computes on the CUDA cores in f32 (67 TFLOP/s peak, so
 // >= 12.5 ms per product); tensor cores (bf16 wgmma, or TF32 with a
 // tolerance argument for the f32 master W) are the redesign's work.
 //
-// Design. All three kernels share one building block: a tile of scores
+// Design. Both kernels share one building block: a tile of scores
 // (A rows x B rows, K = d) staged through shared memory in 32-wide K chunks,
 // the next chunk's 16-byte loads in flight while the current one is
 // multiplied, each thread holding a register block of the tile. Rows and
@@ -36,26 +36,16 @@
 //   the vocab is split until there are ~8 blocks per SM; each split writes
 //   partial (m, l, t) and a second kernel combines them per row in split
 //   order (deterministic), with the TPU kernel's `l == 0` guard.
-// * dh: dh's accumulator (rows x d f32) does not fit a block at the TPU's
-//   256 rows, so a block owns a small row tile (32 rows, or 16 when there
-//   are fewer than 132 such tiles) with the full d = 1,024 in registers:
-//   each thread owns 4 columns of d for every row of the tile (128 or 64
-//   registers). Per 128-column vocab tile it computes the scores, writes
-//   the coefficients (onehot - p) to shared memory, and adds coefficient x W
-//   with W's rows read straight from global memory, 16 bytes a thread,
-//   coalesced (each W element feeds one thread). W streams from L2 twice
-//   per vocab tile per row tile; the cost of the small tile is that W is
-//   read N / 32 times (~52 GB of L2 traffic at the flagship).
-//   d > 1,024 runs column passes (grid y), each recomputing the scores.
-// * dW: the same kernel with the roles swapped, as the TPU grid does with
-//   rows inner: a block owns 32 vocab rows of dW and loops over all rows of
-//   h, so each dW element is summed by one thread in a fixed order. No
-//   atomics: dW is the same from run to run. A row with g = 0 (a masked
-//   position, the [:, :-1] shift) has coefficient 0 and adds exactly 0.
+// * dW: as the TPU grid does with rows inner, a block owns 32 vocab rows of
+//   dW and loops over all rows of h, so each dW element is summed by one
+//   thread in a fixed order; each thread holds 4 columns of d for the 32
+//   rows, so d > 1,024 runs column passes (grid y), each recomputing the
+//   scores. No atomics: dW is the same from run to run. A row with g = 0 (a
+//   masked position, the [:, :-1] shift) has coefficient 0 and adds exactly
+//   0.
 #include "common.cuh"
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -71,7 +61,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;            // K (d) chunk staged per step
 constexpr int kFwdRows = 64;       // forward: rows per block (ops/fused_ce.py repeats it)
 constexpr int kVTile = 128;        // vocab (and, in dW, row) columns per tile (ops/fused_ce.py repeats it)
-constexpr int kColsPerPass = 4 * kThreads;  // dh/dW: columns of d per block
+constexpr int kColsPerPass = 4 * kThreads;  // dW: columns of d per block
 
 // Chunk [k0, k0 + kBK) of rows [r0, r0 + ROWS) of a row-major (n, d) array,
 // loaded into registers as 16-byte vectors and stored to shared memory as
@@ -252,44 +242,22 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&out)[4]) {
   out[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
-// DW = false (dh): the block owns OWN rows of h, streams the vocab (T = W).
-// DW = true (dW): the block owns OWN vocab rows of W, streams the rows (T = h).
+// dW: the block owns OWN vocab rows of W and streams the rows of h.
 // Grid (owned tiles, column passes of kColsPerPass over d).
-template <typename TH, typename TW, int OWN, bool DW>
+template <typename TH, typename TW, int OWN>
 __global__ void __launch_bounds__(kThreads)
-    fused_ce_bwd(const TH* __restrict__ h, const TW* __restrict__ w, const int* __restrict__ y,
-                 const float* __restrict__ lse, const float* __restrict__ g,
-                 std::conditional_t<DW, TW, TH>* __restrict__ out, int n, int vocab, int d) {
-  using TO = std::conditional_t<DW, TW, TH>;
-  using TT = std::conditional_t<DW, TH, TW>;
+    fused_ce_bwd_dw(const TH* __restrict__ h, const TW* __restrict__ w, const int* __restrict__ y,
+                    const float* __restrict__ lse, const float* __restrict__ g, TW* __restrict__ out, int n,
+                    int vocab, int d) {
   constexpr int R = OWN / kWarps, C = kVTile / 32;
   constexpr int kCt = OWN + 4;  // row stride of the coefficient tile: float4 rows
   __shared__ float As[OWN][kBK + 1];
   __shared__ float Bs[kVTile][kBK + 1];
-  __shared__ __align__(16) float Ct[kVTile][kCt];  // coefficients, streamed index major
-  const TO* own;
-  const TT* str;
-  if constexpr (DW) {
-    own = w;
-    str = h;
-  } else {
-    own = h;
-    str = w;
-  }
-  const int n_own = DW ? vocab : n, n_str = DW ? n : vocab;
+  __shared__ __align__(16) float Ct[kVTile][kCt];  // coefficients, one row per row of h
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int o0 = blockIdx.x * OWN;
   const int c0 = blockIdx.y * kColsPerPass + 4 * threadIdx.x;  // this thread's 4 columns of d
   const bool has_cols = c0 < d;
-  // dh: the statistics of the owned rows, loaded once
-  int y_own[R];
-  float lse_own[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = o0 + warp + kWarps * i;
-    y_own[i] = (!DW && r < n) ? y[r] : -1;
-    lse_own[i] = (!DW && r < n) ? lse[r] : 0.f;
-  }
   float acc[OWN][4];
 #pragma unroll
   for (int o = 0; o < OWN; ++o)
@@ -297,41 +265,35 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[o][e] = 0.f;
 
 #pragma unroll 1
-  for (int t0 = 0; t0 < n_str; t0 += kVTile) {
+  for (int t0 = 0; t0 < n; t0 += kVTile) {
     float s[R][C];
-    score_tile<OWN, kVTile>(s, own, o0, n_own, str, t0, n_str, d, As, Bs);
+    score_tile<OWN, kVTile>(s, w, o0, vocab, h, t0, n, d, As, Bs);
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int t = lane + 32 * j;
-      const int ts = t0 + t;
+      const int r = t0 + t;
       int y_t = -1;
       float lse_t = 0.f, g_t = 0.f;
-      if (DW && ts < n) {
-        y_t = y[ts];
-        lse_t = lse[ts];
-        g_t = g[ts];
+      if (r < n) {
+        y_t = y[r];
+        lse_t = lse[r];
+        g_t = g[r];
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const int os = o0 + warp + kWarps * i;
-        const int r = DW ? ts : os, v = DW ? os : ts;
+        const int v = o0 + warp + kWarps * i;
         float c = 0.f;
-        if (r < n && v < vocab) {
-          const int yv = DW ? y_t : y_own[i];
-          const float lv = DW ? lse_t : lse_own[i];
-          c = (v == yv ? 1.f : 0.f) - expf(s[i][j] - lv);
-          if (DW) c *= g_t;
-        }
+        if (r < n && v < vocab) c = ((v == y_t ? 1.f : 0.f) - expf(s[i][j] - lse_t)) * g_t;
         Ct[t][warp + kWarps * i] = c;
       }
     }
     __syncthreads();
     if (has_cols) {
-      const int nt = min(kVTile, n_str - t0);
+      const int nt = min(kVTile, n - t0);
 #pragma unroll 4
       for (int t = 0; t < nt; ++t) {
         float tv[4];
-        load4(str + static_cast<size_t>(t0 + t) * d + c0, tv);
+        load4(h + static_cast<size_t>(t0 + t) * d + c0, tv);
 #pragma unroll
         for (int o = 0; o < OWN; o += 4) {
           const float4 cv = *reinterpret_cast<const float4*>(&Ct[t][o]);
@@ -351,12 +313,11 @@ __global__ void __launch_bounds__(kThreads)
   if (!has_cols) return;
 #pragma unroll
   for (int o = 0; o < OWN; ++o) {
-    const int os = o0 + o;
-    if (os >= n_own) break;
-    const float scale = DW ? 1.f : g[os];  // dh = g * acc, as the TPU kernel's finish
-    auto* dst = out + static_cast<size_t>(os) * d + c0;
+    const int v = o0 + o;
+    if (v >= vocab) break;
+    TW* dst = out + static_cast<size_t>(v) * d + c0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dst[e] = from_float<std::conditional_t<DW, TW, TH>>(acc[o][e] * scale);
+    for (int e = 0; e < 4; ++e) dst[e] = from_float<TW>(acc[o][e]);
   }
 }
 
@@ -381,21 +342,19 @@ int launch_fwd(const void* h, const void* w, const int* y, float* part, float* l
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TH, typename TW, bool DW>
-int launch_bwd(const void* h, const void* w, const int* y, const float* lse, const float* g,
-               void* out, int n, int vocab, int d, cudaStream_t stream) {
-  using TOut = std::conditional_t<DW, TW, TH>;
-  const int n_own = DW ? vocab : n;
+template <typename TH, typename TW>
+int launch_dw(const void* h, const void* w, const int* y, const float* lse, const float* g, void* out, int n,
+              int vocab, int d, cudaStream_t stream) {
   const int passes = (d + kColsPerPass - 1) / kColsPerPass;
   const auto* hp = static_cast<const TH*>(h);
   const auto* wp = static_cast<const TW*>(w);
-  auto* op = static_cast<TOut*>(out);
-  if ((n_own + 31) / 32 >= sm_count()) {
-    const dim3 grid((n_own + 31) / 32, passes);
-    fused_ce_bwd<TH, TW, 32, DW><<<grid, kThreads, 0, stream>>>(hp, wp, y, lse, g, op, n, vocab, d);
+  auto* op = static_cast<TW*>(out);
+  if ((vocab + 31) / 32 >= sm_count()) {
+    const dim3 grid((vocab + 31) / 32, passes);
+    fused_ce_bwd_dw<TH, TW, 32><<<grid, kThreads, 0, stream>>>(hp, wp, y, lse, g, op, n, vocab, d);
   } else {  // too few 32-row tiles to fill the card
-    const dim3 grid((n_own + 15) / 16, passes);
-    fused_ce_bwd<TH, TW, 16, DW><<<grid, kThreads, 0, stream>>>(hp, wp, y, lse, g, op, n, vocab, d);
+    const dim3 grid((vocab + 15) / 16, passes);
+    fused_ce_bwd_dw<TH, TW, 16><<<grid, kThreads, 0, stream>>>(hp, wp, y, lse, g, op, n, vocab, d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -433,34 +392,20 @@ extern "C" int pgica_fused_ce_fwd(const void* h, const void* w, const void* y, v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool DW>
-static int bwd_entry(const void* h, const void* w, const void* y, const void* lse, const void* g,
-                     void* out, int n, int vocab, int d, int h_dtype, int w_dtype, void* stream) {
+// h, w, y as above; lse: (n,) f32 from the forward; g: (n,) f32, the
+// cotangent of logp; dw: (vocab, d) in w_dtype.
+extern "C" int pgica_fused_ce_bwd_dw(const void* h, const void* w, const void* y, const void* lse,
+                                     const void* g, void* dw, int n, int vocab, int d, int h_dtype,
+                                     int w_dtype, void* stream) {
   if (!valid_shape(n, vocab, d)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* yp = static_cast<const int*>(y);
   const auto* lp = static_cast<const float*>(lse);
   const auto* gp = static_cast<const float*>(g);
   const int code = h_dtype * 2 + w_dtype;
-  if (code == 0) return launch_bwd<float, float, DW>(h, w, yp, lp, gp, out, n, vocab, d, s);
-  if (code == 1) return launch_bwd<float, __nv_bfloat16, DW>(h, w, yp, lp, gp, out, n, vocab, d, s);
-  if (code == 2) return launch_bwd<__nv_bfloat16, float, DW>(h, w, yp, lp, gp, out, n, vocab, d, s);
-  if (code == 3)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16, DW>(h, w, yp, lp, gp, out, n, vocab, d, s);
+  if (code == 0) return launch_dw<float, float>(h, w, yp, lp, gp, dw, n, vocab, d, s);
+  if (code == 1) return launch_dw<float, __nv_bfloat16>(h, w, yp, lp, gp, dw, n, vocab, d, s);
+  if (code == 2) return launch_dw<__nv_bfloat16, float>(h, w, yp, lp, gp, dw, n, vocab, d, s);
+  if (code == 3) return launch_dw<__nv_bfloat16, __nv_bfloat16>(h, w, yp, lp, gp, dw, n, vocab, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// h, w, y as above; lse: (n,) f32 from the forward; g: (n,) f32, the
-// cotangent of logp; dh: (n, d) in h_dtype.
-extern "C" int pgica_fused_ce_bwd_dh(const void* h, const void* w, const void* y, const void* lse,
-                                     const void* g, void* dh, int n, int vocab, int d, int h_dtype,
-                                     int w_dtype, void* stream) {
-  return bwd_entry<false>(h, w, y, lse, g, dh, n, vocab, d, h_dtype, w_dtype, stream);
-}
-
-// As pgica_fused_ce_bwd_dh; dw: (vocab, d) in w_dtype.
-extern "C" int pgica_fused_ce_bwd_dw(const void* h, const void* w, const void* y, const void* lse,
-                                     const void* g, void* dw, int n, int vocab, int d, int h_dtype,
-                                     int w_dtype, void* stream) {
-  return bwd_entry<true>(h, w, y, lse, g, dw, n, vocab, d, h_dtype, w_dtype, stream);
 }

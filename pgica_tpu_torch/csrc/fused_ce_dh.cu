@@ -1,0 +1,463 @@
+// Fused linear + cross-entropy, dh, on Hopper's tensor cores (sm_90a).
+//
+// Replaces: pgica_tpu/ops/fused_ce.py:108 `_bwd_dh_kernel` (Pallas, TPU).
+// With the scores s = h W^T (N x V), the forward's saved lse, p = exp(s -
+// lse) and onehot[r, v] = (v == y[r]):
+//   dh = g * ((onehot - p) @ W)          in h's dtype
+// h (N, d) and W (V, d) are each f32 or bf16 (all four pairs).
+//
+// What bounds it on the H100: operations. Two N x V x d products (the
+// scores, then coefficient x W): 4 N V d flops, 4.3 TFLOP at the Llama
+// stage-2 shape (N = 2,044, d = 4,096, V = 128,256), 4.3 ms at the bf16
+// tensor-core peak; the bytes (W once, ~2 GB in f32) take 0.6 ms.
+//
+// Design: every score is computed once. The TPU kernel keeps the (rows x d)
+// accumulator in VMEM across the vocab grid; here it is N x d f32 (33 MB at
+// Llama), far past a block, so the vocab is walked in chunks of `chunk`
+// columns (a multiple of 128, planned by ops/fused_ce.py so that the
+// coefficient scratch stays <= 256 MiB), each chunk in two GEMM launches:
+//   1. coefficients: C = onehot - exp(h W[chunk]^T - lse), with the
+//      `cols < vocab` guard, into a bf16 scratch (N x chunk, 2 parts);
+//   2. product: acc (N x d, f32 scratch) += C @ W[chunk], chunk after chunk
+//      in vocab order, one block per output tile: no split-K, no atomics,
+//      so dh is the same from run to run. The last chunk's epilogue is the
+//      TPU kernel's finish, dh = (acc * g).astype(h.dtype).
+// One C call runs the whole loop, so the wrapper counts one launch. Both
+// GEMMs are one template: 128 x 128 x 32 block tiles, 8 warps of 64 x 32,
+// mma.sync m16n8k16 (bf16 in, f32 sums) fed by ldmatrix from a 3-stage
+// cp.async ring; K-major tiles are padded to 40 bf16 a row and the k-major
+// W tile of the product to 136, so ldmatrix reads no bank twice. The
+// product reads W row-major with ldmatrix.trans: W is never copied
+// transposed, and never padded (rows past V stage as zeros). A 128-row tile
+// whose g are all 0 skips both GEMMs and writes exact zeros; a row with g
+// = 0 inside a live tile gets C = 0, so its dh is exactly 0.
+//
+// Precision, the hard part. chip_smoke.py holds each dh element to 1e-4 of
+// its own sum of |terms|, sum_v |C[r, v]| |W[v, j]|, against the f32 plain
+// version. Two things make that hard:
+// * The product. The target's term (1 - p_y) W[y, j] is most of an
+//   element's sum, so rounding W to bf16 (up to 2^-9 of it, typically
+//   ~2^-10) alone misses the bound by 10x or more.
+// * The scores. lse is the forward's, fixed: a score off by e moves p_y by
+//   p_y e and C[r, y] = 1 - p_y by the same, while the bound scales with
+//   1 - p_y. At a row whose target takes p_y = 0.995 (trained weights
+//   peak so; random ones are flat and their errors cancel over the vocab)
+//   the scores need f32's own accuracy.
+// So an f32 operand x is split into bf16 parts (x0 = bf16(x), x1 = bf16(x -
+// x0), x2 = bf16(x - x0 - x1)): x0 + x1 carries x to ~2^-17 of itself, x0 +
+// x1 + x2 to f32's 2^-24. Each product of two bf16 values is exact in the
+// f32 accumulator; a pass is the product of one part of each operand, and
+// the passes whose parts' orders sum below ORDER are taken:
+//   scores  (ORDER 3, f32 operands in 3 parts): both bf16 1 pass; h bf16
+//           and the f32 master W (the policy's pair) 3 passes, h.W0 + h.W1
+//           + h.W2; h f32 and W bf16 3; both f32 6. Dropped terms ~2^-24:
+//           the scores are as exact as an f32 sum.
+//   product (ORDER 2, 2 parts: C is f32 always, W's first two parts): W
+//           bf16 2 passes, C0.W + C1.W; W f32 3, C0.W0 + C0.W1 + C1.W0.
+//           Each dropped part is ~2^-16 of its term: an element moves by
+//           < ~2e-5 of its sum of |terms|, plus the f32 sums' own rounding
+//           (kept round-to-nearest: see `mainloop`).
+// tests/test_torch_fused_ce.py emulates these passes on the CPU at a
+// Llama-like d and W scale and holds them to the bound with p flat and
+// peaked; it shows that W rounded once to bf16 in the product, or in two
+// parts in the scores at a sharp peak, breaks it. The f32 operands are
+// split once per call into bf16 scratch by `split_bf16` (W: 3 x 1.05 GB at
+// Llama; h: 3 x 17 MB), allocated by the wrapper.
+#include "common.cuh"
+#include "mma.cuh"
+
+#include <algorithm>
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using pgica::from_float;
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;  // block tile; ops/fused_ce.py repeats kBN as the chunk unit
+constexpr int kStages = 3;
+constexpr int kGemmThreads = 256;  // 8 warps: 2 (m) x 4 (n) of 64 x 32
+constexpr int kLdK = kBK + 8;      // row of a K-major tile (128 rows x 32 k): 80 bytes
+constexpr int kLdN = kBN + 8;      // row of a k-major W tile (32 k x 128 n): 272 bytes
+constexpr int kTileK = kBM * kLdK;
+constexpr int kTileN = kBK * kLdN;
+constexpr int kScoreOrder = 3;    // passes i + j < 3: f32 operands in 3 parts (the note has why)
+constexpr int kProductOrder = 2;  // passes i + j < 2: C and W in 2 parts
+
+// An operand as bf16 parts (one where it is bf16 itself; the split of an
+// f32 one). Row r, column c of part i is at part[i][r * ld + c].
+constexpr int kMaxParts = 3;
+struct Operand {
+  const bf16* part[kMaxParts];
+  int ld;
+};
+
+// Per-launch roles of the shared GEMM (A is m x k K-major; B is K-major
+// n x k for the scores, k-major k x n for the product).
+struct Gemm {
+  Operand a, b;
+  int m, n, k;       // A rows; B columns (vocab in the chunk, or d); depth
+  int a_k_valid;     // columns of A that exist (k rounded up to 8)
+  const int* y;
+  const float* lse;
+  const float* g;
+  int v0, vocab;     // coefficients: the chunk's first column, V
+  bf16* c0;          // coefficients in 2 parts: out (N x chunk, ld = chunk); product: A
+  bf16* c1;
+  int chunk;
+  float* acc;        // product: the N x d f32 sums over earlier chunks
+  void* dh;          // product, last chunk
+  int first, last;
+};
+
+// PA, PB: the parts of A and B that the passes read.
+template <int PA, int PB, bool B_KMAJOR>
+struct Smem {
+  static constexpr int kBTile = B_KMAJOR ? kTileK : kTileN;
+  static constexpr int kA = kTileK * PA;
+  static constexpr int kB = kBTile * PB;
+  static constexpr int kStage = kA + kB;  // bf16 elements
+  static constexpr int kBytes = kStages * kStage * 2;
+};
+
+// Whether any of the block's 128 rows has g != 0 (block-wide, all threads).
+__device__ __forceinline__ bool tile_live(const float* g, int m0, int m) {
+  const int r = m0 + static_cast<int>(threadIdx.x);
+  return __syncthreads_or(threadIdx.x < kBM && r < m && g[r] != 0.f) != 0;
+}
+
+// The GEMM mainloop: acc[mt][nt][e] of this warp's 64 x 32 tile, summed
+// over all of k and over the passes A_i B_j with i < PA, j < PB, i + j < ORDER.
+// The tensor cores' f32 sums truncate: over one accumulator that runs
+// through 33,792 vocab columns in 3 passes the drift toward 0 passed the
+// f32 dh bound on the H100 (phase 3, h and W f32). So each 32-deep k tile
+// is summed in `part` (at most 12 mma adds) and promoted into acc with
+// round-to-nearest f32 adds on the CUDA cores.
+template <int PA, int PB, int ORDER, bool B_KMAJOR>
+__device__ __forceinline__ void mainloop(const Gemm& p, int m0, int n0, bf16* smem, float (&acc)[4][4][4]) {
+  using S = Smem<PA, PB, B_KMAJOR>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int n_k = (p.k + kBK - 1) / kBK;
+  auto load = [&](int stage, int kt) {
+    bf16* sa = smem + stage * S::kStage;
+    bf16* sb = sa + S::kA;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {  // A: 128 rows x 4 vectors
+      const int i = tid + it * kGemmThreads;
+      const int r = i >> 2, c = (i & 3) * 8;
+      const bool ok = m0 + r < p.m && k0 + c < p.a_k_valid;
+      const size_t at = static_cast<size_t>(m0 + r) * p.a.ld + k0 + c;
+#pragma unroll
+      for (int part = 0; part < PA; ++part)
+        pgica::cp_async16(pgica::smem_u32(sa + part * kTileK + r * kLdK + c), p.a.part[part] + (ok ? at : 0), ok);
+    }
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int i = tid + it * kGemmThreads;
+      int r, c, off;
+      bool ok;
+      size_t at;
+      if constexpr (B_KMAJOR) {  // 128 vocab rows x 4 vectors of d
+        r = i >> 2;
+        c = (i & 3) * 8;
+        ok = n0 + r < p.n && k0 + c < p.k;
+        at = static_cast<size_t>(n0 + r) * p.b.ld + k0 + c;
+        off = r * kLdK + c;
+      } else {  // 32 vocab rows (k) x 16 vectors of d (n)
+        r = i >> 4;
+        c = (i & 15) * 8;
+        ok = k0 + r < p.k && n0 + c < p.n;
+        at = static_cast<size_t>(k0 + r) * p.b.ld + n0 + c;
+        off = r * kLdN + c;
+      }
+#pragma unroll
+      for (int part = 0; part < PB; ++part)
+        pgica::cp_async16(pgica::smem_u32(sb + part * S::kBTile + off), p.b.part[part] + (ok ? at : 0), ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_k) load(s, s);
+    pgica::cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < n_k; ++kt) {
+    pgica::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt is in place; stage kt - 1 is consumed by every warp
+    const int nxt = kt + kStages - 1;
+    if (nxt < n_k) load(nxt % kStages, nxt);
+    pgica::cp_async_commit();
+    const bf16* sa = smem + (kt % kStages) * S::kStage;
+    const bf16* sb = sa + S::kA;
+    float part[4][4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[PA][4][4], b[PB][4][2];
+#pragma unroll
+      for (int part = 0; part < PA; ++part)
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          pgica::ldsm_x4(a[part][mt], pgica::smem_u32(sa + part * kTileK +
+                                                      (wm * 64 + mt * 16 + (lane & 15)) * kLdK + ks * 16 +
+                                                      (lane >> 4) * 8));
+#pragma unroll
+      for (int part = 0; part < PB; ++part)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          if constexpr (B_KMAJOR)
+            pgica::ldsm_x4(r, pgica::smem_u32(sb + part * S::kBTile +
+                                              (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * kLdK +
+                                              ks * 16 + ((lane >> 3) & 1) * 8));
+          else
+            pgica::ldsm_x4_trans(r, pgica::smem_u32(sb + part * S::kBTile +
+                                                    (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdN +
+                                                    wn * 32 + np * 16 + (lane >> 4) * 8));
+          b[part][2 * np][0] = r[0];
+          b[part][2 * np][1] = r[1];
+          b[part][2 * np + 1][0] = r[2];
+          b[part][2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int i = 0; i < PA; ++i)
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+          if (i + j < ORDER)
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) pgica::mma_bf16(part[mt][nt], a[i][mt], b[j][nt][0], b[j][nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  }
+  pgica::cp_async_wait<0>();
+}
+
+// Step 1 of a chunk: coefficients C[r, v - v0] = onehot - p for the chunk's
+// columns; 0 for a row with g = 0 and for a column past V. Grid (row
+// tiles, column tiles of the chunk).
+template <int PH, int PW>
+__global__ void __launch_bounds__(kGemmThreads) fused_ce_dh_coeff(const Gemm p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  if (!tile_live(p.g, m0, p.m)) return;  // the product skips this tile too: nothing reads it
+  float acc[4][4][4];
+  mainloop<PH, PW, kScoreOrder, true>(p, m0, n0, reinterpret_cast<bf16*>(smem_raw), acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm * 64 + mt * 16 + (lane >> 2) + 8 * half;
+      if (r >= p.m) continue;
+      const bool live = p.g[r] != 0.f;
+      const int y = p.y[r];
+      const float lse = p.lse[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;  // column in the chunk; c + 1 < chunk too
+        if (c >= p.chunk) continue;
+        float x0[2], x1[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int v = p.v0 + c + j;
+          const float x = live && v < p.vocab
+                              ? (v == y ? 1.f : 0.f) - expf(acc[mt][nt][2 * half + j] - lse)
+                              : 0.f;
+          x0[j] = __bfloat162float(__float2bfloat16(x));
+          x1[j] = x - x0[j];
+        }
+        const size_t at = static_cast<size_t>(r) * p.chunk + c;
+        *reinterpret_cast<uint32_t*>(p.c0 + at) = pgica::pack_bf16x2(x0[0], x0[1]);
+        *reinterpret_cast<uint32_t*>(p.c1 + at) = pgica::pack_bf16x2(x1[0], x1[1]);
+      }
+    }
+}
+
+// Step 2 of a chunk: acc += C @ W[chunk]; the last chunk writes dh = acc * g.
+// Grid (row tiles, column tiles of d).
+template <typename TH, int PW>
+__global__ void __launch_bounds__(kGemmThreads) fused_ce_dh_product(const Gemm p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  TH* dh = static_cast<TH*>(p.dh);
+  float acc[4][4][4];
+  const bool live = tile_live(p.g, m0, p.m);
+  if (live) {
+    mainloop<2, PW, kProductOrder, false>(p, m0, n0, reinterpret_cast<bf16*>(smem_raw), acc);
+  } else {
+    if (!p.last) return;  // every row has g = 0: dh is 0, written once
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm * 64 + mt * 16 + (lane >> 2) + 8 * half;
+      if (r >= p.m) continue;
+      const float g = p.g[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;  // d % 8 == 0: c + 1 < d too
+        if (c >= p.n) continue;
+        const size_t at = static_cast<size_t>(r) * p.n + c;
+        float2 t = make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        if (live && !p.first) {
+          const float2 before = *reinterpret_cast<const float2*>(p.acc + at);
+          t = make_float2(before.x + t.x, before.y + t.y);
+        }
+        if (p.last) {
+          dh[at] = from_float<TH>(t.x * g);
+          dh[at + 1] = from_float<TH>(t.y * g);
+        } else {
+          *reinterpret_cast<float2*>(p.acc + at) = t;
+        }
+      }
+    }
+}
+
+// x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) into parts[0..2]
+// (each `count` long), 4 values a thread (count % 4 == 0).
+__global__ void split_bf16(const float* __restrict__ x, bf16* __restrict__ parts, size_t count) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x * 4;
+  for (size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < count; i += stride) {
+    const float4 v = *reinterpret_cast<const float4*>(x + i);
+    float r[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int part = 0; part < kMaxParts; ++part) {
+      float q[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        q[e] = __bfloat162float(__float2bfloat16(r[e]));
+        r[e] -= q[e];
+      }
+      *reinterpret_cast<uint2*>(parts + part * count + i) =
+          make_uint2(pgica::pack_bf16x2(q[0], q[1]), pgica::pack_bf16x2(q[2], q[3]));
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return bytes > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+                           : cudaSuccess;
+}
+
+// An operand as bf16: itself, or its 3 parts made in `scratch`.
+Operand as_bf16(const void* x, bool f32, void* scratch, size_t count, int ld, cudaStream_t stream) {
+  if (!f32) return Operand{{static_cast<const bf16*>(x), nullptr, nullptr}, ld};
+  auto* parts = static_cast<bf16*>(scratch);
+  const int blocks = static_cast<int>(std::min<size_t>((count / 4 + 255) / 256, 132 * 16));
+  split_bf16<<<blocks, 256, 0, stream>>>(static_cast<const float*>(x), parts, count);
+  return Operand{{parts, parts + count, parts + 2 * count}, ld};
+}
+
+Operand offset_rows(const Operand& o, int rows) {
+  Operand out = o;
+  for (auto& part : out.part)
+    if (part != nullptr) part += static_cast<size_t>(rows) * o.ld;
+  return out;
+}
+
+// PH, PW: parts of h and W (1 for bf16, kMaxParts for f32).
+template <typename TH, int PH, int PW>
+int run(const void* h, const void* w, const int* y, const float* lse, const float* g, void* dh, void* h_split,
+        void* w_split, void* coeff, float* acc, int n, int vocab, int d, int chunk, cudaStream_t stream) {
+  constexpr int kPwProduct = PW > 1 ? 2 : 1;
+  constexpr int kCoeffSmem = Smem<PH, PW, true>::kBytes;
+  constexpr int kProductSmem = Smem<2, kPwProduct, false>::kBytes;
+  static const cudaError_t attr = [] {  // once per instance
+    const cudaError_t e = allow_smem(fused_ce_dh_coeff<PH, PW>, kCoeffSmem);
+    return e != cudaSuccess ? e : allow_smem(fused_ce_dh_product<TH, kPwProduct>, kProductSmem);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Operand hb = as_bf16(h, PH > 1, h_split, static_cast<size_t>(n) * d, d, stream);
+  const Operand wb = as_bf16(w, PW > 1, w_split, static_cast<size_t>(vocab) * d, d, stream);
+  auto* c0 = static_cast<bf16*>(coeff);
+  bf16* c1 = c0 + static_cast<size_t>(n) * chunk;
+  const int row_tiles = (n + kBM - 1) / kBM;
+  for (int v0 = 0; v0 < vocab; v0 += chunk) {
+    const int width = std::min(chunk, vocab - v0);
+    Gemm p{};
+    p.y = y;
+    p.lse = lse;
+    p.g = g;
+    p.v0 = v0;
+    p.vocab = vocab;
+    p.c0 = c0;
+    p.c1 = c1;
+    p.chunk = chunk;
+    p.acc = acc;
+    p.dh = dh;
+    p.first = v0 == 0;
+    p.last = v0 + chunk >= vocab;
+    // 1. C (n x width) = onehot - exp(h W[chunk]^T - lse)
+    p.a = hb;
+    p.b = offset_rows(wb, v0);
+    p.m = n;
+    p.n = width;
+    p.k = d;
+    p.a_k_valid = d;
+    fused_ce_dh_coeff<PH, PW><<<dim3(row_tiles, (width + kBN - 1) / kBN), kGemmThreads, kCoeffSmem, stream>>>(p);
+    // 2. acc (n x d) += C @ W[chunk]
+    p.a = Operand{{c0, c1, nullptr}, chunk};
+    p.m = n;
+    p.n = d;
+    p.k = width;
+    p.a_k_valid = (width + 7) / 8 * 8;  // the coefficient tiles wrote zeros up to here
+    fused_ce_dh_product<TH, kPwProduct>
+        <<<dim3(row_tiles, (d + kBN - 1) / kBN), kGemmThreads, kProductSmem, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// h: (n, d) in h_dtype; w: (vocab, d) in w_dtype; y: (n,) int32; lse, g: (n,)
+// f32; dh: (n, d) in h_dtype. Scratch, allocated by the caller:
+// h_split: 3 n d bf16 if h is f32 (else unused); w_split: 3 vocab d bf16 if W
+// is f32; coeff: 2 n chunk bf16; acc: n d f32 if vocab > chunk. chunk is a
+// positive multiple of 128; d % 8 == 0; pointers 16-byte aligned. Returns a
+// cudaError_t code (0 = launched).
+extern "C" int pgica_fused_ce_bwd_dh(const void* h, const void* w, const void* y, const void* lse, const void* g,
+                                     void* dh, void* h_split, void* w_split, void* coeff, void* acc, int n,
+                                     int vocab, int d, int chunk, int h_dtype, int w_dtype, void* stream) {
+  if (n <= 0 || vocab <= 0 || d <= 0 || d % 8 != 0 || chunk <= 0 || chunk % kBN != 0 || chunk / kBN > 65535 ||
+      (d + kBN - 1) / kBN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* yp = static_cast<const int*>(y);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* gp = static_cast<const float*>(g);
+  auto* ap = static_cast<float*>(acc);
+  const int code = h_dtype * 2 + w_dtype;
+  constexpr int F = kMaxParts;  // parts of an f32 operand
+  if (code == 0) return run<float, F, F>(h, w, yp, lp, gp, dh, h_split, w_split, coeff, ap, n, vocab, d, chunk, s);
+  if (code == 1) return run<float, F, 1>(h, w, yp, lp, gp, dh, h_split, w_split, coeff, ap, n, vocab, d, chunk, s);
+  if (code == 2) return run<bf16, 1, F>(h, w, yp, lp, gp, dh, h_split, w_split, coeff, ap, n, vocab, d, chunk, s);
+  if (code == 3) return run<bf16, 1, 1>(h, w, yp, lp, gp, dh, h_split, w_split, coeff, ap, n, vocab, d, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

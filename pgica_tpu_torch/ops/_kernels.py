@@ -7,7 +7,7 @@ source may hold several kernels' entry points. The build runs at first use —
 the first kernel launch builds every library, one ``nvcc`` process per
 source, all started together — into ``build/pgica_tpu_torch/`` at the root of
 the checkout (git-ignored). Each library's file name carries a hash of its
-source, the shared header and the flags, so an edited source is rebuilt and
+source, the shared headers and the flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is.
 
 Every wrapper calls :func:`launch`, which raises if the C entry point returns a
@@ -67,8 +67,8 @@ KERNELS = {
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     "fused_ce_bwd_dh": (
-        "fused_ce.cu", "pgica_fused_ce_bwd_dh",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "fused_ce_dh.cu", "pgica_fused_ce_bwd_dh",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     ),
     "fused_ce_bwd_dw": (
         "fused_ce.cu", "pgica_fused_ce_bwd_dw",
@@ -101,7 +101,7 @@ def reset_launch_counts() -> None:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / source, CSRC / "common.cuh"):
+    for part in (CSRC / source, *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"

@@ -11,7 +11,10 @@ Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
   ``_bwd_dkv_kernel`` (:81). ``delta = rowsum(dO * O)``, which the JAX
   wrapper computes apart (:233), is folded into the dQ kernel: it runs first
   and writes delta for the dK/dV kernel. The two stay split, as in the JAX
-  package, so neither needs atomics.
+  package, so neither needs atomics. dK/dV dispatches by dtype: bf16 runs
+  on the tensor cores (``flash_attn_bwd_dkv_tc``, P and dS as two bf16
+  parts each in their products), float32 on the CUDA cores in f32
+  (``flash_attn_bwd_dkv_simt``); dQ runs on the CUDA cores in both.
 
 Masking follows the plain JAX path (attention.py:_xla_attention), which is
 what the JAX package runs at these shapes: a masked key (bias <= NEG_INF, or
@@ -189,7 +192,10 @@ def flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do) -> Tuple[torch.Ten
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK/dV kernel wrapper: returns (dk, dv) in k's dtype; ``delta`` from the dQ kernel."""
+    """dK/dV kernel wrapper: returns (dk, dv) in k's dtype; ``delta`` from the dQ kernel.
+
+    bf16 inputs go to the tensor-core kernel, float32 ones to the f32 CUDA-core kernel.
+    """
     _check("flash_attention_bwd_dkv", q, k, v, bias)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_operand("flash_attention_bwd_dkv", t, q, name)

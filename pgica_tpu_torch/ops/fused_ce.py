@@ -4,14 +4,22 @@ Mirrors pgica_tpu/ops/fused_ce.py:47-50,178-274,397-422: per-row target
 log-probabilities straight from hidden states and the (weight-tied)
 embedding, ``logp[r] = h[r] . W[y[r]] - logsumexp_v(h[r] . W[v])``, without
 the (rows, vocab) logits ever reaching device memory on the card. Three
-kernels, all in ``csrc/fused_ce.cu``:
+kernels:
 
-* ``fused_ce_fwd`` replaces the Pallas ``_fwd_kernel`` (:60): logp and the
-  per-row logsumexp (saved for the backward), both float32.
-* ``fused_ce_bwd_dh`` replaces ``_bwd_dh_kernel`` (:108):
-  ``dh = g * (onehot - p) @ W`` in h's dtype.
-* ``fused_ce_bwd_dw`` replaces ``_bwd_dw_kernel`` (:134):
-  ``dW = ((onehot - p) * g)^T @ h`` in W's dtype, the same from run to run.
+* ``fused_ce_fwd`` (``csrc/fused_ce.cu``) replaces the Pallas ``_fwd_kernel``
+  (:60): logp and the per-row logsumexp (saved for the backward), both
+  float32; f32 products on the CUDA cores.
+* ``fused_ce_bwd_dh`` (``csrc/fused_ce_dh.cu``) replaces ``_bwd_dh_kernel``
+  (:108): ``dh = g * (onehot - p) @ W`` in h's dtype, on the tensor cores
+  for every type pair: a bf16 operand goes in as it is, an f32 one (the
+  master W, an f32 h, and always the f32 coefficients onehot - p) as bf16
+  parts whose products are summed in f32 (three parts for the scores, two
+  for the product), so the result keeps f32 accuracy (the source note has
+  the error argument). The vocab is walked in chunks of
+  :func:`dh_vocab_chunk` columns.
+* ``fused_ce_bwd_dw`` (``csrc/fused_ce.cu``) replaces ``_bwd_dw_kernel``
+  (:134): ``dW = ((onehot - p) * g)^T @ h`` in W's dtype, the same from run
+  to run; f32 products on the CUDA cores.
 
 h and W may each be float32 or bf16 (the stage-2 policy passes bf16 hidden
 states with its float32 master W, the reference bf16 with bf16). Rows and
@@ -33,6 +41,8 @@ from pgica_tpu_torch.ops import _kernels
 FWD_ROWS = 64  # csrc/fused_ce.cu: kFwdRows
 VOCAB_TILE = 128  # csrc/fused_ce.cu: kVTile
 BLOCKS_PER_SM = 8  # the forward splits the vocab until there are about this many blocks per SM
+DH_TILE = 128  # csrc/fused_ce_dh.cu: kBN, the unit of dh's vocab chunks
+DH_SCRATCH_BYTES = 256 * 2**20  # cap on dh's coefficient scratch (two bf16 parts, rows x chunk each)
 
 
 def fused_ce_fwd_ref(
@@ -114,6 +124,15 @@ def vocab_splits(rows: int, vocab: int, sm_count: int) -> Tuple[int, int]:
     return -(-tiles // per), per * VOCAB_TILE
 
 
+def dh_vocab_chunk(rows: int, vocab: int) -> int:
+    """Vocab columns per chunk of the dh kernel: a multiple of ``DH_TILE``, as
+    many as keep its coefficient scratch (``2 * 2 * rows * chunk`` bytes) within
+    ``DH_SCRATCH_BYTES`` (one tile at the least), and no more than the vocab
+    needs. The kernel walks ``ceil(vocab / chunk)`` chunks, each non-empty."""
+    fit = max(1, DH_SCRATCH_BYTES // (4 * max(rows, 1) * DH_TILE))
+    return DH_TILE * min(fit, -(-vocab // DH_TILE))
+
+
 def _codes(hidden: torch.Tensor, embedding: torch.Tensor) -> Tuple[int, int]:
     return _kernels.DTYPE_CODES[hidden.dtype], _kernels.DTYPE_CODES[embedding.dtype]
 
@@ -142,32 +161,59 @@ def fused_ce_fwd(
     return logp, lse
 
 
-def _bwd(name: str, out: torch.Tensor, hidden, embedding, targets, lse, g) -> torch.Tensor:
-    _check(name, hidden, embedding, targets, lse, g)
-    n, d = hidden.shape
-    if n == 0:
-        return out.zero_()
-    y = targets.to(torch.int32).contiguous()
-    _kernels.launch(
-        name,
-        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
-        n, embedding.shape[0], d, *_codes(hidden, embedding), _kernels.stream_handle(hidden),
-    )
-    return out
-
-
 def fused_ce_bwd_dh(hidden, embedding, targets, lse, g) -> torch.Tensor:
-    """dh kernel wrapper: (N, d) in h's dtype, like :func:`fused_ce_bwd_dh_ref`."""
+    """dh kernel wrapper: (N, d) in h's dtype, like :func:`fused_ce_bwd_dh_ref`.
+
+    On the card it allocates the kernel's scratch: the coefficients of one
+    vocab chunk (two bf16 parts, <= ``DH_SCRATCH_BYTES``), the f32 sums when
+    there is more than one chunk, and the three bf16 parts of an f32 operand
+    (of the f32 master W: 6 bytes per element of W, 3.2 GB at Llama-3-8B's
+    (128256, 4096)).
+    """
     if hidden.device.type == "cpu":
         return fused_ce_bwd_dh_ref(hidden, embedding, targets, lse, g)
-    return _bwd("fused_ce_bwd_dh", torch.empty_like(hidden), hidden, embedding, targets, lse, g)
+    _check("fused_ce_bwd_dh", hidden, embedding, targets, lse, g)
+    n, d = hidden.shape
+    vocab = embedding.shape[0]
+    dh = torch.empty_like(hidden)
+    if n == 0:
+        return dh
+    dev = hidden.device
+    chunk = dh_vocab_chunk(n, vocab)
+
+    def split(t):  # the three bf16 parts of an f32 operand
+        return torch.empty((3, *t.shape), dtype=torch.bfloat16, device=dev) if t.dtype == torch.float32 else None
+
+    h_split, w_split = split(hidden), split(embedding)
+    coeff = torch.empty((2, n, chunk), dtype=torch.bfloat16, device=dev)
+    acc = torch.empty((n, d), dtype=torch.float32, device=dev) if vocab > chunk else None
+    y = targets.to(torch.int32).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _kernels.launch(
+        "fused_ce_bwd_dh",
+        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
+        ptr(h_split), ptr(w_split), coeff.data_ptr(), ptr(acc), n, vocab, d, chunk, *_codes(hidden, embedding),
+        _kernels.stream_handle(hidden),
+    )
+    return dh
 
 
 def fused_ce_bwd_dw(hidden, embedding, targets, lse, g) -> torch.Tensor:
     """dW kernel wrapper: (V, d) in W's dtype, like :func:`fused_ce_bwd_dw_ref`."""
     if hidden.device.type == "cpu":
         return fused_ce_bwd_dw_ref(hidden, embedding, targets, lse, g)
-    return _bwd("fused_ce_bwd_dw", torch.empty_like(embedding), hidden, embedding, targets, lse, g)
+    _check("fused_ce_bwd_dw", hidden, embedding, targets, lse, g)
+    n, d = hidden.shape
+    dw = torch.empty_like(embedding)
+    if n == 0:
+        return dw.zero_()
+    y = targets.to(torch.int32).contiguous()
+    _kernels.launch(
+        "fused_ce_bwd_dw",
+        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        n, embedding.shape[0], d, *_codes(hidden, embedding), _kernels.stream_handle(hidden),
+    )
+    return dw
 
 
 class _FusedTokenLogprobs(torch.autograd.Function):

@@ -11,6 +11,8 @@ rtol 1e-5 beside it) and 2e-5 for attention (the JAX flash tests' bound) —
 sums taken in another order, nothing more.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,67 @@ def test_flash_serving_path_builds_no_graph(rng):
     with torch.inference_mode():
         out = dot_product_attention(q, k, v, causal=True)
     assert out.grad_fn is None
+
+
+# The bf16 dK/dV kernel (csrc/flash_attn_bwd.cu, flash_attn_bwd_dkv_tc) runs dV = P^T dO and
+# dK = dS^T Q on the tensor cores (bf16 in, f32 sums) with P and dS as two bf16 parts each:
+# x0 = bf16(x), x1 = bf16(x - x0). chip_smoke.py holds its bf16 dk and dv to the plain version
+# within (atol, rtol) = TOL[bf16]. The emulation below repeats that arithmetic on the CPU and holds
+# it to the same bound at the Llama (D = 128) and SigLIP (D = 72) head dims, causal with one batch
+# row that keeps no key (its rows spread dO / Sk over dV), and at GPT-2 stage 1's shape, where P
+# rounded once to bf16 (the usual tensor-core backward) misses the bound.
+BF16_TOL = (2e-2, 1e-2)  # chip_smoke.py: TOL[torch.bfloat16]
+
+
+def _two_bf16_parts(x):
+    x0 = x.to(torch.bfloat16).float()
+    return x0 + (x - x0).to(torch.bfloat16).float()
+
+
+def _dkv_tensor_core_scheme(q, k, v, bias, causal, lse, delta, do, parts=_two_bf16_parts):
+    from pgica_tpu_torch.ops.flash_attention import NEG_INF, _scores
+
+    sk, d = k.shape[2], q.shape[3]
+    s, keep = _scores(q, k, bias, causal)
+    without_key = (lse <= 0.5 * NEG_INF)[..., None]
+    p = torch.where(keep & ~without_key, torch.exp(s - lse[..., None]), 0.0)
+    dof = do.float()
+    ds = p * (dof @ v.float().transpose(-1, -2) - delta[..., None])
+    spread = (dof * without_key).sum(2, keepdim=True) / sk
+    dv = parts(p).transpose(-1, -2) @ dof + spread
+    dk = (parts(ds).transpose(-1, -2) @ q.float()) * (1.0 / d**0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_case(b, h, s, d, valid):
+    """bf16 inputs, causal, key bias from ``valid`` (None: random lengths 1..s, as chip_smoke.py's
+    stage-1 rows); the plain dk and dv, and what the scheme needs."""
+    rng = np.random.default_rng(2)
+    q, k, v, do = (torch.from_numpy(_np(rng, b, h, s, d)).to(torch.bfloat16) for _ in range(4))
+    lengths = rng.integers(1, s + 1, size=b) if valid is None else np.asarray(valid)
+    bias = key_padding_bias(torch.from_numpy((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)))
+    o, lse = flash_attention_fwd(q, k, v, bias, True)
+    _, dk, dv, delta = flash_attention_bwd_ref(q, k, v, bias, True, o, lse, do)
+    return (q, k, v, bias, True, lse, delta, do), dk, dv
+
+
+def _worst_over_bound(got, want):
+    atol, rtol = BF16_TOL
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 512, 72, (0, 300)), (2, 2, 512, 128, (0, 300)), (128, 16, 128, 64, None)],
+                         ids=["siglip_d72", "llama_d128", "gpt2_stage1"])
+def test_flash_dkv_with_p_and_ds_in_two_bf16_parts_holds_the_bf16_bound(shape):
+    args, want_dk, want_dv = _dkv_case(*shape)
+    got_dk, got_dv = _dkv_tensor_core_scheme(*args)
+    assert _worst_over_bound(got_dk, want_dk) <= 1.0 and _worst_over_bound(got_dv, want_dv) <= 1.0
+    if shape[4] is not None:  # batch row 0 keeps no key: dk 0, dv its spread
+        assert not got_dk[0].any() and got_dv[0].abs().max() > 0
+
+
+def test_flash_dkv_with_p_rounded_once_to_bf16_misses_the_bound_at_gpt2_stage1():
+    args, _, want_dv = _dkv_case(128, 16, 128, 64, None)
+    _, got_dv = _dkv_tensor_core_scheme(*args, parts=lambda x: x.to(torch.bfloat16).float())
+    assert _worst_over_bound(got_dv, want_dv) > 1.0

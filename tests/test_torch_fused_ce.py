@@ -21,7 +21,11 @@ import torch
 from pgica_tpu.ops.fused_ce import fused_token_logprobs as jax_fused
 from pgica_tpu_torch.ops import _kernels
 from pgica_tpu_torch.ops.fused_ce import (
+    DH_SCRATCH_BYTES,
+    DH_TILE,
     VOCAB_TILE,
+    _coeff_ref,
+    dh_vocab_chunk,
     fused_ce_bwd_dh,
     fused_ce_bwd_dh_ref,
     fused_ce_bwd_dw,
@@ -139,8 +143,9 @@ def test_wrappers_run_the_plain_version_on_cpu_and_refuse_other_devices(rng):
         fused_ce_fwd(*meta[:3])
     with pytest.raises(ValueError, match="unsupported device"):
         fused_ce_bwd_dh(meta[0], meta[1], meta[2], meta[3], meta[3])
-    for name in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
-        assert name in _kernels.KERNELS and _kernels.KERNELS[name][0] == "fused_ce.cu"
+    for name, source in (("fused_ce_fwd", "fused_ce.cu"), ("fused_ce_bwd_dh", "fused_ce_dh.cu"),
+                         ("fused_ce_bwd_dw", "fused_ce.cu")):
+        assert name in _kernels.KERNELS and _kernels.KERNELS[name][0] == source
 
 
 @pytest.mark.parametrize("rows,vocab,sms", [(8128, 50262, 132), (1984, 50262, 132), (37, 261, 132),
@@ -149,3 +154,121 @@ def test_vocab_splits_cover_the_vocab_with_non_empty_splits(rows, vocab, sms):
     splits, span = vocab_splits(rows, vocab, sms)
     assert span % VOCAB_TILE == 0 and 1 <= splits <= 65535
     assert (splits - 1) * span < vocab <= splits * span  # every split holds a column, all are covered
+
+
+@pytest.mark.parametrize("rows,vocab", [(2044, 128256), (8128, 50262), (1984, 50262), (37, 261), (300, 1000),
+                                        (1, 1), (200_000, 50262)])
+def test_dh_vocab_chunks_cover_the_vocab_within_the_scratch_cap(rows, vocab):
+    chunk = dh_vocab_chunk(rows, vocab)
+    chunks = -(-vocab // chunk)
+    assert chunk % DH_TILE == 0 and chunk >= DH_TILE
+    assert chunk <= -(-vocab // DH_TILE) * DH_TILE  # no wider than the vocab needs
+    assert 4 * rows * chunk <= DH_SCRATCH_BYTES or chunk == DH_TILE  # hi and lo bf16 coefficients
+    assert (chunks - 1) * chunk < vocab <= chunks * chunk  # every chunk holds a column, all are covered
+
+
+# ---- the dh kernel's precision scheme (csrc/fused_ce_dh.cu), emulated on the CPU
+#
+# The kernel multiplies bf16 values on the tensor cores with f32 sums. An f32 operand x goes in as
+# bf16 parts x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1); a pass multiplies one part of
+# each operand, and the passes whose parts' orders sum below an order are taken: 3 for the scores
+# (f32 operands in three parts), 2 for the product (the coefficients and W in two). Products of
+# bf16 values are exact in f32, so float32 matmuls of the parts on the CPU repeat the card's
+# arithmetic up to the order of the sums. chip_smoke.py holds each dh element to FCE_SCALE_RTOL of
+# its own sum of |terms| (|coeff| @ |W|) against the f32 plain version; these tests hold the
+# emulation to that bound, before any rounding of dh to h's dtype, at a Llama-like d and W scale,
+# with p flat (random weights) and peaked on a few tokens (trained ones).
+
+FCE_SCALE_RTOL = 1e-4  # chip_smoke.py's bound
+SCORE_ORDER, PRODUCT_ORDER = 3, 2  # csrc/fused_ce_dh.cu: kScoreOrder, kProductOrder
+
+
+def _parts(x, n):
+    """[x] for a bf16 tensor; its n bf16 parts (values held in f32) for an f32 one."""
+    if x.dtype == torch.bfloat16:
+        return [x.float()]
+    out, rest = [], x
+    for _ in range(n):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _passes(a_parts, b_parts, order, fn):
+    """sum of fn(a_i, b_j) over the passes i + j < order."""
+    return sum(fn(a, b) for i, a in enumerate(a_parts) for j, b in enumerate(b_parts) if i + j < order)
+
+
+def _dh_kernel_scheme(h, w, y, lse, g, score_parts=SCORE_ORDER, w_product=None):
+    """dh in f32 (before the cast to h's dtype) as the kernel's passes compute it."""
+    s = _passes(_parts(h, score_parts), _parts(w, score_parts), score_parts, lambda a, b: a @ b.T)
+    c = torch.where(g[:, None] != 0, -torch.exp(s - lse[:, None]), 0.0)
+    c[torch.arange(len(y)), y.long()] += (g != 0).float()
+    w_parts = _parts(w, PRODUCT_ORDER) if w_product is None else w_product
+    return _passes(_parts(c, PRODUCT_ORDER), w_parts, PRODUCT_ORDER, lambda a, b: a @ b) * g[:, None]
+
+
+# token gains along h: none (flat p), a few tokens carrying most of p, one token carrying ~0.995
+PEAKS = {"flat": (), "peaked": (7.0, 5.0, 4.0), "sharp": (9.0, 6.0, 5.0)}
+
+
+def _llama_like(peak, rows=12, vocab=4096, d=4096):
+    """h ~ LN outputs, W ~ 0.02-normal at Llama's d, targets also in the last, partial 128-column
+    tile; a peak adds to each row its target's and two other tokens' directions."""
+    rng = np.random.default_rng(7)
+    h = rng.normal(size=(rows, d)).astype(np.float32)
+    w = (0.02 * rng.normal(size=(vocab + 37, d))).astype(np.float32)
+    y = rng.integers(0, vocab, size=rows)
+    y[:2] = vocab + 36
+    for r in range(rows):
+        for tok, gain in zip((y[r], rng.integers(vocab), rng.integers(vocab)), PEAKS[peak]):
+            h[r] += gain * w[tok] / np.linalg.norm(w[tok])
+    g = rng.normal(size=rows).astype(np.float32)
+    g[3] = 0.0
+    return h, w, y, g
+
+
+def _dh_case(peak, h_dtype, w_dtype):
+    """(inputs, the f32 plain dh before its cast, FCE_SCALE_RTOL x sum|terms|) as chip_smoke.py forms them."""
+    h, w, y, g = _llama_like(peak)
+    th, tw, ty, tg = (torch.from_numpy(h).to(h_dtype), torch.from_numpy(w).to(w_dtype), torch.from_numpy(y),
+                      torch.from_numpy(g))
+    _, lse = fused_ce_fwd_ref(th, tw, ty)
+    coeff = _coeff_ref(th, tw, ty, lse, tg)
+    return (th, tw, ty, lse, tg), coeff @ tw.float(), FCE_SCALE_RTOL * (coeff.abs() @ tw.float().abs())
+
+
+def _worst(got, want, bound):
+    return float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("peak", ["flat", "peaked"])
+@pytest.mark.parametrize("h_dtype,w_dtype", [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_dh_split_bf16_scheme_holds_the_scaled_bound(peak, h_dtype, w_dtype):
+    args, want, bound = _dh_case(peak, h_dtype, w_dtype)
+    th, tw, _, lse, tg = args
+    if peak == "peaked":  # the data is what it claims: three of the 4,133 tokens carry much of p
+        p_top = torch.exp(th.float() @ tw.float().T - lse[:, None]).topk(3, dim=1).values.sum(1)
+        assert float(p_top.min()) > 0.25 and float(p_top.mean()) > 0.5
+    got = _dh_kernel_scheme(*args)
+    assert _worst(got, want, bound) <= 1.0
+    assert not got[tg == 0].any()  # a row with g = 0 gets exactly 0
+
+
+def test_dh_scores_need_the_master_w_in_three_parts_at_a_sharp_peak():
+    """The policy's pair (h bf16, W f32) where a target takes p ~ 0.995: lse is fixed, so a score's
+    error moves 1 - p_y undamped; three parts of W hold the bound, two (~2^-17 of W) do not."""
+    args, want, bound = _dh_case("sharp", torch.bfloat16, torch.float32)
+    th, tw, _, lse, _ = args
+    assert float(torch.exp(th.float() @ tw.float().T - lse[:, None]).max()) > 0.99
+    assert _worst(_dh_kernel_scheme(*args), want, bound) <= 1.0
+    assert _worst(_dh_kernel_scheme(*args, score_parts=2), want, bound) > 1.0
+
+
+@pytest.mark.parametrize("peak", ["flat", "peaked"])
+def test_dh_product_with_w_rounded_once_to_bf16_misses_the_bound(peak):
+    """Why the product takes the master W in two parts: the same passes with W rounded once to bf16."""
+    args, want, bound = _dh_case(peak, torch.bfloat16, torch.float32)
+    got = _dh_kernel_scheme(*args, w_product=[args[1].to(torch.bfloat16).float()])
+    assert _worst(got, want, bound) > 1.0
