@@ -22,7 +22,9 @@ exits non-zero):
    and F.cross_entropy) and the bound from the bytes and flops that the
    inputs need at HBM rate and peak rate (fused CE: the bf16 tensor-core peak,
    one pass per product, for every type pair). It first reports the
-   tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA.
+   tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA,
+   and times both flash forward kernels at Sq 1-64, where the dispatch
+   threshold lies.
 4. Full path vs plain, for each architecture at full width, 2 layers per
    tower, f32 — ViT-B/32 + GPT-2 Medium, then SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
@@ -254,6 +256,23 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
         **bound(nbytes, flops, dtype),
     )
     return out
+
+
+def flash_crossover(gen: torch.Generator) -> None:
+    """Both bf16 forward kernels (CUDA cores, tensor cores) at small Sq, where the dispatch threshold
+    TC_MIN_SQ lies: GPT-2's decoder heads (32 x 16, D 64) and Llama's (8 x 32, D 128) over a cache of
+    129 slots with ragged kept keys. Logs the times; the threshold in ops/flash_attention.py is set
+    from them."""
+    from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    for b, h, d in ((32, 16, 64), (8, 32, 128)):
+        valid = torch.randint(1, 130, (b,), device="cuda", generator=gen)
+        row = []
+        for sq in (1, 2, 3, 4, 8, 16, 32, 64):
+            sets = [attention_inputs(b, h, sq, 129, d, torch.bfloat16, valid, gen) for _ in range(8)]
+            ms = [time_ms(lambda *a: flash_attention_fwd(*a, tensor_cores=tc), sets) for tc in (False, True)]
+            row.append(f"Sq {sq}: {ms[0]:.5f} / {ms[1]:.5f}")
+        log(f"  flash forward crossover ({b * h}, Sq, 129, {d}) bf16, ms CUDA cores / tensor cores: " + "; ".join(row))
 
 
 def library_time(fn, arg_sets) -> float | None:
@@ -612,8 +631,9 @@ def show_timed(kernel: str, r: dict) -> None:
 
 # the tensor-core kernels, by source: phase 3 reports their registers and spills from the build's
 # -Xptxas -v log and whether their SASS holds tensor-core instructions
-TC_KERNELS = {"flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc",),
-              "fused_ce_dh.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product")}
+TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",), "flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc",),
+              "fused_ce_bwd.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product", "fused_ce_dw_coeff",
+                                  "fused_ce_dw_product")}
 
 
 def _demangle(names: list) -> list:
@@ -653,6 +673,8 @@ def tensor_core_report() -> None:
 
 
 def phase_kernels() -> dict:
+    from pgica_tpu_torch.ops.flash_attention import TC_MIN_SQ
+
     tensor_core_report()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: [] for name in KERNEL_META}
@@ -704,6 +726,13 @@ def phase_kernels() -> dict:
             r = attention_case(f"d{d}", 2, 2, 33, 40, d, d == 32, torch.tensor([0, 29], device="cuda"),
                                dtype, gen, timed=False)
             log(f"  flash d={d} (4, 33, 40, {d}) {dname(dtype)} masked row: max_abs_err {r['max_abs_err']:.3e}")
+        # either side of the Sq at which bf16 moves to the tensor-core kernel (ops/flash_attention.py:
+        # TC_MIN_SQ), ragged keys over a cache of 129
+        for name, sq_ in (("below_tc_min_sq", TC_MIN_SQ - 1), ("at_tc_min_sq", TC_MIN_SQ)):
+            r = attention_case(name, 32, 16, sq_, 129, 64, False,
+                               torch.randint(1, 130, (32,), device="cuda", generator=gen), dtype, gen)
+            results["flash_attn_fwd"].append(r)
+            show_timed("flash", r)
         for rows, hidden, where in ((2 * 730, 1152, "SigLIP, Llama stage 2"), (4 * 730, 1152, "SigLIP, Llama stage 1"),
                                     (8 * 730, 1152, "SigLIP, Llama serving batch 8"),
                                     (2048, 4096, "decoder cross_ln, Llama stage 2")):
@@ -766,6 +795,7 @@ def phase_kernels() -> dict:
             log(f"  flash bwd d={d} (4, 33, 33, {d}) {dname(dtype)} causal={d != 32}, a row without keys: "
                 f"max_abs_err dq {r_dq['max_abs_err']:.3e}, dk/dv {r_dkv['max_abs_err']:.3e}")
 
+    flash_crossover(gen)
     # fused linear-CE at the stage-2 shapes (batch 32: 64 caption rows of 127 or 31 targets): bf16
     # hidden states with the policy's f32 W and with the reference's bf16 W; bucketed rows past a
     # caption's end have g = 0, as the path gives them
@@ -780,8 +810,8 @@ def phase_kernels() -> dict:
                         timed=False)
     log(f"  fused_ce bucketed h float32, W float32: max_abs_err {fce_errs(res)}")
     # ragged edges (rows not a multiple of 8, V not of 128, targets in the last vocab tile, g = 0 on
-    # every 4th row) in all four type pairs; d = 1,040 runs two column passes of dW
-    # and a k tile of dh that ends 8 columns in
+    # every 4th row) in all four type pairs; d = 1,040: a k tile of the score GEMMs that ends 8
+    # columns in
     ragged = (torch.arange(37, device="cuda") % 4 != 0).float()
     for h_dtype, w_dtype in itertools.product((torch.float32, torch.bfloat16), repeat=2):
         res = fused_ce_case("ragged", 37, 261, 32, h_dtype, w_dtype, gen, ragged, timed=False)
@@ -790,7 +820,7 @@ def phase_kernels() -> dict:
     res = fused_ce_case("d1040", 300, 1000, 1040, torch.bfloat16, torch.float32, gen, timed=False)
     log(f"  fused_ce (300, 1040) x (1000, 1040) h bfloat16 W float32: max_abs_err {fce_errs(res)}")
     # the Llama slice's stage 2 (phase 8): 2 pairs x 2 captions x 511 targets, every one kept, d = 4,096
-    # (dW runs four column passes, dh four vocab chunks), V = 128,256; the policy's W f32 and the
+    # (dh and dW four vocab chunks each), V = 128,256; the policy's W f32 and the
     # reference's W bf16; then the same with the captions' tails masked (g = 0), untimed
     for w_dtype in (torch.float32, torch.bfloat16):
         res = fused_ce_case("llama", 4 * 511, LLAMA_VOCAB, 4096, torch.bfloat16, w_dtype, gen)
@@ -1331,7 +1361,7 @@ STAGE1_STEP_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "la
 def phase_stage1(model) -> dict:
     from pgica_tpu_torch.ops import _kernels
 
-    model._inference_cache = None  # serving's bf16 copy is not needed by training
+    model._inference_cache = None  # frees serving's bf16 copy for training (a later request would recast it)
     torch.cuda.empty_cache()
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=10, total=1000)  # bench.py's optimizer
     rng = np.random.default_rng(0)
@@ -1494,7 +1524,7 @@ def phase_llama(tokenizer) -> dict:
     serving_profile = profiled(lambda: model.generate_captions(images, seed=9, **sample), "batch-8 sampled request",
                                served[-1]["seconds"] * 1e3)
 
-    model._inference_cache = None
+    model._inference_cache = None  # frees serving's bf16 copy for training (a later request would recast it)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(1)
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=500, total=1000)
@@ -1542,9 +1572,9 @@ KERNEL_META = {
                            "(128, 512, 512, 128)", "bfloat16"),
     "fused_ce_fwd": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:60", FCE_SHAPE,
                      "h bfloat16, W float32"),
-    "fused_ce_bwd_dh": ("pgica_tpu_torch/csrc/fused_ce_dh.cu", "pgica_tpu/ops/fused_ce.py:108", FCE_SHAPE,
+    "fused_ce_bwd_dh": ("pgica_tpu_torch/csrc/fused_ce_bwd.cu", "pgica_tpu/ops/fused_ce.py:108", FCE_SHAPE,
                         "h bfloat16, W float32"),
-    "fused_ce_bwd_dw": ("pgica_tpu_torch/csrc/fused_ce.cu", "pgica_tpu/ops/fused_ce.py:134", FCE_SHAPE,
+    "fused_ce_bwd_dw": ("pgica_tpu_torch/csrc/fused_ce_bwd.cu", "pgica_tpu/ops/fused_ce.py:134", FCE_SHAPE,
                         "h bfloat16, W float32"),
     "rmsnorm_fwd": ("pgica_tpu_torch/csrc/rmsnorm_fwd.cu", "pgica_tpu/ops/layernorm.py:119", "(2048, 4096)",
                     "bfloat16"),

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import List, Mapping, Optional, Union
+from typing import List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -276,21 +276,32 @@ class PreferenceGuidedCaptioningModel:
         self.module = module.to(self.device).eval()
         self.image_size = image_size or self.module.vision_config.image_size
         self._inference_cache: Optional[nn.Module] = None
+        self._inference_key: List[Tuple[nn.Parameter, int]] = []
 
     def load_jax_params(self, params: Mapping) -> None:
         """Copy a JAX parameter tree (nested dicts of numpy arrays) into the masters."""
         load_jax_params(self.module, params)
-        self._inference_cache = None
 
     def _inference_module(self) -> PreferenceGuidedCaptioningModule:
-        """The module in the compute dtype for inference, cast once and cached.
+        """The module in the compute dtype for inference.
 
-        Float32 runs on the masters; bf16 on a :func:`frozen_copy`.
+        Float32 runs on the masters; bf16 on a :func:`frozen_copy`, cached
+        until a master changes. The train steps and ``load_jax_params``
+        update the masters in place, which bumps each tensor's version
+        counter, so the cache is keyed on every master's identity and
+        version (the JAX package keys its cast on the identity of
+        ``self.params``, which its trainer replaces: model.py:370-387).
+        Setting ``_inference_cache`` to None releases the copy's memory.
         """
         if self.dtype == torch.float32:
             return self.module
-        if self._inference_cache is None:
+        params = list(self.module.parameters())
+        fresh = len(params) == len(self._inference_key) and all(
+            p is q and p._version == v for p, (q, v) in zip(params, self._inference_key))
+        if self._inference_cache is None or not fresh:
+            self._inference_cache = None  # free the old copy before casting the new one
             self._inference_cache = frozen_copy(self.module, self.dtype)
+            self._inference_key = [(p, p._version) for p in params]
         return self._inference_cache
 
     def _images(self, images) -> torch.Tensor:

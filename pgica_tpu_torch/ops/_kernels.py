@@ -48,7 +48,7 @@ KERNELS = {
     ),
     "flash_attn_fwd": (
         "flash_attn_fwd.cu", "pgica_flash_attn_fwd",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     ),
     "layernorm_bwd": (
         "layernorm_bwd.cu", "pgica_layernorm_bwd",
@@ -67,12 +67,12 @@ KERNELS = {
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
     "fused_ce_bwd_dh": (
-        "fused_ce_dh.cu", "pgica_fused_ce_bwd_dh",
+        "fused_ce_bwd.cu", "pgica_fused_ce_bwd_dh",
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     ),
     "fused_ce_bwd_dw": (
-        "fused_ce.cu", "pgica_fused_ce_bwd_dw",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "fused_ce_bwd.cu", "pgica_fused_ce_bwd_dw",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     ),
     "rmsnorm_fwd": (
         "rmsnorm_fwd.cu", "pgica_rmsnorm_fwd",

@@ -6,7 +6,11 @@ Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
 * ``csrc/flash_attn_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (:34):
   online softmax in float32, a per-key additive bias (B, Sk) in float32
   shared across heads, an optional causal mask ``rows >= cols``; it returns
-  O in the input dtype and the row logsumexp in float32.
+  O in the input dtype and the row logsumexp in float32. Two kernels, chosen
+  by :func:`fwd_on_tensor_cores` from the dtype and Sq: bf16 at Sq >=
+  ``TC_MIN_SQ`` runs on the tensor cores (``flash_attn_fwd_tc``, P rounded
+  once to bf16 for PV); decode, short Sq and float32 run on the CUDA cores
+  in f32 (``flash_attn_fwd``).
 * ``csrc/flash_attn_bwd.cu`` replaces ``_bwd_dq_kernel`` (:130) and
   ``_bwd_dkv_kernel`` (:81). ``delta = rowsum(dO * O)``, which the JAX
   wrapper computes apart (:233), is folded into the dQ kernel: it runs first
@@ -44,6 +48,15 @@ from pgica_tpu_torch.ops import _kernels
 
 NEG_INF = -1.0e9
 HEAD_DIMS = (16, 32, 64, 72, 128)  # the kernels are templated on these (72: SigLIP so400m)
+# Sq from which a bf16 forward runs on the tensor cores. Measured on the H100 over a cache of 129 keys
+# (chip_smoke.py phase 3, PERF.md §6): at Sq 1 and 2 the CUDA-core kernel is as fast or faster (a few
+# q rows fill little of a 16-row mma tile), from Sq 3 the tensor cores win at D 64 and 128.
+TC_MIN_SQ = 3
+
+
+def fwd_on_tensor_cores(dtype: torch.dtype, sq: int) -> bool:
+    """Whether the forward runs on the tensor cores: bf16 at Sq >= ``TC_MIN_SQ``; f32 never."""
+    return dtype == torch.bfloat16 and sq >= TC_MIN_SQ
 
 
 def _scores(q, k, bias, causal):
@@ -148,8 +161,13 @@ def flash_attention_fwd(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
+    tensor_cores: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel wrapper: q (B, H, Sq, D), k and v (B, H, Sk, D), bias None or (B, Sk) f32."""
+    """Forward kernel wrapper: q (B, H, Sq, D), k and v (B, H, Sk, D), bias None or (B, Sk) f32.
+
+    ``tensor_cores`` picks the kernel on the card; None takes :func:`fwd_on_tensor_cores`
+    (True or False only to measure one kernel against the other).
+    """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, bias, causal)
     if q.device.type != "cuda":
@@ -159,6 +177,10 @@ def flash_attention_fwd(
         _check_operand("flash_attention_fwd", t, q, name)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if tensor_cores is None:
+        tensor_cores = fwd_on_tensor_cores(q.dtype, sq)
+    elif tensor_cores and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_fwd: the tensor-core kernel takes bfloat16, got {q.dtype}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
@@ -167,7 +189,7 @@ def flash_attention_fwd(
         "flash_attn_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
         o.data_ptr(), lse.data_ptr(), b * h, h, sq, sk, d, int(causal), 1.0 / d**0.5,
-        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q),
+        _kernels.DTYPE_CODES[q.dtype], int(tensor_cores), _kernels.stream_handle(q),
     )
     return o, lse
 

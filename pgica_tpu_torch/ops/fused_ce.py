@@ -9,17 +9,17 @@ kernels:
 * ``fused_ce_fwd`` (``csrc/fused_ce.cu``) replaces the Pallas ``_fwd_kernel``
   (:60): logp and the per-row logsumexp (saved for the backward), both
   float32; f32 products on the CUDA cores.
-* ``fused_ce_bwd_dh`` (``csrc/fused_ce_dh.cu``) replaces ``_bwd_dh_kernel``
-  (:108): ``dh = g * (onehot - p) @ W`` in h's dtype, on the tensor cores
-  for every type pair: a bf16 operand goes in as it is, an f32 one (the
-  master W, an f32 h, and always the f32 coefficients onehot - p) as bf16
-  parts whose products are summed in f32 (three parts for the scores, two
-  for the product), so the result keeps f32 accuracy (the source note has
-  the error argument). The vocab is walked in chunks of
-  :func:`dh_vocab_chunk` columns.
-* ``fused_ce_bwd_dw`` (``csrc/fused_ce.cu``) replaces ``_bwd_dw_kernel``
-  (:134): ``dW = ((onehot - p) * g)^T @ h`` in W's dtype, the same from run
-  to run; f32 products on the CUDA cores.
+* ``fused_ce_bwd_dh`` and ``fused_ce_bwd_dw`` (``csrc/fused_ce_bwd.cu``)
+  replace ``_bwd_dh_kernel`` (:108) and ``_bwd_dw_kernel`` (:134):
+  ``dh = g * (onehot - p) @ W`` in h's dtype and ``dW = ((onehot - p) *
+  g)^T @ h`` in W's dtype, each the same from run to run. Both run one GEMM
+  template on the tensor cores for every type pair: a bf16 operand goes in
+  as it is, an f32 one (the master W, an f32 h, and always the f32
+  coefficients) as bf16 parts whose products are summed in f32 (three parts
+  for the scores, two for the product), so the result keeps f32 accuracy
+  (the source note has the error argument). The vocab is walked in chunks
+  of :func:`dh_vocab_chunk` columns. dW takes the rows with g != 0 first
+  (:func:`fused_ce_bwd_dw`).
 
 h and W may each be float32 or bf16 (the stage-2 policy passes bf16 hidden
 states with its float32 master W, the reference bf16 with bf16). Rows and
@@ -32,7 +32,7 @@ XLA fallback does (:345-351).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,8 +41,8 @@ from pgica_tpu_torch.ops import _kernels
 FWD_ROWS = 64  # csrc/fused_ce.cu: kFwdRows
 VOCAB_TILE = 128  # csrc/fused_ce.cu: kVTile
 BLOCKS_PER_SM = 8  # the forward splits the vocab until there are about this many blocks per SM
-DH_TILE = 128  # csrc/fused_ce_dh.cu: kBN, the unit of dh's vocab chunks
-DH_SCRATCH_BYTES = 256 * 2**20  # cap on dh's coefficient scratch (two bf16 parts, rows x chunk each)
+DH_TILE = 128  # csrc/fused_ce_bwd.cu: kBN, the unit of the backward's vocab chunks
+DH_SCRATCH_BYTES = 256 * 2**20  # cap on the backward's coefficient scratch (two bf16 parts, rows x chunk each)
 
 
 def fused_ce_fwd_ref(
@@ -125,7 +125,7 @@ def vocab_splits(rows: int, vocab: int, sm_count: int) -> Tuple[int, int]:
 
 
 def dh_vocab_chunk(rows: int, vocab: int) -> int:
-    """Vocab columns per chunk of the dh kernel: a multiple of ``DH_TILE``, as
+    """Vocab columns per chunk of the dh and dW kernels: a multiple of ``DH_TILE``, as
     many as keep its coefficient scratch (``2 * 2 * rows * chunk`` bytes) within
     ``DH_SCRATCH_BYTES`` (one tile at the least), and no more than the vocab
     needs. The kernel walks ``ceil(vocab / chunk)`` chunks, each non-empty."""
@@ -135,6 +135,15 @@ def dh_vocab_chunk(rows: int, vocab: int) -> int:
 
 def _codes(hidden: torch.Tensor, embedding: torch.Tensor) -> Tuple[int, int]:
     return _kernels.DTYPE_CODES[hidden.dtype], _kernels.DTYPE_CODES[embedding.dtype]
+
+
+def _split_scratch(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """Room for the three bf16 parts of an f32 operand; None for a bf16 one (it goes in as it is)."""
+    return torch.empty((3, *t.shape), dtype=torch.bfloat16, device=t.device) if t.dtype == torch.float32 else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def fused_ce_fwd(
@@ -180,38 +189,56 @@ def fused_ce_bwd_dh(hidden, embedding, targets, lse, g) -> torch.Tensor:
         return dh
     dev = hidden.device
     chunk = dh_vocab_chunk(n, vocab)
-
-    def split(t):  # the three bf16 parts of an f32 operand
-        return torch.empty((3, *t.shape), dtype=torch.bfloat16, device=dev) if t.dtype == torch.float32 else None
-
-    h_split, w_split = split(hidden), split(embedding)
+    h_split, w_split = _split_scratch(hidden), _split_scratch(embedding)
     coeff = torch.empty((2, n, chunk), dtype=torch.bfloat16, device=dev)
     acc = torch.empty((n, d), dtype=torch.float32, device=dev) if vocab > chunk else None
     y = targets.to(torch.int32).contiguous()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _kernels.launch(
         "fused_ce_bwd_dh",
         hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
-        ptr(h_split), ptr(w_split), coeff.data_ptr(), ptr(acc), n, vocab, d, chunk, *_codes(hidden, embedding),
+        _ptr(h_split), _ptr(w_split), coeff.data_ptr(), _ptr(acc), n, vocab, d, chunk, *_codes(hidden, embedding),
         _kernels.stream_handle(hidden),
     )
     return dh
 
 
+def live_rows_first(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, live): the row indices with those whose g != 0 first, each group in its order, and
+    the count of such rows as an int32 0-d tensor on g's device (no host sync)."""
+    order = torch.argsort((g == 0).to(torch.uint8), stable=True)
+    return order, (g != 0).sum(dtype=torch.int32)
+
+
 def fused_ce_bwd_dw(hidden, embedding, targets, lse, g) -> torch.Tensor:
-    """dW kernel wrapper: (V, d) in W's dtype, like :func:`fused_ce_bwd_dw_ref`."""
+    """dW kernel wrapper: (V, d) in W's dtype, like :func:`fused_ce_bwd_dw_ref`.
+
+    On the card the kernel takes the rows reordered by :func:`live_rows_first`:
+    its sums over rows then group the live rows' terms the same way whatever
+    masked rows (g = 0) lay between them, so dW is bit-identical to dW over the
+    live rows alone, and the masked rows cost no work. The wrapper allocates
+    the scratch: the coefficients of one vocab chunk (two bf16 parts, as dh's)
+    and the three bf16 parts of an f32 operand (3.2 GB for Llama-3-8B's f32 W).
+    """
     if hidden.device.type == "cpu":
         return fused_ce_bwd_dw_ref(hidden, embedding, targets, lse, g)
     _check("fused_ce_bwd_dw", hidden, embedding, targets, lse, g)
     n, d = hidden.shape
+    vocab = embedding.shape[0]
     dw = torch.empty_like(embedding)
     if n == 0:
         return dw.zero_()
-    y = targets.to(torch.int32).contiguous()
+    order, live = live_rows_first(g)
+    hidden = hidden.index_select(0, order)
+    y = targets.index_select(0, order).to(torch.int32)
+    lse, g = lse.index_select(0, order), g.index_select(0, order)
+    chunk = dh_vocab_chunk(n, vocab)
+    h_split, w_split = _split_scratch(hidden), _split_scratch(embedding)
+    coeff = torch.empty((2, chunk, -(-n // 8) * 8), dtype=torch.bfloat16, device=hidden.device)
     _kernels.launch(
         "fused_ce_bwd_dw",
-        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
-        n, embedding.shape[0], d, *_codes(hidden, embedding), _kernels.stream_handle(hidden),
+        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(), live.data_ptr(),
+        dw.data_ptr(), _ptr(h_split), _ptr(w_split), coeff.data_ptr(), n, vocab, d, chunk,
+        *_codes(hidden, embedding), _kernels.stream_handle(hidden),
     )
     return dw
 

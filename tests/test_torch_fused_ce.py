@@ -34,6 +34,7 @@ from pgica_tpu_torch.ops.fused_ce import (
     fused_ce_fwd,
     fused_ce_fwd_ref,
     fused_token_logprobs,
+    live_rows_first,
     token_logprobs_ref,
     vocab_splits,
 )
@@ -143,8 +144,8 @@ def test_wrappers_run_the_plain_version_on_cpu_and_refuse_other_devices(rng):
         fused_ce_fwd(*meta[:3])
     with pytest.raises(ValueError, match="unsupported device"):
         fused_ce_bwd_dh(meta[0], meta[1], meta[2], meta[3], meta[3])
-    for name, source in (("fused_ce_fwd", "fused_ce.cu"), ("fused_ce_bwd_dh", "fused_ce_dh.cu"),
-                         ("fused_ce_bwd_dw", "fused_ce.cu")):
+    for name, source in (("fused_ce_fwd", "fused_ce.cu"), ("fused_ce_bwd_dh", "fused_ce_bwd.cu"),
+                         ("fused_ce_bwd_dw", "fused_ce_bwd.cu")):
         assert name in _kernels.KERNELS and _kernels.KERNELS[name][0] == source
 
 
@@ -167,7 +168,7 @@ def test_dh_vocab_chunks_cover_the_vocab_within_the_scratch_cap(rows, vocab):
     assert (chunks - 1) * chunk < vocab <= chunks * chunk  # every chunk holds a column, all are covered
 
 
-# ---- the dh kernel's precision scheme (csrc/fused_ce_dh.cu), emulated on the CPU
+# ---- the dh and dW kernels' precision scheme (csrc/fused_ce_bwd.cu), emulated on the CPU
 #
 # The kernel multiplies bf16 values on the tensor cores with f32 sums. An f32 operand x goes in as
 # bf16 parts x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1); a pass multiplies one part of
@@ -180,7 +181,7 @@ def test_dh_vocab_chunks_cover_the_vocab_within_the_scratch_cap(rows, vocab):
 # with p flat (random weights) and peaked on a few tokens (trained ones).
 
 FCE_SCALE_RTOL = 1e-4  # chip_smoke.py's bound
-SCORE_ORDER, PRODUCT_ORDER = 3, 2  # csrc/fused_ce_dh.cu: kScoreOrder, kProductOrder
+SCORE_ORDER, PRODUCT_ORDER = 3, 2  # csrc/fused_ce_bwd.cu: kScoreOrder, kProductOrder
 
 
 def _parts(x, n):
@@ -272,3 +273,85 @@ def test_dh_product_with_w_rounded_once_to_bf16_misses_the_bound(peak):
     args, want, bound = _dh_case(peak, torch.bfloat16, torch.float32)
     got = _dh_kernel_scheme(*args, w_product=[args[1].to(torch.bfloat16).float()])
     assert _worst(got, want, bound) > 1.0
+
+
+# dW (same file, same GEMM template): the scores with W's chunk as A and h as B, the coefficients
+# C^T = (g (onehot - p))^T in two bf16 parts, then dW = C^T @ h with h as it is (bf16) or in two
+# parts (f32), its K loop over the rows with each 32-row k tile summed apart and promoted into an f32
+# total (csrc/fused_ce_bwd.cu: mainloop). The kernel takes the rows reordered by live_rows_first and
+# stops at the live count; chip_smoke.py holds each dW element to FCE_SCALE_RTOL of its own sum of
+# |terms| (|coeff|^T @ |h|) and dW bit-identical with the masked rows dropped.
+K_TILE = 32  # csrc/fused_ce_bwd.cu: kBK
+
+
+def _dw_kernel_scheme(h, w, y, lse, g, c_parts=PRODUCT_ORDER, reorder=True):
+    """dW in f32 (before the cast to W's dtype) as the kernel's passes and k tiles compute it.
+    ``reorder=False`` leaves the masked rows where they are (their C is 0), as a kernel without
+    live_rows_first would."""
+    if reorder:
+        order, live = live_rows_first(g)
+        h, y, lse, g = h[order], y[order], lse[order], g[order]
+        n = int(live)
+    else:
+        n = len(g)
+    h, y, lse, g = h[:n], y[:n], lse[:n], g[:n]
+    s = _passes(_parts(w, SCORE_ORDER), _parts(h, SCORE_ORDER), SCORE_ORDER, lambda a, b: a @ b.T)  # (V, n)
+    ct = torch.where(g[None, :] != 0, -torch.exp(s - lse[None, :]), 0.0)
+    ct[y.long(), torch.arange(n)] += (g != 0).float()
+    ct = ct * g[None, :]
+    c = _parts(ct, c_parts) if c_parts > 1 else [ct.to(torch.bfloat16).float()]
+    h_parts = _parts(h, PRODUCT_ORDER)
+    acc = torch.zeros(w.shape[0], h.shape[1])
+    for k0 in range(0, n, K_TILE):
+        acc += _passes([x[:, k0:k0 + K_TILE] for x in c], [x[k0:k0 + K_TILE] for x in h_parts], PRODUCT_ORDER,
+                       lambda a, b: a @ b)
+    return acc
+
+
+def _dw_case(peak, h_dtype, w_dtype, rows=12):
+    """(inputs, the f32 plain dW before its cast, FCE_SCALE_RTOL x sum|terms|) as chip_smoke.py forms them."""
+    h, w, y, g = _llama_like(peak, rows=rows)
+    th, tw, ty, tg = (torch.from_numpy(h).to(h_dtype), torch.from_numpy(w).to(w_dtype), torch.from_numpy(y),
+                      torch.from_numpy(g))
+    _, lse = fused_ce_fwd_ref(th, tw, ty)
+    coeff = _coeff_ref(th, tw, ty, lse, tg)
+    return (th, tw, ty, lse, tg), coeff.T @ th.float(), FCE_SCALE_RTOL * (coeff.abs().T @ th.float().abs())
+
+
+@pytest.mark.parametrize("peak", ["flat", "peaked"])
+@pytest.mark.parametrize("h_dtype,w_dtype", [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_dw_split_bf16_scheme_holds_the_scaled_bound(peak, h_dtype, w_dtype):
+    args, want, bound = _dw_case(peak, h_dtype, w_dtype)
+    assert _worst(_dw_kernel_scheme(*args), want, bound) <= 1.0
+
+
+@pytest.mark.parametrize("peak", ["flat", "peaked"])
+def test_dw_product_with_c_rounded_once_to_bf16_misses_the_bound(peak):
+    """Why the product takes the coefficients in two parts: the same passes with C rounded once."""
+    args, want, bound = _dw_case(peak, torch.bfloat16, torch.float32)
+    assert _worst(_dw_kernel_scheme(*args, c_parts=1), want, bound) > 1.0
+
+
+def test_dw_over_live_rows_alone_is_bit_identical_under_the_kernel_row_order():
+    """96 rows, every third masked (g = 0) and interleaved with the live ones: with the live rows
+    taken first, dW equals dW over the live rows alone bit for bit, and holds the bound; left where
+    they are, the masked rows regroup the live rows' k tiles and change dW's bits."""
+    args, _, _ = _dw_case("peaked", torch.bfloat16, torch.float32, rows=96)
+    h, w, y, lse, g = args
+    g = g.clone()
+    g[::3] = 0.0
+    live = g != 0
+    full = _dw_kernel_scheme(h, w, y, lse, g)
+    alone = _dw_kernel_scheme(h[live], w, y[live], lse[live], g[live])
+    assert torch.equal(full, alone)
+    coeff = _coeff_ref(h, w, y, lse, g)
+    assert _worst(full, coeff.T @ h.float(), FCE_SCALE_RTOL * (coeff.abs().T @ h.float().abs())) <= 1.0
+    assert not torch.equal(_dw_kernel_scheme(h, w, y, lse, g, reorder=False), alone)
+
+
+def test_live_rows_first_keeps_each_group_in_order():
+    g = torch.tensor([0.0, 1.5, 0.0, -2.0, 3.0, 0.0, 0.25])
+    order, live = live_rows_first(g)
+    assert order.tolist() == [1, 3, 4, 6, 0, 2, 5]
+    assert live.dtype == torch.int32 and live.dim() == 0 and int(live) == 4

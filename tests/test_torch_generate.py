@@ -4,6 +4,9 @@ Greedy decoding must be token-identical to the JAX package's, with
 ``early_stop`` off and on, including when EOS ends every row early. Sampling
 is checked for shape and for determinism under a fixed seed only: the port
 draws from a ``torch.Generator``, whose stream differs from ``jax.random``'s.
+A bf16 model serves a cast copy of its float32 masters; after training
+updates the masters in place it must serve the trained weights (exactly
+the JAX package's ``_inference_params`` cast of the same masters).
 """
 
 import jax
@@ -13,19 +16,26 @@ import pytest
 import torch
 
 from pgica_tpu.data.augment import prepare_images as jax_prepare_images
+from pgica_tpu.data.tokenizer import CaptionTokenizer as JaxTokenizer
 from pgica_tpu.generation.decode import generate as jax_generate
+from pgica_tpu.models import PreferenceGuidedCaptioningModel as JaxModel
+from pgica_tpu.training.optim import create_optimizer as jax_create_optimizer
+from pgica_tpu.training.train_step import TrainState as JaxTrainState
+from pgica_tpu.training.train_step import make_stage0_train_step as jax_make_stage0_train_step
+from pgica_tpu_torch.data.augment import prepare_images
 from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.generation.decode import generate
-from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
+from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
+from pgica_tpu_torch.training.optim import create_optimizer
+from pgica_tpu_torch.training.train_step import TrainState, make_stage0_train_step
 
 MAX_LENGTH = 8
+TINY = dict(vision_model="tiny-vit", text_model="tiny-gpt2", projection_dim=16, max_caption_length=8,
+            image_size=32)
 
 
-def _port(params):
-    port = PreferenceGuidedCaptioningModel(
-        vision_model="tiny-vit", text_model="tiny-gpt2", projection_dim=16,
-        tokenizer=CaptionTokenizer(), max_caption_length=8, image_size=32, device="cpu",
-    )
+def _port(params, dtype=torch.float32):
+    port = PreferenceGuidedCaptioningModel(tokenizer=CaptionTokenizer(), dtype=dtype, device="cpu", **TINY)
     port.load_jax_params(params)
     return port
 
@@ -123,3 +133,74 @@ def test_sampling_is_deterministic_under_a_seed(params, images):
 def test_beam_search_is_not_ported_yet(params, images):
     with pytest.raises(NotImplementedError, match="beam"):
         _port(params).generate_captions(images, max_length=MAX_LENGTH, num_beams=2)
+
+
+# ---- the bf16 serving copy after training (stage 0 trains the decoder, the weights serving reads)
+
+STAGE0_LR, STAGE0_UPDATES = 1e-2, 4  # the schedule's first update has lr 0 (warmup 2 of 10)
+
+
+def _captions(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, MAX_LENGTH + 1, size=3)
+    return {"image": rng.integers(0, 256, size=(3, 32, 32, 3), dtype=np.uint8),
+            "caption_ids": rng.integers(0, 261, size=(3, MAX_LENGTH)).astype(np.int32),
+            "caption_mask": (np.arange(MAX_LENGTH)[None, :] < lengths[:, None]).astype(np.int32)}
+
+
+def _greedy_ids(port, module, images):
+    emb = module.encode_image(prepare_images(torch.from_numpy(images)))["embeddings"]
+    return generate(module, emb, eos_token_id=port.tokenizer.eos_token_id,
+                    pad_token_id=port.tokenizer.pad_token_id, max_length=MAX_LENGTH)
+
+
+def test_bf16_serving_copy_follows_in_place_training(params, images):
+    """Generate (the bf16 copy is cast and cached), train the masters in place, generate again:
+    the ids are those of a fresh cast of the trained masters."""
+    port = _port(params, torch.bfloat16)
+    before = port.generate_captions(images, max_length=MAX_LENGTH)
+    with torch.no_grad():
+        ids_before = _greedy_ids(port, port._inference_module(), images)
+    opt = create_optimizer(STAGE0_LR, 10, 2, freeze_vision_backbone=True)
+    state = TrainState.create(port.module, opt)
+    step = make_stage0_train_step(port.module, opt)
+    for i in range(STAGE0_UPDATES):
+        state, _ = step(state, _captions(60 + i), 0)
+    with torch.no_grad():
+        got = _greedy_ids(port, port._inference_module(), images)
+        want = _greedy_ids(port, frozen_copy(port.module, torch.bfloat16), images)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, ids_before), "training left the greedy ids as they were; train harder"
+    fresh = _port(params, torch.bfloat16)
+    fresh.module.load_state_dict(port.module.state_dict())
+    after = port.generate_captions(images, max_length=MAX_LENGTH)
+    assert after == fresh.generate_captions(images, max_length=MAX_LENGTH) and after != before
+
+
+def test_bf16_serving_copy_is_jax_inference_params_after_training(params, images):
+    """The JAX model takes stage-0 updates from the same weights and replaces its params (as its
+    trainer does); the port's masters take the same values in place, as an optimizer writes them.
+    Then both serve the same bf16 weights, bit for bit."""
+    jm = JaxModel(tokenizer=JaxTokenizer(), seed=0, dtype=jnp.bfloat16, **TINY)
+    jm.params = jax.tree.map(jnp.asarray, params)
+    port = _port(params, torch.bfloat16)
+    port.generate_captions(images, max_length=MAX_LENGTH)  # the copy of the untrained masters is cached
+    jax_served_before = jm._inference_params()
+    jopt = jax_create_optimizer(STAGE0_LR, total_steps=10, warmup_steps=2, params_for_freezing=jm.params,
+                                freeze_vision_backbone=True)
+    jstate = JaxTrainState.create(jm.params, jopt)
+    jstep = jax.jit(jax_make_stage0_train_step(jm.module, jopt, augment=False))
+    for i in range(STAGE0_UPDATES):
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in _captions(60 + i).items()}, jax.random.PRNGKey(0))
+    jm.params = jstate.params
+    assert jm._inference_params() is not jax_served_before  # JAX re-casts for the new params
+    trained = _port(jax.tree.map(np.asarray, jstate.params)).module.state_dict()
+    with torch.no_grad():
+        for name, p in port.module.named_parameters():
+            p.copy_(trained[name])
+    want = _port(jax.tree.map(lambda x: np.asarray(x, dtype=np.float32), jm._inference_params()))
+    want = dict(want.module.named_parameters())
+    for name, p in port._inference_module().named_parameters():
+        assert torch.equal(p.float(), want[name]), name
+    untrained = torch.from_numpy(params["caption_decoder"]["lm"]["wte"]["embedding"]).to(torch.bfloat16)
+    assert not torch.equal(port._inference_module().caption_decoder.lm.wte.weight, untrained)

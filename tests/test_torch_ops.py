@@ -33,7 +33,13 @@ from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.generation.decode import _apply_repetition_penalty, _top_p_filter
 from pgica_tpu_torch.models import presets
 from pgica_tpu_torch.ops.attention import dot_product_attention, key_padding_bias, xla_attention
-from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd
+from pgica_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    TC_MIN_SQ,
+    flash_attention_fwd,
+    flash_attention_ref,
+    fwd_on_tensor_cores,
+)
 from pgica_tpu_torch.ops.layernorm import LayerNorm, layer_norm_fwd
 
 LN_ATOL = 1e-5
@@ -180,6 +186,97 @@ def test_general_mask_takes_the_plain_path(rng):
     ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), False))
     out = dot_product_attention(*(torch.from_numpy(t) for t in (q, k, v, mask)))
     np.testing.assert_allclose(out.numpy(), ref, atol=ATTN_ATOL)
+
+
+# The bf16 forward at Sq >= TC_MIN_SQ (csrc/flash_attn_fwd.cu, flash_attn_fwd_tc) runs S = Q K^T
+# and O += P V on the tensor cores (bf16 in, f32 sums) over 64-row q tiles and 64-key tiles, the
+# online max and sum in f32 and P rounded once to bf16 for PV. chip_smoke.py holds its o to the
+# plain version within TOL[bf16] and its lse within (1e-4, 1e-6). The emulation below repeats that
+# arithmetic on the CPU (products of bf16 values are exact in f32, so f32 matmuls repeat the card's
+# up to the order of the sums), with the kernel's tile skipping: keys past a q tile's kv_end are
+# neither in the max nor in the sum, and a tile whose first row keeps no key reads all Sk keys.
+BF16_TOL = (2e-2, 1e-2)  # chip_smoke.py: TOL[torch.bfloat16]
+LSE_TOL = (1e-4, 1e-6)
+TC_ROWS = TC_KEYS = 64  # csrc/flash_attn_fwd.cu: kTcRows, kTcKeys
+
+
+def _fwd_tensor_core_scheme(q, k, v, bias, causal):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.empty(b, h, sq, d)
+    lse = torch.empty(b, h, sq)
+    keys = torch.arange(sk)
+    kept = torch.ones(b, sk, dtype=torch.bool) if bias is None else bias > NEG_INF
+    for q0 in range(0, sq, TC_ROWS):
+        rows = torch.arange(q0, min(q0 + TC_ROWS, sq))
+        kv_end = torch.full((b,), min(sk, int(rows[-1]) + 1) if causal else sk)
+        if bias is not None:  # per batch row, as the kernel's per-block scan
+            for i in range(b):
+                idx = torch.nonzero(kept[i, :int(kv_end[i])]).flatten()
+                no_key = len(idx) == 0 or (causal and int(idx[0]) > q0)
+                kv_end[i] = sk if no_key else int(idx[-1]) + 1
+        m = torch.full((b, h, len(rows)), NEG_INF)
+        l = torch.zeros(b, h, len(rows))
+        acc = torch.zeros(b, h, len(rows), d)
+        for k0 in range(0, int(kv_end.max()), TC_KEYS):
+            tile = keys[k0:k0 + TC_KEYS]
+            s = qf[:, :, rows] @ kf[:, :, tile].transpose(-1, -2) * (1.0 / d**0.5)
+            keep = kept[:, None, None, tile]
+            if causal:
+                keep = keep & (rows[:, None] >= tile[None, :])
+            x = torch.where(keep, s + (0.0 if bias is None else bias[:, None, None, tile]), NEG_INF)
+            x = torch.where((tile[None, :] >= kv_end[:, None])[:, None, None, :], -torch.inf, x)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, tile]
+            m = m_new
+        o[:, :, rows] = acc / l[..., None]
+        lse[:, :, rows] = m + torch.log(l)
+    return o.to(q.dtype), lse
+
+
+def _bf16_attention_case(b, h, sq, d, valid, causal, seed=3):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(_np(rng, b, h, sq, d)).to(torch.bfloat16) for _ in range(3))
+    bias = None
+    if valid is not None:
+        lengths = rng.integers(1, sq + 1, size=b) if valid == "random" else np.asarray(valid)
+        bias = key_padding_bias(torch.from_numpy((np.arange(sq)[None, :] < lengths[:, None]).astype(np.int32)))
+    return q, k, v, bias, causal
+
+
+# (B, H, S, D, key lengths: None, a list, or "random" 1..S; causal): SigLIP's heads of 72 over 730
+# keys; Llama's 128 causal with batch row 0 keeping no key; GPT-2 stage 1, causal, ragged
+FWD_TC_CASES = {
+    "siglip_d72": (2, 2, 730, 72, None, False),
+    "llama_d128_row_without_keys": (2, 2, 200, 128, (0, 150), True),
+    "gpt2_stage1": (128, 16, 128, 64, "random", True),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_TC_CASES))
+def test_flash_fwd_tensor_core_scheme_holds_the_bf16_bound(case):
+    q, k, v, bias, causal = _bf16_attention_case(*FWD_TC_CASES[case])
+    got_o, got_lse = _fwd_tensor_core_scheme(q, k, v, bias, causal)
+    want_o, want_lse = flash_attention_ref(q, k, v, bias, causal)
+    atol, rtol = BF16_TOL
+    np.testing.assert_allclose(got_o.float().numpy(), want_o.float().numpy(), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=LSE_TOL[0], rtol=LSE_TOL[1])
+    if bias is not None and not bool((bias > NEG_INF).any(-1).all()):  # a batch row without keys: mean of V
+        np.testing.assert_allclose(got_o[0].float().numpy(),
+                                   v[0].float().mean(1, keepdim=True).expand_as(got_o[0]).numpy(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("sq", [1, TC_MIN_SQ - 1, TC_MIN_SQ, 730])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fwd_kernel_is_chosen_by_dtype_and_sq(sq, dtype):
+    """bf16 from TC_MIN_SQ rows on runs on the tensor cores; decode, short Sq and f32 on the CUDA cores."""
+    assert fwd_on_tensor_cores(dtype, sq) == (dtype == torch.bfloat16 and sq >= TC_MIN_SQ)
+    assert not fwd_on_tensor_cores(dtype, 1)
 
 
 # ---------------------------------------------------------------- decode helpers
