@@ -406,6 +406,7 @@ def rmsnorm_bwd_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Gene
 def attention_bwd_case(name, b, h, s, d, causal, valid, dtype, gen, timed=True):
     """The dQ and the dK/dV kernels against the plain backward; one result dict for each."""
     from pgica_tpu_torch.ops.flash_attention import (
+        NEG_INF,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_ref,
@@ -420,6 +421,7 @@ def attention_bwd_case(name, b, h, s, d, causal, valid, dtype, gen, timed=True):
 
     q, k, v, bias, o, lse, do = args = inputs()
     dq, delta = flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do)
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, bias, causal, lse, delta, do)
     torch.cuda.synchronize()
@@ -429,8 +431,12 @@ def attention_bwd_case(name, b, h, s, d, causal, valid, dtype, gen, timed=True):
     check_close(label + " delta", delta, rdelta, 1e-4, 1e-5)
     err_dq = check_close(label + " dq", dq, rdq, atol, rtol)
     err_dkv = max(check_close(label + " dk", dk, rdk, atol, rtol), check_close(label + " dv", dv, rdv, atol, rtol))
+    if not (torch.equal(dq, dq2) and torch.equal(delta, delta2)):
+        raise AssertionError(f"{label}: two runs of the dQ kernel differ")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"{label}: two runs of the dK/dV kernel differ")
+    if bool((dq[lse <= 0.5 * NEG_INF] != 0).any()):
+        raise AssertionError(f"{label}: a row that keeps no key got a nonzero dq")
     common = dict(case=name, shape=f"({b * h}, {s}, {s}, {d})", dtype=dname(dtype), causal=causal, atol=atol, rtol=rtol)
     res_dq, res_dkv = dict(common, max_abs_err=err_dq), dict(common, max_abs_err=err_dkv)
     if not timed:
@@ -535,7 +541,8 @@ def check_scaled(name: str, got: torch.Tensor, want: torch.Tensor, scale: torch.
 def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, timed=True) -> dict:
     """The three fused-CE kernels against their plain versions; one result dict for each.
 
-    dh and dW are each computed twice and must be bit-identical; with masked
+    dh and dW take the kernel forward's lse, as the path does. Each kernel runs
+    twice and must give the same bits; with masked
     rows, dh is exactly 0 on them and dW is bit-identical to dW over the
     live rows alone (a row with g = 0 adds exactly nothing).
     """
@@ -551,6 +558,7 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
 
     h, w, y, g = fused_ce_inputs(rows, vocab, d, h_dtype, w_dtype, gen, valid_rows)
     logp, lse = fused_ce_fwd(h, w, y)
+    logp2, lse2 = fused_ce_fwd(h, w, y)
     dh, dh2 = fused_ce_bwd_dh(h, w, y, lse, g), fused_ce_bwd_dh(h, w, y, lse, g)
     dw, dw2 = fused_ce_bwd_dw(h, w, y, lse, g), fused_ce_bwd_dw(h, w, y, lse, g)
     torch.cuda.synchronize()
@@ -558,7 +566,9 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
     rlogp, rlse = fused_ce_fwd_ref(h, w, y)
     err_fwd = check_close(label + " logp", logp, rlogp, *FCE_LOGP_TOL)
     check_close(label + " lse", lse, rlse, *FCE_LOGP_TOL)
-    del rlogp
+    if not (torch.equal(logp, logp2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{label}: two runs of fused_ce_fwd differ")
+    del rlogp, logp2, lse2
     coeff = _coeff_ref(h, w, y, rlse, g).abs_()
     outs = {}
     for kernel, got, again, ref_fn, scale_of in (
@@ -631,7 +641,9 @@ def show_timed(kernel: str, r: dict) -> None:
 
 # the tensor-core kernels, by source: phase 3 reports their registers and spills from the build's
 # -Xptxas -v log and whether their SASS holds tensor-core instructions
-TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",), "flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc",),
+TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",),
+              "flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc", "flash_attn_bwd_dq_tc"),
+              "fused_ce.cu": ("fused_ce_fwd_tiles",),
               "fused_ce_bwd.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product", "fused_ce_dw_coeff",
                                   "fused_ce_dw_product")}
 
@@ -831,8 +843,8 @@ def phase_kernels() -> dict:
                         caption_rows_mask(4, 512, (256, 512), gen), timed=False)
     log(f"  fused_ce llama masked (2044, 4096) x ({LLAMA_VOCAB}, 4096) h bfloat16 W float32, lengths 256-512: "
         f"max_abs_err {fce_errs(res)}")
-    log("  fused_ce: dh and dW identical over two runs everywhere; rows with g = 0 give dh 0 and leave dW "
-        "bit-identical")
+    log("  fused_ce: the forward, dh and dW identical over two runs everywhere; rows with g = 0 give dh 0 and "
+        "leave dW bit-identical")
     return results
 
 

@@ -20,7 +20,8 @@
 // What bounds it on the H100. dK/dV does 4 products of (keys x rows x D):
 // 8 D flops per kept (row, key) pair, 17.2 GFLOP at the Llama shape
 // (B*H, S, D) = (128, 512, 128) causal, 17 us at the bf16 tensor-core peak,
-// against ~100 MB of bytes (30 us at 3.35 TB/s): both bounds are tens of
+// against ~100 MB of bytes (30 us at 3.35 TB/s); dQ does 3 (S, dP and dS K),
+// 6 D flops a pair, against about the same bytes: both bounds are tens of
 // microseconds, so the products must run on the tensor cores.
 //
 // dK/dV, bf16 (flash_attn_bwd_dkv_tc), FlashAttention-2's backward on
@@ -59,15 +60,35 @@
 // C entry point dispatches by dtype. Both share the prologue (dkv_prologue)
 // and the semantics below.
 //
-// dQ: one 128-thread block per (b*h, 16-row q tile;
-// 8 rows at D = 128), scalar f32 FMAs; each warp owns four rows (two),
-// interleaved. For one row and a 32-key tile, lane j computes s and dp for
-// key j; dq's columns are then summed over the tile's keys as the forward's
-// PV product is: ds_j is broadcast by shuffle while lane l accumulates
-// columns l, l+32, ... in registers. Tiles wholly above the diagonal, and
-// keys after the batch row's last kept key, are skipped. Tiles are staged
-// in f32 with 16-byte global loads (common.cuh:stage_rows), K and V rows
-// padded to D + 4 floats, q pre-scaled, so p is the forward's p.
+// dQ, bf16 (flash_attn_bwd_dq_tc), the same machinery with the roles
+// turned: a 128-thread block owns 64 q rows of one (batch*head), one warp per
+// 16 rows, with Q and dO held as A fragments in registers for the whole
+// walk, O passing through shared memory once for delta. It walks the key
+// tiles of 64 up to the block's last causal column and the batch row's
+// last kept key, K, V and the tile's bias double-buffered by cp.async (rows
+// padded to D + 8 bf16, D = 72 zero-filled to 80). Per 16 keys, each warp:
+//   S = Q K^T and dP = dO V^T (K and V through ldmatrix; scale on the f32 sum)
+//   P = exp(S + bias - lse), 0 where the key or the causal entry is masked or
+//       the row keeps no key, so such a row's dq is exactly 0; dS = P (dP -
+//       delta), in place of S
+//   dQ += dS K, dS repacked from the accumulator fragments to a bf16 A
+//       fragment in registers and K read by ldmatrix.trans.
+// The accumulator is 16 rows x D f32 per warp (D / 2 registers a thread).
+// 16-key chunks wholly above a warp's rows are skipped. Each row has one
+// owner: no atomics, the same dq from run to run. dS is rounded once to bf16
+// in its product, unlike dK/dV's P and dS: tests/test_torch_backward.py
+// emulates both and one rounding holds phase 3's bf16 bound at the Llama,
+// SigLIP and GPT-2 stage-1 shapes (a dq element's error is dominated by its
+// own rounding to bf16), so dQ takes 3 products where two parts would take 4.
+// The f32 instance (flash_attn_bwd_dq) keeps the first design: scalar f32
+// FMAs, one 128-thread block per (b*h, 16-row q tile; 8 rows at D = 128),
+// each warp four rows (two), interleaved; for one row and a 32-key tile lane
+// j computes s and dp for key j, and dq's columns are summed over the tile's
+// keys with ds_j broadcast by shuffle. Tiles are staged in f32 with 16-byte
+// global loads (common.cuh:stage_rows), K and V rows padded to D + 4 floats,
+// q pre-scaled. It runs only in tests and phase 4's f32 parity runs. Both
+// skip the tiles wholly above the diagonal and the keys after the batch
+// row's last kept key.
 //
 // Both dK/dV instances: a tile past the batch row's last kept key reads no
 // k or v: its dk is 0 and its dv only the spread of the rows that keep no
@@ -373,21 +394,24 @@ __host__ __device__ constexpr int tc_smem_bytes(int d) {
   return 6 * kTcRows * tc_ld(d) * 2 + (2 * 2 * kTcRows + kTcKeys + d) * 4 + 2 * kWarps * 4;
 }
 
-// acc (16 x DP, this warp's keys) += X^T B over 16 rows, where x holds X^T
-// as the C fragments of two 8-row tiles (16 keys x 16 rows, f32) and B is
-// rows r16.. of a tile in shared memory (16 x DP, read by ldmatrix.trans).
-// X^T goes in as two bf16 parts, x0 = bf16(x) and x1 = bf16(x - x0), the
-// passes x0 B + x1 B: x0 + x1 carries x to ~2^-17 of itself.
-template <int DP>
-__device__ __forceinline__ void pass_pair(const float (&x)[2][4], const bf16* tile, int r16, int lane,
-                                          float (&acc)[DP / 8][4]) {
-  uint32_t a0[4], a1[4];
+// acc (16 x DP) += X B, where x holds X (16 x 16) as the C fragments of two
+// 8-column tiles (f32) and B is rows r16.. of a tile in shared memory (16 x
+// DP, read by ldmatrix.trans). dK/dV: X = P^T or dS^T (this warp's 16 keys x
+// 16 rows), B = dO or Q; dQ: X = dS (this warp's 16 rows x 16 keys), B = K.
+// With PARTS = 2, X goes in as two bf16 parts, x0 = bf16(x) and x1 = bf16(x -
+// x0), the passes x0 B + x1 B: x0 + x1 carries x to ~2^-17 of itself; with
+// PARTS = 1 it is rounded once.
+template <int DP, int PARTS>
+__device__ __forceinline__ void pass_x(const float (&x)[2][4], const bf16* tile, int r16, int lane,
+                                       float (&acc)[DP / 8][4]) {
+  uint32_t a0[4];
+  [[maybe_unused]] uint32_t a1[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // A fragment register i: n-tile i / 2, rows (lane / 4) + 8 (i % 2)
     const float u = x[i >> 1][2 * (i & 1)], w = x[i >> 1][2 * (i & 1) + 1];
     const __nv_bfloat162 hi = __floats2bfloat162_rn(u, w);
     a0[i] = *reinterpret_cast<const uint32_t*>(&hi);
-    a1[i] = pgica::pack_bf16x2(u - __low2float(hi), w - __high2float(hi));
+    if constexpr (PARTS == 2) a1[i] = pgica::pack_bf16x2(u - __low2float(hi), w - __high2float(hi));
   }
 #pragma unroll
   for (int np = 0; np < DP / 16; ++np) {
@@ -396,8 +420,10 @@ __device__ __forceinline__ void pass_pair(const float (&x)[2][4], const bf16* ti
                                               (lane >> 4) * 8));
     pgica::mma_bf16(acc[2 * np], a0, b[0], b[1]);
     pgica::mma_bf16(acc[2 * np + 1], a0, b[2], b[3]);
-    pgica::mma_bf16(acc[2 * np], a1, b[0], b[1]);
-    pgica::mma_bf16(acc[2 * np + 1], a1, b[2], b[3]);
+    if constexpr (PARTS == 2) {
+      pgica::mma_bf16(acc[2 * np], a1, b[0], b[1]);
+      pgica::mma_bf16(acc[2 * np + 1], a1, b[2], b[3]);
+    }
   }
 }
 
@@ -526,8 +552,8 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
         // dV += P^T dO, then dK += dS^T Q, over the chunk's 16 rows, each A in two bf16 parts
-        pass_pair<kDp>(s, dot, r16, lane, dv_acc);
-        pass_pair<kDp>(dp, qt, r16, lane, dk_acc);
+        pass_x<kDp, 2>(s, dot, r16, lane, dv_acc);
+        pass_x<kDp, 2>(dp, qt, r16, lane, dk_acc);
       }
       if (t + 1 < n_tiles) stat_s[(buf ^ 1) * 2 * kTcRows + threadIdx.x] = next_stat;  // read last in tile t - 1
       __syncthreads();  // this tile is consumed before its buffers are refilled
@@ -552,19 +578,180 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* o,
-              const void* lse, const void* dout, void* dq, void* delta, int bh, int heads, int sq,
-              int sk, int head_dim, int causal, float sm_scale, cudaStream_t stream) {
+// bf16 dQ on the tensor cores (see the note above). Dynamic shared memory:
+// Q, dO, K[2], V[2] tiles of 64 x (DP + 8) bf16 (O passes through K[1] before
+// the walk), then the key bias [2][64] f32.
+constexpr int kDqDsParts = 1;  // dS rounded once to bf16 for dS K (the note has why)
+__host__ __device__ constexpr int dq_tc_smem_bytes(int d) {
+  return 6 * kTcRows * tc_ld(d) * 2 + 2 * kTcKeys * 4 + kWarps * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const float* __restrict__ bias, const bf16* __restrict__ o, const float* __restrict__ lse,
+                         const bf16* __restrict__ dout, bf16* __restrict__ dq, float* __restrict__ delta, int heads,
+                         int sq, int sk, int causal, float sm_scale) {
+  constexpr int kDp = padded_dim(D), kLd = tc_ld(D), kTile = kTcRows * kLd;
+  constexpr int kNt = kDp / 8;     // 8-column tiles of a warp's dq
+  constexpr int kRowVecs = D / 8;  // 16-byte vectors of a row in global memory
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + kTile;
+  bf16* k_s = do_s + kTile;     // [2][kTile]
+  bf16* v_s = k_s + 2 * kTile;  // [2][kTile]
+  float* b_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kTcKeys]
+  int* scratch_s = reinterpret_cast<int*>(b_s + 2 * kTcKeys);
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTcRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t q_base = static_cast<size_t>(bh) * sq;
+  const bf16* kg = k + static_cast<size_t>(bh) * sk * D;
+  const bf16* vg = v + static_cast<size_t>(bh) * sk * D;
+  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
+
+  if constexpr (kDp > D) {  // zero the padded columns once: the copies never write them
+    for (int r = tid; r < 6 * kTcRows; r += kThreads)
+      for (int c = D; c < kDp; c += 8) *reinterpret_cast<uint4*>(q_s + r * kLd + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // rows [r0, r0 + 64) of a (n, D) array into a tile; rows at or past n as zeros
+  auto stage = [&](bf16* dst, const bf16* src, int r0, int n) {
+    for (int i = tid; i < kTcRows * kRowVecs; i += kThreads) {
+      const int r = i / kRowVecs, c = (i % kRowVecs) * 8;
+      const bool ok = r0 + r < n;
+      pgica::cp_async16(pgica::smem_u32(dst + r * kLd + c), ok ? src + static_cast<size_t>(r0 + r) * D + c : src, ok);
+    }
+  };
+  bf16* o_s = k_s + kTile;  // K[1], free until the walk's first prefetch
+  stage(q_s, q + q_base * D, q0, sq);
+  stage(do_s, dout + q_base * D, q0, sq);
+  stage(o_s, o + q_base * D, q0, sq);
+  pgica::cp_async_commit();
+
+  const int q_end = min(q0 + kTcRows, sq);
+  int kv_end = causal ? min(sk, q_end) : sk;  // rows >= cols: cols < q_end suffice
+  if (bias_row != nullptr) kv_end = min(kv_end, last_kept_key(bias_row, sk, scratch_s) + 1);  // block-uniform
+  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+  // key tile [k0, k0 + 64) into buffer buf; a key past kv_end is masked, whatever its bias
+  auto stage_keys = [&](int buf, int k0) {
+    stage(k_s + buf * kTile, kg, k0, kv_end);
+    stage(v_s + buf * kTile, vg, k0, kv_end);
+    if (tid < kTcKeys) {
+      const int key = k0 + tid;
+      b_s[buf * kTcKeys + tid] = key >= kv_end ? 2.f * kNegInf : bias_row == nullptr ? 0.f : bias_row[key];
+    }
+  };
+  if (n_tiles > 0) stage_keys(0, 0);
+  pgica::cp_async_commit();
+  pgica::cp_async_wait<1>();
+  __syncthreads();  // Q, dO and O are in place
+
+  const int row_w = q0 + warp * 16;             // the warp's first row
+  const int row_a = row_w + (lane >> 2);        // this thread's rows: row_a (fragment e < 2) and row_a + 8
+  uint32_t qf[kDp / 16][4], of[kDp / 16][4];    // Q and dO as A fragments, for the whole walk
+#pragma unroll
+  for (int kk = 0; kk < kDp / 16; ++kk) {
+    const int off = (warp * 16 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8;
+    pgica::ldsm_x4(qf[kk], pgica::smem_u32(q_s + off));
+    pgica::ldsm_x4(of[kk], pgica::smem_u32(do_s + off));
+  }
+  // delta = rowsum(dO O) in f32 (the f32 kernel's order), for this warp's rows and the dK/dV kernel
+  float row_lse[2] = {kNegInf, kNegInf}, row_delta[2] = {0.f, 0.f};
+  for (int i = 0; i < 16 && row_w + i < sq; ++i) {  // warp-uniform
+    const bf16* dor = do_s + (warp * 16 + i) * kLd;
+    const bf16* orow = o_s + (warp * 16 + i) * kLd;
+    float part = 0.f;
+    for (int c = lane; c < D; c += 32) part = fmaf(__bfloat162float(dor[c]), __bfloat162float(orow[c]), part);
+    const float sum = warp_sum(part);
+    if (lane == 0) delta[q_base + row_w + i] = sum;
+    if (i == (lane >> 2)) row_delta[0] = sum;
+    if (i == (lane >> 2) + 8) row_delta[1] = sum;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (row_a + 8 * h < sq) row_lse[h] = lse[q_base + row_a + 8 * h];  // past sq: NEG_INF, p = 0
+  __syncthreads();  // O is read: K[1] is free
+
+  float acc[kNt][4];
+#pragma unroll
+  for (int i = 0; i < kNt; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kTcKeys;
+    if (t + 1 < n_tiles) stage_keys(buf ^ 1, k0 + kTcKeys);  // the next tile's copies fly while this one is used
+    pgica::cp_async_commit();
+    pgica::cp_async_wait<1>();
+    __syncthreads();  // tile t is in place
+    const bf16* kt = k_s + buf * kTile;
+    const bf16* vt = v_s + buf * kTile;
+    const float* bt = b_s + buf * kTcKeys;
+    if (row_w < sq) {  // warp-uniform
+#pragma unroll  // kept rolled, the D = 32 instance spilled 4 bytes
+      for (int kc = 0; kc < kTcKeys; kc += 16) {  // 16 keys at a time
+        if (k0 + kc >= kv_end) break;                    // keys past the last kept one
+        if (causal && k0 + kc > row_w + 15) break;       // every key above every row of the warp
+        // S = Q K^T and dP = dO V^T: element e of n-tile nt is row row_a + 8 (e / 2), key kc + 8 nt + 2 (lane % 4) + e % 2
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kDp / 16; ++kk) {
+          uint32_t kb[4], vb[4];
+          const int off = (kc + (lane & 7) + (lane >> 4) * 8) * kLd + kk * 16 + ((lane >> 3) & 1) * 8;
+          pgica::ldsm_x4(kb, pgica::smem_u32(kt + off));
+          pgica::ldsm_x4(vb, pgica::smem_u32(vt + off));
+          pgica::mma_bf16(s[0], qf[kk], kb[0], kb[1]);
+          pgica::mma_bf16(s[1], qf[kk], kb[2], kb[3]);
+          pgica::mma_bf16(dp[0], of[kk], vb[0], vb[1]);
+          pgica::mma_bf16(dp[1], of[kk], vb[2], vb[3]);
+        }
+        // dS = P (dP - delta) in place of S, with P = 0 where the key or the causal entry is masked or
+        // the row keeps no key
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = kc + nt * 8 + (lane & 3) * 2 + (e & 1);  // key in the tile
+            const int h = e >> 1;
+            const float b = bt[kl];
+            const bool keep = b > kNegInf && row_lse[h] > kNoKeyLse && (!causal || row_a + 8 * h >= k0 + kl);
+            const float p = keep ? expf(s[nt][e] * sm_scale + b - row_lse[h]) : 0.f;
+            s[nt][e] = p * (dp[nt][e] - row_delta[h]);
+          }
+        pass_x<kDp, kDqDsParts>(s, kt, kc, lane, acc);  // dQ += dS K over these 16 keys
+      }
+    }
+    __syncthreads();  // tile t is consumed before its buffers are refilled
+  }
+  pgica::cp_async_wait<0>();
+
+  // dq = sm_scale * acc; columns past D (D = 72) are not stored
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + 8 * h;
+    if (row >= sq) continue;
+    bf16* dqrow = dq + (q_base + row) * D;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const int c = nt * 8 + (lane & 3) * 2;
+      if (D % 16 != 0 && c >= D) continue;
+      *reinterpret_cast<uint32_t*>(dqrow + c) = pgica::pack_bf16x2(acc[nt][2 * h] * sm_scale, acc[nt][2 * h + 1] * sm_scale);
+    }
+  }
+}
+
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
+                  const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int head_dim, int causal,
+                  float sm_scale, cudaStream_t stream) {
   switch (head_dim) {
-#define PGICA_DQ_CASE(DIM)                                                                      \
-  case DIM:                                                                                     \
-    flash_attn_bwd_dq<T, DIM><<<dim3(bh, (sq + rows_staged(DIM) - 1) / rows_staged(DIM)),      \
-                                kThreads, 0, stream>>>(                                         \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),           \
-        static_cast<const float*>(bias), static_cast<const T*>(o),                              \
-        static_cast<const float*>(lse), static_cast<const T*>(dout), static_cast<T*>(dq),       \
-        static_cast<float*>(delta), heads, sq, sk, causal, sm_scale);                           \
+#define PGICA_DQ_CASE(DIM)                                                                                    \
+  case DIM:                                                                                                   \
+    flash_attn_bwd_dq<float, DIM><<<dim3(bh, (sq + rows_staged(DIM) - 1) / rows_staged(DIM)), kThreads, 0,    \
+                                    stream>>>(                                                                \
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),              \
+        static_cast<const float*>(bias), static_cast<const float*>(o), static_cast<const float*>(lse),         \
+        static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(delta), heads, sq, sk,    \
+        causal, sm_scale);                                                                                    \
     break;
     PGICA_DQ_CASE(16)
     PGICA_DQ_CASE(32)
@@ -576,6 +763,41 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias, con
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
+                 const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int causal,
+                 float sm_scale, cudaStream_t stream) {
+  constexpr int kSmem = dq_tc_smem_bytes(D);
+  static const cudaError_t attr =  // once per instance: above 48 KB, dynamic shared memory must be asked for
+      cudaFuncSetAttribute(flash_attn_bwd_dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sq + kTcRows - 1) / kTcRows);
+  flash_attn_bwd_dq_tc<D><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<const bf16*>(o), static_cast<const float*>(lse),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<float*>(delta), heads, sq, sk, causal,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
+                   const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int head_dim, int causal,
+                   float sm_scale, cudaStream_t stream) {
+  switch (head_dim) {
+#define PGICA_DQ_CASE(DIM) \
+  case DIM:                \
+    return launch_dq_tc<DIM>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, causal, sm_scale, stream);
+    PGICA_DQ_CASE(16)
+    PGICA_DQ_CASE(32)
+    PGICA_DQ_CASE(64)
+    PGICA_DQ_CASE(72)
+    PGICA_DQ_CASE(128)
+#undef PGICA_DQ_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* bias, const void* lse,
@@ -647,7 +869,9 @@ bool bad_shape(int bh, int heads, int sq, int sk) {
 
 // q, o, dout, dq: (bh, sq, head_dim); k, v: (bh, sk, head_dim), contiguous in
 // `dtype`; bias: (bh / heads, sk) f32 or NULL; lse, delta: (bh, sq) f32.
-// Writes dq and delta = rowsum(dout * o). Returns a cudaError_t code.
+// Writes dq and delta = rowsum(dout * o): bf16 on the tensor cores
+// (flash_attn_bwd_dq_tc), f32 on the CUDA cores (flash_attn_bwd_dq).
+// Returns a cudaError_t code.
 extern "C" int pgica_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* bias, const void* o, const void* lse,
                                        const void* dout, void* dq, void* delta, int bh, int heads,
@@ -656,11 +880,9 @@ extern "C" int pgica_flash_attn_bwd_dq(const void* q, const void* k, const void*
   if (bad_shape(bh, heads, sq, sk)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == pgica::kFloat32)
-    return launch_dq<float>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim,
-                            causal, sm_scale, s);
+    return launch_dq_f32(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
   if (dtype == pgica::kBFloat16)
-    return launch_dq<__nv_bfloat16>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk,
-                                    head_dim, causal, sm_scale, s);
+    return launch_dq_bf16(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

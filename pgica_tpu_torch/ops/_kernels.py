@@ -64,7 +64,7 @@ KERNELS = {
     ),
     "fused_ce_fwd": (
         "fused_ce.cu", "pgica_fused_ce_fwd",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
     "fused_ce_bwd_dh": (
         "fused_ce_bwd.cu", "pgica_fused_ce_bwd_dh",

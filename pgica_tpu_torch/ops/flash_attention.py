@@ -15,10 +15,11 @@ Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
   ``_bwd_dkv_kernel`` (:81). ``delta = rowsum(dO * O)``, which the JAX
   wrapper computes apart (:233), is folded into the dQ kernel: it runs first
   and writes delta for the dK/dV kernel. The two stay split, as in the JAX
-  package, so neither needs atomics. dK/dV dispatches by dtype: bf16 runs
-  on the tensor cores (``flash_attn_bwd_dkv_tc``, P and dS as two bf16
-  parts each in their products), float32 on the CUDA cores in f32
-  (``flash_attn_bwd_dkv_simt``); dQ runs on the CUDA cores in both.
+  package, so neither needs atomics. Both dispatch by dtype: bf16 runs on
+  the tensor cores (``flash_attn_bwd_dkv_tc``, P and dS as two bf16 parts
+  each in their products; ``flash_attn_bwd_dq_tc``, dS rounded once to bf16
+  in dS K), float32 on the CUDA cores in f32 (``flash_attn_bwd_dkv_simt``,
+  ``flash_attn_bwd_dq``).
 
 Masking follows the plain JAX path (attention.py:_xla_attention), which is
 what the JAX package runs at these shapes: a masked key (bias <= NEG_INF, or
@@ -195,7 +196,10 @@ def flash_attention_fwd(
 
 
 def flash_attention_bwd_dq(q, k, v, bias, causal, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dQ kernel wrapper: returns (dq in q's dtype, delta = rowsum(dO * O) f32 (B, H, Sq))."""
+    """dQ kernel wrapper: returns (dq in q's dtype, delta = rowsum(dO * O) f32 (B, H, Sq)).
+
+    bf16 inputs go to the tensor-core kernel, float32 ones to the f32 CUDA-core kernel.
+    """
     _check("flash_attention_bwd_dq", q, k, v, bias)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_operand("flash_attention_bwd_dq", t, q, name)

@@ -8,18 +8,24 @@ kernels:
 
 * ``fused_ce_fwd`` (``csrc/fused_ce.cu``) replaces the Pallas ``_fwd_kernel``
   (:60): logp and the per-row logsumexp (saved for the backward), both
-  float32; f32 products on the CUDA cores.
+  float32. One block per 128 x 128 tile of scores (:func:`fwd_tiles`) writes
+  each row's (max, sum, target score) partial; a second kernel combines
+  them in vocab order.
 * ``fused_ce_bwd_dh`` and ``fused_ce_bwd_dw`` (``csrc/fused_ce_bwd.cu``)
   replace ``_bwd_dh_kernel`` (:108) and ``_bwd_dw_kernel`` (:134):
   ``dh = g * (onehot - p) @ W`` in h's dtype and ``dW = ((onehot - p) *
-  g)^T @ h`` in W's dtype, each the same from run to run. Both run one GEMM
-  template on the tensor cores for every type pair: a bf16 operand goes in
-  as it is, an f32 one (the master W, an f32 h, and always the f32
-  coefficients) as bf16 parts whose products are summed in f32 (three parts
-  for the scores, two for the product), so the result keeps f32 accuracy
-  (the source note has the error argument). The vocab is walked in chunks
-  of :func:`dh_vocab_chunk` columns. dW takes the rows with g != 0 first
+  g)^T @ h`` in W's dtype. The vocab is walked in chunks of
+  :func:`dh_vocab_chunk` columns. dW takes the rows with g != 0 first
   (:func:`fused_ce_bwd_dw`).
+
+All three run one GEMM template on the tensor cores (``csrc/fce_gemm.cuh``)
+for every type pair, each the same from run to run: a bf16 operand goes in
+as it is, an f32 one (the master W, an f32 h, and in the backward's product
+always the f32 coefficients) as bf16 parts whose products are summed in f32
+(three parts for the scores, two for the product), so the result keeps f32
+accuracy (the source notes have the error argument). The forward's scores
+take the backward's passes, so its lse is the one the backward's scores
+imply.
 
 h and W may each be float32 or bf16 (the stage-2 policy passes bf16 hidden
 states with its float32 master W, the reference bf16 with bf16). Rows and
@@ -31,17 +37,14 @@ XLA fallback does (:345-351).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from pgica_tpu_torch.ops import _kernels
 
-FWD_ROWS = 64  # csrc/fused_ce.cu: kFwdRows
-VOCAB_TILE = 128  # csrc/fused_ce.cu: kVTile
-BLOCKS_PER_SM = 8  # the forward splits the vocab until there are about this many blocks per SM
-DH_TILE = 128  # csrc/fused_ce_bwd.cu: kBN, the unit of the backward's vocab chunks
+GEMM_TILE = 128  # csrc/fce_gemm.cuh: kBM = kBN, the forward's tiles and the unit of the backward's vocab chunks
+MAX_GRID_Y = 65535  # CUDA's limit on a grid's second dimension: the forward's column tiles
 DH_SCRATCH_BYTES = 256 * 2**20  # cap on the backward's coefficient scratch (two bf16 parts, rows x chunk each)
 
 
@@ -107,30 +110,23 @@ def _check(name: str, hidden: torch.Tensor, embedding: torch.Tensor, targets: to
             raise ValueError(f"{name}: lse and g must be contiguous float32 ({n},) on {hidden.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def vocab_splits(rows: int, vocab: int, sm_count: int) -> Tuple[int, int]:
-    """(splits, span): the forward's vocab split, so that there are ~8 blocks per SM.
-
-    ``span`` is a multiple of ``VOCAB_TILE``; every split is non-empty.
-    """
-    row_tiles = -(-rows // FWD_ROWS)
-    tiles = -(-vocab // VOCAB_TILE)
-    want = max(1, min(tiles, -(-BLOCKS_PER_SM * sm_count // row_tiles)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * VOCAB_TILE
+def fwd_tiles(vocab: int) -> int:
+    """Column tiles of the forward: its grid is (rows, vocab) in ``GEMM_TILE`` squares of scores,
+    and each column tile writes a (max, sum, target score) partial per row, f32 (``12 * rows *
+    tiles`` bytes of scratch). Raises past ``MAX_GRID_Y`` tiles."""
+    tiles = -(-vocab // GEMM_TILE)
+    if tiles > MAX_GRID_Y:
+        raise ValueError(f"fused_ce_fwd: a vocab of {vocab} needs {tiles} column tiles, more than {MAX_GRID_Y}")
+    return tiles
 
 
 def dh_vocab_chunk(rows: int, vocab: int) -> int:
-    """Vocab columns per chunk of the dh and dW kernels: a multiple of ``DH_TILE``, as
+    """Vocab columns per chunk of the dh and dW kernels: a multiple of ``GEMM_TILE``, as
     many as keep its coefficient scratch (``2 * 2 * rows * chunk`` bytes) within
     ``DH_SCRATCH_BYTES`` (one tile at the least), and no more than the vocab
     needs. The kernel walks ``ceil(vocab / chunk)`` chunks, each non-empty."""
-    fit = max(1, DH_SCRATCH_BYTES // (4 * max(rows, 1) * DH_TILE))
-    return DH_TILE * min(fit, -(-vocab // DH_TILE))
+    fit = max(1, DH_SCRATCH_BYTES // (4 * max(rows, 1) * GEMM_TILE))
+    return GEMM_TILE * min(fit, -(-vocab // GEMM_TILE))
 
 
 def _codes(hidden: torch.Tensor, embedding: torch.Tensor) -> Tuple[int, int]:
@@ -149,7 +145,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def fused_ce_fwd(
     hidden: torch.Tensor, embedding: torch.Tensor, targets: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel wrapper: (logp, lse), float32 (N,), like :func:`fused_ce_fwd_ref`."""
+    """Forward kernel wrapper: (logp, lse), float32 (N,), like :func:`fused_ce_fwd_ref`.
+
+    On the card it allocates the kernel's scratch: the partials of
+    :func:`fwd_tiles` and the three bf16 parts of an f32 operand (of the f32
+    master W: 3.2 GB at Llama-3-8B's (128256, 4096)), freed on return.
+    """
     if hidden.device.type == "cpu":
         return fused_ce_fwd_ref(hidden, embedding, targets)
     _check("fused_ce_fwd", hidden, embedding, targets)
@@ -159,13 +160,13 @@ def fused_ce_fwd(
     lse = torch.empty_like(logp)
     if n == 0:
         return logp, lse
-    splits, span = vocab_splits(n, vocab, _sm_count(hidden.device.index or 0))
-    partials = torch.empty((3, splits, n), dtype=torch.float32, device=hidden.device)
+    partials = torch.empty((3, fwd_tiles(vocab), n), dtype=torch.float32, device=hidden.device)
+    h_split, w_split = _split_scratch(hidden), _split_scratch(embedding)
     y = targets.to(torch.int32).contiguous()
     _kernels.launch(
         "fused_ce_fwd",
-        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), partials.data_ptr(), logp.data_ptr(),
-        lse.data_ptr(), n, vocab, d, splits, span, *_codes(hidden, embedding), _kernels.stream_handle(hidden),
+        hidden.data_ptr(), embedding.data_ptr(), y.data_ptr(), _ptr(h_split), _ptr(w_split), partials.data_ptr(),
+        logp.data_ptr(), lse.data_ptr(), n, vocab, d, *_codes(hidden, embedding), _kernels.stream_handle(hidden),
     )
     return logp, lse
 

@@ -144,7 +144,9 @@ def test_flash_serving_path_builds_no_graph(rng):
 # within (atol, rtol) = TOL[bf16]. The emulation below repeats that arithmetic on the CPU and holds
 # it to the same bound at the Llama (D = 128) and SigLIP (D = 72) head dims, causal with one batch
 # row that keeps no key (its rows spread dO / Sk over dV), and at GPT-2 stage 1's shape, where P
-# rounded once to bf16 (the usual tensor-core backward) misses the bound.
+# rounded once to bf16 (the usual tensor-core backward) misses the bound. The bf16 dQ kernel
+# (flash_attn_bwd_dq_tc) runs dQ = dS K the same way; its emulation shows that dS rounded once
+# holds the bound at all three shapes, so the kernel takes one rounding where dK/dV takes two parts.
 BF16_TOL = (2e-2, 1e-2)  # chip_smoke.py: TOL[torch.bfloat16]
 
 
@@ -168,17 +170,28 @@ def _dkv_tensor_core_scheme(q, k, v, bias, causal, lse, delta, do, parts=_two_bf
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _dq_tensor_core_scheme(q, k, v, bias, causal, lse, delta, do, parts=_two_bf16_parts):
+    from pgica_tpu_torch.ops.flash_attention import NEG_INF, _scores
+
+    d = q.shape[3]
+    s, keep = _scores(q, k, bias, causal)
+    without_key = (lse <= 0.5 * NEG_INF)[..., None]
+    p = torch.where(keep & ~without_key, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    return ((parts(ds) @ k.float()) * (1.0 / d**0.5)).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _dkv_case(b, h, s, d, valid):
+def _bwd_case(b, h, s, d, valid):
     """bf16 inputs, causal, key bias from ``valid`` (None: random lengths 1..s, as chip_smoke.py's
-    stage-1 rows); the plain dk and dv, and what the scheme needs."""
+    stage-1 rows); the plain dq, dk and dv, and what the schemes need."""
     rng = np.random.default_rng(2)
     q, k, v, do = (torch.from_numpy(_np(rng, b, h, s, d)).to(torch.bfloat16) for _ in range(4))
     lengths = rng.integers(1, s + 1, size=b) if valid is None else np.asarray(valid)
     bias = key_padding_bias(torch.from_numpy((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)))
     o, lse = flash_attention_fwd(q, k, v, bias, True)
-    _, dk, dv, delta = flash_attention_bwd_ref(q, k, v, bias, True, o, lse, do)
-    return (q, k, v, bias, True, lse, delta, do), dk, dv
+    dq, dk, dv, delta = flash_attention_bwd_ref(q, k, v, bias, True, o, lse, do)
+    return (q, k, v, bias, True, lse, delta, do), dq, dk, dv
 
 
 def _worst_over_bound(got, want):
@@ -186,10 +199,13 @@ def _worst_over_bound(got, want):
     return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 512, 72, (0, 300)), (2, 2, 512, 128, (0, 300)), (128, 16, 128, 64, None)],
-                         ids=["siglip_d72", "llama_d128", "gpt2_stage1"])
+BWD_SHAPES = dict(argvalues=[(2, 2, 512, 72, (0, 300)), (2, 2, 512, 128, (0, 300)), (128, 16, 128, 64, None)],
+                  ids=["siglip_d72", "llama_d128", "gpt2_stage1"])
+
+
+@pytest.mark.parametrize("shape", **BWD_SHAPES)
 def test_flash_dkv_with_p_and_ds_in_two_bf16_parts_holds_the_bf16_bound(shape):
-    args, want_dk, want_dv = _dkv_case(*shape)
+    args, _, want_dk, want_dv = _bwd_case(*shape)
     got_dk, got_dv = _dkv_tensor_core_scheme(*args)
     assert _worst_over_bound(got_dk, want_dk) <= 1.0 and _worst_over_bound(got_dv, want_dv) <= 1.0
     if shape[4] is not None:  # batch row 0 keeps no key: dk 0, dv its spread
@@ -197,6 +213,20 @@ def test_flash_dkv_with_p_and_ds_in_two_bf16_parts_holds_the_bf16_bound(shape):
 
 
 def test_flash_dkv_with_p_rounded_once_to_bf16_misses_the_bound_at_gpt2_stage1():
-    args, _, want_dv = _dkv_case(128, 16, 128, 64, None)
+    args, _, _, want_dv = _bwd_case(128, 16, 128, 64, None)
     _, got_dv = _dkv_tensor_core_scheme(*args, parts=lambda x: x.to(torch.bfloat16).float())
     assert _worst_over_bound(got_dv, want_dv) > 1.0
+
+
+@pytest.mark.parametrize("parts", [_two_bf16_parts, lambda x: x.to(torch.bfloat16).float()],
+                         ids=["ds_in_two_bf16_parts", "ds_rounded_once"])
+@pytest.mark.parametrize("shape", **BWD_SHAPES)
+def test_flash_dq_on_the_tensor_cores_holds_the_bf16_bound(shape, parts):
+    """dQ = dS K with dS in two bf16 parts, and rounded once (the kernel's choice): both hold the
+    bound at every shape, GPT-2 stage 1's included (a dq element's own rounding to bf16 dominates);
+    a batch row that keeps no key gets dq exactly 0."""
+    args, want_dq, _, _ = _bwd_case(*shape)
+    got_dq = _dq_tensor_core_scheme(*args, parts=parts)
+    assert _worst_over_bound(got_dq, want_dq) <= 1.0
+    if shape[4] is not None:  # batch row 0 keeps no key
+        assert not got_dq[0].any() and got_dq[1].abs().max() > 0

@@ -22,8 +22,8 @@ from pgica_tpu.ops.fused_ce import fused_token_logprobs as jax_fused
 from pgica_tpu_torch.ops import _kernels
 from pgica_tpu_torch.ops.fused_ce import (
     DH_SCRATCH_BYTES,
-    DH_TILE,
-    VOCAB_TILE,
+    GEMM_TILE,
+    MAX_GRID_Y,
     _coeff_ref,
     dh_vocab_chunk,
     fused_ce_bwd_dh,
@@ -34,9 +34,9 @@ from pgica_tpu_torch.ops.fused_ce import (
     fused_ce_fwd,
     fused_ce_fwd_ref,
     fused_token_logprobs,
+    fwd_tiles,
     live_rows_first,
     token_logprobs_ref,
-    vocab_splits,
 )
 
 F32_ATOL = 1e-5
@@ -149,12 +149,17 @@ def test_wrappers_run_the_plain_version_on_cpu_and_refuse_other_devices(rng):
         assert name in _kernels.KERNELS and _kernels.KERNELS[name][0] == source
 
 
-@pytest.mark.parametrize("rows,vocab,sms", [(8128, 50262, 132), (1984, 50262, 132), (37, 261, 132),
-                                            (1, 1, 132), (100_000, 300, 8), (64, 50262, 1)])
-def test_vocab_splits_cover_the_vocab_with_non_empty_splits(rows, vocab, sms):
-    splits, span = vocab_splits(rows, vocab, sms)
-    assert span % VOCAB_TILE == 0 and 1 <= splits <= 65535
-    assert (splits - 1) * span < vocab <= splits * span  # every split holds a column, all are covered
+@pytest.mark.parametrize("vocab", [128256, 50262, 261, 1000, 1, 128, 129])
+def test_fwd_tiles_cover_the_vocab_with_non_empty_tiles(vocab):
+    tiles = fwd_tiles(vocab)
+    assert 1 <= tiles <= MAX_GRID_Y
+    assert (tiles - 1) * GEMM_TILE < vocab <= tiles * GEMM_TILE  # every tile holds a column below V, all are covered
+
+
+def test_fwd_tiles_refuse_a_vocab_past_the_grid():
+    assert fwd_tiles(MAX_GRID_Y * GEMM_TILE) == MAX_GRID_Y
+    with pytest.raises(ValueError, match="column tiles"):
+        fwd_tiles(MAX_GRID_Y * GEMM_TILE + 1)
 
 
 @pytest.mark.parametrize("rows,vocab", [(2044, 128256), (8128, 50262), (1984, 50262), (37, 261), (300, 1000),
@@ -162,9 +167,9 @@ def test_vocab_splits_cover_the_vocab_with_non_empty_splits(rows, vocab, sms):
 def test_dh_vocab_chunks_cover_the_vocab_within_the_scratch_cap(rows, vocab):
     chunk = dh_vocab_chunk(rows, vocab)
     chunks = -(-vocab // chunk)
-    assert chunk % DH_TILE == 0 and chunk >= DH_TILE
-    assert chunk <= -(-vocab // DH_TILE) * DH_TILE  # no wider than the vocab needs
-    assert 4 * rows * chunk <= DH_SCRATCH_BYTES or chunk == DH_TILE  # hi and lo bf16 coefficients
+    assert chunk % GEMM_TILE == 0 and chunk >= GEMM_TILE
+    assert chunk <= -(-vocab // GEMM_TILE) * GEMM_TILE  # no wider than the vocab needs
+    assert 4 * rows * chunk <= DH_SCRATCH_BYTES or chunk == GEMM_TILE  # hi and lo bf16 coefficients
     assert (chunks - 1) * chunk < vocab <= chunks * chunk  # every chunk holds a column, all are covered
 
 
@@ -273,6 +278,61 @@ def test_dh_product_with_w_rounded_once_to_bf16_misses_the_bound(peak):
     args, want, bound = _dh_case(peak, torch.bfloat16, torch.float32)
     got = _dh_kernel_scheme(*args, w_product=[args[1].to(torch.bfloat16).float()])
     assert _worst(got, want, bound) > 1.0
+
+
+# The forward (csrc/fused_ce.cu) runs the same score passes (csrc/fce_gemm.cuh), one block per 128 x 128
+# tile: each row's max m over the tile's columns below V, its sum l of exp(s - m) and its target's score
+# (0 if the target lies elsewhere) as one partial per column tile, then a combine per row in vocab order
+# with the `l == 0` guard. chip_smoke.py holds logp and lse to FCE_LOGP_TOL against the f32 plain
+# version, and dh and dW, computed from the kernel forward's lse, to their bounds. The backward holds
+# that lse fixed, so the forward must take the backward's three parts of an f32 W: with two, its lse
+# moves p_y at a sharp peak past dh's bound.
+FCE_LOGP_TOL = (1e-4, 1e-5)  # chip_smoke.py's (atol, rtol) on logp and lse
+
+
+def _fwd_kernel_scheme(h, w, y, score_parts=SCORE_ORDER):
+    """(logp, lse) in f32 as the forward's passes, tile partials and in-order combine compute them."""
+    s = _passes(_parts(h, score_parts), _parts(w, score_parts), score_parts, lambda a, b: a @ b.T)
+    rows = torch.arange(len(y))
+    m_all, l_all, t_all = [], [], []
+    for v0 in range(0, s.shape[1], GEMM_TILE):
+        tile = s[:, v0:v0 + GEMM_TILE]  # the last tile holds the columns below V only
+        m = tile.amax(1)
+        m_all.append(m)
+        l_all.append(torch.exp(tile - m[:, None]).sum(1))
+        inside = (y >= v0) & (y < v0 + tile.shape[1])
+        t_all.append(torch.where(inside, tile[rows, (y.long() - v0).clamp(0, tile.shape[1] - 1)], 0.0))
+    m = torch.stack(m_all).amax(0)
+    l, t = torch.zeros(len(y)), torch.zeros(len(y))
+    for m_z, l_z, t_z in zip(m_all, l_all, t_all):
+        l = l + l_z * torch.exp(m_z - m)
+        t = t + t_z
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    return t - lse, lse
+
+
+@pytest.mark.parametrize("peak", list(PEAKS))
+@pytest.mark.parametrize("h_dtype,w_dtype", [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_fwd_split_bf16_scheme_holds_logp_and_feeds_dh_within_its_bound(peak, h_dtype, w_dtype):
+    args, want, bound = _dh_case(peak, h_dtype, w_dtype)
+    th, tw, ty, _, tg = args
+    assert int(ty.max()) >= tw.shape[0] - tw.shape[0] % GEMM_TILE  # a target in the last, partial tile
+    logp, lse = _fwd_kernel_scheme(th, tw, ty)
+    want_logp, want_lse = fused_ce_fwd_ref(th, tw, ty)
+    np.testing.assert_allclose(logp.numpy(), want_logp.numpy(), atol=FCE_LOGP_TOL[0], rtol=FCE_LOGP_TOL[1])
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=FCE_LOGP_TOL[0], rtol=FCE_LOGP_TOL[1])
+    assert _worst(_dh_kernel_scheme(th, tw, ty, lse, tg), want, bound) <= 1.0
+
+
+def test_fwd_with_the_master_w_in_two_parts_misses_dh_bound_at_a_sharp_peak():
+    """Why the forward takes the backward's three parts of W: the lse of two parts, held fixed by dh's
+    (three-part) scores, moves 1 - p_y at a target with p ~ 0.995 past dh's bound."""
+    args, want, bound = _dh_case("sharp", torch.bfloat16, torch.float32)
+    th, tw, ty, _, tg = args
+    assert _worst(_dh_kernel_scheme(th, tw, ty, _fwd_kernel_scheme(th, tw, ty)[1], tg), want, bound) <= 1.0
+    lse_two = _fwd_kernel_scheme(th, tw, ty, score_parts=2)[1]
+    assert _worst(_dh_kernel_scheme(th, tw, ty, lse_two, tg), want, bound) > 1.0
 
 
 # dW (same file, same GEMM template): the scores with W's chunk as A and h as B, the coefficients
