@@ -21,7 +21,8 @@ exits non-zero):
    as a yardstick (never used by the port; for fused CE two calls, F.linear
    and F.cross_entropy) and the bound from the bytes and flops that the
    inputs need at HBM rate and peak rate (fused CE: the bf16 tensor-core peak,
-   one pass per product, for every type pair). It first reports the
+   one pass per product, for every type pair), and the launches one
+   LayerNorm call makes with the gaps between them. It first reports the
    tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA,
    and times both flash forward kernels at Sq 1-64, where the dispatch
    threshold lies.
@@ -151,13 +152,17 @@ def layernorm_case(rows: int, hidden: int, dtype: torch.dtype, gen: torch.Genera
     x = (3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(dtype)
     w = 1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
     b = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
-    y, mu, rstd = layer_norm_fwd(x, w, b, 1e-5)
+    got, again = layer_norm_fwd(x, w, b, 1e-5), layer_norm_fwd(x, w, b, 1e-5)
     torch.cuda.synchronize()
+    y, mu, rstd = got
     ry, rmu, rrstd = layer_norm_ref(x, w, b, 1e-5)
     atol, rtol = TOL[dtype]
-    err = check_close(f"layernorm {rows}x{hidden} {dname(dtype)} y", y, ry, atol, rtol)
-    check_close("layernorm mu", mu, rmu, 1e-5, 0.0)
-    check_close("layernorm rstd", rstd, rrstd, 0.0, 1e-5)
+    label = f"layernorm {rows}x{hidden} {dname(dtype)}"
+    err = check_close(f"{label} y", y, ry, atol, rtol)
+    check_close(f"{label} mu", mu, rmu, 1e-5, 0.0)
+    check_close(f"{label} rstd", rstd, rrstd, 0.0, 1e-5)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
     if not timed:
         return dict(max_abs_err=err)
     esize = x.element_size()
@@ -684,6 +689,142 @@ def tensor_core_report() -> None:
                 raise AssertionError(f"{pretty}: no HMMA/HGMMA in its SASS ({lib.name})")
 
 
+# LayerNorm shapes of the main paths, (rows, H, where): phase 3 times each, forward and backward
+LN_FWD_SHAPES = ((32 * 50, 768, "ViT blocks"), (32, 512, "projection ln"), (32, 1024, "decoder, per step"),
+                 (128 * 50, 768, "ViT blocks, stage 1"), (128, 768, "ViT post_ln, stage 1"),
+                 (128, 512, "projection ln, stage 1"), (128 * 32, 1024, "text tower, bucketed"),
+                 (128 * 128, 1024, "text tower, stage 1"), (64 * 128, 1024, "decoder, stage 2"),
+                 (64 * 32, 1024, "decoder, stage 2 bucketed"))
+LN_FWD_LLAMA_SHAPES = ((2 * 730, 1152, "SigLIP, Llama stage 2"), (4 * 730, 1152, "SigLIP, Llama stage 1"),
+                       (8 * 730, 1152, "SigLIP, Llama serving batch 8"),
+                       (2048, 4096, "decoder cross_ln, Llama stage 2"))
+LN_BWD_SHAPES = ((128 * 128, 1024, "text tower, stage 1"), (128 * 32, 1024, "text tower, bucketed"),
+                 (128, 512, "projection ln, stage 1"), (64 * 128, 1024, "decoder, stage 2"),
+                 (64 * 32, 1024, "decoder, stage 2 bucketed"))
+LN_BWD_LLAMA_SHAPES = ((2048, 4096, "decoder cross_ln, Llama stage 2"),)
+# checked, not timed: an H that is no multiple of the 16-byte slot (the element-by-element instance),
+# ragged row counts, and one the backward's row partition does not divide (4,099 = 227 x 18 + 13)
+LN_FWD_UNTIMED = ((7, 2000), (5, 1001))
+LN_BWD_UNTIMED = ((7, 2000), (37, 768), (5, 1001), (4099, 1024))
+# (kernel, rows, H): the launches one call makes on the card, with the gaps between them
+LN_BREAKDOWN = (("layernorm_bwd", 128, 512), ("layernorm_bwd", 2048, 4096), ("layernorm_bwd", 16384, 1024),
+                ("layernorm_fwd", 32, 1024))
+RMS_SHAPES = ((2048, 4096, "Llama blocks, stage 1 and 2"), (8, 4096, "Llama decode, batch 8"))
+
+
+def layernorm_cases(fwd_shapes, bwd_shapes, dtype: torch.dtype, gen: torch.Generator, results: dict,
+                    untimed: bool = False) -> None:
+    """Times the LayerNorm kernels at the given shapes into ``results``; with ``untimed``, then checks
+    both kernels at the untimed shapes."""
+    for rows, hidden, where in fwd_shapes:
+        r = layernorm_case(rows, hidden, dtype, gen)
+        r["where"] = where
+        results["layernorm_fwd"].append(r)
+        show_timed("layernorm", r)
+    for rows, hidden in LN_FWD_UNTIMED if untimed else ():
+        r = layernorm_case(rows, hidden, dtype, gen, timed=False)
+        log(f"  layernorm ({rows}, {hidden}) {dname(dtype)}: max_abs_err {r['max_abs_err']:.3e}, identical over two "
+            "runs")
+    for rows, hidden, where in bwd_shapes:
+        r = layernorm_bwd_case(rows, hidden, dtype, gen)
+        r["where"] = where
+        results["layernorm_bwd"].append(r)
+        show_timed("layernorm_bwd", r)
+        log(f"    dweight/dbias max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); "
+            f"identical over two runs")
+    for rows, hidden in LN_BWD_UNTIMED if untimed else ():
+        r = layernorm_bwd_case(rows, hidden, dtype, gen, timed=False)
+        log(f"  layernorm_bwd ({rows}, {hidden}) {dname(dtype)}: max_abs_err {r['max_abs_err']:.3e}, "
+            f"sums {r['sum_max_abs_err']:.3e}, identical over two runs")
+
+
+def rmsnorm_cases(dtype: torch.dtype, gen: torch.Generator, results: dict) -> None:
+    for rows, hidden, where in RMS_SHAPES:
+        r = rmsnorm_case(rows, hidden, dtype, gen)
+        r["where"] = where
+        results["rmsnorm_fwd"].append(r)
+        show_timed("rmsnorm", r)
+        r = rmsnorm_bwd_case(rows, hidden, dtype, gen)
+        r["where"] = where
+        results["rmsnorm_bwd"].append(r)
+        show_timed("rmsnorm_bwd", r)
+        log(f"    dweight max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); identical "
+            f"over two runs; rows with dy = 0 give dx 0 and leave dweight bit-identical")
+    for rows, hidden in ((37, 32), (5, 8200), (3, 16392)):  # ragged; the loop kernels (wide rows)
+        r, r_bwd = rmsnorm_case(rows, hidden, dtype, gen, timed=False), rmsnorm_bwd_case(rows, hidden, dtype, gen,
+                                                                                      timed=False)
+        log(f"  rmsnorm ({rows}, {hidden}) {dname(dtype)}: max_abs_err y {r['max_abs_err']:.3e}, dx "
+            f"{r_bwd['max_abs_err']:.3e}, dweight {r_bwd['sum_max_abs_err']:.3e}")
+
+
+def launch_breakdown(kernel: str, rows: int, hidden: int, calls: int = 10) -> dict | None:
+    """The device time of each launch one bf16 LayerNorm call makes, and the gaps between them.
+
+    torch.profiler over ``calls`` calls on one input set (warm in the L2 where it fits), queued behind
+    a sleep kernel so the gaps are the card's, not the host's. Returns the means in microseconds, or
+    None where the profiler recorded no device time.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pgica_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = (3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    _, mu, rstd = layer_norm_fwd(x, w, b, 1e-5)
+    if kernel == "layernorm_fwd":
+        fn, args = layer_norm_fwd, (x, w, b, 1e-5)
+    else:
+        fn, args = layer_norm_bwd, (x, w, torch.randn_like(x), mu, rstd)
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and not re.search(
+        "sleep|spin", e.name, re.IGNORECASE)), key=lambda e: e.time_range.start)
+    label = f"{kernel} ({rows}, {hidden}) bfloat16"
+    if not events or len(events) % calls:
+        log(f"  launches of one {label} call: not measured ({len(events)} device events for {calls} calls: "
+            f"{sorted({e.name[:60] for e in events})})")
+        return None
+    per = len(events) // calls
+    names = [re.sub(r"[<(].*", "", e.name.replace("(anonymous namespace)::", "")).split()[-1] for e in events[:per]]
+    us = [statistics.mean(events[c * per + k].time_range.elapsed_us() for c in range(calls)) for k in range(per)]
+    gaps = [statistics.mean(events[c * per + k + 1].time_range.start - events[c * per + k].time_range.end
+                            for c in range(calls)) for k in range(per - 1)]
+    span = statistics.mean(events[c * per + per - 1].time_range.end - events[c * per].time_range.start
+                           for c in range(calls))
+    parts = [f"{names[0]} {us[0]:.2f} us"] + [f"gap {g:.2f} us, {n} {t:.2f} us"
+                                              for n, t, g in zip(names[1:], us[1:], gaps)]
+    log(f"  launches of one {label} call (profiler, mean of {calls}): {'; '.join(parts)}; first start to last end "
+        f"{span:.2f} us")
+    return dict(kernel=kernel, shape=f"({rows}, {hidden})", launches=names, us=us, gaps_us=gaps, span_us=span)
+
+
+def norm_kernel_times() -> None:
+    """Phase 3's LayerNorm and RMSNorm timings and the LayerNorm launch breakdowns alone, one JSON line
+    each (``NORM {...}``), through whichever ``pgica_tpu_torch`` is first on ``sys.path``: run once per
+    checkout, in turns, in one call, it compares two trees on one card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {name: [] for name in KERNEL_META}
+    for dtype in (torch.bfloat16, torch.float32):
+        layernorm_cases(LN_FWD_SHAPES + LN_FWD_LLAMA_SHAPES, LN_BWD_SHAPES + LN_BWD_LLAMA_SHAPES, dtype, gen,
+                        results)
+        rmsnorm_cases(dtype, gen, results)
+    for kernel, rows in results.items():
+        for r in rows:
+            print("NORM " + json.dumps(dict(kernel=kernel, **{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
+                                                                              "library_ms", "bound_ms")})))
+    for kernel, rows, hidden in LN_BREAKDOWN:
+        print("NORM " + json.dumps(launch_breakdown(kernel, rows, hidden)))
+
+
 def phase_kernels() -> dict:
     from pgica_tpu_torch.ops.flash_attention import TC_MIN_SQ
 
@@ -695,18 +836,7 @@ def phase_kernels() -> dict:
     stage2_valid = {128: torch.full((64,), 128, device="cuda"),
                     32: torch.randint(8, 29, (64,), device="cuda", generator=gen)}
     for dtype in (torch.bfloat16, torch.float32):
-        for rows, hidden, where in ((32 * 50, 768, "ViT blocks"), (32, 512, "projection ln"),
-                                    (32, 1024, "decoder, per step"), (128 * 50, 768, "ViT blocks, stage 1"),
-                                    (128, 768, "ViT post_ln, stage 1"), (128, 512, "projection ln, stage 1"),
-                                    (128 * 32, 1024, "text tower, bucketed"), (128 * 128, 1024, "text tower, stage 1"),
-                                    (64 * 128, 1024, "decoder, stage 2"), (64 * 32, 1024, "decoder, stage 2 bucketed")):
-            r = layernorm_case(rows, hidden, dtype, gen)
-            r["where"] = where
-            results["layernorm_fwd"].append(r)
-            show_timed("layernorm", r)
-        # ragged and general cases for coverage of every template (not timed)
-        r = layernorm_case(7, 2000, dtype, gen, timed=False)
-        log(f"  layernorm (7, 2000) {dname(dtype)} loop path: max_abs_err {r['max_abs_err']:.3e}")
+        layernorm_cases(LN_FWD_SHAPES, (), dtype, gen, results)
         decode_valid = torch.full((32,), 41, device="cuda")  # step 40 of 64: keys 0..40 kept
         ragged = torch.tensor([77, 50], device="cuda")
         for name, shape, causal, valid in (
@@ -745,43 +875,9 @@ def phase_kernels() -> dict:
                                torch.randint(1, 130, (32,), device="cuda", generator=gen), dtype, gen)
             results["flash_attn_fwd"].append(r)
             show_timed("flash", r)
-        for rows, hidden, where in ((2 * 730, 1152, "SigLIP, Llama stage 2"), (4 * 730, 1152, "SigLIP, Llama stage 1"),
-                                    (8 * 730, 1152, "SigLIP, Llama serving batch 8"),
-                                    (2048, 4096, "decoder cross_ln, Llama stage 2")):
-            r = layernorm_case(rows, hidden, dtype, gen)
-            r["where"] = where
-            results["layernorm_fwd"].append(r)
-            show_timed("layernorm", r)
-        for rows, hidden, where in ((2048, 4096, "Llama blocks, stage 1 and 2"), (8, 4096, "Llama decode, batch 8")):
-            r = rmsnorm_case(rows, hidden, dtype, gen)
-            r["where"] = where
-            results["rmsnorm_fwd"].append(r)
-            show_timed("rmsnorm", r)
-            r = rmsnorm_bwd_case(rows, hidden, dtype, gen)
-            r["where"] = where
-            results["rmsnorm_bwd"].append(r)
-            show_timed("rmsnorm_bwd", r)
-            log(f"    dweight max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); identical "
-                f"over two runs; rows with dy = 0 give dx 0 and leave dweight bit-identical")
-        for rows, hidden in ((37, 32), (5, 8200), (3, 16392)):  # ragged; the loop kernels (wide rows)
-            r, r_bwd = rmsnorm_case(rows, hidden, dtype, gen, timed=False), rmsnorm_bwd_case(rows, hidden, dtype, gen,
-                                                                                          timed=False)
-            log(f"  rmsnorm ({rows}, {hidden}) {dname(dtype)}: max_abs_err y {r['max_abs_err']:.3e}, dx "
-                f"{r_bwd['max_abs_err']:.3e}, dweight {r_bwd['sum_max_abs_err']:.3e}")
-
-        for rows, hidden, where in ((128 * 128, 1024, "text tower, stage 1"), (128 * 32, 1024, "text tower, bucketed"),
-                                    (128, 512, "projection ln, stage 1"), (64 * 128, 1024, "decoder, stage 2"),
-                                    (64 * 32, 1024, "decoder, stage 2 bucketed")):
-            r = layernorm_bwd_case(rows, hidden, dtype, gen)
-            r["where"] = where
-            results["layernorm_bwd"].append(r)
-            show_timed("layernorm_bwd", r)
-            log(f"    dweight/dbias max abs err {r['sum_max_abs_err']:.3e} (atol {SUM_TOL[0]}, rtol {SUM_TOL[1]}); "
-                f"identical over two runs")
-        for rows, hidden in ((7, 2000), (37, 768)):
-            r = layernorm_bwd_case(rows, hidden, dtype, gen, timed=False)
-            log(f"  layernorm_bwd ({rows}, {hidden}) {dname(dtype)}: max_abs_err {r['max_abs_err']:.3e}, "
-                f"sums {r['sum_max_abs_err']:.3e}")
+        layernorm_cases(LN_FWD_LLAMA_SHAPES, (), dtype, gen, results)
+        rmsnorm_cases(dtype, gen, results)
+        layernorm_cases((), LN_BWD_SHAPES, dtype, gen, results, untimed=True)
         for name, b, s_, valid in (("stage1_full", 128, 128, stage1_valid[128]),
                                    ("stage1_bucketed", 128, 32, stage1_valid[32]),
                                    ("stage2_full", 64, 128, stage2_valid[128]),
@@ -791,10 +887,7 @@ def phase_kernels() -> dict:
             results["flash_attn_bwd_dkv"].append(r_dkv)
             show_timed("flash_bwd_dq", r_dq)
             show_timed("flash_bwd_dkv", r_dkv)
-        r = layernorm_bwd_case(2048, 4096, dtype, gen)
-        r["where"] = "decoder cross_ln, Llama stage 2"
-        results["layernorm_bwd"].append(r)
-        show_timed("layernorm_bwd", r)
+        layernorm_cases((), LN_BWD_LLAMA_SHAPES, dtype, gen, results)
         r_dq, r_dkv = attention_bwd_case("llama", 4, 32, 512, 128, True, torch.full((4,), 512, device="cuda"), dtype,
                                          gen)
         results["flash_attn_bwd_dq"].append(r_dq)
@@ -807,6 +900,8 @@ def phase_kernels() -> dict:
             log(f"  flash bwd d={d} (4, 33, 33, {d}) {dname(dtype)} causal={d != 32}, a row without keys: "
                 f"max_abs_err dq {r_dq['max_abs_err']:.3e}, dk/dv {r_dkv['max_abs_err']:.3e}")
 
+    for kernel, rows, hidden in LN_BREAKDOWN:
+        launch_breakdown(kernel, rows, hidden)
     flash_crossover(gen)
     # fused linear-CE at the stage-2 shapes (batch 32: 64 caption rows of 127 or 31 targets): bf16
     # hidden states with the policy's f32 W and with the reference's bf16 W; bucketed rows past a

@@ -7,6 +7,8 @@
 // into an exception.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -48,6 +50,88 @@ __device__ __forceinline__ void unpack16(const uint4& r, float* out, const __nv_
 __device__ __forceinline__ uint4 load16(const void* p, bool valid) {
   return valid ? *static_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
+
+// 16 / sizeof(T) f32 values -> 16 bytes of T (element 0 in the low half, as unpack16).
+__device__ __forceinline__ uint4 pack16(const float* f, const float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* f, const __nv_bfloat16*) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(f[2 * i]));
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// g[c .. c + N) into out (N = 4 or 8, c a multiple of 4, g 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void load_weight(const float* g, int c, bool valid, float* out) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 w = valid ? *reinterpret_cast<const float4*>(g + c + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    out[i] = w.x;
+    out[i + 1] = w.y;
+    out[i + 2] = w.z;
+    out[i + 3] = w.w;
+  }
+}
+
+// The same three moves for a row of n elements of T whose 16-byte slots need not be aligned or
+// whole: the slot of 16 / sizeof(T) elements at column c. VEC: one 16-byte access (n is a multiple
+// of the slot and the pointer 16-byte aligned); otherwise element by element, columns at or past n
+// reading as 0 and not written. Either way the slot's bits sit in a uint4 as load16 gives them.
+template <bool VEC, typename T>
+__device__ __forceinline__ uint4 load_slot(const T* p, int c, int n) {
+  constexpr int kN = 16 / static_cast<int>(sizeof(T));
+  if constexpr (VEC) return load16(p + c, c < n);
+  unsigned short h[8] = {};
+  float f[4] = {};
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    if (c + e >= n) break;
+    if constexpr (sizeof(T) == 2) h[e] = __bfloat16_as_ushort(p[c + e]);
+    else f[e] = to_float(p[c + e]);
+  }
+  if constexpr (sizeof(T) == 2)
+    return make_uint4(h[0] | (unsigned(h[1]) << 16), h[2] | (unsigned(h[3]) << 16),
+                      h[4] | (unsigned(h[5]) << 16), h[6] | (unsigned(h[7]) << 16));
+  else
+    return pack16(f, static_cast<const float*>(nullptr));
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_slot(T* p, int c, int n, const float* f) {
+  constexpr int kN = 16 / static_cast<int>(sizeof(T));
+  if constexpr (VEC) {
+    if (c < n) *reinterpret_cast<uint4*>(p + c) = pack16(f, p);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < kN; ++e)
+    if (c + e < n) p[c + e] = from_float<T>(f[e]);
+}
+
+template <bool VEC, int N>
+__device__ __forceinline__ void load_weight_slot(const float* g, int c, int n, float* out) {
+  if constexpr (VEC) {
+    load_weight<N>(g, c, c < n, out);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = c + e < n ? g[c + e] : 0.f;
+}
+
+// The LayerNorm kernels' row layout (layernorm_fwd.cu, layernorm_bwd.cu): a row's 16-byte slots
+// spread over TPR = 32, 64, 128 or 256 threads, at most kRowSlotsPerThread each; a block of 128
+// threads holds 128 / TPR rows at once, a wider TPR is a block of its own.
+constexpr int kRowSlotsPerThread = 4;
+__host__ __device__ constexpr int row_block_threads(int tpr) { return tpr < 128 ? 128 : tpr; }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Rows [r0, r0 + ROWS) of a (n, D) row-major array in global memory, times
 // `scale`, into dst[ROWS][LD] f32 in shared memory; rows at or past n stage

@@ -27,12 +27,14 @@
 //   in order while it writes dx (x and dy are read twice).
 // * The reduction: a block of eight warps per 32 columns; warp w sums the
 //   partials w, w + 8, ... of its lane's column and the eight sums meet in
-//   shared memory in order (as csrc/layernorm_bwd.cu).
+//   shared memory in order.
 #include "common.cuh"
 
 namespace {
 
 using pgica::load16;
+using pgica::load_weight;
+using pgica::pack16;
 using pgica::unpack16;
 using pgica::warp_sum;
 
@@ -40,33 +42,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = 8;  // rows of x per row of `partials` (ops/rmsnorm.py repeats it)
 constexpr int kReduceWarps = 8;
-
-__device__ __forceinline__ uint4 pack16(const float* f, const float*) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack16(const float* f, const __nv_bfloat16*) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(f[2 * i]));
-    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]));
-    w[i] = lo | (hi << 16);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-template <int N>
-__device__ __forceinline__ void load_weight(const float* g, int c, bool valid, float* out) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 w = valid ? *reinterpret_cast<const float4*>(g + c + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    out[i] = w.x;
-    out[i + 1] = w.y;
-    out[i + 2] = w.z;
-    out[i + 3] = w.w;
-  }
-}
 
 template <int N>
 __device__ __forceinline__ void store_f32(float* dst, const float* v) {

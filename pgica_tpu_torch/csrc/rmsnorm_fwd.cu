@@ -12,8 +12,7 @@
 // the Llama training shape (2048, 4096) in bf16. At decode (8 rows) launch
 // latency, not bandwidth, is what the kernel meets.
 //
-// Design. The Llama row is 4,096 wide, four times the register path of
-// csrc/layernorm_fwd.cu (one warp per row), so a whole 256-thread block takes
+// Design. The Llama row is 4,096 wide, so a whole 256-thread block takes
 // one row: thread t holds the 16-byte vectors t, t + 256, ... of the row (8
 // bf16 or 4 f32 values each; two of them at H = 4096 in bf16) and the
 // matching slice of g in registers, all loads issued before the first use.
@@ -29,40 +28,13 @@
 namespace {
 
 using pgica::load16;
+using pgica::load_weight;
+using pgica::pack16;
 using pgica::unpack16;
 using pgica::warp_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// kVec f32 values -> 16 bytes of T (element 0 in the low half, as unpack16).
-__device__ __forceinline__ uint4 pack16(const float* f, const float*) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack16(const float* f, const __nv_bfloat16*) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(f[2 * i]));
-    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]));
-    w[i] = lo | (hi << 16);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// g[c .. c + N) into out (N = 4 or 8, c a multiple of 4, g 16-byte aligned).
-template <int N>
-__device__ __forceinline__ void load_weight(const float* g, int c, bool valid, float* out) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 w = valid ? *reinterpret_cast<const float4*>(g + c + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    out[i] = w.x;
-    out[i + 1] = w.y;
-    out[i + 2] = w.z;
-    out[i + 3] = w.w;
-  }
-}
 
 // The block's sum of v, the same in every thread (kWarps floats of scratch).
 __device__ __forceinline__ float block_sum(float v, float* scratch) {

@@ -52,7 +52,7 @@ KERNELS = {
     ),
     "layernorm_bwd": (
         "layernorm_bwd.cu", "pgica_layernorm_bwd",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "flash_attn_bwd_dq": (
         "flash_attn_bwd.cu", "pgica_flash_attn_bwd_dq",

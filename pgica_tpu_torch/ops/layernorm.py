@@ -8,9 +8,15 @@ Two kernels:
 * ``csrc/layernorm_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (:75) and
   also writes mu and rstd in float32 for the backward pass.
 * ``csrc/layernorm_bwd.cu`` replaces ``_bwd_kernel`` (:88): dx in x's dtype,
-  and dweight/dbias in float32 summed over all rows — per-block partial sums
-  added by a second pass in a fixed order, so the sums do not vary from run
-  to run.
+  and dweight/dbias in float32 summed over all rows in one cooperative
+  launch — each block's partial sums over the rows :func:`bwd_partition`
+  gives it, then, after a grid-wide barrier, the partials added in a fixed
+  order, so the sums do not vary from run to run.
+
+Both kernels move a row in 16-byte slots, at most ``MAX_ROW_SLOTS`` of them
+(H up to 8,192 in bf16, 4,096 in f32); any H up to that works, a width that
+is not a multiple of the slot through the kernels' element-by-element
+instance.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or raises), a
 CPU tensor runs :func:`layer_norm_ref`. The JAX package's TPU-tuned
@@ -26,6 +32,15 @@ import torch
 from torch import nn
 
 from pgica_tpu_torch.ops import _kernels
+
+
+MAX_ROW_SLOTS = 1024  # csrc/layernorm_{fwd,bwd}.cu: 256 threads of 4 slots a row
+
+
+def _check_width(name: str, x: torch.Tensor) -> None:
+    widest = MAX_ROW_SLOTS * (16 // x.element_size())
+    if x.shape[1] > widest:
+        raise ValueError(f"{name}: H = {x.shape[1]} is wider than the kernel's {widest} for {x.dtype}")
 
 
 def layer_norm_ref(
@@ -52,6 +67,7 @@ def layer_norm_fwd(
         raise TypeError(f"layer_norm_fwd: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"layer_norm_fwd: x must be a contiguous (rows, H) tensor, got {tuple(x.shape)}")
+    _check_width("layer_norm_fwd", x)
     rows, hidden = x.shape
     for name, p in (("weight", weight), ("bias", bias)):
         if p.dtype != torch.float32 or p.shape != (hidden,) or not p.is_contiguous():
@@ -72,7 +88,21 @@ def layer_norm_fwd(
     return y, mu, rstd
 
 
-ROWS_PER_PARTIAL = 16  # csrc/layernorm_bwd.cu: kRowsPerPartial
+MAX_PARTS = 228  # co-resident on any H100: 114 SMs (PCIe) x 2 blocks (csrc/layernorm_bwd.cu launch bounds)
+MIN_ROWS_PER_PART = 4
+
+
+def bwd_partition(rows: int, hidden: int) -> Tuple[int, int]:
+    """The backward kernel's row partition: (rows per block, blocks).
+
+    Block b takes rows [b * per, (b + 1) * per) and writes one partial row of
+    dweight and of dbias. It depends on (rows, H) alone, never on the card, so
+    the sums' order, and so their bits, are the same on every H100. Every
+    width up to ``MAX_ROW_SLOTS`` keeps the blocks within the co-residency
+    cap, so ``hidden`` does not move it today.
+    """
+    per = max(MIN_ROWS_PER_PART, -(-rows // MAX_PARTS))
+    return per, -(-rows // per)
 
 
 def layer_norm_bwd_ref(
@@ -100,6 +130,7 @@ def layer_norm_bwd(
         raise TypeError(f"layer_norm_bwd: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"layer_norm_bwd: x must be a contiguous (rows, H) tensor, got {tuple(x.shape)}")
+    _check_width("layer_norm_bwd", x)
     rows, hidden = x.shape
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not dy.is_contiguous():
         raise ValueError(f"layer_norm_bwd: dy must be contiguous {x.dtype} {tuple(x.shape)} on {x.device}")
@@ -111,12 +142,12 @@ def layer_norm_bwd(
     dbias = torch.empty_like(dweight)
     if rows == 0:
         return dx, dweight.zero_(), dbias.zero_()
-    n_parts = -(-rows // ROWS_PER_PARTIAL)
+    per, n_parts = bwd_partition(rows, hidden)
     partials = torch.empty((2, n_parts, hidden), dtype=torch.float32, device=x.device)
     _kernels.launch(
         "layernorm_bwd",
         x.data_ptr(), weight.data_ptr(), dy.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        dweight.data_ptr(), dbias.data_ptr(), partials.data_ptr(), rows, hidden,
+        dweight.data_ptr(), dbias.data_ptr(), partials.data_ptr(), rows, hidden, per,
         _kernels.DTYPE_CODES[x.dtype], _kernels.stream_handle(x),
     )
     return dx, dweight, dbias

@@ -12,6 +12,7 @@ sums taken in another order, nothing more.
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,14 @@ from pgica_tpu.ops.layernorm import _ln_ref, fused_layernorm
 from pgica_tpu_torch.ops import _kernels
 from pgica_tpu_torch.ops.attention import dot_product_attention, key_padding_bias
 from pgica_tpu_torch.ops.flash_attention import flash_attention_bwd_ref, flash_attention_fwd
-from pgica_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd
+from pgica_tpu_torch.ops.layernorm import (
+    MAX_PARTS,
+    bwd_partition,
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_ref,
+    layer_norm_fwd,
+)
 
 LN_ATOL, LN_RTOL = 1e-5, 1e-5
 ATTN_ATOL = 2e-5
@@ -38,7 +46,7 @@ def _np(rng, *shape, scale=1.0):
 # ---------------------------------------------------------------- LayerNorm
 
 
-@pytest.mark.parametrize("rows,hidden", [(10, 32), (74, 512), (3, 1024)])
+@pytest.mark.parametrize("rows,hidden", [(10, 32), (74, 512), (3, 1024), (3, 1152), (2, 4096), (5, 1001)])
 def test_layernorm_backward_matches_jax(rng, rows, hidden):
     x, g = _np(rng, rows, hidden, scale=3.0), _np(rng, rows, hidden)
     w, b = 1 + _np(rng, hidden, scale=0.1), _np(rng, hidden, scale=0.1)
@@ -70,6 +78,69 @@ def test_layernorm_backward_keeps_x_dtype_and_launches_nothing_on_cpu(rng):
     dx, dw, db = layer_norm_bwd(x, w, x, mu, rstd)
     assert dx.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
     assert _kernels.launch_counts() == counts
+
+
+# The backward kernel's row partition (ops/layernorm.py:bwd_partition) sizes its grid and `partials`:
+# the shapes the main paths give it, and ragged row counts.
+PARTITION_SHAPES = [(128, 512), (2048, 4096), (16384, 1024), (8192, 1024), (32, 1024), (1460, 1152)] + [
+    (rows, 768) for rows in (1, 7, 37, 129)]
+
+
+@pytest.mark.parametrize("rows,hidden", PARTITION_SHAPES)
+def test_layernorm_bwd_partition_covers_each_row_once_within_the_cap(rows, hidden):
+    per, n_parts = bwd_partition(rows, hidden)
+    covered = np.zeros(rows, dtype=int)
+    for b in range(n_parts):
+        covered[b * per:min((b + 1) * per, rows)] += 1
+    assert (covered == 1).all() and n_parts * per - rows < per  # every block holds at least one row
+    assert n_parts <= MAX_PARTS <= 114 * 2  # co-resident on an H100 PCIe (114 SMs) at 2 blocks an SM
+    # a function of (rows, H) alone: the same with no card, and again
+    with mock.patch.object(torch.cuda, "get_device_properties", side_effect=AssertionError("reads the card")):
+        assert bwd_partition(rows, hidden) == (per, n_parts)
+
+
+SUM_TOL = (1e-3, 1e-4)  # chip_smoke.py's (atol, rtol) on LN's dgamma/dbeta
+
+
+def _dgamma_kernel_order(terms, per, n_parts, row_slots, warps):
+    """csrc/layernorm_bwd.cu's order for sum over rows of ``terms`` (f32): each block's row slots add
+    their rows in order, the slots meet in slot order, then warp w sums the partials w, w + warps, ...
+    and the warps meet in order."""
+    partials = []
+    for b in range(n_parts):
+        r0, r1 = b * per, min((b + 1) * per, terms.shape[0])
+        slots = []
+        for s in range(row_slots):
+            acc = torch.zeros(terms.shape[1])
+            for row in range(r0 + s, r1, row_slots):
+                acc = acc + terms[row]
+            slots.append(acc)
+        partial = slots[0]
+        for acc in slots[1:]:
+            partial = partial + acc
+        partials.append(partial)
+    total = None
+    for w in range(warps):
+        acc = torch.zeros(terms.shape[1])
+        for p in range(w, n_parts, warps):
+            acc = acc + partials[p]
+        total = acc if total is None else total + acc
+    return total
+
+
+def test_layernorm_dgamma_dbeta_in_the_kernels_order_hold_the_sum_bound(rng):
+    """At (2048, 1024), bf16's layout (four rows of one warp a 128-thread block), the kernel's order
+    of the dgamma and dbeta sums stays within chip_smoke.py's SUM_TOL of the plain sum(dim=0)."""
+    rows, hidden = 2048, 1024
+    x, dy = _np(rng, rows, hidden, scale=3.0), _np(rng, rows, hidden)
+    w, b = torch.ones(hidden), torch.zeros(hidden)
+    _, mu, rstd = layer_norm_fwd(torch.from_numpy(x), w, b, 1e-5)
+    xhat = (torch.from_numpy(x) - mu[:, None]) * rstd[:, None]
+    dyf = torch.from_numpy(dy)
+    per, n_parts = bwd_partition(rows, hidden)
+    for terms in (dyf * xhat, dyf):
+        got = _dgamma_kernel_order(terms, per, n_parts, row_slots=4, warps=4)
+        np.testing.assert_allclose(got.numpy(), terms.sum(dim=0).numpy(), atol=SUM_TOL[0], rtol=SUM_TOL[1])
 
 
 # ---------------------------------------------------------------- attention

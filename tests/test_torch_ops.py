@@ -53,7 +53,9 @@ def _np(rng, *shape, scale=1.0):
 # ---------------------------------------------------------------- LayerNorm
 
 
-@pytest.mark.parametrize("rows,hidden", [(10, 32), (37, 768)])
+# the widths at which the kernels change shape: 1,152 (SigLIP, two warps a bf16 row), 4,096 (Llama's
+# cross_ln, four) and 1,001 (no multiple of the 16-byte slot: the element-by-element instance)
+@pytest.mark.parametrize("rows,hidden", [(10, 32), (37, 768), (3, 1152), (2, 4096), (5, 1001)])
 def test_layernorm_matches_jax(rng, rows, hidden):
     x, g, b = _np(rng, rows, hidden, scale=3.0), 1 + _np(rng, hidden, scale=0.1), _np(rng, hidden, scale=0.1)
     y, mu, rstd = layer_norm_fwd(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b), 1e-5)
