@@ -17,7 +17,8 @@ exits non-zero):
    its time (CUDA events, median of 21 bursts, on input sets that rotate
    through more than twice the L2, so they come from HBM; the fused
    linear-CE kernels, tens to hundreds of ms a call over a W larger than the
-   L2: median of 5 single calls), the plain version's, one PyTorch call's
+   L2: median of 5 single calls; the flash decode forward also at the
+   4-beam shapes of phases 5 and 8), the plain version's, one PyTorch call's
    as a yardstick (never used by the port; for fused CE two calls, F.linear
    and F.cross_entropy) and the bound from the bytes and flops that the
    inputs need at HBM rate and peak rate (fused CE: the bf16 tensor-core peak,
@@ -30,13 +31,18 @@ exits non-zero):
    tower, f32 — ViT-B/32 + GPT-2 Medium, then SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
    the card (kernels) and on the CPU (plain versions): embeddings, prefix
-   and step logits, 16 greedy tokens; then two stage-1 and two stage-2
-   (DPO) train steps (dropout 0): the gradients, loss, reward metrics,
-   gradient norm and every trained parameter.
+   and step logits, 16 greedy tokens and 16 tokens of 4-beam search; then
+   two stage-1 and two stage-2 (DPO) train steps (dropout 0): the
+   gradients, loss, reward metrics, gradient norm and every trained
+   parameter; a stage-1 gradient with augmentation and activation
+   checkpointing on (card vs CPU), and on the card with dropout, with
+   checkpointing off against on (bit for bit).
 5. Serving: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab 50,262)
    in bf16 with random seeded weights answers caption requests through
    ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
-   early_stop (as the caption service calls it), then the batch 32 x 64
+   early_stop (as the caption service calls it), the configs'
+   generate_config (4 beams, length penalty 1, repetition penalty 1.1,
+   max_length 128, early_stop) at batch 8 and 32, then the batch 32 x 64
    fixed-length greedy decode of the eval benchmark (median of 5 after a
    warm-up).
 6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
@@ -54,14 +60,26 @@ exits non-zero):
    Llama-3-8B configuration of configs/siglip_llama8b.yaml is built once at
    full width in bf16 over f32 masters, with 4 of each Llama tower's 32
    layers (``LLAMA_REDUCED`` says why) and random seeded weights. It serves
-   sampled caption requests through ``generate_captions`` at batch 1 and 8
-   (max_length 128, top-p 0.9, temperature 0.8, repetition penalty 1.1,
-   one beam), takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
+   caption requests through ``generate_captions`` at batch 1 and 8 with the
+   config's generate_config (4 beams, max_length 128, repetition penalty
+   1.1), takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
    under the JAX trainer's partitions, timed and profiled as in phase 6,
    with every request's and step's launches asserted.
+9. The training entry point: ``pgica_tpu_torch.scripts.train.run`` on
+   configs/default.yaml (the GPT-2 flagship at full width and vocab, bf16,
+   activation checkpointing, gradient accumulation 4, augmentation), on
+   seeded JPEG files read through the config's datasets (uint8 batches,
+   normalized on the card), changed as ``PHASE9_REDUCED`` says: stage 1,
+   stage 2 with its bf16 reference, validation, checkpoints and the best
+   model's reload; a second trainer resumes stage 1 from its mid-epoch
+   autosave through ``run`` and must end bit-identical to the uninterrupted
+   run; then ``generate_captions`` must serve the trained masters. Per
+   stage: ms per micro-step and per update, device busy share, peak memory,
+   the host's time inside the profiled steps by operator; per checkpoint
+   bytes and seconds.
 
-Launch counts are reset just before the main path of phases 5, 6, 7 and of
-each of phase 8's three paths, and read just after. The second-to-last line
+Launch counts are reset just before the main path of phases 5, 6, 7, 9 and
+of each of phase 8's three paths, and read just after. The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
 exits non-zero and prints no result.
@@ -97,6 +115,9 @@ LLAMA_VOCAB = 128_256  # configs/siglip_llama8b.yaml model.vocab_size
 SIGLIP, LLAMA = "google/siglip-so400m-patch14-384", "meta-llama/Meta-Llama-3-8B"
 SLEEP_CYCLES = 20_000_000  # ~10 ms: keeps the card busy while the host queues a burst
 SERVING_KERNELS = ("layernorm_fwd", "flash_attn_fwd")  # serving runs no backward
+# the configs' evaluation.generate_config with beams (configs/default.yaml:138-145, siglip_llama8b.yaml):
+# 4 beams, length penalty 1, repetition penalty 1.1; the sampling flags it also sets are ignored with beams
+BEAMS = dict(num_beams=4, length_penalty=1.0, repetition_penalty=1.1)
 LLAMA_SERVING_KERNELS = SERVING_KERNELS + ("rmsnorm_fwd",)
 
 
@@ -860,6 +881,9 @@ def phase_kernels() -> dict:
             ("siglip_serving", (8, 16, 730, 730, 72), False, None),
             ("llama", (4, 32, 512, 512, 128), True, torch.full((4,), 512, device="cuda")),
             ("llama_decode", (8, 32, 1, 129, 128), False, torch.full((8,), 65, device="cuda")),
+            # 4-beam decode (phases 5 and 8): GPT-2 at batch 32 and Llama at batch 8, 4 rows an image
+            ("beam_decode", (128, 16, 1, 129, 64), False, torch.full((128,), 65, device="cuda")),
+            ("llama_beam_decode", (32, 32, 1, 129, 128), False, torch.full((32,), 65, device="cuda")),
         ):
             r = attention_case(name, *shape, causal, valid, dtype, gen)
             results["flash_attn_fwd"].append(r)
@@ -1008,8 +1032,18 @@ def phase_full_width(tokenizer, arch: str) -> None:
     if not torch.equal(ids[0], ids[1]):
         raise AssertionError(f"full width: greedy tokens differ:\n{ids[0]}\n{ids[1]}")
     log(f"  greedy tokens, 16 steps: identical on card and CPU ({ids[0].tolist()}); {time.perf_counter() - t0:.1f} s")
+    beams = []
+    for model, emb in ((cuda, emb_g.cuda()), (cpu, emb_c)):
+        beams.append(generate(model.module, emb, eos_token_id=tokenizer.eos_token_id,
+                              pad_token_id=tokenizer.pad_token_id, max_length=16, **BEAMS).cpu())
+    if not torch.equal(beams[0], beams[1]):
+        raise AssertionError(f"full width: 4-beam tokens differ:\n{beams[0]}\n{beams[1]}")
+    log(f"  4-beam tokens ({BEAMS}), 16 steps: identical on card and CPU ({beams[0].tolist()}); "
+        f"{time.perf_counter() - t0:.1f} s")
     full_width_train(cuda, cpu, spec)
     log(f"  stage 1 checked; {time.perf_counter() - t0:.1f} s")
+    full_width_augmented_remat(cuda, cpu, spec)
+    log(f"  stage 1 with augmentation and activation checkpointing checked; {time.perf_counter() - t0:.1f} s")
     # the stage-2 check's reference: a frozen f32 model of another seed, so that the rewards are
     # far from 0 (a copy of the policy would make them exactly 0 at the first step)
     other = PreferenceGuidedCaptioningModel(device="cpu", **{**kwargs, "seed": 1})
@@ -1204,6 +1238,75 @@ def full_width_train(cuda, cpu, spec: dict) -> None:
     compare_training("full width stage 1", run, {"loss": (0.0, 1e-4), "grad_norm": (0.0, 1e-3)})
 
 
+def set_remat(module, on: bool) -> None:
+    """Turn activation checkpointing of every tower's blocks on or off (the towers' ``config.remat``)."""
+    from pgica_tpu_torch.models.lm import TransformerLM
+    from pgica_tpu_torch.models.vit import VisionTransformer
+
+    for m in module.modules():
+        if isinstance(m, (TransformerLM, VisionTransformer)):
+            m.config = dataclasses.replace(m.config, remat=on)
+
+
+def set_dropout(module, rate: float) -> None:
+    from pgica_tpu_torch.ops.dropout import FastDropout
+
+    for m in module.modules():
+        if isinstance(m, FastDropout):
+            m.rate = rate
+
+
+def stage1_grads(model, batch: dict, generator=None) -> dict:
+    """Name -> gradient of the augmented stage-1 loss (the trainer's partition: the decoder frozen),
+    the augmentation drawn from one seed (a CPU generator: the same parameters on both sides)."""
+    from pgica_tpu_torch.training.train_step import _augmented, _on_device, stage1_loss_fn
+
+    _, _, opt = stage1_trainer(model.module)  # sets requires_grad as the trainer's stage 1
+    named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+    b = _augmented(_on_device(batch, model.device), True, seed=7, step=3)
+    loss = stage1_loss_fn(model.module, b, generator, 0.5)[0]
+    return dict(zip((n for n, _ in named), torch.autograd.grad(loss, [p for _, p in named])))
+
+
+def full_width_augmented_remat(cuda, cpu, spec: dict) -> None:
+    """A stage-1 gradient with augmentation on and every block checkpointed, card vs CPU (dropout
+    0); then on the card with dropout 0.1, checkpointing off against on: bit for bit."""
+    rng = np.random.default_rng(5)
+    batch = stage1_batch(rng, spec["stage1_batch"], 32, (5, 32), cuda.image_size, spec["vocab"])
+    cuda.module.load_state_dict(cpu.module.state_dict())  # stage 1 left the two a rounding apart
+    for model in (cuda, cpu):
+        set_remat(model.module, True)
+    got, want = stage1_grads(cuda, batch), stage1_grads(cpu, batch)
+    worst = (0.0, "")
+    for name, gc in want.items():
+        gg, gc = got[name], gc.cuda()
+        if name.endswith("attn.k_proj.bias"):  # 0 in exact arithmetic
+            if max(float(gg.abs().max()), float(gc.abs().max())) > 1e-6:
+                raise AssertionError(f"augmented remat: {name} gradient is not ~0")
+            continue
+        diff = (gg - gc).abs()
+        rel = float(diff.norm() / gc.norm().clamp_min(1e-30))
+        top = float(diff.max()) / max(float(gc.abs().max()), 1e-30)
+        if max(rel, top) > grad_rtol(name):
+            raise AssertionError(f"augmented remat: gradient of {name} differs by {rel:.3e} / {top:.3e}")
+        worst = max(worst, (rel, name))
+    log(f"  stage 1 with augmentation (seed 7) and checkpointing on, {len(want)} gradients, card vs CPU: worst "
+        f"relative L2 difference {worst[0]:.3e} ({worst[1]}; limits as above)")
+    set_dropout(cuda.module, 0.1)
+    runs = {}
+    for on in (True, False):
+        set_remat(cuda.module, on)
+        runs[on] = stage1_grads(cuda, batch, torch.Generator(device="cuda").manual_seed(11))
+    set_dropout(cuda.module, 0.0)
+    for model in (cuda, cpu):
+        set_remat(model.module, False)
+    differ = [n for n in runs[True] if not torch.equal(runs[True][n], runs[False][n])]
+    if differ:
+        raise AssertionError(f"checkpointing changed the gradients of {differ[:5]} ({len(differ)} leaves)")
+    log(f"  the same gradient on the card with dropout 0.1, checkpointing on and off: all {len(runs[True])} leaves "
+        "bit-identical")
+
+
 def stage2_batch(rng, batch: int, seq: int, lengths=None, image: int = 224, vocab: int = GPT2_VOCAB) -> dict:
     """A preference batch: bench.py's normalized float images; chosen and rejected captions of
     their own random ids (identical pairs would make every DPO logit exactly 0); every token kept,
@@ -1291,24 +1394,29 @@ def phase_slice(tokenizer) -> dict:
     log(f"  flagship built (random weights, seed 0) and warmed in {time.perf_counter() - t0:.1f} s; "
         f"params {sum(p.numel() for p in model.module.parameters()):,}")
 
-    def request(batch: int, max_length: int, early_stop: bool) -> dict:
+    def request(batch: int, max_length: int, early_stop: bool, **kw) -> dict:
         before = _kernels.launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        captions = model.generate_captions(images[:batch], max_length=max_length, early_stop=early_stop)
+        captions = model.generate_captions(images[:batch], max_length=max_length, early_stop=early_stop, **kw)
         seconds = time.perf_counter() - t  # ends in a device->host copy of the ids
         if len(captions) != batch or not all(isinstance(c, str) for c in captions):
             raise AssertionError(f"generate_captions returned {captions!r}")
         after = _kernels.launch_counts()
         launches = {k: after[k] - before[k] for k in SERVING_KERNELS}
         forwards = (launches["flash_attn_fwd"] - 12) // 24  # prefix + steps run
+        want = {"layernorm_fwd": 27 + 49 * forwards, "flash_attn_fwd": 12 + 24 * forwards}
+        if launches != want or not 1 <= forwards <= max_length:
+            raise AssertionError(f"request batch {batch} {kw}: launched {launches}, expected {want}")
         return dict(batch=batch, max_length=max_length, early_stop=early_stop, seconds=seconds,
                     captions_per_s=batch / seconds, launches=launches, decoder_forwards=forwards,
-                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **kw)
 
     def show(tag: str, r: dict) -> None:
-        log(f"  {tag} batch {r['batch']} x max_length {r['max_length']} early_stop={r['early_stop']}: "
+        beams = f" beams {r['num_beams']} (length penalty {r['length_penalty']}, repetition penalty " \
+            f"{r['repetition_penalty']})" if "num_beams" in r else ""
+        log(f"  {tag} batch {r['batch']} x max_length {r['max_length']} early_stop={r['early_stop']}{beams}: "
             f"{r['seconds'] * 1e3:.1f} ms, {r['captions_per_s']:.1f} captions/s, decoder forwards "
             f"{r['decoder_forwards']}, launches {r['launches']}, peak {r['peak_mem_gib']:.2f} GiB")
 
@@ -1318,6 +1426,14 @@ def phase_slice(tokenizer) -> dict:
         r = request(batch, 32, True)
         served.append(r)
         show("request", r)
+    # the configs' generate_config: 4 beams over 128 tokens (a decoder forward runs batch x 4 rows);
+    # the second call of each batch is the one timed
+    beamed = []
+    for batch in (8, 8, 32, 32):
+        r = request(batch, 128, True, **BEAMS)
+        beamed.append(r)
+        show("beam request", r)
+    beamed = beamed[1::2]
     model.generate_captions(images, max_length=64)  # warm-up of the benchmark shape
     bench = [request(32, 64, False) for _ in range(5)]
     for r in bench:
@@ -1364,8 +1480,10 @@ def phase_slice(tokenizer) -> dict:
 
     profile = profiled(lambda: model.generate_captions(images, max_length=64), "32 x 64 greedy call",
                        median_s * 1e3)
-    return dict(main_counts=main_counts, served=served, bench=bench, median_s=median_s,
-                sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile, model=model)
+    beam_profile = profiled(lambda: model.generate_captions(images, max_length=128, early_stop=True, **BEAMS),
+                            "batch-32 4-beam request", beamed[-1]["seconds"] * 1e3)
+    return dict(main_counts=main_counts, served=served, beamed=beamed, bench=bench, median_s=median_s,
+                sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile, beam_profile=beam_profile, model=model)
 
 
 def profiled(fn, label: str, unprofiled_ms: float) -> dict:
@@ -1538,7 +1656,6 @@ LLAMA_REDUCED = (
     "master, gradient and two Adam moments = 23.5 GB), the frozen text tower and SigLIP in f32 (1.81 B x 4 B = "
     "7.2 GB) and the bf16 reference (3.28 B x 2 B = 6.6 GB), ~37 GB before activations and AdamW's temporaries; "
     "8 layers would hold ~58 GB, and the full 32-layer decoder's training state alone ~120 GB, past one 80 GB card",
-    "serving samples with 1 beam where the config asks for 4: beam search is not ported",
     "every train step is an update (gradient accumulation 1 where the config has 4); warmup 500 of 1,000 steps",
 )
 # launches of one image encode (SigLIP pre_ln + 27 x 2 + post_ln and the projection ln; 27
@@ -1584,7 +1701,8 @@ def phase_llama(tokenizer) -> dict:
     )
     size = model.image_size
     images = np.random.default_rng(0).integers(0, 256, size=(8, size, size, 3), dtype=np.uint8)
-    sample = dict(max_length=128, do_sample=True, top_p=0.9, temperature=0.8, repetition_penalty=1.1, early_stop=True)
+    # configs/siglip_llama8b.yaml's generate_config: 4 beams (which ignore its sampling flags)
+    sample = dict(max_length=128, do_sample=True, top_p=0.9, temperature=0.8, early_stop=True, **BEAMS)
     model.generate_captions(images[:1], **{**sample, "max_length": 4})  # the bf16 copy, cuBLAS handles
     torch.cuda.synchronize()
     log(f"  built (random weights, seed 0, f32 masters and a bf16 copy) and warmed in {time.perf_counter() - t0:.1f} "
@@ -1610,7 +1728,7 @@ def phase_llama(tokenizer) -> dict:
             raise AssertionError(f"llama request, batch {batch}: launched {launches}, expected {want}")
         r = dict(batch=batch, seconds=seconds, decoder_forwards=forwards, ms_per_forward=seconds * 1e3 / forwards,
                  launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-        log(f"  request batch {batch} x max_length {sample['max_length']} (sampled, early_stop): {seconds * 1e3:.1f} ms, "
+        log(f"  request batch {batch} x max_length {sample['max_length']} (4 beams, early_stop): {seconds * 1e3:.1f} ms, "
             f"{batch / seconds:.2f} captions/s, {forwards} decoder forwards ({r['ms_per_forward']:.2f} ms each "
             f"with the encode spread over them), launches {launches} (as expected), peak {r['peak_mem_gib']:.2f} GiB")
         return r
@@ -1628,7 +1746,7 @@ def phase_llama(tokenizer) -> dict:
     if first.shape != (8, LLAMA_VOCAB) or not bool(torch.isfinite(first).all()):
         raise AssertionError(f"llama prefix logits: shape {tuple(first.shape)}, finite {bool(torch.isfinite(first).all())}")
     log(f"  prefix logits (8, {LLAMA_VOCAB}) bf16: all finite")
-    serving_profile = profiled(lambda: model.generate_captions(images, seed=9, **sample), "batch-8 sampled request",
+    serving_profile = profiled(lambda: model.generate_captions(images, seed=9, **sample), "batch-8 4-beam request",
                                served[-1]["seconds"] * 1e3)
 
     model._inference_cache = None  # frees serving's bf16 copy for training (a later request would recast it)
@@ -1658,6 +1776,247 @@ def phase_llama(tokenizer) -> dict:
                                  stage2["ms_per_step"])
     return dict(served=served, serving_profile=serving_profile, stage1=stage1, stage2=stage2,
                 counts={"llama_serving": serving_counts, "llama_stage1": stage1_counts, "llama_stage2": stage2_counts})
+
+
+# ------------------------------------------------------------------ phase 9
+
+ROOT = Path(__file__).resolve().parent
+PHASE9_DIR = ROOT / "build" / "phase9"
+PHASE9_STEPS = 8
+# What phase 9 changes in configs/default.yaml, and why; width and depth are the config's
+PHASE9_SAMPLES = 80  # the config's 80/10/10 split: 64 to train, 8 to validate, 8 to test
+PHASE9_REDUCED = (
+    "stage 1 and stage 2 run 1 epoch each (the config: 10 and 5)",
+    f"model.vocab_size {GPT2_VOCAB:,}, GPT-2's BPE vocab and the five specials (as phases 5-7): the config leaves "
+    "the vocab to the tokenizer, and offline, without GPT-2's vocab.json, that is the byte tokenizer's 261",
+    f"the data paths point at {PHASE9_SAMPLES} synthetic JPEGs (256-480 px a side) with captions, written to "
+    "build/phase9/data as a CSV (Conceptual Captions) and a preference JSON (UltraFeedback): the datasets are "
+    "not in the repository",
+    f"--max-steps {PHASE9_STEPS}: {PHASE9_STEPS} micro-steps a stage, 2 updates at the config's gradient "
+    "accumulation of 4",
+    "training.save_steps 5 (the config: 1000), so that stage 1 leaves a mid-epoch, mid-accumulation autosave "
+    "to resume from",
+    "outputs, checkpoints and logs under build/phase9, deleted at the end; wandb disabled (WANDB_MODE)",
+)
+# every training kernel of the flagship's two stages
+TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                 "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+
+
+def phase9_data() -> tuple[Path, Path]:
+    """PHASE9_SAMPLES seeded JPEGs of varied sizes with captions: a Conceptual Captions CSV and an
+    UltraFeedback preference JSON (the preferred caption is the image's, the rejected one its first
+    two words), both in the formats the loaders read."""
+    import csv
+    import io
+
+    from PIL import Image
+
+    from pgica_tpu_torch.utils.factories import _dummy_caption
+
+    rng = np.random.default_rng(9)
+    data = PHASE9_DIR / "data"
+    (data / "images").mkdir(parents=True)
+    rows, pairs = [], []
+    for i in range(PHASE9_SAMPLES):
+        h, w = (int(x) for x in rng.integers(256, 481, size=2))
+        coarse = Image.fromarray(rng.integers(0, 256, size=(6, 6, 3), dtype=np.uint8)).resize((w, h), Image.BICUBIC)
+        pixels = np.asarray(coarse, np.int16) + rng.integers(-12, 13, size=(h, w, 3), dtype=np.int16)
+        buf = io.BytesIO()
+        Image.fromarray(pixels.clip(0, 255).astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        path = data / "images" / f"{i:04d}.jpg"
+        path.write_bytes(buf.getvalue())
+        caption = _dummy_caption(rng)
+        rows.append({"image_path": f"images/{path.name}", "caption": caption})
+        pairs.append({"image_path": f"images/{path.name}", "preferred_caption": caption,
+                      "rejected_caption": " ".join(caption.split()[:2]), "preference_score": 0.9})
+    with open(data / "captions.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["image_path", "caption"])
+        writer.writeheader()
+        writer.writerows(rows)
+    (data / "preferences.json").write_text(json.dumps(pairs))
+    return data / "captions.csv", data / "preferences.json"
+
+
+def phase9_config() -> Path:
+    """configs/default.yaml with PHASE9_REDUCED's changes, written to build/phase9."""
+    import yaml
+
+    captions, preferences = phase9_data()
+    cfg = yaml.safe_load((ROOT / "configs" / "default.yaml").read_text())
+    cfg["training"]["stage1"]["num_epochs"] = 1
+    cfg["training"]["stage2"]["num_epochs"] = 1
+    cfg["training"]["save_steps"] = 5
+    cfg["data"]["conceptual_captions_path"] = str(captions)
+    cfg["data"]["ultrafeedback_path"] = str(preferences)
+    # the flagship's vocab, as phases 5-7 (bench.py): the offline byte tokenizer's ids are a subset
+    cfg["model"]["vocab_size"] = GPT2_VOCAB
+    cfg["paths"] = {"output_dir": str(PHASE9_DIR / "run"), "checkpoint_dir": str(PHASE9_DIR / "run" / "checkpoints"),
+                    "log_dir": str(PHASE9_DIR / "logs"), "cache_dir": str(PHASE9_DIR / "cache")}
+    kept = (cfg["hardware"]["mixed_precision"], cfg["hardware"]["gradient_checkpointing"],
+            cfg["training"]["stage1"]["gradient_accumulation_steps"], cfg["data"]["native_decode"],
+            cfg["data"]["device_side_normalization"])
+    if kept != ("bf16", True, 4, "fast", True):
+        raise AssertionError(f"configs/default.yaml changed under phase 9: {kept}")
+    path = PHASE9_DIR / "default_phase9.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def show_stage(stage: str, record: dict, profile: dict | None, first_step: int = 0) -> dict:
+    """A stage's train-step walls (each ends in a host sync), the ms per update of an accumulation of 4
+    (micro-steps 4-7, ending in an update), the device busy share over the profiled window (kernel
+    time over the window's step walls) and the peak."""
+    steps = record["step_seconds"]
+    r = dict(step_ms=[x * 1e3 for x in steps], first_ms=steps[0] * 1e3,
+             ms_per_micro_step=statistics.median(steps[1:]) * 1e3 if len(steps) > 1 else steps[0] * 1e3,
+             peak_mem_gib=record["peak_mem_gib"], train_loss=record["train_loss"], val_loss=record["val_loss"])
+    if len(steps) >= 8:
+        r["ms_per_update"] = sum(steps[4:8]) * 1e3
+    if profile and profile["step_ms"] > 0 and profile["device_ms"] > 0:
+        r.update(busy=profile["device_ms"] / profile["step_ms"], profile=profile)
+        r["host_top"] = [dict(name=n, ms=ms, calls=c) for n, ms, c in profile["host_top"]]
+    log(f"  {stage}: micro-steps {first_step}.. ms " + ", ".join(f"{x:.1f}" for x in r["step_ms"])
+        + f"; median after the first {r['ms_per_micro_step']:.1f} ms"
+        + (f", {r['ms_per_update']:.1f} ms an update (micro-steps 4-7)" if "ms_per_update" in r else "")
+        + (f"; peak {r['peak_mem_gib']:.2f} GiB" if r["peak_mem_gib"] is not None else "")
+        + f"; train loss {r['train_loss']:.4f}, val loss {r['val_loss']:.4f}" + (
+            f"; profiled micro-steps 2-7 (host and CUDA activity): kernel time {profile['device_ms']:.1f} ms "
+            f"({profile['device_ms'] / profile['steps']:.1f} a micro-step) over {profile['launches']} launches in "
+            f"steps of {profile['step_ms']:.1f} ms (the host tracing's cost included) -> device busy "
+            f"{100 * r['busy']:.1f}%; memory copies {profile['memcpy_ms']:.1f} ms (checkpoints); window "
+            f"{profile['wall_ms']:.1f} ms with data and checkpoints" if "busy" in r else ""))
+    if "host_top" in r:
+        log(f"    host, inside the profiled steps: operators, autograd nodes and CUDA runtime calls "
+            f"{profile['host_ms']:.1f} ms of self time, Python between them {profile['step_ms'] - profile['host_ms']:.1f} "
+            f"ms; largest: " + "; ".join(f"{h['name']} {h['ms']:.1f} ms / {h['calls']}" for h in r["host_top"]))
+    return r
+
+
+def phase9_data_path(trainer) -> str:
+    """Hold phase 9 to the config's data path: the files' datasets, uint8 batches (normalized on the
+    card), the vocab; and say which decoder read the JPEGs."""
+    from pgica_tpu_torch.data import native_image
+    from pgica_tpu_torch.data.loader import ConceptualCaptionsDataset, UltraFeedbackDataset
+
+    views = (trainer.train_loader.dataset, trainer.preference_train_loader.dataset)
+    kinds = tuple(type(v.dataset) for v in views)
+    processor = views[0].dataset.image_processor
+    image = views[0][0]["image"]
+    vocab = trainer.model.module.decoder_config.vocab_size
+    if (kinds != (ConceptualCaptionsDataset, UltraFeedbackDataset) or image.dtype != np.uint8
+            or (processor.native_decode, processor.device_side_normalization) != ("fast", True)
+            or vocab != GPT2_VOCAB):
+        raise AssertionError(f"phase 9 left the config's data path: {kinds}, images {image.dtype}, "
+                             f"{processor.native_decode}, {processor.device_side_normalization}, vocab {vocab}")
+    path = views[0].dataset.data[views[0].indices[0]]["image_path"]
+    native = native_image.decode_resize_jpeg(Path(path).read_bytes(), processor.image_size, prescale=True)
+    if native is not None and np.array_equal(native, image):
+        decoder = "native/image.cpp (built with g++ and libjpeg)"
+    elif native_image.get_library() is None:
+        decoder = f"PIL: the native decoder did not build here ({native_image.build_error})"
+    else:
+        raise AssertionError(f"{path}: the native decoder rejected the file, or its image is not the batch's")
+    return (f"data: {len(views[0])} + {len(views[1])} training samples from the JPEG files, decoded by {decoder}, "
+            f"shipped as uint8 {tuple(image.shape)} and normalized on the card; decoder vocab {vocab:,}")
+
+
+def same_checkpoint(a: Path, b: Path) -> str:
+    """Hold two checkpoints' parameters and optimizer state to each other, bit for bit."""
+    pa, pb = (torch.load(p / "state.pt", map_location="cpu", weights_only=True) for p in (a, b))
+    diffs = [k for k in pa["params"] if not torch.equal(pa["params"][k], pb["params"][k])]
+    oa, ob = pa["opt_state"], pb["opt_state"]
+    for key in ("mu", "nu"):
+        diffs += [f"{key}:{n}" for n in oa["names"] if not torch.equal(oa[key][n], ob[key][n])]
+    if (oa["count"], oa["mini_step"], oa["acc"] is None) != (ob["count"], ob["mini_step"], ob["acc"] is None):
+        diffs.append("counters")
+    if diffs:
+        worst = max((float((pa["params"][k].float() - pb["params"][k].float()).abs().max()), k)
+                    for k in diffs if k in pa["params"]) if any(k in pa["params"] for k in diffs) else None
+        raise AssertionError(f"the resumed run differs from the uninterrupted one in {len(diffs)} tensors "
+                             f"({diffs[:4]}); largest parameter difference {worst}")
+    return (f"{len(pa['params'])} parameters and {2 * len(oa['names'])} Adam moments bit-identical, count "
+            f"{oa['count']}, mini-step {oa['mini_step']}")
+
+
+def phase_train_cli() -> dict:
+    """Phase 9: ``python -m pgica_tpu_torch.scripts.train``'s main path at the flagship's full width."""
+    import os
+
+    from pgica_tpu_torch.models.model import frozen_copy
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.scripts import train as train_cli
+
+    shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    PHASE9_DIR.mkdir(parents=True)
+    os.environ["WANDB_MODE"] = "disabled"
+    try:
+        cfg_path = phase9_config()
+        log(f"  configs/default.yaml (GPT-2 flagship, bf16, gradient checkpointing, accumulation 4, native decode "
+            f"fast, device-side normalization) written to {cfg_path.relative_to(ROOT)}; changed: "
+            + "; ".join(PHASE9_REDUCED))
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        trainer = train_cli.run(["--config", str(cfg_path), "--max-steps", str(PHASE9_STEPS),
+                                 "--profile-dir", str(PHASE9_DIR / "profile")])
+        run_s = time.perf_counter() - t
+        counts = _kernels.launch_counts()  # ---- and ends here
+        check_main_path("training entry point (stages 1 and 2)", counts, TRAIN_KERNELS)
+        log(f"  train_cli.run: stage 1, stage 2 (bf16 reference), validation, checkpoints and the best model's "
+            f"reload in {run_s:.1f} s; global step {trainer.global_step}")
+        log("  " + phase9_data_path(trainer))
+        stages = {name: show_stage(name, trainer.history[name][0], trainer.profiles.get(int(name[-1])))
+                  for name in ("stage1", "stage2")}
+        if trainer.global_step != 2 * PHASE9_STEPS or not all(
+                math.isfinite(r[k]) for r in stages.values() for k in ("train_loss", "val_loss")):
+            raise AssertionError(f"phase 9: global step {trainer.global_step}, stages {stages}")
+        saves = trainer.checkpoints.saves
+        for sv in saves:
+            log(f"  checkpoint {sv['name']} (stage {sv['stage']}, step {sv['global_step']}): {sv['bytes'] / 1e9:.3f} "
+                f"GB in {sv['seconds']:.2f} s ({sv['bytes'] / 1e9 / sv['seconds']:.2f} GB/s), the train loop held "
+                f"{sv['blocking_s']:.2f} s")
+
+        # a second trainer resumes stage 1 from its mid-epoch autosave, through the CLI
+        auto = PHASE9_DIR / "run" / "checkpoints" / "autosave_stage1"
+        t = time.perf_counter()
+        resumed = train_cli.run(["--config", str(cfg_path), "--stage", "1", "--max-steps", str(PHASE9_STEPS),
+                                 "--output-dir", str(PHASE9_DIR / "resumed"), "--resume", str(auto)])
+        resume_s = time.perf_counter() - t
+        stages["stage1_resumed"] = show_stage("stage 1 resumed (no profiler, no autosave)",
+                                              resumed.history["stage1"][0], None, first_step=5)
+        del resumed
+        verdict = same_checkpoint(PHASE9_DIR / "run" / "checkpoints" / "checkpoint_stage1_epoch0",
+                                  PHASE9_DIR / "resumed" / "checkpoints" / "checkpoint_stage1_epoch0")
+        log(f"  resumed from autosave_stage1 (global step 5: epoch 0, micro-step 5, mid-accumulation) through "
+            f"train_cli.run in {resume_s:.1f} s: its end-of-stage-1 checkpoint against the uninterrupted run's: "
+            f"{verdict}")
+
+        # serving after training: the bf16 copy is the trained masters' cast, not the stage-2 start's
+        model = trainer.model
+        images = np.random.default_rng(9).integers(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)
+        t = time.perf_counter()
+        captions = model.generate_captions(images, max_length=32, early_stop=True, **BEAMS)
+        serve_ms = (time.perf_counter() - t) * 1e3
+        if len(captions) != 8 or not all(isinstance(c, str) for c in captions):
+            raise AssertionError(f"generate_captions after training returned {captions!r}")
+        served = dict(model._inference_module().named_parameters())
+        fresh = dict(frozen_copy(model.module, torch.bfloat16).named_parameters())
+        stale = [n for n in fresh if not torch.equal(served[n], fresh[n])]
+        if stale:
+            raise AssertionError(f"the serving copy is not the trained masters' cast: {stale[:4]}")
+        start = torch.load(PHASE9_DIR / "run" / "checkpoints" / "stage2_reference" / "state.pt", map_location="cpu",
+                           weights_only=True)["params"]["caption_decoder.lm.wte.weight"]
+        moved = int((served["caption_decoder.lm.wte.weight"].cpu() != start).sum())
+        if moved == 0:
+            raise AssertionError("the served decoder embedding equals the stage-2 start's: training did not reach it")
+        log(f"  generate_captions after training, batch 8, 4 beams, max_length 32: {serve_ms:.1f} ms; the bf16 "
+            f"serving copy equals the trained masters' cast in all {len(fresh)} tensors, and {moved:,} elements of its "
+            f"decoder embedding differ from the stage-2 start's (the reference checkpoint)")
+        disk = sum(f.stat().st_size for f in PHASE9_DIR.rglob("*") if f.is_file())
+        log(f"  build/phase9 held {disk / 1e9:.2f} GB of checkpoints, results and traces")
+        return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms)
+    finally:
+        shutil.rmtree(PHASE9_DIR, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ main
@@ -1736,11 +2095,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     llama = phase(f"phase 8: the Llama slice (SigLIP so400m + Llama-3-8B, {LLAMA_LAYERS} of 32 layers, bf16 over f32 "
                   "masters): serving, stage 1, stage 2", phase_llama, tokenizer)
+    gc.collect()  # the Llama slice is free now
+    torch.cuda.empty_cache()
+    cli = phase("phase 9: the training entry point (python -m pgica_tpu_torch.scripts.train, configs/default.yaml, "
+                "GPT-2 flagship at full width)", phase_train_cli)
     log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
         + ")")
 
     paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
-             **llama["counts"]}
+             **llama["counts"], "train_cli": cli["counts"]}
     summary = []
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
         # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over

@@ -1,1 +1,1 @@
-"""pgica_tpu_torch.data: tokenizer copy and the device-side image path."""
+"""pgica_tpu_torch.data: tokenizer, preprocessing, datasets and loaders, native decode, augmentation."""

@@ -3,8 +3,9 @@
 The port keeps its own copy so that it never imports the JAX package; the
 ids, the special tokens and ``decode`` are the same, and
 tests/test_torch_ops.py holds the two against each other. Left out: the
-native C++ encoder hook (``native_bpe``) and ``train_bpe`` — the serving
-slice only detokenizes, and encodes through the pure-Python path when asked.
+native C++ encoder hook (``native_bpe``) and ``train_bpe`` (ROADMAP queue 1
+item 4): captions encode through the pure-Python path, which gives the same
+ids.
 
 Modes, all offline: local GPT-2-style ``vocab.json`` + ``merges.txt``
 artifacts, or the byte fallback (256 byte tokens + specials). Special tokens
@@ -18,6 +19,8 @@ import json
 import re
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from pgica_tpu_torch.data._unicode_classes import LETTER_RANGES, NUMBER_RANGES
 
@@ -160,6 +163,27 @@ class CaptionTokenizer:
         raw = "".join(symbols)
         data = bytes(_BYTE_DECODER[c] for c in raw if c in _BYTE_DECODER)
         return data.decode("utf-8", errors="replace")
+
+    def encode_padded(
+        self, text: str, max_length: int, add_bos: bool = True, add_eos: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Encode to fixed length; returns (ids[int32], mask[int32])."""
+        ids = self.encode(text, add_bos=add_bos, add_eos=False)
+        if add_eos:
+            ids = ids[: max_length - 1] + [self.eos_token_id]
+        else:
+            ids = ids[:max_length]
+        mask = np.zeros((max_length,), np.int32)
+        mask[: len(ids)] = 1
+        out = np.full((max_length,), self.pad_token_id, np.int32)
+        out[: len(ids)] = ids
+        return out, mask
+
+    def encode_batch(
+        self, texts: Sequence[str], max_length: int, add_bos: bool = True, add_eos: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        pairs = [self.encode_padded(t, max_length, add_bos, add_eos) for t in texts]
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
     @classmethod
     def load(cls, directory: Union[str, Path]) -> "CaptionTokenizer":

@@ -38,7 +38,7 @@ class TextEncoder(nn.Module):
     ):
         super().__init__()
         if freeze_backbone:
-            raise NotImplementedError("freeze_text_backbone is not ported yet (ROADMAP §1 item 9)")
+            raise NotImplementedError("freeze_text_backbone is not ported yet (ROADMAP queue 1 item 8)")
         self.backbone = TransformerLM(config, with_lm_head=False, dtype=dtype)
         self.projection = ProjectionHead(config.hidden_size, projection_dim, dropout, dtype)
 

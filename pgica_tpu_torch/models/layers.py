@@ -29,6 +29,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from pgica_tpu_torch.ops.attention import xla_attention
@@ -198,6 +199,49 @@ class MLP(nn.Module):
         else:  # GPT-2: flax nn.gelu(approximate=True)
             h = F.gelu(h, approximate="tanh")
         return self.dropout(self.fc_out(h), generator)
+
+
+class _ReplayDropout:
+    """Calls a block, replaying its dropout draws when ``torch.utils.checkpoint`` recomputes it.
+
+    The checkpoint restores only the default CPU/CUDA RNG states, not the
+    explicit generator the blocks draw their dropout masks from; a recompute
+    would draw new masks and give wrong gradients. So the generator's state
+    is taken before the first call, set back for each recompute, and the
+    state that the recompute found is restored after it. The JAX package's
+    ``nn.remat`` replays the same key, so neither package's gradients
+    depend on the flag.
+    """
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.state = None if generator is None else generator.get_state()
+        self.calls = 0
+
+    def __call__(self, block: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
+        self.calls += 1
+        if self.generator is None or self.calls == 1:
+            return block(x, *args, self.generator)
+        resume = self.generator.get_state()
+        self.generator.set_state(self.state)
+        try:
+            return block(x, *args, self.generator)
+        finally:
+            self.generator.set_state(resume)
+
+
+def checkpointed(block: nn.Module, x: torch.Tensor, key_bias: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``block(x, key_bias, None, 0, generator)`` with its activations recomputed in the backward.
+
+    Activation checkpointing (the JAX package's ``nn.remat`` over each block,
+    lm.py:95-96, vit.py:62): only the block's input is kept for the backward.
+    A block draws no number from the default RNGs (dropout takes the explicit
+    generator, which ``_ReplayDropout`` replays), so their states are not
+    stashed per block (``preserve_rng_state=False``).
+    """
+    return torch.utils.checkpoint.checkpoint(_ReplayDropout(generator), block, x, key_bias, None, 0,
+                                             use_reentrant=False, preserve_rng_state=False)
 
 
 class TransformerBlock(nn.Module):

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pgica_tpu_torch.models.layers import KVCaches, TransformerBlock, make_norm
+from pgica_tpu_torch.models.layers import KVCaches, TransformerBlock, checkpointed, make_norm
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.attention import key_padding_bias
 
@@ -89,7 +89,8 @@ class TransformerLM(nn.Module):
         attention rotates q and k at those positions. Returns ``hidden_states``,
         ``logits`` (B, S, V) with the LM head unless ``with_logits`` is
         False, and ``caches`` (the same list, written in place, or None).
-        ``generator`` drives dropout (None: off).
+        ``generator`` drives dropout (None: off). With ``config.remat`` a
+        training forward (gradients on, no cache) checkpoints every block.
         """
         if inputs_embeds is None:
             if input_ids is None:
@@ -102,8 +103,12 @@ class TransformerLM(nn.Module):
             x = inputs_embeds.to(self.dtype)
         # one key bias for the whole forward, shared by every layer's attention
         key_bias = None if attention_mask is None else key_padding_bias(attention_mask)
+        remat = self.config.remat and caches is None and torch.is_grad_enabled() and position == 0
         for i, block in enumerate(self.blocks):
-            x = block(x, key_bias, None if caches is None else caches[i], position, generator)
+            if remat:
+                x = checkpointed(block, x, key_bias, generator)
+            else:
+                x = block(x, key_bias, None if caches is None else caches[i], position, generator)
         x = self.ln_f(x)
         out = {"hidden_states": x, "caches": caches}
         if self.with_lm_head and with_logits:

@@ -13,8 +13,8 @@ Mirrors pgica_tpu/models/model.py:43-231,234-476:
   module, its float32 masters and the tokenizer, with the JAX package's
   ``generate_captions`` signature and return type.
 
-Waiting for later slices: a shared text tower, LoRA, int8 decode, beam
-search and ``load_pretrained_towers``.
+Waiting for later slices: a shared text tower, LoRA, int8 decode and
+``load_pretrained_towers``.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ class PreferenceGuidedCaptioningModule(nn.Module):
     ):
         super().__init__()
         if share_text_tower:
-            raise NotImplementedError("share_text_tower is not ported yet (ROADMAP §1 item 12)")
+            raise NotImplementedError("share_text_tower is not ported yet (ROADMAP queue 1 item 8)")
         self.vision_config = vision_config
         self.text_config = text_config
         self.decoder_config = decoder_config
@@ -172,17 +172,21 @@ def build_module(
     freeze_text_backbone: bool = False,
     share_text_tower: bool = False,
     dtype: torch.dtype = torch.float32,
+    remat: bool = False,
 ) -> PreferenceGuidedCaptioningModule:
     """Resolve presets (or take configs as given, e.g. with a cut depth) and build the module.
 
     As in the JAX package (model.py:184-231), the text tower and the decoder
     share one configuration: the text architecture with the tokenizer's
     vocab, room for the caption plus the vision token, and ``dropout``.
+    ``remat`` turns on activation checkpointing in every tower.
     """
     vision_config = vision_model if isinstance(vision_model, ViTConfig) else get_vision_config(vision_model)
+    vision_config = dataclasses.replace(vision_config, remat=remat)
     base = text_model if isinstance(text_model, LMConfig) else get_text_config(text_model)
     max_pos = max(base.max_position_embeddings, max_caption_length + 1)
-    text_config = dataclasses.replace(base, vocab_size=vocab_size, max_position_embeddings=max_pos, dropout=dropout)
+    text_config = dataclasses.replace(base, vocab_size=vocab_size, max_position_embeddings=max_pos, dropout=dropout,
+                                      remat=remat)
     return PreferenceGuidedCaptioningModule(
         vision_config, text_config, text_config, projection_dim, temperature, dropout,
         freeze_vision_backbone, freeze_text_backbone, share_text_tower, dtype,
@@ -250,6 +254,7 @@ class PreferenceGuidedCaptioningModel:
         image_size: Optional[int] = None,
         vocab_size: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
+        remat: bool = False,
     ):
         self.device = resolve_device(device)
         if tokenizer is None:
@@ -258,6 +263,8 @@ class PreferenceGuidedCaptioningModel:
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.max_caption_length = max_caption_length
+        self.freeze_vision_backbone = freeze_vision_backbone
+        self.freeze_text_backbone = freeze_text_backbone
         # The meta device skips PyTorch's default init; init_params then fills
         # every parameter once, on the CPU, so one seed gives the same weights
         # whatever the target device.
@@ -270,6 +277,7 @@ class PreferenceGuidedCaptioningModel:
                 freeze_vision_backbone=freeze_vision_backbone,
                 freeze_text_backbone=freeze_text_backbone,
                 dtype=dtype,
+                remat=remat,
             )
         module = module.to_empty(device="cpu")
         init_params(module, torch.Generator().manual_seed(seed))
@@ -277,6 +285,16 @@ class PreferenceGuidedCaptioningModel:
         self.image_size = image_size or self.module.vision_config.image_size
         self._inference_cache: Optional[nn.Module] = None
         self._inference_key: List[Tuple[nn.Parameter, int]] = []
+
+    def num_parameters(self) -> Dict[str, int]:
+        """Parameter counts per top-level tower, ``total`` and ``trainable`` (JAX model.py:533-553)."""
+        per = {name: sum(p.numel() for p in child.parameters()) for name, child in self.module.named_children()}
+        per["total"] = sum(p.numel() for p in self.module.parameters())
+        frozen = 0
+        if self.freeze_vision_backbone:
+            frozen += sum(p.numel() for p in self.module.vision_encoder.backbone.parameters())
+        per["trainable"] = per["total"] - frozen
+        return per
 
     def load_jax_params(self, params: Mapping) -> None:
         """Copy a JAX parameter tree (nested dicts of numpy arrays) into the masters."""
@@ -329,15 +347,14 @@ class PreferenceGuidedCaptioningModel:
     ) -> List[str]:
         """Encode images, decode autoregressively, detokenize.
 
-        ``early_stop=True`` ends the greedy/sampling loop once every caption
-        in the batch emitted EOS (token-identical; the serving default).
-        ``length_penalty`` applies to beam search only, which is not ported
-        yet: ``num_beams > 1`` raises.
+        ``num_beams > 1`` runs beam search (the sampling flags are then
+        ignored) with ``length_penalty``. ``early_stop=True`` ends the loop
+        once every caption in the batch emitted EOS, or, with beams, once no
+        live beam can beat the finished ones (result-identical for
+        ``length_penalty >= 0``; the serving default).
         """
         from pgica_tpu_torch.generation.decode import generate  # decode imports models: no cycle at import
 
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet; use num_beams=1")
         module = self._inference_module()
         # Phase times below are enqueue-side except the last, which ends in a
         # device->host copy; only the total is a true wall-clock.
@@ -346,17 +363,19 @@ class PreferenceGuidedCaptioningModel:
         t_encode = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        generator = torch.Generator(device=self.device).manual_seed(seed) if do_sample else None
+        generator = torch.Generator(device=self.device).manual_seed(seed) if do_sample and num_beams == 1 else None
         token_ids = generate(
             module,
             vision["embeddings"],
             eos_token_id=self.tokenizer.eos_token_id,
             pad_token_id=self.tokenizer.pad_token_id,
             max_length=max_length,
+            num_beams=num_beams,
             temperature=temperature,
             do_sample=do_sample,
             top_p=top_p,
             repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty,
             generator=generator,
             early_stop=early_stop,
         ).cpu().numpy()

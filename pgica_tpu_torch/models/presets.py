@@ -4,7 +4,8 @@ Model *names* resolve to built-in architecture presets, so the HF
 identifiers in the configs keep working offline. tests/test_torch_ops.py
 holds every preset equal, field for field, to the JAX package's. Left out:
 ``scan_layers`` (a JAX ``lax.scan`` layout with no counterpart in eager
-PyTorch).
+PyTorch). Added: ``remat``, activation checkpointing of every block (a
+module attribute in the JAX package, lm.py:50 and vit.py:32).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class ViTConfig:
     dropout: float = 0.0
     hidden_act: str = "quick_gelu"  # CLIP convention; "gelu" for SigLIP-style towers
     norm_eps: float = 1e-5
+    remat: bool = False  # recompute each block's activations in the backward
 
     @property
     def num_patches(self) -> int:
@@ -47,6 +49,7 @@ class LMConfig:
     arch: str = "gpt2"  # "gpt2": learned pos + LayerNorm + GELU; "llama": RoPE + RMSNorm + SwiGLU
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    remat: bool = False  # recompute each block's activations in the backward
 
     @property
     def head_dim(self) -> int:

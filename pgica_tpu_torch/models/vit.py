@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pgica_tpu_torch.models.layers import Dense, TransformerBlock
+from pgica_tpu_torch.models.layers import Dense, TransformerBlock, checkpointed
 from pgica_tpu_torch.models.presets import ViTConfig
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.layernorm import LayerNorm
@@ -77,8 +77,9 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(self.dtype).expand(b, 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         x = self.pre_ln(x)
+        remat = self.config.remat and torch.is_grad_enabled()  # a frozen backbone runs without grad
         for block in self.blocks:
-            x = block(x, generator=generator)
+            x = checkpointed(block, x, None, generator) if remat else block(x, generator=generator)
         return {"features": x, "pooled_output": self.post_ln(x[:, 0])}
 
 

@@ -42,7 +42,7 @@ def ntxent_loss(
     if axis_name is not None:
         raise NotImplementedError(
             "ntxent_loss: negatives gathered over a device axis wait for the parallel slice "
-            "(ROADMAP §1 item 13)"
+            "(ROADMAP queue 1 item 9)"
         )
     img = image_embeddings.to(torch.float32)
     txt = text_embeddings.to(torch.float32)
@@ -99,7 +99,7 @@ def sequence_logprobs_from_hidden(
     if mesh is not None:
         raise NotImplementedError(
             "sequence_logprobs_from_hidden: the vocab-parallel path (mesh) waits for the parallel "
-            "slice (ROADMAP §1 item 13)"
+            "slice (ROADMAP queue 1 item 9)"
         )
     b, s, d = hidden.shape
     rows = hidden[:, :-1].reshape(b * (s - 1), d)

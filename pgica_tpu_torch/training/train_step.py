@@ -16,15 +16,21 @@
   zero gradients and, if the optimizer holds them, AdamW still decays them,
   as the JAX step does.
 
+With ``augment=True`` (the trainer's setting, as in every stage of the JAX
+trainer) the step augments the normalized images before the forward
+(``data/augment.py``: crop, flip, colour jitter, rotation), with
+parameters drawn from :func:`augment_generator`, a CPU generator of the
+step's seed and count as :func:`step_generator` is for dropout; the stage-2
+reference sees the same augmented images as the policy.
+
 Every step keeps the JAX package's NaN-safe update: the gradient norm is
 taken before clipping; a non-finite loss or gradient norm applies no update,
 keeps the old optimizer and accumulator state, and adds one to ``skipped``.
 The JAX step does that on the device; here one host sync per step reads the
 loss and the norm (the loss is read anyway).
 
-Not ported yet: device augmentation (``augment=True``, ROADMAP §1 item 7),
-LoRA (item 12), global negatives and the vocab-parallel log-probs over a
-device mesh (item 13).
+Not ported yet: LoRA (ROADMAP queue 1 item 8), global negatives and the
+vocab-parallel log-probs over a device mesh (queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pgica_tpu_torch.data.augment import prepare_images
+from pgica_tpu_torch.data.augment import augment_batch, prepare_images
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
 from pgica_tpu_torch.training.optim import OptState, Optimizer, global_norm
 
@@ -94,6 +100,24 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
 
 
+AUGMENT_STREAM = 1 << 40  # keeps the augmentation seeds apart from the dropout seeds
+
+
+def augment_generator(seed: int, step: int) -> torch.Generator:
+    """The augmentation generator of one step, on the CPU (the JAX step's ``aug_rng`` split).
+
+    Its draws are a few scalars per image, copied to the device in one
+    transfer, so one seed augments alike on the card and on the CPU.
+    """
+    return torch.Generator().manual_seed(seed * 1_000_003 + step + AUGMENT_STREAM)
+
+
+def _augmented(batch: Dict[str, torch.Tensor], augment: bool, seed: int, step: int) -> Dict[str, torch.Tensor]:
+    if augment:
+        batch["image"] = augment_batch(prepare_images(batch["image"]), augment_generator(seed, step))
+    return batch
+
+
 def _grad_step(
     state: TrainState,
     optimizer: Optimizer,
@@ -113,11 +137,9 @@ def _grad_step(
     return state, metrics
 
 
-def _check_unported(augment: bool, lora) -> None:
-    if augment:
-        raise NotImplementedError("augment=True: device augmentation is not ported yet (ROADMAP §1 item 7)")
+def _check_unported(lora) -> None:
     if lora is not None:
-        raise NotImplementedError("lora: LoRA is not ported yet (ROADMAP §1 item 12)")
+        raise NotImplementedError("lora: LoRA is not ported yet (ROADMAP queue 1 item 8)")
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -143,10 +165,9 @@ def make_stage0_train_step(
 
     ``batch`` is a stage-1 batch (``image``, ``caption_ids``, ``caption_mask``).
     """
-    _check_unported(augment, None)
 
     def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _on_device(batch, state.opt_state.params[0].device)
+        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step)
         return _grad_step(state, optimizer, seed, lambda gen: stage0_loss_fn(state.module, batch, gen))
 
     return step
@@ -183,11 +204,12 @@ def make_stage1_train_step(
     module's device. ``seed`` and the state's step count seed the dropout
     generator. Metrics: ``loss``, ``loss_i2t``, ``loss_t2i``,
     ``contrastive_accuracy``, ``grad_norm`` (tensors) and ``skipped`` (int).
+    ``augment`` augments the images first (see the module docstring).
     """
-    _check_unported(augment, lora)
+    _check_unported(lora)
 
     def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _on_device(batch, state.opt_state.params[0].device)
+        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step)
         return _grad_step(state, optimizer, seed, lambda gen: stage1_loss_fn(state.module, batch, gen, temperature))
 
     return step
@@ -197,7 +219,7 @@ def make_stage1_eval_step(
     module: nn.Module, temperature: float, lora: Optional[Tuple[float, int]] = None
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> metrics``: the contrastive forward without dropout or gradients."""
-    _check_unported(False, lora)
+    _check_unported(lora)
 
     @torch.no_grad()
     def step(batch: Batch):
@@ -281,12 +303,13 @@ def make_stage2_train_step(
     ``reference_free``. Metrics: ``loss``, ``reward_margin``,
     ``reward_accuracy``, ``chosen_reward``, ``rejected_reward``,
     ``policy_chosen_logp``, ``policy_rejected_logp``, ``grad_norm``
-    (tensors) and ``skipped`` (int).
+    (tensors) and ``skipped`` (int). ``augment`` augments the images first.
     """
-    _check_unported(augment, lora)
+    _check_unported(lora)
 
     def step(state: TrainState, ref_module: Optional[nn.Module], batch: Batch, seed: int = 0):
         batch = _on_device(batch, state.opt_state.params[0].device, PAIR_KEYS)
+        batch = _augmented(batch, augment, seed, state.step)
         return _grad_step(state, optimizer, seed, lambda gen: stage2_loss_fn(
             state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing))
 
@@ -301,7 +324,7 @@ def make_stage2_eval_step(
     lora: Optional[Tuple[float, int]] = None,
 ) -> Callable[[Optional[nn.Module], Batch], Dict[str, torch.Tensor]]:
     """Returns ``step(ref_module, batch) -> metrics``: DPO loss and rewards without dropout or gradients."""
-    _check_unported(False, lora)
+    _check_unported(lora)
 
     @torch.no_grad()
     def step(ref_module: Optional[nn.Module], batch: Batch):

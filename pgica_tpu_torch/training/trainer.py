@@ -1,0 +1,720 @@
+"""Two-stage trainer on one device (port of pgica_tpu/training/trainer.py:60-1296).
+
+``PreferenceGuidedTrainer`` runs the optional stage 0 (caption
+cross-entropy warm-up), stage 1 (contrastive) and stage 2 (DPO against a
+frozen reference), with the JAX trainer's partitions, gradient
+accumulation (``MultiSteps``), augmentation, validation, early stopping,
+per-epoch, best and mid-epoch autosave checkpoints, resume, and the
+``results.json`` artifacts. The train steps update the model's float32
+masters in place, so the model wrapper always holds the trained weights
+(its bf16 serving copy follows them, ``models/model.py``).
+
+Differences from the JAX trainer:
+
+* One device. A device mesh, ZeRO-1/3, tensor or sequence parallelism
+  (``mesh.*``) raise (ROADMAP queue 1 item 9), and so does LoRA (item 8).
+* The NaN skip is the train steps' (one host sync a step, where the loss
+  and the gradient norm are read); the trainer reads the skip counter, a
+  Python int, at logging boundaries and at the end of each epoch.
+* The stage-2 reference never holds the text tower, which stage 2 does not
+  run; ``drop_unused_tower`` moves the policy's text tower to host memory
+  for the stage and back at its end (checkpoints hold it throughout).
+* ``profile_dir`` traces the 3rd to 8th step that this trainer runs in each
+  stage with ``torch.profiler`` (host and, on the card, CUDA activity), one
+  trace per stage, and keeps each window's kernel and copy time, its host
+  operators' time and the steps' wall time in ``profiles``.
+* Checkpoints are ``torch.save`` payloads (``training/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import bisect
+import hashlib
+import json
+import logging
+import os
+import time
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from pgica_tpu_torch.core.precision import compute_dtype
+from pgica_tpu_torch.models.model import frozen_copy
+from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state
+from pgica_tpu_torch.training.optim import create_optimizer
+from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
+from pgica_tpu_torch.training.train_step import (
+    TrainState,
+    make_stage0_train_step,
+    make_stage1_eval_step,
+    make_stage1_train_step,
+    make_stage2_eval_step,
+    make_stage2_train_step,
+)
+
+logger = logging.getLogger(__name__)
+
+try:  # optional experiment tracking, as in the JAX trainer
+    import mlflow  # type: ignore
+except Exception:  # pragma: no cover
+    mlflow = None
+try:
+    import wandb  # type: ignore
+except Exception:  # pragma: no cover
+    wandb = None
+try:
+    from tqdm import tqdm  # type: ignore
+except Exception:  # pragma: no cover
+    tqdm = None
+
+PROFILE_STEPS = (2, 8)  # [first, last) step of a stage that profile_dir traces
+STEP_RANGE = "train_step"  # the profiler range around each train step
+
+
+def _host_time_in_steps(events) -> List[tuple]:
+    """(name, ms, calls) of the host events inside a ``STEP_RANGE`` range, by self time, largest first.
+
+    Events of any thread count (the backward runs on the autograd engine's
+    device thread) when they start and end inside one step's range.
+    """
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    steps = sorted((e.time_range.start, e.time_range.end) for e in host if e.name == STEP_RANGE)
+    totals: Dict[str, List[float]] = {}
+    for e in host:
+        i = bisect.bisect_right(steps, (e.time_range.start, float("inf"))) - 1
+        if e.name != STEP_RANGE and i >= 0 and e.time_range.end <= steps[i][1]:
+            total = totals.setdefault(e.name, [0.0, 0])
+            total[0] += e.self_cpu_time_total / 1e3
+            total[1] += 1
+    return sorted(((name, ms, n) for name, (ms, n) in totals.items()), key=lambda t: t[1], reverse=True)
+
+
+def stage_seed(seed: int, stage: int) -> int:
+    """The seed of one stage's step generators (the JAX trainer's ``purpose_key``)."""
+    return int.from_bytes(hashlib.sha1(f"{seed}/train_stage{stage}".encode()).digest()[:4], "little")
+
+
+def check_single_device(config, mesh=None) -> None:
+    """Raise on the parallel and LoRA settings that the port does not run."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported (ROADMAP queue 1 item 9)")
+    for key in ("zero1", "zero3"):
+        if bool(config.get(f"mesh.{key}", False)):
+            raise NotImplementedError(f"mesh.{key}: ZeRO is not ported (ROADMAP queue 1 item 9)")
+    for axis, what in (("seq", "context parallelism"), ("model", "tensor parallelism"),
+                       ("fsdp", "parameter sharding"), ("dcn", "multi-slice data parallelism")):
+        if int(config.get(f"mesh.{axis}", 1) or 1) > 1:
+            raise NotImplementedError(f"mesh.{axis} > 1: {what} is not ported (ROADMAP queue 1 item 9)")
+    if config.get("model.lora_config"):
+        raise NotImplementedError("model.lora_config: LoRA is not ported (ROADMAP queue 1 item 8)")
+
+
+@contextmanager
+def _without(module: nn.Module, child: str):
+    """``module`` with one child taken out for the duration (a copy made inside lacks it)."""
+    held = module._modules[child]
+    module._modules[child] = None
+    try:
+        yield module
+    finally:
+        module._modules[child] = held
+
+
+class PreferenceGuidedTrainer:
+    """Orchestrates stage 0 (optional), stage 1 (contrastive) and stage 2 (DPO) on one device."""
+
+    def __init__(
+        self,
+        model,
+        config,
+        train_loader=None,
+        val_loader=None,
+        preference_train_loader=None,
+        preference_val_loader=None,
+        mesh=None,
+        output_dir: Optional[str] = None,
+        profile_dir: Optional[str] = None,
+        max_steps_per_epoch: Optional[int] = None,
+    ):
+        check_single_device(config, mesh)
+        self.model = model
+        self.config = config
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.preference_train_loader = preference_train_loader
+        self.preference_val_loader = preference_val_loader
+
+        self.output_dir = Path(output_dir or config.get("paths.output_dir", "./outputs"))
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.checkpoints = CheckpointManager(config.get("paths.checkpoint_dir", self.output_dir / "checkpoints"))
+
+        self.profile_dir = profile_dir
+        self.profiles: Dict[int, Dict[str, float]] = {}
+        self._profiler = None
+        self.max_steps_per_epoch = max_steps_per_epoch  # debug cap (--max-steps)
+        self.global_step = 0
+        self.current_epoch = 0
+        self._dropped_tower: Optional[nn.Module] = None  # text tower held in host memory by drop_unused_tower
+        self.best_val_loss: Dict[int, float] = {1: float("inf"), 2: float("inf")}
+        self.early_stopping_patience = config.get("training.early_stopping_patience", 3)
+        self.logging_steps = config.get("training.logging_steps", 100)
+        strategy = str(config.get("training.save_strategy", "steps")).lower()
+        self.save_steps = int(config.get("training.save_steps", 0) or 0) if strategy == "steps" else 0
+        self.keep_checkpoints = config.get("training.keep_checkpoints")
+        self.save_epoch_checkpoints = bool(config.get("training.save_epoch_checkpoints", True))
+        self.save_best_checkpoints = bool(config.get("training.save_best_checkpoints", True))
+        self._resume: Optional[Dict[str, int]] = None  # stage / epoch / step_in_epoch
+        self._restored_opt_state = None
+        self.seed = config.get("training.seed", 42)
+        if bool(config.get("training.length_bucketing", True)):
+            max_len = int(config.get("data.max_caption_length", 128))
+            self._buckets = tuple(config.get("training.length_buckets") or default_buckets(max_len))
+        else:
+            self._buckets = None
+        self.history: Dict[str, List] = {"stage0": [], "stage1": [], "stage2": []}
+        self._setup_tracking()
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    # ------------------------------------------------------------- tracking
+
+    def _setup_tracking(self):
+        self._mlflow_run = None
+        self._wandb_run = None
+        if mlflow is not None:
+            try:
+                mlflow.set_experiment(self.config.get("logging.mlflow_experiment", "image-captioning-alignment"))
+                self._mlflow_run = mlflow.start_run()
+                mlflow.log_params({
+                    "stage1_lr": self.config.get("training.stage1.learning_rate"),
+                    "stage2_lr": self.config.get("training.stage2.learning_rate"),
+                    "projection_dim": self.config.get("model.projection_dim"),
+                    "temperature": self.config.get("model.temperature"),
+                })
+            except Exception as e:  # pragma: no cover
+                logger.warning("MLflow unavailable: %s", e)
+        if wandb is not None:
+            try:  # WANDB_MODE (offline unless set) is honoured: "disabled" starts nothing
+                self._wandb_run = wandb.init(
+                    project=self.config.get("logging.wandb_project", "preference-guided-captioning"),
+                    mode=os.environ.get("WANDB_MODE", "offline"),
+                    config=self.config.to_dict(),
+                )
+            except Exception as e:  # pragma: no cover
+                logger.warning("wandb unavailable: %s", e)
+
+    def _log_metrics(self, metrics: Dict[str, Any], step: int, prefix: str = "train"):
+        scalars = {f"{prefix}/{k}": float(v) for k, v in metrics.items()}
+        logger.info("step %d | %s", step, " ".join(f"{k}={v:.4f}" for k, v in scalars.items()))
+        if self._mlflow_run is not None:
+            try:
+                mlflow.log_metrics(scalars, step=step)
+            except Exception:  # pragma: no cover
+                pass
+        if self._wandb_run is not None and wandb is not None and wandb.run:
+            wandb.log(scalars, step=step)
+
+    def _finish_tracking(self):
+        if self._mlflow_run is not None:
+            try:
+                mlflow.end_run()
+            except Exception:  # pragma: no cover
+                pass
+        if self._wandb_run is not None and wandb is not None and wandb.run:
+            wandb.finish()
+
+    # ------------------------------------------------------------- helpers
+
+    def _stage_cfg(self, stage: int) -> Dict[str, Any]:
+        return self.config.get(f"training.stage{stage}", {})
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """The batch's arrays, length-bucketed; the train steps move them to the device."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        arrays.pop("preference_score", None)
+        if self._buckets is not None:
+            arrays = bucket_batch(arrays, self._buckets)
+        return arrays
+
+    def _make_optimizer(self, stage: int, steps_per_epoch: int):
+        """The stage's chain: modules outside its gradient graph are frozen (JAX trainer.py:213-255)."""
+        cfg = self._stage_cfg(stage)
+        accum = int(cfg.get("gradient_accumulation_steps", 1))
+        if self.max_steps_per_epoch is not None:
+            steps_per_epoch = min(steps_per_epoch, self.max_steps_per_epoch)
+        total_updates = max(1, steps_per_epoch * int(cfg.get("num_epochs", 1)) // max(accum, 1))
+        frozen_prefixes = ("caption_decoder",) if stage == 1 else ("text_encoder",)
+        return create_optimizer(
+            learning_rate=float(cfg.get("learning_rate", 5e-5)),
+            total_steps=total_updates,
+            warmup_steps=int(cfg.get("warmup_steps", 500)),
+            weight_decay=float(cfg.get("weight_decay", 0.01)),
+            max_grad_norm=float(cfg.get("max_grad_norm", 1.0)),
+            gradient_accumulation_steps=accum,
+            freeze_vision_backbone=self.model.freeze_vision_backbone,
+            frozen_prefixes=frozen_prefixes,
+        )
+
+    def _check_early_stopping(self, stage: int, val_loss: float, counter: int) -> int:
+        """The updated patience counter; the caller stops once it reaches the patience."""
+        if val_loss < self.best_val_loss[stage]:
+            return 0
+        return counter + 1
+
+    def _resume_window(self, stage: int, num_epochs: int):
+        """(start_epoch, skip_steps) of this stage given a restored checkpoint.
+
+        A mid-epoch autosave resumes inside its epoch, skipping the batches
+        already consumed (the loader's order is pinned per epoch); an
+        end-of-epoch checkpoint resumes at the next epoch.
+        """
+        if not self._resume or self._resume.get("stage") != stage:
+            return 0, 0
+        info, self._resume = self._resume, None  # consume once
+        epoch = int(info.get("epoch", 0))
+        step_in_epoch = int(info.get("step_in_epoch", 0))
+        if step_in_epoch > 0:
+            return min(epoch, num_epochs), step_in_epoch
+        return min(epoch + 1, num_epochs), 0
+
+    def _ckpt_payload(self) -> Dict[str, Any]:
+        """Checkpoint content: every parameter by name (a dropped tower from host memory)."""
+        return {"params": self.model.module.state_dict()}
+
+    def _maybe_autosave(self, stage: int, epoch: int, step_idx: int, state: TrainState):
+        if not self.save_steps or self.global_step % self.save_steps != 0 or stage == 0:
+            return  # stage 0 is checkpoint-free, as in the JAX trainer
+        self.checkpoints.save_autosave(
+            stage, epoch=epoch, opt_state=state.opt_state, global_step=self.global_step,
+            step_in_epoch=step_idx + 1, config=self.config.to_dict(), **self._ckpt_payload(),
+        )
+
+    def _sync_model(self) -> None:
+        """Put a tower held out by ``drop_unused_tower`` back on the device.
+
+        The JAX trainer pushes its train state back onto the model here; the
+        port's steps update the model's masters in place, so only the tower
+        needs moving.
+        """
+        if self._dropped_tower is not None:
+            self._dropped_tower.to(self.device)
+            self._dropped_tower = None
+
+    def _end_of_epoch(self, stage: int, epoch: int, state: TrainState, val_loss: Optional[float],
+                      patience_counter: int) -> tuple:
+        """Epoch checkpoint, pruning, early stopping and the best checkpoint; (counter, stop)."""
+        if self.save_epoch_checkpoints:
+            self.checkpoints.save_epoch(stage, epoch, opt_state=state.opt_state, global_step=self.global_step,
+                                        val_loss=val_loss, config=self.config.to_dict(), **self._ckpt_payload())
+            if self.keep_checkpoints:
+                self.checkpoints.prune_epochs(stage, int(self.keep_checkpoints))
+        if val_loss is None:
+            return patience_counter, False
+        patience_counter = self._check_early_stopping(stage, val_loss, patience_counter)
+        if val_loss < self.best_val_loss[stage]:
+            self.best_val_loss[stage] = val_loss
+            if self.save_best_checkpoints:
+                self.checkpoints.save_best(stage, epoch=epoch, global_step=self.global_step, val_loss=val_loss,
+                                           config=self.config.to_dict(), **self._ckpt_payload())
+        if patience_counter >= self.early_stopping_patience:
+            logger.info("Stage %d early stopping at epoch %d", stage, epoch)
+            return patience_counter, True
+        return patience_counter, False
+
+    # ------------------------------------------------------------- stage 0
+
+    def train_stage0(self) -> Dict[str, Any]:
+        """OPTIONAL caption cross-entropy warm-up; inert unless ``training.stage0.num_epochs`` > 0.
+
+        Full model, teacher forcing on the stage-1 corpus; no checkpoints or
+        early stopping.
+        """
+        cfg = self._stage_cfg(0)
+        num_epochs = int(cfg.get("num_epochs", 0))
+        if num_epochs <= 0:
+            return {"skipped": True}
+        if self.train_loader is None:
+            raise ValueError("Stage 0 requires a contrastive train_loader")
+        module = self.model.module
+        optimizer = self._make_optimizer(0, len(self.train_loader))
+        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
+        step = make_stage0_train_step(module, optimizer, augment=True)
+        seed = stage_seed(self.seed, 0)
+        logger.info("Stage 0 (caption-CE warmup): %d epochs x %d steps", num_epochs, len(self.train_loader))
+        start_epoch, skip_steps = self._resume_window(0, num_epochs)
+        for epoch in range(start_epoch, num_epochs):
+            state, m = self._run_epoch(state, self.train_loader, lambda st, b: step(st, b, seed), 0, epoch,
+                                       skip_steps if epoch == start_epoch else 0)
+            self.history["stage0"].append(
+                {"epoch": epoch, "train_loss": m["loss"], "input_wait_fraction": m["input_wait_fraction"]})
+        return {"history": self.history["stage0"]}
+
+    # ------------------------------------------------------------- stage 1
+
+    def train_stage1(self) -> Dict[str, Any]:
+        if self.train_loader is None:
+            raise ValueError("Stage 1 requires a contrastive train_loader")
+        cfg = self._stage_cfg(1)
+        num_epochs = int(cfg.get("num_epochs", 1))
+        temperature = float(self.config.get("model.temperature", 0.5))
+        module = self.model.module
+        optimizer = self._make_optimizer(1, len(self.train_loader))
+        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
+        step = make_stage1_train_step(module, optimizer, temperature, augment=True)
+        eval_step = make_stage1_eval_step(module, temperature)
+        seed = stage_seed(self.seed, 1)
+
+        logger.info("Stage 1: %d epochs x %d steps", num_epochs, len(self.train_loader))
+        patience_counter = 0
+        start_epoch, skip_steps = self._resume_window(1, num_epochs)
+        for epoch in range(start_epoch, num_epochs):
+            self.current_epoch = epoch
+            state, m = self._run_epoch(state, self.train_loader, lambda st, b: step(st, b, seed), 1, epoch,
+                                       skip_steps if epoch == start_epoch else 0)
+            val_loss = self._validate(self.val_loader, eval_step, 1)
+            self.history["stage1"].append({"epoch": epoch, "train_loss": m["loss"], "val_loss": val_loss,
+                                           "input_wait_fraction": m["input_wait_fraction"],
+                                           "step_seconds": m["step_seconds"], "peak_mem_gib": m["peak_mem_gib"]})
+            patience_counter, stop = self._end_of_epoch(1, epoch, state, val_loss, patience_counter)
+            if stop:
+                break
+        return {"best_val_loss": self.best_val_loss[1], "history": self.history["stage1"]}
+
+    # ------------------------------------------------------------- stage 2
+
+    def _stage2_reference(self, ref_dtype: torch.dtype) -> nn.Module:
+        """Frozen DPO reference = the policy at STAGE-2 START, persisted (JAX trainer.py:954-975).
+
+        Rebuilding it from a restored policy after an interruption would move
+        the KL anchor; so it is written once at stage-2 start and restored
+        whenever a stage-2 checkpoint is resumed. It leaves out the text
+        tower, which stage 2 never runs.
+        """
+        name = "stage2_reference"
+        path = self.checkpoints._path(name)
+        with _without(self.model.module, "text_encoder") as policy:
+            ref = frozen_copy(policy, ref_dtype)
+        if self._resume is not None and self._resume.get("stage") == 2 and path.exists():
+            ref.load_state_dict(self.checkpoints.restore(name)["params"])
+            logger.info("Restored stage-2 DPO reference (stage-2 start policy) from %s", path)
+        elif self.save_steps or self.save_epoch_checkpoints or self.save_best_checkpoints:
+            self.checkpoints.save(name, ref.state_dict(), stage=2)
+        return ref
+
+    def train_stage2(self) -> Dict[str, Any]:
+        cfg = self._stage_cfg(2)
+        num_epochs = int(cfg.get("num_epochs", 1))
+        if num_epochs <= 0:
+            logger.info("Stage 2 disabled (num_epochs=%d)", num_epochs)
+            return {"skipped": True}
+        if self.preference_train_loader is None:
+            raise ValueError("Stage 2 requires a preference_train_loader")
+        reference_free = bool(cfg.get("reference_free", False))
+        module = self.model.module
+        ref = None
+        if not reference_free:
+            ref = self._stage2_reference(compute_dtype(cfg.get("reference_dtype", "bf16")))
+        if bool(cfg.get("drop_unused_tower", False)):
+            # stage 2 never runs the text tower: its masters wait in host memory
+            self._dropped_tower = module.text_encoder.to("cpu")
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        optimizer = self._make_optimizer(2, len(self.preference_train_loader))
+        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
+        dpo = dict(beta=float(cfg.get("dpo_beta", 0.1)), reference_free=reference_free,
+                   length_normalized=bool(cfg.get("length_normalized", False)))
+        step = make_stage2_train_step(module, optimizer, label_smoothing=float(cfg.get("label_smoothing", 0.0)),
+                                      augment=True, **dpo)
+        eval_step = make_stage2_eval_step(module, **dpo)
+        seed = stage_seed(self.seed, 2)
+
+        logger.info("Stage 2: %d epochs x %d steps", num_epochs, len(self.preference_train_loader))
+        patience_counter = 0
+        start_epoch, skip_steps = self._resume_window(2, num_epochs)
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                self.current_epoch = epoch
+                state, m = self._run_epoch(state, self.preference_train_loader,
+                                           lambda st, b: step(st, ref, b, seed), 2, epoch,
+                                           skip_steps if epoch == start_epoch else 0)
+                val_loss = self._validate(self.preference_val_loader, lambda b: eval_step(ref, b), 2)
+                self.history["stage2"].append({"epoch": epoch, "train_loss": m["loss"], "val_loss": val_loss,
+                                               "input_wait_fraction": m["input_wait_fraction"],
+                                               "step_seconds": m["step_seconds"], "peak_mem_gib": m["peak_mem_gib"]})
+                patience_counter, stop = self._end_of_epoch(2, epoch, state, val_loss, patience_counter)
+                if stop:
+                    break
+        finally:
+            self._sync_model()
+        return {"best_val_loss": self.best_val_loss[2], "history": self.history["stage2"]}
+
+    # ------------------------------------------------------------- loops
+
+    def _maybe_profile(self, stage: int, stage_step: int, step_seconds: List[float]) -> None:
+        """torch.profiler over this stage's steps PROFILE_STEPS[0] .. PROFILE_STEPS[1] - 1."""
+        if self.profile_dir is None:
+            return
+        if stage_step == PROFILE_STEPS[0] and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            cuda = self.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+            self._profiler = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
+            self._profiler.__enter__()
+            self._profile_t0 = (stage, stage_step, time.perf_counter())
+            logger.info("Started torch.profiler trace of stage %d -> %s", stage, self.profile_dir)
+        elif stage_step >= PROFILE_STEPS[1]:
+            self._stop_profile(stage_step, step_seconds)
+
+    def _stop_profile(self, stage_step: int, step_seconds: List[float]) -> None:
+        """Close the trace; keep the window's kernel time (memory copies apart), host time and step walls.
+
+        ``step_ms`` sums the train steps' own walls (each ends in a host
+        sync), ``wall_ms`` spans the window with its data loading and
+        checkpoint copies; the device's busy share is ``device_ms / step_ms``.
+        ``host_ms`` is the self time of the host events (operators, autograd
+        nodes, CUDA runtime calls; on any thread) inside the steps' ranges,
+        ``host_top`` the ten largest by name as (name, ms, calls); the rest of
+        ``step_ms`` is Python between them. Data loading and checkpoint
+        copies, outside the ranges, are left out.
+        """
+        if self._profiler is None:
+            return
+        from torch.autograd import DeviceType
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        stage, first, t0 = self._profile_t0
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        self._profiler.__exit__(None, None, None)
+        prof, self._profiler = self._profiler, None
+        # on the card the step ranges also show as annotations spanning each step's kernels: not kernels
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key != STEP_RANGE]
+        copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in events if e not in copies]
+        host = _host_time_in_steps(prof.events())
+        self.profiles[stage] = {
+            "steps": stage_step - first,
+            "step_ms": sum(step_seconds[first:stage_step]) * 1e3,
+            "wall_ms": wall_ms,
+            "device_ms": sum(getattr(e, "self_device_time_total", 0) for e in kernels) / 1e3,
+            "memcpy_ms": sum(getattr(e, "self_device_time_total", 0) for e in copies) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "host_ms": sum(ms for _, ms, _ in host),
+            "host_top": host[:10],
+        }
+        Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(self.profile_dir) / f"stage{stage}.json"))
+        logger.info("Stopped torch.profiler trace of stage %d: %s", stage, self.profiles[stage])
+
+    def _run_epoch(self, state, loader, train_step, stage: int, epoch: int, skip_steps: int = 0):
+        """One epoch of ``train_step(state, batch) -> (state, metrics)``."""
+        losses = []
+        step_seconds = []
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        t0 = time.perf_counter()
+        n_items = 0
+        if hasattr(loader, "set_epoch"):
+            loader.set_epoch(epoch)  # deterministic per-epoch order for resume
+        start_idx = 0
+        if skip_steps and hasattr(loader, "iter_batches"):
+            base_iter = loader.iter_batches(skip_steps)  # consumed batches are never fetched
+            start_idx, skip_steps = skip_steps, 0
+        else:
+            base_iter = loader
+        iterator = base_iter
+        if tqdm is not None:
+            iterator = tqdm(base_iter, total=len(loader), initial=start_idx, desc=f"stage{stage} epoch {epoch}",
+                            leave=False)
+        input_wait_s = 0.0
+
+        def _timed(it):
+            nonlocal input_wait_s
+            it = iter(it)
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                input_wait_s += time.perf_counter() - t_wait
+                yield batch
+
+        run = 0  # steps this trainer ran in this epoch
+        for step_idx, batch in enumerate(_timed(iterator), start=start_idx):
+            if self.max_steps_per_epoch is not None and step_idx >= self.max_steps_per_epoch:
+                break
+            if step_idx < skip_steps:
+                continue  # consumed before the mid-epoch checkpoint
+            self._maybe_profile(stage, run, step_seconds)
+            arrays = self._device_batch(batch)
+            n_items += arrays["image"].shape[0]
+            t_step = time.perf_counter()
+            with torch.profiler.record_function(STEP_RANGE):
+                state, metrics = train_step(state, arrays)  # ends in a host sync (the NaN skip)
+            step_seconds.append(time.perf_counter() - t_step)
+            run += 1
+            self.global_step += 1
+            self._maybe_autosave(stage, epoch, step_idx, state)
+            if self.global_step % self.logging_steps == 0:
+                self._log_metrics(metrics, self.global_step, prefix=f"stage{stage}/train")
+            losses.append(metrics["loss"])
+        self._stop_profile(run, step_seconds)  # close the trace even for short epochs
+        if losses:
+            stacked = torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in losses])
+            finite = torch.isfinite(stacked)
+            mean_loss = float(torch.where(finite, stacked, 0.0).sum() / finite.sum().clamp(min=1))
+        else:
+            mean_loss = float("nan")
+        dt = time.perf_counter() - t0
+        skipped = int(state.skipped)
+        input_wait_fraction = input_wait_s / max(dt, 1e-6)
+        logger.info("stage %d epoch %d: train_loss=%.4f (%d steps, %.1f pairs/s, %d NaN-skipped, input wait %.0f%%)",
+                    stage, epoch, mean_loss, len(losses), n_items / max(dt, 1e-6), skipped,
+                    100.0 * input_wait_fraction)
+        if input_wait_fraction > 0.25 and len(losses) > 1:
+            logger.warning("stage %d epoch %d is INPUT-BOUND: %.0f%% of epoch wall time was spent waiting on the "
+                           "data loader (%.1fs of %.1fs). Raise data.num_workers.",
+                           stage, epoch, 100.0 * input_wait_fraction, input_wait_s, dt)
+        return state, {
+            "loss": mean_loss,
+            "pairs_per_sec": n_items / max(dt, 1e-6),
+            "skipped": skipped,
+            "input_wait_fraction": round(input_wait_fraction, 4),
+            "step_seconds": step_seconds,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(self.device) / 2**30 if cuda else None,
+        }
+
+    def _validate(self, loader, eval_step, stage: int) -> Optional[float]:
+        if loader is None or len(loader) == 0:
+            return None
+        losses = [eval_step(self._device_batch(batch))["loss"] for batch in loader]
+        val_loss = float(torch.stack(losses).mean())
+        self._log_metrics({"loss": val_loss}, self.global_step, prefix=f"stage{stage}/val")
+        return val_loss
+
+    # ------------------------------------------------------------- pipeline
+
+    def train(self) -> Dict[str, Any]:
+        """Run the full pipeline: stage 0 (if configured), stage 1, stage 2."""
+        results: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        resume_stage = (self._resume or {}).get("stage")
+        try:
+            if resume_stage in (None, 0) and int(self._stage_cfg(0).get("num_epochs", 0)) > 0:
+                results["stage0"] = self.train_stage0()
+            if int(self._stage_cfg(1).get("num_epochs", 0)) > 0:
+                if resume_stage == 2:
+                    logger.info("Skipping stage 1: resuming a stage-2 checkpoint")
+                else:
+                    results["stage1"] = self.train_stage1()
+            results["stage2"] = self.train_stage2()
+        finally:
+            self._finish_tracking()
+            self.checkpoints.wait()
+            for ld in (self.train_loader, self.val_loader, self.preference_train_loader, self.preference_val_loader):
+                if hasattr(ld, "close"):
+                    ld.close()
+        if bool(self.config.get("training.load_best_model_at_end", False)):
+            self._load_best_at_end()
+        self._write_results(results, wall_clock_s=time.perf_counter() - t0)
+        return results
+
+    def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Copy a checkpoint's parameters into the model's masters, in place."""
+        self.model.module.load_state_dict(params)
+
+    def _load_best_at_end(self):
+        """Leave the best-val-loss checkpoint on the model (HF Trainer semantics): stage 2's, else 1's."""
+        for stage in (2, 1):
+            if self.best_val_loss[stage] == float("inf"):
+                continue
+            path = self.checkpoints._path(f"best_model_stage{stage}")
+            if not path.exists():
+                continue
+            self._load_params(effective_params(self.checkpoints.restore(path)))
+            logger.info("load_best_model_at_end: restored best stage-%d params (val_loss %.4f)",
+                        stage, self.best_val_loss[stage])
+            return
+        logger.info("load_best_model_at_end: no best checkpoint recorded; keeping final params")
+
+    def _write_results(self, results: Dict[str, Any], wall_clock_s: float):
+        """results.json and results_summary.json in the output directory."""
+        counts = self.model.num_parameters()
+        device = self.device
+        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+        def best(stage):
+            return None if self.best_val_loss[stage] == float("inf") else self.best_val_loss[stage]
+
+        def last_loss(stage):
+            return self.history[stage][-1]["train_loss"] if self.history[stage] else None
+
+        payload = {
+            "framework": "pgica_tpu_torch",
+            "hardware": f"{name} x1",
+            "total_parameters": counts.get("total"),
+            "trainable_parameters": counts.get("trainable"),
+            "total_steps": self.global_step,
+            "wall_clock_minutes": round(wall_clock_s / 60.0, 2),
+            "stage0": {"history": self.history.get("stage0", [])},
+            "stage1": {"best_val_loss": best(1), "history": self.history["stage1"]},
+            "stage2": {"best_val_loss": best(2), "history": self.history["stage2"]},
+            "nan_skipped_note": "per-stage skip counts are logged per epoch",
+            "input_wait_fraction": max((rec["input_wait_fraction"] for recs in self.history.values() for rec in recs
+                                        if rec.get("input_wait_fraction") is not None), default=None),
+        }
+        (self.output_dir / "results.json").write_text(json.dumps(payload, indent=2))
+        summary = {
+            "hardware": payload["hardware"],
+            "wall_clock_minutes": payload["wall_clock_minutes"],
+            "stage1_final_train_loss": last_loss("stage1"),
+            "stage1_best_val_loss": best(1),
+            "stage2_final_train_loss": last_loss("stage2"),
+            "stage2_best_val_loss": best(2),
+            "total_steps": self.global_step,
+        }
+        (self.output_dir / "results_summary.json").write_text(json.dumps(summary, indent=2))
+        logger.info("Wrote results artifacts to %s", self.output_dir)
+
+    def load_checkpoint(self, path) -> Dict[str, Any]:
+        """Restore parameters, the optimizer state (taken by the next stage start) and the resume point."""
+        payload = self.checkpoints.restore(path)
+        self._load_params(effective_params(payload))
+        self._restored_opt_state = payload.get("opt_state")
+        meta = payload.get("meta", {})
+        self.global_step = int(meta.get("global_step", 0) or 0)
+        self.current_epoch = int(meta.get("epoch", 0) or 0)
+        meta_stage = meta.get("stage")  # a missing stage means 1; a stage 0 stays 0
+        self._resume = {
+            "stage": 1 if meta_stage is None else int(meta_stage),
+            "epoch": self.current_epoch,
+            "step_in_epoch": int(meta.get("step_in_epoch", 0) or 0),
+        }
+        logger.info("Restored checkpoint from %s (stage %s, epoch %d, step %d, step_in_epoch %d)", path,
+                    self._resume["stage"], self.current_epoch, self.global_step, self._resume["step_in_epoch"])
+        return meta
+
+    def _maybe_resume_opt_state(self, state: TrainState) -> TrainState:
+        restored, self._restored_opt_state = self._restored_opt_state, None  # consume once
+        if restored is None:
+            return state
+        try:
+            load_opt_state(state.opt_state, restored)
+        except (ValueError, KeyError) as e:
+            logger.warning("Could not resume optimizer state (%s); starting fresh", e)
+            return state
+        state.step = self.global_step
+        logger.info("Resumed optimizer state from checkpoint")
+        return state

@@ -4,6 +4,7 @@ Greedy decoding must be token-identical to the JAX package's, with
 ``early_stop`` off and on, including when EOS ends every row early. Sampling
 is checked for shape and for determinism under a fixed seed only: the port
 draws from a ``torch.Generator``, whose stream differs from ``jax.random``'s.
+Beam search is held to the JAX package in tests/test_torch_beam.py.
 A bf16 model serves a cast copy of its float32 masters; after training
 updates the masters in place it must serve the trained weights (exactly
 the JAX package's ``_inference_params`` cast of the same masters).
@@ -128,11 +129,6 @@ def test_sampling_is_deterministic_under_a_seed(params, images):
     assert ids[0].shape == (len(images), MAX_LENGTH)
     assert torch.equal(ids[0], ids[1])
     assert ((ids[0] >= 0) & (ids[0] < port.module.decoder_config.vocab_size)).all()
-
-
-def test_beam_search_is_not_ported_yet(params, images):
-    with pytest.raises(NotImplementedError, match="beam"):
-        _port(params).generate_captions(images, max_length=MAX_LENGTH, num_beams=2)
 
 
 # ---- the bf16 serving copy after training (stage 0 trains the decoder, the weights serving reads)

@@ -319,7 +319,9 @@ def test_presets_are_copies_of_the_jax_presets():
         assert port.keys() == ref.keys()
         for name in port:
             want = {k: v for k, v in dataclasses.asdict(ref[name]).items() if k != "scan_layers"}
-            assert dataclasses.asdict(port[name]) == want, name
+            got = dataclasses.asdict(port[name])
+            assert got.pop("remat") is False, name  # the port's activation-checkpointing flag
+            assert got == want, name
 
 
 def test_tokenizer_is_a_copy_of_the_jax_tokenizer():

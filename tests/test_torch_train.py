@@ -165,12 +165,15 @@ def test_eval_step_matches_the_train_forward(jax_model):
 
 def test_unported_options_raise(jax_model):
     port = _port(jax_model)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_stage1_train_step(port.module, _port_optimizer(1), TEMP, augment=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         make_stage1_train_step(port.module, _port_optimizer(1), TEMP, lora=(16.0, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ntxent_loss(torch.zeros(2, 4), torch.zeros(2, 4), axis_name="data")
+    # augmentation is ported (tests/test_torch_augment.py): the augmented step trains
+    opt = _port_optimizer(1)
+    state, m = make_stage1_train_step(port.module, opt, TEMP, augment=True)(TrainState.create(port.module, opt),
+                                                                          _batch(0), 0)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
 
 
 # ---------------------------------------------------------------- optimizer pieces
