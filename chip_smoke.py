@@ -44,7 +44,10 @@ exits non-zero):
    generate_config (4 beams, length penalty 1, repetition penalty 1.1,
    max_length 128, early_stop) at batch 8 and 32, then the batch 32 x 64
    fixed-length greedy decode of the eval benchmark (median of 5 after a
-   warm-up).
+   warm-up). Greedy steps replay a CUDA graph, so the host counts the
+   encode and the prefix (plus a warm-up step and the capture at a shape's
+   first call), and the profiler counts the replays' kernels; the eager
+   step times the same eval call beside it, with the same ids.
 6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
    ViT, dropout 0.1) takes stage-1 steps through ``make_stage1_train_step``
    at bench.py's shapes: batch 128 x seq 128 with every token kept, and
@@ -78,8 +81,27 @@ exits non-zero):
    the host's time inside the profiled steps by operator; per checkpoint
    bytes and seconds.
 
-Launch counts are reset just before the main path of phases 5, 6, 7, 9 and
-of each of phase 8's three paths, and read just after. The second-to-last line
+10. Serving with CUDA graphs. 10a, right after phase 7: generate_captions
+   on the trained flagship recasts the bf16 copy, captures its graph anew
+   and equals the eager step. In phase 8, on the Llama slice (slots 8), and
+   at the end on configs/default.yaml's GPT-2 flagship through
+   ``scripts/serve.py``'s services (slots 16, chunk 8, max_length 32): the
+   graphed chunk against the eager one (first-chunk logits bit-equal, ids
+   equal), the batch path's graphed step against the eager one (greedy
+   logits bit-equal, sampled ids equal), the kernels each graph holds (its
+   wrappers' launches under capture) and those one replay runs (the
+   profiler's device kernel names, which may fall short by a record the
+   tracer lost, never above), the engine's
+   captions equal generate_captions' for requests in staggered bursts; for
+   GPT-2 both services answer /healthz and a JPEG /caption over HTTP on
+   127.0.0.1, and a seeded Poisson arrival of 128 requests at 100/s runs
+   through the continuous (graphed, then an eager chunk) and the batch
+   schedulers: latency p50/p95, captions/s, the device busy share, each
+   graph's capture time and pool.
+
+Launch counts are reset just before the main path of phases 5, 6, 7, 9, 10
+and of each of phase 8's four paths, and read just after; a graph replay
+adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
 exits non-zero and prints no result.
@@ -97,6 +119,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -996,6 +1019,7 @@ def decode_logits(model, images, steps: int = 3):
 def phase_full_width(tokenizer, arch: str) -> None:
     """Phase 4 for one architecture of ``FULL_WIDTH``."""
     from pgica_tpu_torch.generation.decode import generate
+    from pgica_tpu_torch.generation.slots import DecodeGraphs
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
     from pgica_tpu_torch.models.presets import get_text_config, get_vision_config
     from pgica_tpu_torch.ops import _kernels
@@ -1031,7 +1055,15 @@ def phase_full_width(tokenizer, arch: str) -> None:
                             pad_token_id=tokenizer.pad_token_id, max_length=16).cpu())
     if not torch.equal(ids[0], ids[1]):
         raise AssertionError(f"full width: greedy tokens differ:\n{ids[0]}\n{ids[1]}")
-    log(f"  greedy tokens, 16 steps: identical on card and CPU ({ids[0].tolist()}); {time.perf_counter() - t0:.1f} s")
+    graphs = DecodeGraphs(cuda.module, cuda.device)
+    graphed = generate(cuda.module, emb_g.cuda(), eos_token_id=tokenizer.eos_token_id,
+                       pad_token_id=tokenizer.pad_token_id, max_length=16, graphs=graphs).cpu()
+    if not torch.equal(graphed, ids[1]):
+        raise AssertionError(f"full width: the CUDA-graph greedy tokens differ from the CPU's:\n{graphed}\n{ids[1]}")
+    capture = next(iter(graphs.captured.values()))[1]
+    log(f"  greedy tokens, 16 steps: identical on card (eager, and each step a CUDA-graph replay: captured in "
+        f"{capture.capture_s * 1e3:.1f} ms, pool {capture.pool_bytes / 2**20:.1f} MiB) and CPU ({ids[0].tolist()}); "
+        f"{time.perf_counter() - t0:.1f} s")
     beams = []
     for model, emb in ((cuda, emb_g.cuda()), (cpu, emb_c)):
         beams.append(generate(model.module, emb, eos_token_id=tokenizer.eos_token_id,
@@ -1379,6 +1411,7 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
 
 
 def phase_slice(tokenizer) -> dict:
+    from pgica_tpu_torch.generation.slots import Sampler
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
     from pgica_tpu_torch.ops import _kernels
 
@@ -1405,9 +1438,12 @@ def phase_slice(tokenizer) -> dict:
             raise AssertionError(f"generate_captions returned {captions!r}")
         after = _kernels.launch_counts()
         launches = {k: after[k] - before[k] for k in SERVING_KERNELS}
-        forwards = (launches["flash_attn_fwd"] - 12) // 24  # prefix + steps run
+        forwards = (launches["flash_attn_fwd"] - 12) // 24  # decoder forwards launched from the host
         want = {"layernorm_fwd": 27 + 49 * forwards, "flash_attn_fwd": 12 + 24 * forwards}
-        if launches != want or not 1 <= forwards <= max_length:
+        # greedy steps replay a CUDA graph (no host launch): the host runs the prefix, plus a warm-up
+        # step and the capture at a shape's first call; beam steps run eagerly
+        graphed = "num_beams" not in kw
+        if launches != want or not (forwards in (1, 3) if graphed else 1 <= forwards <= max_length):
             raise AssertionError(f"request batch {batch} {kw}: launched {launches}, expected {want}")
         return dict(batch=batch, max_length=max_length, early_stop=early_stop, seconds=seconds,
                     captions_per_s=batch / seconds, launches=launches, decoder_forwards=forwards,
@@ -1417,15 +1453,16 @@ def phase_slice(tokenizer) -> dict:
         beams = f" beams {r['num_beams']} (length penalty {r['length_penalty']}, repetition penalty " \
             f"{r['repetition_penalty']})" if "num_beams" in r else ""
         log(f"  {tag} batch {r['batch']} x max_length {r['max_length']} early_stop={r['early_stop']}{beams}: "
-            f"{r['seconds'] * 1e3:.1f} ms, {r['captions_per_s']:.1f} captions/s, decoder forwards "
-            f"{r['decoder_forwards']}, launches {r['launches']}, peak {r['peak_mem_gib']:.2f} GiB")
+            f"{r['seconds'] * 1e3:.1f} ms, {r['captions_per_s']:.1f} captions/s, decoder forwards from the host "
+            f"{r['decoder_forwards']}, host launches {r['launches']}, peak {r['peak_mem_gib']:.2f} GiB")
 
     _kernels.reset_launch_counts()  # ---- the main path starts here
     served = []
-    for batch in (1, 8, 32):
+    for batch in (1, 1, 8, 8, 32, 32):  # the first call at a shape captures its graph; the second is timed
         r = request(batch, 32, True)
         served.append(r)
         show("request", r)
+    served = served[1::2]
     # the configs' generate_config: 4 beams over 128 tokens (a decoder forward runs batch x 4 rows);
     # the second call of each batch is the one timed
     beamed = []
@@ -1441,13 +1478,18 @@ def phase_slice(tokenizer) -> dict:
     main_counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}  # ---- and ends here
     if min(main_counts.values()) == 0:
         raise AssertionError(f"the serving path did not launch every kernel: {main_counts}")
-    want = {"layernorm_fwd": 27 + 64 * 49, "flash_attn_fwd": 12 + 64 * 24}
+    want = {"layernorm_fwd": 27 + 49, "flash_attn_fwd": 12 + 24}  # the encode and the prefix; 63 steps replay
     if bench[0]["launches"] != want:
         raise AssertionError(f"one 32 x 64 greedy call launched {bench[0]['launches']}, expected {want}")
     median_s = statistics.median(r["seconds"] for r in bench)
-    log(f"  eval greedy 32 x 64: median {median_s * 1e3:.1f} ms -> {32 / median_s:.1f} captions/s "
-        f"(median of 5 after one warm-up); launches per call {bench[0]['launches']} (expected {want})")
+    log(f"  eval greedy 32 x 64, each step a CUDA-graph replay: median {median_s * 1e3:.1f} ms -> "
+        f"{32 / median_s:.1f} captions/s (median of 5 after one warm-up); host launches per call "
+        f"{bench[0]['launches']} (expected {want})")
     log(f"  main-path launch counts (all requests above): {main_counts}")
+    eager = eager_eval(model, images, max_length=64)
+    log(f"  eval greedy 32 x 64 with the eager step (the same kernels, launched one by one): median "
+        f"{eager['median_s'] * 1e3:.1f} ms (of 3 after one warm-up) against {median_s * 1e3:.1f} graphed; "
+        f"ids identical to the graphed call's")
 
     # The early_stop loop syncs the host on every step (finished.all()); with
     # random weights no row emits EOS, so both loops run every step and the
@@ -1480,10 +1522,23 @@ def phase_slice(tokenizer) -> dict:
 
     profile = profiled(lambda: model.generate_captions(images, max_length=64), "32 x 64 greedy call",
                        median_s * 1e3)
+    # what one 32 x 64 call launches: the encode and the prefix from the host (counted above), then
+    # 63 replays of the step graph, which holds 49 LN and 24 flash launches (counted at its capture)
+    step = model._decode_graphs.captured[(32, 64, Sampler(), tokenizer.eos_token_id, tokenizer.pad_token_id)][1]
+    if step.kernels != {"layernorm_fwd": 49, "flash_attn_fwd": 24}:
+        raise AssertionError(f"the 32 x 64 step graph holds {step.kernels}")
+    want = {"layernorm_fwd": 27 + 64 * 49, "flash_attn_fwd": 12 + 64 * 24, "rmsnorm_fwd": 0}
+    seen = profile["kernels"]
+    if seen != want:
+        seen = device_counts(lambda: model.generate_captions(images, max_length=64), want,
+                             "the profiled 32 x 64 call")["counts"]
+    log(f"  one 32 x 64 call launches {want} on the card: the step graph holds {step.kernels}, replayed 63 times; "
+        f"the profiler's device kernels (graph replays included): {seen}")
     beam_profile = profiled(lambda: model.generate_captions(images, max_length=128, early_stop=True, **BEAMS),
                             "batch-32 4-beam request", beamed[-1]["seconds"] * 1e3)
     return dict(main_counts=main_counts, served=served, beamed=beamed, bench=bench, median_s=median_s,
-                sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile, beam_profile=beam_profile, model=model)
+                eager_median_s=eager["median_s"], sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile,
+                beam_profile=beam_profile, model=model)
 
 
 def profiled(fn, label: str, unprofiled_ms: float) -> dict:
@@ -1498,9 +1553,10 @@ def profiled(fn, label: str, unprofiled_ms: float) -> dict:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    by_name = port_kernel_counts(kernels)
     if device_ms <= 0:
         log(f"  profiler, {label}: no device time recorded (busy share not measured)")
-        return {"device_ms": None}
+        return {"device_ms": None, "kernels": by_name}
     launches = sum(e.count for e in kernels)
     busy = device_ms / unprofiled_ms
     log(f"  profiler, one {label}: {launches} kernel launches, kernel time {device_ms:.1f} ms of {unprofiled_ms:.1f} "
@@ -1513,8 +1569,88 @@ def profiled(fn, label: str, unprofiled_ms: float) -> dict:
     log("    host side, by self CPU time under the profiler (which inflates it):")
     for e in host:
         log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    return {"device_ms": device_ms, "launches": launches, "busy": busy,
+    return {"device_ms": device_ms, "launches": launches, "busy": busy, "kernels": by_name,
             "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
+
+
+# the forward kernels a serving path runs, by the device names the profiler gives them
+# (csrc: layernorm_fwd_rows, flash_attn_fwd and flash_attn_fwd_tc, rmsnorm_fwd_registers and _loop)
+DEVICE_KERNELS = ("layernorm_fwd", "flash_attn_fwd", "rmsnorm_fwd")
+
+
+def port_kernel_counts(device_events) -> dict:
+    """Launches of each of DEVICE_KERNELS among the profiler's device events (CUDA-graph replays'
+    kernels included), by name: the host's launch counts do not see a replay."""
+    return {name: sum(e.count for e in device_events if name in e.key) for name in DEVICE_KERNELS}
+
+
+PROFILE_ATTEMPTS = 3
+TAIL_KERNELS = 64  # trivial kernels after fn, inside the trace (see device_counts)
+
+
+def device_counts(fn, want: dict, label: str) -> dict:
+    """The port's kernels the profiler sees on the card in one call of ``fn`` (which ends in a host
+    sync), held to ``want``, the count that is known exactly from the host: the kernels each graph
+    holds (its wrappers' launches under capture) times its replays, plus the eager launches.
+
+    The tracer (CUPTI, through torch.profiler) loses a kernel record now and then on an H100: 19 of
+    37,886 kernels in one 32 x 64 call; one RMSNorm of a Llama chunk replay in three profiles of one
+    run, none in other runs. So fn is profiled between a kernel and TAIL_KERNELS trivial ones (a
+    record lost at an edge of the trace is theirs), up to PROFILE_ATTEMPTS times until the counts
+    equal ``want``. If none does, each count must still lie in (0, want] (it may fall short by the
+    records the tracer lost, never exceed the launches), and the shortfall is logged; a kernel
+    missing from every replay fails either way, since the held count is checked at capture.
+    Returns the counts of the best attempt and the attempts made."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            x = torch.ones(1, device="cuda")
+            x.add_(1)  # the trace holds a kernel before fn's
+            torch.cuda.synchronize()
+            fn()
+            for _ in range(TAIL_KERNELS):
+                x.add_(1)
+            torch.cuda.synchronize()
+        counts = port_kernel_counts([e for e in prof.key_averages() if e.device_type == DeviceType.CUDA])
+        if counts == want:
+            return dict(counts=counts, attempts=attempt, lost=0)
+        seen.append(counts)
+    if any(c[k] > want[k] or (want[k] > 0) != (c[k] > 0) for c in seen for k in want):
+        raise AssertionError(f"{label}: the card ran {seen}, expected {want} ({PROFILE_ATTEMPTS} profiled calls)")
+    best = max(seen, key=lambda c: sum(c.values()))
+    lost = sum(want.values()) - sum(best.values())
+    log(f"  {label}: the profiler saw {best} of {want} in the best of {PROFILE_ATTEMPTS} profiled calls: the tracer "
+        f"lost {lost} kernel record(s); the launches are counted exactly at capture")
+    return dict(counts=best, attempts=PROFILE_ATTEMPTS, lost=lost)
+
+
+def eager_eval(model, images, max_length: int) -> dict:
+    """The batch path with the eager step (``graphs=None``): the median of 3 calls after a warm-up,
+    each ending in a device->host copy; its ids must equal ``generate_captions``' graphed ones."""
+    from pgica_tpu_torch.generation.decode import generate
+
+    tok = model.tokenizer
+
+    def call():
+        with torch.inference_mode():
+            emb = model.encode_image(images)["embeddings"]
+            return generate(model._inference_module(), emb, eos_token_id=tok.eos_token_id,
+                            pad_token_id=tok.pad_token_id, max_length=max_length).cpu().numpy()
+
+    ids = call()
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        seconds.append(time.perf_counter() - t)
+    graphed = model.generate_captions(images, max_length=max_length)
+    if [tok.decode(r) for r in ids] != graphed:
+        raise AssertionError("the eager step's captions differ from the CUDA-graph step's")
+    return dict(median_s=statistics.median(seconds), seconds=seconds)
 
 
 def _device_us(event) -> float:
@@ -1586,7 +1722,8 @@ STAGE1_STEP_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "la
 def phase_stage1(model) -> dict:
     from pgica_tpu_torch.ops import _kernels
 
-    model._inference_cache = None  # frees serving's bf16 copy for training (a later request would recast it)
+    model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
+    # training (a later request would recast and capture them again)
     torch.cuda.empty_cache()
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=10, total=1000)  # bench.py's optimizer
     rng = np.random.default_rng(0)
@@ -1663,6 +1800,7 @@ LLAMA_REDUCED = (
 # per block; the cross-attention does not run at decode, decoder.py:16-21)
 SIGLIP_ENCODE = {"layernorm_fwd": 1 + 2 * 27 + 1 + 1, "flash_attn_fwd": 27}
 LLAMA_FORWARD = {"rmsnorm_fwd": 2 * LLAMA_LAYERS + 1, "flash_attn_fwd": LLAMA_LAYERS}
+LLAMA_DECODE = {"layernorm_fwd": 0, **LLAMA_FORWARD}  # as the profiler counts a replay's kernels
 # one stage-1 step: the encode (frozen backbone, forward only), the text tower forward and
 # backward, the text projection's ln, and both projection lns' backward
 LLAMA_STAGE1_LAUNCHES = {"layernorm_fwd": SIGLIP_ENCODE["layernorm_fwd"] + 1,
@@ -1688,6 +1826,7 @@ FULL_WIDTH = {
 
 
 def phase_llama(tokenizer) -> dict:
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
     from pgica_tpu_torch.models.lm import init_kv_cache
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
     from pgica_tpu_torch.models.presets import get_text_config
@@ -1749,7 +1888,22 @@ def phase_llama(tokenizer) -> dict:
     serving_profile = profiled(lambda: model.generate_captions(images, seed=9, **sample), "batch-8 4-beam request",
                                served[-1]["seconds"] * 1e3)
 
-    model._inference_cache = None  # frees serving's bf16 copy for training (a later request would recast it)
+    log(f"  -- phase 10 on the Llama slice: the continuous-batching engine (slots {LLAMA_SLOTS}, chunk {SERVE_CHUNK}, "
+        f"max_length {SERVE_MAX_LENGTH}) and the decode graphs")
+    eng = ContinuousDecodeEngine(model, slots=LLAMA_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
+    eng.warmup()
+    engine_images = np.random.default_rng(14).integers(0, 256, size=(2 * LLAMA_SLOTS, size, size, 3), dtype=np.uint8)
+    engine = graph_checks(model, eng, engine_images, LLAMA_DECODE, "Llama slice")
+    eng.start()
+    _kernels.reset_launch_counts()  # ---- the Llama engine path starts here
+    engine_against_batch(eng.submit, model, engine_images, 2, "Llama engine against the batch path")
+    engine_counts = _kernels.launch_counts()  # ---- and ends here
+    check_main_path("Llama engine", engine_counts, LLAMA_SERVING_KERNELS)
+    eng.stop()
+    del eng  # it holds the bf16 copy, which training frees
+
+    model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
+    # training (a later request would recast and capture them again)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(1)
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=500, total=1000)
@@ -1774,8 +1928,9 @@ def phase_llama(tokenizer) -> dict:
     check_main_path("Llama stage-2 (2 + 1 + 15 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
     stage2["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), "Llama stage-2 step",
                                  stage2["ms_per_step"])
-    return dict(served=served, serving_profile=serving_profile, stage1=stage1, stage2=stage2,
-                counts={"llama_serving": serving_counts, "llama_stage1": stage1_counts, "llama_stage2": stage2_counts})
+    return dict(served=served, serving_profile=serving_profile, engine=engine, stage1=stage1, stage2=stage2,
+                counts={"llama_serving": serving_counts, "llama_engine": engine_counts, "llama_stage1": stage1_counts,
+                        "llama_stage2": stage2_counts})
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2019,6 +2174,353 @@ def phase_train_cli() -> dict:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 10
+
+# scripts/serve.py's defaults (--slots, --chunk, --max-length); the Llama slice's pool is half as wide
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_LENGTH = 16, 8, 32
+LLAMA_SLOTS = 8
+GPT2_FORWARD = {"layernorm_fwd": 49, "flash_attn_fwd": 24, "rmsnorm_fwd": 0}  # one decoder forward at decode
+# a seeded Poisson arrival of requests, the same schedule for every scheduler
+POISSON_REQUESTS, POISSON_RATE = 128, 100.0  # requests, requests/s
+
+
+def run_engine_to_end(eng, images) -> tuple:
+    """Admit ``images`` (one per slot) into ``eng``'s free pool and run chunks until every slot is
+    done, on its stream, without its threads: (the first chunk's last-step logits, seqs, chunks)."""
+    with eng._on_stream():
+        eng._admit(eng._state, images, np.arange(len(images)))
+        first = eng._run_chunk()[1].clone()
+        chunks = 1
+        while bool(eng._state.active.any()):
+            eng._run_chunk()
+            chunks += 1
+        seqs = eng._state.seqs.clone()
+        eng._sync()
+    return first, seqs, chunks
+
+
+def timed_replays(fn, stream, reps: int = 20) -> float:
+    """ms per call of ``fn`` on ``stream`` (in inference mode, as the slot states were made): CUDA
+    events around ``reps`` calls after one."""
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
+    """Phase 10's checks of one model's graphs: ``eng`` (graphed, warmed, not started) against an
+    eager-chunk engine on the same first requests (the first chunk's last-step logits bit-equal,
+    the captions equal); the kernels each graph holds (its wrappers' launches under capture) and
+    those one replay runs (the profiler's device kernel names); the batch path's graphed step
+    against the eager one (first-step logits bit-equal, sampled ids equal, greedy ids equal to the
+    engine's)."""
+    from pgica_tpu_torch.generation.decode import generate
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
+    from pgica_tpu_torch.generation.slots import Sampler, admit, decode_steps, init_slot_state
+
+    slots, tok = eng.slots, model.tokenizer
+    eager = ContinuousDecodeEngine(model, slots=slots, chunk=eng.chunk, max_length=eng.max_length, cuda_graph=False)
+    eager.warmup()
+    first = images[:slots]
+    logits_g, seqs_g, chunks = run_engine_to_end(eng, first)
+    logits_e, seqs_e, chunks_e = run_engine_to_end(eager, first)
+    if not torch.equal(logits_g, logits_e) or not torch.equal(seqs_g, seqs_e) or chunks != chunks_e:
+        raise AssertionError(f"{label}: the graphed chunk differs from the eager one (logits equal "
+                             f"{torch.equal(logits_g, logits_e)}, ids equal {torch.equal(seqs_g, seqs_e)})")
+    chunk_ms = {"graphed": timed_replays(eng.graph.replay, eng._stream),
+                "eager": timed_replays(lambda: eager._chunk(eager._state), eager._stream, reps=5)}
+
+    def on(replay, stream):
+        def run():
+            with torch.cuda.stream(stream):
+                replay()
+            stream.synchronize()
+        return run
+
+    want = {k: eng.chunk * v for k, v in per_forward.items()}
+    if eng.graph.kernels != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: the chunk graph holds {eng.graph.kernels}, expected {want}")
+    chunk_seen = device_counts(on(eng.graph.replay, eng._stream), want, f"{label}: one chunk replay")
+
+    # the batch path: generate_captions' graphed step against the eager one, on the same rows
+    module, pick = eng.module, Sampler()
+    captions = model.generate_captions(first, max_length=eng.max_length)  # captures (slots, max_length)
+    with torch.inference_mode():
+        emb = model.encode_image(first)["embeddings"]
+        ids_e = generate(module, emb, eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                         max_length=eng.max_length)
+        state = init_slot_state(module.decoder_config, slots, eng.max_length, module.compute_dtype, model.device,
+                                eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+        admit(module, state, emb, range(slots), pick)
+        step_e = decode_steps(module, state, 1, pick)
+        graphed_state, step = model._decode_graphs.get(slots, eng.max_length, pick, tok.eos_token_id,
+                                                       tok.pad_token_id)
+        admit(module, graphed_state, emb, range(slots), pick)
+        step.replay()
+        if not torch.equal(step.out, step_e):
+            raise AssertionError(f"{label}: the graphed batch step's first logits differ from the eager step's")
+        # sampling (top-p 0.9, temperature 0.8): the graph draws what the eager step draws from one seed
+        sampled = [generate(module, emb, eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                            max_length=eng.max_length, do_sample=True, temperature=0.8, top_p=0.9,
+                            repetition_penalty=1.1, generator=torch.Generator(model.device).manual_seed(5),
+                            graphs=graphs) for graphs in (model._decode_graphs, None)]
+        if not torch.equal(*sampled):
+            raise AssertionError(f"{label}: the graphed sampled step's ids differ from the eager step's")
+    engine_captions = [tok.decode(r) for r in seqs_g.cpu().numpy()]
+    if [tok.decode(r) for r in ids_e.cpu().numpy()] != captions or captions != engine_captions:
+        raise AssertionError(f"{label}: graphed batch, eager batch and engine captions differ")
+    if step.kernels != {k: v for k, v in per_forward.items() if v}:
+        raise AssertionError(f"{label}: the step graph holds {step.kernels}, expected {per_forward}")
+    step_seen = device_counts(on(step.replay, torch.cuda.current_stream()), per_forward,
+                              f"{label}: one batch-step replay")
+    step_ms = {"graphed": timed_replays(step.replay, torch.cuda.current_stream()),
+               "eager": timed_replays(lambda: decode_steps(module, state, 1, pick), torch.cuda.current_stream(),
+                                      reps=5)}
+    eager.stop()
+    r = dict(chunk_ms=chunk_ms, step_ms=step_ms, chunk_kernels=want, step_kernels=per_forward,
+             chunk_profiled=chunk_seen, step_profiled=step_seen,
+             chunks=chunks, chunk_capture_s=eng.graph.capture_s, chunk_pool_mib=eng.graph.pool_bytes / 2**20,
+             step_capture_s=step.capture_s, step_pool_mib=step.pool_bytes / 2**20)
+    log(f"  {label}: the graphed chunk ({eng.chunk} steps x {slots} slots, captured in {r['chunk_capture_s'] * 1e3:.1f} "
+        f"ms, pool reserved {r['chunk_pool_mib']:.1f} MiB) against the eager chunk on {slots} requests: first-chunk logits "
+        f"bit-equal, ids equal over {chunks} chunks; {chunk_ms['graphed']:.3f} ms a replay against "
+        f"{chunk_ms['eager']:.3f} eager (CUDA events, 20 replays, 5 eager calls); the graph holds and one replay "
+        f"launches {want} on the card (= {eng.chunk} x {per_forward}; the profiler saw {chunk_seen['counts']})")
+    log(f"  {label}: the batch path's graphed step (batch {slots}, captured in {r['step_capture_s'] * 1e3:.1f} ms, pool "
+        f"reserved {r['step_pool_mib']:.1f} MiB) against the eager step: first-step logits bit-equal; generate_captions "
+        f"(graphed), the eager generate and the engine give the same {slots} captions, and sampled ids (top-p 0.9, "
+        f"one seed) are the same graphed and eager; {step_ms['graphed']:.3f} ms a "
+        f"step replay against {step_ms['eager']:.3f} eager; the graph holds and one replay launches {per_forward} "
+        f"(the profiler saw {step_seen['counts']})")
+    return r
+
+
+def staggered_bursts(submit, images, bursts: int, gap_s: float) -> list:
+    """Submit ``images`` in ``bursts`` equal bursts ``gap_s`` apart, one thread a request; the captions."""
+    out, errs = [None] * len(images), []
+    size = len(images) // bursts
+
+    def go(i):
+        try:
+            time.sleep((i // size) * gap_s)
+            out[i] = submit(images[i], timeout=300)["caption"]
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append((i, repr(e)))
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(images))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"staggered bursts: {errs[:4]}, alive {sum(t.is_alive() for t in threads)}")
+    return out
+
+
+def engine_against_batch(submit, model, images, bursts: int, label: str) -> None:
+    """Greedy captions through ``submit`` (the engine) in staggered bursts == generate_captions."""
+    got = staggered_bursts(submit, images, bursts, 0.05)
+    size = len(images) // bursts
+    want = sum((model.generate_captions(images[i:i + size], max_length=SERVE_MAX_LENGTH)
+                for i in range(0, len(images), size)), [])
+    if got != want:
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{label}: engine captions differ from generate_captions at {diff[:8]}")
+    log(f"  {label}: {len(images)} requests in {bursts} bursts 50 ms apart through the engine: captions equal "
+        f"generate_captions' (graphed, batch {size}) for every image")
+
+
+def poisson_run(submit, images, seed: int = 10) -> dict:
+    """POISSON_REQUESTS requests at POISSON_RATE a second (seeded exponential gaps), one thread a
+    request; latency percentiles (submit's own, queue to caption) and captions/s over the run."""
+    gaps = np.random.default_rng(seed).exponential(1.0 / POISSON_RATE, POISSON_REQUESTS)
+    arrivals = np.cumsum(gaps)
+    lat, done, errs = [None] * POISSON_REQUESTS, [None] * POISSON_REQUESTS, []
+    t0 = time.perf_counter() + 0.05
+
+    def go(i):
+        time.sleep(max(0.0, t0 + arrivals[i] - time.perf_counter()))
+        try:
+            lat[i] = submit(images[i % len(images)], timeout=300)["latency_ms"]
+            done[i] = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append((i, repr(e)))
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(POISSON_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs or any(x is None for x in lat):
+        raise AssertionError(f"Poisson run: {errs[:4]}")
+    wall = max(done) - t0
+    return dict(p50_ms=float(np.percentile(lat, 50)), p95_ms=float(np.percentile(lat, 95)),
+                captions_per_s=POISSON_REQUESTS / wall, wall_s=wall)
+
+
+def http_check(service, label: str) -> None:
+    """A server on 127.0.0.1, port 0, in front of ``service``: /healthz, then a /caption POST of a
+    seeded JPEG, whose caption must be generate_captions' for the decoded image."""
+    import http.client
+    import io
+
+    from PIL import Image
+
+    from pgica_tpu_torch.scripts.serve import _Server, make_handler
+
+    rng = np.random.default_rng(12)
+    pixels = Image.fromarray(rng.integers(0, 256, size=(6, 8, 3), dtype=np.uint8)).resize((320, 240), Image.BICUBIC)
+    buf = io.BytesIO()
+    pixels.save(buf, format="JPEG", quality=90)
+    jpeg = buf.getvalue()
+    server = _Server(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        health = json.loads(resp.read())
+        if resp.status != 200 or health.get("status") != "ok":
+            raise AssertionError(f"{label}: /healthz answered {resp.status} {health}")
+        conn.request("POST", "/caption", body=jpeg, headers={"Content-Type": "image/jpeg"})
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    want = service.model.generate_captions(np.array(service.image_processor.process_image(jpeg)[None]),
+                                           max_length=SERVE_MAX_LENGTH, early_stop=True)[0]
+    if resp.status != 200 or out.get("caption") != want:
+        raise AssertionError(f"{label}: /caption answered {resp.status} {out}, expected the caption {want!r}")
+    log(f"  {label}: HTTP on 127.0.0.1 - /healthz {health}; /caption of a {len(jpeg):,}-byte seeded JPEG: 200 in "
+        f"{out['latency_ms']:.1f} ms, the caption generate_captions gives the decoded image")
+
+
+def phase_after_training(model) -> dict:
+    """Phase 10, after phases 6-7 trained the flagship's masters in place: generate_captions recasts
+    the bf16 copy and captures its graphs anew, and must equal the eager step on that copy."""
+    from pgica_tpu_torch.generation.decode import generate
+
+    images = np.random.default_rng(10).integers(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)
+    t = time.perf_counter()
+    captions = model.generate_captions(images, max_length=SERVE_MAX_LENGTH, early_stop=True)
+    first_ms = (time.perf_counter() - t) * 1e3
+    module, tok = model._inference_module(), model.tokenizer
+    if model._decode_graphs is None or model._decode_graphs.module is not module:
+        raise AssertionError("the decode graphs are not the trained copy's")
+    with torch.inference_mode():
+        emb = model.encode_image(images)["embeddings"]
+        ids = generate(module, emb, eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                       max_length=SERVE_MAX_LENGTH, early_stop=True).cpu().numpy()
+    if [tok.decode(r) for r in ids] != captions:
+        raise AssertionError("after training, graphed generate_captions differs from the eager step")
+    log(f"  after phases 6-7 trained the masters: generate_captions (batch 8 x {SERVE_MAX_LENGTH}, early_stop) recast "
+        f"the bf16 copy and captured its graph anew ({first_ms:.1f} ms with the cast and the capture); its captions "
+        f"equal the eager step's on the trained copy")
+    return dict(first_ms=first_ms)
+
+
+# the eager decode loop before the step ran as a CUDA graph: this script's phase 5 at commit 785cccd
+# (PERF.md; H100 80GB HBM3, 700 W), ms
+EAGER_LOOP_MS = {"eval 32 x 64": 804.5, "greedy batch 1 x 32": 648.4, "greedy batch 8 x 32": 564.6,
+                 "greedy batch 32 x 32": 561.5}
+
+
+def serving_summary(served: dict, serving: dict, llama: dict) -> None:
+    """Phase 10's numbers on lines of their own, each beside the card's name and power limit."""
+    tag = f"[{card()}]"
+    now = {"eval 32 x 64": served["median_s"] * 1e3,
+           **{f"greedy batch {r['batch']} x 32": r["seconds"] * 1e3 for r in served["served"]}}
+    for name, ms in now.items():
+        log(f"  serving, {name}, each step a CUDA-graph replay: {ms:.1f} ms (the eager loop at 785cccd: "
+            f"{EAGER_LOOP_MS[name]:.1f} ms) {tag}")
+    log(f"  serving, eval 32 x 64 with this tree's eager step: {served['eager_median_s'] * 1e3:.1f} ms; device busy "
+        f"{100 * served['profile']['busy']:.1f}% of the graphed call {tag}")
+    for name, r in serving["runs"].items():
+        log(f"  serving, Poisson {POISSON_REQUESTS} requests at {POISSON_RATE:.0f}/s, {name}: p50 {r['p50_ms']:.1f} ms, "
+            f"p95 {r['p95_ms']:.1f} ms, {r['captions_per_s']:.1f} captions/s {tag}")
+    for name, prof in serving["busy"].items():
+        if prof.get("busy") is not None:
+            log(f"  serving, Poisson run, {name}: device busy {100 * prof['busy']:.1f}% {tag}")
+    for label, c in (("GPT-2 flagship", serving["checks"]), ("Llama slice", llama["engine"])):
+        log(f"  serving, {label}: chunk graph captured in {c['chunk_capture_s'] * 1e3:.1f} ms, pool "
+            f"{c['chunk_pool_mib']:.1f} MiB, replay {c['chunk_ms']['graphed']:.3f} ms (eager {c['chunk_ms']['eager']:.3f}); "
+            f"step graph {c['step_capture_s'] * 1e3:.1f} ms, pool {c['step_pool_mib']:.1f} MiB, replay "
+            f"{c['step_ms']['graphed']:.3f} ms (eager {c['step_ms']['eager']:.3f}) {tag}")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_serving() -> dict:
+    """Phase 10: the serving entry points on configs/default.yaml's GPT-2 flagship at full width."""
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.scripts.serve import CaptionService, ContinuousCaptionService
+    from pgica_tpu_torch.utils.config import Config
+
+    config = Config(ROOT / "configs" / "default.yaml")
+    config.set("model.vocab_size", GPT2_VOCAB)  # the flagship's vocab, as phases 5-9
+    t = time.perf_counter()
+    cont = ContinuousCaptionService(config, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
+    warm = cont.warmup(start_worker=False)
+    log(f"  ContinuousCaptionService (configs/default.yaml, vocab {GPT2_VOCAB:,}, bf16; slots {SERVE_SLOTS}, chunk "
+        f"{SERVE_CHUNK}, max_length {SERVE_MAX_LENGTH}) built and warmed in {time.perf_counter() - t:.1f} s: "
+        + ", ".join(f"{b} {s * 1e3:.0f} ms" for b, s in warm))
+    images = np.random.default_rng(13).integers(0, 256, size=(48, 224, 224, 3), dtype=np.uint8)
+    checks = graph_checks(cont.model, cont.engine, images, GPT2_FORWARD, "GPT-2 flagship")
+    cont.engine.start()
+    t = time.perf_counter()
+    batch = CaptionService(config, max_batch=32, max_length=SERVE_MAX_LENGTH)
+    warm = batch.warmup()
+    captures = [c for _, c in batch.model._decode_graphs.captured.values()]
+    log(f"  CaptionService (max_batch 32, early_stop) built and warmed in {time.perf_counter() - t:.1f} s: "
+        + ", ".join(f"bucket {b} {s * 1e3:.0f} ms" for b, s in warm) + "; step graphs captured in "
+        + ", ".join(f"{c.capture_s * 1e3:.0f}" for c in captures) + " ms, pools "
+        + ", ".join(f"{c.pool_bytes / 2**20:.0f}" for c in captures) + " MiB")
+
+    _kernels.reset_launch_counts()  # ---- the main path starts here
+    engine_against_batch(cont.submit, cont.model, images, 3, "GPT-2 engine against the batch path")
+    for service, label in ((cont, "continuous scheduler"), (batch, "batch scheduler")):
+        http_check(service, label)
+    runs = {"continuous, graphed chunk": poisson_run(cont.submit, images),
+            "batch, graphed step": poisson_run(batch.submit, images)}
+    main_counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}  # ---- and ends here
+    check_main_path("serving entry points (engine and batch scheduler, HTTP)", main_counts, SERVING_KERNELS)
+
+    eager = ContinuousDecodeEngine(cont.model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH,
+                                   cuda_graph=False)
+    eager.warmup()
+    eager.start()
+    runs["continuous, eager chunk"] = poisson_run(eager.submit, images)
+    eager.stop()
+    del eager
+    for name, r in runs.items():
+        log(f"  Poisson arrival, {POISSON_REQUESTS} requests at {POISSON_RATE:.0f}/s (seed 10), {name}: latency p50 "
+            f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, {r['captions_per_s']:.1f} captions/s over "
+            f"{r['wall_s']:.2f} s [{card()}]")
+    busy = {}
+    for name, submit in (("continuous, graphed chunk", cont.submit), ("batch, graphed step", batch.submit)):
+        busy[name] = profiled(lambda: poisson_run(submit, images), f"Poisson run, {name}",
+                              runs[name]["wall_s"] * 1e3)
+    log(f"  engine stats: {cont.engine.stats()}")
+    cont.shutdown()
+    batch.shutdown()
+    return dict(checks=checks, runs=runs, busy=busy, main_counts=main_counts)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2087,10 +2589,12 @@ def main() -> int:
               tokenizer, arch)
         gc.collect()
     served = phase("phase 5: serving (flagship, bf16, caption requests)", phase_slice, tokenizer)
-    trained = phase("phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)", phase_stage1,
-                    served["model"])
+    model = served.pop("model")
+    trained = phase("phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)", phase_stage1, model)
     dpo = phase("phase 7: the slice, stage-2 DPO training (flagship, bf16 over f32 masters, bf16 reference)",
-                phase_stage2, served.pop("model"))
+                phase_stage2, model)
+    phase("phase 10a: graphed serving after training (the flagship of phases 6-7)", phase_after_training, model)
+    del model
     gc.collect()  # the GPT-2 flagship is free now
     torch.cuda.empty_cache()
     llama = phase(f"phase 8: the Llama slice (SigLIP so400m + Llama-3-8B, {LLAMA_LAYERS} of 32 layers, bf16 over f32 "
@@ -2099,11 +2603,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = phase("phase 9: the training entry point (python -m pgica_tpu_torch.scripts.train, configs/default.yaml, "
                 "GPT-2 flagship at full width)", phase_train_cli)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = phase("phase 10: serving through the entry points (GPT-2 flagship, configs/default.yaml: the "
+                    "continuous-batching engine and the batch scheduler behind HTTP, CUDA graphs)", phase_serving)
+    serving_summary(served, serving, llama)
     log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
         + ")")
 
     paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
-             **llama["counts"], "train_cli": cli["counts"]}
+             **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"]}
     summary = []
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
         # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over

@@ -7,15 +7,23 @@ holds ``max_length + 1`` slots (decode.py:78). Each step attends over the
 whole cache through the key mask ``arange(cache_len) <= t`` (decode.py:81-82);
 causal masking is off whenever a cache is given (layers.py:165).
 
-PyTorch runs the loop eagerly, one Python iteration per step, where the JAX
-package compiles a ``lax.scan`` (fixed length) or a ``lax.while_loop``
-(``early_stop``). The ``early_stop`` test is therefore a host
-synchronisation on every step; the two loops are token-identical.
+Greedy and sampled decoding run the slot step of generation/slots.py (the
+JAX engine's, every row at its own position): the prefix admits every row,
+then one step a token. On the card, ``graphs`` (a :class:`DecodeGraphs`, which
+``generate_captions`` keeps) replays that step as a CUDA graph captured once
+per (batch, max_length, sampler), where the JAX package compiles a
+``lax.scan`` (fixed length) or a ``lax.while_loop`` (``early_stop``);
+without it the step runs eagerly, on any device, with the same kernels and
+bits. The ``early_stop`` test stays a host synchronisation on every step
+(graphed or not), so both loops are token-identical to the fixed-length one.
 
-Sampling draws from a ``torch.Generator``: its stream differs from
-``jax.random``'s, so sampled captions match the JAX package in distribution
-only. Beam search is token-identical to the JAX package's: every top-k runs
-through :func:`_top_k`, which breaks ties toward the lower index as
+Sampling takes the Gumbel-max of the filtered logits, with noise from a
+``torch.Generator`` (slots.py): its stream differs from ``jax.random``'s, so
+sampled captions match the JAX package in distribution only; graphed and
+eager draw the same noise from the same generator state.
+
+Beam search runs eagerly and is token-identical to the JAX package's: every
+top-k runs through :func:`_top_k`, which breaks ties toward the lower index as
 ``jax.lax.top_k`` does (``torch.topk`` promises no order among equal values,
 and ties are real: the ``NEG_INF`` fills and beams that end on EOS at once).
 
@@ -33,30 +41,23 @@ batch-32 request, ``chip_smoke.py`` phase 5).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from pgica_tpu_torch.generation.slots import (  # noqa: F401 (the penalty and the filter are this module's API)
+    NEG_INF,
+    DecodeGraphs,
+    Sampler,
+    _apply_repetition_penalty,
+    _top_p_filter,
+    admit,
+    decode_steps,
+    init_slot_state,
+)
 from pgica_tpu_torch.models.lm import init_kv_cache
-
-NEG_INF = -1.0e9
-
-
-def _apply_repetition_penalty(logits: torch.Tensor, presence: torch.Tensor, penalty: float) -> torch.Tensor:
-    """HF semantics: positive logits of seen tokens divided, negative multiplied."""
-    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
-    return torch.where(presence > 0, penalized, logits)
-
-
-def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
-    """Mask logits outside the nucleus (per row); top_p >= 1.0 keeps every token."""
-    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-    cdf = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-    # smallest set with cumulative prob >= top_p; keep at least 1 token
-    cutoff_idx = (cdf < top_p).sum(dim=-1, keepdim=True).clamp(0, logits.shape[-1] - 1)
-    cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-    return torch.where(logits < cutoff, NEG_INF, logits)
 
 
 @torch.inference_mode()
@@ -75,6 +76,7 @@ def generate(
     length_penalty: float = 1.0,
     generator: Optional[torch.Generator] = None,
     early_stop: bool = False,
+    graphs: Optional[DecodeGraphs] = None,
 ) -> torch.Tensor:
     """Decode (B, max_length) int64 token ids from vision embeddings.
 
@@ -82,49 +84,41 @@ def generate(
     (models/model.py). ``num_beams > 1`` runs beam search and ignores the
     sampling flags, as the JAX package does. Otherwise finished rows emit
     ``pad_token_id``, and ``early_stop`` ends the loop once every row has
-    emitted EOS; for beam search see :func:`_beam_search`.
+    emitted EOS; for beam search see :func:`_beam_search`. With ``graphs``
+    (CUDA only; beam search ignores it) each step is a replay of the graph
+    it holds for this shape and sampler, captured at first use; with
+    ``do_sample`` the graph's generator takes ``generator``'s state (the
+    default CUDA generator's without one) and hands it back advanced.
     """
     if num_beams > 1:
         return _beam_search(module, vision_embeddings, repetition_penalty, max_length=max_length,
                             num_beams=num_beams, length_penalty=length_penalty, eos_token_id=eos_token_id,
                             pad_token_id=pad_token_id, early_stop=early_stop)
-    batch = vision_embeddings.shape[0]
-    device = vision_embeddings.device
-    cfg = module.decoder_config
-    cache_len = max_length + 1  # +1 for the vision token at slot 0
-    caches = init_kv_cache(cfg, batch, cache_len, module.compute_dtype, device)
-    slots = torch.arange(cache_len, device=device)
-
-    def mask_at(pos: int) -> torch.Tensor:
-        return (slots[None, :] <= pos).to(torch.int32).expand(batch, cache_len)
-
-    def pick(logits: torch.Tensor, presence: torch.Tensor) -> torch.Tensor:
-        logits = _apply_repetition_penalty(logits.to(torch.float32), presence, repetition_penalty)
+    batch, device = vision_embeddings.shape[0], vision_embeddings.device
+    pick = Sampler(do_sample, temperature, top_p, repetition_penalty)
+    source = generator
+    if graphs is None:
+        state = init_slot_state(module.decoder_config, batch, max_length, module.compute_dtype, device,
+                                eos_token_id=eos_token_id, pad_token_id=pad_token_id, generator=generator)
+        step = functools.partial(decode_steps, module, state, 1, pick)
+    else:
+        if graphs.module is not module or device.type != "cuda":
+            raise ValueError("graphs replay another module's steps, or the embeddings are not on the card")
+        state, captured = graphs.get(batch, max_length, pick, eos_token_id, pad_token_id)
+        step = captured.replay
         if do_sample:
-            logits = _top_p_filter(logits / max(temperature, 1e-6), top_p)
-            probs = torch.softmax(logits, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
-        return torch.argmax(logits, dim=-1)
-
-    rows = torch.arange(batch, device=device)
-    logits, caches = module.decode_prefix(vision_embeddings, caches, mask_at(0))
-    presence = torch.zeros((batch, cfg.vocab_size), dtype=torch.int32, device=device)
-    tokens = pick(logits, presence)
-    finished = tokens == eos_token_id
-    presence[rows, tokens] = 1
-    sequences = torch.full((batch, max_length), pad_token_id, dtype=torch.int64, device=device)
-    sequences[:, 0] = tokens
-
-    for t in range(1, max_length):  # token t-1 sits at cache slot t
-        if early_stop and bool(finished.all()):  # host sync on every step
+            if source is None:
+                source = torch.cuda.default_generators[device.index if device.index is not None
+                                                       else torch.cuda.current_device()]
+            state.generator.set_state(source.get_state())
+    admit(module, state, vision_embeddings, range(batch), pick)
+    for _ in range(1, max_length):  # token t-1 sits at cache slot t
+        if early_stop and not bool(state.active.any()):  # host sync on every step
             break
-        logits, caches = module.decode_step(tokens[:, None], t, caches, mask_at(t))
-        nxt = torch.where(finished, pad_token_id, pick(logits, presence))
-        finished = finished | (nxt == eos_token_id)
-        presence[rows, nxt] = 1
-        sequences[:, t] = nxt
-        tokens = nxt
-    return sequences
+        step()
+    if graphs is not None and do_sample:
+        source.set_state(state.generator.get_state())
+    return state.seqs.clone()
 
 
 def _top_k(x: torch.Tensor, k: int):

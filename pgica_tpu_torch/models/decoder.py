@@ -10,7 +10,8 @@ Mirrors pgica_tpu/models/decoder.py:41-183.
 * ``decode_prefix`` puts the vision token (plus ``wpe(0)`` for GPT-2) at
   position 0 and primes the caches (decoder.py:142-153); ``decode_step``
   adds ``wpe(position)`` to the token embedding for GPT-2
-  (decoder.py:169-176). As in the JAX package and the reference it mirrors,
+  (decoder.py:169-176), gathered per row when ``position`` is a (B,) tensor
+  (continuous batching). As in the JAX package and the reference it mirrors,
   cross-attention does NOT run at decode time (decoder.py:16-21).
 
 Llama has no ``wpe``: its positions come from RoPE alone, so caption tokens
@@ -25,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from pgica_tpu_torch.models.layers import Dense, KVCaches, MultiHeadAttention
+from pgica_tpu_torch.models.layers import Dense, KVCaches, MultiHeadAttention, Position
 from pgica_tpu_torch.models.lm import TransformerLM
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.dropout import FastDropout
@@ -96,12 +97,14 @@ class CaptionDecoder(nn.Module):
         return out["logits"][:, -1, :], out["caches"]
 
     def decode_step(
-        self, token_ids: torch.Tensor, position: int, caches: KVCaches, attention_mask: torch.Tensor
+        self, token_ids: torch.Tensor, position: Position, caches: KVCaches, attention_mask: torch.Tensor
     ) -> Tuple[torch.Tensor, KVCaches]:
-        """One step: (B, 1) tokens written at cache slot ``position`` -> (B, V) next-token logits."""
+        """One step: (B, 1) tokens written at cache slot ``position`` (an int, or (B,) per row)
+        -> (B, V) next-token logits."""
         dtype = self.lm.dtype
         embeds = self.lm.wte(token_ids).to(dtype)
         if self.lm.learned_positions:
-            embeds = embeds + self.lm.wpe.weight[position].to(dtype)[None, None]
+            pe = self.lm.wpe.weight[position].to(dtype)  # (hidden,), or (B, hidden) per row
+            embeds = embeds + (pe[:, None] if pe.dim() == 2 else pe[None, None])
         out = self.lm(inputs_embeds=embeds, attention_mask=attention_mask, caches=caches, position=position)
         return out["logits"][:, -1, :], out["caches"]

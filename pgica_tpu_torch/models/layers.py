@@ -2,10 +2,10 @@
 
 Mirrors pgica_tpu/models/layers.py:26-293: the norm factory (LayerNorm or
 RMSNorm), rotary position embeddings, multi-head attention (self-attention
-with a KV cache written at one scalar position, or cross-attention to a
-``kv`` input; grouped-query heads; RoPE), the GELU and SwiGLU MLPs with
-dropout, and the pre-norm block. Left out until their slices: ring
-attention, int8 and per-row cache positions (continuous batching).
+with a KV cache written at one position, or at one position per row for
+continuous batching, or cross-attention to a ``kv`` input; grouped-query
+heads; RoPE), the GELU and SwiGLU MLPs with dropout, and the pre-norm
+block. Left out until their slices: ring attention and int8.
 
 Every module takes the compute ``dtype`` at construction, as the Flax
 modules do. :class:`Dense` is Flax's ``Dense(dtype, param_dtype=float32)``:
@@ -25,7 +25,7 @@ models/convert.py maps the JAX tree onto them.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,9 @@ from pgica_tpu_torch.ops.rmsnorm import RMSNorm
 # caches are functional values threaded through the loop (layers.py:141-158).
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 KVCaches = List[KVCache]
+# A decode position: one int for every row, or a (B,) int64 tensor on the
+# device with each row's own (continuous batching; a CUDA graph replays it).
+Position = Union[int, torch.Tensor]
 
 
 def make_norm(kind: str, hidden: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32) -> nn.Module:
@@ -53,7 +56,7 @@ def make_norm(kind: str, hidden: int, eps: float = 1e-5, dtype: torch.dtype = to
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """RoPE on (B, H, S, D) at integer ``positions`` (S,), as JAX layers.py:41-52.
+    """RoPE on (B, H, S, D) at integer ``positions`` (S,), or (B, S) per row, as JAX layers.py:41-52.
 
     Interleaved pairs (``x[..., 0::2]``, ``x[..., 1::2]``), not Hugging
     Face's ``rotate_half``; float32 angles ``positions / theta**(2i/d)``, cos
@@ -61,7 +64,9 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float) -> 
     """
     d = x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
-    angles = positions.to(torch.float32)[:, None] * freqs  # (S, D/2)
+    angles = positions.to(torch.float32)[..., None] * freqs  # (S, D/2), or (B, S, D/2)
+    if angles.dim() == 3:
+        angles = angles[:, None]  # (B, 1, S, D/2): one set of angles per row, for every head
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out1 = x1 * cos - x2 * sin
@@ -81,6 +86,35 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+class CacheRows:
+    """Where a decode step at per-row positions writes its new k and v in caches (B, H, L, D).
+
+    Row b goes to slot ``position[b]``; a row whose position lies outside
+    [0, L) keeps what it holds (JAX layers.py:148-156). Built once a forward
+    (``TransformerLM``) and used by every layer's k and v: the caches,
+    viewed as (B*H*L, D), take an ``index_copy_`` of the new rows, each
+    out-of-range row writing back the value it read at a clamped slot.
+    Every index stays on the device (no host synchronisation), so a CUDA
+    graph can capture it.
+    """
+
+    def __init__(self, position: torch.Tensor, cache_shape: torch.Size):
+        b, h, length, _ = cache_shape
+        at = position.clamp(0, length - 1)
+        slot0 = torch.arange(0, b * h * length, length, device=position.device).view(b, h)
+        self.index = (slot0 + at[:, None]).view(-1)  # (B*H,) rows of the flat cache
+        self.outside = (at != position)[:, None, None]  # (B, 1, 1)
+
+    def write(self, cache: torch.Tensor, new: torch.Tensor) -> None:
+        """cache[b, :, position[b]] = new (B, H, 1, D)[b, :, 0], in place, for the rows inside."""
+        b, h, s, d = new.shape
+        if s != 1:
+            raise ValueError(f"per-row cache positions take one new token a row, got {s}")
+        flat = cache.view(-1, d)
+        old = flat.index_select(0, self.index).view(b, h, d)
+        flat.index_copy_(0, self.index, torch.where(self.outside, old, new.view(b, h, d).to(cache.dtype)).view(-1, d))
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with an optional KV cache, or cross-attention to ``kv`` (JAX layers.py:55-193).
 
@@ -89,7 +123,7 @@ class MultiHeadAttention(nn.Module):
     each is repeated for its ``num_heads // num_kv_heads`` query heads after
     the cache (``repeat_interleave``, ``jnp.repeat``'s order). ``use_rope``
     rotates q and k before the cache write, at positions ``position ..
-    position + S - 1``.
+    position + S - 1`` (each row's own with a tensor ``position``).
     """
 
     def __init__(
@@ -124,14 +158,20 @@ class MultiHeadAttention(nn.Module):
         x: torch.Tensor,
         key_bias: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
-        position: int = 0,
+        position: Position = 0,
         generator: Optional[torch.Generator] = None,
         kv: Optional[torch.Tensor] = None,
+        rows: Optional[CacheRows] = None,
     ) -> torch.Tensor:
         """x (B, S, hidden); key_bias (B, Sk) float32 from ``key_padding_bias``, or None.
 
         With ``cache``, the new k/v are written into it at ``position`` (in
-        place) and attention runs over the whole cache. With ``kv`` (B, Sk,
+        place) and attention runs over the whole cache. A (B,) tensor
+        ``position`` (S must be 1) writes row b at ``position[b]``, and a row
+        whose position lies outside the cache writes nothing (JAX
+        layers.py:148-156; ``rows``, the write's :class:`CacheRows`, when the
+        caller has built it); when every row holds the same position, it gives
+        the int's bits. With ``kv`` (B, Sk,
         hidden), keys and values come from it (cross-attention, unmasked):
         the decoder's single vision token, which the JAX package pins to the
         plain attention (decoder.py:78), so it runs ``xla_attention`` here
@@ -147,14 +187,23 @@ class MultiHeadAttention(nn.Module):
         if kv is not None:
             out = xla_attention(q, k, v, None, False)
             return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
+        per_row = isinstance(position, torch.Tensor)
         if self.use_rope:
-            positions = torch.arange(position, position + s, device=x.device)
+            if per_row:
+                positions = position[:, None] + torch.arange(s, device=x.device)  # (B, S)
+            else:
+                positions = torch.arange(position, position + s, device=x.device)
             q = rotary_embedding(q, positions, self.rope_theta)
             k = rotary_embedding(k, positions, self.rope_theta)
         if cache is not None:
             k_cache, v_cache = cache
-            k_cache[:, :, position:position + s] = k
-            v_cache[:, :, position:position + s] = v
+            if per_row:
+                rows = rows or CacheRows(position, k_cache.shape)
+                rows.write(k_cache, k)
+                rows.write(v_cache, v)
+            else:
+                k_cache[:, :, position:position + s] = k
+                v_cache[:, :, position:position + s] = v
             k, v = k_cache, v_cache
         if self.num_kv_heads != self.num_heads:
             rep = self.num_heads // self.num_kv_heads
@@ -276,8 +325,9 @@ class TransformerBlock(nn.Module):
         x: torch.Tensor,
         key_bias: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
-        position: int = 0,
+        position: Position = 0,
         generator: Optional[torch.Generator] = None,
+        rows: Optional[CacheRows] = None,
     ) -> torch.Tensor:
-        x = x + self.attn(self.ln_0(x), key_bias, cache, position, generator)
+        x = x + self.attn(self.ln_0(x), key_bias, cache, position, generator, rows=rows)
         return x + self.mlp(self.ln_1(x), generator)

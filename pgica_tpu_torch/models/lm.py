@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pgica_tpu_torch.models.layers import KVCaches, TransformerBlock, checkpointed, make_norm
+from pgica_tpu_torch.models.layers import CacheRows, KVCaches, Position, TransformerBlock, checkpointed, make_norm
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.attention import key_padding_bias
 
@@ -78,7 +78,7 @@ class TransformerLM(nn.Module):
         inputs_embeds: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         caches: Optional[KVCaches] = None,
-        position: int = 0,
+        position: Position = 0,
         generator: Optional[torch.Generator] = None,
         with_logits: bool = True,
     ) -> dict:
@@ -86,7 +86,9 @@ class TransformerLM(nn.Module):
 
         Token ids get ``wte`` plus, for GPT-2, ``wpe`` of positions
         ``position .. position + S - 1`` (JAX lm.py:172-181); Llama's
-        attention rotates q and k at those positions. Returns ``hidden_states``,
+        attention rotates q and k at those positions. With ``caches``,
+        ``position`` may be a (B,) tensor, each row's own (inputs_embeds of
+        one token; see ``MultiHeadAttention``). Returns ``hidden_states``,
         ``logits`` (B, S, V) with the LM head unless ``with_logits`` is
         False, and ``caches`` (the same list, written in place, or None).
         ``generator`` drives dropout (None: off). With ``config.remat`` a
@@ -103,12 +105,15 @@ class TransformerLM(nn.Module):
             x = inputs_embeds.to(self.dtype)
         # one key bias for the whole forward, shared by every layer's attention
         key_bias = None if attention_mask is None else key_padding_bias(attention_mask)
-        remat = self.config.remat and caches is None and torch.is_grad_enabled() and position == 0
+        per_row = isinstance(position, torch.Tensor)
+        remat = self.config.remat and caches is None and torch.is_grad_enabled() and not per_row and position == 0
+        # per-row positions: one write plan for every layer's cache
+        rows = CacheRows(position, caches[0][0].shape) if per_row and caches else None
         for i, block in enumerate(self.blocks):
             if remat:
                 x = checkpointed(block, x, key_bias, generator)
             else:
-                x = block(x, key_bias, None if caches is None else caches[i], position, generator)
+                x = block(x, key_bias, None if caches is None else caches[i], position, generator, rows=rows)
         x = self.ln_f(x)
         out = {"hidden_states": x, "caches": caches}
         if self.with_lm_head and with_logits:

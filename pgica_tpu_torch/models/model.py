@@ -285,6 +285,7 @@ class PreferenceGuidedCaptioningModel:
         self.image_size = image_size or self.module.vision_config.image_size
         self._inference_cache: Optional[nn.Module] = None
         self._inference_key: List[Tuple[nn.Parameter, int]] = []
+        self._decode_graphs = None  # generation/slots.py:DecodeGraphs of the inference module, on the card
 
     def num_parameters(self) -> Dict[str, int]:
         """Parameter counts per top-level tower, ``total`` and ``trainable`` (JAX model.py:533-553)."""
@@ -309,7 +310,10 @@ class PreferenceGuidedCaptioningModel:
         counter, so the cache is keyed on every master's identity and
         version (the JAX package keys its cast on the identity of
         ``self.params``, which its trainer replaces: model.py:370-387).
-        Setting ``_inference_cache`` to None releases the copy's memory.
+        Setting ``_inference_cache`` to None releases the copy's memory. A
+        new copy drops the decode graphs captured on the old one (they hold
+        its weights by address); the float32 masters change in place, so
+        their graphs stay valid.
         """
         if self.dtype == torch.float32:
             return self.module
@@ -317,7 +321,7 @@ class PreferenceGuidedCaptioningModel:
         fresh = len(params) == len(self._inference_key) and all(
             p is q and p._version == v for p, (q, v) in zip(params, self._inference_key))
         if self._inference_cache is None or not fresh:
-            self._inference_cache = None  # free the old copy before casting the new one
+            self._inference_cache = self._decode_graphs = None  # free the old copy before casting the new one
             self._inference_cache = frozen_copy(self.module, self.dtype)
             self._inference_key = [(p, p._version) for p in params]
         return self._inference_cache
@@ -351,11 +355,18 @@ class PreferenceGuidedCaptioningModel:
         ignored) with ``length_penalty``. ``early_stop=True`` ends the loop
         once every caption in the batch emitted EOS, or, with beams, once no
         live beam can beat the finished ones (result-identical for
-        ``length_penalty >= 0``; the serving default).
+        ``length_penalty >= 0``; the serving default). On the card, greedy
+        and sampled decoding replay each step as a CUDA graph, captured at
+        the first call of each (batch, max_length, sampling flags) and kept
+        with the inference module (not safe for two threads at once); beam
+        search runs eagerly.
         """
         from pgica_tpu_torch.generation.decode import generate  # decode imports models: no cycle at import
+        from pgica_tpu_torch.generation.slots import DecodeGraphs
 
         module = self._inference_module()
+        if self.device.type == "cuda" and (self._decode_graphs is None or self._decode_graphs.module is not module):
+            self._decode_graphs = DecodeGraphs(module, self.device)
         # Phase times below are enqueue-side except the last, which ends in a
         # device->host copy; only the total is a true wall-clock.
         t0 = time.perf_counter()
@@ -378,6 +389,7 @@ class PreferenceGuidedCaptioningModel:
             length_penalty=length_penalty,
             generator=generator,
             early_stop=early_stop,
+            graphs=self._decode_graphs if self.device.type == "cuda" else None,
         ).cpu().numpy()
         t_generate = time.perf_counter() - t0
 
