@@ -36,7 +36,9 @@ exits non-zero):
    gradients, loss, reward metrics, gradient norm and every trained
    parameter; a stage-1 gradient with augmentation and activation
    checkpointing on (card vs CPU), and on the card with dropout, with
-   checkpointing off against on (bit for bit).
+   checkpointing off against on (bit for bit). For GPT-2 also the two
+   metrics that run the model, on 8 seeded images and caption pairs:
+   BERTScore's text-tower route and CLIP-Score (card vs CPU, 1e-4).
 5. Serving: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab 50,262)
    in bf16 with random seeded weights answers caption requests through
    ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
@@ -79,7 +81,7 @@ exits non-zero):
    run; then ``generate_captions`` must serve the trained masters. Per
    stage: ms per micro-step and per update, device busy share, peak memory,
    the host's time inside the profiled steps by operator; per checkpoint
-   bytes and seconds.
+   bytes and seconds. Phase 11b runs on its files before they are deleted.
 
 10. Serving with CUDA graphs. 10a, right after phase 7: generate_captions
    on the trained flagship recasts the bf16 copy, captures its graph anew
@@ -99,8 +101,22 @@ exits non-zero):
    schedulers: latency p50/p95, captions/s, the device busy share, each
    graph's capture time and pool.
 
-Launch counts are reset just before the main path of phases 5, 6, 7, 9, 10
-and of each of phase 8's four paths, and read just after; a graph replay
+11. Evaluation. 11a, right after 10a, on the trained flagship:
+   ``EvaluationRunner`` with configs/default.yaml's evaluation section (4
+   beams, max_length 128, no early_stop) and targets over 256 dummy
+   captioned images at batch 32 (8 timed requests after an untimed
+   warm-up): every metric finite, the captions equal ``generate_captions``'
+   own on the same batches, the launches equal those reckoned from the
+   requests, BERTScore's text-tower forwards and CLIP-Score's (no backward
+   kernel); captions/s, latency, generation against metric seconds, the
+   busy share of one profiled request, and which optional packages the
+   metrics found. 11b, inside phase 9: ``run_evaluation.main`` (both
+   datasets, phase 9's stage-1 best model as the CLIP judge, the restored
+   masters bit-equal to the checkpoint), ``evaluate.main`` (test split)
+   and ``predict.main`` (one JPEG, then a folder of 16), each's wall time.
+
+Launch counts are reset just before the main path of phases 5, 6, 7, 9,
+10, 11a and of each of phase 8's four paths, and read just after; a graph replay
 adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
@@ -1072,6 +1088,9 @@ def phase_full_width(tokenizer, arch: str) -> None:
         raise AssertionError(f"full width: 4-beam tokens differ:\n{beams[0]}\n{beams[1]}")
     log(f"  4-beam tokens ({BEAMS}), 16 steps: identical on card and CPU ({beams[0].tolist()}); "
         f"{time.perf_counter() - t0:.1f} s")
+    if arch == "gpt2":
+        full_width_metrics(cuda, cpu)
+        log(f"  model-route metrics checked; {time.perf_counter() - t0:.1f} s")
     full_width_train(cuda, cpu, spec)
     log(f"  stage 1 checked; {time.perf_counter() - t0:.1f} s")
     full_width_augmented_remat(cuda, cpu, spec)
@@ -1084,6 +1103,30 @@ def phase_full_width(tokenizer, arch: str) -> None:
     log(f"  reference built; {time.perf_counter() - t0:.1f} s")
     full_width_stage2(cuda, cpu, ref, spec)
     log(f"  stage 2 checked; {time.perf_counter() - t0:.1f} s")
+
+
+METRIC_ATOL = 1e-4  # BERTScore P/R/F1 and CLIP-Score (100 x cosine), card (f32 kernels) against CPU
+
+
+def full_width_metrics(cuda, cpu) -> None:
+    """The two metrics that run the model, on 8 seeded images and caption pairs: BERTScore's text-tower
+    route and the self-judged CLIP-Score, on the card (kernels) and on the CPU (plain versions)."""
+    from pgica_tpu_torch.evaluation.metrics import CaptioningMetrics
+    from pgica_tpu_torch.utils.factories import _dummy_caption
+
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)
+    preds = [_dummy_caption(rng) for _ in range(8)]
+    refs = [[_dummy_caption(rng), p.rsplit(" ", 2)[0]] for p in preds]
+    out = []
+    for model in (cuda, cpu):
+        metrics = CaptioningMetrics(model=model)
+        out.append({**metrics.compute_bert_score(preds, refs), **metrics.compute_clip_score(images, preds)})
+    errs = {k: abs(out[0][k] - out[1][k]) for k in out[1]}
+    if out[0].keys() != out[1].keys() or max(errs.values()) > METRIC_ATOL or not all(map(math.isfinite, out[0].values())):
+        raise AssertionError(f"full width: model-route metrics, card {out[0]} against CPU {out[1]}")
+    log(f"  BERTScore (text tower) and CLIP-Score of 8 images and caption pairs, card against CPU: "
+        + ", ".join(f"{k} {v:.6f} (err {errs[k]:.1e})" for k, v in out[0].items()) + f" (atol {METRIC_ATOL})")
 
 
 def stage1_batch(rng, batch: int, seq: int, lengths=None, image: int = 224, vocab: int = GPT2_VOCAB) -> dict:
@@ -2167,11 +2210,102 @@ def phase_train_cli() -> dict:
         log(f"  generate_captions after training, batch 8, 4 beams, max_length 32: {serve_ms:.1f} ms; the bf16 "
             f"serving copy equals the trained masters' cast in all {len(fresh)} tensors, and {moved:,} elements of its "
             f"decoder embedding differ from the stage-2 start's (the reference checkpoint)")
+        del trainer, model, served, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== phase 11b: the evaluation CLIs on phase 9's checkpoints and JPEGs")
+        clis = phase_eval_clis()
         disk = sum(f.stat().st_size for f in PHASE9_DIR.rglob("*") if f.is_file())
         log(f"  build/phase9 held {disk / 1e9:.2f} GB of checkpoints, results and traces")
-        return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms)
+        return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms,
+                    clis=clis)
     finally:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+
+
+REPORT_SECTIONS = {"num_samples", "caption_quality", "preference_alignment", "diversity", "efficiency",
+                   "target_comparison"}
+PREDICT_IMAGES = 16
+
+
+def phase_eval_clis() -> dict:
+    """Phase 11b: run_evaluation, evaluate and predict (``main(argv)``, as the command line calls them) on phase 9's
+    config, JPEGs and stage-2 best model, with its stage-1 best model as the CLIP-Score judge."""
+    import os
+
+    import yaml
+
+    from pgica_tpu_torch.scripts import evaluate, predict, run_evaluation
+
+    ckpts = PHASE9_DIR / "run" / "checkpoints"
+    best, judge = ckpts / "best_model_stage2", ckpts / "best_model_stage1"
+    cfg = yaml.safe_load((PHASE9_DIR / "default_phase9.yaml").read_text())
+    cfg["evaluation"]["clip_judge_checkpoint"] = str(judge)
+    cfg_path = PHASE9_DIR / "default_phase9_eval.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    os.environ["MLFLOW_TRACKING_URI"] = (PHASE9_DIR / "mlruns").as_uri()  # if mlflow is installed: inside build/
+    walls = {}
+
+    t = time.perf_counter()
+    report, model = run_evaluation.run(["--config", str(cfg_path), "--checkpoint", str(best), "--dataset", "both",
+                                        "--output-dir", str(PHASE9_DIR / "eval")])
+    walls["run_evaluation"] = time.perf_counter() - t
+    saved = torch.load(best / "state.pt", map_location="cpu", weights_only=True)["params"]
+    restored = model.module.state_dict()
+    differ = [k for k in saved if not torch.equal(restored[k].cpu(), saved[k])]
+    if differ or saved.keys() != restored.keys():
+        raise AssertionError(f"run_evaluation's restored masters differ from {best.name}: {differ[:4]}")
+    tensors = len(saved)
+    del model, restored, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in report["datasets"].items():
+        values = [v for k, sec in r.items() if k not in ("num_samples", "target_comparison") for v in sec.values()]
+        if (set(r) != REPORT_SECTIONS or r["caption_quality"].get("clip_score_self_judged") != 0.0
+                or not all(map(math.isfinite, values))):
+            raise AssertionError(f"run_evaluation's {name} report: {r}")
+        log(f"  run_evaluation, {name}: {r['num_samples']} samples; " + "; ".join(
+            f"{sec}: " + ", ".join(f"{k} {v:.4g}" for k, v in r[sec].items())
+            for sec in ("caption_quality", "preference_alignment", "diversity", "efficiency")))
+    log(f"  run_evaluation --dataset both: {walls['run_evaluation']:.1f} s (the model, the judge from "
+        f"{judge.name}, 2 x (warm-up + 1 request)); restored masters equal {best.name}'s {tensors} "
+        f"tensors bit for bit; summary {report['summary']}; every report has its five sections and "
+        f"clip_score_self_judged 0.0")
+
+    t = time.perf_counter()
+    out = PHASE9_DIR / "evaluate_test.json"
+    if evaluate.main(["--config", str(cfg_path), "--model-path", str(best), "--split", "test", "--output", str(out),
+                      "--output-dir", str(PHASE9_DIR / "eval_test")]) != 0:
+        raise AssertionError("evaluate.main failed")
+    walls["evaluate"] = time.perf_counter() - t
+    split = json.loads(out.read_text())
+    if split["metrics"].get("clip_score_self_judged") != 0.0 or not all(map(math.isfinite, split["metrics"].values())):
+        raise AssertionError(f"evaluate --split test: {split}")
+    log(f"  evaluate --split test: {walls['evaluate']:.1f} s, {split['num_samples']} samples: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in split["metrics"].items()))
+
+    jpegs = sorted((PHASE9_DIR / "data" / "images").glob("*.jpg"))
+    folder = PHASE9_DIR / "predict_images"
+    folder.mkdir()
+    for path in jpegs[:PREDICT_IMAGES]:
+        shutil.copy(path, folder / path.name)
+    answers = {}
+    for label, argv in (("--image", ["--image", str(jpegs[0])]), ("--image-dir", ["--image-dir", str(folder)])):
+        t = time.perf_counter()
+        out = PHASE9_DIR / f"predict{label.replace('--', '_')}.json"
+        if predict.main(["--config", str(cfg_path), "--model-path", str(best), "--output", str(out), *argv]) != 0:
+            raise AssertionError(f"predict.main {label} failed")
+        walls[f"predict {label}"] = time.perf_counter() - t
+        answers[label] = json.loads(out.read_text())
+    one, many = answers["--image"], answers["--image-dir"]
+    if not isinstance(one.get("caption"), str) or len(many) != PREDICT_IMAGES or not all(
+            isinstance(r["caption"], str) for r in many):
+        raise AssertionError(f"predict: {one}, {many[:2]}")
+    log(f"  predict --image: {walls['predict --image']:.1f} s (request {one['latency_ms']:.1f} ms), caption "
+        f"{one['caption'][:40]!r}; predict --image-dir ({PREDICT_IMAGES} JPEGs, batches of 8): "
+        f"{walls['predict --image-dir']:.1f} s, {len(set(r['caption'] for r in many))} distinct captions "
+        f"[{card()}]")
+    return dict(walls=walls, report=report, split=split)
 
 
 # ------------------------------------------------------------------ phase 10
@@ -2429,6 +2563,122 @@ def phase_after_training(model) -> dict:
     return dict(first_ms=first_ms)
 
 
+# ------------------------------------------------------------------ phase 11
+
+EVAL_SAMPLES, EVAL_BATCH = 256, 32  # 8 requests of configs/default.yaml's generate_config, plus the warm-up
+EVAL_DIR = ROOT / "build" / "phase11"
+VIT_ENCODE = {"layernorm_fwd": 27, "flash_attn_fwd": 12}  # pre_ln, 12 x 2, post_ln, projection ln
+TEXT_TOWER = {"layernorm_fwd": 50, "flash_attn_fwd": 24}  # 24 x 2, ln_f, projection ln
+DECODER_FORWARD = {"layernorm_fwd": 49, "flash_attn_fwd": 24}
+BACKWARD_KERNELS = ("layernorm_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+                    "rmsnorm_bwd")
+
+
+def metric_routes(metrics: dict) -> str:
+    """Which optional packages the metrics found, and the flags of the routes they took."""
+    found = []
+    for name in ("nltk", "rouge_score"):
+        try:
+            found.append(f"{name} {getattr(__import__(name), '__version__', 'importable')}")
+        except ImportError as e:
+            found.append(f"{name} not installed ({e})")
+    flags = {k: metrics[k] for k in ("meteor_nltk", "meteor_synonym_stage", "bert_score_proxy", "clip_score_self_judged")
+             if k in metrics}
+    return "; ".join(found) + f"; flags {flags}"
+
+
+def phase_evaluation(model) -> dict:
+    """Phase 11a: EvaluationRunner over the trained flagship of phases 6-7 with configs/default.yaml's evaluation
+    section (4 beams, max_length 128, no early_stop) and targets, over EVAL_SAMPLES dummy captioned images."""
+    from pgica_tpu_torch.data.loader import DataLoader
+    from pgica_tpu_torch.evaluation.runner import EvaluationRunner, generate_kwargs
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.utils.config import Config
+    from pgica_tpu_torch.utils.factories import DummyConceptualDataset, create_metrics, create_processors
+
+    config = Config(ROOT / "configs" / "default.yaml")
+    image_processor, text_processor = create_processors(config, model.tokenizer)
+    loader = DataLoader(DummyConceptualDataset(image_processor, text_processor, EVAL_SAMPLES, seed=11), EVAL_BATCH)
+    metrics = create_metrics(config, model)
+    spent = {"compute_all_metrics": 0.0, "_text_tower_tokens": 0.0, "compute_clip_score": 0.0}
+
+    def timed(name):
+        fn = getattr(metrics, name)
+
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        setattr(metrics, name, call)
+
+    for name in spent:
+        timed(name)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    runner = EvaluationRunner(model, config, metrics, EVAL_DIR)
+    kwargs = generate_kwargs(config)
+    try:
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        result = runner.run_evaluation(loader)
+        wall_s = time.perf_counter() - t
+        counts = _kernels.launch_counts()  # ---- and ends here
+        records = json.loads((EVAL_DIR / "predictions.json").read_text())
+        saved = json.loads((EVAL_DIR / "metrics.json").read_text())
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    m = result["metrics"]
+    predictions = [r["prediction"] for r in records]
+    log(f"  EvaluationRunner (configs/default.yaml: {kwargs}) over {EVAL_SAMPLES} dummy images at batch {EVAL_BATCH}: "
+        f"{result['num_samples']} captions in {wall_s:.1f} s; metric routes: {metric_routes(m)}")
+    bad = [k for k, v in saved.items() if not math.isfinite(v)]
+    if result["num_samples"] != EVAL_SAMPLES or bad or saved.keys() != m.keys():
+        raise AssertionError(f"phase 11a: {result['num_samples']} samples, metrics not finite {bad}, {saved.keys()}")
+    log("  metrics (all finite): " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+
+    # the launches reckoned from what ran: each request encodes the batch and runs one decoder forward per
+    # position (4 beams without early_stop: the prefix and max_length - 1 steps); BERTScore embeds each distinct
+    # text once, EVAL_BATCH texts a text-tower forward; CLIP-Score encodes the first batch's images and captions
+    requests = EVAL_SAMPLES // EVAL_BATCH + 1
+    texts = len(dict.fromkeys(predictions + [r for rec in records for r in rec["references"]]))
+    bert_forwards = -(-texts // metrics.BERT_SCORE_BATCH)
+    want = {k: requests * (VIT_ENCODE[k] + kwargs["max_length"] * DECODER_FORWARD[k]) + VIT_ENCODE[k]
+            + (bert_forwards + 1) * TEXT_TOWER[k] for k in SERVING_KERNELS}
+    got = {k: counts[k] for k in SERVING_KERNELS}
+    backward = {k: counts.get(k, 0) for k in BACKWARD_KERNELS}
+    if got != want or any(backward.values()):
+        raise AssertionError(f"phase 11a launched {got} (backward {backward}), reckoned {want}")
+    log(f"  launches {got} = reckoned from {requests} requests x (encode + {kwargs['max_length']} decoder forwards), "
+        f"{bert_forwards} BERTScore text-tower forwards ({texts} distinct texts) and CLIP-Score's image and text "
+        f"forwards; no backward kernel ran {backward}")
+
+    direct = []
+    for batch in loader:
+        direct.extend(model.generate_captions(batch["image"], **kwargs))
+    if direct != predictions:
+        diff = sum(a != b for a, b in zip(direct, predictions))
+        raise AssertionError(f"phase 11a: {diff} of the runner's captions differ from generate_captions' own")
+    log(f"  the runner's {len(predictions)} captions equal generate_captions' on the same batches ({len(set(predictions))} "
+        "distinct)")
+
+    latencies_s = m["latency_ms_mean"] * m["latency_n_requests"] / 1e3
+    generation_s = latencies_s + m["decode_warmup_ms"] / 1e3
+    first = next(iter(loader))["image"]
+    profile = profiled(lambda: model.generate_captions(first, **kwargs), "batch-32 4-beam eval request (128 steps)",
+                       m["latency_ms_median"])
+    r = dict(counts=counts, captions_per_s=EVAL_SAMPLES / latencies_s, latency_ms_mean=m["latency_ms_mean"],
+             latency_ms_median=m["latency_ms_median"], warmup_ms=m["decode_warmup_ms"], generation_s=generation_s,
+             metrics_s=spent["compute_all_metrics"], bert_s=spent["_text_tower_tokens"],
+             clip_s=spent["compute_clip_score"], wall_s=wall_s, busy=profile.get("busy"), texts=texts,
+             bert_forwards=bert_forwards)
+    log(f"  eval run: {r['captions_per_s']:.2f} captions/s over the 8 timed requests (latency mean "
+        f"{r['latency_ms_mean']:.1f} ms, median {r['latency_ms_median']:.1f}; warm-up {r['warmup_ms']:.1f} ms); "
+        f"generation {generation_s:.1f} s against metrics {r['metrics_s']:.1f} s (BERTScore's text-tower forwards "
+        f"{r['bert_s']:.2f} s, CLIP-Score {r['clip_s']:.2f} s) of {wall_s:.1f} s [{card()}]")
+    return r
+
+
 # the eager decode loop before the step ran as a CUDA graph: this script's phase 5 at commit 785cccd
 # (PERF.md; H100 80GB HBM3, 700 W), ms
 EAGER_LOOP_MS = {"eval 32 x 64": 804.5, "greedy batch 1 x 32": 648.4, "greedy batch 8 x 32": 564.6,
@@ -2594,6 +2844,8 @@ def main() -> int:
     dpo = phase("phase 7: the slice, stage-2 DPO training (flagship, bf16 over f32 masters, bf16 reference)",
                 phase_stage2, model)
     phase("phase 10a: graphed serving after training (the flagship of phases 6-7)", phase_after_training, model)
+    evaluation = phase("phase 11a: evaluation (EvaluationRunner, configs/default.yaml's evaluation section, the trained "
+                       "flagship of phases 6-7)", phase_evaluation, model)
     del model
     gc.collect()  # the GPT-2 flagship is free now
     torch.cuda.empty_cache()
@@ -2612,7 +2864,8 @@ def main() -> int:
         + ")")
 
     paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
-             **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"]}
+             **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"],
+             "evaluation": evaluation["counts"]}
     summary = []
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
         # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over

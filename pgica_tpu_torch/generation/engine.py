@@ -26,8 +26,12 @@ Greedy captions are token-identical to the batch path's (same argmax,
 repetition penalty and EOS handling; tests/test_torch_engine.py). Sampling
 draws from one generator across admissions and chunks, so its stream
 differs from a fresh batch decode's, as the JAX engine's does (slots join
-mid-stream). The engine serves the weights of the model's inference module
-at construction, as the JAX engine serves the params it took then.
+mid-stream). The engine serves the weights the model had at construction,
+as the JAX engine serves the params it took then: in bf16 the model's
+serving copy of that moment, in float32 a copy of its masters (the train
+steps and ``load_jax_params`` update the masters in place). That float32
+copy costs one more copy of the weights: 3.2 GB for the flagship's 803.3 M
+parameters.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from pgica_tpu_torch.generation.slots import (
     init_slot_state,
     to_device,
 )
+from pgica_tpu_torch.models.model import frozen_copy
 
 logger = logging.getLogger(__name__)
 
@@ -116,7 +121,9 @@ class ContinuousDecodeEngine:
         self.chunk = int(chunk)
         self.max_length = int(max_length)
         self.pick = Sampler(do_sample, temperature, top_p, repetition_penalty)
-        self.module = model._inference_module()
+        module = model._inference_module()
+        # the float32 inference module is the masters themselves: serve a copy of them
+        self.module = frozen_copy(module, torch.float32) if module is model.module else module
         self._init_state, self._admit, self._chunk = make_engine_fns(
             self.module, slots=self.slots, chunk=self.chunk, max_length=self.max_length,
             eos_token_id=self.tokenizer.eos_token_id, pad_token_id=self.tokenizer.pad_token_id,

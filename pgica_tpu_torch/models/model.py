@@ -336,6 +336,23 @@ class PreferenceGuidedCaptioningModel:
         """uint8 (or normalized float) NHWC images -> dict of tensors on the device."""
         return self._inference_module().encode_image(self._images(images))
 
+    @property
+    def temperature(self) -> float:
+        """The contrastive temperature that ``compute_similarity`` divides by."""
+        return self.module.temperature
+
+    @torch.inference_mode()
+    def compute_similarity(self, images, caption_ids, caption_mask=None) -> np.ndarray:
+        """(B_img, B_txt) cosine similarity / temperature on the host (JAX model.py:366-368).
+
+        ``images`` as ``encode_image`` takes them; ``caption_ids`` and
+        ``caption_mask`` are (B_txt, S) integer arrays or tensors, the mask
+        ones by default.
+        """
+        ids = torch.as_tensor(caption_ids, device=self.device)
+        mask = torch.ones_like(ids) if caption_mask is None else torch.as_tensor(caption_mask, device=self.device)
+        return self._inference_module().compute_similarity(self._images(images), ids, mask).cpu().numpy()
+
     def generate_captions(
         self,
         images,

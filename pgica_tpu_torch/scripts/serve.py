@@ -32,7 +32,6 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
@@ -40,8 +39,7 @@ import numpy as np
 
 def _load_serving_model(config, model_path=None, device: str = "cuda"):
     """(image_processor, model) with the uint8 wire format and an optional checkpoint."""
-    from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params
-    from pgica_tpu_torch.utils.factories import create_model, create_processors, create_tokenizer
+    from pgica_tpu_torch.utils.factories import create_model, create_processors, create_tokenizer, restore_params
 
     tokenizer = create_tokenizer(config)
     image_processor, _ = create_processors(config, tokenizer)
@@ -50,8 +48,7 @@ def _load_serving_model(config, model_path=None, device: str = "cuda"):
     image_processor.device_side_normalization = True
     model = create_model(config, tokenizer, device=device)
     if model_path:
-        payload = CheckpointManager(Path(model_path).parent).restore(model_path)
-        model.module.load_state_dict(effective_params(payload))
+        restore_params(model, model_path)
     return image_processor, model
 
 

@@ -1,7 +1,7 @@
-"""Factories of the training CLI (the port's copy of pgica_tpu/utils/factories.py).
+"""Factories of the CLIs (the port's copy of pgica_tpu/utils/factories.py).
 
-Logging setup, seeding, tokenizer, processors, model and loaders from a
-:class:`~pgica_tpu_torch.utils.config.Config`, with the dummy-data fallback:
+Logging setup, seeding, tokenizer, processors, model, metrics and loaders
+from a :class:`~pgica_tpu_torch.utils.config.Config`, with the dummy-data fallback:
 when a configured data path does not exist, an in-memory synthetic dataset
 (the JAX package's, the same numpy values for one seed) takes its place, so
 the CLI runs without any dataset.
@@ -19,9 +19,8 @@ Config keys the port reads differently:
 * Not ported, and raising with their ROADMAP item: a dataset-trained BPE
   (``data.bpe_vocab_size`` with an existing corpus, queue 1 item 4); LoRA
   (``model.lora_config``), a shared text tower and int8 decode
-  (``inference.quantization``), queue 1 item 8. The mesh and evaluation
-  factories are left out with the parallel stack and evaluation (queue 1
-  items 9 and 5).
+  (``inference.quantization``), queue 1 item 8. The mesh factory is left
+  out with the parallel stack (queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -124,6 +123,16 @@ def create_model(config, tokenizer=None, seed: Optional[int] = None, device: Uni
     )
 
 
+def restore_params(model, checkpoint) -> None:
+    """Load the parameters of a checkpoint directory (``CheckpointManager``'s layout) into ``model``'s masters."""
+    from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params
+
+    path = Path(checkpoint)
+    if not path.exists():
+        raise FileNotFoundError(f"Checkpoint not found: {checkpoint}")
+    model.module.load_state_dict(effective_params(CheckpointManager(path.parent).restore(path)))
+
+
 def create_processors(config, tokenizer=None):
     from pgica_tpu_torch.data.preprocessing import ImageProcessor, TextProcessor
 
@@ -137,6 +146,46 @@ def create_processors(config, tokenizer=None):
     )
     text_processor = TextProcessor(tokenizer=tokenizer, max_length=config.get("data.max_caption_length", 128))
     return image_processor, text_processor
+
+
+def create_metrics(config, model=None):
+    """CaptioningMetrics wired from config (JAX factories.py:192-240):
+
+    * ``evaluation.clip_judge_checkpoint`` — checkpoint dir of an INDEPENDENT
+      contrastive model used as the CLIP-Score judge, built by
+      :func:`create_model` on ``model``'s device (the card without a model)
+      and restored into its masters. Self-scoring (flagged
+      ``clip_score_self_judged``) is the fallback when the checkpoint is
+      missing or does not fit the config's model.
+    * ``evaluation.bert_score_model_path`` — local HF encoder checkpoint for
+      real BERTScore embeddings; proxies (flagged) otherwise.
+    * ``evaluation.wordnet_path`` — nltk data directory (real wordnet corpus)
+      or JSON synonym table enabling METEOR's synonym stage; without it the
+      stage is a flagged no-op.
+    """
+    from pgica_tpu_torch.evaluation.metrics import CaptioningMetrics
+
+    clip_judge = None
+    judge_ckpt = config.get("evaluation.clip_judge_checkpoint")
+    if judge_ckpt and Path(str(judge_ckpt)).exists():
+        on = {} if model is None else dict(tokenizer=model.tokenizer, device=model.device)
+        clip_judge = create_model(config, **on)
+        try:
+            restore_params(clip_judge, judge_ckpt)
+            logger.info("CLIP-Score judge restored from %s", judge_ckpt)
+        except (OSError, KeyError, RuntimeError) as e:  # no state file, no params, or another architecture
+            logger.warning("clip_judge_checkpoint unusable (%s); self-scoring", e)
+            clip_judge = None
+    bert_path = config.get("evaluation.bert_score_model_path")
+    if bert_path and not Path(str(bert_path)).exists():
+        logger.warning("bert_score_model_path %s not found; proxy BERTScore", bert_path)
+        bert_path = None
+    wordnet_path = config.get("evaluation.wordnet_path")
+    if wordnet_path and not Path(str(wordnet_path)).exists():
+        logger.warning("wordnet_path %s not found; METEOR synonym stage off", wordnet_path)
+        wordnet_path = None
+    return CaptioningMetrics(model=model, clip_judge=clip_judge, bert_model_path=bert_path,
+                             wordnet_path=wordnet_path)
 
 
 # ------------------------------------------------------------------ dummy data

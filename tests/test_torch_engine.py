@@ -308,6 +308,47 @@ def test_engine_captions_equal_the_jax_engine(jax_models, engine_images, arch):
     assert got == want
 
 
+
+def _with_decoder_embedding(params, fn):
+    tree = jax.tree.map(np.array, params)
+    wte = tree["caption_decoder"]["lm"]["wte"]
+    wte["embedding"] = fn(wte["embedding"])
+    return tree
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_engine_serves_the_weights_it_was_built_with(jax_models, engine_images, dtype):
+    """Updating the masters in place (as a train step and ``load_jax_params`` do) changes nothing the
+    engine serves: it keeps the weights it was built with, as the JAX engine keeps the param tree it
+    took. ``generate_captions`` serves the new weights: a model built from them gives its captions."""
+    params = jax.tree.map(np.array, jax_models["gpt2"].params)
+
+    def port(tree):
+        model = PreferenceGuidedCaptioningModel(tokenizer=CaptionTokenizer(), dtype=dtype, device="cpu",
+                                                **TINY["gpt2"])
+        model.load_jax_params(tree)
+        return model
+
+    model, images = port(params), engine_images[:4]
+    eng = ContinuousDecodeEngine(model, slots=4, chunk=2, max_length=MAX_LENGTH)
+    eng.warmup()
+    eng.start()
+    try:
+        built = _submit_all(eng, images)
+        assert built == model.generate_captions(images, max_length=MAX_LENGTH)
+        with torch.no_grad():
+            model.module.caption_decoder.lm.wte.weight.mul_(-3)
+        scaled = port(_with_decoder_embedding(params, lambda w: -3 * w)).generate_captions(images, max_length=MAX_LENGTH)
+        assert model.generate_captions(images, max_length=MAX_LENGTH) == scaled != built
+        assert _submit_all(eng, images) == built
+        reversed_rows = _with_decoder_embedding(params, lambda w: w[::-1].copy())
+        model.load_jax_params(reversed_rows)
+        assert model.generate_captions(images, max_length=MAX_LENGTH) == port(reversed_rows).generate_captions(
+            images, max_length=MAX_LENGTH) != built
+        assert _submit_all(eng, images) == built
+    finally:
+        eng.stop()
+
 def test_slot_state_refuses_unreachable_positions_and_graphs_refuse_the_cpu(port_model):
     """A GPT-2 slot rests at position max_length, whose wpe row must exist (on the card an index
     past the table is a device fault, not an exception); a CUDA graph takes CUDA work only."""
