@@ -14,7 +14,7 @@ exits non-zero):
 3. Kernels vs plain: each of the ten kernels against its plain PyTorch
    version on the card at the shapes the GPT-2 flagship's and the Llama
    slice's serving, stage-1 and stage-2 paths give it, bf16 and f32, with
-   its time (CUDA events, median of 21 bursts, on input sets that rotate
+   its time (CUDA events, median of 11 bursts, on input sets that rotate
    through more than twice the L2, so they come from HBM; the fused
    linear-CE kernels, tens to hundreds of ms a call over a W larger than the
    L2: median of 5 single calls; the flash decode forward also at the
@@ -24,11 +24,11 @@ exits non-zero):
    inputs need at HBM rate and peak rate (fused CE: the bf16 tensor-core peak,
    one pass per product, for every type pair), and the launches one
    LayerNorm call makes with the gaps between them. It first reports the
-   tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA,
-   and times both flash forward kernels at Sq 1-64, where the dispatch
-   threshold lies.
-4. Full path vs plain, for each architecture at full width, 2 layers per
-   tower, f32 — ViT-B/32 + GPT-2 Medium, then SigLIP so400m + Llama-3-8B
+   tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA/
+   IMMA, and times both flash forward kernels either side of the dispatch
+   threshold; its float32 pass times 5 bursts of 5 (bf16: 11 of 20).
+4. Full path vs plain, for each architecture at full width, f32 — 2 layers
+   a tower for ViT-B/32 + GPT-2 Medium, then 1 for SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
    the card (kernels) and on the CPU (plain versions): embeddings, prefix
    and step logits, 16 greedy tokens and 16 tokens of 4-beam search; then
@@ -97,8 +97,8 @@ exits non-zero):
    captions equal generate_captions' for requests in staggered bursts; for
    GPT-2 both services answer /healthz and a JPEG /caption over HTTP on
    127.0.0.1, and a seeded Poisson arrival of 128 requests at 100/s runs
-   through the continuous (graphed, then an eager chunk) and the batch
-   schedulers: latency p50/p95, captions/s, the device busy share, each
+   through the continuous (graphed) and the batch schedulers: latency
+   p50/p95, captions/s (not profiled: one profiled run hung), each
    graph's capture time and pool.
 
 11. Evaluation. 11a, right after 10a, on the trained flagship:
@@ -115,8 +115,43 @@ exits non-zero):
    masters bit-equal to the checkpoint), ``evaluate.main`` (test split)
    and ``predict.main`` (one JPEG, then a folder of 16), each's wall time.
 
+12. Int8 decode and LoRA. 12a, right after phase 3: both int8 entry points
+   of csrc/q8_matmul.cu (W8A8: the row quantizer and the int8 tensor-core
+   product; weight-only: bf16 dequantized in registers, tensor cores, and
+   f32 on CUDA cores) against their plain versions at the decode paths'
+   shapes (GPT-2 Medium at 1, 8, 16, 32 and 128 rows, Llama-3-8B at 8) and
+   ragged tails: the row quantizer and the f32 W8A8 output bit-equal (its
+   epilogue is exact arithmetic on the int32 sums), the bf16 output within
+   1 ulp, weight-only within the bf16 tolerance; each bf16 shape timed with
+   its bound, at 16 and 128 rows and Llama's also the plain version,
+   torch._int_mm (where its shape rules allow it) and F.linear on the bf16
+   dequantized weight. 12b: the int8 twin of phase 4's 2-layer f32 GPT-2
+   flagship, card against CPU (1e-4, inside phase 4); after 11a, on the
+   trained flagship in both modes, greedy requests at batch 1, 8 and 32 and
+   a 4-beam batch 8 through generate_captions, the engine's chunk replay,
+   each graph holding the int8 kernels, beside the bf16 figures; in phase 8
+   a greedy batch-8 request on the Llama slice in bf16 and both modes. 12c,
+   inside phase 9 on its JPEGs: the training CLI on configs/lora.yaml at
+   full width (``LORA_REDUCED``): adapters only, the base bit-unchanged,
+   fused-CE dW never launched, the best checkpoint merged at the end and
+   served through predict.main.
+
+Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
+tower and 2-row train steps and replays its optimizer without the token
+embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
+phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 11
+bursts (21 before; its float32 pass 5 of 5); every profile is read off the
+trace's raw events (``pgica_tpu_torch/utils/trace.py``): ``key_averages``
+took up to 46 s to parse one. Phase 5 no longer profiles a 4-beam request
+(phase 11a profiles the same 128 eager steps), phase 10 no longer runs the
+eager chunk under Poisson load (it times the eager chunk against the
+graphed one) nor profiles a Poisson run (one hung), and phase 3 no longer
+sweeps the flash crossover (``flash_crossover`` stays, to call from a
+script). A run still going after ``STACKS_AFTER_S`` dumps every thread's
+stack to stderr.
+
 Launch counts are reset just before the main path of phases 5, 6, 7, 9,
-10, 11a and of each of phase 8's four paths, and read just after; a graph replay
+10, 11a, 12b, 12c and of each of phase 8's paths, and read just after; a graph replay
 adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
@@ -126,6 +161,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
 import itertools
 import json
@@ -144,7 +180,7 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}  # dense; f32 off the tensor cores
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}  # (atol, rtol) on y / o / dx
 ATTN_F32_ATOL = 2e-5
 ATTN_BWD_F32_TOL = (2e-5, 1e-5)  # dk/dv sum up to 128 rows' terms of size ~10: f32 rounding grows with both
@@ -160,16 +196,25 @@ BEAMS = dict(num_beams=4, length_penalty=1.0, repetition_penalty=1.1)
 LLAMA_SERVING_KERNELS = SERVING_KERNELS + ("rmsnorm_fwd",)
 
 
+STACKS_AFTER_S = 1_080  # faulthandler's dump of every thread's stack, if the run is still going
+T_START = time.perf_counter()  # every log line carries the seconds since the script started
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:6.1f}] {msg}", flush=True)
 
 
 def dname(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def time_ms(fn, arg_sets, reps: int = 20, trials: int = 21) -> float:
-    """Median over ``trials`` of the mean device time of ``reps`` back-to-back calls.
+BF16_TIMING = {"reps": 20, "trials": 11}  # time_ms's depth (21 trials before: the limit)
+TIMING = dict(BF16_TIMING)  # phase 3 times its float32 pass at F32_TIMING
+F32_TIMING = {"reps": 5, "trials": 5}  # no path of the main runs launches those; a shallower timing keeps the limit
+
+
+def time_ms(fn, arg_sets, reps: int | None = None, trials: int | None = None) -> float:
+    """Median over ``trials`` of the mean device time of ``reps`` back-to-back calls (TIMING's by default).
 
     A sleep kernel runs first so the host queues the whole burst before the
     card reaches it: the events then time the card, not the Python launch
@@ -177,6 +222,7 @@ def time_ms(fn, arg_sets, reps: int = 20, trials: int = 21) -> float:
     used again, so sets larger in total than the 50 MB L2 arrive cold, as
     the KV caches of 24 layers do in the real decode.
     """
+    reps, trials = reps or TIMING["reps"], trials or TIMING["trials"]
     fn(*arg_sets[0])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -326,8 +372,9 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
 def flash_crossover(gen: torch.Generator) -> None:
     """Both bf16 forward kernels (CUDA cores, tensor cores) at small Sq, where the dispatch threshold
     TC_MIN_SQ lies: GPT-2's decoder heads (32 x 16, D 64) and Llama's (8 x 32, D 128) over a cache of
-    129 slots with ragged kept keys. Logs the times; the threshold in ops/flash_attention.py is set
-    from them."""
+    129 slots with ragged kept keys. Logs the times; the threshold in ops/flash_attention.py was set
+    from them. Not part of the run (phase 3 times the rows either side of the threshold): call it
+    from a script to measure the sweep again."""
     from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     for b, h, d in ((32, 16, 64), (8, 32, 128)):
@@ -710,7 +757,9 @@ TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",),
               "flash_attn_bwd.cu": ("flash_attn_bwd_dkv_tc", "flash_attn_bwd_dq_tc"),
               "fused_ce.cu": ("fused_ce_fwd_tiles",),
               "fused_ce_bwd.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product", "fused_ce_dw_coeff",
-                                  "fused_ce_dw_product")}
+                                  "fused_ce_dw_product"),
+              "q8_matmul.cu": ("gemm_s8", "gemm_w8_bf16")}
+TC_OPS = ("HGMMA", "HMMA", "IMMA")  # bf16 and int8 tensor-core instructions in SASS
 
 
 def _demangle(names: list) -> list:
@@ -726,9 +775,15 @@ def tensor_core_report() -> None:
     SASS. Raises if an instance has no tensor-core instruction: these kernels exist to use them."""
     from pgica_tpu_torch.ops import _kernels
 
+    from concurrent.futures import ThreadPoolExecutor
+
     tool = shutil.which("cuobjdump") or str(Path(_kernels._nvcc()).parent / "cuobjdump")
+    libs = {source: _kernels.library_path(source) for source in TC_KERNELS}
+    with ThreadPoolExecutor(len(libs)) as pool:  # one cuobjdump a library, all at once
+        dumps = dict(zip(libs, pool.map(lambda lib: subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                                                                   text=True, check=True).stdout, libs.values())))
     for source, names in TC_KERNELS.items():
-        lib = _kernels.library_path(source)
+        lib = libs[source]
         entries = {}
         for part in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
             name = part.split("'", 1)[0]
@@ -737,16 +792,15 @@ def tensor_core_report() -> None:
                 regs = re.search(r"Used (\d+) registers", part)
                 entries[name] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
                                      spill_loads=int(spill.group(2)))
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-        for part in sass.split("Function : ")[1:]:
+        for part in dumps[source].split("Function : ")[1:]:
             name = part.split(None, 1)[0]
             if name in entries:
-                entries[name]["sass"] = sorted({op for op in ("HGMMA", "HMMA") if op in part})
+                entries[name]["sass"] = sorted({op for op in TC_OPS if op in part})
         for (name, e), pretty in zip(entries.items(), _demangle(list(entries))):
             log(f"  {pretty}: {e['registers']} registers, spill stores {e['spill_stores']} B, spill loads "
                 f"{e['spill_loads']} B; tensor-core SASS: {', '.join(e.get('sass', [])) or 'none'}")
             if not e.get("sass"):
-                raise AssertionError(f"{pretty}: no HMMA/HGMMA in its SASS ({lib.name})")
+                raise AssertionError(f"{pretty}: no HMMA/HGMMA/IMMA in its SASS ({lib.name})")
 
 
 # LayerNorm shapes of the main paths, (rows, H, where): phase 3 times each, forward and backward
@@ -896,6 +950,7 @@ def phase_kernels() -> dict:
     stage2_valid = {128: torch.full((64,), 128, device="cuda"),
                     32: torch.randint(8, 29, (64,), device="cuda", generator=gen)}
     for dtype in (torch.bfloat16, torch.float32):
+        TIMING.update(BF16_TIMING if dtype == torch.bfloat16 else F32_TIMING)
         layernorm_cases(LN_FWD_SHAPES, (), dtype, gen, results)
         decode_valid = torch.full((32,), 41, device="cuda")  # step 40 of 64: keys 0..40 kept
         ragged = torch.tensor([77, 50], device="cuda")
@@ -962,10 +1017,12 @@ def phase_kernels() -> dict:
                                              dtype, gen, timed=False)
             log(f"  flash bwd d={d} (4, 33, 33, {d}) {dname(dtype)} causal={d != 32}, a row without keys: "
                 f"max_abs_err dq {r_dq['max_abs_err']:.3e}, dk/dv {r_dkv['max_abs_err']:.3e}")
+    TIMING.update(BF16_TIMING)
+    log(f"  (the float32 pass above timed {F32_TIMING['trials']} bursts of {F32_TIMING['reps']}; bf16 and everything "
+        f"below, {TIMING['trials']} bursts of {TIMING['reps']})")
 
     for kernel, rows, hidden in LN_BREAKDOWN:
         launch_breakdown(kernel, rows, hidden)
-    flash_crossover(gen)
     # fused linear-CE at the stage-2 shapes (batch 32: 64 caption rows of 127 or 31 targets): bf16
     # hidden states with the policy's f32 W and with the reference's bf16 W; bucketed rows past a
     # caption's end have g = 0, as the path gives them
@@ -1041,10 +1098,12 @@ def phase_full_width(tokenizer, arch: str) -> None:
     from pgica_tpu_torch.ops import _kernels
 
     spec = FULL_WIDTH[arch]
+    if arch == "llama":
+        log("  reduced: " + "; ".join(PHASE4_REDUCED))
     t0 = time.perf_counter()
     kwargs = dict(
-        vision_model=dataclasses.replace(get_vision_config(spec["vision"]), num_layers=2),
-        text_model=dataclasses.replace(get_text_config(spec["text"]), num_layers=2),
+        vision_model=dataclasses.replace(get_vision_config(spec["vision"]), num_layers=spec["layers"]),
+        text_model=dataclasses.replace(get_text_config(spec["text"]), num_layers=spec["layers"]),
         projection_dim=512, tokenizer=tokenizer, max_caption_length=128, vocab_size=spec["vocab"],
         dtype=torch.float32, seed=0, dropout=0.0,  # dropout 0: the card's and the CPU's streams differ
     )
@@ -1065,6 +1124,8 @@ def phase_full_width(tokenizer, arch: str) -> None:
     if min(counts.values()) == 0:
         raise AssertionError(f"full width: a kernel was not launched on the card: {counts}")
     log(f"  kernel launches on the card: {counts}")
+    if arch == "gpt2":
+        quant_full_width(cuda, cpu, images)
     ids = []
     for model, emb in ((cuda, emb_g.cuda()), (cpu, emb_c)):
         ids.append(generate(model.module, emb, eos_token_id=tokenizer.eos_token_id,
@@ -1200,7 +1261,7 @@ def train_on_both(cuda, cpu, make, batches, loss_of) -> dict:
     return dict(runs=runs, initial=initial, opt=opt, counts=counts)
 
 
-def compare_training(label: str, run: dict, metric_tols: dict) -> None:
+def compare_training(label: str, run: dict, metric_tols: dict, replay_max: int | None = None) -> None:
     """Phase 4's standard for card-vs-CPU training.
 
     The gradients of every batch agree leaf by leaf (relative L2 and every
@@ -1218,7 +1279,7 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
     wrong gradient. The comparisons run on the card (the CPU side's tensors
     are copied there); the replay of the optimizer runs on the CPU.
     """
-    from pgica_tpu_torch.training.optim import OptState
+    from pgica_tpu_torch.training.optim import OptState, global_norm
 
     runs, steps = run["runs"], len(run["runs"]["card"][0])
     names = runs["card"][1].opt_state.names
@@ -1254,17 +1315,23 @@ def compare_training(label: str, run: dict, metric_tols: dict) -> None:
                 raise AssertionError(f"{label} step {i}: {key} card {mg[key]} cpu {mc[key]} (atol {atol}, rtol {rtol})")
         log(f"  step {i}: " + ", ".join(f"{k} card {mg[k]:.7g} cpu {mc[k]:.7g}" for k in metric_tols)
             + " (" + ", ".join(f"{k} atol {a:g} rtol {r:g}" for k, (a, r) in metric_tols.items()) + ")")
-    # the card's optimizer against the CPU's, both fed the card's gradients: exact, no element excused
-    initial = run["initial"]
-    replay = OptState(list(names), initial, 0, [torch.zeros_like(p) for p in initial],
+    # the card's optimizer against the CPU's, both fed the card's gradients: exact, no element excused. With
+    # replay_max the replay leaves out the leaves larger than that (Adam is elementwise once the clip's norm,
+    # taken over every leaf, is given)
+    kept = [i for i, p in enumerate(run["initial"]) if replay_max is None or p.numel() <= replay_max]
+    initial = [run["initial"][i] for i in kept]
+    replay = OptState([names[i] for i in kept], initial, 0, [torch.zeros_like(p) for p in initial],
                       [torch.zeros_like(p) for p in initial])
     for grads in runs["card"][2]:
-        run["opt"].update([g.cpu() for g in grads], replay)
-    replay_err = max(check_close(f"{label}: {name} against the CPU optimizer on the card's gradients",
-                                 pg.detach(), pr.cuda(), 1e-6, 0.0)
-                     for name, pg, pr in zip(names, state_g.opt_state.params, replay.params))
+        on_cpu = [g.cpu() for g in grads]
+        run["opt"].update([on_cpu[i] for i in kept], replay, grad_norm=float(global_norm(on_cpu)))
+    replay_err = max(check_close(f"{label}: {names[i]} against the CPU optimizer on the card's gradients",
+                                 state_g.opt_state.params[i].detach(), pr.cuda(), 1e-6, 0.0)
+                     for i, pr in zip(kept, replay.params))
     log(f"  the card's parameters after {steps} steps against the CPU optimizer fed the card's gradients: max abs "
-        f"diff {replay_err:.3e} (atol 1e-6, every element)")
+        f"diff {replay_err:.3e} (atol 1e-6, every element" + (
+            f" of the {len(kept)} of {len(names)} leaves of at most {replay_max:,} elements)" if len(kept) < len(names)
+            else ")"))
     adam_bound = 2 * lr * state_g.opt_state.count  # at most lr per update, each side
     total = n_loose = 0
     held_err = loose_err = 0.0
@@ -1310,7 +1377,8 @@ def full_width_train(cuda, cpu, spec: dict) -> None:
     run = train_on_both(cuda, cpu, make, batches, loss_of)
     run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage1"]}
     log(f"  stage 1, batch {n} x 32 (ragged):")
-    compare_training("full width stage 1", run, {"loss": (0.0, 1e-4), "grad_norm": (0.0, 1e-3)})
+    compare_training("full width stage 1", run, {"loss": (0.0, 1e-4), "grad_norm": (0.0, 1e-3)},
+                     spec.get("replay_max"))
 
 
 def set_remat(module, on: bool) -> None:
@@ -1435,11 +1503,12 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
                               0.1, False, False, 0.0)[0]
 
     rng = np.random.default_rng(3)
-    batches = [stage2_batch(rng, 4, 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
+    batches = [stage2_batch(rng, spec["stage2_batch"], 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
     run = train_on_both(cuda, cpu, lambda m: stage2_trainer(m, refs[m], frozen=spec["stage2_frozen"]), batches,
                         loss_of)
     run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage2"]}
-    log(f"  stage 2, batch 4 pairs x {batches[0]['preferred_ids'].shape[1]} (ragged), f32 reference:")
+    log(f"  stage 2, batch {spec['stage2_batch']} pairs x {batches[0]['preferred_ids'].shape[1]} (ragged), f32 "
+        "reference:")
     # both steps see the same parameters on both sides (the first update has lr 0). A sequence's
     # log-prob sums <= 31 token log-probs of ~-11, each within ~1e-5 between the two sides; a reward
     # is beta = 0.1 times a difference of two such sums; a pair's margin within that of 0 may flip
@@ -1447,7 +1516,7 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
     compare_training("full width stage 2", run, {
         "loss": (0.0, 1e-4), "grad_norm": (0.0, 1e-3), "policy_chosen_logp": (1e-3, 1e-5),
         "policy_rejected_logp": (1e-3, 1e-5), "chosen_reward": (2e-4, 0.0), "rejected_reward": (2e-4, 0.0),
-        "reward_margin": (4e-4, 0.0), "reward_accuracy": (0.25, 0.0)})
+        "reward_margin": (4e-4, 0.0), "reward_accuracy": (0.25, 0.0)}, spec.get("replay_max"))
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1577,43 +1646,41 @@ def phase_slice(tokenizer) -> dict:
                              "the profiled 32 x 64 call")["counts"]
     log(f"  one 32 x 64 call launches {want} on the card: the step graph holds {step.kernels}, replayed 63 times; "
         f"the profiler's device kernels (graph replays included): {seen}")
-    beam_profile = profiled(lambda: model.generate_captions(images, max_length=128, early_stop=True, **BEAMS),
-                            "batch-32 4-beam request", beamed[-1]["seconds"] * 1e3)
+    # the busy share of a batch-32 4-beam request is phase 11a's profile (the same 128 eager steps)
     return dict(main_counts=main_counts, served=served, beamed=beamed, bench=bench, median_s=median_s,
                 eager_median_s=eager["median_s"], sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile,
-                beam_profile=beam_profile, model=model)
+                model=model)
 
 
 def profiled(fn, label: str, unprofiled_ms: float) -> dict:
     """Kernel time of one call of ``fn`` (which ends in a host sync) from torch.profiler, and the
     device busy share: that kernel time over the call's wall time measured without the profiler
-    (which slows the host, not the kernels)."""
-    from torch.autograd import DeviceType
+    (which slows the host, not the kernels). The trace is read off its raw events
+    (``pgica_tpu_torch/utils/trace.py``): ``key_averages`` took up to 46 s for one request's."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pgica_tpu_torch.utils import trace
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    events = trace.raw_events(prof)
+    kernels = trace.device_totals(events)
+    device_ms = sum(us for us, _ in kernels.values()) / 1e3
     by_name = port_kernel_counts(kernels)
     if device_ms <= 0:
         log(f"  profiler, {label}: no device time recorded (busy share not measured)")
         return {"device_ms": None, "kernels": by_name}
-    launches = sum(e.count for e in kernels)
+    launches = sum(n for _, n in kernels.values())
     busy = device_ms / unprofiled_ms
     log(f"  profiler, one {label}: {launches} kernel launches, kernel time {device_ms:.1f} ms of {unprofiled_ms:.1f} "
         f"ms (unprofiled median) -> device busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%")
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    for e in top:
-        log(f"    {_device_us(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: e.self_cpu_time_total,
-                  reverse=True)[:8]
+    top = [(name, us / 1e3, n) for name, us, n in trace.largest(kernels, 12)]
+    for name, ms, n in top:
+        log(f"    {ms:9.2f} ms  {n:6d} x  {name[:100]}")
     log("    host side, by self CPU time under the profiler (which inflates it):")
-    for e in host:
-        log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:100]}")
-    return {"device_ms": device_ms, "launches": launches, "busy": busy, "kernels": by_name,
-            "top": [(e.key, _device_us(e) / 1e3, e.count) for e in top]}
+    for name, us, n in trace.largest(trace.host_self_times(events), 8):
+        log(f"    {us / 1e3:9.2f} ms  {n:6d} x  {name[:100]}")
+    return {"device_ms": device_ms, "launches": launches, "busy": busy, "kernels": by_name, "top": top}
 
 
 # the forward kernels a serving path runs, by the device names the profiler gives them
@@ -1621,10 +1688,10 @@ def profiled(fn, label: str, unprofiled_ms: float) -> dict:
 DEVICE_KERNELS = ("layernorm_fwd", "flash_attn_fwd", "rmsnorm_fwd")
 
 
-def port_kernel_counts(device_events) -> dict:
+def port_kernel_counts(device_totals: dict) -> dict:
     """Launches of each of DEVICE_KERNELS among the profiler's device events (CUDA-graph replays'
-    kernels included), by name: the host's launch counts do not see a replay."""
-    return {name: sum(e.count for e in device_events if name in e.key) for name in DEVICE_KERNELS}
+    kernels included; ``trace.device_totals``), by name: the host's launch counts do not see a replay."""
+    return {name: sum(n for key, (_, n) in device_totals.items() if name in key) for name in DEVICE_KERNELS}
 
 
 PROFILE_ATTEMPTS = 3
@@ -1644,8 +1711,9 @@ def device_counts(fn, want: dict, label: str) -> dict:
     records the tracer lost, never exceed the launches), and the shortfall is logged; a kernel
     missing from every replay fails either way, since the held count is checked at capture.
     Returns the counts of the best attempt and the attempts made."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from pgica_tpu_torch.utils import trace
 
     seen = []
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
@@ -1657,7 +1725,7 @@ def device_counts(fn, want: dict, label: str) -> dict:
             for _ in range(TAIL_KERNELS):
                 x.add_(1)
             torch.cuda.synchronize()
-        counts = port_kernel_counts([e for e in prof.key_averages() if e.device_type == DeviceType.CUDA])
+        counts = port_kernel_counts(trace.device_totals(trace.raw_events(prof)))
         if counts == want:
             return dict(counts=counts, attempts=attempt, lost=0)
         seen.append(counts)
@@ -1694,10 +1762,6 @@ def eager_eval(model, images, max_length: int) -> dict:
     if [tok.decode(r) for r in ids] != graphed:
         raise AssertionError("the eager step's captions differ from the CUDA-graph step's")
     return dict(median_s=statistics.median(seconds), seconds=seconds)
-
-
-def _device_us(event) -> float:
-    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
 def on_card(batch: dict, label: str) -> dict:
@@ -1858,13 +1922,25 @@ LLAMA_STAGE2_LAUNCHES = {"layernorm_fwd": 2 * (SIGLIP_ENCODE["layernorm_fwd"] + 
                          "flash_attn_bwd_dq": LLAMA_LAYERS, "flash_attn_bwd_dkv": LLAMA_LAYERS, "fused_ce_fwd": 2,
                          "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1, "rmsnorm_fwd": 2 * LLAMA_FORWARD["rmsnorm_fwd"],
                          "rmsnorm_bwd": LLAMA_FORWARD["rmsnorm_fwd"]}
-# phase 4's two architectures (2 layers per tower there)
+# phase 4's optimizer replay at Llama width skips the leaves larger than this: the 128,256 x 4,096 token
+# embedding (PHASE4_REDUCED)
+REPLAY_MAX = 100_000_000
+# phase 4's two architectures: 2 layers a tower for GPT-2, 1 for SigLIP + Llama (PHASE4_REDUCED)
+PHASE4_REDUCED = ("SigLIP + Llama-3-8B runs 1 layer a tower (2 before: its CPU reference took 142.5-178.2 s of "
+                  "the run; one layer still runs every kernel and path of the architecture)",
+                  "its train steps take 2 captions and 2 pairs (4 and 4 before): the CPU's steps over the 128,256-row "
+                  "vocab set the phase's time",
+                  f"the CPU replay of its card optimizer leaves out the leaves of more than {REPLAY_MAX:,} elements (the "
+                  "token embedding; 35 s of CPU Adam over it before; GPT-2's replay keeps every leaf)")
 FULL_WIDTH = {
     "gpt2": dict(vision="openai/clip-vit-base-patch32", text="gpt2-medium", vocab=GPT2_VOCAB, stage1_batch=8,
+                 stage2_batch=4, layers=2,
                  serving=SERVING_KERNELS, stage1=STAGE1_STEP_LAUNCHES, stage2=STAGE2_STEP_LAUNCHES,
                  stage2_frozen=None),
-    "llama": dict(vision=SIGLIP, text=LLAMA, vocab=LLAMA_VOCAB, stage1_batch=4, serving=LLAMA_SERVING_KERNELS,
-                  stage1=LLAMA_STAGE1_LAUNCHES, stage2=LLAMA_STAGE2_LAUNCHES, stage2_frozen="text_encoder"),
+    "llama": dict(vision=SIGLIP, text=LLAMA, vocab=LLAMA_VOCAB, stage1_batch=2, stage2_batch=2, layers=1,
+                  serving=LLAMA_SERVING_KERNELS,
+                  stage1=LLAMA_STAGE1_LAUNCHES, stage2=LLAMA_STAGE2_LAUNCHES, stage2_frozen="text_encoder",
+                  replay_max=REPLAY_MAX),
 }
 
 
@@ -1944,6 +2020,7 @@ def phase_llama(tokenizer) -> dict:
     check_main_path("Llama engine", engine_counts, LLAMA_SERVING_KERNELS)
     eng.stop()
     del eng  # it holds the bf16 copy, which training frees
+    quant = quant_llama(model)
 
     model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
     # training (a later request would recast and capture them again)
@@ -1972,8 +2049,9 @@ def phase_llama(tokenizer) -> dict:
     stage2["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), "Llama stage-2 step",
                                  stage2["ms_per_step"])
     return dict(served=served, serving_profile=serving_profile, engine=engine, stage1=stage1, stage2=stage2,
-                counts={"llama_serving": serving_counts, "llama_engine": engine_counts, "llama_stage1": stage1_counts,
-                        "llama_stage2": stage2_counts})
+                quant=quant, counts={"llama_serving": serving_counts, "llama_engine": engine_counts,
+                                     "llama_stage1": stage1_counts, "llama_stage2": stage2_counts,
+                                     "llama_int8": quant["counts"]})
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1981,6 +2059,7 @@ def phase_llama(tokenizer) -> dict:
 ROOT = Path(__file__).resolve().parent
 PHASE9_DIR = ROOT / "build" / "phase9"
 PHASE9_STEPS = 8
+PHASE9_SAVE_STEPS = 7  # one autosave a stage (5 wrote three of 7.5 GB: the run's disk is limited)
 # What phase 9 changes in configs/default.yaml, and why; width and depth are the config's
 PHASE9_SAMPLES = 80  # the config's 80/10/10 split: 64 to train, 8 to validate, 8 to test
 PHASE9_REDUCED = (
@@ -1992,8 +2071,8 @@ PHASE9_REDUCED = (
     "not in the repository",
     f"--max-steps {PHASE9_STEPS}: {PHASE9_STEPS} micro-steps a stage, 2 updates at the config's gradient "
     "accumulation of 4",
-    "training.save_steps 5 (the config: 1000), so that stage 1 leaves a mid-epoch, mid-accumulation autosave "
-    "to resume from",
+    f"training.save_steps {PHASE9_SAVE_STEPS} (the config: 1000), so that stage 1 leaves a mid-epoch, "
+    "mid-accumulation autosave to resume from",
     "outputs, checkpoints and logs under build/phase9, deleted at the end; wandb disabled (WANDB_MODE)",
 )
 # every training kernel of the flagship's two stages
@@ -2044,7 +2123,7 @@ def phase9_config() -> Path:
     cfg = yaml.safe_load((ROOT / "configs" / "default.yaml").read_text())
     cfg["training"]["stage1"]["num_epochs"] = 1
     cfg["training"]["stage2"]["num_epochs"] = 1
-    cfg["training"]["save_steps"] = 5
+    cfg["training"]["save_steps"] = PHASE9_SAVE_STEPS
     cfg["data"]["conceptual_captions_path"] = str(captions)
     cfg["data"]["ultrafeedback_path"] = str(preferences)
     # the flagship's vocab, as phases 5-7 (bench.py): the offline byte tokenizer's ids are a subset
@@ -2181,11 +2260,12 @@ def phase_train_cli() -> dict:
                                  "--output-dir", str(PHASE9_DIR / "resumed"), "--resume", str(auto)])
         resume_s = time.perf_counter() - t
         stages["stage1_resumed"] = show_stage("stage 1 resumed (no profiler, no autosave)",
-                                              resumed.history["stage1"][0], None, first_step=5)
+                                              resumed.history["stage1"][0], None, first_step=PHASE9_SAVE_STEPS)
         del resumed
         verdict = same_checkpoint(PHASE9_DIR / "run" / "checkpoints" / "checkpoint_stage1_epoch0",
                                   PHASE9_DIR / "resumed" / "checkpoints" / "checkpoint_stage1_epoch0")
-        log(f"  resumed from autosave_stage1 (global step 5: epoch 0, micro-step 5, mid-accumulation) through "
+        log(f"  resumed from autosave_stage1 (global step {PHASE9_SAVE_STEPS}: epoch 0, micro-step "
+            f"{PHASE9_SAVE_STEPS}, mid-accumulation) through "
             f"train_cli.run in {resume_s:.1f} s: its end-of-stage-1 checkpoint against the uninterrupted run's: "
             f"{verdict}")
 
@@ -2217,8 +2297,19 @@ def phase_train_cli() -> dict:
         clis = phase_eval_clis()
         disk = sum(f.stat().st_size for f in PHASE9_DIR.rglob("*") if f.is_file())
         log(f"  build/phase9 held {disk / 1e9:.2f} GB of checkpoints, results and traces")
+        for done in ("run", "resumed", "profile"):  # phase 12c writes its own: the run's disk is limited
+            shutil.rmtree(PHASE9_DIR / done, ignore_errors=True)
+        t = time.perf_counter()
+        log("== phase 12c: LoRA through the training entry point (configs/lora.yaml, GPT-2 flagship at full width, "
+            "phase 9's JPEGs)")
+        lora = phase_lora_cli(PHASE9_DIR / "data" / "captions.csv", PHASE9_DIR / "data" / "preferences.json")
+        lora["seconds"] = time.perf_counter() - t
+        log(f"  phase 12c: {lora['seconds']:.1f} s; ms per micro-step (median after the first): LoRA stage 1 "
+            f"{lora['stages']['stage1']['ms_per_micro_step']:.1f} against phase 9's full fine-tune "
+            f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {lora['stages']['stage2']['ms_per_micro_step']:.1f} "
+            f"against {stages['stage2']['ms_per_micro_step']:.1f} [{card()}]")
         return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms,
-                    clis=clis)
+                    clis=clis, lora=lora)
     finally:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
 
@@ -2565,7 +2656,9 @@ def phase_after_training(model) -> dict:
 
 # ------------------------------------------------------------------ phase 11
 
-EVAL_SAMPLES, EVAL_BATCH = 256, 32  # 8 requests of configs/default.yaml's generate_config, plus the warm-up
+# 4 requests of configs/default.yaml's generate_config, plus the warm-up (8 requests, 256 images before; cut to keep
+# the run inside its time limit)
+EVAL_SAMPLES, EVAL_BATCH = 128, 32
 EVAL_DIR = ROOT / "build" / "phase11"
 VIT_ENCODE = {"layernorm_fwd": 27, "flash_attn_fwd": 12}  # pre_ln, 12 x 2, post_ln, projection ln
 TEXT_TOWER = {"layernorm_fwd": 50, "flash_attn_fwd": 24}  # 24 x 2, ln_f, projection ln
@@ -2672,7 +2765,7 @@ def phase_evaluation(model) -> dict:
              metrics_s=spent["compute_all_metrics"], bert_s=spent["_text_tower_tokens"],
              clip_s=spent["compute_clip_score"], wall_s=wall_s, busy=profile.get("busy"), texts=texts,
              bert_forwards=bert_forwards)
-    log(f"  eval run: {r['captions_per_s']:.2f} captions/s over the 8 timed requests (latency mean "
+    log(f"  eval run: {r['captions_per_s']:.2f} captions/s over the {EVAL_SAMPLES // EVAL_BATCH} timed requests (latency mean "
         f"{r['latency_ms_mean']:.1f} ms, median {r['latency_ms_median']:.1f}; warm-up {r['warmup_ms']:.1f} ms); "
         f"generation {generation_s:.1f} s against metrics {r['metrics_s']:.1f} s (BERTScore's text-tower forwards "
         f"{r['bert_s']:.2f} s, CLIP-Score {r['clip_s']:.2f} s) of {wall_s:.1f} s [{card()}]")
@@ -2698,9 +2791,6 @@ def serving_summary(served: dict, serving: dict, llama: dict) -> None:
     for name, r in serving["runs"].items():
         log(f"  serving, Poisson {POISSON_REQUESTS} requests at {POISSON_RATE:.0f}/s, {name}: p50 {r['p50_ms']:.1f} ms, "
             f"p95 {r['p95_ms']:.1f} ms, {r['captions_per_s']:.1f} captions/s {tag}")
-    for name, prof in serving["busy"].items():
-        if prof.get("busy") is not None:
-            log(f"  serving, Poisson run, {name}: device busy {100 * prof['busy']:.1f}% {tag}")
     for label, c in (("GPT-2 flagship", serving["checks"]), ("Llama slice", llama["engine"])):
         log(f"  serving, {label}: chunk graph captured in {c['chunk_capture_s'] * 1e3:.1f} ms, pool "
             f"{c['chunk_pool_mib']:.1f} MiB, replay {c['chunk_ms']['graphed']:.3f} ms (eager {c['chunk_ms']['eager']:.3f}); "
@@ -2749,26 +2839,393 @@ def phase_serving() -> dict:
             "batch, graphed step": poisson_run(batch.submit, images)}
     main_counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}  # ---- and ends here
     check_main_path("serving entry points (engine and batch scheduler, HTTP)", main_counts, SERVING_KERNELS)
-
-    eager = ContinuousDecodeEngine(cont.model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH,
-                                   cuda_graph=False)
-    eager.warmup()
-    eager.start()
-    runs["continuous, eager chunk"] = poisson_run(eager.submit, images)
-    eager.stop()
-    del eager
+    # the eager chunk against the graphed one: graph_checks' timed replays
     for name, r in runs.items():
         log(f"  Poisson arrival, {POISSON_REQUESTS} requests at {POISSON_RATE:.0f}/s (seed 10), {name}: latency p50 "
             f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, {r['captions_per_s']:.1f} captions/s over "
             f"{r['wall_s']:.2f} s [{card()}]")
-    busy = {}
-    for name, submit in (("continuous, graphed chunk", cont.submit), ("batch, graphed step", batch.submit)):
-        busy[name] = profiled(lambda: poisson_run(submit, images), f"Poisson run, {name}",
-                              runs[name]["wall_s"] * 1e3)
+    # no profiled Poisson run: one under torch.profiler (the continuous engine's, 128 threads submitting,
+    # graph replays on the dispatch thread) never returned in one of three runs, its submit timeouts
+    # unfired, and the run met its limit; the busy share of serving is phase 5's and the replays'
     log(f"  engine stats: {cont.engine.stats()}")
     cont.shutdown()
     batch.shutdown()
-    return dict(checks=checks, runs=runs, busy=busy, main_counts=main_counts)
+    return dict(checks=checks, runs=runs, main_counts=main_counts)
+
+
+# ------------------------------------------------------------------ phase 12
+
+Q8_KERNELS = ("q8_matmul_w8a8", "q8_matmul_w8")
+Q8_MODE_KERNEL = {"int8": "q8_matmul_w8a8", "int8_weight_only": "q8_matmul_w8"}
+# (M, K, N, where): the decode paths' projections. GPT-2 Medium at M = 1, 8 (a batch of 8), 16 (the engine's
+# slots), 32 (a batch of 32) and 128 (32 x 4 beams); Llama-3-8B at a batch of 8
+Q8_SHAPES = tuple((m, k, n, where) for k, n, where in ((1024, 1024, "GPT-2 Medium q/k/v/out_proj"),
+                                                       (1024, 4096, "GPT-2 Medium fc_in"),
+                                                       (4096, 1024, "GPT-2 Medium fc_out"))
+                  for m in (1, 8, 16, 32, 128)) + (
+    (8, 4096, 4096, "Llama-3-8B q/o_proj"), (8, 4096, 1024, "Llama-3-8B k/v_proj"),
+    (8, 4096, 14336, "Llama-3-8B gate/up_proj"), (8, 14336, 4096, "Llama-3-8B down_proj"))
+Q8_LIBRARY_M = (16, 128)  # GPT-2 rows also timed with the plain version and the library yardsticks (and Llama's)
+Q8_RAGGED = ((5, 1000, 1001), (33, 777, 100), (1, 16, 3), (70, 4104, 24), (129, 64, 8))  # tails of M, N and K
+Q8_SUMMARY_SHAPE = (16, 1024, 1024)  # the engine's 16 slots through q/k/v/out_proj: most of a step's launches
+Q8_W8_F32_TOL = (1e-4, 1e-5)  # f32 weight-only on CUDA cores: K products summed in another order (K up to 14,336)
+QUANT_LOGIT_ATOL = 1e-4  # the quantized 2-layer f32 flagship's logits, card against CPU
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in bf16 units in the last place between two bf16 tensors (0: bit-equal)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def q8_case(m: int, k: int, n: int, weight_only: bool, dtype: torch.dtype, gen: torch.Generator,
+            timed: bool = True, library: bool = False, where: str = "") -> dict:
+    """One int8 entry point against its plain version at (M, K) x (N, K).
+
+    W8A8: the row quantizer's int8 and scales bit-equal (the kernel's own scratch, launched here
+    directly), the f32 output bit-equal (its epilogue is exact arithmetic on the int32 sums, so the
+    sums are equal), the bf16 output within 1 ulp. Weight-only: bf16 within TOL, f32 within
+    Q8_W8_F32_TOL. Timed on rotating input sets > 2x L2 (the weight arrives cold, as in a decode step
+    over 24 layers); the bound counts the int8 weight, its scales and bias, x and y once, and 2 M N K
+    operations at the int8 (W8A8) or bf16 (weight-only) dense peak; the library yardsticks are
+    torch._int_mm (the int8 product alone, where its shape rules allow it) and F.linear on a bf16
+    dequantized weight (which reads 2 bytes a weight)."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.ops.quant import q8_matmul, q8_matmul_ref, quantize_rows, quantize_weight
+
+    def inputs():
+        x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+        q, s = quantize_weight(torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k))
+        return x, q, s, 0.1 * torch.randn(n, device="cuda", generator=gen)
+
+    x, q, s, b = inputs()
+    got, again = q8_matmul(x, q, s, b, weight_only), q8_matmul(x, q, s, b, weight_only)
+    torch.cuda.synchronize()
+    want = q8_matmul_ref(x, q, s, b, weight_only)
+    label = f"q8 {'w8' if weight_only else 'w8a8'} ({m}, {k}) x ({n}, {k}) {dname(dtype)}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
+    r = dict(shape=f"({m}, {k}) x ({n}, {k})", dtype=dname(dtype), where=where)
+    if weight_only:
+        atol, rtol = Q8_W8_F32_TOL if dtype == torch.float32 else TOL[dtype]
+        r.update(max_abs_err=check_close(label, got, want, atol, rtol), atol=atol, rtol=rtol)
+    else:
+        xq, sx = torch.empty(m, k, dtype=torch.int8, device="cuda"), torch.empty(m, device="cuda")
+        _kernels.launch("q8_matmul_w8a8", x.data_ptr(), xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+                        b.data_ptr(), torch.empty_like(got).data_ptr(), m, n, k, _kernels.DTYPE_CODES[dtype],
+                        _kernels.stream_handle(x))
+        rq, rs = quantize_rows(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
+            raise AssertionError(f"{label}: the row quantizer's int8 or scales differ from the plain version's")
+        ulps = 0
+        if dtype == torch.float32:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: the f32 output (exact on the int32 sums) differs from the plain one")
+        elif (ulps := bf16_ulps(got, want)) > 1:
+            raise AssertionError(f"{label}: {ulps} bf16 ulps from the plain version")
+        r.update(max_abs_err=float((got.float() - want.float()).abs().max()), ulps=ulps, atol=0.0, rtol=0.0)
+    if not timed:
+        return r
+    nbytes = n * k + 8 * n + (m * k + m * n) * x.element_size()
+    n_sets = max(1, math.ceil(100e6 / nbytes))
+    sets = [(x, q, s, b, weight_only)] + [(*inputs(), weight_only) for _ in range(n_sets - 1)]
+    r.update(ms=time_ms(q8_matmul, sets), input_sets=n_sets,
+             **bound(nbytes, 2 * m * n * k, dtype if weight_only else torch.int8))
+    if library:
+        r["plain_ms"] = time_ms(q8_matmul_ref, sets)
+        deq = [(xs, (qs.to(dtype) * ss.to(dtype)[:, None]), bs.to(dtype)) for xs, qs, ss, bs, _ in sets]
+        r["linear_ms"] = time_ms(F.linear, deq)
+        r["int_mm_ms"] = library_time(lambda xs, qs: torch._int_mm(xs, qs.t()),
+                                      [(quantize_rows(xs)[0], qs) for xs, qs, _, _, _ in sets])
+        r["library_ms"] = r["linear_ms"] if weight_only else r["int_mm_ms"]
+    return r
+
+
+def show_q8(kernel: str, r: dict) -> None:
+    err = (f"{r['ulps']} bf16 ulp (f32 output and row quantizer bit-equal)" if "ulps" in r and r["dtype"] == "bfloat16"
+           else "bit-equal" if "ulps" in r else f"max_abs_err {r['max_abs_err']:.3e} (atol {r['atol']}, rtol {r['rtol']})")
+    extra = ""
+    if "plain_ms" in r:
+        lib = "refused" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.5f}"
+        extra = f" plain_ms {r['plain_ms']:.5f} torch._int_mm {lib} F.linear(bf16 dequantized) {r['linear_ms']:.5f}"
+    log(f"  {kernel} {r['where']} {r['shape']} {r['dtype']}: {err}; kernel_ms {r['ms']:.5f}{extra} bound_ms "
+        f"{r['bound_ms']:.6f} ({r['bound_by']}; {r['input_sets']} input sets)")
+
+
+def phase_int8_kernels() -> dict:
+    """Phase 12a: both int8 entry points against their plain versions at the decode paths' shapes, bf16 (and f32
+    at the GPT-2 shapes of one row count: phase 12b's f32 check runs them), ragged tails, each bf16 shape timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    results = {name: [] for name in Q8_KERNELS}
+    for weight_only, name in ((False, "q8_matmul_w8a8"), (True, "q8_matmul_w8")):
+        for m, k, n, where in Q8_SHAPES:
+            library = m in Q8_LIBRARY_M or "Llama" in where
+            r = q8_case(m, k, n, weight_only, torch.bfloat16, gen, library=library, where=where)
+            results[name].append(r)
+            show_q8(name, r)
+        for m, k, n in Q8_RAGGED + ((2, 1024, 1024), (2, 4096, 1024)):
+            for dtype in (torch.bfloat16, torch.float32):
+                r = q8_case(m, k, n, weight_only, dtype, gen, timed=False)
+                results[name].append(r)
+        worst = max(r.get("ulps", r["max_abs_err"]) for r in results[name] if "ms" not in r)
+        log(f"  {name}: ragged tails {Q8_RAGGED} and the f32 GPT-2 rows, bf16 and f32, against the plain version: "
+            f"within tolerance (worst {'ulps' if not weight_only else 'abs err'} {worst})")
+    return results
+
+
+def set_quantization(model, mode) -> None:
+    """Switch a model's decode to ``mode`` (None: the compute-dtype copy); the old twin and its graphs go."""
+    model.quantization = mode
+    model._quant_cache = model._decode_graphs = None
+    torch.cuda.empty_cache()
+
+
+def quant_logits(model, images, steps: int = 3):
+    """The decode module's (the int8 twin's) prefix and step logits, as decode_logits gives the masters'."""
+    from pgica_tpu_torch.models.lm import init_kv_cache
+
+    module, cache_len = model._decode_module(), 17
+    with torch.inference_mode():
+        emb = model.encode_image(images)["embeddings"]
+        caches = init_kv_cache(module.decoder_config, emb.shape[0], cache_len, torch.float32, model.device)
+        slots = torch.arange(cache_len, device=model.device)
+        mask_at = lambda t: (slots[None, :] <= t).to(torch.int32).expand(emb.shape[0], cache_len)  # noqa: E731
+        logits, caches = module.decode_prefix(emb, caches, mask_at(0))
+        out = [logits.cpu()]
+        for t in range(1, steps + 1):
+            logits, caches = module.decode_step(logits.argmax(-1)[:, None], t, caches, mask_at(t))
+            out.append(logits.cpu())
+    return out
+
+
+def quant_full_width(cuda, cpu, images) -> None:
+    """Phase 12b's f32 check, on phase 4's 2-layer GPT-2 flagship: the int8 twin's logits on the card (the
+    kernels) against the CPU's (the plain versions), both modes."""
+    from pgica_tpu_torch.ops import _kernels
+
+    for mode in Q8_MODE_KERNEL:
+        for model in (cuda, cpu):
+            set_quantization(model, mode)
+        before = _kernels.launch_counts()[Q8_MODE_KERNEL[mode]]
+        got = quant_logits(cuda, images)
+        launched = _kernels.launch_counts()[Q8_MODE_KERNEL[mode]] - before
+        want = quant_logits(cpu, images)
+        errs = [check_close(f"quantized ({mode}) full width: {'prefix' if i == 0 else f'step {i}'} logits", g, c,
+                            QUANT_LOGIT_ATOL, 0.0) for i, (g, c) in enumerate(zip(got, want))]
+        log(f"  phase 12b, {mode}: the int8 twin of phase 4's 2-layer f32 GPT-2 flagship, prefix and 3 steps' logits "
+            f"(2, {GPT2_VOCAB}), card against CPU: max_abs_err {max(errs):.3e} (atol {QUANT_LOGIT_ATOL}); "
+            f"{launched} {Q8_MODE_KERNEL[mode]} launches (4 forwards x 2 layers x 6 projections)")
+        if launched != 4 * 2 * 6:
+            raise AssertionError(f"{mode}: {launched} int8 launches, expected 48")
+    for model in (cuda, cpu):
+        set_quantization(model, None)
+
+
+
+def phase_quant_serving(model, served: dict) -> dict:
+    """Phase 12b on the trained bf16 flagship of phases 6-7: generate_captions through the int8 twin in both
+    modes (greedy at batch 1, 8 and 32 x 32 with early_stop, each step a graph replay; the configs' 4-beam
+    request at batch 8) and the engine's chunk replay, beside the same requests in bf16."""
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
+    from pgica_tpu_torch.generation.slots import Sampler
+    from pgica_tpu_torch.ops import _kernels
+
+    images = np.random.default_rng(12).integers(0, 256, size=(32, 224, 224, 3), dtype=np.uint8)
+    tok = model.tokenizer
+    set_quantization(model, None)
+    bf16 = {b: model.generate_captions(images[:b], max_length=32, early_stop=True) for b in (8, 32)}
+    bf16_beams = model.generate_captions(images[:8], max_length=128, early_stop=True, **BEAMS)
+    key = lambda b: (b, 32, Sampler(), tok.eos_token_id, tok.pad_token_id)  # noqa: E731
+
+    def request(batch: int, **kw) -> dict:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        captions = model.generate_captions(images[:batch], early_stop=True, **kw)
+        return dict(seconds=time.perf_counter() - t, captions=captions)
+
+    runs = {}
+    _kernels.reset_launch_counts()  # ---- the main path starts here
+    for mode in Q8_MODE_KERNEL:
+        set_quantization(model, mode)
+        kernel = Q8_MODE_KERNEL[mode]
+        r = {}
+        for batch in (1, 8, 32):
+            request(batch, max_length=32)  # captures the step graph of this batch
+            r[f"greedy {batch}"] = request(batch, max_length=32)
+            held = model._decode_graphs.captured[key(batch)][1].kernels
+            if held != {**DECODER_FORWARD, kernel: 24 * 6}:
+                raise AssertionError(f"{mode}: the batch-{batch} step graph holds {held}")
+        request(8, max_length=128, **BEAMS)
+        r["4 beams 8"] = request(8, max_length=128, **BEAMS)
+        eng = ContinuousDecodeEngine(model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
+        eng.warmup()
+        if eng.module is not model._decode_module():
+            raise AssertionError(f"{mode}: the engine does not decode through the twin")
+        want = {k: SERVE_CHUNK * v for k, v in {**DECODER_FORWARD, kernel: 24 * 6}.items()}
+        if eng.graph.kernels != want:
+            raise AssertionError(f"{mode}: the chunk graph holds {eng.graph.kernels}, expected {want}")
+        r["chunk_ms"] = timed_replays(eng.graph.replay, eng._stream)
+        _, seqs, _ = run_engine_to_end(eng, images[:SERVE_SLOTS])
+        engine_captions = [tok.decode(s) for s in seqs.cpu().numpy()]
+        eng.stop()
+        del eng
+        batch16 = model.generate_captions(images[:SERVE_SLOTS], max_length=SERVE_MAX_LENGTH)
+        if engine_captions != batch16:
+            raise AssertionError(f"{mode}: the engine's captions differ from generate_captions'")
+        agree = {name: sum(a == b for a, b in zip(r[name]["captions"], ref)) / len(ref)
+                 for name, ref in (("greedy 8", bf16[8]), ("greedy 32", bf16[32]), ("4 beams 8", bf16_beams))}
+        runs[mode] = r
+        log(f"  {mode}: greedy 32 tokens (early_stop, each step a graph replay holding {kernel} x 144, 49 LN, 24 "
+            f"flash): batch 1 {r['greedy 1']['seconds'] * 1e3:.1f} ms, 8 {r['greedy 8']['seconds'] * 1e3:.1f}, 32 "
+            f"{r['greedy 32']['seconds'] * 1e3:.1f}; 4 beams x 128 at batch 8 {r['4 beams 8']['seconds'] * 1e3:.1f} "
+            f"ms; the engine's chunk ({SERVE_CHUNK} steps x {SERVE_SLOTS} slots) {r['chunk_ms']:.3f} ms a replay, its "
+            f"{SERVE_SLOTS} captions equal generate_captions'; captions equal to bf16's (information only): "
+            + ", ".join(f"{k} {100 * v:.0f}%" for k, v in agree.items()))
+        r["agreement"] = agree
+    counts = _kernels.launch_counts()  # ---- and ends here
+    check_main_path("int8 serving (phase 12b)", counts, Q8_KERNELS + SERVING_KERNELS)
+    set_quantization(model, None)
+    bf16_ms = {f"greedy {r['batch']}": r["seconds"] * 1e3 for r in served["served"]}
+    log(f"  bf16 on this card (phase 5, random weights): greedy batch 1 / 8 / 32 "
+        + " / ".join(f"{bf16_ms[f'greedy {b}']:.1f}" for b in (1, 8, 32))
+        + f" ms; 4 beams batch 8 {served['beamed'][0]['seconds'] * 1e3:.1f} ms [{card()}]")
+    return dict(counts=counts, runs={m: {k: (v["seconds"] * 1e3 if isinstance(v, dict) and "seconds" in v else v)
+                                         for k, v in r.items()} for m, r in runs.items()})
+
+
+def quant_llama(model) -> dict:
+    """Phase 12b on the Llama slice (LLAMA_REDUCED): a greedy request at batch 8 x 32 in bf16 and through the int8
+    twin in both modes, each step a graph replay; the step graph holds the int8 kernels."""
+    from pgica_tpu_torch.generation.slots import Sampler
+    from pgica_tpu_torch.ops import _kernels
+
+    images = np.random.default_rng(13).integers(0, 256, size=(8, model.image_size, model.image_size, 3),
+                                                dtype=np.uint8)
+    tok = model.tokenizer
+    out = {}
+    _kernels.reset_launch_counts()  # ---- the main path starts here
+    for mode in (None, *Q8_MODE_KERNEL):
+        set_quantization(model, mode)
+        model.generate_captions(images, max_length=32)  # the capture
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        captions = model.generate_captions(images, max_length=32)
+        out[mode or "bf16"] = dict(ms=(time.perf_counter() - t) * 1e3, captions=captions)
+        held = model._decode_graphs.captured[(8, 32, Sampler(), tok.eos_token_id, tok.pad_token_id)][1].kernels
+        want = {**{k: v for k, v in LLAMA_FORWARD.items()}, **({Q8_MODE_KERNEL[mode]: 7 * LLAMA_LAYERS} if mode else {})}
+        if held != want:
+            raise AssertionError(f"Llama {mode}: the step graph holds {held}, expected {want}")
+    counts = _kernels.launch_counts()  # ---- and ends here
+    check_main_path("Llama int8 serving (phase 12b)", counts, Q8_KERNELS)
+    set_quantization(model, None)
+    log("  phase 12b on the Llama slice, greedy batch 8 x 32, each step a graph replay: "
+        + "; ".join(f"{name} {r['ms']:.1f} ms" + (f" (captions equal to bf16's: "
+                    f"{sum(a == b for a, b in zip(r['captions'], out['bf16']['captions']))} of 8)" if name != "bf16"
+                    else "") for name, r in out.items())
+        + f"; the step graph holds {7 * LLAMA_LAYERS} int8 launches ({LLAMA_LAYERS} layers x 7 projections) "
+        f"[{card()}]")
+    return dict(counts=counts, ms={k: v["ms"] for k, v in out.items()})
+
+
+LORA_DIR = ROOT / "build" / "phase12"
+LORA_STEPS = 4
+LORA_ACCUMULATION = 2
+LORA_ADAPTER_VALUES = 58_994_688  # init_lora on the flagship's shapes: 240 (A, B) pairs over the two GPT-2 Medium towers
+LORA_REDUCED = (
+    "configs/lora.yaml's width, depth and vocab as phase 9 runs configs/default.yaml's (PHASE9_REDUCED: 1 epoch a "
+    "stage, vocab 50,262, phase 9's JPEGs, outputs under build/phase12, deleted at the end)",
+    f"--max-steps {LORA_STEPS}: {LORA_STEPS} micro-steps a stage",
+    f"gradient accumulation {LORA_ACCUMULATION} (the config: 4), so that a stage takes 2 updates: the schedule's first "
+    "has lr 0, and with one update the adapters would not move",
+)
+
+
+def phase_lora_cli(captions: Path, preferences: Path) -> dict:
+    """Phase 12c: ``python -m pgica_tpu_torch.scripts.train --config configs/lora.yaml`` at the flagship's full width
+    (LORA_REDUCED): both stages train the adapters only, the base masters stay bit-unchanged (held to a fresh
+    build of the same seed) until the best checkpoint's merged params are loaded at the end, the stage-2 steps
+    never launch the fused-CE dW kernel, and the folded checkpoint loads through predict.main."""
+    import yaml
+
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.scripts import predict, train as train_cli
+    from pgica_tpu_torch.training.checkpoint import effective_params
+    from pgica_tpu_torch.utils.config import Config
+    from pgica_tpu_torch.utils.factories import create_model
+
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    LORA_DIR.mkdir(parents=True)
+    try:
+        cfg = yaml.safe_load((ROOT / "configs" / "lora.yaml").read_text())
+        if cfg["model"]["lora_config"] != {"r": 16, "lora_alpha": 32, "target_modules": ["c_attn", "c_proj"],
+                                           "lora_dropout": 0.1} or not cfg["training"]["load_best_model_at_end"]:
+            raise AssertionError(f"configs/lora.yaml changed under phase 12c: {cfg['model']['lora_config']}")
+        for stage in ("stage1", "stage2"):
+            cfg["training"][stage]["num_epochs"] = 1
+            cfg["training"][stage]["gradient_accumulation_steps"] = LORA_ACCUMULATION
+        cfg["data"].update(conceptual_captions_path=str(captions), ultrafeedback_path=str(preferences),
+                           native_decode="fast", device_side_normalization=True)
+        cfg["model"]["vocab_size"] = GPT2_VOCAB
+        cfg["paths"] = {"output_dir": str(LORA_DIR / "run"), "checkpoint_dir": str(LORA_DIR / "run" / "checkpoints"),
+                        "log_dir": str(LORA_DIR / "logs"), "cache_dir": str(LORA_DIR / "cache")}
+        path = LORA_DIR / "lora_phase12.yaml"
+        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        log(f"  configs/lora.yaml (GPT-2 flagship, LoRA r 16, alpha 32, c_attn/c_proj, dropout 0.1, bf16, gradient "
+            f"checkpointing) written to {path.relative_to(ROOT)}; changed: " + "; ".join(LORA_REDUCED))
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        trainer = train_cli.run(["--config", str(path), "--max-steps", str(LORA_STEPS)])
+        run_s = time.perf_counter() - t
+        counts = _kernels.launch_counts()  # ---- and ends here
+        check_main_path("LoRA training entry point (stages 1 and 2)", counts,
+                        tuple(k for k in TRAIN_KERNELS if k != "fused_ce_bwd_dw"))
+        if counts["fused_ce_bwd_dw"] != 0:
+            raise AssertionError(f"LoRA stage 2 launched fused-CE dW {counts['fused_ce_bwd_dw']} times (the tied "
+                                 "embedding is no target)")
+        stages = {name: show_stage(f"LoRA {name}", trainer.history[name][0], None) for name in ("stage1", "stage2")}
+        ckpts = LORA_DIR / "run" / "checkpoints"
+        payload = torch.load(ckpts / "checkpoint_stage2_epoch0" / "state.pt", map_location="cpu", weights_only=True)
+        opt = payload["opt_state"]
+        moments = sum(opt["mu"][n].numel() + opt["nu"][n].numel() for n in opt["names"])
+        adapters = sum(v.numel() for ab in payload["lora"].values() for v in ab.values())
+        if adapters != LORA_ADAPTER_VALUES or moments != 2 * LORA_ADAPTER_VALUES or len(payload["lora"]) != 240:
+            raise AssertionError(f"LoRA: {len(payload['lora'])} pairs, {adapters} adapter values, {moments} Adam moments")
+        fresh = create_model(Config(str(path)), trainer.model.tokenizer, device="cpu")
+        start = dict(fresh.module.named_parameters())
+        moved_base = [n for n, p in payload["params"].items() if not torch.equal(p, start[n])]
+        if moved_base:
+            raise AssertionError(f"LoRA moved the base masters: {moved_base[:4]}")
+        moved = sum(int((ab["b"] != 0).any()) for ab in payload["lora"].values())
+        if moved == 0:
+            raise AssertionError("no adapter factor B moved from its zero initialization")
+        best = torch.load(ckpts / "best_model_stage2" / "state.pt", map_location="cpu", weights_only=True)
+        merged = effective_params(best)
+        served = {n: p.cpu() for n, p in trainer.model.module.named_parameters()}
+        if trainer.model.lora is not None or any(not torch.equal(merged[n], served[n]) for n in merged):
+            raise AssertionError("the model at the end is not the best checkpoint's merged params")
+        diff = sum(int((merged[n] != start[n]).sum()) for n in merged)
+        log(f"  train_cli.run on configs/lora.yaml in {run_s:.1f} s: {adapters:,} adapter values in 240 (A, B) pairs "
+            f"and {moments:,} Adam moments (= 2 x {LORA_ADAPTER_VALUES:,}) in the optimizer state; the checkpoint's "
+            f"base masters bit-equal to a fresh build's; {moved} of 240 B factors moved from 0; fused-CE launches "
+            f"fwd {counts['fused_ce_fwd']}, dh {counts['fused_ce_bwd_dh']}, dW {counts['fused_ce_bwd_dw']}; at the end "
+            f"the model holds best_model_stage2's merged params ({diff:,} elements off the base)")
+        del trainer, fresh, start, merged, served, payload, best
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out = LORA_DIR / "predictions.json"
+        if predict.main(["--config", str(path), "--model-path", str(ckpts / "best_model_stage2"),
+                         "--image", str(Path(captions).parent / "images" / "0000.jpg"), "--output", str(out)]) != 0:
+            raise AssertionError("predict.main failed on the LoRA checkpoint")
+        predict_s = time.perf_counter() - t
+        log(f"  predict.main on best_model_stage2 (base + adapters, merged on load): {predict_s:.1f} s, "
+            f"{json.loads(out.read_text())}")
+        return dict(counts=counts, stages=stages, run_s=run_s, predict_s=predict_s)
+    finally:
+        shutil.rmtree(LORA_DIR, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ main
@@ -2809,6 +3266,8 @@ def main() -> int:
     from pgica_tpu_torch.ops import _kernels
 
     t_start = time.perf_counter()
+    # a run that hangs dumps every thread's stack to stderr before its limit (1,200 s) ends it
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     log("== phase 1: device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2831,12 +3290,15 @@ def main() -> int:
         log(f"== {name}")
         out = fn(*args)
         phases[name.split(":")[0]] = time.perf_counter() - t
+        log(f"  ({name.split(':')[0]}: {phases[name.split(':')[0]]:.1f} s; {time.perf_counter() - t_start:.1f} s into "
+            "the run)")
         return out
 
     kernels = phase("phase 3: kernels vs plain on the card", phase_kernels)
+    int8 = phase("phase 12a: the int8 decode kernels vs plain on the card", phase_int8_kernels)
     for arch in FULL_WIDTH:
-        phase(f"phase 4 ({arch}): full width, 2 layers, f32: card (kernels) vs CPU (plain)", phase_full_width,
-              tokenizer, arch)
+        phase(f"phase 4 ({arch}): full width, {FULL_WIDTH[arch]['layers']} layer(s) a tower, f32: card (kernels) vs "
+              "CPU (plain)", phase_full_width, tokenizer, arch)
         gc.collect()
     served = phase("phase 5: serving (flagship, bf16, caption requests)", phase_slice, tokenizer)
     model = served.pop("model")
@@ -2846,6 +3308,8 @@ def main() -> int:
     phase("phase 10a: graphed serving after training (the flagship of phases 6-7)", phase_after_training, model)
     evaluation = phase("phase 11a: evaluation (EvaluationRunner, configs/default.yaml's evaluation section, the trained "
                        "flagship of phases 6-7)", phase_evaluation, model)
+    quant = phase("phase 12b: int8 decode (W8A8 and weight-only) on the trained flagship of phases 6-7",
+                  phase_quant_serving, model, served)
     del model
     gc.collect()  # the GPT-2 flagship is free now
     torch.cuda.empty_cache()
@@ -2865,8 +3329,9 @@ def main() -> int:
 
     paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
              **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"],
-             "evaluation": evaluation["counts"]}
+             "evaluation": evaluation["counts"], "int8_serving": quant["counts"], "lora_cli": cli["lora"]["counts"]}
     summary = []
+    bursts = f"median of {BF16_TIMING['trials']} bursts of {BF16_TIMING['reps']}"
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
         # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over
         # the bf16 shapes timed
@@ -2880,10 +3345,25 @@ def main() -> int:
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"], "shape": shape, "dtype": dtype,
             "inputs": at["input_sets"] if isinstance(at["input_sets"], str)
-            else f"{at['input_sets']} input sets rotating through > 2x L2 (cold), median of 21 bursts of 20",
+            else f"{at['input_sets']} input sets rotating through > 2x L2 (cold), {bursts}",
+        })
+    m, k, n = Q8_SUMMARY_SHAPE
+    for name in Q8_KERNELS:
+        # no TPU kernel: the JAX package's int8 dot is XLA's; the time at the engine's 16 slots through a
+        # 1024 x 1024 projection, the error the worst over the timed bf16 shapes
+        at = next(r for r in int8[name] if r["shape"] == f"({m}, {k}) x ({n}, {k})" and "plain_ms" in r)
+        summary.append({
+            "name": name, "route": "cuda", "source": "pgica_tpu_torch/csrc/q8_matmul.cu",
+            "replaces": "pgica_tpu/ops/quant.py:68", "launches": quant["counts"][name],
+            "launches_by_path": {path: counts.get(name, 0) for path, counts in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in int8[name] if "ms" in r),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "shape": at["shape"], "dtype": "bfloat16",
+            "inputs": f"{at['input_sets']} input sets rotating through > 2x L2 (cold), {bursts}",
         })
     print(smi)
     print(json.dumps({"kernels": summary}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0

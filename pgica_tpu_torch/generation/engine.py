@@ -31,7 +31,9 @@ as the JAX engine serves the params it took then: in bf16 the model's
 serving copy of that moment, in float32 a copy of its masters (the train
 steps and ``load_jax_params`` update the masters in place). That float32
 copy costs one more copy of the weights: 3.2 GB for the flagship's 803.3 M
-parameters.
+parameters. With the model's ``quantization`` the prefix and the steps run
+on its int8 twin of that moment (JAX engine.py:229-230), the vision encode
+on the inference module.
 """
 
 from __future__ import annotations
@@ -61,9 +63,12 @@ from pgica_tpu_torch.models.model import frozen_copy
 logger = logging.getLogger(__name__)
 
 
-def make_engine_fns(module, *, slots: int, chunk: int, max_length: int, eos_token_id: int, pad_token_id: int,
-                    pick: Sampler, device: torch.device):
+def make_engine_fns(encode_module, decode_module, *, slots: int, chunk: int, max_length: int, eos_token_id: int,
+                    pad_token_id: int, pick: Sampler, device: torch.device):
     """Build (init_state, admit_fn, chunk_fn) for a slot pool (JAX engine.py:64-191).
+
+    ``encode_module`` runs the vision tower, ``decode_module`` the prefix and
+    the steps (the int8 twin with quantization; else the same module).
 
     ``init_state(seed)`` makes the pool, every slot free; ``admit_fn(state,
     images, slot_ids)`` encodes a uint8 NHWC admission bucket through the
@@ -75,15 +80,15 @@ def make_engine_fns(module, *, slots: int, chunk: int, max_length: int, eos_toke
     """
     def init_state(seed: int) -> SlotState:
         generator = torch.Generator(device).manual_seed(seed) if pick.do_sample else None
-        return init_slot_state(module.decoder_config, slots, max_length, module.compute_dtype, device,
+        return init_slot_state(decode_module.decoder_config, slots, max_length, decode_module.compute_dtype, device,
                                eos_token_id=eos_token_id, pad_token_id=pad_token_id, generator=generator)
 
     def admit_fn(state: SlotState, images: np.ndarray, slot_ids: np.ndarray) -> None:
         pixels = prepare_images(to_device(torch.from_numpy(np.ascontiguousarray(images)), device))
-        admit(module, state, module.encode_image(pixels)["embeddings"], slot_ids, pick)
+        admit(decode_module, state, encode_module.encode_image(pixels)["embeddings"], slot_ids, pick)
 
     def chunk_fn(state: SlotState) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = decode_steps(module, state, chunk, pick)
+        logits = decode_steps(decode_module, state, chunk, pick)
         return torch.cat([state.seqs, state.active.to(torch.int64)[:, None]], dim=1), logits
 
     return init_state, admit_fn, chunk_fn
@@ -123,9 +128,10 @@ class ContinuousDecodeEngine:
         self.pick = Sampler(do_sample, temperature, top_p, repetition_penalty)
         module = model._inference_module()
         # the float32 inference module is the masters themselves: serve a copy of them
-        self.module = frozen_copy(module, torch.float32) if module is model.module else module
+        self.encode_module = frozen_copy(module, torch.float32) if module is model.module else module
+        self.module = model._decode_module() if model.quantization else self.encode_module  # what decodes
         self._init_state, self._admit, self._chunk = make_engine_fns(
-            self.module, slots=self.slots, chunk=self.chunk, max_length=self.max_length,
+            self.encode_module, self.module, slots=self.slots, chunk=self.chunk, max_length=self.max_length,
             eos_token_id=self.tokenizer.eos_token_id, pad_token_id=self.tokenizer.pad_token_id,
             pick=self.pick, device=self.device,
         )

@@ -20,9 +20,11 @@ port never imports JAX, so it takes numpy only), and copies every leaf under
   columns, and the SwiGLU ``gate_proj``/``up_proj``/``down_proj`` kernels.
 
 Every subtree is filled: ``vision_encoder``, ``text_encoder`` and
-``caption_decoder``. An unknown key (a ``shared_lm`` tower among them: the
-port does not share a text tower yet), a parameter left unfilled, or a shape
-mismatch raises.
+``caption_decoder``, and ``shared_lm`` for a model built with
+``share_text_tower``. An unknown key, a parameter left unfilled, or a shape
+mismatch raises. A JAX LoRA factor dict needs no conversion: the port keys
+its factors by the same paths, in the same layout (models/lora.py;
+``PreferenceGuidedCaptioningModel.load_jax_params(params, lora=...)``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ Mirrors pgica_tpu/models/decoder.py:41-183.
   (continuous batching). As in the JAX package and the reference it mirrors,
   cross-attention does NOT run at decode time (decoder.py:16-21).
 
+``quant`` builds the LM's blocks int8 for the inference-only twin (JAX
+decoder.py:58-63,85), with remat off; the vision projection and the
+cross-attention stay in the compute dtype. ``shared_lm`` is the
+``share_text_tower`` LM, owned by the top-level module: the decoder keeps a
+reference that is not registered as a child, so its parameters appear once,
+under ``shared_lm``.
+
 Llama has no ``wpe``: its positions come from RoPE alone, so caption tokens
 sit at 0..S-1 in training and at 1.. after the vision token at decode. That
 asymmetry is the JAX package's, and the port keeps it.
@@ -21,6 +28,7 @@ asymmetry is the JAX package's, and the port keeps it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +49,8 @@ class CaptionDecoder(nn.Module):
         num_cross_heads: int = 8,
         dropout: float = 0.1,
         dtype: torch.dtype = torch.float32,
+        shared_lm: Optional[TransformerLM] = None,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         self.config = config
@@ -48,7 +58,11 @@ class CaptionDecoder(nn.Module):
         self.vision_dropout = FastDropout(dropout)
         self.cross_attention = MultiHeadAttention(config.hidden_size, num_cross_heads, dropout=dropout, dtype=dtype)
         self.cross_ln = LayerNorm(config.hidden_size, 1e-5, dtype)
-        self.lm = TransformerLM(config, with_lm_head=True, dtype=dtype)
+        if shared_lm is not None:
+            object.__setattr__(self, "lm", shared_lm)  # not a child: the top-level module owns it
+        else:
+            lm_config = dataclasses.replace(config, remat=False) if quant else config
+            self.lm = TransformerLM(lm_config, with_lm_head=True, dtype=dtype, quant=quant)
 
     def project_vision(
         self, vision_embeddings: torch.Tensor, generator: Optional[torch.Generator] = None

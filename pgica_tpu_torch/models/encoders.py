@@ -3,8 +3,14 @@
 A transformer LM (GPT-2 or Llama, models/lm.py) over caption tokens (no LM
 head), masked mean pooling with the divisor clamped to at least 1, and the
 projection head. The JAX parameter tree names it ``text_encoder/backbone``
-and ``text_encoder/projection``; the port keeps the names. Freezing the text
-backbone and sharing one tower with the decoder wait for their slices.
+and ``text_encoder/projection``; the port keeps the names.
+
+``freeze_backbone`` detaches the backbone's hidden states (JAX
+encoders.py:66, ``stop_gradient``), so no gradient reaches the backbone;
+the trainer also leaves it out of the optimizer unless LoRA trains its
+adapters. ``shared_backbone`` is the ``share_text_tower`` LM (JAX
+``shared_lm``), owned by the top-level module and referenced here without
+registering it; its tied head is skipped in this forward.
 """
 
 from __future__ import annotations
@@ -35,11 +41,14 @@ class TextEncoder(nn.Module):
         dropout: float = 0.1,
         freeze_backbone: bool = False,
         dtype: torch.dtype = torch.float32,
+        shared_backbone: Optional[TransformerLM] = None,
     ):
         super().__init__()
-        if freeze_backbone:
-            raise NotImplementedError("freeze_text_backbone is not ported yet (ROADMAP queue 1 item 8)")
-        self.backbone = TransformerLM(config, with_lm_head=False, dtype=dtype)
+        self.freeze_backbone = freeze_backbone
+        if shared_backbone is not None:
+            object.__setattr__(self, "backbone", shared_backbone)  # not a child: the top-level module owns it
+        else:
+            self.backbone = TransformerLM(config, with_lm_head=False, dtype=dtype)
         self.projection = ProjectionHead(config.hidden_size, projection_dim, dropout, dtype)
 
     def forward(
@@ -50,9 +59,10 @@ class TextEncoder(nn.Module):
     ) -> dict:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        hidden = self.backbone(input_ids=input_ids, attention_mask=attention_mask, generator=generator)[
-            "hidden_states"
-        ]
+        hidden = self.backbone(input_ids=input_ids, attention_mask=attention_mask, generator=generator,
+                               with_logits=False)["hidden_states"]
+        if self.freeze_backbone:
+            hidden = hidden.detach()
         pooled = masked_mean_pool(hidden, attention_mask)
         return {
             "hidden_states": hidden,

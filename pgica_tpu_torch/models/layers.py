@@ -5,7 +5,10 @@ RMSNorm), rotary position embeddings, multi-head attention (self-attention
 with a KV cache written at one position, or at one position per row for
 continuous batching, or cross-attention to a ``kv`` input; grouped-query
 heads; RoPE), the GELU and SwiGLU MLPs with dropout, and the pre-norm
-block. Left out until their slices: ring attention and int8.
+block. With ``quant`` (an inference-only twin, models/model.py) the
+attention projections and the MLP's dense layers are int8
+:class:`~pgica_tpu_torch.ops.quant.QuantDense` (JAX layers.py:79-115,
+174-190,203-215). Left out until its slice: ring attention.
 
 Every module takes the compute ``dtype`` at construction, as the Flax
 modules do. :class:`Dense` is Flax's ``Dense(dtype, param_dtype=float32)``:
@@ -36,6 +39,7 @@ from pgica_tpu_torch.ops.attention import xla_attention
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.flash_attention import flash_attention
 from pgica_tpu_torch.ops.layernorm import LayerNorm
+from pgica_tpu_torch.ops.quant import QuantDense
 from pgica_tpu_torch.ops.rmsnorm import RMSNorm
 
 # (k, v), each (B, H, max_len, D). Caches are plain lists of these tuples,
@@ -86,6 +90,17 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+def dense_factory(quant: Optional[str]):
+    """``Dense``, or with ``quant`` ("int8" / "int8_weight_only") the int8 ``QuantDense``; same arguments."""
+    if not quant:
+        return Dense
+
+    def make(in_features: int, out_features: int, dtype: torch.dtype = torch.float32, bias: bool = True):
+        return QuantDense(in_features, out_features, dtype, bias, weight_only=quant == "int8_weight_only")
+
+    return make
+
+
 class CacheRows:
     """Where a decode step at per-row positions writes its new k and v in caches (B, H, L, D).
 
@@ -123,7 +138,10 @@ class MultiHeadAttention(nn.Module):
     each is repeated for its ``num_heads // num_kv_heads`` query heads after
     the cache (``repeat_interleave``, ``jnp.repeat``'s order). ``use_rope``
     rotates q and k before the cache write, at positions ``position ..
-    position + S - 1`` (each row's own with a tensor ``position``).
+    position + S - 1`` (each row's own with a tensor ``position``). With
+    ``quant`` the four projections are int8; ``out_proj``'s scales are per
+    output channel over the flattened heads x head_dim, as the JAX
+    ``axis=(-2, -1)`` contraction gives them.
     """
 
     def __init__(
@@ -137,6 +155,7 @@ class MultiHeadAttention(nn.Module):
         use_bias: bool = True,
         use_rope: bool = False,
         rope_theta: float = 500000.0,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         self.num_heads = num_heads
@@ -147,10 +166,11 @@ class MultiHeadAttention(nn.Module):
         self.rope_theta = rope_theta
         inner = num_heads * self.head_dim
         kv_inner = self.num_kv_heads * self.head_dim
-        self.q_proj = Dense(hidden_size, inner, dtype, use_bias)
-        self.k_proj = Dense(hidden_size, kv_inner, dtype, use_bias)
-        self.v_proj = Dense(hidden_size, kv_inner, dtype, use_bias)
-        self.out_proj = Dense(inner, hidden_size, dtype, use_bias)
+        dense = dense_factory(quant)
+        self.q_proj = dense(hidden_size, inner, dtype, use_bias)
+        self.k_proj = dense(hidden_size, kv_inner, dtype, use_bias)
+        self.v_proj = dense(hidden_size, kv_inner, dtype, use_bias)
+        self.out_proj = dense(inner, hidden_size, dtype, use_bias)
         self.dropout = FastDropout(dropout)
 
     def forward(
@@ -225,16 +245,18 @@ class MLP(nn.Module):
         dropout: float = 0.0,
         dtype: torch.dtype = torch.float32,
         use_bias: bool = True,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         self.kind = kind
+        dense = dense_factory(quant)
         if kind == "swiglu":
-            self.gate_proj = Dense(hidden_size, intermediate_size, dtype, use_bias)
-            self.up_proj = Dense(hidden_size, intermediate_size, dtype, use_bias)
-            self.down_proj = Dense(intermediate_size, hidden_size, dtype, use_bias)
+            self.gate_proj = dense(hidden_size, intermediate_size, dtype, use_bias)
+            self.up_proj = dense(hidden_size, intermediate_size, dtype, use_bias)
+            self.down_proj = dense(intermediate_size, hidden_size, dtype, use_bias)
         elif kind in ("gelu", "quick_gelu"):
-            self.fc_in = Dense(hidden_size, intermediate_size, dtype, use_bias)
-            self.fc_out = Dense(intermediate_size, hidden_size, dtype, use_bias)
+            self.fc_in = dense(hidden_size, intermediate_size, dtype, use_bias)
+            self.fc_out = dense(intermediate_size, hidden_size, dtype, use_bias)
         else:
             raise ValueError(f"unknown MLP kind {kind!r}")
         self.dropout = FastDropout(dropout)
@@ -312,13 +334,14 @@ class TransformerBlock(nn.Module):
         use_bias: bool = True,
         use_rope: bool = False,
         rope_theta: float = 500000.0,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         self.ln_0 = make_norm(norm, hidden_size, norm_eps, dtype)
         self.attn = MultiHeadAttention(hidden_size, num_heads, causal, dropout, dtype, num_kv_heads, use_bias,
-                                       use_rope, rope_theta)
+                                       use_rope, rope_theta, quant)
         self.ln_1 = make_norm(norm, hidden_size, norm_eps, dtype)
-        self.mlp = MLP(hidden_size, intermediate_size or 4 * hidden_size, mlp_kind, dropout, dtype, use_bias)
+        self.mlp = MLP(hidden_size, intermediate_size or 4 * hidden_size, mlp_kind, dropout, dtype, use_bias, quant)
 
     def forward(
         self,

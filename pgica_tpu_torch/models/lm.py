@@ -11,6 +11,11 @@ here. ``with_logits=False`` skips it for one call: the stage-2 step takes
 its log-probs from the hidden states through the fused linear-CE kernels,
 where XLA drops the unused logits from the JAX graph (train_step.py:268-269);
 eager PyTorch would compute and keep them.
+
+``quant`` ("int8" / "int8_weight_only") builds the blocks' matmuls as int8
+``QuantDense`` for an inference-only twin (JAX lm.py:60-70,113); the
+embeddings and the tied head stay in the compute dtype. It refuses a config
+with ``remat``, a training-time transform.
 """
 
 from __future__ import annotations
@@ -44,11 +49,14 @@ def init_kv_cache(
 class TransformerLM(nn.Module):
     """Causal transformer over token ids or input embeddings, with an optional tied LM head."""
 
-    def __init__(self, config: LMConfig, with_lm_head: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: LMConfig, with_lm_head: bool = True, dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None):
         super().__init__()
         cfg = config
         if cfg.arch not in ("gpt2", "llama"):
             raise ValueError(f"unknown arch {cfg.arch!r}")
+        if quant and cfg.remat:
+            raise ValueError("quant is an inference-only transform (no remat)")
         llama = cfg.arch == "llama"
         self.config = cfg
         self.with_lm_head = with_lm_head
@@ -62,6 +70,7 @@ class TransformerLM(nn.Module):
                 causal=True, norm_eps=cfg.norm_eps, mlp_kind="swiglu" if llama else "gelu",
                 dropout=cfg.dropout, dtype=dtype, norm="rmsnorm" if llama else "layernorm",
                 num_kv_heads=cfg.num_kv_heads, use_bias=not llama, use_rope=llama, rope_theta=cfg.rope_theta,
+                quant=quant,
             )
             for _ in range(cfg.num_layers)
         )

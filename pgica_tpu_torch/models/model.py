@@ -10,11 +10,12 @@ Mirrors pgica_tpu/models/model.py:43-231,234-476:
 * :func:`frozen_copy` — a frozen copy in a compute dtype: the bf16 serving
   copy and the stage-2 DPO reference.
 * :class:`PreferenceGuidedCaptioningModel` — the runtime wrapper owning the
-  module, its float32 masters and the tokenizer, with the JAX package's
-  ``generate_captions`` signature and return type.
+  module, its float32 masters, the tokenizer and, with ``lora_config``, the
+  LoRA factors (models/lora.py), with the JAX package's
+  ``generate_captions`` signature and return type. With ``quantization``
+  its decode runs through an int8 twin of the module (JAX model.py:389-412).
 
-Waiting for later slices: a shared text tower, LoRA, int8 decode and
-``load_pretrained_towers``.
+Waiting for a later slice: ``load_pretrained_towers``.
 """
 
 from __future__ import annotations
@@ -35,10 +36,13 @@ from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.models.convert import load_jax_params
 from pgica_tpu_torch.models.decoder import CaptionDecoder
 from pgica_tpu_torch.models.encoders import TextEncoder
+from pgica_tpu_torch.models.lm import TransformerLM
+from pgica_tpu_torch.models.lora import Adapters, count_lora_params, from_numpy, init_lora, target_shapes
 from pgica_tpu_torch.models.presets import LMConfig, ViTConfig, get_text_config, get_vision_config
 from pgica_tpu_torch.models.vit import VisionEncoder
 from pgica_tpu_torch.ops.layernorm import LayerNorm
 from pgica_tpu_torch.ops.losses import caption_cross_entropy, l2_normalize
+from pgica_tpu_torch.ops.quant import INT8_MODES, cast_for_twin, quantize_like
 from pgica_tpu_torch.ops.rmsnorm import RMSNorm
 
 NORMS = (LayerNorm, RMSNorm)  # modules whose float32 parameters the kernels read as they are
@@ -52,7 +56,8 @@ class PreferenceGuidedCaptioningModule(nn.Module):
     The text tower is registered after the decoder (the JAX tree's order is
     vision, text, decoder), so that one seed gives the serving towers the
     same weights as before the text tower was ported; the weight bridge goes
-    by name.
+    by name. ``decoder_quant`` builds the inference-only int8 twin
+    (:meth:`PreferenceGuidedCaptioningModel._decode_module`).
     """
 
     def __init__(
@@ -67,10 +72,12 @@ class PreferenceGuidedCaptioningModule(nn.Module):
         freeze_text_backbone: bool = False,
         share_text_tower: bool = False,
         dtype: torch.dtype = torch.float32,
+        decoder_quant: Optional[str] = None,
     ):
         super().__init__()
-        if share_text_tower:
-            raise NotImplementedError("share_text_tower is not ported yet (ROADMAP queue 1 item 8)")
+        if decoder_quant and share_text_tower:
+            raise ValueError("decoder_quant with share_text_tower would quantize the training text tower; "
+                             "use a dedicated decoder")
         self.vision_config = vision_config
         self.text_config = text_config
         self.decoder_config = decoder_config
@@ -78,8 +85,15 @@ class PreferenceGuidedCaptioningModule(nn.Module):
         self.dtype = dtype
         self.vision_encoder = VisionEncoder(
             vision_config, projection_dim, dropout, freeze_vision_backbone, dtype)
-        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim, dropout=dropout, dtype=dtype)
-        self.text_encoder = TextEncoder(text_config, projection_dim, dropout, freeze_text_backbone, dtype)
+        # one LM as text tower and decoder backbone (JAX ``shared_lm``, model.py:77-107), registered once,
+        # under its own name: the text tower and the decoder refer to it without owning it
+        shared = TransformerLM(decoder_config, with_lm_head=True, dtype=dtype) if share_text_tower else None
+        self.caption_decoder = CaptionDecoder(decoder_config, projection_dim, dropout=dropout, dtype=dtype,
+                                              shared_lm=shared, quant=decoder_quant)
+        self.text_encoder = TextEncoder(text_config, projection_dim, dropout, freeze_text_backbone, dtype,
+                                        shared_backbone=shared)
+        if shared is not None:
+            self.shared_lm = shared
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -173,6 +187,7 @@ def build_module(
     share_text_tower: bool = False,
     dtype: torch.dtype = torch.float32,
     remat: bool = False,
+    decoder_quant: Optional[str] = None,
 ) -> PreferenceGuidedCaptioningModule:
     """Resolve presets (or take configs as given, e.g. with a cut depth) and build the module.
 
@@ -189,7 +204,7 @@ def build_module(
                                       remat=remat)
     return PreferenceGuidedCaptioningModule(
         vision_config, text_config, text_config, projection_dim, temperature, dropout,
-        freeze_vision_backbone, freeze_text_backbone, share_text_tower, dtype,
+        freeze_vision_backbone, freeze_text_backbone, share_text_tower, dtype, decoder_quant,
     )
 
 
@@ -255,7 +270,12 @@ class PreferenceGuidedCaptioningModel:
         vocab_size: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         remat: bool = False,
+        share_text_tower: bool = False,
+        lora_config: Optional[Dict] = None,
+        quantization: Optional[str] = None,
     ):
+        if quantization and quantization not in INT8_MODES:
+            raise ValueError(f"quantization must be one of {INT8_MODES}, got {quantization!r}")
         self.device = resolve_device(device)
         if tokenizer is None:
             from_name = isinstance(text_model, str)
@@ -265,41 +285,76 @@ class PreferenceGuidedCaptioningModel:
         self.max_caption_length = max_caption_length
         self.freeze_vision_backbone = freeze_vision_backbone
         self.freeze_text_backbone = freeze_text_backbone
+        self._build_kwargs = dict(
+            vision_model=vision_model, text_model=text_model, projection_dim=projection_dim,
+            temperature=temperature, dropout=dropout,
+            # may pad the embedding beyond the tokenizer; never below it
+            vocab_size=max(vocab_size or 0, tokenizer.vocab_size),
+            max_caption_length=max_caption_length,
+            freeze_vision_backbone=freeze_vision_backbone,
+            freeze_text_backbone=freeze_text_backbone,
+            share_text_tower=share_text_tower,
+            dtype=dtype,
+            remat=remat,
+        )
         # The meta device skips PyTorch's default init; init_params then fills
         # every parameter once, on the CPU, so one seed gives the same weights
         # whatever the target device.
         with torch.device("meta"):
-            module = build_module(
-                vision_model, text_model, projection_dim, temperature, dropout,
-                # may pad the embedding beyond the tokenizer; never below it
-                vocab_size=max(vocab_size or 0, tokenizer.vocab_size),
-                max_caption_length=max_caption_length,
-                freeze_vision_backbone=freeze_vision_backbone,
-                freeze_text_backbone=freeze_text_backbone,
-                dtype=dtype,
-                remat=remat,
-            )
+            module = build_module(**self._build_kwargs)
         module = module.to_empty(device="cpu")
         init_params(module, torch.Generator().manual_seed(seed))
         self.module = module.to(self.device).eval()
         self.image_size = image_size or self.module.vision_config.image_size
+        self.quantization = quantization
         self._inference_cache: Optional[nn.Module] = None
         self._inference_key: List[Tuple[nn.Parameter, int]] = []
-        self._decode_graphs = None  # generation/slots.py:DecodeGraphs of the inference module, on the card
+        self._quant_cache: Optional[nn.Module] = None  # the int8 decode twin
+        self._quant_key: List[Tuple[nn.Parameter, int]] = []
+        self._decode_graphs = None  # generation/slots.py:DecodeGraphs of the decode module, on the card
+        # LoRA (JAX model.py:302-320): factors outside the module, models/lora.py; the normalized
+        # schema of lora.normalize_lora_config
+        self.lora_config = lora_config
+        self.lora: Optional[Adapters] = None
+        if lora_config:
+            if lora_config.get("dropout", 0.0):
+                logger.info("lora_dropout=%s active as per-step adapter-input DropConnect (peft drops per "
+                            "token; see models/lora.py:dropout_masks)", lora_config["dropout"])
+            self.lora = init_lora(self.module, torch.Generator().manual_seed(seed * 1_000_003 + 1),
+                                  rank=lora_config["rank"], targets=lora_config["targets"])
 
     def num_parameters(self) -> Dict[str, int]:
-        """Parameter counts per top-level tower, ``total`` and ``trainable`` (JAX model.py:533-553)."""
+        """Parameter counts per top-level tower, ``total`` and ``trainable`` (JAX model.py:533-553).
+
+        With LoRA the base is frozen: ``lora`` counts the factors and is the
+        trainable count. A shared text tower counts once, as ``shared_lm``.
+        """
         per = {name: sum(p.numel() for p in child.parameters()) for name, child in self.module.named_children()}
         per["total"] = sum(p.numel() for p in self.module.parameters())
+        if self.lora is not None:
+            per["lora"] = per["trainable"] = count_lora_params(self.lora)
+            return per
         frozen = 0
         if self.freeze_vision_backbone:
             frozen += sum(p.numel() for p in self.module.vision_encoder.backbone.parameters())
+        if self.freeze_text_backbone:
+            frozen += sum(p.numel() for p in self.module.text_encoder.backbone.parameters())
         per["trainable"] = per["total"] - frozen
         return per
 
-    def load_jax_params(self, params: Mapping) -> None:
-        """Copy a JAX parameter tree (nested dicts of numpy arrays) into the masters."""
+    def load_jax_params(self, params: Mapping, lora: Optional[Mapping] = None) -> None:
+        """Copy a JAX parameter tree (nested dicts of numpy arrays) into the masters; ``lora``, a JAX
+        factor dict ({path: (A, B)} of arrays), replaces the adapters (their paths and shapes checked)."""
         load_jax_params(self.module, params)
+        if lora is not None:
+            if not self.lora_config:
+                raise ValueError("load_jax_params(lora=...) needs a model built with lora_config")
+            want = target_shapes(self.module, self.lora_config["targets"])
+            rank = self.lora_config["rank"]
+            got = {p: (np.shape(a), np.shape(b)) for p, (a, b) in lora.items()}
+            if got != {p: ((fi, rank), (rank, fo)) for p, (fi, fo) in want.items()}:
+                raise ValueError("the JAX LoRA factors do not match this model's targets, paths or shapes")
+            self.lora = from_numpy(lora, self.device)
 
     def _inference_module(self) -> PreferenceGuidedCaptioningModule:
         """The module in the compute dtype for inference.
@@ -317,14 +372,45 @@ class PreferenceGuidedCaptioningModel:
         """
         if self.dtype == torch.float32:
             return self.module
-        params = list(self.module.parameters())
-        fresh = len(params) == len(self._inference_key) and all(
-            p is q and p._version == v for p, (q, v) in zip(params, self._inference_key))
-        if self._inference_cache is None or not fresh:
-            self._inference_cache = self._decode_graphs = None  # free the old copy before casting the new one
+        if self._inference_cache is None or not self._fresh(self._inference_key):
+            self._inference_cache = None  # free the old copy before casting the new one
+            if not self.quantization:
+                self._decode_graphs = None
             self._inference_cache = frozen_copy(self.module, self.dtype)
-            self._inference_key = [(p, p._version) for p in params]
+            self._inference_key = self._masters_key()
         return self._inference_cache
+
+    def _masters_key(self) -> List[Tuple[nn.Parameter, int]]:
+        return [(p, p._version) for p in self.module.parameters()]
+
+    def _fresh(self, key: List[Tuple[nn.Parameter, int]]) -> bool:
+        """Whether every master is the one ``key`` holds, unchanged since (identity and version)."""
+        params = list(self.module.parameters())
+        return len(params) == len(key) and all(p is q and p._version == v for p, (q, v) in zip(params, key))
+
+    def _decode_module(self) -> PreferenceGuidedCaptioningModule:
+        """The module that decodes: the inference module, or with ``quantization`` its int8 twin.
+
+        The twin (JAX ``_decode_module_and_params``, model.py:389-412) is the
+        module built with ``decoder_quant``: the decoder LM's blocks hold int8
+        weights quantized from the float32 masters (never from the bf16
+        copy), every other parameter the masters' values in the compute
+        dtype. It is cached as the bf16 copy is, keyed on every master's
+        identity and version, and rebuilt after any change; the decode graphs
+        captured on the old twin are dropped with it.
+        """
+        if not self.quantization:
+            return self._inference_module()
+        if self._quant_cache is None or not self._fresh(self._quant_key):
+            self._quant_cache = self._decode_graphs = None  # free the old twin and its graphs first
+            with torch.device("meta"):
+                twin = build_module(**{**self._build_kwargs, "decoder_quant": self.quantization})
+            twin = cast_for_twin(twin.to_empty(device=self.device), self.dtype)
+            self._quant_cache = quantize_like(twin, self.module,
+                                              None if self.dtype == torch.float32 else self.dtype).eval()
+            self._quant_key = self._masters_key()
+            logger.info("Quantized decoder params (%s) for decode", self.quantization)
+        return self._quant_cache
 
     def _images(self, images) -> torch.Tensor:
         if not isinstance(images, torch.Tensor):
@@ -381,7 +467,7 @@ class PreferenceGuidedCaptioningModel:
         from pgica_tpu_torch.generation.decode import generate  # decode imports models: no cycle at import
         from pgica_tpu_torch.generation.slots import DecodeGraphs
 
-        module = self._inference_module()
+        module = self._decode_module()
         if self.device.type == "cuda" and (self._decode_graphs is None or self._decode_graphs.module is not module):
             self._decode_graphs = DecodeGraphs(module, self.device)
         # Phase times below are enqueue-side except the last, which ends in a

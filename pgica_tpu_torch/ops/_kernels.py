@@ -82,6 +82,14 @@ KERNELS = {
         "rmsnorm_bwd.cu", "pgica_rmsnorm_bwd",
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     ),
+    "q8_matmul_w8a8": (
+        "q8_matmul.cu", "pgica_q8_matmul_w8a8",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    ),
+    "q8_matmul_w8": (
+        "q8_matmul.cu", "pgica_q8_matmul_w8",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    ),
 }
 SOURCES = sorted({source for source, _, _ in KERNELS.values()})
 

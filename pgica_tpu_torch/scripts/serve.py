@@ -18,9 +18,11 @@ The flags are the JAX CLI's, with ``--platform`` replaced by ``--device``
 (``cuda``, the default, or ``cpu``). On the card every decode step is a
 replayed CUDA graph: one per batch bucket on the batch scheduler, one per
 chunk on the continuous one, captured by ``warmup`` (``--prejit`` builds
-the kernels and captures them, then exits). ``--quant`` raises: int8
-decode is not ported (ROADMAP queue 1 item 8). Images travel as uint8 and
-are normalized on the device.
+the kernels and captures them, then exits). ``--quant int8`` or
+``--quant int8_weight_only`` decodes through the model's int8 twin (the
+hand-written ``csrc/q8_matmul.cu`` on the card), the vision encode staying
+in the compute dtype. Images travel as uint8 and are normalized on the
+device.
 """
 
 from __future__ import annotations
@@ -382,7 +384,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cuda needs a card)")
     ap.add_argument("--quant", default=None, choices=["int8", "int8_weight_only"],
-                    help="int8 decode: not ported (ROADMAP queue 1 item 8); raises")
+                    help="decode-time int8 of the decoder LM (ops/quant.py): 'int8' = W8A8 (int8 products, "
+                         "int32 sums), 'int8_weight_only' = int8 weights dequantized in the matmul; overrides "
+                         "inference.quantization")
     ap.add_argument("--no-early-stop", action="store_true",
                     help="decode every step to --max-length instead of ending once every caption "
                          "emitted EOS (deterministic per-bucket latency, e.g. for probes)")
@@ -393,14 +397,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.quant:
-        raise NotImplementedError(f"--quant {args.quant}: int8 decode is not ported (ROADMAP queue 1 item 8)")
 
     from pgica_tpu_torch.utils.config import Config
     from pgica_tpu_torch.utils.factories import setup_logging
 
     setup_logging(level="INFO", filename="serving.log")
     config = Config(args.config)
+    if args.quant:
+        config.set("inference.quantization", args.quant)
     if args.scheduler == "continuous":
         service = ContinuousCaptionService(
             config, model_path=args.model_path, slots=args.slots, chunk=args.chunk,

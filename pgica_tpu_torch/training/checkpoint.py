@@ -11,7 +11,10 @@ checkpoint. The JAX package writes Orbax checkpoints; reading those is out
 of scope. ``async`` saves (the autosave) copy the tensors to host memory at
 once, the parameters being updated in place by the next step, and write
 them on a thread; ``wait`` joins it, and every save or restore waits first.
-Each save's bytes and seconds are kept in ``saves``.
+Each save's bytes and seconds are kept in ``saves``. A checkpoint of LoRA
+training holds the frozen base under ``params``, the factors under ``lora``
+(``models/lora.py:lora_to_tree``) and the normalized config as
+``meta.lora_config``; :func:`effective_params` merges them.
 """
 
 from __future__ import annotations
@@ -67,10 +70,16 @@ def load_opt_state(state: OptState, saved: Mapping[str, Any]) -> None:
 
 
 def effective_params(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Inference-ready parameters of a restored payload (LoRA payloads are not ported)."""
-    if payload.get("lora"):
-        raise NotImplementedError("LoRA checkpoints are not ported (ROADMAP queue 1 item 8)")
-    return payload["params"]
+    """Inference-ready parameters of a restored payload: a LoRA payload's base merged with its factors
+    (JAX checkpoint.py:33-46), so every consumer (the CLIs, ``load_best_model_at_end``) sees plain
+    parameters."""
+    params, tree = payload["params"], payload.get("lora")
+    if not tree:
+        return params
+    from pgica_tpu_torch.models.lora import apply_lora, lora_from_tree
+
+    cfg = (payload.get("meta") or {}).get("lora_config") or {}
+    return apply_lora(params, lora_from_tree(tree), alpha=float(cfg.get("alpha", 32.0)), rank=int(cfg.get("rank", 16)))
 
 
 class CheckpointManager:
@@ -99,8 +108,11 @@ class CheckpointManager:
         config: Optional[Dict] = None,
         step_in_epoch: int = 0,
         use_async: bool = False,
+        lora: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+        lora_config: Optional[Dict] = None,
     ) -> Path:
-        """Write ``params`` (name -> tensor) and, if given, the optimizer state."""
+        """Write ``params`` (name -> tensor) and, if given, the optimizer state and the LoRA factors
+        (a ``lora_to_tree`` dict) with their config."""
         self.wait()
         t0 = time.perf_counter()
         path = self._path(name)
@@ -112,9 +124,13 @@ class CheckpointManager:
             "val_loss": None if val_loss is None else float(val_loss),
             "config": config,
         }
+        if lora_config is not None:
+            meta["lora_config"] = {k: list(v) if isinstance(v, tuple) else v for k, v in lora_config.items()}
         payload = {"params": _host(params), "meta": meta}
         if opt_state is not None:
             payload["opt_state"] = opt_state_dict(opt_state)
+        if lora is not None:
+            payload["lora"] = {path: _host(ab) for path, ab in lora.items()}
         record = {"name": name, "stage": stage, "global_step": global_step}
 
         def write():

@@ -13,6 +13,7 @@ plain functions on tensors, in the same arithmetic order:
 * ``warmup_cosine_schedule``: linear from 0 (so the first update has lr 0)
   to the peak, cosine down to ``lr * 1e-5``, evaluated in float32 as optax
   does, at the count of updates applied so far;
+* LoRA (``init_adapters``): the factors are the only trained leaves;
 * freezing: frozen leaves get no update and no decay (they are left out of
   the optimizer, and their ``requires_grad`` is turned off so no gradient is
   computed for them; ``init`` turns it on for every trained leaf, so one
@@ -87,7 +88,7 @@ class OptState:
     """Trained parameters (references into the module) and the AdamW/MultiSteps state."""
 
     names: List[str]
-    params: List[nn.Parameter]
+    params: List[torch.Tensor]  # the module's Parameters, or the LoRA factors
     count: int  # updates applied: the schedule's step and Adam's bias-correction count
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
@@ -121,8 +122,23 @@ class Optimizer:
             if not frozen:
                 names.append(name)
                 params.append(p)
-        zeros = [torch.zeros_like(p) for p in params]
-        return OptState(names, params, 0, zeros, [torch.zeros_like(p) for p in params])
+        return self._state(names, params)
+
+    def init_adapters(self, module: nn.Module, lora) -> OptState:
+        """The state of LoRA training: the factors ({path: (A, B)}) are the trained leaves, every
+        parameter of ``module`` frozen (no gradient, no update, no decay), as the JAX optimizer that
+        only ever sees the adapter tree."""
+        module.requires_grad_(False)
+        names, params = [], []
+        for path in sorted(lora):
+            for part, t in zip("ab", lora[path]):
+                names.append(f"{path}/{part}")
+                params.append(t.requires_grad_(True))
+        return self._state(names, params)
+
+    @staticmethod
+    def _state(names: List[str], params: List[torch.Tensor]) -> OptState:
+        return OptState(names, params, 0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState, grad_norm: Optional[float] = None) -> None:

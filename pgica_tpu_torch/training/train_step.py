@@ -29,12 +29,24 @@ keeps the old optimizer and accumulator state, and adds one to ``skipped``.
 The JAX step does that on the device; here one host sync per step reads the
 loss and the norm (the loss is read anyway).
 
-Not ported yet: LoRA (ROADMAP queue 1 item 8), global negatives and the
-vocab-parallel log-probs over a device mesh (queue 1 item 9).
+LoRA (JAX train_step.py:39-60): with ``lora=(alpha, rank[, dropout])`` the
+stage-1 and stage-2 steps train the state's adapter factors only
+(``TrainState.create(module, optimizer, lora=adapters)``). The step merges
+``W + (alpha / rank) * A @ B`` into the targeted weights and runs the
+module on them (models/lora.py:swapped) for the forward and the backward;
+the float32 masters take no gradient and are never written, and gradient
+clipping and AdamW see the factors only. The train step draws the adapter
+DropConnect (``dropout``) from a generator of its own, one mask a step; the
+eval steps merge without it. The tied embedding is no target, so a LoRA
+stage-2 step runs the fused-CE dh kernel and never dW.
+
+Not ported yet: global negatives and the vocab-parallel log-probs over a
+device mesh (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -44,6 +56,7 @@ import torch
 from torch import nn
 
 from pgica_tpu_torch.data.augment import augment_batch, prepare_images
+from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
 from pgica_tpu_torch.training.optim import OptState, Optimizer, global_norm
 
@@ -52,22 +65,27 @@ CAPTION_KEYS = ("image", "caption_ids", "caption_mask")
 PAIR_KEYS = ("image", "preferred_ids", "preferred_mask", "rejected_ids", "rejected_mask")
 
 
+LoraSpec = Tuple[float, ...]  # (alpha, rank) or (alpha, rank, dropout), as the JAX steps take it
+
+
 @dataclasses.dataclass
 class TrainState:
     """The module (its float32 masters are the params), the optimizer state and the counters.
 
-    Steps update the module's parameters and ``opt_state`` in place and
-    return the same object.
+    Steps update the module's parameters (or, with ``lora``, the adapter
+    factors) and ``opt_state`` in place and return the same object.
     """
 
     step: int
     module: nn.Module
     opt_state: OptState
     skipped: int = 0  # count of NaN-skipped updates
+    lora: Optional[Adapters] = None  # the trained factors in LoRA mode (the masters then stay frozen)
 
     @classmethod
-    def create(cls, module: nn.Module, optimizer: Optimizer) -> "TrainState":
-        return cls(step=0, module=module, opt_state=optimizer.init(module))
+    def create(cls, module: nn.Module, optimizer: Optimizer, lora: Optional[Adapters] = None) -> "TrainState":
+        opt_state = optimizer.init(module) if lora is None else optimizer.init_adapters(module, lora)
+        return cls(step=0, module=module, opt_state=opt_state, lora=lora)
 
 
 def _apply_update(
@@ -112,6 +130,26 @@ def augment_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 1_000_003 + step + AUGMENT_STREAM)
 
 
+LORA_STREAM = 2 << 40  # the adapter DropConnect's seeds (the JAX step's fold_in(rng, 7))
+
+
+def lora_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+    """The DropConnect generator of one LoRA train step: a stream apart from dropout and augmentation."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step + LORA_STREAM)
+
+
+def _adapted(module: nn.Module, adapters: Optional[Adapters], lora: Optional[LoraSpec],
+             generator: Optional[torch.Generator] = None):
+    """A context running ``module`` on its LoRA-merged weights (no-op without ``lora``); with a
+    ``generator``, the spec's dropout masks the factors."""
+    if lora is None:
+        return contextlib.nullcontext(module)
+    if adapters is None:
+        raise ValueError("a LoRA step needs the adapter factors (TrainState.create(..., lora=adapters))")
+    dropout = lora[2] if len(lora) > 2 else 0.0
+    return swapped(module, merged_targets(module, adapters, lora[0], int(lora[1]), dropout, generator))
+
+
 def _augmented(batch: Dict[str, torch.Tensor], augment: bool, seed: int, step: int) -> Dict[str, torch.Tensor]:
     if augment:
         batch["image"] = augment_batch(prepare_images(batch["image"]), augment_generator(seed, step))
@@ -123,11 +161,18 @@ def _grad_step(
     optimizer: Optimizer,
     seed: int,
     loss_fn: Callable[[torch.Generator], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+    lora: Optional[LoraSpec] = None,
 ) -> Tuple[TrainState, Dict[str, object]]:
-    """Loss and gradients of the trained parameters, then the NaN-safe update."""
+    """Loss and gradients of the trained parameters (with ``lora``: the factors), then the NaN-safe update.
+
+    The merged LoRA weights stay in place through the backward, where
+    activation checkpointing recomputes the blocks.
+    """
     params = state.opt_state.params
-    generator = step_generator(params[0].device, seed, state.step)
-    with torch.enable_grad():
+    device = params[0].device
+    generator = step_generator(device, seed, state.step)
+    lora_gen = lora_generator(device, seed, state.step) if lora is not None else None
+    with torch.enable_grad(), _adapted(state.module, state.lora, lora, lora_gen):
         loss, metrics = loss_fn(generator)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     state, grad_norm = _apply_update(state, grads, optimizer, loss.detach())
@@ -135,11 +180,6 @@ def _grad_step(
     metrics["grad_norm"] = grad_norm
     metrics["skipped"] = state.skipped
     return state, metrics
-
-
-def _check_unported(lora) -> None:
-    if lora is not None:
-        raise NotImplementedError("lora: LoRA is not ported yet (ROADMAP queue 1 item 8)")
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -195,7 +235,7 @@ def make_stage1_train_step(
     optimizer: Optimizer,
     temperature: float,
     augment: bool = False,
-    lora: Optional[Tuple[float, int]] = None,
+    lora: Optional[LoraSpec] = None,
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, object]]]:
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -205,25 +245,30 @@ def make_stage1_train_step(
     generator. Metrics: ``loss``, ``loss_i2t``, ``loss_t2i``,
     ``contrastive_accuracy``, ``grad_norm`` (tensors) and ``skipped`` (int).
     ``augment`` augments the images first (see the module docstring).
+    ``lora`` trains the state's adapters (see the module docstring).
     """
-    _check_unported(lora)
 
     def step(state: TrainState, batch: Batch, seed: int = 0):
         batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step)
-        return _grad_step(state, optimizer, seed, lambda gen: stage1_loss_fn(state.module, batch, gen, temperature))
+        return _grad_step(state, optimizer, seed, lambda gen: stage1_loss_fn(state.module, batch, gen, temperature),
+                          lora)
 
     return step
 
 
 def make_stage1_eval_step(
-    module: nn.Module, temperature: float, lora: Optional[Tuple[float, int]] = None
+    module: nn.Module, temperature: float, lora: Optional[LoraSpec] = None, adapters: Optional[Adapters] = None,
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """Returns ``step(batch) -> metrics``: the contrastive forward without dropout or gradients."""
-    _check_unported(lora)
+    """Returns ``step(batch) -> metrics``: the contrastive forward without dropout or gradients.
+
+    With ``lora`` it runs on the base merged with ``adapters`` (read at each
+    call, so the train steps' in-place updates show), without DropConnect.
+    """
 
     @torch.no_grad()
     def step(batch: Batch):
-        _, metrics = stage1_loss_fn(module, _on_device(batch, _device(module)), None, temperature)
+        with _adapted(module, adapters, lora):
+            _, metrics = stage1_loss_fn(module, _on_device(batch, _device(module)), None, temperature)
         return metrics
 
     return step
@@ -235,7 +280,8 @@ def make_stage1_eval_step(
 def decoder_embedding(module: nn.Module) -> torch.Tensor:
     """The decoder LM's weight-tied embedding: the policy's f32 master, or a frozen copy's cast.
 
-    A shared text tower (the JAX ``shared_lm``) is not ported yet.
+    With a shared text tower it is the shared LM's (JAX ``shared_lm``): the
+    decoder's ``lm`` is that LM.
     """
     return module.caption_decoder.lm.wte.weight
 
@@ -292,7 +338,7 @@ def make_stage2_train_step(
     length_normalized: bool = False,
     label_smoothing: float = 0.0,
     augment: bool = False,
-    lora: Optional[Tuple[float, int]] = None,
+    lora: Optional[LoraSpec] = None,
 ) -> Callable[[TrainState, Optional[nn.Module], Batch, int], Tuple[TrainState, Dict[str, object]]]:
     """Returns ``step(state, ref_module, batch, seed) -> (state, metrics)``.
 
@@ -304,14 +350,15 @@ def make_stage2_train_step(
     ``reward_accuracy``, ``chosen_reward``, ``rejected_reward``,
     ``policy_chosen_logp``, ``policy_rejected_logp``, ``grad_norm``
     (tensors) and ``skipped`` (int). ``augment`` augments the images first.
+    ``lora`` trains the state's adapters; the reference is then the frozen
+    merged policy at stage-2 start (the trainer's).
     """
-    _check_unported(lora)
 
     def step(state: TrainState, ref_module: Optional[nn.Module], batch: Batch, seed: int = 0):
         batch = _on_device(batch, state.opt_state.params[0].device, PAIR_KEYS)
         batch = _augmented(batch, augment, seed, state.step)
         return _grad_step(state, optimizer, seed, lambda gen: stage2_loss_fn(
-            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing))
+            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing), lora)
 
     return step
 
@@ -321,16 +368,18 @@ def make_stage2_eval_step(
     beta: float,
     reference_free: bool = False,
     length_normalized: bool = False,
-    lora: Optional[Tuple[float, int]] = None,
+    lora: Optional[LoraSpec] = None,
+    adapters: Optional[Adapters] = None,
 ) -> Callable[[Optional[nn.Module], Batch], Dict[str, torch.Tensor]]:
-    """Returns ``step(ref_module, batch) -> metrics``: DPO loss and rewards without dropout or gradients."""
-    _check_unported(lora)
+    """Returns ``step(ref_module, batch) -> metrics``: DPO loss and rewards without dropout or gradients
+    (with ``lora``, the policy merged with ``adapters``, as :func:`make_stage1_eval_step`)."""
 
     @torch.no_grad()
     def step(ref_module: Optional[nn.Module], batch: Batch):
         batch = _on_device(batch, _device(module), PAIR_KEYS)
-        loss, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free,
-                                       length_normalized, 0.0)
+        with _adapted(module, adapters, lora):
+            loss, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free,
+                                           length_normalized, 0.0)
         del metrics["policy_chosen_logp"], metrics["policy_rejected_logp"]  # as the JAX eval step
         return metrics
 

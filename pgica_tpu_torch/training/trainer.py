@@ -12,7 +12,16 @@ masters in place, so the model wrapper always holds the trained weights
 Differences from the JAX trainer:
 
 * One device. A device mesh, ZeRO-1/3, tensor or sequence parallelism
-  (``mesh.*``) raise (ROADMAP queue 1 item 9), and so does LoRA (item 8).
+  (``mesh.*``) raise (ROADMAP queue 1 item 9).
+* LoRA (``model.lora_config``; JAX trainer.py:201-260,494-507,612-625,
+  686-725,1131-1162,1232-1237): stages 1 and 2 train the model's adapter
+  factors only (the optimizer holds nothing else, so no partition
+  freezes anything); the float32 masters stay as they are until the end of
+  training, when the adapters are folded into them (or the best checkpoint,
+  merged, is loaded), after which ``generate_captions`` and the CLIs see
+  the adapted model. The stage-2 reference is a frozen copy, in
+  ``reference_dtype``, of the merged policy at stage-2 start. Checkpoints
+  hold the base, the factors and the config.
 * The NaN skip is the train steps' (one host sync a step, where the loss
   and the gradient norm are read); the trainer reads the skip counter, a
   Python int, at logging boundaries and at the end of each epoch.
@@ -28,7 +37,6 @@ Differences from the JAX trainer:
 
 from __future__ import annotations
 
-import bisect
 import hashlib
 import json
 import logging
@@ -43,6 +51,7 @@ import torch
 from torch import nn
 
 from pgica_tpu_torch.core.precision import compute_dtype
+from pgica_tpu_torch.models.lora import fold_lora, lora_from_tree, lora_to_tree, merged_targets
 from pgica_tpu_torch.models.model import frozen_copy
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state
 from pgica_tpu_torch.training.optim import create_optimizer
@@ -55,6 +64,7 @@ from pgica_tpu_torch.training.train_step import (
     make_stage2_eval_step,
     make_stage2_train_step,
 )
+from pgica_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -75,33 +85,13 @@ PROFILE_STEPS = (2, 8)  # [first, last) step of a stage that profile_dir traces
 STEP_RANGE = "train_step"  # the profiler range around each train step
 
 
-def _host_time_in_steps(events) -> List[tuple]:
-    """(name, ms, calls) of the host events inside a ``STEP_RANGE`` range, by self time, largest first.
-
-    Events of any thread count (the backward runs on the autograd engine's
-    device thread) when they start and end inside one step's range.
-    """
-    from torch.autograd import DeviceType
-
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    steps = sorted((e.time_range.start, e.time_range.end) for e in host if e.name == STEP_RANGE)
-    totals: Dict[str, List[float]] = {}
-    for e in host:
-        i = bisect.bisect_right(steps, (e.time_range.start, float("inf"))) - 1
-        if e.name != STEP_RANGE and i >= 0 and e.time_range.end <= steps[i][1]:
-            total = totals.setdefault(e.name, [0.0, 0])
-            total[0] += e.self_cpu_time_total / 1e3
-            total[1] += 1
-    return sorted(((name, ms, n) for name, (ms, n) in totals.items()), key=lambda t: t[1], reverse=True)
-
-
 def stage_seed(seed: int, stage: int) -> int:
     """The seed of one stage's step generators (the JAX trainer's ``purpose_key``)."""
     return int.from_bytes(hashlib.sha1(f"{seed}/train_stage{stage}".encode()).digest()[:4], "little")
 
 
 def check_single_device(config, mesh=None) -> None:
-    """Raise on the parallel and LoRA settings that the port does not run."""
+    """Raise on the parallel settings that the port does not run."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported (ROADMAP queue 1 item 9)")
     for key in ("zero1", "zero3"):
@@ -111,8 +101,6 @@ def check_single_device(config, mesh=None) -> None:
                        ("fsdp", "parameter sharding"), ("dcn", "multi-slice data parallelism")):
         if int(config.get(f"mesh.{axis}", 1) or 1) > 1:
             raise NotImplementedError(f"mesh.{axis} > 1: {what} is not ported (ROADMAP queue 1 item 9)")
-    if config.get("model.lora_config"):
-        raise NotImplementedError("model.lora_config: LoRA is not ported (ROADMAP queue 1 item 8)")
 
 
 @contextmanager
@@ -244,14 +232,28 @@ class PreferenceGuidedTrainer:
             arrays = bucket_batch(arrays, self._buckets)
         return arrays
 
+    @property
+    def _lora_static(self):
+        """(alpha, rank, dropout) while the model carries LoRA adapters, else None (JAX trainer.py:201-211)."""
+        cfg = self.model.lora_config
+        if cfg and self.model.lora is not None:
+            return (float(cfg["alpha"]), int(cfg["rank"]), float(cfg.get("dropout", 0.0)))
+        return None
+
     def _make_optimizer(self, stage: int, steps_per_epoch: int):
-        """The stage's chain: modules outside its gradient graph are frozen (JAX trainer.py:213-255)."""
+        """The stage's chain: modules outside its gradient graph are frozen (JAX trainer.py:213-255).
+
+        With LoRA the state holds the adapters alone, so nothing is frozen.
+        """
         cfg = self._stage_cfg(stage)
         accum = int(cfg.get("gradient_accumulation_steps", 1))
         if self.max_steps_per_epoch is not None:
             steps_per_epoch = min(steps_per_epoch, self.max_steps_per_epoch)
         total_updates = max(1, steps_per_epoch * int(cfg.get("num_epochs", 1)) // max(accum, 1))
+        lora = self._lora_static is not None
         frozen_prefixes = ("caption_decoder",) if stage == 1 else ("text_encoder",)
+        if self.model.freeze_text_backbone:
+            frozen_prefixes += ("text_encoder.backbone",)
         return create_optimizer(
             learning_rate=float(cfg.get("learning_rate", 5e-5)),
             total_steps=total_updates,
@@ -259,8 +261,8 @@ class PreferenceGuidedTrainer:
             weight_decay=float(cfg.get("weight_decay", 0.01)),
             max_grad_norm=float(cfg.get("max_grad_norm", 1.0)),
             gradient_accumulation_steps=accum,
-            freeze_vision_backbone=self.model.freeze_vision_backbone,
-            frozen_prefixes=frozen_prefixes,
+            freeze_vision_backbone=False if lora else self.model.freeze_vision_backbone,
+            frozen_prefixes=() if lora else frozen_prefixes,
         )
 
     def _check_early_stopping(self, stage: int, val_loss: float, counter: int) -> int:
@@ -286,8 +288,12 @@ class PreferenceGuidedTrainer:
         return min(epoch + 1, num_epochs), 0
 
     def _ckpt_payload(self) -> Dict[str, Any]:
-        """Checkpoint content: every parameter by name (a dropped tower from host memory)."""
-        return {"params": self.model.module.state_dict()}
+        """Checkpoint content: every parameter by name (a dropped tower from host memory); with LoRA
+        the masters are the frozen base, beside the factors and their config."""
+        payload = {"params": self.model.module.state_dict()}
+        if self._lora_static is not None:
+            payload.update(lora=lora_to_tree(self.model.lora), lora_config=dict(self.model.lora_config))
+        return payload
 
     def _maybe_autosave(self, stage: int, epoch: int, step_idx: int, state: TrainState):
         if not self.save_steps or self.global_step % self.save_steps != 0 or stage == 0:
@@ -343,6 +349,8 @@ class PreferenceGuidedTrainer:
             return {"skipped": True}
         if self.train_loader is None:
             raise ValueError("Stage 0 requires a contrastive train_loader")
+        if self._lora_static is not None:
+            raise ValueError("stage0 warmup is full-parameter; disable it for LoRA runs")
         module = self.model.module
         optimizer = self._make_optimizer(0, len(self.train_loader))
         state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
@@ -366,10 +374,11 @@ class PreferenceGuidedTrainer:
         num_epochs = int(cfg.get("num_epochs", 1))
         temperature = float(self.config.get("model.temperature", 0.5))
         module = self.model.module
+        lora = self._lora_static
         optimizer = self._make_optimizer(1, len(self.train_loader))
-        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
-        step = make_stage1_train_step(module, optimizer, temperature, augment=True)
-        eval_step = make_stage1_eval_step(module, temperature)
+        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer, self.model.lora if lora else None))
+        step = make_stage1_train_step(module, optimizer, temperature, augment=True, lora=lora)
+        eval_step = make_stage1_eval_step(module, temperature, lora=lora and lora[:2], adapters=self.model.lora)
         seed = stage_seed(self.seed, 1)
 
         logger.info("Stage 1: %d epochs x %d steps", num_epochs, len(self.train_loader))
@@ -396,12 +405,18 @@ class PreferenceGuidedTrainer:
         Rebuilding it from a restored policy after an interruption would move
         the KL anchor; so it is written once at stage-2 start and restored
         whenever a stage-2 checkpoint is resumed. It leaves out the text
-        tower, which stage 2 never runs.
+        tower, which stage 2 never runs. With LoRA the policy is the base
+        merged with the adapters, without DropConnect (JAX trainer.py:714-723).
         """
         name = "stage2_reference"
         path = self.checkpoints._path(name)
         with _without(self.model.module, "text_encoder") as policy:
             ref = frozen_copy(policy, ref_dtype)
+            lora = self._lora_static
+            if lora is not None:
+                with torch.no_grad():
+                    for n, w in merged_targets(policy, self.model.lora, lora[0], lora[1]).items():
+                        ref.get_parameter(n).copy_(w)
         if self._resume is not None and self._resume.get("stage") == 2 and path.exists():
             ref.load_state_dict(self.checkpoints.restore(name)["params"])
             logger.info("Restored stage-2 DPO reference (stage-2 start policy) from %s", path)
@@ -419,6 +434,9 @@ class PreferenceGuidedTrainer:
             raise ValueError("Stage 2 requires a preference_train_loader")
         reference_free = bool(cfg.get("reference_free", False))
         module = self.model.module
+        lora = self._lora_static
+        if lora is not None and bool(cfg.get("drop_unused_tower", False)):
+            raise ValueError("training.stage2.drop_unused_tower composes with full fine-tuning only")
         ref = None
         if not reference_free:
             ref = self._stage2_reference(compute_dtype(cfg.get("reference_dtype", "bf16")))
@@ -428,12 +446,12 @@ class PreferenceGuidedTrainer:
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
         optimizer = self._make_optimizer(2, len(self.preference_train_loader))
-        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
+        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer, self.model.lora if lora else None))
         dpo = dict(beta=float(cfg.get("dpo_beta", 0.1)), reference_free=reference_free,
                    length_normalized=bool(cfg.get("length_normalized", False)))
         step = make_stage2_train_step(module, optimizer, label_smoothing=float(cfg.get("label_smoothing", 0.0)),
-                                      augment=True, **dpo)
-        eval_step = make_stage2_eval_step(module, **dpo)
+                                      augment=True, lora=lora, **dpo)
+        eval_step = make_stage2_eval_step(module, lora=lora and lora[:2], adapters=self.model.lora, **dpo)
         seed = stage_seed(self.seed, 2)
 
         logger.info("Stage 2: %d epochs x %d steps", num_epochs, len(self.preference_train_loader))
@@ -489,28 +507,26 @@ class PreferenceGuidedTrainer:
         """
         if self._profiler is None:
             return
-        from torch.autograd import DeviceType
-
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         stage, first, t0 = self._profile_t0
         wall_ms = (time.perf_counter() - t0) * 1e3
         self._profiler.__exit__(None, None, None)
         prof, self._profiler = self._profiler, None
+        events = trace.raw_events(prof)
         # on the card the step ranges also show as annotations spanning each step's kernels: not kernels
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key != STEP_RANGE]
-        copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
-        kernels = [e for e in events if e not in copies]
-        host = _host_time_in_steps(prof.events())
+        device = {k: v for k, v in trace.device_totals(events).items() if k != STEP_RANGE}
+        copies = {k for k in device if k.startswith(("Memcpy", "Memset"))}
+        host = trace.host_self_times(events, within=STEP_RANGE)
         self.profiles[stage] = {
             "steps": stage_step - first,
             "step_ms": sum(step_seconds[first:stage_step]) * 1e3,
             "wall_ms": wall_ms,
-            "device_ms": sum(getattr(e, "self_device_time_total", 0) for e in kernels) / 1e3,
-            "memcpy_ms": sum(getattr(e, "self_device_time_total", 0) for e in copies) / 1e3,
-            "launches": sum(e.count for e in kernels),
-            "host_ms": sum(ms for _, ms, _ in host),
-            "host_top": host[:10],
+            "device_ms": sum(us for k, (us, _) in device.items() if k not in copies) / 1e3,
+            "memcpy_ms": sum(us for k, (us, _) in device.items() if k in copies) / 1e3,
+            "launches": sum(n for k, (_, n) in device.items() if k not in copies),
+            "host_ms": sum(us for us, _ in host.values()) / 1e3,
+            "host_top": [(name, us / 1e3, n) for name, us, n in trace.largest(host, 10)],
         }
         Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(self.profile_dir) / f"stage{stage}.json"))
@@ -626,28 +642,42 @@ class PreferenceGuidedTrainer:
             for ld in (self.train_loader, self.val_loader, self.preference_train_loader, self.preference_val_loader):
                 if hasattr(ld, "close"):
                     ld.close()
-        if bool(self.config.get("training.load_best_model_at_end", False)):
-            self._load_best_at_end()
+        loaded = bool(self.config.get("training.load_best_model_at_end", False)) and self._load_best_at_end()
+        if not loaded and self._lora_static is not None:
+            self._fold_lora()  # also when no best checkpoint was there to load (JAX: the adapters stay apart)
         self._write_results(results, wall_clock_s=time.perf_counter() - t0)
         return results
+
+    def _fold_lora(self) -> None:
+        """Merge the final adapters into the masters (in place), so that generate_captions and the CLIs
+        see the adapted model; ``model.lora`` is cleared so nothing merges them twice."""
+        alpha, rank, _ = self._lora_static
+        fold_lora(self.model.module, self.model.lora, alpha, rank)
+        self.model.lora = None
+        logger.info("Folded LoRA adapters into model params for inference")
 
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy a checkpoint's parameters into the model's masters, in place."""
         self.model.module.load_state_dict(params)
 
-    def _load_best_at_end(self):
-        """Leave the best-val-loss checkpoint on the model (HF Trainer semantics): stage 2's, else 1's."""
+    def _load_best_at_end(self) -> bool:
+        """Leave the best-val-loss checkpoint on the model (HF Trainer semantics): stage 2's, else 1's.
+        Whether one was loaded."""
         for stage in (2, 1):
             if self.best_val_loss[stage] == float("inf"):
                 continue
             path = self.checkpoints._path(f"best_model_stage{stage}")
             if not path.exists():
                 continue
-            self._load_params(effective_params(self.checkpoints.restore(path)))
+            payload = self.checkpoints.restore(path)
+            self._load_params(effective_params(payload))
+            if payload.get("lora"):
+                self.model.lora = None  # merged: nothing may merge the adapters again
             logger.info("load_best_model_at_end: restored best stage-%d params (val_loss %.4f)",
                         stage, self.best_val_loss[stage])
-            return
+            return True
         logger.info("load_best_model_at_end: no best checkpoint recorded; keeping final params")
+        return False
 
     def _write_results(self, results: Dict[str, Any], wall_clock_s: float):
         """results.json and results_summary.json in the output directory."""
@@ -691,7 +721,13 @@ class PreferenceGuidedTrainer:
     def load_checkpoint(self, path) -> Dict[str, Any]:
         """Restore parameters, the optimizer state (taken by the next stage start) and the resume point."""
         payload = self.checkpoints.restore(path)
-        self._load_params(effective_params(payload))
+        if payload.get("lora") and self.model.lora_config:
+            # resume LoRA training: the base and the factors are restored apart
+            self._load_params(payload["params"])
+            self.model.lora = {p: tuple(t.to(self.device, copy=True) for t in ab)
+                               for p, ab in lora_from_tree(payload["lora"]).items()}
+        else:
+            self._load_params(effective_params(payload))
         self._restored_opt_state = payload.get("opt_state")
         meta = payload.get("meta", {})
         self.global_step = int(meta.get("global_step", 0) or 0)

@@ -16,11 +16,9 @@ Config keys the port reads differently:
   it raises there (on the CPU the plain versions run anyway).
 * ``model.scan_layers`` (a ``lax.scan`` layout) has no meaning in eager
   PyTorch and is ignored.
-* Not ported, and raising with their ROADMAP item: a dataset-trained BPE
-  (``data.bpe_vocab_size`` with an existing corpus, queue 1 item 4); LoRA
-  (``model.lora_config``), a shared text tower and int8 decode
-  (``inference.quantization``), queue 1 item 8. The mesh factory is left
-  out with the parallel stack (queue 1 item 9).
+* Not ported, and raising with its ROADMAP item: a dataset-trained BPE
+  (``data.bpe_vocab_size`` with an existing corpus, queue 1 item 4). The
+  mesh factory is left out with the parallel stack (queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -95,16 +93,16 @@ def create_model(config, tokenizer=None, seed: Optional[int] = None, device: Uni
     from pgica_tpu_torch.core.device import resolve_device
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
 
+    from pgica_tpu_torch.models.lora import normalize_lora_config
+
     device = resolve_device(device)
     _check_kernels_enabled(config, device)
-    if config.get("model.lora_config"):
-        raise NotImplementedError("model.lora_config: LoRA is not ported (ROADMAP queue 1 item 8)")
-    if config.get("model.share_text_tower", False):
-        raise NotImplementedError("model.share_text_tower is not ported (ROADMAP queue 1 item 8)")
-    if config.get("inference.quantization"):
-        raise NotImplementedError("inference.quantization: int8 decode is not ported (ROADMAP queue 1 item 8)")
     tokenizer = tokenizer or create_tokenizer(config)
     return PreferenceGuidedCaptioningModel(
+        lora_config=normalize_lora_config(config.get("model.lora_config")),
+        share_text_tower=bool(config.get("model.share_text_tower", False)),
+        # decode-time int8 ("int8" W8A8 | "int8_weight_only"); training is never quantized
+        quantization=config.get("inference.quantization") or None,
         vocab_size=config.get("model.vocab_size"),
         vision_model=config.get("model.vision_model", "openai/clip-vit-base-patch32"),
         text_model=config.get("model.text_model", "gpt2-medium"),

@@ -4,7 +4,8 @@ Both schedulers answer with the captions ``generate_captions`` gives for the
 same images (the batch scheduler pads a bucket, the continuous one decodes
 through the slot-pool engine); the HTTP handler on 127.0.0.1 answers
 ``/healthz``, a JSON ``/caption``, a JPEG ``/caption`` and a 400 for a bad
-body; ``--help`` runs; ``--quant`` raises (int8 decode is not ported).
+body; ``--help`` runs; ``--quant`` reaches the model (int8 decode,
+tests/test_torch_quant.py).
 """
 
 import http.client
@@ -114,6 +115,19 @@ def test_cli_help_runs():
     assert "--scheduler" in result.stdout and "--device" in result.stdout
 
 
-def test_quant_raises_as_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        serve.main(["--quant", "int8", "--device", "cpu"])
+def test_quant_raises_as_not_ported(tmp_path, monkeypatch):
+    """``--quant`` was refused before int8 decode was ported; now it sets ``inference.quantization`` and the
+    service decodes through the int8 twin (``--prejit`` warms every bucket and exits)."""
+    import yaml
+
+    from pgica_tpu_torch.utils import factories
+
+    built = []
+    create = factories.create_model
+    monkeypatch.setattr(factories, "create_model", lambda *a, **kw: built.append(create(*a, **kw)) or built[-1])
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(CONFIG))
+    for mode in ("int8", "int8_weight_only"):
+        assert serve.main(["--config", str(path), "--quant", mode, "--device", "cpu", "--prejit", "--max-batch", "2",
+                           "--max-length", "4"]) == 0
+        assert built[-1].quantization == mode and built[-1]._quant_cache is not None

@@ -485,11 +485,15 @@ def test_stage2_nan_batch_is_skipped_as_in_jax(jax_model, jax_stage2_steps):
 
 
 def test_stage2_unported_options_raise(jax_model):
+    """LoRA is ported (tests/test_torch_lora.py); a LoRA step or eval step without adapter factors raises."""
     port = _port(jax_model.params)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_stage2_train_step(port.module, _port_optimizer(1), BETA, lora=(16.0, 4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_stage2_eval_step(port.module, BETA, lora=(16.0, 4))
+    opt = _port_optimizer(1)
+    step = make_stage2_train_step(port.module, opt, BETA, lora=(16.0, 4))
+    ref = frozen_copy(port.module, torch.float32)
+    with pytest.raises(ValueError, match="adapter factors"):
+        step(TrainState.create(port.module, opt), ref, _pairs(0), 0)
+    with pytest.raises(ValueError, match="adapter factors"):
+        make_stage2_eval_step(port.module, BETA, lora=(16.0, 4))(ref, _pairs(0))
 
 
 # ---------------------------------------------------------------- stage 0

@@ -165,8 +165,10 @@ def test_eval_step_matches_the_train_forward(jax_model):
 
 def test_unported_options_raise(jax_model):
     port = _port(jax_model)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_stage1_train_step(port.module, _port_optimizer(1), TEMP, lora=(16.0, 4))
+    # LoRA is ported (tests/test_torch_lora.py): a LoRA step without adapter factors raises
+    opt = _port_optimizer(1)
+    with pytest.raises(ValueError, match="adapter factors"):
+        make_stage1_train_step(port.module, opt, TEMP, lora=(16.0, 4))(TrainState.create(port.module, opt), _batch(0), 0)
     with pytest.raises(NotImplementedError, match="item 9"):
         ntxent_loss(torch.zeros(2, 4), torch.zeros(2, 4), axis_name="data")
     # augmentation is ported (tests/test_torch_augment.py): the augmented step trains

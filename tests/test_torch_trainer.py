@@ -243,13 +243,16 @@ def test_drop_unused_tower_is_loss_identical_and_merged_back(tmp_path):
 
 
 def test_parallel_settings_and_lora_raise(tmp_path):
+    """The parallel settings raise; LoRA is ported (tests/test_torch_lora.py): its config builds a trainer."""
     for key, value, item in (("mesh.zero1", True, "item 9"), ("mesh.zero3", True, "item 9"),
-                             ("mesh.seq", 2, "item 9"), ("mesh.model", 2, "item 9"),
-                             ("model.lora_config", {"r": 4}, "item 8")):
+                             ("mesh.seq", 2, "item 9"), ("mesh.model", 2, "item 9")):
         cfg = Config(config_dict=_small(tmp_path, "p", **{key: value}))
         with pytest.raises(NotImplementedError, match=item):
             PreferenceGuidedTrainer(factories.create_model(Config(config_dict=_small(tmp_path, "m")), device="cpu"),
                                     cfg)
+    cfg = Config(config_dict=_small(tmp_path, "l", **{"model.lora_config": {"r": 4}}))
+    trainer = PreferenceGuidedTrainer(factories.create_model(cfg, device="cpu"), cfg)
+    assert trainer._lora_static == (32.0, 4, 0.0)
     with pytest.raises(NotImplementedError, match="item 9"):
         PreferenceGuidedTrainer(None, Config(config_dict=_small(tmp_path, "m")), mesh=object())
 
