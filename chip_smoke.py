@@ -99,7 +99,10 @@ exits non-zero):
    127.0.0.1, and a seeded Poisson arrival of 128 requests at 100/s runs
    through the continuous (graphed) and the batch schedulers: latency
    p50/p95, captions/s (not profiled: one profiled run hung), each
-   graph's capture time and pool.
+   graph's capture time and pool. For GPT-2 also: ``CapturedSteps``
+   captures while the cyclic collector, set to run inside the capture,
+   frees a dead graph (a bare ``torch.cuda.graph`` there, in a process of
+   its own, is voided: information).
 
 11. Evaluation. 11a, right after 10a, on the trained flagship:
    ``EvaluationRunner`` with configs/default.yaml's evaluation section (4
@@ -136,6 +139,27 @@ exits non-zero):
    fused-CE dW never launched, the best checkpoint merged at the end and
    served through predict.main.
 
+13. The host data path's rest, offline import, fused NT-Xent, cross-attention
+   at decode. 13a, inside phase 9 after 12c, on its JPEGs and captions: the
+   dataset BPE of ``create_tokenizer`` (trained, saved, read back from its
+   cache), the native encoder's ids against the Python path's over the
+   captions and a non-ASCII set, the grain loader (4 spawned workers)
+   against the thread loader over 2 epochs and after ``iter_batches(3)``
+   with one pool, then the training CLI with both (``PHASE13_REDUCED``):
+   finite losses, the backward launches its steps need, ms per micro-step
+   and the input-wait share. 13b, after phase 10: seeded HF-layout
+   checkpoints of CLIP ViT-B/32's vision tower and GPT-2 Medium (50,257
+   rows) through ``load_pretrained_towers`` into the bf16 flagship: every
+   parameter bit-equal to its HF tensor, the appended rows kept, the serving
+   copy recast, greedy ids equal to a second model's loaded through
+   ``load_jax_params``; the load's GB/s. 13c: ``ntxent_loss_fused`` at
+   (128, 512) f32 and ragged 100 and 37 rows against ``ntxent_loss`` on the
+   card (2 launches of each fused-CE kernel a forward and backward), timed
+   against it; the fused-CE kernels at that shape, the flash forward at
+   cross-attention's decode shape and the LN forward at ``cross_ln``'s,
+   each against its plain version and timed. 13d, inside phase 4's GPT-2:
+   ``cross_attend_at_decode`` card against CPU, its launches a step.
+
 Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
 tower and 2-row train steps and replays its optimizer without the token
 embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
@@ -151,7 +175,8 @@ script). A run still going after ``STACKS_AFTER_S`` dumps every thread's
 stack to stderr.
 
 Launch counts are reset just before the main path of phases 5, 6, 7, 9,
-10, 11a, 12b, 12c and of each of phase 8's paths, and read just after; a graph replay
+10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths and of each
+of 13d's decode steps, and read just after; a graph replay
 adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
@@ -1089,8 +1114,8 @@ def decode_logits(model, images, steps: int = 3):
     return emb.cpu(), out
 
 
-def phase_full_width(tokenizer, arch: str) -> None:
-    """Phase 4 for one architecture of ``FULL_WIDTH``."""
+def phase_full_width(tokenizer, arch: str) -> dict | None:
+    """Phase 4 for one architecture of ``FULL_WIDTH``; for GPT-2, phase 13d's launches a decode step."""
     from pgica_tpu_torch.generation.decode import generate
     from pgica_tpu_torch.generation.slots import DecodeGraphs
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
@@ -1124,8 +1149,10 @@ def phase_full_width(tokenizer, arch: str) -> None:
     if min(counts.values()) == 0:
         raise AssertionError(f"full width: a kernel was not launched on the card: {counts}")
     log(f"  kernel launches on the card: {counts}")
+    cross = None
     if arch == "gpt2":
         quant_full_width(cuda, cpu, images)
+        cross = cross_attend_decode(cuda, cpu, images)
     ids = []
     for model, emb in ((cuda, emb_g.cuda()), (cpu, emb_c)):
         ids.append(generate(model.module, emb, eos_token_id=tokenizer.eos_token_id,
@@ -1164,6 +1191,7 @@ def phase_full_width(tokenizer, arch: str) -> None:
     log(f"  reference built; {time.perf_counter() - t0:.1f} s")
     full_width_stage2(cuda, cpu, ref, spec)
     log(f"  stage 2 checked; {time.perf_counter() - t0:.1f} s")
+    return cross
 
 
 METRIC_ATOL = 1e-4  # BERTScore P/R/F1 and CLIP-Score (100 x cosine), card (f32 kernels) against CPU
@@ -2296,7 +2324,7 @@ def phase_train_cli() -> dict:
         log("== phase 11b: the evaluation CLIs on phase 9's checkpoints and JPEGs")
         clis = phase_eval_clis()
         disk = sum(f.stat().st_size for f in PHASE9_DIR.rglob("*") if f.is_file())
-        log(f"  build/phase9 held {disk / 1e9:.2f} GB of checkpoints, results and traces")
+        log(f"  build/phase9 held {disk / 1e9:.2f} GB ({disk / 2**30:.2f} GiB) of checkpoints, results and traces")
         for done in ("run", "resumed", "profile"):  # phase 12c writes its own: the run's disk is limited
             shutil.rmtree(PHASE9_DIR / done, ignore_errors=True)
         t = time.perf_counter()
@@ -2308,8 +2336,17 @@ def phase_train_cli() -> dict:
             f"{lora['stages']['stage1']['ms_per_micro_step']:.1f} against phase 9's full fine-tune "
             f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {lora['stages']['stage2']['ms_per_micro_step']:.1f} "
             f"against {stages['stage2']['ms_per_micro_step']:.1f} [{card()}]")
+        t = time.perf_counter()
+        log("== phase 13a: the dataset BPE, the grain loader and the training CLI with both (configs/default.yaml, "
+            "GPT-2 flagship at full width, phase 9's JPEGs)")
+        grain = phase_grain_bpe_cli()
+        grain["seconds"] = time.perf_counter() - t
+        log(f"  phase 13a: {grain['seconds']:.1f} s; ms per micro-step (median after the first): stage 1 "
+            f"{grain['stages']['stage1']['ms_per_micro_step']:.1f} against phase 9's "
+            f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {grain['stages']['stage2']['ms_per_micro_step']:.1f} "
+            f"against {stages['stage2']['ms_per_micro_step']:.1f} [{card()}]")
         return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms,
-                    clis=clis, lora=lora)
+                    clis=clis, lora=lora, grain=grain)
     finally:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
 
@@ -2436,6 +2473,56 @@ def timed_replays(fn, stream, reps: int = 20) -> float:
         end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def dead_graph_capture(bare: bool) -> str:
+    """Capture a graph while a dead reference cycle holds another one, with the cyclic collector set to
+    run inside the capture: through CapturedSteps (no collection during its capture) or, with ``bare``, a
+    bare ``torch.cuda.graph``. "captured", or the error."""
+    from pgica_tpu_torch.generation.slots import CapturedSteps
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.Stream(dev)
+    w = torch.ones(256, 256, device=dev)
+
+    def fn():
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)  # a collection at (nearly) every allocation from here on
+        out = w
+        for _ in range(50):
+            out = out @ w * 0.5
+        return out
+
+    gc.collect()
+    cycle = {"graph": CapturedSteps(lambda: w * 3, dev, stream)}
+    cycle["self"] = cycle  # only the cyclic collector frees it
+    del cycle
+    try:
+        if bare:
+            fn()
+            torch.cuda.synchronize()
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+                fn()
+        else:
+            CapturedSteps(fn, dev, stream).replay()
+        torch.cuda.synchronize()
+        return "captured"
+    except Exception as exc:  # noqa: BLE001 — the answer is the error
+        return f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    finally:
+        gc.set_threshold(700, 10, 10)
+
+
+def capture_under_collection() -> None:
+    """A collection inside a capture that frees a dead graph voids the capture (the bare case, in a
+    process of its own); CapturedSteps turns the collector off while it captures, so it must capture."""
+    bare = subprocess.run([sys.executable, "-c", "import chip_smoke; print(chip_smoke.dead_graph_capture(True))"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300).stdout.strip().splitlines()
+    ours = dead_graph_capture(False)
+    if ours != "captured":
+        raise AssertionError(f"CapturedSteps under a collection that frees a dead graph: {ours}")
+    log(f"  a capture during which the cyclic collector frees a dead CUDA graph: bare torch.cuda.graph "
+        f"{(bare or ['no answer'])[-1]!r} (information); CapturedSteps captured")
 
 
 def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
@@ -2821,6 +2908,7 @@ def phase_serving() -> dict:
         + ", ".join(f"{b} {s * 1e3:.0f} ms" for b, s in warm))
     images = np.random.default_rng(13).integers(0, 256, size=(48, 224, 224, 3), dtype=np.uint8)
     checks = graph_checks(cont.model, cont.engine, images, GPT2_FORWARD, "GPT-2 flagship")
+    capture_under_collection()
     cont.engine.start()
     t = time.perf_counter()
     batch = CaptionService(config, max_batch=32, max_length=SERVE_MAX_LENGTH)
@@ -3228,6 +3316,528 @@ def phase_lora_cli(captions: Path, preferences: Path) -> dict:
         shutil.rmtree(LORA_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 13
+
+PHASE13_DIR = ROOT / "build" / "phase13"
+GPT2_HF_VOCAB = 50_257  # GPT-2's own rows: the checkpoint's wte (the module adds the five specials)
+BPE_VOCAB = 1024  # data.bpe_vocab_size of 13a: merges stop earlier, once no pair occurs twice in the captions
+GRAIN_WORKERS = 4  # configs/default.yaml's data.num_workers
+GRAIN_STEPS = 4
+GPT2_LAYERS = 24
+PHASE13_REDUCED = (
+    "configs/default.yaml as phase 9 runs it (PHASE9_REDUCED), with data.workers_mode grain (4 spawned workers "
+    f"a loader, the config's num_workers) and data.bpe_vocab_size {BPE_VOCAB}, trained on phase 9's captions",
+    f"--max-steps {GRAIN_STEPS}: {GRAIN_STEPS} micro-steps a stage, one update at the config's accumulation of 4",
+    "no checkpoints (save_steps 0, no epoch or best checkpoint): phase 9 holds the CLI's checkpoints, and the "
+    "run's disk writes are limited",
+)
+NON_ASCII = ["café ☕ naïve", "日本語 caption", "x² + y³", "a → b — c", "١٢٣ digits", "mixed中文and123",
+             "non‑breaking space", "emoji \U0001f600\U0001f680 run"]
+
+
+def written() -> str:
+    """This process's writes so far (/proc/self/io): ``write_bytes``, sent to storage, and ``wchar``, passed to
+    write calls (the page cache included; where storage does not account ``write_bytes``, the upper bound).
+    The run's disk writes are limited."""
+    io = dict(line.split(": ") for line in Path("/proc/self/io").read_text().splitlines())
+    return (f"{int(io['write_bytes']) / 2**30:.2f} GiB written to storage by this process so far, "
+            f"{int(io['wchar']) / 2**30:.2f} GiB through write calls")
+
+
+def same_batches(label: str, got, want) -> int:
+    """Hold two loaders' batches equal, array for array and caption for caption; returns their count."""
+    got, want = list(got), list(want)
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{label}: {len(got)} batches against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in w:
+            if isinstance(w[key], np.ndarray):
+                same = isinstance(g[key], np.ndarray) and np.array_equal(g[key], w[key])
+            else:
+                same = g[key] == w[key]
+            if not same:
+                raise AssertionError(f"{label}: batch {i} differs in {key}")
+    return len(got)
+
+
+def phase_grain_bpe_cli() -> dict:
+    """Phase 13a, inside phase 9 on its JPEGs and captions: the dataset BPE (train, save, the cache), the native
+    encoder against the Python path, the grain loader against the thread loader, then the training CLI with
+    both (PHASE13_REDUCED) at the flagship's full width."""
+    import yaml
+
+    from pgica_tpu_torch.data.loader import ConceptualCaptionsDataset, DataLoader
+    from pgica_tpu_torch.data import native_bpe
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.scripts import train as train_cli
+    from pgica_tpu_torch.utils.config import Config
+    from pgica_tpu_torch.utils.factories import create_processors, create_tokenizer, read_caption_corpus
+
+    captions = PHASE9_DIR / "data" / "captions.csv"
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    PHASE13_DIR.mkdir(parents=True)
+    try:
+        cfg = yaml.safe_load((PHASE9_DIR / "default_phase9.yaml").read_text())
+        cfg["data"].update(bpe_vocab_size=BPE_VOCAB, workers_mode="grain", num_workers=GRAIN_WORKERS)
+        cfg["training"].update(save_steps=0, save_epoch_checkpoints=False, save_best_checkpoints=False)
+        cfg["paths"] = {"output_dir": str(PHASE13_DIR / "run"), "checkpoint_dir": str(PHASE13_DIR / "run" / "ckpt"),
+                        "log_dir": str(PHASE13_DIR / "logs"), "cache_dir": str(PHASE13_DIR / "cache")}
+        path = PHASE13_DIR / "default_phase13.yaml"
+        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        config = Config(str(path))
+        log("  changed: " + "; ".join(PHASE13_REDUCED))
+
+        t = time.perf_counter()
+        tok = create_tokenizer(config)
+        train_s = time.perf_counter() - t
+        cached = sorted((PHASE13_DIR / "cache").iterdir())
+        t = time.perf_counter()
+        again = create_tokenizer(config)
+        load_s = time.perf_counter() - t
+        corpus = read_caption_corpus(captions)
+        ids = [tok.encode(c) for c in corpus]
+        if (len(cached) != 1 or not cached[0].name.startswith(f"bpe_{BPE_VOCAB}_") or again.vocab != tok.vocab
+                or again._merges != tok._merges or [again.encode(c) for c in corpus] != ids):
+            raise AssertionError(f"the cached dataset BPE ({cached}) is not the trained one")
+        native = tok._native_encoder()
+        if native is None:
+            raise AssertionError(f"the native BPE encoder did not build: {native_bpe.build_error}")
+        texts = corpus + NON_ASCII
+        differ = [t for t in texts if native.encode(t) != tok._python_encode(t)]
+        if differ:
+            raise AssertionError(f"native and Python BPE ids differ on {differ[:3]}")
+        tokens = sum(len(x) for x in ids)
+        log(f"  dataset BPE: {len(tok._merges)} merges learned from {len(corpus)} captions (vocab {tok.vocab_size} "
+            f"with the specials; asked {BPE_VOCAB}) in {train_s * 1e3:.1f} ms, saved to {cached[0].name} and read "
+            f"back from the cache in {load_s * 1e3:.1f} ms, ids identical; {tokens} tokens for "
+            f"{sum(len(c.encode()) for c in corpus)} bytes; native ids (build/pgica_tpu_torch/native/"
+            f"{native_bpe._library_path().name}) equal the Python path's over {len(texts)} texts "
+            f"({len(NON_ASCII)} non-ASCII)")
+
+        image_processor, text_processor = create_processors(config, tok)
+        ds = ConceptualCaptionsDataset(captions, image_processor, text_processor)
+        thread = DataLoader(ds, 8, shuffle=True, drop_last=True, seed=42)
+        grain = DataLoader(ds, 8, shuffle=True, drop_last=True, seed=42, num_workers=GRAIN_WORKERS,
+                           workers_mode="grain")
+        try:
+            t = time.perf_counter()
+            n = 0
+            for epoch in range(2):
+                n += same_batches(f"grain epoch {epoch}", grain, thread)
+                if epoch == 0:
+                    pool = grain._grain_dl
+                elif grain._grain_dl is not pool:
+                    raise AssertionError("the grain pool was rebuilt for the second epoch")
+            thread.set_epoch(5)
+            grain.set_epoch(5)
+            n += same_batches("grain epoch 5 from batch 3", grain.iter_batches(3), thread.iter_batches(3))
+            if grain._grain_dl is pool:
+                raise AssertionError("a resume (set_epoch back, iter_batches(3)) kept the old pool's position")
+            loader_s = time.perf_counter() - t
+        finally:
+            grain.close()
+            thread.close()
+        log(f"  grain loader ({GRAIN_WORKERS} spawned workers, batch 8 of the JPEGs, native BPE ids in the workers) "
+            f"equal to the thread loader's: {n} batches over epochs 0 and 1 (one pool) and epoch 5 from batch 3 (a "
+            f"pool positioned anew), {loader_s:.1f} s in all")
+
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        trainer = train_cli.run(["--config", str(path), "--max-steps", str(GRAIN_STEPS)])
+        run_s = time.perf_counter() - t
+        counts = _kernels.launch_counts()  # ---- and ends here
+        check_main_path("training entry point with grain workers and the dataset BPE", counts, TRAIN_KERNELS)
+        want = {"flash_attn_bwd_dq": 2 * GPT2_LAYERS * GRAIN_STEPS, "flash_attn_bwd_dkv": 2 * GPT2_LAYERS * GRAIN_STEPS,
+                "fused_ce_bwd_dh": GRAIN_STEPS, "fused_ce_bwd_dw": GRAIN_STEPS}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"13a's CLI launched {counts}; {GRAIN_STEPS} steps a stage need {want}")
+        loaders = (trainer.train_loader, trainer.preference_train_loader)
+        if {ld.workers_mode for ld in loaders} != {"grain"} or trainer.model.tokenizer.vocab != tok.vocab:
+            raise AssertionError("13a's CLI did not run the grain loaders and the dataset BPE")
+        stages = {}
+        for name in ("stage1", "stage2"):
+            record = trainer.history[name][0]
+            stages[name] = show_stage(f"grain + BPE {name}", record, None)
+            stages[name]["input_wait"] = record["input_wait_fraction"]
+            if len(record["step_seconds"]) != GRAIN_STEPS:
+                raise AssertionError(f"13a {name}: {len(record['step_seconds'])} micro-steps")
+        if not all(math.isfinite(r[k]) for r in stages.values() for k in ("train_loss", "val_loss")):
+            raise AssertionError(f"13a: a loss is not finite: {stages}")
+        log(f"  train_cli.run in {run_s:.1f} s; ms per micro-step (median after the first) stage 1 "
+            f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {stages['stage2']['ms_per_micro_step']:.1f}; "
+            f"input wait {100 * stages['stage1']['input_wait']:.1f}% / {100 * stages['stage2']['input_wait']:.1f}% of "
+            f"each epoch's wall (its first batch waits for the spawned workers); launches {want} as the steps need "
+            f"[{card()}]")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(counts=counts, stages=stages, run_s=run_s, merges=len(tok._merges), loader_s=loader_s)
+    finally:
+        shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+
+
+def hf_clip_vision_state_dict(cfg, gen: torch.Generator) -> dict:
+    """A seeded ``CLIPVisionModel`` state dict (``vision_model.`` keys, torch layouts) for ``cfg``'s widths."""
+    h, p, mlp = cfg.hidden_size, cfg.patch_size, int(cfg.hidden_size * cfg.mlp_ratio)
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen)
+
+    sd = {"embeddings.class_embedding": normal(h),
+          "embeddings.patch_embedding.weight": normal(h, 3, p, p),
+          "embeddings.position_embedding.weight": normal(cfg.num_patches + 1, h),
+          "pre_layrnorm.weight": normal(h, std=0.1, mean=1.0), "pre_layrnorm.bias": normal(h),
+          "post_layernorm.weight": normal(h, std=0.1, mean=1.0), "post_layernorm.bias": normal(h)}
+    for i in range(cfg.num_layers):
+        q = f"encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[q + ln + ".weight"], sd[q + ln + ".bias"] = normal(h, std=0.1, mean=1.0), normal(h)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[q + f"self_attn.{proj}.weight"], sd[q + f"self_attn.{proj}.bias"] = normal(h, h), normal(h)
+        sd[q + "mlp.fc1.weight"], sd[q + "mlp.fc1.bias"] = normal(mlp, h), normal(mlp)
+        sd[q + "mlp.fc2.weight"], sd[q + "mlp.fc2.bias"] = normal(h, mlp), normal(h)
+    return {"vision_model." + k: v for k, v in sd.items()}
+
+
+def hf_gpt2_state_dict(cfg, vocab: int, gen: torch.Generator) -> dict:
+    """A seeded ``GPT2LMHeadModel`` state dict (``transformer.`` keys, Conv1D (in, out) weights, ``lm_head`` tied
+    to ``wte``) with ``vocab`` rows, for ``cfg``'s widths."""
+    h = cfg.hidden_size
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen)
+
+    sd = {"wte.weight": normal(vocab, h), "wpe.weight": normal(cfg.max_position_embeddings, h, std=0.01),
+          "ln_f.weight": normal(h, std=0.1, mean=1.0), "ln_f.bias": normal(h)}
+    for i in range(cfg.num_layers):
+        q = f"h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[q + ln + ".weight"], sd[q + ln + ".bias"] = normal(h, std=0.1, mean=1.0), normal(h)
+        sd[q + "attn.c_attn.weight"], sd[q + "attn.c_attn.bias"] = normal(h, 3 * h), normal(3 * h)
+        sd[q + "attn.c_proj.weight"], sd[q + "attn.c_proj.bias"] = normal(h, h), normal(h)
+        sd[q + "mlp.c_fc.weight"], sd[q + "mlp.c_fc.bias"] = normal(h, 4 * h), normal(4 * h)
+        sd[q + "mlp.c_proj.weight"], sd[q + "mlp.c_proj.bias"] = normal(4 * h, h), normal(h)
+    out = {"transformer." + k: v for k, v in sd.items()}
+    out["lm_head.weight"] = out["transformer.wte.weight"]
+    return out
+
+
+def hf_tensor(name: str, clip: dict, gpt2: dict) -> torch.Tensor | None:
+    """The HF tensor a port parameter must equal after ``load_pretrained_towers``, under the documented map
+    (written here apart from models/convert.py); None for a parameter the load leaves alone. GPT-2's ``wte``
+    gives its rows only."""
+    m = re.fullmatch(r"vision_encoder\.backbone\.(.+)", name)
+    if m:
+        rest = m.group(1)
+        v = lambda key: clip["vision_model." + key]  # noqa: E731
+        fixed = {"cls_token": lambda: v("embeddings.class_embedding").reshape(1, 1, -1),
+                 "pos_embed": lambda: v("embeddings.position_embedding.weight")[None],
+                 # OIHW -> the port's (width, P * P * 3) in (h, w, c) order
+                 "patch_embed.weight": lambda: v("embeddings.patch_embedding.weight").permute(0, 2, 3, 1).flatten(1),
+                 "pre_ln.weight": lambda: v("pre_layrnorm.weight"), "pre_ln.bias": lambda: v("pre_layrnorm.bias"),
+                 "post_ln.weight": lambda: v("post_layernorm.weight"),
+                 "post_ln.bias": lambda: v("post_layernorm.bias")}
+        if rest in fixed:
+            return fixed[rest]()
+        i, owner, leaf = re.fullmatch(r"blocks\.(\d+)\.(.+)\.(weight|bias)", rest).groups()
+        owner = {"ln_0": "layer_norm1", "ln_1": "layer_norm2", "mlp.fc_in": "mlp.fc1", "mlp.fc_out": "mlp.fc2",
+                 "attn.q_proj": "self_attn.q_proj", "attn.k_proj": "self_attn.k_proj",
+                 "attn.v_proj": "self_attn.v_proj", "attn.out_proj": "self_attn.out_proj"}[owner]
+        return v(f"encoder.layers.{i}.{owner}.{leaf}")  # nn.Linear (out, in) on both sides
+    m = re.fullmatch(r"(text_encoder\.backbone|caption_decoder\.lm)\.(.+)", name)
+    if not m:
+        return None
+    rest = m.group(2)
+    g = lambda key: gpt2["transformer." + key]  # noqa: E731
+    if rest in ("wte.weight", "wpe.weight", "ln_f.weight", "ln_f.bias"):
+        return g(rest)
+    i, owner, leaf = re.fullmatch(r"blocks\.(\d+)\.(.+)\.(weight|bias)", rest).groups()
+    q = f"h.{i}."
+    if owner in ("ln_0", "ln_1"):
+        return g(q + {"ln_0": "ln_1", "ln_1": "ln_2"}[owner] + "." + leaf)
+    if owner in ("attn.q_proj", "attn.k_proj", "attn.v_proj"):
+        h = g(q + "attn.c_proj.bias").shape[0]
+        j = ("attn.q_proj", "attn.k_proj", "attn.v_proj").index(owner)
+        full = g(q + "attn.c_attn." + leaf)
+        return full[:, j * h:(j + 1) * h].T if leaf == "weight" else full[j * h:(j + 1) * h]
+    conv1d = {"attn.out_proj": "attn.c_proj", "mlp.fc_in": "mlp.c_fc", "mlp.fc_out": "mlp.c_proj"}[owner]
+    t = g(q + conv1d + "." + leaf)
+    return t.T if leaf == "weight" else t  # Conv1D (in, out) -> Linear (out, in)
+
+
+def greedy_ids(model, images, max_length: int) -> tuple:
+    """``generate_captions``' captions and the token rows it decoded them from."""
+    rows = []
+    decode = model.tokenizer.decode
+    model.tokenizer.decode = lambda ids, **kw: rows.append(list(map(int, ids))) or decode(ids, **kw)
+    try:
+        captions = model.generate_captions(images, max_length=max_length, early_stop=True)
+    finally:
+        model.tokenizer.decode = decode
+    return captions, rows
+
+
+def pretrained_import(tokenizer, device: str = "cuda", vision: str = "openai/clip-vit-base-patch32",
+                      text: str = "gpt2-medium", vocab: int = GPT2_VOCAB, hf_vocab: int = GPT2_HF_VOCAB,
+                      batch: int = 8, max_length: int = 32) -> dict:
+    """Phase 13b: seeded HF-layout checkpoints of ``vision``'s CLIP tower and the ``text`` GPT-2 at full width
+    (``pytorch_model.bin``, written to build/phase13 and deleted after), loaded into a bf16 flagship through
+    ``load_pretrained_towers``: every parameter bit-equal to its HF tensor (``hf_tensor``), the appended
+    vocab rows and the untouched heads as before, the serving copy recast, and greedy ids equal to a second
+    model's that got the same converted trees through ``load_jax_params``."""
+    from pgica_tpu_torch.models import convert
+    from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
+    from pgica_tpu_torch.ops import _kernels
+
+    root = PHASE13_DIR / "hf"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        kwargs = dict(vision_model=vision, text_model=text, projection_dim=512, tokenizer=tokenizer,
+                      max_caption_length=128, vocab_size=vocab, dtype=torch.bfloat16, seed=0, device=device)
+        t = time.perf_counter()
+        model = PreferenceGuidedCaptioningModel(**kwargs)
+        size = model.image_size
+        images = np.random.default_rng(13).integers(0, 256, size=(batch, size, size, 3), dtype=np.uint8)
+        before_caps = model.generate_captions(images, max_length=max_length, early_stop=True)  # copy and graphs
+        start = {n: p.detach().cpu().clone() for n, p in model.module.named_parameters()}
+        vcfg, lcfg = model.module.vision_config, model.module.text_config
+        gen = torch.Generator().manual_seed(13)
+        clip, gpt2 = hf_clip_vision_state_dict(vcfg, gen), hf_gpt2_state_dict(lcfg, hf_vocab, gen)
+        files = {"clip": root / "clip" / "pytorch_model.bin", "gpt2": root / "gpt2" / "pytorch_model.bin"}
+        for key, sd in (("clip", clip), ("gpt2", gpt2)):
+            files[key].parent.mkdir(parents=True)
+            torch.save(sd, files[key])
+        nbytes = sum(f.stat().st_size for f in files.values())
+        prep_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model.load_pretrained_towers(vision_path=files["clip"].parent, text_path=files["gpt2"].parent)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        shutil.rmtree(root)
+
+        loaded = kept = 0
+        for name, p in model.module.named_parameters():
+            got, want = p.detach().cpu(), hf_tensor(name, clip, gpt2)
+            if name.endswith("wte.weight"):
+                ok = torch.equal(got[:hf_vocab], want) and torch.equal(got[hf_vocab:], start[name][hf_vocab:])
+            else:
+                ok = torch.equal(got, start[name] if want is None else want)
+            if not ok:
+                raise AssertionError(f"13b: {name} is not {'its start' if want is None else 'its HF tensor'}")
+            kept += want is None
+            loaded += want is not None
+        served = model._inference_module()
+        for name in ("caption_decoder.lm.wte.weight", "vision_encoder.backbone.patch_embed.weight"):
+            if not torch.equal(served.get_parameter(name), model.module.get_parameter(name).to(torch.bfloat16)):
+                raise AssertionError(f"13b: the bf16 serving copy's {name} is not the loaded masters' cast")
+
+        other = PreferenceGuidedCaptioningModel(**kwargs)
+        convert.load_jax_params(other.module.vision_encoder.backbone, convert.convert_clip_vision(clip, vcfg))
+        for lm in (other.module.text_encoder.backbone, other.module.caption_decoder.lm):
+            convert.load_jax_params(lm, convert.pad_vocab_rows(convert.convert_gpt2(gpt2, lcfg), lm))
+        del clip, gpt2, start
+        differ = [n for (n, a), b in zip(model.module.named_parameters(), other.module.parameters())
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"13b: load_pretrained_towers and load_jax_params differ in {differ[:4]}")
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        captions, ids = greedy_ids(model, images, max_length)
+        serve_ms = (time.perf_counter() - t) * 1e3
+        counts = _kernels.launch_counts()  # ---- and ends here
+        other_caps, other_ids = greedy_ids(other, images, max_length)
+        if ids != other_ids or captions != other_caps:
+            raise AssertionError(f"13b: greedy ids after the import differ from the bridged model's: {ids} {other_ids}")
+        if captions == before_caps:
+            raise AssertionError("13b: the captions did not change with the weights")
+        log(f"  load_pretrained_towers: CLIP ViT-B/32 vision tower and GPT-2 Medium ({hf_vocab:,} rows, Conv1D) "
+            f"from {nbytes / 1e9:.3f} GB of pytorch_model.bin in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s; "
+            f"written with the models in {prep_s:.1f} s, deleted after); {loaded} parameters bit-equal to their HF "
+            f"tensors (text tower and decoder from one checkpoint), {vocab - hf_vocab} appended rows a vocab and "
+            f"{kept} untouched parameters as before; the bf16 serving copy recast; greedy batch {batch} x "
+            f"{max_length} through generate_captions in {serve_ms:.1f} ms, ids equal to the load_jax_params "
+            f"model's ({sum(map(len, ids))} tokens) [{card() if device == 'cuda' else device}]")
+        return dict(counts=counts, load_s=load_s, gb=nbytes / 1e9, serve_ms=serve_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+NTXENT_ROWS = (128, 100, 37)  # the flagship's stage-1 batch, then ragged batches (partial 128-wide tiles)
+NTXENT_DIM = 512  # the projection dim
+NTXENT_TEMPERATURE = 0.5  # configs/default.yaml model.temperature
+NTXENT_LOSS_RTOL = 1e-5
+NTXENT_GRAD_RTOL = 1e-4  # of each gradient's largest element
+FCE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+
+
+def ntxent_inputs(rows: int, gen: torch.Generator, device: str = "cuda") -> tuple:
+    from pgica_tpu_torch.ops.losses import l2_normalize
+
+    return tuple(l2_normalize(torch.randn(rows, NTXENT_DIM, device=device, generator=gen)) for _ in range(2))
+
+
+def ntxent_step(loss_fn, img, txt) -> tuple:
+    a, b = img.clone().requires_grad_(), txt.clone().requires_grad_()
+    loss, _ = loss_fn(a, b, NTXENT_TEMPERATURE)
+    return (loss.detach(), *torch.autograd.grad(loss, (a, b)))
+
+
+def small_fce_rows(rows: int, d: int, gen: torch.Generator) -> dict:
+    """The three fused-CE kernels at NT-Xent's (rows, d) x (rows, d), f32 x f32, each input set used once per
+    burst among sets > 2x the L2 (time_ms): kernel, plain version, and the library (F.linear + F.cross_entropy
+    in f32 for the forward, their autograd backward for dh and dW together)."""
+    from pgica_tpu_torch.ops.fused_ce import (
+        fused_ce_bwd_dh,
+        fused_ce_bwd_dh_ref,
+        fused_ce_bwd_dw,
+        fused_ce_bwd_dw_ref,
+        fused_ce_fwd,
+        fused_ce_fwd_ref,
+    )
+
+    one = rows * d * 4
+    n_sets = max(1, math.ceil(100e6 / (2 * one)))
+    sets = []
+    for _ in range(n_sets):
+        h = torch.randn(rows, d, device="cuda", generator=gen) / NTXENT_TEMPERATURE / d ** 0.5
+        w = torch.randn(rows, d, device="cuda", generator=gen) / d ** 0.5
+        y = torch.arange(rows, device="cuda")
+        g = torch.full((rows,), -1.0 / rows, device="cuda")  # d(-mean logp)/d logp
+        sets.append((h, w, y, fused_ce_fwd(h, w, y)[1], g))
+    fwd_sets = [s[:3] for s in sets]
+    fwd_bytes = 2 * one + 4 * rows + 8 * rows
+    bwd_in = 2 * one + 12 * rows
+    bounds = {"fused_ce_fwd": bound(fwd_bytes, 2 * rows * rows * d, torch.bfloat16),
+              "fused_ce_bwd_dh": bound(bwd_in + one, 4 * rows * rows * d, torch.bfloat16),
+              "fused_ce_bwd_dw": bound(bwd_in + one, 4 * rows * rows * d, torch.bfloat16)}
+
+    def lib_bwd(h, w, y, lse, g):
+        a, b = h.clone().requires_grad_(), w.clone().requires_grad_()
+        out = F.cross_entropy(F.linear(a, b), y, reduction="none")
+        return torch.autograd.grad(out, (a, b), g)
+
+    lib_fwd = time_ms(lambda h, w, y: F.cross_entropy(F.linear(h, w), y, reduction="none"), fwd_sets)
+    lib_b = time_ms(lib_bwd, sets)
+    res = {}
+    for kernel, fn, ref, arg_sets in (("fused_ce_fwd", fused_ce_fwd, fused_ce_fwd_ref, fwd_sets),
+                                      ("fused_ce_bwd_dh", fused_ce_bwd_dh, fused_ce_bwd_dh_ref, sets),
+                                      ("fused_ce_bwd_dw", fused_ce_bwd_dw, fused_ce_bwd_dw_ref, sets)):
+        res[kernel] = dict(case="ntxent", shape=f"({rows}, {d}) x ({rows}, {d})", dtype="h float32, W float32",
+                           ms=time_ms(fn, arg_sets), plain_ms=time_ms(ref, arg_sets),
+                           library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_b, input_sets=n_sets,
+                           **bounds[kernel])
+    return res
+
+
+def phase_ntxent_and_shapes() -> dict:
+    """Phase 13c: ``ntxent_loss_fused`` on the card against the port's ``ntxent_loss`` at the flagship's stage-1
+    batch and two ragged ones, its launches, its time against the plain loss (one (B, B) matmul and
+    F.cross_entropy, the library figure); then the slice's new kernel shapes against their plain versions,
+    timed: the fused-CE kernels at (128, 512) x (128, 512) f32 x f32, the flash forward at cross-attention's
+    decode shape (B 8 x 8 heads, 1, 1, 128) and the LN forward at ``cross_ln``'s (8, 1024)."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.ops.losses import ntxent_loss, ntxent_loss_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    counts = None
+    for rows in NTXENT_ROWS:
+        img, txt = ntxent_inputs(rows, gen)
+        _kernels.reset_launch_counts()  # ---- the main path starts here (one loss, forward and backward)
+        loss, gi, gt = ntxent_step(ntxent_loss_fused, img, txt)
+        torch.cuda.synchronize()
+        got = _kernels.launch_counts()  # ---- and ends here
+        if {k: got[k] for k in FCE_KERNELS} != dict.fromkeys(FCE_KERNELS, 2):
+            raise AssertionError(f"ntxent_loss_fused ({rows} rows) launched {got}; 2 of each fused-CE kernel expected")
+        counts = counts or got
+        ploss, pgi, pgt = ntxent_step(ntxent_loss, img, txt)
+        loss_err = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        if loss_err > NTXENT_LOSS_RTOL:
+            raise AssertionError(f"ntxent_loss_fused ({rows} rows): loss {float(loss)} against {float(ploss)}")
+        grad_errs = []
+        for name, g, pg in (("image", gi, pgi), ("text", gt, pgt)):
+            err = float((g - pg).abs().max()) / float(pg.abs().max())
+            if not err <= NTXENT_GRAD_RTOL:
+                raise AssertionError(f"ntxent_loss_fused ({rows} rows): {name} gradient off by {err:.3e} of its max")
+            grad_errs.append(err)
+        line = (f"  ntxent_loss_fused ({rows}, {NTXENT_DIM}) f32, tau {NTXENT_TEMPERATURE}: loss {float(loss):.6f}, "
+                f"relative error {loss_err:.2e} (tol {NTXENT_LOSS_RTOL}); gradients {grad_errs[0]:.2e} / "
+                f"{grad_errs[1]:.2e} of their largest element (tol {NTXENT_GRAD_RTOL}); launches fwd/dh/dW "
+                f"{got['fused_ce_fwd']}/{got['fused_ce_bwd_dh']}/{got['fused_ce_bwd_dw']}")
+        if rows == NTXENT_ROWS[0]:
+            n_sets = max(1, math.ceil(100e6 / (2 * rows * NTXENT_DIM * 4)))
+            sets = [ntxent_inputs(rows, gen) for _ in range(n_sets)]
+            fused_ms = time_ms(lambda a, b: ntxent_step(ntxent_loss_fused, a, b), sets)
+            plain_ms = time_ms(lambda a, b: ntxent_step(ntxent_loss, a, b), sets)
+            line += (f"; forward and backward {fused_ms:.5f} ms against ntxent_loss's {plain_ms:.5f} ms "
+                     f"[{card()}]")
+            timed = dict(fused_ms=fused_ms, plain_ms=plain_ms)
+        log(line)
+    results = {k: [] for k in (*FCE_KERNELS, "flash_attn_fwd", "layernorm_fwd")}
+    checked = {}
+    for rows in NTXENT_ROWS:  # each kernel against its plain version, bit-stable over two runs
+        checked[rows] = fused_ce_case("ntxent", rows, rows, NTXENT_DIM, torch.float32, torch.float32, gen, timed=False)
+        log(f"  fused_ce ntxent ({rows}, {NTXENT_DIM}) x ({rows}, {NTXENT_DIM}) h float32 W float32: max_abs_err "
+            f"{fce_errs(checked[rows])}")
+    for kernel, r in small_fce_rows(NTXENT_ROWS[0], NTXENT_DIM, gen).items():
+        r.update({k: checked[NTXENT_ROWS[0]][kernel][k] for k in ("max_abs_err", "atol", "rtol")})
+        results[kernel].append(r)
+        show_timed(kernel, r)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = attention_case("cross-attention at decode", 8, 8, 1, 1, 128, False, None, dtype, gen)
+        results["flash_attn_fwd"].append(r)
+        show_timed("flash", r)
+        r = dict(layernorm_case(8, 1024, dtype, gen), where="cross_ln at decode")
+        results["layernorm_fwd"].append(r)
+        show_timed("layernorm_fwd", r)
+    return dict(counts=counts, results=results, **timed)
+
+
+def cross_attend_decode(cuda, cpu, images, steps: int = 3) -> dict:
+    """Phase 13d, inside phase 4's 2-layer f32 GPT-2: ``decode_prefix`` and ``steps`` ``decode_step``s with
+    ``cross_attend_at_decode`` and the vision embeddings, card against CPU (phase 4's 1e-3); each step's launches
+    with the flag against without it."""
+    from pgica_tpu_torch.models.lm import init_kv_cache
+    from pgica_tpu_torch.ops import _kernels
+
+    def run(model, cross: bool):
+        module, cache_len = model.module, 17
+        module.caption_decoder.cross_attend_at_decode = cross
+        try:
+            with torch.inference_mode():
+                emb = model.encode_image(images)["embeddings"]
+                caches = init_kv_cache(module.decoder_config, emb.shape[0], cache_len, torch.float32, model.device)
+                slots = torch.arange(cache_len, device=model.device)
+                mask_at = lambda t: (slots[None, :] <= t).to(torch.int32).expand(emb.shape[0], cache_len)  # noqa: E731
+                logits, caches = module.decode_prefix(emb, caches, mask_at(0))
+                out, per_step = [logits.cpu()], []
+                for t in range(1, steps + 1):
+                    _kernels.reset_launch_counts()  # ---- one step's path starts here
+                    logits, caches = module.decode_step(logits.argmax(-1)[:, None], t, caches, mask_at(t), emb)
+                    counts = _kernels.launch_counts()  # ---- and ends here
+                    per_step.append({k: counts[k] for k in SERVING_KERNELS})
+                    out.append(logits.cpu())
+            return out, per_step
+        finally:
+            module.caption_decoder.cross_attend_at_decode = False
+
+    (got, with_flag), (plain, without) = run(cuda, True), run(cuda, False)
+    want, _ = run(cpu, True)
+    errs = [check_close(f"cross-attention at decode, {'prefix' if i == 0 else f'step {i}'} logits", g, c, 1e-3, 0.0)
+            for i, (g, c) in enumerate(zip(got, want))]
+    if any(torch.equal(a, b) for a, b in zip(got[1:], plain[1:])):
+        raise AssertionError("cross-attention at decode left a step's logits as they were without it")
+    extra = [{k: w[k] - wo[k] for k in SERVING_KERNELS} for w, wo in zip(with_flag, without)]
+    # the attention over the single vision token is one more flash forward (B x 8 heads, 1, 1, 128), cross_ln
+    # one more LN forward
+    if any(e != {"layernorm_fwd": 1, "flash_attn_fwd": 1} for e in extra):
+        raise AssertionError(f"cross-attention at decode: launches a step with the flag minus without {extra}")
+    log(f"  phase 13d: cross_attend_at_decode, prefix and {steps} steps' logits (2, {got[0].shape[-1]}): max_abs_err "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (atol 1e-3); each step launched {with_flag[0]} with the flag, "
+        f"{without[0]} without: the cross-attention's flash forward and cross_ln's LN forward")
+    return dict(counts=with_flag[0], extra=extra[0])
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3291,14 +3901,15 @@ def main() -> int:
         out = fn(*args)
         phases[name.split(":")[0]] = time.perf_counter() - t
         log(f"  ({name.split(':')[0]}: {phases[name.split(':')[0]]:.1f} s; {time.perf_counter() - t_start:.1f} s into "
-            "the run)")
+            f"the run; {written()})")
         return out
 
     kernels = phase("phase 3: kernels vs plain on the card", phase_kernels)
     int8 = phase("phase 12a: the int8 decode kernels vs plain on the card", phase_int8_kernels)
+    cross = {}
     for arch in FULL_WIDTH:
-        phase(f"phase 4 ({arch}): full width, {FULL_WIDTH[arch]['layers']} layer(s) a tower, f32: card (kernels) vs "
-              "CPU (plain)", phase_full_width, tokenizer, arch)
+        cross[arch] = phase(f"phase 4 ({arch}): full width, {FULL_WIDTH[arch]['layers']} layer(s) a tower, f32: card "
+                            "(kernels) vs CPU (plain)", phase_full_width, tokenizer, arch)
         gc.collect()
     served = phase("phase 5: serving (flagship, bf16, caption requests)", phase_slice, tokenizer)
     model = served.pop("model")
@@ -3323,13 +3934,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = phase("phase 10: serving through the entry points (GPT-2 flagship, configs/default.yaml: the "
                     "continuous-batching engine and the batch scheduler behind HTTP, CUDA graphs)", phase_serving)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imported = phase("phase 13b: offline import at full width (load_pretrained_towers: seeded HF checkpoints of CLIP "
+                     "ViT-B/32's vision tower and GPT-2 Medium into the bf16 flagship)", pretrained_import, tokenizer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ntxent = phase("phase 13c: ntxent_loss_fused on the fused-CE kernels, and the slice's new kernel shapes",
+                   phase_ntxent_and_shapes)
     serving_summary(served, serving, llama)
     log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
         + ")")
 
     paths = {"serving": served["main_counts"], "stage1": trained["main_counts"], "stage2": dpo["main_counts"],
              **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"],
-             "evaluation": evaluation["counts"], "int8_serving": quant["counts"], "lora_cli": cli["lora"]["counts"]}
+             "evaluation": evaluation["counts"], "int8_serving": quant["counts"], "lora_cli": cli["lora"]["counts"],
+             "grain_bpe_cli": cli["grain"]["counts"], "pretrained_serving": imported["counts"],
+             "ntxent_fused": ntxent["counts"], "cross_attend_decode_step": cross["gpt2"]["counts"]}
     summary = []
     bursts = f"median of {BF16_TIMING['trials']} bursts of {BF16_TIMING['reps']}"
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():

@@ -1,1 +1,1 @@
-"""pgica_tpu_torch.core: precision policy and device resolution."""
+"""pgica_tpu_torch.core: precision policy, device resolution and seeds by purpose."""

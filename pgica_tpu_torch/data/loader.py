@@ -11,13 +11,17 @@ NHWC numpy batches, moved to the device by the train steps:
   with a score-difference threshold.
 * :class:`DataLoader` — batching iterator with seeded shuffling,
   ``drop_last``, a background prefetch thread and ``thread``/``process``
-  item workers; its per-epoch order is a pure function of ``(seed, epoch)``
-  (``set_epoch``, ``iter_batches(start)``), so a mid-epoch resume replays it.
+  item workers, or ``grain`` batch workers; its per-epoch order is a pure
+  function of ``(seed, epoch)`` (``set_epoch``, ``iter_batches(start)``), so
+  a mid-epoch resume replays it.
 * :func:`create_dataloaders` — seeded 80/10/10 split, each split its own view.
 
-The JAX package's ``workers_mode="grain"`` (a spawned multiprocess batch
-pipeline) is not ported (ROADMAP queue 1 item 4) and raises.
-tests/test_torch_data.py holds every batch equal to the JAX loader's.
+``workers_mode="grain"`` keeps the JAX package's design (spawned workers
+that each fetch and collate whole batches, one persistent pool for the run,
+the epoch's order recomputed in the worker) on PyTorch's own batch-level
+worker pool, ``torch.utils.data.DataLoader`` with ``batch_size=None``; the
+port never imports ``grain``. tests/test_torch_data.py and
+tests/test_torch_grain.py hold every batch equal to the JAX loader's.
 """
 
 from __future__ import annotations
@@ -358,6 +362,12 @@ def _worker_getitem(i):
     return _WORKER_DATASET[i]
 
 
+def _as_is(batch):
+    """The grain pool's collate: a source's item is a collated batch already (PyTorch's default
+    would turn its numpy arrays into tensors)."""
+    return batch
+
+
 def _pinned_batch_order(
     n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int, epoch: int
 ) -> List[List[int]]:
@@ -379,6 +389,65 @@ def _pinned_batch_order(
     return batches
 
 
+def _batches_per_epoch(n: int, batch_size: int, drop_last: bool) -> int:
+    return n // batch_size if drop_last else -(-n // batch_size)
+
+
+class _BatchSource:
+    """Random-access source of collated batches (given as index lists) for the grain pool's
+    one-shot pipeline. Pickled into the spawned workers, one batch a task."""
+
+    def __init__(self, dataset, batches, collate_fn):
+        self.dataset = dataset
+        self.batches = batches
+        self.collate_fn = collate_fn
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __getitem__(self, i: int):
+        return self.collate_fn([self.dataset[j] for j in self.batches[i]])
+
+
+class _MultiEpochBatchSource:
+    """Epoch-aware batch source behind the persistent grain pool (JAX loader.py:403-460).
+
+    Record ``i`` is batch ``b`` of epoch ``e`` with ``(e, b) = divmod(i + base,
+    batches_per_epoch)``; the worker recomputes the epoch's order from the
+    pure ``(seed, epoch)`` shuffle of :func:`_pinned_batch_order`, so one
+    pool serves every epoch of a run. ``base`` positions a pool built mid-run
+    (a resume) without fetching the batches before it.
+    """
+
+    MAX_EPOCHS = 100_000  # epochs one pool serves before a rebuild
+
+    def __init__(self, dataset, batch_size, shuffle, drop_last, seed, collate_fn, base=0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.collate_fn = collate_fn
+        self.base = base
+        self.batches_per_epoch = _batches_per_epoch(len(dataset), batch_size, drop_last)
+        self._order_epoch = -1
+        self._order: List[List[int]] = []
+
+    def __len__(self) -> int:
+        return self.batches_per_epoch * self.MAX_EPOCHS - self.base
+
+    def _epoch_order(self, epoch: int) -> List[List[int]]:
+        if epoch != self._order_epoch:  # a worker's records advance, so one epoch's order is kept
+            self._order = _pinned_batch_order(len(self.dataset), self.batch_size, self.shuffle, self.drop_last,
+                                              self.seed, epoch)
+            self._order_epoch = epoch
+        return self._order
+
+    def __getitem__(self, i: int):
+        epoch, b = divmod(i + self.base, self.batches_per_epoch)
+        return self.collate_fn([self.dataset[j] for j in self._epoch_order(epoch)[b]])
+
+
 class DataLoader:
     """Host-side batching iterator with background prefetch.
 
@@ -387,8 +456,10 @@ class DataLoader:
     item fetch can fan out over worker THREADS (PIL decode releases the GIL)
     or, for GIL-bound work such as tokenization, worker PROCESSES
     (``workers_mode="process"``, a spawned pool, each worker holding a copy of
-    the dataset).
-    ``workers_mode="grain"`` raises: not ported (ROADMAP queue 1 item 4).
+    the dataset). ``workers_mode="grain"`` (with ``num_workers > 0``) hands
+    whole batches to spawned worker processes that fetch and collate them,
+    ``prefetch`` batches ahead a worker: the JAX package's grain pipeline on
+    ``torch.utils.data.DataLoader``.
     """
 
     def __init__(
@@ -412,18 +483,20 @@ class DataLoader:
         # worker THREADS (default) or PROCESSES for item fetch;
         # 0 = fetch inline on the prefetch thread.
         self.num_workers = int(num_workers)
-        if workers_mode == "grain":
-            raise NotImplementedError("data.workers_mode 'grain' is not ported (ROADMAP queue 1 item 4); "
-                                      "use 'thread' or 'process'")
-        if workers_mode not in ("thread", "process"):
+        if workers_mode not in ("thread", "process", "grain"):
             raise ValueError(f"unknown workers_mode {workers_mode!r}")
         self.workers_mode = workers_mode
         self.collate_fn = collate_fn
         self._epoch = 0
+        # the grain pool: the loader over a _MultiEpochBatchSource, its one iterator, and the global
+        # record (epoch * batches_per_epoch + batch) that iterator yields next
+        self._grain_dl = None
+        self._grain_it = None
+        self._grain_pos = 0
+        self._grain_busy = False
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return _batches_per_epoch(len(self.dataset), self.batch_size, self.drop_last)
 
     def _batch_indices(self) -> List[List[int]]:
         return _pinned_batch_order(
@@ -462,6 +535,57 @@ class DataLoader:
         if hasattr(self, "_pool"):
             self._pool.shutdown(wait=False)
             del self._pool
+        self._close_grain()
+
+    def _torch_loader(self, source, persistent: bool):
+        """PyTorch's worker pool over a batch source: spawned workers, one collated batch a task."""
+        import torch.utils.data
+
+        return torch.utils.data.DataLoader(
+            source, batch_size=None, sampler=torch.utils.data.SequentialSampler(source), collate_fn=_as_is,
+            num_workers=self.num_workers, multiprocessing_context="spawn", persistent_workers=persistent,
+            prefetch_factor=max(self.prefetch, 1),
+        )
+
+    def _grain_iter(self, epoch: int, start: int, count: int):
+        """``count`` batches of ``epoch`` from ``start``, from the persistent pool (JAX loader.py:377-460).
+
+        The pool is built once and serves every epoch; it is rebuilt, positioned
+        at the requested record by the source's ``base``, only when a request
+        does not continue where the last one ended (a resume, a backward
+        ``set_epoch``). A second iteration while one is running gets a
+        one-shot pool of its own, so the shared position stays right.
+        """
+        if self._grain_busy:
+            order = _pinned_batch_order(len(self.dataset), self.batch_size, self.shuffle, self.drop_last,
+                                        self.seed, epoch)[start:start + count]
+            yield from self._torch_loader(_BatchSource(self.dataset, order, self.collate_fn), persistent=False)
+            return
+        target = epoch * len(self) + start
+        if self._grain_it is None or self._grain_pos != target:
+            self._build_grain_pool(target)
+        self._grain_busy = True
+        try:
+            for _ in range(count):
+                batch = next(self._grain_it)
+                self._grain_pos += 1
+                yield batch
+        finally:
+            self._grain_busy = False
+
+    def _build_grain_pool(self, base: int) -> None:
+        self._close_grain()
+        source = _MultiEpochBatchSource(self.dataset, self.batch_size, self.shuffle, self.drop_last, self.seed,
+                                        self.collate_fn, base=base)
+        self._grain_dl = self._torch_loader(source, persistent=True)
+        self._grain_it = iter(self._grain_dl)
+        self._grain_pos = base
+
+    def _close_grain(self) -> None:
+        """Stop the grain pool's worker processes."""
+        if self._grain_it is not None:
+            self._grain_it._shutdown_workers()
+        self._grain_it = self._grain_dl = None
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle epoch (torch DistributedSampler convention) so a
@@ -476,8 +600,11 @@ class DataLoader:
         and discards them — O(epoch) wasted host work after a preemption).
         The batch order is the same pinned per-epoch order as ``__iter__``.
         """
+        epoch = self._epoch
         batches = self._batch_indices()[start:]
         self._epoch += 1
+        if self.workers_mode == "grain" and self.num_workers > 0:
+            return self._grain_iter(epoch, start, len(batches))
         return self._iterate(batches)
 
     def __iter__(self):

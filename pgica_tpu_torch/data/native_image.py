@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import logging
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -41,7 +42,7 @@ def _library_path() -> Path:
 def _build_library(path: Path) -> bool:
     global build_error
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(".tmp.so")
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.so")  # worker processes may build at once
     cmd = ["g++", *_FLAGS, str(_SOURCE), "-ljpeg", "-o", str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)

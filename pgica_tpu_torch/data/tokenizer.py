@@ -1,28 +1,35 @@
 """Byte-level BPE caption tokenizer (port's copy of pgica_tpu/data/tokenizer.py).
 
 The port keeps its own copy so that it never imports the JAX package; the
-ids, the special tokens and ``decode`` are the same, and
-tests/test_torch_ops.py holds the two against each other. Left out: the
-native C++ encoder hook (``native_bpe``) and ``train_bpe`` (ROADMAP queue 1
-item 4): captions encode through the pure-Python path, which gives the same
-ids.
+ids, the special tokens, ``decode``, ``save`` and the merges ``train_bpe``
+learns are the same, and tests/test_torch_ops.py and
+tests/test_torch_native_bpe.py hold the two against each other.
 
 Modes, all offline: local GPT-2-style ``vocab.json`` + ``merges.txt``
-artifacts, or the byte fallback (256 byte tokens + specials). Special tokens
+artifacts, a byte-level BPE trained on a caption corpus (``train_bpe``), or
+the byte fallback (256 byte tokens + specials). Special tokens
 ([PAD]/[UNK]/[BOS]/[EOS]/[SEP]) are appended after the base vocabulary in a
 fixed order so every component sees identical ids.
+
+``encode`` goes through the native encoder (``data/native_bpe.py``, the
+repository's ``native/bpe.cpp``) where it builds, else through the
+pure-Python path, the reference; both give the same ids. The native handle
+is process-local: a pickled tokenizer (a worker process's copy) leaves it
+behind and builds its own.
 """
 
 from __future__ import annotations
 
 import json
 import re
+from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from pgica_tpu_torch.data._unicode_classes import LETTER_RANGES, NUMBER_RANGES
+from pgica_tpu_torch.data.native_bpe import NativeBPE
 
 SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[BOS]", "[EOS]", "[SEP]")
 
@@ -84,7 +91,9 @@ class CaptionTokenizer:
             # Byte-fallback vocabulary: the 256 byte-alphabet symbols.
             vocab = {_BYTE_ENCODER[b]: b for b in range(256)}
             merges = []
-        self._merge_ranks = {pair: i for i, pair in enumerate(merges or [])}
+        self._base_vocab = dict(vocab)
+        self._merges = list(merges or [])
+        self._merge_ranks = {pair: i for i, pair in enumerate(self._merges)}
         self.vocab: Dict[str, int] = dict(vocab)
         base = max(self.vocab.values()) + 1 if self.vocab else 0
         for i, tok in enumerate(SPECIAL_TOKENS):
@@ -92,6 +101,15 @@ class CaptionTokenizer:
                 self.vocab[tok] = base + i
         self.id_to_token = {i: t for t, i in self.vocab.items()}
         self._cache: Dict[str, List[str]] = {}
+        self._native = None  # the native encoder, built at the first encode (data/native_bpe.py)
+        self._native_tried = False
+
+    def __getstate__(self):
+        """Picklable for worker processes: the native encoder's ctypes handle is process-local, so
+        the copy leaves it (and the word cache) behind and builds its own at its first encode."""
+        state = self.__dict__.copy()
+        state.update(_native=None, _native_tried=False, _cache={})
+        return state
 
     @property
     def vocab_size(self) -> int:
@@ -140,11 +158,24 @@ class CaptionTokenizer:
         self._cache[token] = word
         return word
 
+    def _native_encoder(self):
+        """The native encoder, or None where the library does not build."""
+        if not self._native_tried:
+            self._native_tried = True
+            candidate = NativeBPE(self.vocab, self._merges, self.unk_token_id)
+            self._native = candidate if candidate.available else None
+        return self._native
+
+    def _python_encode(self, text: str) -> List[int]:
+        """The pure-Python path, the reference the native encoder is held to."""
+        unk = self.unk_token_id
+        return [self.vocab.get(sym, unk) for piece in _pretokenize(text) for sym in self._bpe(piece)]
+
     def encode(self, text: str, add_bos: bool = False, add_eos: bool = False) -> List[int]:
         ids: List[int] = [self.bos_token_id] if add_bos else []
-        unk = self.unk_token_id
-        for piece in _pretokenize(text):
-            ids.extend(self.vocab.get(sym, unk) for sym in self._bpe(piece))
+        native = self._native_encoder()
+        body = native.encode(text) if native is not None else None
+        ids.extend(self._python_encode(text) if body is None else body)
         if add_eos:
             ids.append(self.eos_token_id)
         return ids
@@ -185,6 +216,17 @@ class CaptionTokenizer:
         pairs = [self.encode_padded(t, max_length, add_bos, add_eos) for t in texts]
         return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
+    def save(self, directory: Union[str, Path]) -> None:
+        """``vocab.json`` (the base vocabulary, without the specials) and ``merges.txt``, as the JAX package writes them."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        with open(directory / "vocab.json", "w") as f:
+            json.dump(self._base_vocab, f, ensure_ascii=False)
+        with open(directory / "merges.txt", "w") as f:
+            f.write("#version: pgica_tpu\n")
+            for a, b in self._merges:
+                f.write(f"{a} {b}\n")
+
     @classmethod
     def load(cls, directory: Union[str, Path]) -> "CaptionTokenizer":
         directory = Path(directory)
@@ -209,3 +251,48 @@ class CaptionTokenizer:
         if path.is_dir() and (path / "vocab.json").exists():
             return cls.load(path)
         return cls()
+
+    @classmethod
+    def train_bpe(cls, corpus: Iterable[str], vocab_size: int = 8192, min_frequency: int = 2) -> "CaptionTokenizer":
+        """Train a byte-level BPE on caption text (JAX tokenizer.py:295-342): from the 256 byte
+        symbols, merge the most frequent adjacent pair (the first met on a tie) until the vocab
+        holds ``vocab_size`` entries with the specials, or no pair occurs ``min_frequency`` times."""
+        word_freq: Counter = Counter()
+        for text in corpus:
+            word_freq.update(_pretokenize(text))
+        words: Dict[Tuple[str, ...], int] = {}
+        for w, f in word_freq.items():
+            sym = tuple(_BYTE_ENCODER[b] for b in w.encode("utf-8"))
+            words[sym] = words.get(sym, 0) + f
+
+        vocab = {_BYTE_ENCODER[b]: b for b in range(256)}
+        merges: List[Tuple[str, str]] = []
+        for _ in range(max(0, vocab_size - 256 - len(SPECIAL_TOKENS))):
+            pair_freq: Counter = Counter()
+            for sym, f in words.items():
+                for i in range(len(sym) - 1):
+                    pair_freq[(sym[i], sym[i + 1])] += f
+            if not pair_freq:
+                break
+            best, freq = pair_freq.most_common(1)[0]
+            if freq < min_frequency:
+                break
+            merges.append(best)
+            first, second = best
+            joined = first + second
+            new_words: Dict[Tuple[str, ...], int] = {}
+            for sym, f in words.items():
+                out: List[str] = []
+                i = 0
+                while i < len(sym):
+                    if i < len(sym) - 1 and sym[i] == first and sym[i + 1] == second:
+                        out.append(joined)
+                        i += 2
+                    else:
+                        out.append(sym[i])
+                        i += 1
+                t = tuple(out)
+                new_words[t] = new_words.get(t, 0) + f
+            words = new_words
+            vocab[joined] = len(vocab)
+        return cls(vocab=vocab, merges=merges)

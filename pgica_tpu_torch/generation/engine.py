@@ -26,7 +26,10 @@ Greedy captions are token-identical to the batch path's (same argmax,
 repetition penalty and EOS handling; tests/test_torch_engine.py). Sampling
 draws from one generator across admissions and chunks, so its stream
 differs from a fresh batch decode's, as the JAX engine's does (slots join
-mid-stream). The engine serves the weights the model had at construction,
+mid-stream). Each admission reseeds it from the engine's seed and the
+number of requests admitted before, so that a request's draws do not
+depend on how many chunks the pipeline ran while it waited (a matter of
+timing): requests submitted one at a time repeat under a seed. The engine serves the weights the model had at construction,
 as the JAX engine serves the params it took then: in bf16 the model's
 serving copy of that moment, in float32 a copy of its masters (the train
 steps and ``load_jax_params`` update the masters in place). That float32
@@ -48,6 +51,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from pgica_tpu_torch.core.prng import STEP_STRIDE
 from pgica_tpu_torch.data.augment import prepare_images
 from pgica_tpu_torch.generation.slots import (
     CapturedSteps,
@@ -137,6 +141,7 @@ class ContinuousDecodeEngine:
         )
         self._seed = int(seed)
         self._state = self._init_state(self._seed)
+        self._admitted = 0  # requests admitted so far: each admission's sampling seed
         on_card = self.device.type == "cuda"
         self.cuda_graph = bool(cuda_graph) and on_card
         self.graph: Optional[CapturedSteps] = None  # the captured chunk, once warmed
@@ -326,8 +331,6 @@ class ContinuousDecodeEngine:
             req["event"].set()
         try:
             self._state.reset()
-            if self._state.generator is not None:
-                self._state.generator.manual_seed(self._seed)
         except Exception:  # noqa: BLE001 — daemon must survive
             logger.exception("engine state reset failed; next dispatch will retry")
 
@@ -382,6 +385,9 @@ class ContinuousDecodeEngine:
                     self._table[s] = {"req": req, "seq": self._chunk_seq}
                 self._outstanding += len(arrivals)
                 self.counters["admits"][bucket] = self.counters["admits"].get(bucket, 0) + 1
+            if self._state.generator is not None:
+                self._state.generator.manual_seed(self._seed * STEP_STRIDE + self._admitted)
+            self._admitted += len(arrivals)
             self._admit(self._state, images, ids)
         with self._lock:
             busy = self._outstanding > 0

@@ -29,6 +29,7 @@ distribution only.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -250,8 +251,14 @@ class CapturedSteps:
         if generator is not None:
             self.graph.register_generator_state(generator)
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.out = fn()
+        collecting = gc.isenabled()
+        gc.disable()  # a collection inside the capture could free a dead graph's memory: a call that voids it
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(device)
         after = _kernels.launch_counts()
         # a wrapper called under capture records its kernel into the graph: every replay launches these

@@ -12,7 +12,12 @@ Mirrors pgica_tpu/models/decoder.py:41-183.
   adds ``wpe(position)`` to the token embedding for GPT-2
   (decoder.py:169-176), gathered per row when ``position`` is a (B,) tensor
   (continuous batching). As in the JAX package and the reference it mirrors,
-  cross-attention does NOT run at decode time (decoder.py:16-21).
+  cross-attention does NOT run at decode time (decoder.py:16-21) unless the
+  decoder is built with ``cross_attend_at_decode=True`` and the step is given
+  the vision embeddings: then the step's token embedding is fused with the
+  projected vision token, through cross-attention and ``cross_ln``, before
+  ``wpe`` (the training forward's order; JAX decoder.py:165-168). No decode
+  loop passes them, in either package.
 
 ``quant`` builds the LM's blocks int8 for the inference-only twin (JAX
 decoder.py:58-63,85), with remat off; the vision projection and the
@@ -51,9 +56,11 @@ class CaptionDecoder(nn.Module):
         dtype: torch.dtype = torch.float32,
         shared_lm: Optional[TransformerLM] = None,
         quant: Optional[str] = None,
+        cross_attend_at_decode: bool = False,
     ):
         super().__init__()
         self.config = config
+        self.cross_attend_at_decode = cross_attend_at_decode
         self.vision_projection = Dense(projection_dim, config.hidden_size, dtype)
         self.vision_dropout = FastDropout(dropout)
         self.cross_attention = MultiHeadAttention(config.hidden_size, num_cross_heads, dropout=dropout, dtype=dtype)
@@ -111,12 +118,16 @@ class CaptionDecoder(nn.Module):
         return out["logits"][:, -1, :], out["caches"]
 
     def decode_step(
-        self, token_ids: torch.Tensor, position: Position, caches: KVCaches, attention_mask: torch.Tensor
+        self, token_ids: torch.Tensor, position: Position, caches: KVCaches, attention_mask: torch.Tensor,
+        vision_embeddings: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, KVCaches]:
         """One step: (B, 1) tokens written at cache slot ``position`` (an int, or (B,) per row)
-        -> (B, V) next-token logits."""
+        -> (B, V) next-token logits. ``vision_embeddings`` (B, projection_dim) are fused in only
+        with ``cross_attend_at_decode``."""
         dtype = self.lm.dtype
         embeds = self.lm.wte(token_ids).to(dtype)
+        if self.cross_attend_at_decode and vision_embeddings is not None:
+            embeds = self.fuse(embeds, self.project_vision(vision_embeddings))
         if self.lm.learned_positions:
             pe = self.lm.wpe.weight[position].to(dtype)  # (hidden,), or (B, hidden) per row
             embeds = embeds + (pe[:, None] if pe.dim() == 2 else pe[None, None])

@@ -194,8 +194,15 @@ class MultiHeadAttention(nn.Module):
         the int's bits. With ``kv`` (B, Sk,
         hidden), keys and values come from it (cross-attention, unmasked):
         the decoder's single vision token, which the JAX package pins to the
-        plain attention (decoder.py:78), so it runs ``xla_attention`` here
-        too, outside any kernel.
+        plain attention (decoder.py:78; "not flash-worthy" on the TPU). The
+        training and teacher-forced forwards run ``xla_attention`` here too;
+        a decode step (S = 1, ``cross_attend_at_decode``) runs the flash
+        kernel (at S = Sk = 1 the head views are contiguous already, so
+        ``.contiguous()`` copies nothing), which takes 5.06 us there on the
+        H100 against 34.5 for its plain version (PERF.md §6). Over one key both give exactly v, so
+        broadcasting v would be exact and launch nothing; the kernel branch
+        is kept so that a cross-attending step runs the ported flash forward
+        (ROADMAP.md, queue 1 item 8).
         """
         b, s, _ = x.shape
 
@@ -205,7 +212,8 @@ class MultiHeadAttention(nn.Module):
         src = x if kv is None else kv
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(src)), heads(self.v_proj(src))
         if kv is not None:
-            out = xla_attention(q, k, v, None, False)
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous()) if s == 1 else \
+                xla_attention(q, k, v, None, False)
             return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
         per_row = isinstance(position, torch.Tensor)
         if self.use_rope:

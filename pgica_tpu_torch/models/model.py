@@ -13,9 +13,9 @@ Mirrors pgica_tpu/models/model.py:43-231,234-476:
   module, its float32 masters, the tokenizer and, with ``lora_config``, the
   LoRA factors (models/lora.py), with the JAX package's
   ``generate_captions`` signature and return type. With ``quantization``
-  its decode runs through an int8 twin of the module (JAX model.py:389-412).
-
-Waiting for a later slice: ``load_pretrained_towers``.
+  its decode runs through an int8 twin of the module (JAX model.py:389-412),
+  and ``load_pretrained_towers`` imports local HF checkpoints into the
+  towers (models/convert.py).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from torch import nn
 
 from pgica_tpu_torch.core.device import resolve_device
 from pgica_tpu_torch.core.precision import cast_floating
+from pgica_tpu_torch.core.prng import stream_generator
 from pgica_tpu_torch.data.augment import prepare_images
 from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.models.convert import load_jax_params
@@ -170,8 +171,8 @@ class PreferenceGuidedCaptioningModule(nn.Module):
     def decode_prefix(self, vision_embeddings, caches, attention_mask):
         return self.caption_decoder.decode_prefix(vision_embeddings, caches, attention_mask)
 
-    def decode_step(self, token_ids, position, caches, attention_mask):
-        return self.caption_decoder.decode_step(token_ids, position, caches, attention_mask)
+    def decode_step(self, token_ids, position, caches, attention_mask, vision_embeddings=None):
+        return self.caption_decoder.decode_step(token_ids, position, caches, attention_mask, vision_embeddings)
 
 
 def build_module(
@@ -320,7 +321,7 @@ class PreferenceGuidedCaptioningModel:
             if lora_config.get("dropout", 0.0):
                 logger.info("lora_dropout=%s active as per-step adapter-input DropConnect (peft drops per "
                             "token; see models/lora.py:dropout_masks)", lora_config["dropout"])
-            self.lora = init_lora(self.module, torch.Generator().manual_seed(seed * 1_000_003 + 1),
+            self.lora = init_lora(self.module, stream_generator(seed, 1),
                                   rank=lora_config["rank"], targets=lora_config["targets"])
 
     def num_parameters(self) -> Dict[str, int]:
@@ -355,6 +356,46 @@ class PreferenceGuidedCaptioningModel:
             if got != {p: ((fi, rank), (rank, fo)) for p, (fi, fo) in want.items()}:
                 raise ValueError("the JAX LoRA factors do not match this model's targets, paths or shapes")
             self.lora = from_numpy(lora, self.device)
+
+    def load_pretrained_towers(self, vision_path=None, text_path=None, decoder_path=None) -> None:
+        """Import weights from local HF checkpoint directories, offline (JAX model.py:478-529).
+
+        ``vision_path``: a ``CLIPVisionModel`` directory for the vision
+        backbone; ``text_path``: a GPT-2 or Llama directory for the text
+        backbone (the shared LM under ``share_text_tower``); ``decoder_path``
+        (the text path by default): the decoder's LM, unless it is shared.
+        Each directory holds ``pytorch_model.bin`` or ``model.safetensors``.
+        The projection heads and the cross-attention keep their values (the
+        reference has no pretrained weights for them); embedding rows past the
+        checkpoint's vocab keep the module's (:func:`convert.pad_vocab_rows`).
+        Every tower is converted and checked before any master is written, and
+        the masters change in place, so the bf16 serving copy, the int8 twin
+        and the captured decode graphs follow them; an engine built earlier in
+        float32 keeps the weights it was built with, one built after serves
+        these.
+        """
+        from pgica_tpu_torch.models import convert
+
+        module = self.module
+        plan: convert.Plan = []
+        if vision_path:
+            tree = convert.convert_clip_vision(convert.read_state_dict(vision_path), module.vision_config)
+            plan += convert.plan_jax_params(module.vision_encoder.backbone, tree, "vision")
+        shared = getattr(module, "shared_lm", None)
+
+        def lm_plan(path, lm: TransformerLM, name: str) -> convert.Plan:
+            convert_lm = convert.convert_llama if lm.config.arch == "llama" else convert.convert_gpt2
+            tree = convert.pad_vocab_rows(convert_lm(convert.read_state_dict(path), lm.config), lm, name)
+            return convert.plan_jax_params(lm, tree, name)
+
+        if text_path:
+            plan += lm_plan(text_path, shared if shared is not None else module.text_encoder.backbone, "text")
+        decoder_path = decoder_path or text_path
+        if decoder_path and shared is None:
+            plan += lm_plan(decoder_path, module.caption_decoder.lm, "decoder")
+        convert.write_plan(plan)
+        logger.info("Loaded pretrained towers (vision=%s text=%s decoder=%s)", vision_path, text_path,
+                    decoder_path if shared is None else "shared")
 
     def _inference_module(self) -> PreferenceGuidedCaptioningModule:
         """The module in the compute dtype for inference.

@@ -1,8 +1,12 @@
-"""Training losses (port of pgica_tpu/ops/losses.py:32-107,145-217,287-338).
+"""Training losses (port of pgica_tpu/ops/losses.py:32-217,287-338).
 
 * ``ntxent_loss``: the symmetric InfoNCE of stage 1 over one batch's local
   negatives. Global negatives gathered across devices (the JAX
   ``axis_name``) wait for the parallel slice.
+* ``ntxent_loss_fused``: the same loss through the fused linear-CE kernels
+  (ops/fused_ce.py), each direction a target log-likelihood whose
+  "vocabulary" is the other modality's embeddings, so the (B, B) logits
+  never reach device memory.
 * ``sequence_logprobs`` (from logits) and ``sequence_logprobs_from_hidden``
   (through the fused linear-CE kernels, ops/fused_ce.py: the logits never
   exist): per-sequence log-probabilities under the causal shift.
@@ -55,6 +59,33 @@ def ntxent_loss(
     loss = 0.5 * (loss_i2t + loss_t2i)
     acc = (logits_i2t.argmax(dim=-1) == labels).to(torch.float32).mean()
     return loss, {"loss_i2t": loss_i2t, "loss_t2i": loss_t2i, "contrastive_accuracy": acc}
+
+
+def ntxent_loss_fused(
+    image_embeddings: torch.Tensor,
+    text_embeddings: torch.Tensor,
+    temperature: float = 0.5,
+    axis_name: Optional[str] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`ntxent_loss` on L2-normalized embeddings through ``fused_token_logprobs``: (loss,
+    {loss_i2t, loss_t2i}); the accuracy needs whole logits rows and is left out (JAX losses.py:110-142).
+
+    i2t: h = img / temperature against W = txt; t2i: h = txt / temperature
+    against W = img; row i's target is i. Both in float32. Where one tensor
+    is h in one direction and W in the other, autograd sums its two gradients.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "ntxent_loss_fused: negatives gathered over a device axis wait for the parallel slice "
+            "(ROADMAP queue 1 item 9)"
+        )
+    img = image_embeddings.to(torch.float32).contiguous()
+    txt = text_embeddings.to(torch.float32).contiguous()
+    labels = torch.arange(img.shape[0], device=img.device)
+    loss_i2t = -fused_token_logprobs(img / temperature, txt, labels).mean()
+    loss_t2i = -fused_token_logprobs(txt / temperature, img, labels).mean()
+    loss = 0.5 * (loss_i2t + loss_t2i)
+    return loss, {"loss_i2t": loss_i2t, "loss_t2i": loss_t2i}
 
 
 def _shifted_token_logprobs(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

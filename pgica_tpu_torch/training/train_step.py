@@ -55,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pgica_tpu_torch.core.prng import stream_generator
 from pgica_tpu_torch.data.augment import augment_batch, prepare_images
 from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
@@ -115,7 +116,7 @@ def _on_device(batch: Batch, device: torch.device, keys=CAPTION_KEYS) -> Dict[st
 
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
     """The dropout generator of one step: the JAX step's ``fold_in(rng, step)``."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+    return stream_generator(seed, step, device)
 
 
 AUGMENT_STREAM = 1 << 40  # keeps the augmentation seeds apart from the dropout seeds
@@ -127,7 +128,7 @@ def augment_generator(seed: int, step: int) -> torch.Generator:
     Its draws are a few scalars per image, copied to the device in one
     transfer, so one seed augments alike on the card and on the CPU.
     """
-    return torch.Generator().manual_seed(seed * 1_000_003 + step + AUGMENT_STREAM)
+    return stream_generator(seed, step, offset=AUGMENT_STREAM)
 
 
 LORA_STREAM = 2 << 40  # the adapter DropConnect's seeds (the JAX step's fold_in(rng, 7))
@@ -135,7 +136,7 @@ LORA_STREAM = 2 << 40  # the adapter DropConnect's seeds (the JAX step's fold_in
 
 def lora_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
     """The DropConnect generator of one LoRA train step: a stream apart from dropout and augmentation."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step + LORA_STREAM)
+    return stream_generator(seed, step, device, offset=LORA_STREAM)
 
 
 def _adapted(module: nn.Module, adapters: Optional[Adapters], lora: Optional[LoraSpec],

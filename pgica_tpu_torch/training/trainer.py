@@ -37,7 +37,6 @@ Differences from the JAX trainer:
 
 from __future__ import annotations
 
-import hashlib
 import json
 import logging
 import os
@@ -51,6 +50,7 @@ import torch
 from torch import nn
 
 from pgica_tpu_torch.core.precision import compute_dtype
+from pgica_tpu_torch.core.prng import purpose_seed
 from pgica_tpu_torch.models.lora import fold_lora, lora_from_tree, lora_to_tree, merged_targets
 from pgica_tpu_torch.models.model import frozen_copy
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state
@@ -87,7 +87,7 @@ STEP_RANGE = "train_step"  # the profiler range around each train step
 
 def stage_seed(seed: int, stage: int) -> int:
     """The seed of one stage's step generators (the JAX trainer's ``purpose_key``)."""
-    return int.from_bytes(hashlib.sha1(f"{seed}/train_stage{stage}".encode()).digest()[:4], "little")
+    return purpose_seed(seed, f"train_stage{stage}")
 
 
 def check_single_device(config, mesh=None) -> None:

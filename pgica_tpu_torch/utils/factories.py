@@ -15,10 +15,12 @@ Config keys the port reads differently:
   kernels; on the card that would take the kernels off the main path, so
   it raises there (on the CPU the plain versions run anyway).
 * ``model.scan_layers`` (a ``lax.scan`` layout) has no meaning in eager
-  PyTorch and is ignored.
-* Not ported, and raising with its ROADMAP item: a dataset-trained BPE
-  (``data.bpe_vocab_size`` with an existing corpus, queue 1 item 4). The
-  mesh factory is left out with the parallel stack (queue 1 item 9).
+  PyTorch and is ignored; the weight bridge takes such a model's stacked
+  tree (models/convert.py).
+* ``data.workers_mode: grain`` runs PyTorch's own batch-level worker pool
+  (data/loader.py); the port never imports ``grain``.
+* The mesh factory is left out with the parallel stack (ROADMAP queue 1
+  item 9).
 """
 
 from __future__ import annotations
@@ -70,16 +72,49 @@ def resolve_dtype(config) -> torch.dtype:
 
 
 def create_tokenizer(config):
-    """Local HF artifacts if ``model.text_model`` is such a directory, else the byte fallback."""
+    """Tokenizer resolution: local HF artifacts > dataset-trained BPE > byte fallback.
+
+    ``data.bpe_vocab_size`` trains a byte-level BPE on the configured caption
+    corpus, cached under ``paths.cache_dir`` as ``bpe_{size}_{key}`` (key: a
+    hash of the corpus path and the size, as the JAX package's), so a second
+    run loads it.
+    """
     from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 
     name = config.get("model.text_model", "gpt2-medium")
+    if Path(str(name)).is_dir():  # local HF artifacts win
+        return CaptionTokenizer.from_pretrained(name)
+
     vocab_size = config.get("data.bpe_vocab_size")
     data_path = Path(config.get("data.conceptual_captions_path", ""))
-    if not Path(str(name)).is_dir() and vocab_size and data_path.exists():
-        raise NotImplementedError("data.bpe_vocab_size: training a BPE on the caption corpus (train_bpe) is not "
-                                  "ported (ROADMAP queue 1 item 4)")
+    if vocab_size and data_path.exists():
+        cache_root = Path(config.get("paths.cache_dir", "./cache"))
+        key = hashlib.sha1(f"{data_path.resolve()}|{vocab_size}".encode()).hexdigest()[:12]
+        cache_dir = cache_root / f"bpe_{vocab_size}_{key}"
+        if (cache_dir / "vocab.json").exists():
+            logger.info("Loading cached dataset BPE from %s", cache_dir)
+            return CaptionTokenizer.load(cache_dir)
+        corpus = read_caption_corpus(data_path)
+        if corpus:
+            logger.info("Training %d-entry BPE on %d captions from %s", vocab_size, len(corpus), data_path)
+            tok = CaptionTokenizer.train_bpe(corpus, vocab_size=int(vocab_size))
+            tok.save(cache_dir)
+            return tok
     return CaptionTokenizer.from_pretrained(name)
+
+
+def read_caption_corpus(data_path) -> list:
+    """The caption strings of a CSV/TSV/JSON/directory dataset (its index only: no image is read)."""
+    from pgica_tpu_torch.data.loader import ConceptualCaptionsDataset
+
+    try:
+        ds = ConceptualCaptionsDataset.__new__(ConceptualCaptionsDataset)
+        ds.data_path = Path(data_path)
+        ds.max_samples = None
+        return [r["caption"] for r in ds._load_index()]
+    except (OSError, ValueError, KeyError) as e:  # unreadable, an unknown format, or columns missing
+        logger.warning("Could not read caption corpus from %s: %s", data_path, e)
+        return []
 
 
 def _check_kernels_enabled(config, device: torch.device) -> None:

@@ -253,10 +253,12 @@ def test_process_workers_give_the_inline_batches():
 
 
 def test_pinned_order_is_jax_and_grain_raises():
+    """The pinned order is JAX's; grain mode is ported (tests/test_torch_grain.py), an unknown mode raises."""
     for args in ((10, 3, True, True, 4, 0), (10, 3, True, False, 4, 9), (7, 2, False, False, 0, 1)):
         assert loader._pinned_batch_order(*args) == jloader._pinned_batch_order(*args)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        loader.DataLoader([], 2, workers_mode="grain")
+    assert loader.DataLoader([], 2, workers_mode="grain").workers_mode == "grain"
+    with pytest.raises(ValueError, match="unknown workers_mode"):
+        loader.DataLoader([], 2, workers_mode="grains")
 
 
 # ------------------------------------------------------------------ factories
@@ -282,9 +284,11 @@ def test_factories_raise_on_what_is_not_ported(tmp_path):
         return config.Config(config_dict=make_config_dict(**kw))
 
     corpus = tmp_path / "caps.json"
-    corpus.write_text(json.dumps([{"image_path": "a.jpg", "caption": "a cat"}]))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        factories.create_tokenizer(cfg(**{"data.bpe_vocab_size": 300, "data.conceptual_captions_path": str(corpus)}))
+    corpus.write_text(json.dumps([{"image_path": "a.jpg", "caption": "a cat"}] * 4))
+    # the dataset-trained BPE is ported (tests/test_torch_native_bpe.py): the factory trains and caches it
+    bpe = cfg(**{"data.bpe_vocab_size": 300, "data.conceptual_captions_path": str(corpus),
+                 "paths.cache_dir": str(tmp_path / "cache")})
+    assert factories.create_tokenizer(bpe)._merges and any((tmp_path / "cache").iterdir())
     # LoRA, a shared text tower and int8 decode are ported (tests/test_torch_lora.py, test_torch_tower_options.py,
     # test_torch_quant.py): the factory builds them
     assert factories.create_model(cfg(**{"model.lora_config": {"r": 4}}), device="cpu").lora_config["rank"] == 4

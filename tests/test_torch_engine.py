@@ -218,6 +218,32 @@ def test_engine_sampling_is_reproducible_under_a_seed(port_model, engine_images)
     assert all(isinstance(c, str) for c in first)
 
 
+def test_engine_sampling_does_not_depend_on_chunks_run_between_requests(port_model, engine_images):
+    """How many chunks the pipeline runs between two requests is a matter of timing; each
+    admission reseeds the stream, so extra chunks before an admission change no caption."""
+    kw = dict(do_sample=True, temperature=0.8, top_p=0.9, repetition_penalty=1.2)
+
+    def run(extra_chunks):
+        eng = ContinuousDecodeEngine(port_model, slots=2, chunk=2, max_length=MAX_LENGTH, seed=5, **kw)
+        eng.warmup()
+        take = eng._take_arrivals
+
+        def take_after_extra_chunks():  # on the dispatch thread, just before it admits
+            arrivals = take()
+            for _ in range(extra_chunks if arrivals else 0):
+                eng._run_chunk()
+            return arrivals
+
+        eng._take_arrivals = take_after_extra_chunks
+        eng.start()
+        try:
+            return [eng.submit(img, timeout=120)["caption"] for img in engine_images[:3]]
+        finally:
+            eng.stop()
+
+    assert run(3) == run(0)
+
+
 def test_sampled_tokens_stay_inside_the_top_p_nucleus():
     """Every Gumbel-max draw lands in the nucleus that ``_top_p_filter`` keeps, and the draws
     spread over it."""
