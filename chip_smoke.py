@@ -14,7 +14,7 @@ exits non-zero):
 3. Kernels vs plain: each of the ten kernels against its plain PyTorch
    version on the card at the shapes the GPT-2 flagship's and the Llama
    slice's serving, stage-1 and stage-2 paths give it, bf16 and f32, with
-   its time (CUDA events, median of 11 bursts, on input sets that rotate
+   its time (CUDA events, median of 7 bursts, on input sets that rotate
    through more than twice the L2, so they come from HBM; the fused
    linear-CE kernels, tens to hundreds of ms a call over a W larger than the
    L2: median of 5 single calls; the flash decode forward also at the
@@ -26,7 +26,7 @@ exits non-zero):
    LayerNorm call makes with the gaps between them. It first reports the
    tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA/
    IMMA, and times both flash forward kernels either side of the dispatch
-   threshold; its float32 pass times 5 bursts of 5 (bf16: 11 of 20).
+   threshold; its float32 pass times 5 bursts of 5 (bf16: 7 of 20).
 4. Full path vs plain, for each architecture at full width, f32 — 2 layers
    a tower for ViT-B/32 + GPT-2 Medium, then 1 for SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
@@ -159,12 +159,33 @@ exits non-zero):
    cross-attention's decode shape and the LN forward at ``cross_ln``'s,
    each against its plain version and timed. 13d, inside phase 4's GPT-2:
    ``cross_attend_at_decode`` card against CPU, its launches a step.
+14. Data parallelism on torch.distributed, after 13c (the parent holds no
+   model then). NCCL refuses two ranks on one device, so 14a and 14b spawn
+   two gloo ranks (``spawn``, a file store, each joined with a time limit)
+   that share the card. 14a: phase 4's GPT-2 flagship (f32, 2 layers a
+   tower, dropout 0) takes two stage-1 and two stage-2 steps of a global
+   batch of 8 (4 a rank) in each mode (replicated, ZeRO-1, ZeRO-3 with the
+   reference sharded), held to the same steps of one process on the whole
+   batch: metrics at rtol 1e-5 (atol 1e-5), parameters by the loose-share
+   rule, the masters bit-identical over the ranks after every step, each
+   rank's shard and Adam bytes equal to those reckoned from the parameter
+   count; then ``ntxent_loss_fused`` with global negatives ((128, 512) a
+   rank against (256, 512) gathered) against ``ntxent_loss`` with them, and
+   the fused-CE kernels timed at that shape. 14b: ``scripts.train.run`` on
+   configs/default.yaml at full depth and vocab, bf16, ``mesh.data: 2``,
+   ZeRO-1 (stage 1) and ZeRO-3 with ``model.scan_layers`` (stage 2) in one
+   pair of ranks (``PHASE14_REDUCED``): step walls, peaks, checkpoint and
+   write-call bytes a rank, rank 0's busy share, rank 0's checkpoint
+   against the gathered parameters. 14c, beside them: ``python -m
+   torch.distributed.run --nproc_per_node=1 -m pgica_tpu_torch.scripts.train``
+   on configs/smoke.yaml for 2 steps, the process group NCCL.
 
 Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
 tower and 2-row train steps and replays its optimizer without the token
 embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
-phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 11
-bursts (21 before; its float32 pass 5 of 5); every profile is read off the
+phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 7
+bursts (21, then 11 before: phase 14 needs the time; its float32 pass 5 of
+5), phase 14b one stage of each ZeRO mode (``PHASE14_REDUCED``); every profile is read off the
 trace's raw events (``pgica_tpu_torch/utils/trace.py``): ``key_averages``
 took up to 46 s to parse one. Phase 5 no longer profiles a 4-beam request
 (phase 11a profiles the same 128 eager steps), phase 10 no longer runs the
@@ -175,8 +196,9 @@ script). A run still going after ``STACKS_AFTER_S`` dumps every thread's
 stack to stderr.
 
 Launch counts are reset just before the main path of phases 5, 6, 7, 9,
-10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths and of each
-of 13d's decode steps, and read just after; a graph replay
+10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths, of each of
+13d's decode steps and, in each rank, of each of phase 14's paths, and read
+just after; a graph replay
 adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
@@ -233,7 +255,7 @@ def dname(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-BF16_TIMING = {"reps": 20, "trials": 11}  # time_ms's depth (21 trials before: the limit)
+BF16_TIMING = {"reps": 20, "trials": 7}  # time_ms's depth (21, then 11 trials before: the limit; phase 14 came)
 TIMING = dict(BF16_TIMING)  # phase 3 times its float32 pass at F32_TIMING
 F32_TIMING = {"reps": 5, "trials": 5}  # no path of the main runs launches those; a shallower timing keeps the limit
 
@@ -3683,10 +3705,11 @@ def ntxent_step(loss_fn, img, txt) -> tuple:
     return (loss.detach(), *torch.autograd.grad(loss, (a, b)))
 
 
-def small_fce_rows(rows: int, d: int, gen: torch.Generator) -> dict:
-    """The three fused-CE kernels at NT-Xent's (rows, d) x (rows, d), f32 x f32, each input set used once per
-    burst among sets > 2x the L2 (time_ms): kernel, plain version, and the library (F.linear + F.cross_entropy
-    in f32 for the forward, their autograd backward for dh and dW together)."""
+def small_fce_rows(rows: int, d: int, gen: torch.Generator, vocab: int | None = None) -> dict:
+    """The three fused-CE kernels at NT-Xent's (rows, d) x (vocab, d) (vocab: rows, or the global negatives'
+    gathered rows), f32 x f32, each input set used once per burst among sets > 2x the L2 (time_ms): kernel,
+    plain version, and the library (F.linear + F.cross_entropy in f32 for the forward, their autograd backward
+    for dh and dW together)."""
     from pgica_tpu_torch.ops.fused_ce import (
         fused_ce_bwd_dh,
         fused_ce_bwd_dh_ref,
@@ -3696,21 +3719,22 @@ def small_fce_rows(rows: int, d: int, gen: torch.Generator) -> dict:
         fused_ce_fwd_ref,
     )
 
-    one = rows * d * 4
-    n_sets = max(1, math.ceil(100e6 / (2 * one)))
+    vocab = vocab or rows
+    one, wbytes = rows * d * 4, vocab * d * 4
+    n_sets = max(1, math.ceil(100e6 / (one + wbytes)))
     sets = []
     for _ in range(n_sets):
         h = torch.randn(rows, d, device="cuda", generator=gen) / NTXENT_TEMPERATURE / d ** 0.5
-        w = torch.randn(rows, d, device="cuda", generator=gen) / d ** 0.5
+        w = torch.randn(vocab, d, device="cuda", generator=gen) / d ** 0.5
         y = torch.arange(rows, device="cuda")
         g = torch.full((rows,), -1.0 / rows, device="cuda")  # d(-mean logp)/d logp
         sets.append((h, w, y, fused_ce_fwd(h, w, y)[1], g))
     fwd_sets = [s[:3] for s in sets]
-    fwd_bytes = 2 * one + 4 * rows + 8 * rows
-    bwd_in = 2 * one + 12 * rows
-    bounds = {"fused_ce_fwd": bound(fwd_bytes, 2 * rows * rows * d, torch.bfloat16),
-              "fused_ce_bwd_dh": bound(bwd_in + one, 4 * rows * rows * d, torch.bfloat16),
-              "fused_ce_bwd_dw": bound(bwd_in + one, 4 * rows * rows * d, torch.bfloat16)}
+    fwd_bytes = one + wbytes + 4 * rows + 8 * rows
+    bwd_in = one + wbytes + 12 * rows
+    bounds = {"fused_ce_fwd": bound(fwd_bytes, 2 * rows * vocab * d, torch.bfloat16),
+              "fused_ce_bwd_dh": bound(bwd_in + one, 4 * rows * vocab * d, torch.bfloat16),
+              "fused_ce_bwd_dw": bound(bwd_in + wbytes, 4 * rows * vocab * d, torch.bfloat16)}
 
     def lib_bwd(h, w, y, lse, g):
         a, b = h.clone().requires_grad_(), w.clone().requires_grad_()
@@ -3723,7 +3747,7 @@ def small_fce_rows(rows: int, d: int, gen: torch.Generator) -> dict:
     for kernel, fn, ref, arg_sets in (("fused_ce_fwd", fused_ce_fwd, fused_ce_fwd_ref, fwd_sets),
                                       ("fused_ce_bwd_dh", fused_ce_bwd_dh, fused_ce_bwd_dh_ref, sets),
                                       ("fused_ce_bwd_dw", fused_ce_bwd_dw, fused_ce_bwd_dw_ref, sets)):
-        res[kernel] = dict(case="ntxent", shape=f"({rows}, {d}) x ({rows}, {d})", dtype="h float32, W float32",
+        res[kernel] = dict(case="ntxent", shape=f"({rows}, {d}) x ({vocab}, {d})", dtype="h float32, W float32",
                            ms=time_ms(fn, arg_sets), plain_ms=time_ms(ref, arg_sets),
                            library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_b, input_sets=n_sets,
                            **bounds[kernel])
@@ -3841,6 +3865,507 @@ def cross_attend_decode(cuda, cpu, images, steps: int = 3) -> dict:
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------------ phase 14: data parallelism
+
+PHASE14_DIR = ROOT / "build" / "phase14"
+PARALLEL_WORLD = 2  # ranks; on this one-card machine they share the card over gloo (NCCL refuses two a device)
+PARALLEL_MODES = ("replicated", "zero1", "zero3")
+PARALLEL_BATCH = 8  # 14a's global batch: 4 rows a rank
+PARALLEL_SEQ = 32
+PARALLEL_RTOL = 1e-5  # loss, metrics and gradient norm: the ranks against the one process on the whole batch
+# ... and atol: DPO's rewards are beta x differences of ~-350 log-probs (32 tokens of a 50,262 vocab), whose
+# float32 rounding alone is ~2e-5 each
+PARALLEL_ATOL = 1e-5
+PARALLEL_LR = 1e-3
+PARALLEL_LOOSE_SHARE = 0.02  # parameters beyond PARAM_ATOL, each within Adam's bound (tests/test_torch_trainer.py)
+GLOBAL_NEG_ROWS = 256  # 14a's fused NT-Xent: (128, 512) rows a rank against (256, 512) gathered embeddings
+PHASE14_STEPS = 3  # a stage's steps in 14b; rank 0's profiler takes the third (trainer.PROFILE_STEPS)
+PHASE14_STAGES = {"zero1": "1", "zero3": "2"}  # 14b's run of each mode: --stage
+PHASE14_REDUCED = (
+    "ZeRO-1 trains stage 1 (--stage 1) and ZeRO-3 stage 2 (--stage 2, its sharded reference the initial policy): "
+    "each step moves ~6.4 GB between the two ranks over gloo's loopback (~5 s), so both stages of both modes "
+    "would take the phase past its time",
+    "1 epoch (the config: 10 and 5), --max-steps 3: 3 steps",
+    "gradient accumulation 1 (the config: 4): ZeRO refuses accumulation, as the JAX package does",
+    f"model.vocab_size {GPT2_VOCAB:,} (as phase 9); mesh.data 2 (the config: -1, every rank)",
+    "the data paths point at no file: the in-memory dummy datasets (64 pairs of 224 px images and captions a "
+    "stage) take their place, the global batch 8 (4 a rank)",
+    "training.save_steps 3 and no epoch or best checkpoints: one checkpoint, the autosave at the run's last step "
+    "(the run's disk is limited); load_best_model_at_end off",
+    "outputs, checkpoints, logs and rank 0's profile under build/phase14, deleted at the end; wandb disabled",
+)
+RANK_TIMEOUT_S = 240
+
+
+def _rank_entry(target: str, rank: int, world: int, store: str, args: tuple) -> None:
+    """A spawned rank: gloo over a file store, the one card (``LOCAL_RANK`` 0 for both), ``target``'s result
+    saved for the parent. A failure leaves its traceback beside it and exits non-zero."""
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = "0"
+    os.environ["WANDB_MODE"] = "disabled"
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+        out = globals()[target](rank, world, *args)
+        torch.save(out, PHASE14_DIR / f"{target}-rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (PHASE14_DIR / f"{target}-rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def start_ranks(target: str, *args) -> tuple:
+    """``target(rank, world, *args)`` in PARALLEL_WORLD spawned ranks, started; ``join_ranks`` waits."""
+    import multiprocessing
+
+    store = PHASE14_DIR / f"{target}.store"
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(target, r, PARALLEL_WORLD, str(store), args))
+             for r in range(PARALLEL_WORLD)]
+    for p in procs:
+        p.start()
+    return target, procs
+
+
+def join_ranks(started: tuple, timeout: float = RANK_TIMEOUT_S) -> list:
+    """Each rank joined within ``timeout``; a rank that fails or hangs fails the phase (the others are
+    killed). The ranks' results."""
+    target, procs = started
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = {r: (PHASE14_DIR / f"{target}-rank{r}.err").read_text() for r in range(PARALLEL_WORLD)
+              if (PHASE14_DIR / f"{target}-rank{r}.err").exists()}
+    if hung or errors or any(p.exitcode for p in procs):
+        raise AssertionError(f"phase 14 {target}: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}; "
+                             f"{errors}")
+    return [torch.load(PHASE14_DIR / f"{target}-rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
+
+
+def parallel_model():
+    """Phase 4's GPT-2 flagship at full width, 2 layers a tower, f32, dropout 0, on the card; and the stage-2
+    reference (a frozen f32 copy of another seed's, so the rewards are far from 0)."""
+    from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
+    from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
+    from pgica_tpu_torch.models.presets import get_text_config, get_vision_config
+
+    spec = FULL_WIDTH["gpt2"]
+    kwargs = dict(
+        vision_model=dataclasses.replace(get_vision_config(spec["vision"]), num_layers=spec["layers"]),
+        text_model=dataclasses.replace(get_text_config(spec["text"]), num_layers=spec["layers"]),
+        projection_dim=512, tokenizer=CaptionTokenizer(), max_caption_length=128, vocab_size=spec["vocab"],
+        dtype=torch.float32, dropout=0.0, device="cuda")
+    model = PreferenceGuidedCaptioningModel(seed=0, **kwargs)
+    ref = frozen_copy(PreferenceGuidedCaptioningModel(seed=1, **kwargs).module, torch.float32)
+    return model, ref
+
+
+def same_on_ranks(tensors, mesh) -> bool:
+    """Whether every rank holds the same bits (True on one process): each rank's digest of its tensors' bits (the
+    int32 words' sum, position-weighted sum and xor-shifted sum, in wrapping int64), gathered and compared."""
+    from pgica_tpu_torch.parallel import collectives
+
+    if not mesh.distributed:
+        return True
+    words = torch.cat([t.detach().float().reshape(-1).view(torch.int32) for t in tensors]).to(torch.int64)
+    pos = torch.arange(1, words.numel() + 1, device=words.device)
+    digest = torch.stack([words.sum(), (words * pos).sum(), (words ^ (words >> 7)).sum()])
+    both = collectives.all_gather(digest[None], "data", mesh)
+    return all(torch.equal(both[0], other) for other in both[1:])
+
+
+def parallel_steps(mode: str, module, ref, mesh, batches1, batches2) -> dict:
+    """Two stage-1 and two stage-2 steps of ``mode`` on this rank's rows of each global batch (the whole batch
+    on a one-process mesh); the metrics, whether the masters are bit-identical over the ranks after each step,
+    each stage's state bytes, the launches and the final parameters."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.parallel.zero1 import make_zero1_train_step
+    from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
+    from pgica_tpu_torch.training.optim import create_optimizer, warmup_cosine_schedule
+    from pgica_tpu_torch.training.train_step import (
+        TrainState,
+        make_stage1_loss,
+        make_stage1_train_step,
+        make_stage2_loss,
+        make_stage2_train_step,
+    )
+
+    out = {"metrics": [], "identical": [], "nbytes": {}}
+    _kernels.reset_launch_counts()  # ---- the mode's path starts here
+    for stage, batches in ((1, batches1), (2, batches2)):
+        if mode == "replicated":
+            opt = create_optimizer(PARALLEL_LR, 10, 1, freeze_vision_backbone=True,
+                                   frozen_prefixes=("caption_decoder",) if stage == 1 else ("text_encoder",))
+            state = TrainState.create(module, opt)
+            step = (make_stage1_train_step(module, opt, 0.5, mesh=mesh) if stage == 1
+                    else make_stage2_train_step(module, opt, beta=0.1, mesh=mesh))
+            for b in batches:
+                local = mesh.shard_batch(b)
+                state, m = step(state, local, 0) if stage == 1 else step(state, ref, local, 0)
+                out["metrics"].append({k: float(v) for k, v in m.items()})
+                out["identical"].append(same_on_ranks(module.parameters(), mesh))
+            continue
+        loss_fn = (make_stage1_loss(module, 0.5, mesh=mesh, axis_name="data") if stage == 1
+                   else make_stage2_loss(module, ref, beta=0.1, mesh=mesh))
+        zero3 = mode == "zero3"
+        make = make_zero3_train_step if zero3 else make_zero1_train_step
+        kw = {"with_ref": True} if zero3 and stage == 2 else {}
+        init_fn, step = make(loss_fn, mesh, "data", learning_rate=warmup_cosine_schedule(PARALLEL_LR, 1, 10),
+                             trainable_mask=lambda n: not n.startswith("vision_encoder.backbone."), **kw)
+        z = init_fn(module)
+        ref_shards = init_fn.shard_ref(ref) if kw else None
+        for b in batches:
+            local = mesh.shard_batch(b)
+            z, m = step(z, local, 0, ref=ref_shards) if kw else step(z, local, 0)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["identical"].append(same_on_ranks(z.params.gather_params().values(), mesh))
+        out["nbytes"][stage] = z.nbytes()
+        z.params.release()
+        if ref_shards is not None:
+            ref_shards.release()
+    torch.cuda.synchronize()
+    out["counts"] = _kernels.launch_counts()  # ---- and ends here
+    out["params"] = {k: v.detach().cpu() for k, v in module.named_parameters()}
+    return out
+
+
+def expected_state_bytes(module, mode: str, n: int) -> dict:
+    """A rank's bytes of parameter shards and Adam moments from the parameter count: ZeRO-1 one f32 buffer
+    padded to a multiple of n; ZeRO-3 the LM blocks' buffers (n divides each) besides the rest's."""
+    total = sum(p.numel() for p in module.parameters())
+    blocks = sum(p.numel() for name, p in module.named_parameters() if re.search(r"\.(lm|backbone)\.blocks\.", name)
+                 and not name.startswith("vision_encoder."))
+    share = -(-total // n) if mode == "zero1" else -(-(total - blocks) // n) + blocks // n
+    return {"params": 4 * share, "optimizer": 2 * 4 * share}
+
+
+def global_negatives(mesh) -> dict:
+    """``ntxent_loss_fused`` with global negatives against ``ntxent_loss`` with them, on this rank's
+    (128, 512) rows against the (256, 512) gathered; its launches; both timed (forward and backward, the
+    gathers included)."""
+    import functools
+
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.ops.losses import ntxent_loss, ntxent_loss_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    img, txt = ntxent_inputs(GLOBAL_NEG_ROWS, gen)
+    rows = GLOBAL_NEG_ROWS // mesh.data_parallel_size
+    img, txt = (t[mesh.batch_index * rows:(mesh.batch_index + 1) * rows].contiguous() for t in (img, txt))
+    fused = functools.partial(ntxent_loss_fused, axis_name="data")
+    plain = functools.partial(ntxent_loss, axis_name="data")
+    with mesh:
+        _kernels.reset_launch_counts()  # ---- the path starts here
+        loss, gi, gt = ntxent_step(fused, img, txt)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()  # ---- and ends here
+        ploss, pgi, pgt = ntxent_step(plain, img, txt)
+        times = {}
+        for name, fn in (("fused", fused), ("plain", plain)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                ntxent_step(fn, img, txt)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t) / 20 * 1e3
+    return dict(counts=counts, loss=float(loss), plain_loss=float(ploss), times=times,
+                grad_errs=[float((g - p).abs().max()) / float(p.abs().max()) for g, p in ((gi, pgi), (gt, pgt))])
+
+
+def collective_checks(mesh) -> dict:
+    """Each collective the port calls, on CUDA tensors over this mesh's backend, against its value: {op: right}."""
+    from pgica_tpu_torch.parallel import collectives
+
+    r, n = mesh.batch_index, mesh.data_parallel_size
+    base = torch.arange(4, dtype=torch.float32, device="cuda")
+    x = base + 10 * r
+    every = torch.cat([base + 10 * k for k in range(n)])
+    lengths = torch.tensor([3 + r], device="cuda")  # the trainer's bucket length: an int64 max
+    return {
+        "all_gather_into_tensor": torch.equal(collectives.all_gather(x, "data", mesh), every),
+        "reduce_scatter_tensor": torch.equal(collectives.psum_scatter(every, "data", mesh), n * every[4 * r:4 * r + 4]),
+        "all_reduce sum": torch.equal(collectives.psum(x, "data", mesh), n * base + 10 * sum(range(n))),
+        "all_reduce max, int64": int(collectives.pmax(lengths, "data", mesh)) == 2 + n,
+    }
+
+
+def parallel_parity(rank: int, world: int, inputs: str) -> dict:
+    """14a on one rank: the collectives, every mode's steps, then the fused NT-Xent with global negatives."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+
+    mesh = MeshContext(data=world)
+    checks = collective_checks(mesh)
+    inp = torch.load(inputs, weights_only=False)
+    model, ref = parallel_model()
+    initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+    out = {}
+    for mode in PARALLEL_MODES:
+        model.module.load_state_dict(initial)
+        out[mode] = parallel_steps(mode, model.module, ref, mesh, inp["s1"], inp["s2"])
+    out["expected_bytes"] = {mode: expected_state_bytes(model.module, mode, world) for mode in ("zero1", "zero3")}
+    out["ntxent"] = global_negatives(mesh)
+    out["collectives"] = checks
+    return out
+
+
+def parallel_cli(rank: int, world: int, runs: list) -> list:
+    """14b on one rank: ``scripts.train.run`` for each (config, output dir, stage) of ``runs`` (rank 0
+    profiles); walls, peak, write calls; rank 0's checkpoint against the gathered parameters."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.scripts import train as train_cli
+
+    def io_writes():
+        io = dict(line.split(": ") for line in Path("/proc/self/io").read_text().splitlines())
+        return int(io["wchar"])
+
+    results = []
+    for cfg_path, out_dir, stage in runs:
+        argv = ["--config", cfg_path, "--stage", stage, "--max-steps", str(PHASE14_STEPS), "--output-dir", out_dir]
+        if rank == 0:
+            argv += ["--profile-dir", str(Path(out_dir) / "profile")]
+        w0 = io_writes()
+        _kernels.reset_launch_counts()  # ---- the main path starts here
+        t = time.perf_counter()
+        trainer = train_cli.run(argv)
+        run_s = time.perf_counter() - t
+        counts = _kernels.launch_counts()  # ---- and ends here
+        name = f"stage{stage}"
+        out = dict(counts=counts, run_s=run_s, global_step=trainer.global_step, writes=io_writes() - w0,
+                   stage=name, record={k: trainer.history[name][0][k] for k in
+                                       ("step_seconds", "peak_mem_gib", "train_loss", "val_loss")},
+                   profile=trainer.profiles.get(int(stage)), saves=trainer.checkpoints.saves)
+        if rank == 0:
+            saved = torch.load(Path(out_dir) / "checkpoints" / f"autosave_{name}" / "state.pt", map_location="cpu",
+                               weights_only=True, mmap=True)
+            mine = trainer.model.module.state_dict()
+            out["checkpoint_equal"] = saved["params"].keys() == mine.keys() and all(
+                torch.equal(saved["params"][k], v.cpu()) for k, v in mine.items())
+            out["checkpoint_zero"] = sorted(saved["opt_state"]["zero"])
+            del saved
+            shutil.rmtree(out_dir, ignore_errors=True)  # one run's checkpoints on disk at a time
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        results.append(out)
+    return results
+
+
+def phase14_config(zero: str) -> Path:
+    """configs/default.yaml with PHASE14_REDUCED's changes and ``mesh.<zero>``, written to build/phase14."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "default.yaml").read_text())
+    run = PHASE14_DIR / zero
+    for stage in ("stage1", "stage2"):
+        cfg["training"][stage]["num_epochs"] = 1
+        cfg["training"][stage]["gradient_accumulation_steps"] = 1
+    cfg["training"].update(save_steps=PHASE14_STEPS, save_epoch_checkpoints=False, save_best_checkpoints=False,
+                           load_best_model_at_end=False)
+    cfg["model"]["vocab_size"] = GPT2_VOCAB
+    cfg["mesh"].update(data=PARALLEL_WORLD, **{zero: True})
+    if zero == "zero3":
+        cfg["model"]["scan_layers"] = True
+    cfg["data"]["conceptual_captions_path"] = str(PHASE14_DIR / "no-data" / "captions.csv")
+    cfg["data"]["ultrafeedback_path"] = str(PHASE14_DIR / "no-data" / "preferences.json")
+    cfg["paths"] = {"output_dir": str(run), "checkpoint_dir": str(run / "checkpoints"),
+                    "log_dir": str(run / "logs"), "cache_dir": str(run / "cache")}
+    path = PHASE14_DIR / f"default_{zero}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def check_parity(mode: str, got: dict, want: dict, rank: int) -> str:
+    """A rank's mode against the one process: metrics at PARALLEL_RTOL, parameters by the loose-share rule."""
+    if len(got["metrics"]) != len(want["metrics"]):
+        raise AssertionError(f"14a {mode} rank {rank}: {len(got['metrics'])} steps against {len(want['metrics'])}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k, v in w.items():
+            worst = max(worst, abs(g[k] - v) / max(abs(v), 1e-6))
+            if abs(g[k] - v) > PARALLEL_RTOL * abs(v) + PARALLEL_ATOL:
+                raise AssertionError(f"14a {mode} rank {rank} step {i}: {k} {g[k]} against {v}")
+    if not all(got["identical"]):
+        raise AssertionError(f"14a {mode}: the masters differ between the ranks after step(s) "
+                             f"{[i for i, s in enumerate(got['identical']) if not s]}")
+    loose = total = 0
+    bound_ = 2 * PARALLEL_LR * len(want["metrics"])
+    for name, exp in want["params"].items():
+        d = (got["params"][name] - exp).abs()
+        if float(d.max()) > bound_:
+            raise AssertionError(f"14a {mode} rank {rank}: {name} off by {float(d.max()):.3e} (Adam's bound {bound_})")
+        if not name.endswith("attn.k_proj.bias"):
+            loose += int((d > PARAM_ATOL).sum())
+            total += d.numel()
+    if loose / total >= PARALLEL_LOOSE_SHARE:
+        raise AssertionError(f"14a {mode} rank {rank}: {loose} of {total} parameters beyond {PARAM_ATOL}")
+    return (f"metrics within {worst:.2e} relative (rtol {PARALLEL_RTOL}, atol {PARALLEL_ATOL}); {loose} of {total:,} "
+            f"parameters beyond {PARAM_ATOL}")
+
+
+def phase_parallel() -> dict:
+    """Phase 14: data parallelism on torch.distributed. 14a: the three modes on two gloo ranks sharing the card
+    against one process on the whole batch, and fused NT-Xent with global negatives; 14b: the training CLI on
+    configs/default.yaml at full depth in two ranks under ZeRO-1 and ZeRO-3; 14c: the CLI under torchrun,
+    one NCCL rank."""
+    import os
+
+    import yaml
+
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    PHASE14_DIR.mkdir(parents=True)
+    os.environ["WANDB_MODE"] = "disabled"
+    out = {"counts": {}}
+    nccl = None
+    try:
+        # ---- 14c starts first and runs beside 14a: one NCCL rank under torchrun
+        t_c = time.perf_counter()
+        cfg = yaml.safe_load((ROOT / "configs" / "smoke.yaml").read_text())
+        run = PHASE14_DIR / "nccl"
+        cfg["paths"] = {"output_dir": str(run), "checkpoint_dir": str(run / "checkpoints"),
+                        "log_dir": str(run / "logs"), "cache_dir": str(run / "cache")}
+        (PHASE14_DIR / "smoke_nccl.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+               "pgica_tpu_torch.scripts.train", "--config", str(PHASE14_DIR / "smoke_nccl.yaml"), "--stage", "1",
+               "--max-steps", "2"]
+        nccl_log = PHASE14_DIR / "nccl.log"
+        with open(nccl_log, "w") as sink:  # a file, not a pipe: the rank never waits on this process to read
+            nccl = subprocess.Popen(cmd, cwd=ROOT, stdout=sink, stderr=subprocess.STDOUT,
+                                    env={**os.environ, "WANDB_MODE": "disabled"})
+
+        # ---- 14a: the ranks start; the one process takes the same steps on the whole batch meanwhile
+        t = time.perf_counter()
+        rng = np.random.default_rng(14)
+        inputs = {"s1": [stage1_batch(rng, PARALLEL_BATCH, PARALLEL_SEQ) for _ in range(2)],
+                  "s2": [stage2_batch(rng, PARALLEL_BATCH, PARALLEL_SEQ) for _ in range(2)]}
+        torch.save(inputs, PHASE14_DIR / "inputs.pt")
+        started = start_ranks("parallel_parity", str(PHASE14_DIR / "inputs.pt"))
+        model, ref = parallel_model()
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        one = MeshContext(data=1)
+        want = {}
+        for mode in PARALLEL_MODES:
+            model.module.load_state_dict(initial)
+            want[mode] = parallel_steps(mode, model.module, ref, one, inputs["s1"], inputs["s2"])
+        del model, ref, initial
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  14a: the one process's steps on the whole batch ({PARALLEL_BATCH} x {PARALLEL_SEQ}) in "
+            f"{time.perf_counter() - t:.1f} s, beside the ranks")
+        ranks = join_ranks(started)
+        for r, res in enumerate(ranks):
+            if not all(res["collectives"].values()):
+                raise AssertionError(f"14a rank {r}: a collective over gloo gave a wrong result: {res['collectives']}")
+        log(f"  14a gloo on CUDA tensors, on both ranks: {', '.join(ranks[0]['collectives'])}: each result right; "
+            "no op is routed by backend (parallel/collectives.py calls these on NCCL and gloo alike)")
+        for mode in PARALLEL_MODES:
+            for r, res in enumerate(ranks):
+                verdict = check_parity(mode, res[mode], want[mode], r)
+                out["counts"][f"parallel_{mode}_rank{r}"] = res[mode]["counts"]
+                line = f"  14a {mode}, rank {r}: 2 stage-1 and 2 stage-2 steps: {verdict}; masters bit-identical " \
+                       "over the ranks after every step"
+                if mode != "replicated":
+                    for stage, nb in res[mode]["nbytes"].items():
+                        if nb != res["expected_bytes"][mode]:
+                            raise AssertionError(f"14a {mode} rank {r} stage {stage}: state bytes {nb}, reckoned "
+                                                 f"{res['expected_bytes'][mode]}")
+                    nb = res[mode]["nbytes"][1]
+                    line += (f"; this rank holds {nb['params']:,} bytes of parameter shards and {nb['optimizer']:,} "
+                             f"of Adam moments (reckoned from the parameter count: equal)")
+                log(line)
+            check_main_path(f"14a {mode} (rank 0)", ranks[0][mode]["counts"], TRAIN_KERNELS)
+        nt = [res["ntxent"] for res in ranks]
+        for r, n in enumerate(nt):
+            if abs(n["loss"] - n["plain_loss"]) > NTXENT_LOSS_RTOL * abs(n["plain_loss"]) or \
+                    max(n["grad_errs"]) > NTXENT_GRAD_RTOL:
+                raise AssertionError(f"14a fused NT-Xent with global negatives, rank {r}: {n}")
+            if {k: n["counts"][k] for k in FCE_KERNELS} != dict.fromkeys(FCE_KERNELS, 2):
+                raise AssertionError(f"14a fused NT-Xent, rank {r}: launches {n['counts']}")
+            out["counts"][f"ntxent_global_rank{r}"] = n["counts"]
+        log(f"  14a ntxent_loss_fused with global negatives, ({GLOBAL_NEG_ROWS // PARALLEL_WORLD}, {NTXENT_DIM}) a "
+            f"rank against ({GLOBAL_NEG_ROWS}, {NTXENT_DIM}) gathered, f32: loss relative error "
+            f"{max(abs(n['loss'] - n['plain_loss']) / abs(n['plain_loss']) for n in nt):.2e}, gradients "
+            f"{max(max(n['grad_errs']) for n in nt):.2e} of their largest element (tol {NTXENT_LOSS_RTOL} / "
+            f"{NTXENT_GRAD_RTOL}); 2 launches of each fused-CE kernel a rank; forward and backward, the gathers "
+            f"over gloo included, rank 0 {nt[0]['times']['fused']:.3f} ms against ntxent_loss's "
+            f"{nt[0]['times']['plain']:.3f} ms [{card()}]")
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        rows = GLOBAL_NEG_ROWS // PARALLEL_WORLD
+        checked = fused_ce_case("global negatives", rows, GLOBAL_NEG_ROWS, NTXENT_DIM, torch.float32,
+                                torch.float32, gen, timed=False)
+        out["fce"] = small_fce_rows(rows, NTXENT_DIM, gen, vocab=GLOBAL_NEG_ROWS)
+        for kernel, r in out["fce"].items():
+            r.update({k: checked[kernel][k] for k in ("max_abs_err", "atol", "rtol")})
+            show_timed(kernel, r)
+        out["ntxent"] = nt[0]
+        out["a_s"] = time.perf_counter() - t
+        log(f"  14a: {out['a_s']:.1f} s")
+
+        # ---- 14b: the training CLI at full depth, ZeRO-1 (stage 1) and ZeRO-3 (stage 2), in one pair of ranks
+        t = time.perf_counter()
+        out["cli"] = {}
+        log("  14b: configs/default.yaml changed: " + "; ".join(PHASE14_REDUCED))
+        runs = [(str(phase14_config(zero)), str(PHASE14_DIR / zero), stage) for zero, stage in PHASE14_STAGES.items()]
+        res = join_ranks(start_ranks("parallel_cli", runs), timeout=2 * RANK_TIMEOUT_S)
+        for i, zero in enumerate(PHASE14_STAGES):
+            for r, rank_runs in enumerate(res):
+                rr = rank_runs[i]
+                if rr["global_step"] != PHASE14_STEPS:
+                    raise AssertionError(f"14b {zero} rank {r}: global step {rr['global_step']}")
+                check_main_path(f"14b {zero} {rr['stage']} rank {r}", rr["counts"], TRAIN_KERNELS if
+                                rr["stage"] == "stage2" else TRAIN_KERNELS[:5])
+                out["counts"][f"parallel_cli_{zero}_rank{r}"] = rr["counts"]
+                rec, steps = rr["record"], rr["record"]["step_seconds"]
+                ckpt = sum(sv.get("bytes", 0) for sv in rr["saves"])
+                log(f"  14b {zero} rank {r} {rr['stage']}: steps ms " + ", ".join(f"{x * 1e3:.1f}" for x in steps)
+                    + f"; median after the first {statistics.median(steps[1:]) * 1e3:.1f} ms; peak "
+                    f"{rec['peak_mem_gib']:.2f} GiB; train loss {rec['train_loss']:.4f}, val loss {rec['val_loss']:.4f}; "
+                    f"run {rr['run_s']:.1f} s; checkpoints {[sv['name'] for sv in rr['saves']]} {ckpt / 2**30:.2f} GiB "
+                    f"on disk; {rr['writes'] / 2**30:.2f} GiB through write calls (gloo's sockets included)")
+            first = res[0][i]
+            prof = first["profile"]
+            busy = prof["device_ms"] / prof["step_ms"] if prof and prof.get("step_ms") else None
+            if not first.get("checkpoint_equal"):
+                raise AssertionError(f"14b {zero}: rank 0's checkpoint differs from the gathered parameters")
+            log(f"  14b {zero}: rank 0's busy share over its profiled step "
+                + (f"{100 * busy:.1f}% (kernel time {prof['device_ms']:.1f} ms, memory copies {prof['memcpy_ms']:.1f} "
+                   f"ms, step {prof['step_ms']:.1f} ms; host top {prof['host_top'][:3]})" if busy else "not measured")
+                + f"; rank 0's autosave holds the gathered parameters bit for bit and the ZeRO state "
+                f"{first['checkpoint_zero']} [{card()}; two ranks share this card]")
+            out["cli"][zero] = dict(ranks=[{k: rank_runs[i][k] for k in ("record", "run_s", "writes", "stage")}
+                                           for rank_runs in res], busy=busy)
+        out["b_s"] = time.perf_counter() - t
+        log(f"  14b: {out['b_s']:.1f} s")
+
+        # ---- 14c: collect the NCCL rank
+        nccl.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t_c)))
+        text = nccl_log.read_text()
+        meta = run / "checkpoints" / "checkpoint_stage1_epoch0" / "meta.json"
+        if nccl.returncode != 0 or "backend nccl" not in text or "Training complete" not in text or not meta.exists():
+            raise AssertionError(f"14c: torchrun exited {nccl.returncode}:\n{text[-3000:]}")
+        steps = json.loads(meta.read_text())["global_step"]
+        log(f"  14c: python -m torch.distributed.run --standalone --nproc_per_node=1 -m pgica_tpu_torch.scripts.train "
+            f"--config configs/smoke.yaml --stage 1 --max-steps 2 (its paths under build/phase14): exit 0, the process "
+            f"group NCCL over 1 rank, {steps} steps, its epoch checkpoint written; ran beside 14a-14b")
+        return out
+    finally:
+        if nccl is not None and nccl.poll() is None:
+            nccl.kill()
+            nccl.wait()
+        shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+
+
 FCE_SHAPE = f"({4 * 511}, 4096) x ({LLAMA_VOCAB}, 4096)"
 # name -> (source, the TPU kernel it replaces, the shape and type of the Llama stage-2 step (phase 8)
 # that its summary row reports: the one most of that step's launches take)
@@ -3942,6 +4467,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ntxent = phase("phase 13c: ntxent_loss_fused on the fused-CE kernels, and the slice's new kernel shapes",
                    phase_ntxent_and_shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase("phase 14: data parallelism on torch.distributed (14a/14b: two gloo ranks sharing the card; "
+                     "14c: one NCCL rank under torchrun)", phase_parallel)
     serving_summary(served, serving, llama)
     log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
         + ")")
@@ -3950,7 +4479,8 @@ def main() -> int:
              **llama["counts"], "train_cli": cli["counts"], "serving_engine": serving["main_counts"],
              "evaluation": evaluation["counts"], "int8_serving": quant["counts"], "lora_cli": cli["lora"]["counts"],
              "grain_bpe_cli": cli["grain"]["counts"], "pretrained_serving": imported["counts"],
-             "ntxent_fused": ntxent["counts"], "cross_attend_decode_step": cross["gpt2"]["counts"]}
+             "ntxent_fused": ntxent["counts"], "cross_attend_decode_step": cross["gpt2"]["counts"],
+             **parallel["counts"]}
     summary = []
     bursts = f"median of {BF16_TIMING['trials']} bursts of {BF16_TIMING['reps']}"
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
@@ -3968,6 +4498,10 @@ def main() -> int:
             "inputs": at["input_sets"] if isinstance(at["input_sets"], str)
             else f"{at['input_sets']} input sets rotating through > 2x L2 (cold), {bursts}",
         })
+        if name in parallel["fce"]:  # phase 14a's shape: a rank's rows against the gathered global negatives
+            g = parallel["fce"][name]
+            summary[-1]["global_negatives"] = {k: g[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                                                   "bound_ms", "bound_by", "library_ms")}
     m, k, n = Q8_SUMMARY_SHAPE
     for name in Q8_KERNELS:
         # no TPU kernel: the JAX package's int8 dot is XLA's; the time at the engine's 16 slots through a

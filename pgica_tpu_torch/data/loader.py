@@ -16,6 +16,12 @@ NHWC numpy batches, moved to the device by the train steps:
   a mid-epoch resume replays it.
 * :func:`create_dataloaders` — seeded 80/10/10 split, each split its own view.
 
+On a device mesh (``DataLoader.set_shard(mesh)``, which the trainer calls)
+each rank yields exactly the rows ``MeshContext.shard_batch`` keeps of the
+batch the one-process loader gives: every rank decodes the whole global
+batch, in the same seeded order, and keeps its block of rows (a batch the
+ranks do not divide raises, as the JAX package's ``device_put`` does).
+
 ``workers_mode="grain"`` keeps the JAX package's design (spawned workers
 that each fetch and collate whole batches, one persistent pool for the run,
 the epoch's order recomputed in the worker) on PyTorch's own batch-level
@@ -494,6 +500,15 @@ class DataLoader:
         self._grain_it = None
         self._grain_pos = 0
         self._grain_busy = False
+        self._mesh = None  # set_shard: yield this rank's rows of each batch
+
+    def set_shard(self, mesh) -> None:
+        """Yield this rank's rows of every batch from now on (``mesh.shard_batch``; None: whole batches)."""
+        self._mesh = mesh
+
+    def _local_rows(self, batches):
+        for batch in batches:
+            yield self._mesh.shard_batch(batch)
 
     def __len__(self) -> int:
         return _batches_per_epoch(len(self.dataset), self.batch_size, self.drop_last)
@@ -604,8 +619,10 @@ class DataLoader:
         batches = self._batch_indices()[start:]
         self._epoch += 1
         if self.workers_mode == "grain" and self.num_workers > 0:
-            return self._grain_iter(epoch, start, len(batches))
-        return self._iterate(batches)
+            out = self._grain_iter(epoch, start, len(batches))
+        else:
+            out = self._iterate(batches)
+        return out if self._mesh is None else self._local_rows(out)
 
     def __iter__(self):
         return self.iter_batches(0)

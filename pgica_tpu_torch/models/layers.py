@@ -28,7 +28,7 @@ models/convert.py maps the JAX tree onto them.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -309,9 +309,12 @@ class _ReplayDropout:
             self.generator.set_state(resume)
 
 
-def checkpointed(block: nn.Module, x: torch.Tensor, key_bias: Optional[torch.Tensor],
+def checkpointed(block: Callable[..., torch.Tensor], x: torch.Tensor, key_bias: Optional[torch.Tensor],
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``block(x, key_bias, None, 0, generator)`` with its activations recomputed in the backward.
+
+    ``block`` is a block module or a callable of its signature (ZeRO-3's
+    gathering block, whose gather is then recomputed too).
 
     Activation checkpointing (the JAX package's ``nn.remat`` over each block,
     lm.py:95-96, vit.py:62): only the block's input is kept for the backward.

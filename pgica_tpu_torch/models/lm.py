@@ -12,6 +12,12 @@ its log-probs from the hidden states through the fused linear-CE kernels,
 where XLA drops the unused logits from the JAX graph (train_step.py:268-269);
 eager PyTorch would compute and keep them.
 
+Under ZeRO-3 (parallel/zero3.py) ``sharded`` holds the blocks' weights as
+shards over the ranks: each block runs on its weights gathered at its entry
+(a differentiable all-gather whose backward reduce-scatters the gradient)
+and drops them after; with ``remat`` the gather sits inside the
+checkpointed function, so the backward pass gathers again.
+
 ``quant`` ("int8" / "int8_weight_only") builds the blocks' matmuls as int8
 ``QuantDense`` for an inference-only twin (JAX lm.py:60-70,113); the
 embeddings and the tied head stay in the compute dtype. It refuses a config
@@ -75,6 +81,7 @@ class TransformerLM(nn.Module):
             for _ in range(cfg.num_layers)
         )
         self.ln_f = make_norm("rmsnorm" if llama else "layernorm", cfg.hidden_size, cfg.norm_eps, dtype)
+        self.sharded = None  # ZeRO-3's block gather (parallel/zero1.py:ShardedParams), else None
 
     @property
     def learned_positions(self) -> bool:
@@ -119,10 +126,11 @@ class TransformerLM(nn.Module):
         # per-row positions: one write plan for every layer's cache
         rows = CacheRows(position, caches[0][0].shape) if per_row and caches else None
         for i, block in enumerate(self.blocks):
+            run = block if self.sharded is None else self.sharded.block(self, i)
             if remat:
-                x = checkpointed(block, x, key_bias, generator)
+                x = checkpointed(run, x, key_bias, generator)
             else:
-                x = block(x, key_bias, None if caches is None else caches[i], position, generator, rows=rows)
+                x = run(x, key_bias, None if caches is None else caches[i], position, generator, rows=rows)
         x = self.ln_f(x)
         out = {"hidden_states": x, "caches": caches}
         if self.with_lm_head and with_logits:

@@ -1,12 +1,15 @@
 """Training losses (port of pgica_tpu/ops/losses.py:32-217,287-338).
 
-* ``ntxent_loss``: the symmetric InfoNCE of stage 1 over one batch's local
-  negatives. Global negatives gathered across devices (the JAX
-  ``axis_name``) wait for the parallel slice.
+* ``ntxent_loss``: the symmetric InfoNCE of stage 1. With ``axis_name`` (a
+  mesh axis or a tuple of them, bound by the active mesh) the negatives
+  are global: this rank's rows are scored against both modalities'
+  embeddings gathered over the axis, with labels offset by
+  ``axis_index * local_b``; the gather's backward sums each embedding's
+  cotangents back to its rank (parallel/collectives.py).
 * ``ntxent_loss_fused``: the same loss through the fused linear-CE kernels
   (ops/fused_ce.py), each direction a target log-likelihood whose
-  "vocabulary" is the other modality's embeddings, so the (B, B) logits
-  never reach device memory.
+  "vocabulary" is the other modality's (gathered) embeddings, so the
+  (B, B_global) logits never reach device memory.
 * ``sequence_logprobs`` (from logits) and ``sequence_logprobs_from_hidden``
   (through the fused linear-CE kernels, ops/fused_ce.py: the logits never
   exist): per-sequence log-probabilities under the causal shift.
@@ -25,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from pgica_tpu_torch.ops.fused_ce import fused_token_logprobs
+from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel.mesh import AxisName
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -35,27 +40,33 @@ def ntxent_loss(
     image_embeddings: torch.Tensor,
     text_embeddings: torch.Tensor,
     temperature: float = 0.5,
-    axis_name: Optional[str] = None,
+    axis_name: Optional[AxisName] = None,
     normalized: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Symmetric InfoNCE: (loss, {loss_i2t, loss_t2i, contrastive_accuracy}).
 
     Embeddings are (B, D), L2-normalized unless ``normalized=False``. Row i's
-    positive is column i of the (B, B) similarity matrix.
+    positive is column i of the (B, B) similarity matrix; with ``axis_name``
+    column ``axis_index * B + i`` of the (B, B_global) one, the accuracy over
+    this rank's rows.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ntxent_loss: negatives gathered over a device axis wait for the parallel slice "
-            "(ROADMAP queue 1 item 9)"
-        )
     img = image_embeddings.to(torch.float32)
     txt = text_embeddings.to(torch.float32)
     if not normalized:
         img, txt = l2_normalize(img), l2_normalize(txt)
-    labels = torch.arange(img.shape[0], device=img.device)
-    logits_i2t = img @ txt.T / temperature
+    local_b = img.shape[0]
+    labels = torch.arange(local_b, device=img.device)
+    if axis_name is not None:
+        global_img = collectives.all_gather(img, axis_name)
+        global_txt = collectives.all_gather(txt, axis_name)
+        labels = labels + collectives.axis_index(axis_name) * local_b
+        logits_i2t = img @ global_txt.T / temperature
+        logits_t2i = txt @ global_img.T / temperature
+    else:
+        logits_i2t = img @ txt.T / temperature
+        logits_t2i = logits_i2t.T
     loss_i2t = F.cross_entropy(logits_i2t, labels)
-    loss_t2i = F.cross_entropy(logits_i2t.T, labels)
+    loss_t2i = F.cross_entropy(logits_t2i, labels)
     loss = 0.5 * (loss_i2t + loss_t2i)
     acc = (logits_i2t.argmax(dim=-1) == labels).to(torch.float32).mean()
     return loss, {"loss_i2t": loss_i2t, "loss_t2i": loss_t2i, "contrastive_accuracy": acc}
@@ -65,7 +76,7 @@ def ntxent_loss_fused(
     image_embeddings: torch.Tensor,
     text_embeddings: torch.Tensor,
     temperature: float = 0.5,
-    axis_name: Optional[str] = None,
+    axis_name: Optional[AxisName] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`ntxent_loss` on L2-normalized embeddings through ``fused_token_logprobs``: (loss,
     {loss_i2t, loss_t2i}); the accuracy needs whole logits rows and is left out (JAX losses.py:110-142).
@@ -73,17 +84,20 @@ def ntxent_loss_fused(
     i2t: h = img / temperature against W = txt; t2i: h = txt / temperature
     against W = img; row i's target is i. Both in float32. Where one tensor
     is h in one direction and W in the other, autograd sums its two gradients.
+    With ``axis_name``, h is this rank's (B_loc, D) rows and W the (B_glob, D)
+    embeddings gathered over the axis, row i's target ``axis_index * B_loc + i``;
+    the dW kernel's gradient leaves through the gather's backward.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ntxent_loss_fused: negatives gathered over a device axis wait for the parallel slice "
-            "(ROADMAP queue 1 item 9)"
-        )
     img = image_embeddings.to(torch.float32).contiguous()
     txt = text_embeddings.to(torch.float32).contiguous()
     labels = torch.arange(img.shape[0], device=img.device)
-    loss_i2t = -fused_token_logprobs(img / temperature, txt, labels).mean()
-    loss_t2i = -fused_token_logprobs(txt / temperature, img, labels).mean()
+    w_img, w_txt = img, txt
+    if axis_name is not None:
+        w_img = collectives.all_gather(img, axis_name)
+        w_txt = collectives.all_gather(txt, axis_name)
+        labels = labels + collectives.axis_index(axis_name) * img.shape[0]
+    loss_i2t = -fused_token_logprobs(img / temperature, w_txt, labels).mean()
+    loss_t2i = -fused_token_logprobs(txt / temperature, w_img, labels).mean()
     loss = 0.5 * (loss_i2t + loss_t2i)
     return loss, {"loss_i2t": loss_i2t, "loss_t2i": loss_t2i}
 
@@ -129,8 +143,8 @@ def sequence_logprobs_from_hidden(
     linear-CE kernels: hidden (B, S, d), embedding (V, d) -> (B,) float32."""
     if mesh is not None:
         raise NotImplementedError(
-            "sequence_logprobs_from_hidden: the vocab-parallel path (mesh) waits for the parallel "
-            "slice (ROADMAP queue 1 item 9)"
+            "sequence_logprobs_from_hidden: the vocab-parallel path (mesh) waits for the tensor-parallel "
+            "slice (ROADMAP queue 1 item 9b)"
         )
     b, s, d = hidden.shape
     rows = hidden[:, :-1].reshape(b * (s - 1), d)

@@ -7,8 +7,15 @@ Usage:
     python -m pgica_tpu_torch.scripts.train --config configs/default.yaml \\
         --resume checkpoints/checkpoint_stage1_epoch3
 
+On several cards, one process a card:
+    torchrun --nproc_per_node=N -m pgica_tpu_torch.scripts.train --config configs/default.yaml
+
 The flags are the JAX CLI's, with ``--platform`` replaced by ``--device``
-(``cuda``, the default, or ``cpu``). Missing dataset paths fall back to
+(``cuda``, the default, or ``cpu``). Under ``torchrun`` (``WORLD_SIZE`` set)
+or in a caller that has initialized ``torch.distributed`` already, the run
+is data-parallel over the config's ``mesh`` (``mesh.zero1`` / ``mesh.zero3``
+pick ZeRO); each rank trains on the card of its ``LOCAL_RANK``, and rank 0
+alone logs and writes. A single process is the one-device path. Missing dataset paths fall back to
 in-memory dummy data, so a smoke run needs no dataset. ``main(argv)``
 returns the exit code; ``run(argv)`` returns the trainer (None for a dry
 run), for callers in the same process.
@@ -42,10 +49,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def run(argv: Optional[List[str]] = None):
     """Parse ``argv``, build everything from the config, train; the trainer (None for --dry-run)."""
     args = parse_args(argv)
+    import torch
+
+    from pgica_tpu_torch.core.device import rank_device
     from pgica_tpu_torch.training.trainer import PreferenceGuidedTrainer, check_single_device
     from pgica_tpu_torch.utils.config import Config
     from pgica_tpu_torch.utils.factories import (
         create_loaders_with_fallback,
+        create_mesh,
         create_model,
         create_processors,
         create_tokenizer,
@@ -59,16 +70,28 @@ def run(argv: Optional[List[str]] = None):
         config.set("paths.checkpoint_dir", str(Path(args.output_dir) / "checkpoints"))
     if args.log_level:
         config.set("logging.level", args.log_level)
-    setup_logging(config.get("paths.log_dir", "./logs"), config.get("logging.level", "INFO"))
-    logger = logging.getLogger("train")
     check_single_device(config)
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = create_mesh(config, device)
+    if not mesh.distributed and mesh.num_devices == 1 and not torch.distributed.is_initialized():
+        mesh = None  # one process: the one-device path
+    if mesh is None or mesh.rank == 0:
+        setup_logging(config.get("paths.log_dir", "./logs"), config.get("logging.level", "INFO"))
+    else:
+        setup_logging(None, "WARNING")
+    logger = logging.getLogger("train")
+    if mesh is not None:
+        logger.info("Data parallel: mesh %s over %d rank(s), this rank %d, process group backend %s", mesh.shape,
+                    mesh.num_devices, mesh.rank, torch.distributed.get_backend())
     set_seed(config.get("training.seed", 42))
 
     tokenizer = create_tokenizer(config)
     image_processor, text_processor = create_processors(config, tokenizer)
     logger.info("Building model (%s + %s) on %s...", config.get("model.vision_model"),
-                config.get("model.text_model"), args.device)
-    model = create_model(config, tokenizer, device=args.device)
+                config.get("model.text_model"), device)
+    model = create_model(config, tokenizer, device=device)
     counts = model.num_parameters()
     logger.info("Model: %.1fM total / %.1fM trainable parameters", counts["total"] / 1e6, counts["trainable"] / 1e6)
 
@@ -88,7 +111,7 @@ def run(argv: Optional[List[str]] = None):
 
     trainer = PreferenceGuidedTrainer(
         model, config, train_loader=train_loader, val_loader=val_loader, preference_train_loader=pref_train,
-        preference_val_loader=pref_val, output_dir=config.get("paths.output_dir", "./outputs"),
+        preference_val_loader=pref_val, mesh=mesh, output_dir=config.get("paths.output_dir", "./outputs"),
         profile_dir=args.profile_dir, max_steps_per_epoch=args.max_steps,
     )
     if args.resume:
@@ -101,14 +124,20 @@ def run(argv: Optional[List[str]] = None):
         trainer.results = trainer.train()
     trainer.checkpoints.wait()
     out_dir = Path(config.get("paths.output_dir", "./outputs"))
-    config.save(out_dir / "config_snapshot.yaml")
+    if trainer.is_writer:
+        config.save(out_dir / "config_snapshot.yaml")
     logger.info("Training complete: %s", {k: v.get("best_val_loss") if isinstance(v, dict) else v
                                           for k, v in trainer.results.items()})
     return trainer
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    import torch.distributed as dist
+
+    started = dist.is_initialized()
     run(argv)
+    if dist.is_initialized() and not started:  # the group this process started (torchrun's environment)
+        dist.destroy_process_group()
     return 0
 
 

@@ -14,7 +14,10 @@ them on a thread; ``wait`` joins it, and every save or restore waits first.
 Each save's bytes and seconds are kept in ``saves``. A checkpoint of LoRA
 training holds the frozen base under ``params``, the factors under ``lora``
 (``models/lora.py:lora_to_tree``) and the normalized config as
-``meta.lora_config``; :func:`effective_params` merges them.
+``meta.lora_config``; :func:`effective_params` merges them. A ZeRO run
+saves its gathered parameters and, under ``opt_state["zero"]``, the Adam
+moments gathered over the ranks (parallel/zero1.py:ZeroState.state_dict);
+only rank 0's manager writes.
 """
 
 from __future__ import annotations
@@ -85,9 +88,11 @@ def effective_params(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 class CheckpointManager:
     """Per-epoch, per-stage-best and autosave checkpoints under one directory."""
 
-    def __init__(self, checkpoint_dir):
+    def __init__(self, checkpoint_dir, writer: bool = True):
         self.checkpoint_dir = Path(checkpoint_dir)
-        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer  # False on every rank but 0 of a mesh: saves write nothing
+        if writer:
+            self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self.saves: List[Dict[str, Any]] = []  # name, bytes, seconds (to the file's rename), blocking_s
@@ -99,7 +104,7 @@ class CheckpointManager:
         self,
         name: str,
         params: Mapping[str, torch.Tensor],
-        opt_state: Optional[OptState] = None,
+        opt_state=None,
         *,
         epoch: int = 0,
         stage: int = 1,
@@ -111,11 +116,14 @@ class CheckpointManager:
         lora: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
         lora_config: Optional[Dict] = None,
     ) -> Path:
-        """Write ``params`` (name -> tensor) and, if given, the optimizer state and the LoRA factors
-        (a ``lora_to_tree`` dict) with their config."""
+        """Write ``params`` (name -> tensor) and, if given, the optimizer state (an ``OptState``, or a
+        ZeRO state's gathered ``state_dict()``) and the LoRA factors (a ``lora_to_tree`` dict) with their
+        config. A manager that is not the writer returns the path and writes nothing."""
         self.wait()
         t0 = time.perf_counter()
         path = self._path(name)
+        if not self.writer:
+            return path
         meta = {
             "epoch": epoch,
             "stage": stage,
@@ -128,7 +136,7 @@ class CheckpointManager:
             meta["lora_config"] = {k: list(v) if isinstance(v, tuple) else v for k, v in lora_config.items()}
         payload = {"params": _host(params), "meta": meta}
         if opt_state is not None:
-            payload["opt_state"] = opt_state_dict(opt_state)
+            payload["opt_state"] = opt_state if isinstance(opt_state, dict) else opt_state_dict(opt_state)
         if lora is not None:
             payload["lora"] = {path: _host(ab) for path, ab in lora.items()}
         record = {"name": name, "stage": stage, "global_step": global_step}

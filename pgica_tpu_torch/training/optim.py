@@ -162,23 +162,36 @@ class Optimizer:
         self._adamw(clip_by_global_norm(grads, grad_norm, self.max_grad_norm), state)
 
     def _adamw(self, grads: List[torch.Tensor], state: OptState) -> None:
-        torch._foreach_mul_(state.mu, B1)
-        torch._foreach_add_(state.mu, grads, alpha=1 - B1)
-        torch._foreach_mul_(state.nu, B2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
-        n = state.count + 1
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(n))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(n))
-        denom = torch._foreach_div(state.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, EPS)
-        upd = torch._foreach_div(state.mu, bc1)
-        torch._foreach_div_(upd, denom)
-        if self.weight_decay:
-            torch._foreach_add_(upd, state.params, alpha=self.weight_decay)
-        torch._foreach_mul_(upd, -self.schedule(state.count))
+        upd = adamw_updates(grads, state.params, state.mu, state.nu, state.count, self.schedule(state.count),
+                            self.weight_decay)
         torch._foreach_add_(state.params, upd)
-        state.count = n
+        state.count += 1
+
+
+def adamw_updates(grads: List[torch.Tensor], params: List[torch.Tensor], mu: List[torch.Tensor],
+                  nu: List[torch.Tensor], count: int, lr: float, weight_decay: float,
+                  eps: float = EPS) -> List[torch.Tensor]:
+    """optax.adamw's updates for ``params`` after ``count`` updates, at learning rate ``lr``.
+
+    The moments ``mu``/``nu`` are updated in place; the returned updates are
+    added to the parameters by the caller (ZeRO masks them first).
+    """
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, grads, alpha=1 - B1)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - B2)
+    n = count + 1
+    bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(n))
+    bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(n))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, denom)
+    if weight_decay:
+        torch._foreach_add_(upd, params, alpha=weight_decay)
+    torch._foreach_mul_(upd, -lr)
+    return upd
 
 
 def create_optimizer(

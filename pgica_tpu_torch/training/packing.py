@@ -9,7 +9,7 @@ tests/test_torch_train.py pins this copy to the JAX module.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,13 +40,16 @@ def bucket_batch(
     batch: Dict[str, np.ndarray],
     buckets: Sequence[int],
     multiple_of: int = 1,
+    global_len: Optional[Callable[[int], int]] = None,
 ) -> Dict[str, np.ndarray]:
     """Slice a host batch's token columns to its length bucket.
 
     Works for stage-1 (``caption_ids/mask``) and stage-2
     (``preferred_*``/``rejected_*``) batches; keys absent from ``batch`` are
     ignored. ``multiple_of`` rounds the bucket up so sharded-seq (context
-    parallel) layouts keep divisibility. Returns a shallow-copied dict; the
+    parallel) layouts keep divisibility. ``global_len`` maps this batch's
+    longest sequence to the global batch's (a max over data-parallel ranks
+    holding its other rows). Returns a shallow-copied dict; the
     image tensor and any extra keys pass through untouched.
     """
     keysets = [
@@ -69,6 +72,8 @@ def bucket_batch(
             set_cols = np.flatnonzero(np.asarray(batch[mask]).any(axis=0))
             if set_cols.size:
                 max_len = max(max_len, int(set_cols[-1]) + 1)
+        if global_len is not None:
+            max_len = global_len(max_len)
         bucket = pick_bucket(max(max_len, 1), buckets)
         if multiple_of > 1:
             bucket = min(full, -(-bucket // multiple_of) * multiple_of)

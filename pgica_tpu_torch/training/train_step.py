@@ -40,8 +40,17 @@ DropConnect (``dropout``) from a generator of its own, one mask a step; the
 eval steps merge without it. The tied embedding is no target, so a LoRA
 stage-2 step runs the fused-CE dh kernel and never dW.
 
-Not ported yet: global negatives and the vocab-parallel log-probs over a
-device mesh (ROADMAP queue 1 item 9).
+Data parallelism (``mesh``, a :class:`~pgica_tpu_torch.parallel.mesh.
+MeshContext`): each rank takes its rows of the global batch; the stage-1
+loss scores them against negatives gathered over the batch axes
+(``axis_name``); the step all-reduces every gradient and divides by the
+number of batch ranks, which gives the gradient of the global-batch mean
+loss (JAX zero1.py:24-29), before the update, so every rank applies the
+same update. The NaN skip reads the pmean'ed loss and the norm of the
+reduced gradients, so all ranks skip together; the metrics are pmean'ed.
+The dropout, augmentation and LoRA streams fold in the rank's batch-axis
+index (``stream_offset``; rank 0's streams are the one-device streams).
+The vocab-parallel log-probs (tensor parallelism) wait for the next slice.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +68,8 @@ from pgica_tpu_torch.core.prng import stream_generator
 from pgica_tpu_torch.data.augment import augment_batch, prepare_images
 from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
+from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel.mesh import BATCH_AXES, AxisName, MeshContext
 from pgica_tpu_torch.training.optim import OptState, Optimizer, global_norm
 
 Batch = Mapping[str, object]
@@ -89,11 +100,26 @@ class TrainState:
         return cls(step=0, module=module, opt_state=opt_state, lora=lora)
 
 
+def all_reduce_mean(grads: List[torch.Tensor], mesh: MeshContext, axis: AxisName = BATCH_AXES) -> List[torch.Tensor]:
+    """The mean over ``axis`` of each gradient: one all-reduce of the flat f32 buffer, then / n."""
+    if mesh.axis_size(axis) == 1:
+        return grads
+    flat = collectives.psum(torch.cat([g.reshape(-1).to(torch.float32) for g in grads]), axis, mesh)
+    flat /= mesh.axis_size(axis)
+    return [part.view_as(g).to(g.dtype) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def _apply_update(
-    state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor
+    state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor, mesh: Optional[MeshContext] = None
 ) -> Tuple[TrainState, torch.Tensor]:
-    """NaN-safe update: skip (no update, state kept) on a non-finite loss or gradient norm."""
+    """NaN-safe update: skip (no update, state kept) on a non-finite loss or gradient norm.
+
+    On a mesh the gradients are first averaged over the batch ranks, and
+    ``loss`` is the pmean'ed loss.
+    """
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, state.opt_state.params)]
+    if mesh is not None:
+        grads = all_reduce_mean(grads, mesh)
     grad_norm = global_norm(grads)
     norm = float(grad_norm)  # the step's one host sync (with the loss)
     if math.isfinite(float(loss)) and math.isfinite(norm):
@@ -114,29 +140,37 @@ def _on_device(batch: Batch, device: torch.device, keys=CAPTION_KEYS) -> Dict[st
     return out
 
 
-def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+RANK_STREAM = 1 << 44  # a batch rank's streams: offset by its batch-axis index times this
+
+
+def stream_offset(mesh: Optional[MeshContext]) -> int:
+    """The streams' offset of this rank: JAX's ``fold_in(rng, axis_index)`` (0 without a mesh, and on rank 0)."""
+    return 0 if mesh is None else mesh.batch_index * RANK_STREAM
+
+
+def step_generator(device: torch.device, seed: int, step: int, offset: int = 0) -> torch.Generator:
     """The dropout generator of one step: the JAX step's ``fold_in(rng, step)``."""
-    return stream_generator(seed, step, device)
+    return stream_generator(seed, step, device, offset=offset)
 
 
 AUGMENT_STREAM = 1 << 40  # keeps the augmentation seeds apart from the dropout seeds
 
 
-def augment_generator(seed: int, step: int) -> torch.Generator:
+def augment_generator(seed: int, step: int, offset: int = 0) -> torch.Generator:
     """The augmentation generator of one step, on the CPU (the JAX step's ``aug_rng`` split).
 
     Its draws are a few scalars per image, copied to the device in one
     transfer, so one seed augments alike on the card and on the CPU.
     """
-    return stream_generator(seed, step, offset=AUGMENT_STREAM)
+    return stream_generator(seed, step, offset=AUGMENT_STREAM + offset)
 
 
 LORA_STREAM = 2 << 40  # the adapter DropConnect's seeds (the JAX step's fold_in(rng, 7))
 
 
-def lora_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+def lora_generator(device: torch.device, seed: int, step: int, offset: int = 0) -> torch.Generator:
     """The DropConnect generator of one LoRA train step: a stream apart from dropout and augmentation."""
-    return stream_generator(seed, step, device, offset=LORA_STREAM)
+    return stream_generator(seed, step, device, offset=LORA_STREAM + offset)
 
 
 def _adapted(module: nn.Module, adapters: Optional[Adapters], lora: Optional[LoraSpec],
@@ -151,10 +185,31 @@ def _adapted(module: nn.Module, adapters: Optional[Adapters], lora: Optional[Lor
     return swapped(module, merged_targets(module, adapters, lora[0], int(lora[1]), dropout, generator))
 
 
-def _augmented(batch: Dict[str, torch.Tensor], augment: bool, seed: int, step: int) -> Dict[str, torch.Tensor]:
+def _augmented(batch: Dict[str, torch.Tensor], augment: bool, seed: int, step: int,
+               offset: int = 0) -> Dict[str, torch.Tensor]:
     if augment:
-        batch["image"] = augment_batch(prepare_images(batch["image"]), augment_generator(seed, step))
+        batch["image"] = augment_batch(prepare_images(batch["image"]), augment_generator(seed, step, offset))
     return batch
+
+
+def _bound(mesh: Optional[MeshContext]):
+    """The mesh's axis names bound for the collectives (a no-op without a mesh)."""
+    return contextlib.nullcontext() if mesh is None else mesh
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[MeshContext],
+                   rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over the batch ranks (weighted by ``rows``, this rank's batch rows, if given)."""
+    if mesh is None or mesh.data_parallel_size == 1:
+        return metrics
+    names = sorted(metrics)
+    local = torch.stack([metrics[k].detach().to(torch.float32) for k in names])
+    if rows is None:
+        reduced = collectives.pmean(local, BATCH_AXES, mesh)
+    else:
+        weighted = collectives.psum(torch.cat([local * rows, local.new_tensor([rows])]), BATCH_AXES, mesh)
+        reduced = weighted[:-1] / weighted[-1]
+    return dict(zip(names, reduced.unbind()))
 
 
 def _grad_step(
@@ -163,21 +218,24 @@ def _grad_step(
     seed: int,
     loss_fn: Callable[[torch.Generator], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
     lora: Optional[LoraSpec] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Tuple[TrainState, Dict[str, object]]:
     """Loss and gradients of the trained parameters (with ``lora``: the factors), then the NaN-safe update.
 
     The merged LoRA weights stay in place through the backward, where
-    activation checkpointing recomputes the blocks.
+    activation checkpointing recomputes the blocks. On a mesh the gradients
+    and the metrics are reduced over the batch ranks.
     """
     params = state.opt_state.params
     device = params[0].device
-    generator = step_generator(device, seed, state.step)
-    lora_gen = lora_generator(device, seed, state.step) if lora is not None else None
-    with torch.enable_grad(), _adapted(state.module, state.lora, lora, lora_gen):
+    offset = stream_offset(mesh)
+    generator = step_generator(device, seed, state.step, offset)
+    lora_gen = lora_generator(device, seed, state.step, offset) if lora is not None else None
+    with torch.enable_grad(), _bound(mesh), _adapted(state.module, state.lora, lora, lora_gen):
         loss, metrics = loss_fn(generator)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-    state, grad_norm = _apply_update(state, grads, optimizer, loss.detach())
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
+    state, grad_norm = _apply_update(state, grads, optimizer, metrics["loss"], mesh)
     metrics["grad_norm"] = grad_norm
     metrics["skipped"] = state.skipped
     return state, metrics
@@ -200,16 +258,18 @@ def stage0_loss_fn(
 
 
 def make_stage0_train_step(
-    module: nn.Module, optimizer: Optimizer, augment: bool = False
+    module: nn.Module, optimizer: Optimizer, augment: bool = False, mesh: Optional[MeshContext] = None,
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, object]]]:
     """Returns ``step(state, batch, seed) -> (state, metrics)``: ``loss``, ``grad_norm``, ``skipped``.
 
-    ``batch`` is a stage-1 batch (``image``, ``caption_ids``, ``caption_mask``).
+    ``batch`` is a stage-1 batch (``image``, ``caption_ids``, ``caption_mask``);
+    on a ``mesh``, this rank's rows of it.
     """
 
     def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step)
-        return _grad_step(state, optimizer, seed, lambda gen: stage0_loss_fn(state.module, batch, gen))
+        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step,
+                           stream_offset(mesh))
+        return _grad_step(state, optimizer, seed, lambda gen: stage0_loss_fn(state.module, batch, gen), mesh=mesh)
 
     return step
 
@@ -222,11 +282,13 @@ def stage1_loss_fn(
     batch: Dict[str, torch.Tensor],
     generator: Optional[torch.Generator],
     temperature: float,
+    axis_name: Optional[AxisName] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Contrastive forward + NT-Xent. ``generator`` drives dropout (None: off)."""
+    """Contrastive forward + NT-Xent. ``generator`` drives dropout (None: off); ``axis_name``
+    gathers the negatives over those mesh axes."""
     out = module(prepare_images(batch["image"]), batch["caption_ids"], batch["caption_mask"],
                  mode="contrastive", generator=generator)
-    loss, metrics = ntxent_loss(out["image_embeddings"], out["text_embeddings"], temperature)
+    loss, metrics = ntxent_loss(out["image_embeddings"], out["text_embeddings"], temperature, axis_name)
     metrics["loss"] = loss
     return loss, metrics
 
@@ -237,10 +299,12 @@ def make_stage1_train_step(
     temperature: float,
     augment: bool = False,
     lora: Optional[LoraSpec] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, object]]]:
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
-    ``batch`` holds ``image`` (uint8 NHWC or normalized float), ``caption_ids``
+    ``batch`` (on a ``mesh``: this rank's rows, the negatives gathered over
+    the batch axes) holds ``image`` (uint8 NHWC or normalized float), ``caption_ids``
     and ``caption_mask`` as tensors or numpy arrays; they are moved to the
     module's device. ``seed`` and the state's step count seed the dropout
     generator. Metrics: ``loss``, ``loss_i2t``, ``loss_t2i``,
@@ -249,28 +313,50 @@ def make_stage1_train_step(
     ``lora`` trains the state's adapters (see the module docstring).
     """
 
+    axis = None if mesh is None else BATCH_AXES
+
     def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step)
-        return _grad_step(state, optimizer, seed, lambda gen: stage1_loss_fn(state.module, batch, gen, temperature),
-                          lora)
+        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step,
+                           stream_offset(mesh))
+        return _grad_step(state, optimizer, seed,
+                          lambda gen: stage1_loss_fn(state.module, batch, gen, temperature, axis), lora, mesh)
 
     return step
 
 
+def make_stage1_loss(module: nn.Module, temperature: float, augment: bool = False,
+                     mesh: Optional[MeshContext] = None, axis_name: AxisName = BATCH_AXES):
+    """``loss_fn(batch, seed, step) -> (loss, metrics)`` of the ZeRO steps (parallel/zero1.py): this rank's
+    rows moved to the device and augmented, dropout from the step's stream, the negatives gathered over
+    ``axis_name`` (the JAX package's ``stage1_loss_fn`` with ``axis_name``)."""
+
+    def loss_fn(batch: Batch, seed: int, step: int):
+        device, offset = _device(module), stream_offset(mesh)
+        batch = _augmented(_on_device(batch, device), augment, seed, step, offset)
+        return stage1_loss_fn(module, batch, step_generator(device, seed, step, offset), temperature, axis_name)
+
+    return loss_fn
+
+
 def make_stage1_eval_step(
     module: nn.Module, temperature: float, lora: Optional[LoraSpec] = None, adapters: Optional[Adapters] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> metrics``: the contrastive forward without dropout or gradients.
 
     With ``lora`` it runs on the base merged with ``adapters`` (read at each
     call, so the train steps' in-place updates show), without DropConnect.
+    On a ``mesh`` it scores this rank's rows against the global negatives and
+    returns the metrics of the global batch (the ranks' means weighted by rows).
     """
+    axis = None if mesh is None else BATCH_AXES
 
     @torch.no_grad()
     def step(batch: Batch):
-        with _adapted(module, adapters, lora):
-            _, metrics = stage1_loss_fn(module, _on_device(batch, _device(module)), None, temperature)
-        return metrics
+        batch = _on_device(batch, _device(module))
+        with _bound(mesh), _adapted(module, adapters, lora):
+            _, metrics = stage1_loss_fn(module, batch, None, temperature, axis)
+        return reduce_metrics(metrics, mesh, batch["image"].shape[0])
 
     return step
 
@@ -340,6 +426,7 @@ def make_stage2_train_step(
     label_smoothing: float = 0.0,
     augment: bool = False,
     lora: Optional[LoraSpec] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[[TrainState, Optional[nn.Module], Batch, int], Tuple[TrainState, Dict[str, object]]]:
     """Returns ``step(state, ref_module, batch, seed) -> (state, metrics)``.
 
@@ -352,16 +439,33 @@ def make_stage2_train_step(
     ``policy_chosen_logp``, ``policy_rejected_logp``, ``grad_norm``
     (tensors) and ``skipped`` (int). ``augment`` augments the images first.
     ``lora`` trains the state's adapters; the reference is then the frozen
-    merged policy at stage-2 start (the trainer's).
+    merged policy at stage-2 start (the trainer's). On a ``mesh``, ``batch``
+    is this rank's rows.
     """
 
     def step(state: TrainState, ref_module: Optional[nn.Module], batch: Batch, seed: int = 0):
         batch = _on_device(batch, state.opt_state.params[0].device, PAIR_KEYS)
-        batch = _augmented(batch, augment, seed, state.step)
+        batch = _augmented(batch, augment, seed, state.step, stream_offset(mesh))
         return _grad_step(state, optimizer, seed, lambda gen: stage2_loss_fn(
-            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing), lora)
+            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing), lora,
+            mesh)
 
     return step
+
+
+def make_stage2_loss(module: nn.Module, ref_module: Optional[nn.Module], beta: float, reference_free: bool = False,
+                     length_normalized: bool = False, label_smoothing: float = 0.0, augment: bool = False,
+                     mesh: Optional[MeshContext] = None):
+    """``loss_fn(batch, seed, step) -> (loss, metrics)`` of the ZeRO steps: DPO on this rank's rows, as
+    :func:`make_stage1_loss` (the reference without dropout or gradients)."""
+
+    def loss_fn(batch: Batch, seed: int, step: int):
+        device, offset = _device(module), stream_offset(mesh)
+        batch = _augmented(_on_device(batch, device, PAIR_KEYS), augment, seed, step, offset)
+        return stage2_loss_fn(module, ref_module, batch, step_generator(device, seed, step, offset), beta,
+                              reference_free, length_normalized, label_smoothing)
+
+    return loss_fn
 
 
 def make_stage2_eval_step(
@@ -371,9 +475,11 @@ def make_stage2_eval_step(
     length_normalized: bool = False,
     lora: Optional[LoraSpec] = None,
     adapters: Optional[Adapters] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Callable[[Optional[nn.Module], Batch], Dict[str, torch.Tensor]]:
     """Returns ``step(ref_module, batch) -> metrics``: DPO loss and rewards without dropout or gradients
-    (with ``lora``, the policy merged with ``adapters``, as :func:`make_stage1_eval_step`)."""
+    (with ``lora``, the policy merged with ``adapters``, as :func:`make_stage1_eval_step`; on a ``mesh``,
+    the global batch's metrics from this rank's rows)."""
 
     @torch.no_grad()
     def step(ref_module: Optional[nn.Module], batch: Batch):
@@ -382,6 +488,6 @@ def make_stage2_eval_step(
             loss, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free,
                                            length_normalized, 0.0)
         del metrics["policy_chosen_logp"], metrics["policy_rejected_logp"]  # as the JAX eval step
-        return metrics
+        return reduce_metrics(metrics, mesh, batch["image"].shape[0])
 
     return step

@@ -1,4 +1,4 @@
-"""Two-stage trainer on one device (port of pgica_tpu/training/trainer.py:60-1296).
+"""Two-stage trainer, on one device or data-parallel over ranks (port of pgica_tpu/training/trainer.py:60-1296).
 
 ``PreferenceGuidedTrainer`` runs the optional stage 0 (caption
 cross-entropy warm-up), stage 1 (contrastive) and stage 2 (DPO against a
@@ -11,8 +11,24 @@ masters in place, so the model wrapper always holds the trained weights
 
 Differences from the JAX trainer:
 
-* One device. A device mesh, ZeRO-1/3, tensor or sequence parallelism
-  (``mesh.*``) raise (ROADMAP queue 1 item 9).
+* A device mesh (``mesh``, a :class:`~pgica_tpu_torch.parallel.mesh.
+  MeshContext` over ``torch.distributed`` ranks, one process a rank) runs
+  data parallelism over its batch axes ``dcn``/``data``/``fsdp``: each
+  rank's loaders yield its rows of every global batch (the length bucket is
+  the global batch's), and the steps reduce gradients and metrics over the
+  ranks (training/train_step.py), with the standard optimizer replicated.
+  ``mesh.zero1`` routes the stages through parallel/zero1.py and
+  ``mesh.zero3`` through parallel/zero3.py, with the JAX trainer's checks
+  (trainer.py:256-437) and its ZeRO partitions: the Adam state (and under
+  ZeRO-3 the LM blocks) sharded, freezing by the backbone flags only, no
+  gradient accumulation, no LoRA. ``fsdp > 1`` without a ZeRO flag is
+  replicated data parallelism: the JAX package's GSPMD numbers, with the
+  parameters not sharded at rest. Validation reduces over the ranks,
+  weighted by rows. Only rank 0 writes checkpoints (gathered parameters;
+  the ZeRO Adam state gathered too, so that a resume on as many ranks is
+  bit-identical), ``results.json`` and the logged metrics. Tensor and
+  sequence parallelism (``mesh.model``/``mesh.seq`` > 1) raise: they are
+  the next slice (ROADMAP queue 1 item 9b).
 * LoRA (``model.lora_config``; JAX trainer.py:201-260,494-507,612-625,
   686-725,1131-1162,1232-1237): stages 1 and 2 train the model's adapter
   factors only (the optimizer holds nothing else, so no partition
@@ -37,6 +53,7 @@ Differences from the JAX trainer:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -53,15 +70,21 @@ from pgica_tpu_torch.core.precision import compute_dtype
 from pgica_tpu_torch.core.prng import purpose_seed
 from pgica_tpu_torch.models.lora import fold_lora, lora_from_tree, lora_to_tree, merged_targets
 from pgica_tpu_torch.models.model import frozen_copy
+from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel.mesh import BATCH_AXES
+from pgica_tpu_torch.parallel.zero1 import ZeroState, make_zero1_train_step
+from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state
-from pgica_tpu_torch.training.optim import create_optimizer
+from pgica_tpu_torch.training.optim import create_optimizer, warmup_cosine_schedule
 from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
 from pgica_tpu_torch.training.train_step import (
     TrainState,
     make_stage0_train_step,
     make_stage1_eval_step,
+    make_stage1_loss,
     make_stage1_train_step,
     make_stage2_eval_step,
+    make_stage2_loss,
     make_stage2_train_step,
 )
 from pgica_tpu_torch.utils import trace
@@ -91,16 +114,12 @@ def stage_seed(seed: int, stage: int) -> int:
 
 
 def check_single_device(config, mesh=None) -> None:
-    """Raise on the parallel settings that the port does not run."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported (ROADMAP queue 1 item 9)")
-    for key in ("zero1", "zero3"):
-        if bool(config.get(f"mesh.{key}", False)):
-            raise NotImplementedError(f"mesh.{key}: ZeRO is not ported (ROADMAP queue 1 item 9)")
-    for axis, what in (("seq", "context parallelism"), ("model", "tensor parallelism"),
-                       ("fsdp", "parameter sharding"), ("dcn", "multi-slice data parallelism")):
-        if int(config.get(f"mesh.{axis}", 1) or 1) > 1:
-            raise NotImplementedError(f"mesh.{axis} > 1: {what} is not ported (ROADMAP queue 1 item 9)")
+    """Raise on the parallel settings that the port does not run: tensor and context parallelism."""
+    for axis, what in (("seq", "context parallelism"), ("model", "tensor parallelism")):
+        size = mesh.shape[axis] if mesh is not None else int(config.get(f"mesh.{axis}", 1) or 1)
+        if size > 1:
+            raise NotImplementedError(f"mesh.{axis} > 1: {what} is the next slice of the port, with tensor "
+                                      "and context parallelism (ROADMAP queue 1 item 9b)")
 
 
 @contextmanager
@@ -115,7 +134,7 @@ def _without(module: nn.Module, child: str):
 
 
 class PreferenceGuidedTrainer:
-    """Orchestrates stage 0 (optional), stage 1 (contrastive) and stage 2 (DPO) on one device."""
+    """Orchestrates stage 0 (optional), stage 1 (contrastive) and stage 2 (DPO) on one device or a mesh."""
 
     def __init__(
         self,
@@ -133,14 +152,25 @@ class PreferenceGuidedTrainer:
         check_single_device(config, mesh)
         self.model = model
         self.config = config
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0  # only rank 0 writes checkpoints, results and logs
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.preference_train_loader = preference_train_loader
         self.preference_val_loader = preference_val_loader
+        if mesh is not None:
+            for loader in (train_loader, val_loader, preference_train_loader, preference_val_loader):
+                if loader is None:
+                    continue
+                if not hasattr(loader, "set_shard"):
+                    raise ValueError("on a device mesh the loaders must yield each rank's rows "
+                                     "(data/loader.py:DataLoader.set_shard)")
+                loader.set_shard(mesh)
 
         self.output_dir = Path(output_dir or config.get("paths.output_dir", "./outputs"))
         self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.checkpoints = CheckpointManager(config.get("paths.checkpoint_dir", self.output_dir / "checkpoints"))
+        self.checkpoints = CheckpointManager(config.get("paths.checkpoint_dir", self.output_dir / "checkpoints"),
+                                             writer=self.is_writer)
 
         self.profile_dir = profile_dir
         self.profiles: Dict[int, Dict[str, float]] = {}
@@ -177,6 +207,8 @@ class PreferenceGuidedTrainer:
     def _setup_tracking(self):
         self._mlflow_run = None
         self._wandb_run = None
+        if not self.is_writer:
+            return
         if mlflow is not None:
             try:
                 mlflow.set_experiment(self.config.get("logging.mlflow_experiment", "image-captioning-alignment"))
@@ -200,6 +232,8 @@ class PreferenceGuidedTrainer:
                 logger.warning("wandb unavailable: %s", e)
 
     def _log_metrics(self, metrics: Dict[str, Any], step: int, prefix: str = "train"):
+        if not self.is_writer:
+            return
         scalars = {f"{prefix}/{k}": float(v) for k, v in metrics.items()}
         logger.info("step %d | %s", step, " ".join(f"{k}={v:.4f}" for k, v in scalars.items()))
         if self._mlflow_run is not None:
@@ -225,12 +259,23 @@ class PreferenceGuidedTrainer:
         return self.config.get(f"training.stage{stage}", {})
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        """The batch's arrays, length-bucketed; the train steps move them to the device."""
+        """The batch's arrays, length-bucketed; the train steps move them to the device.
+
+        On a mesh the batch is this rank's rows, and the bucket is the global
+        batch's (the largest length over the batch ranks), so every rank runs
+        one shape, as the JAX package's one sharded global batch does.
+        """
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         arrays.pop("preference_score", None)
         if self._buckets is not None:
-            arrays = bucket_batch(arrays, self._buckets)
+            arrays = bucket_batch(arrays, self._buckets, global_len=self._global_len)
         return arrays
+
+    def _global_len(self, length: int) -> int:
+        if self.mesh is None or self.mesh.data_parallel_size == 1:
+            return length
+        local = torch.tensor([length], device=self.device)
+        return int(collectives.pmax(local, BATCH_AXES, self.mesh))
 
     @property
     def _lora_static(self):
@@ -265,6 +310,92 @@ class PreferenceGuidedTrainer:
             frozen_prefixes=() if lora else frozen_prefixes,
         )
 
+    # ------------------------------------------------------------- ZeRO (JAX trainer.py:256-437)
+
+    def _zero1_active(self, lora) -> bool:
+        """``mesh.zero1`` routes training through parallel/zero1.py: the flat Adam state sharded over ``data``."""
+        if not bool(self.config.get("mesh.zero1", False)):
+            return False
+        if self.mesh is None or self.mesh.shape.get("data", 1) <= 1:
+            raise ValueError("mesh.zero1 requires a device mesh with data > 1")
+        if lora is not None:
+            raise ValueError("mesh.zero1 does not compose with LoRA (the adapter optimizer state is tiny; "
+                             "use the default path)")
+        bad = {a: self.mesh.shape[a] for a in ("dcn", "fsdp", "model", "seq") if self.mesh.shape[a] > 1}
+        if bad:
+            raise ValueError(f"mesh.zero1 shards the optimizer state over the data axis only; set {sorted(bad)} "
+                             f"to 1 (got {bad})")
+        if bool(self.config.get("mesh.zero3", False)):
+            raise ValueError("mesh.zero1 and mesh.zero3 are mutually exclusive")
+        return True
+
+    def _zero3_axis(self):
+        """The shard axis (a name or a tuple): every axis > 1 among data/fsdp."""
+        names = tuple(a for a in ("data", "fsdp") if self.mesh.shape[a] > 1)
+        return names if len(names) != 1 else names[0]
+
+    def _zero3_active(self, lora) -> bool:
+        """``mesh.zero3`` routes training through parallel/zero3.py: the LM blocks sharded at rest."""
+        if not bool(self.config.get("mesh.zero3", False)):
+            return False
+        if self.mesh is None or self.mesh.shape["data"] * self.mesh.shape["fsdp"] <= 1:
+            raise ValueError("mesh.zero3 requires a device mesh with data*fsdp > 1")
+        if not bool(self.config.get("model.scan_layers", False)):
+            raise ValueError("mesh.zero3 requires model.scan_layers: true (stacked-block lax.scan layout — the "
+                             "per-layer gather hook lives in the scan body)")
+        if lora is not None:
+            raise ValueError("mesh.zero3 does not compose with LoRA")
+        bad = {a: self.mesh.shape[a] for a in ("dcn", "model", "seq") if self.mesh.shape[a] > 1}
+        if bad:
+            raise ValueError(f"mesh.zero3 runs manual over data/fsdp only; set {sorted(bad)} to 1 (got {bad})")
+        return True
+
+    def _init_zero(self, zero: int, stage: int, steps_per_epoch: int, loss_fn, ref: Optional[nn.Module] = None):
+        """(state, step, sharded reference) of the ZeRO-``zero`` path of ``stage`` (JAX trainer.py:316-431)."""
+        cfg = self._stage_cfg(stage)
+        name = f"mesh.zero{zero}"
+        if int(cfg.get("gradient_accumulation_steps", 1)) > 1:
+            raise ValueError(f"{name} does not support gradient_accumulation_steps > 1 (accumulate via a larger "
+                             "data axis instead)")
+        axis = self._zero3_axis() if zero == 3 else "data"
+        n = self.mesh.axis_size(axis)
+        loader = self.train_loader if stage == 1 else self.preference_train_loader
+        batch_size = int(getattr(loader, "batch_size", 0) or cfg.get("batch_size", 0) or 0)
+        if batch_size and batch_size % n:
+            raise ValueError(f"{name}: global batch_size {batch_size} must be divisible by the {axis} world ({n})")
+        if self.max_steps_per_epoch is not None:
+            steps_per_epoch = min(steps_per_epoch, self.max_steps_per_epoch)
+        schedule = warmup_cosine_schedule(float(cfg.get("learning_rate", 5e-5)), int(cfg.get("warmup_steps", 500)),
+                                          max(1, steps_per_epoch * int(cfg.get("num_epochs", 1))))
+        frozen = []
+        if self.model.freeze_vision_backbone:
+            frozen.append("vision_encoder.backbone.")
+        if self.model.freeze_text_backbone:
+            frozen.append("text_encoder.backbone.")
+        mask = (lambda k: not k.startswith(tuple(frozen))) if frozen else None
+        make = make_zero3_train_step if zero == 3 else make_zero1_train_step
+        kw = {"with_ref": ref is not None} if zero == 3 else {}
+        init_fn, step_fn = make(loss_fn, self.mesh, axis, learning_rate=schedule,
+                                weight_decay=float(cfg.get("weight_decay", 0.01)),
+                                max_grad_norm=float(cfg.get("max_grad_norm", 1.0)), trainable_mask=mask, **kw)
+        state = init_fn(self.model.module)
+        restored, self._restored_opt_state = self._restored_opt_state, None  # consume once
+        if restored is not None and "zero" in restored:
+            state.load_state_dict(restored)  # another rank count raises
+            state.step = self.global_step
+            logger.info("Resumed the ZeRO optimizer state from checkpoint")
+        elif restored is not None:
+            logger.warning("Could not resume optimizer state (not a ZeRO state); starting fresh")
+        ref_shards = init_fn.shard_ref(ref) if zero == 3 and ref is not None else None
+        logger.info("Stage %d under ZeRO-%d over %s (world %d): %s bytes a rank", stage, zero, axis, n,
+                    state.nbytes())
+        return state, step_fn, ref_shards
+
+    def _end_zero(self, state) -> None:
+        """Back to a plain module with the trained parameters (the JAX trainer's ``_sync_model``)."""
+        if isinstance(state, ZeroState) and state.params.shards:
+            state.params.release()
+
     def _check_early_stopping(self, stage: int, val_loss: float, counter: int) -> int:
         """The updated patience counter; the caller stops once it reaches the patience."""
         if val_loss < self.best_val_loss[stage]:
@@ -287,20 +418,28 @@ class PreferenceGuidedTrainer:
             return min(epoch, num_epochs), step_in_epoch
         return min(epoch + 1, num_epochs), 0
 
-    def _ckpt_payload(self) -> Dict[str, Any]:
-        """Checkpoint content: every parameter by name (a dropped tower from host memory); with LoRA
-        the masters are the frozen base, beside the factors and their config."""
+    def _ckpt_payload(self, state=None) -> Dict[str, Any]:
+        """Checkpoint content: every parameter by name (a dropped tower from host memory; under ZeRO
+        gathered, on every rank); with LoRA the masters are the frozen base, beside the factors and their
+        config."""
+        if isinstance(state, ZeroState):
+            return {"params": state.params.state_dict()}
         payload = {"params": self.model.module.state_dict()}
         if self._lora_static is not None:
             payload.update(lora=lora_to_tree(self.model.lora), lora_config=dict(self.model.lora_config))
         return payload
 
+    @staticmethod
+    def _opt_payload(state):
+        """The state's optimizer state as a checkpoint holds it (under ZeRO gathered: every rank calls it)."""
+        return state.state_dict() if isinstance(state, ZeroState) else state.opt_state
+
     def _maybe_autosave(self, stage: int, epoch: int, step_idx: int, state: TrainState):
         if not self.save_steps or self.global_step % self.save_steps != 0 or stage == 0:
             return  # stage 0 is checkpoint-free, as in the JAX trainer
         self.checkpoints.save_autosave(
-            stage, epoch=epoch, opt_state=state.opt_state, global_step=self.global_step,
-            step_in_epoch=step_idx + 1, config=self.config.to_dict(), **self._ckpt_payload(),
+            stage, epoch=epoch, opt_state=self._opt_payload(state), global_step=self.global_step,
+            step_in_epoch=step_idx + 1, config=self.config.to_dict(), **self._ckpt_payload(state),
         )
 
     def _sync_model(self) -> None:
@@ -318,8 +457,9 @@ class PreferenceGuidedTrainer:
                       patience_counter: int) -> tuple:
         """Epoch checkpoint, pruning, early stopping and the best checkpoint; (counter, stop)."""
         if self.save_epoch_checkpoints:
-            self.checkpoints.save_epoch(stage, epoch, opt_state=state.opt_state, global_step=self.global_step,
-                                        val_loss=val_loss, config=self.config.to_dict(), **self._ckpt_payload())
+            self.checkpoints.save_epoch(stage, epoch, opt_state=self._opt_payload(state),
+                                        global_step=self.global_step, val_loss=val_loss,
+                                        config=self.config.to_dict(), **self._ckpt_payload(state))
             if self.keep_checkpoints:
                 self.checkpoints.prune_epochs(stage, int(self.keep_checkpoints))
         if val_loss is None:
@@ -329,7 +469,7 @@ class PreferenceGuidedTrainer:
             self.best_val_loss[stage] = val_loss
             if self.save_best_checkpoints:
                 self.checkpoints.save_best(stage, epoch=epoch, global_step=self.global_step, val_loss=val_loss,
-                                           config=self.config.to_dict(), **self._ckpt_payload())
+                                           config=self.config.to_dict(), **self._ckpt_payload(state))
         if patience_counter >= self.early_stopping_patience:
             logger.info("Stage %d early stopping at epoch %d", stage, epoch)
             return patience_counter, True
@@ -354,7 +494,7 @@ class PreferenceGuidedTrainer:
         module = self.model.module
         optimizer = self._make_optimizer(0, len(self.train_loader))
         state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
-        step = make_stage0_train_step(module, optimizer, augment=True)
+        step = make_stage0_train_step(module, optimizer, augment=True, mesh=self.mesh)
         seed = stage_seed(self.seed, 0)
         logger.info("Stage 0 (caption-CE warmup): %d epochs x %d steps", num_epochs, len(self.train_loader))
         start_epoch, skip_steps = self._resume_window(0, num_epochs)
@@ -375,26 +515,43 @@ class PreferenceGuidedTrainer:
         temperature = float(self.config.get("model.temperature", 0.5))
         module = self.model.module
         lora = self._lora_static
-        optimizer = self._make_optimizer(1, len(self.train_loader))
-        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer, self.model.lora if lora else None))
-        step = make_stage1_train_step(module, optimizer, temperature, augment=True, lora=lora)
-        eval_step = make_stage1_eval_step(module, temperature, lora=lora and lora[:2], adapters=self.model.lora)
         seed = stage_seed(self.seed, 1)
+        eval_step = make_stage1_eval_step(module, temperature, lora=lora and lora[:2], adapters=self.model.lora,
+                                          mesh=self.mesh)
+        zero = 3 if self._zero3_active(lora) else 1 if self._zero1_active(lora) else 0
+        if zero:
+            axis = self._zero3_axis() if zero == 3 else "data"
+            loss_fn = make_stage1_loss(module, temperature, augment=True, mesh=self.mesh, axis_name=axis)
+            state, z_step, _ = self._init_zero(zero, 1, len(self.train_loader), loss_fn)
+
+            def train_step(st, b):
+                return z_step(st, b, seed)
+        else:
+            optimizer = self._make_optimizer(1, len(self.train_loader))
+            state = self._maybe_resume_opt_state(
+                TrainState.create(module, optimizer, self.model.lora if lora else None))
+            step = make_stage1_train_step(module, optimizer, temperature, augment=True, lora=lora, mesh=self.mesh)
+
+            def train_step(st, b):
+                return step(st, b, seed)
 
         logger.info("Stage 1: %d epochs x %d steps", num_epochs, len(self.train_loader))
         patience_counter = 0
         start_epoch, skip_steps = self._resume_window(1, num_epochs)
-        for epoch in range(start_epoch, num_epochs):
-            self.current_epoch = epoch
-            state, m = self._run_epoch(state, self.train_loader, lambda st, b: step(st, b, seed), 1, epoch,
-                                       skip_steps if epoch == start_epoch else 0)
-            val_loss = self._validate(self.val_loader, eval_step, 1)
-            self.history["stage1"].append({"epoch": epoch, "train_loss": m["loss"], "val_loss": val_loss,
-                                           "input_wait_fraction": m["input_wait_fraction"],
-                                           "step_seconds": m["step_seconds"], "peak_mem_gib": m["peak_mem_gib"]})
-            patience_counter, stop = self._end_of_epoch(1, epoch, state, val_loss, patience_counter)
-            if stop:
-                break
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                self.current_epoch = epoch
+                state, m = self._run_epoch(state, self.train_loader, train_step, 1, epoch,
+                                           skip_steps if epoch == start_epoch else 0)
+                val_loss = self._validate(self.val_loader, eval_step, 1, state)
+                self.history["stage1"].append({"epoch": epoch, "train_loss": m["loss"], "val_loss": val_loss,
+                                               "input_wait_fraction": m["input_wait_fraction"],
+                                               "step_seconds": m["step_seconds"], "peak_mem_gib": m["peak_mem_gib"]})
+                patience_counter, stop = self._end_of_epoch(1, epoch, state, val_loss, patience_counter)
+                if stop:
+                    break
+        finally:
+            self._end_zero(state)
         return {"best_val_loss": self.best_val_loss[1], "history": self.history["stage1"]}
 
     # ------------------------------------------------------------- stage 2
@@ -435,8 +592,12 @@ class PreferenceGuidedTrainer:
         reference_free = bool(cfg.get("reference_free", False))
         module = self.model.module
         lora = self._lora_static
+        zero = 1 if self._zero1_active(lora) else 3 if self._zero3_active(lora) else 0
         if lora is not None and bool(cfg.get("drop_unused_tower", False)):
             raise ValueError("training.stage2.drop_unused_tower composes with full fine-tuning only")
+        if zero and bool(cfg.get("drop_unused_tower", False)):
+            raise ValueError("training.stage2.drop_unused_tower composes with the plain and data-parallel paths "
+                             "only (ZeRO-1/3 manage their own parameter layouts)")
         ref = None
         if not reference_free:
             ref = self._stage2_reference(compute_dtype(cfg.get("reference_dtype", "bf16")))
@@ -445,14 +606,30 @@ class PreferenceGuidedTrainer:
             self._dropped_tower = module.text_encoder.to("cpu")
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
-        optimizer = self._make_optimizer(2, len(self.preference_train_loader))
-        state = self._maybe_resume_opt_state(TrainState.create(module, optimizer, self.model.lora if lora else None))
         dpo = dict(beta=float(cfg.get("dpo_beta", 0.1)), reference_free=reference_free,
                    length_normalized=bool(cfg.get("length_normalized", False)))
-        step = make_stage2_train_step(module, optimizer, label_smoothing=float(cfg.get("label_smoothing", 0.0)),
-                                      augment=True, lora=lora, **dpo)
-        eval_step = make_stage2_eval_step(module, lora=lora and lora[:2], adapters=self.model.lora, **dpo)
+        label_smoothing = float(cfg.get("label_smoothing", 0.0))
+        eval_step = make_stage2_eval_step(module, lora=lora and lora[:2], adapters=self.model.lora, mesh=self.mesh,
+                                          **dpo)
         seed = stage_seed(self.seed, 2)
+        ref_shards = None
+        if zero:
+            loss_fn = make_stage2_loss(module, ref, label_smoothing=label_smoothing, augment=True, mesh=self.mesh,
+                                       **dpo)
+            state, z_step, ref_shards = self._init_zero(zero, 2, len(self.preference_train_loader), loss_fn,
+                                                        ref if zero == 3 else None)
+
+            def train_step(st, b):
+                return z_step(st, b, seed) if ref_shards is None else z_step(st, b, seed, ref=ref_shards)
+        else:
+            optimizer = self._make_optimizer(2, len(self.preference_train_loader))
+            state = self._maybe_resume_opt_state(
+                TrainState.create(module, optimizer, self.model.lora if lora else None))
+            step = make_stage2_train_step(module, optimizer, label_smoothing=label_smoothing, augment=True, lora=lora,
+                                          mesh=self.mesh, **dpo)
+
+            def train_step(st, b):
+                return step(st, ref, b, seed)
 
         logger.info("Stage 2: %d epochs x %d steps", num_epochs, len(self.preference_train_loader))
         patience_counter = 0
@@ -460,10 +637,10 @@ class PreferenceGuidedTrainer:
         try:
             for epoch in range(start_epoch, num_epochs):
                 self.current_epoch = epoch
-                state, m = self._run_epoch(state, self.preference_train_loader,
-                                           lambda st, b: step(st, ref, b, seed), 2, epoch,
+                state, m = self._run_epoch(state, self.preference_train_loader, train_step, 2, epoch,
                                            skip_steps if epoch == start_epoch else 0)
-                val_loss = self._validate(self.preference_val_loader, lambda b: eval_step(ref, b), 2)
+                val_loss = self._validate(self.preference_val_loader, lambda b: eval_step(ref, b), 2, state,
+                                          ref_shards)
                 self.history["stage2"].append({"epoch": epoch, "train_loss": m["loss"], "val_loss": val_loss,
                                                "input_wait_fraction": m["input_wait_fraction"],
                                                "step_seconds": m["step_seconds"], "peak_mem_gib": m["peak_mem_gib"]})
@@ -471,6 +648,7 @@ class PreferenceGuidedTrainer:
                 if stop:
                     break
         finally:
+            self._end_zero(state)
             self._sync_model()
         return {"best_val_loss": self.best_val_loss[2], "history": self.history["stage2"]}
 
@@ -612,10 +790,17 @@ class PreferenceGuidedTrainer:
             "peak_mem_gib": torch.cuda.max_memory_allocated(self.device) / 2**30 if cuda else None,
         }
 
-    def _validate(self, loader, eval_step, stage: int) -> Optional[float]:
+    def _validate(self, loader, eval_step, stage: int, state=None, ref_shards=None) -> Optional[float]:
+        """The mean over the loader's batches of the eval loss (on a mesh each batch's over the ranks);
+        ZeRO's sharded parameters (and reference) are gathered for it."""
         if loader is None or len(loader) == 0:
             return None
-        losses = [eval_step(self._device_batch(batch))["loss"] for batch in loader]
+        with contextlib.ExitStack() as gathered:
+            if isinstance(state, ZeroState):
+                gathered.enter_context(state.params.materialized())
+            if ref_shards is not None:
+                gathered.enter_context(ref_shards.materialized())
+            losses = [eval_step(self._device_batch(batch))["loss"] for batch in loader]
         val_loss = float(torch.stack(losses).mean())
         self._log_metrics({"loss": val_loss}, self.global_step, prefix=f"stage{stage}/val")
         return val_loss
@@ -642,6 +827,8 @@ class PreferenceGuidedTrainer:
             for ld in (self.train_loader, self.val_loader, self.preference_train_loader, self.preference_val_loader):
                 if hasattr(ld, "close"):
                     ld.close()
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's last checkpoint is on disk before any rank reads it
         loaded = bool(self.config.get("training.load_best_model_at_end", False)) and self._load_best_at_end()
         if not loaded and self._lora_static is not None:
             self._fold_lora()  # also when no best checkpoint was there to load (JAX: the adapters stay apart)
@@ -680,7 +867,9 @@ class PreferenceGuidedTrainer:
         return False
 
     def _write_results(self, results: Dict[str, Any], wall_clock_s: float):
-        """results.json and results_summary.json in the output directory."""
+        """results.json and results_summary.json in the output directory (rank 0's)."""
+        if not self.is_writer:
+            return
         counts = self.model.num_parameters()
         device = self.device
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -693,7 +882,7 @@ class PreferenceGuidedTrainer:
 
         payload = {
             "framework": "pgica_tpu_torch",
-            "hardware": f"{name} x1",
+            "hardware": f"{name} x{1 if self.mesh is None else self.mesh.num_devices}",
             "total_parameters": counts.get("total"),
             "trainable_parameters": counts.get("trainable"),
             "total_steps": self.global_step,

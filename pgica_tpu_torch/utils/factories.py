@@ -15,12 +15,14 @@ Config keys the port reads differently:
   kernels; on the card that would take the kernels off the main path, so
   it raises there (on the CPU the plain versions run anyway).
 * ``model.scan_layers`` (a ``lax.scan`` layout) has no meaning in eager
-  PyTorch and is ignored; the weight bridge takes such a model's stacked
-  tree (models/convert.py).
+  PyTorch: the blocks stay unrolled, the weight bridge takes such a model's
+  stacked tree (models/convert.py), and the trainer reads the flag only to
+  refuse ``mesh.zero3`` without it, as the JAX trainer does.
 * ``data.workers_mode: grain`` runs PyTorch's own batch-level worker pool
   (data/loader.py); the port never imports ``grain``.
-* The mesh factory is left out with the parallel stack (ROADMAP queue 1
-  item 9).
+* ``create_mesh`` builds the mesh over the ``torch.distributed`` ranks
+  (parallel/mesh.py), initializing the process group from the environment
+  (``torchrun``) unless the caller already has.
 """
 
 from __future__ import annotations
@@ -154,6 +156,15 @@ def create_model(config, tokenizer=None, seed: Optional[int] = None, device: Uni
         image_size=config.get("data.image_size", None),
         device=device,
     )
+
+
+def create_mesh(config, device: Union[str, torch.device] = "cuda"):
+    """The config's ``mesh`` over this process's ranks (JAX factories.py:237-240); the process group
+    is initialized first where ``WORLD_SIZE`` asks for one (NCCL on ``cuda``, gloo on the CPU)."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext, init_distributed
+
+    init_distributed(device)
+    return MeshContext.from_config(config)
 
 
 def restore_params(model, checkpoint) -> None:

@@ -93,8 +93,10 @@ def test_ntxent_loss_fused_sums_both_gradients_of_one_tensor():
 
 
 def test_ntxent_loss_fused_raises_on_a_device_axis():
+    """An axis name with no active mesh raises, as JAX's unbound axis name (global negatives:
+    tests/test_torch_parallel.py)."""
     img, txt = (torch.from_numpy(x) for x in _embeddings(4, 8, seed=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unbound axis name"):
         ntxent_loss_fused(img, txt, 0.5, axis_name="data")
 
 

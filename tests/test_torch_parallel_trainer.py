@@ -1,0 +1,202 @@
+"""The port's trainer and ``train`` CLI on a device mesh of two gloo ranks, against the JAX trainer.
+
+configs/smoke.yaml's tiny presets with ``mesh.data: 2``, dropout 0, a global
+batch of 4 (2 rows a rank), the same dummy data, stage 1 then stage 2, in
+the three modes (two steps a stage): replicated data parallelism, ZeRO-1 and ZeRO-3
+(``model.scan_layers: true``, which the port reads for the check only).
+The JAX trainer runs each mode on a 2-device CPU mesh, one spawned JAX
+process a mode, while the port's two ranks (tests/_torch_ranks.py; torch
+and the port only) run all three. Augmentation is the identity on both
+sides, as in tests/test_torch_trainer.py. Tolerances: every epoch's train
+and validation loss rel 1e-5; the final parameters within Adam's bound (2 lr
+an update), all but a share below 2% of the elements (the key biases apart)
+within 1e-6, tests/test_torch_trainer.py's rule.
+
+Then the port alone: a mid-epoch ZeRO-1 autosave resumed ends bit for bit
+where the uninterrupted run ends (dropout and augmentation on); only rank 0
+writes; ``scripts.train.run`` in the two ranks; and JAX's configuration
+errors, each raised by both trainers for the same configuration.
+"""
+
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import _torch_ranks
+from pgica_tpu_torch.parallel.mesh import MeshContext
+from pgica_tpu_torch.training.trainer import PreferenceGuidedTrainer
+from pgica_tpu_torch.utils import factories
+from pgica_tpu_torch.utils.config import Config
+
+LR, LOSS_RTOL, PARAM_ATOL, LOOSE_SHARE = 1e-3, 1e-5, 1e-6, 0.02
+MODES = ("replicated", "zero1", "zero3")
+SMOKE = Path(__file__).resolve().parent.parent / "configs" / "smoke.yaml"
+
+
+def _config(tmp_path, name, **overrides):
+    cfg = Config(str(SMOKE)).to_dict()
+    base = {"model.dropout": 0.0, "model.projection_dim": 16, "data.dummy_samples": 8,
+            "training.stage1.batch_size": 4, "training.stage2.batch_size": 4,
+            "training.stage1.learning_rate": LR, "training.stage2.learning_rate": LR,
+            "training.stage2.reference_dtype": "float32", "training.logging_steps": 1, "training.save_steps": 0,
+            "training.load_best_model_at_end": False, "training.save_best_checkpoints": False,
+            "mesh.data": 2, "paths.output_dir": str(tmp_path / name / "out"),
+            "paths.checkpoint_dir": str(tmp_path / name / "ckpt"), "paths.log_dir": str(tmp_path / name / "logs"),
+            "paths.cache_dir": str(tmp_path / "cache")}
+    for path, value in {**base, **overrides}.items():
+        node = cfg
+        *keys, last = path.split(".")
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return cfg
+
+
+def _jax():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    return jax
+
+
+def _jax_model(cfg):
+    from pgica_tpu.utils import factories as jfactories
+    from pgica_tpu.utils.config import Config as JaxConfig
+
+    jcfg = JaxConfig(config_dict=cfg)
+    return jfactories.create_model(jcfg, jfactories.create_tokenizer(jcfg))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    jax = _jax()
+    tmp = tmp_path_factory.mktemp("trainer")
+    modes = {"replicated": _config(tmp, "replicated"),
+             "zero1": _config(tmp, "zero1", **{"mesh.zero1": True}),
+             "zero3": _config(tmp, "zero3", **{"mesh.zero3": True, "model.scan_layers": True})}
+    resume = {"training.stage1.num_epochs": 2, "model.dropout": 0.1, "mesh.zero1": True,
+              "training.stage2.num_epochs": 0}
+    cli_cfg = _config(tmp, "cli", **{"mesh.zero1": True})
+    (tmp / "cli.yaml").write_text(yaml.safe_dump(cli_cfg))
+    inputs = {
+        "modes": modes,
+        "params": jax.tree.map(np.asarray, _jax_model(modes["replicated"]).params),
+        "params_scan": jax.tree.map(np.asarray, _jax_model(modes["zero3"]).params),
+        "resume": {"full": _config(tmp, "full", **{**resume, "training.save_steps": 3}),
+                   "resumed": _config(tmp, "resumed", **resume)},
+        "cli": ["--config", str(tmp / "cli.yaml"), "--device", "cpu", "--max-steps", "2",
+                "--output-dir", str(tmp / "cli_out")],
+        "cli_out": str(tmp / "cli_out"),
+    }
+    torch.save(inputs, tmp / "inputs.pt")
+    ranks = _torch_ranks.start("_torch_ranks.trainer_cases", tmp, 2)
+    refs = {}
+    for mode in MODES:
+        (tmp / f"jax_{mode}").mkdir()
+        torch.save(inputs, tmp / f"jax_{mode}" / "inputs.pt")
+        refs[mode] = _torch_ranks.start_jax("_torch_ranks.jax_trainer_reference", tmp / f"jax_{mode}", (mode,))
+    jax_out = {mode: _torch_ranks.finish(handle, timeout=600)[0] for mode, handle in refs.items()}
+    return {"ranks": _torch_ranks.finish(ranks, timeout=600), "jax": jax_out, "inputs": inputs}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_trainer_on_two_ranks_follows_the_jax_trainer(runs, mode):
+    want = runs["jax"][mode]
+    for out in runs["ranks"]:
+        got = out[mode]
+        assert got["global_step"] == want["global_step"] == 4  # 2 steps a stage
+        for stage in ("stage1", "stage2"):
+            (g,), (w,) = got["history"][stage], want["history"][stage]
+            np.testing.assert_allclose(g["train_loss"], w["train_loss"], rtol=LOSS_RTOL, err_msg=stage)
+            np.testing.assert_allclose(g["val_loss"], w["val_loss"], rtol=LOSS_RTOL, err_msg=stage)
+        loose = total = 0
+        for name, exp in want["params"].items():
+            g, e = got["params"][name].numpy(), exp.numpy()
+            np.testing.assert_allclose(g, e, atol=2 * LR * 4, err_msg=name)
+            if not name.endswith("attn.k_proj.bias"):
+                loose += int((np.abs(g - e) > PARAM_ATOL).sum())
+                total += g.size
+        assert loose / total < LOOSE_SHARE, f"{loose} of {total} elements beyond {PARAM_ATOL}"
+    a, b = (r[mode]["params"] for r in runs["ranks"])
+    assert all(torch.equal(a[k], b[k]) for k in a), "the ranks end with different parameters"
+
+
+def test_only_rank_zero_writes(runs):
+    for mode in MODES:
+        assert "checkpoint_stage2_epoch0" in runs["ranks"][0][mode]["saves"] and runs["ranks"][1][mode]["saves"] == []
+    assert runs["ranks"][0]["cli"]["writer"] and not runs["ranks"][1]["cli"]["writer"]
+
+
+def test_zero1_resume_ends_bit_identical(runs):
+    for rank, out in enumerate(runs["ranks"]):
+        r = out["resume"]
+        assert r["meta"] == {"global_step": 3, "epoch": 1, "step_in_epoch": 1}
+        assert r["steps"] == (4, 4)
+        assert all(torch.equal(r["full"][k], r["resumed"][k]) for k in r["full"])
+        if rank == 0:
+            assert r["moments_equal"] and r["count"] == (4, 4)
+
+
+def test_cli_runs_in_two_ranks(runs):
+    for out in runs["ranks"]:
+        assert out["cli"]["global_step"] == 4  # --max-steps 2, two stages
+    assert runs["ranks"][0]["cli"]["results"] and runs["ranks"][0]["cli"]["snapshot"]
+
+
+def test_the_ranks_import_neither_jax_nor_the_jax_package(runs):
+    assert all(out["imported_jax"] == [] for out in runs["ranks"])
+
+
+# ------------------------------------------------------------------ JAX's configuration errors
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("errors")
+    plain, scan = _config(tmp, "m"), _config(tmp, "m", **{"model.scan_layers": True})
+    return {False: (_jax_model(plain), factories.create_model(Config(config_dict=plain), device="cpu")),
+            True: (_jax_model(scan), factories.create_model(Config(config_dict=scan), device="cpu"))}
+
+
+ERRORS = [  # (stage, mesh, overrides, JAX's message)
+    (1, {"data": 1, "fsdp": 2}, {"mesh.zero1": True}, "mesh.zero1 requires a device mesh with data > 1"),
+    (1, {"data": 2, "fsdp": 2}, {"mesh.zero1": True}, "shards the optimizer state over the data axis only"),
+    (2, {"data": 2}, {"mesh.zero1": True, "mesh.zero3": True}, "mutually exclusive"),
+    (1, {"data": 2}, {"mesh.zero1": True, "training.stage1.gradient_accumulation_steps": 2},
+     "does not support gradient_accumulation_steps > 1"),
+    (1, {"data": 2}, {"mesh.zero1": True, "training.stage1.batch_size": 3}, "must be divisible by the data"),
+    (1, {"data": 2}, {"mesh.zero3": True}, "requires model.scan_layers: true"),
+    (1, {"data": 1, "dcn": 2}, {"mesh.zero3": True, "model.scan_layers": True},
+     r"requires a device mesh with data\*fsdp > 1"),
+    (1, {"data": 2, "dcn": 2}, {"mesh.zero3": True, "model.scan_layers": True}, "runs manual over data/fsdp only"),
+    (2, {"data": 2}, {"mesh.zero1": True, "training.stage2.drop_unused_tower": True}, "drop_unused_tower"),
+]
+
+
+@pytest.mark.parametrize("stage, shape, overrides, message", ERRORS)
+def test_config_errors_match_jax(models, tmp_path, stage, shape, overrides, message):
+    jax = _jax()
+    from pgica_tpu.parallel.mesh import MeshContext as JaxMesh
+    from pgica_tpu.training.trainer import PreferenceGuidedTrainer as JaxTrainer
+    from pgica_tpu.utils import factories as jfactories
+    from pgica_tpu.utils.config import Config as JaxConfig
+
+    cfg = _config(tmp_path, "e", **overrides)
+    jmodel, port_model = models[bool(cfg["model"].get("scan_layers"))]
+    n = math.prod(shape.values())
+    jcfg, pcfg = JaxConfig(config_dict=cfg), Config(config_dict=cfg)
+    jprocs = jfactories.create_processors(jcfg, jfactories.create_tokenizer(jcfg))
+    pprocs = factories.create_processors(pcfg, factories.create_tokenizer(pcfg))
+    kind = "conceptual" if stage == 1 else "ultrafeedback"
+    jl = jfactories.create_loaders_with_fallback(jcfg, *jprocs, kind=kind)
+    pl = factories.create_loaders_with_fallback(pcfg, *pprocs, kind=kind)
+    key = "train_loader" if stage == 1 else "preference_train_loader"
+    jt = JaxTrainer(jmodel, jcfg, **{key: jl[0]}, mesh=JaxMesh(devices=jax.devices()[:n], **shape))
+    pt = PreferenceGuidedTrainer(port_model, pcfg, **{key: pl[0]}, mesh=MeshContext(world_size=n, rank=0, **shape))
+    for trainer in (jt, pt):
+        with pytest.raises(ValueError, match=message):
+            trainer.train_stage1() if stage == 1 else trainer.train_stage2()

@@ -243,18 +243,27 @@ def test_drop_unused_tower_is_loss_identical_and_merged_back(tmp_path):
 
 
 def test_parallel_settings_and_lora_raise(tmp_path):
-    """The parallel settings raise; LoRA is ported (tests/test_torch_lora.py): its config builds a trainer."""
-    for key, value, item in (("mesh.zero1", True, "item 9"), ("mesh.zero3", True, "item 9"),
-                             ("mesh.seq", 2, "item 9"), ("mesh.model", 2, "item 9")):
-        cfg = Config(config_dict=_small(tmp_path, "p", **{key: value}))
-        with pytest.raises(NotImplementedError, match=item):
+    """ZeRO without a data axis > 1 raises JAX's ValueError as a stage starts (ZeRO on a mesh:
+    tests/test_torch_parallel_trainer.py); tensor and context parallelism raise, naming their slice;
+    LoRA is ported (tests/test_torch_lora.py): its config builds a trainer."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+
+    for key, message in (("mesh.zero1", "mesh.zero1 requires a device mesh with data > 1"),
+                         ("mesh.zero3", r"mesh.zero3 requires a device mesh with data\*fsdp > 1")):
+        trainer = _port_trainer(_small(tmp_path, "z", **{key: True}))
+        with pytest.raises(ValueError, match=message):
+            trainer.train_stage1()
+    for key in ("mesh.seq", "mesh.model"):
+        cfg = Config(config_dict=_small(tmp_path, "p", **{key: 2}))
+        with pytest.raises(NotImplementedError, match="item 9b"):
             PreferenceGuidedTrainer(factories.create_model(Config(config_dict=_small(tmp_path, "m")), device="cpu"),
                                     cfg)
     cfg = Config(config_dict=_small(tmp_path, "l", **{"model.lora_config": {"r": 4}}))
     trainer = PreferenceGuidedTrainer(factories.create_model(cfg, device="cpu"), cfg)
     assert trainer._lora_static == (32.0, 4, 0.0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PreferenceGuidedTrainer(None, Config(config_dict=_small(tmp_path, "m")), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        PreferenceGuidedTrainer(None, Config(config_dict=_small(tmp_path, "m")),
+                                mesh=MeshContext(data=1, model=2, world_size=2, rank=0))
 
 
 def test_nan_skipped_steps_stay_out_of_the_epoch_mean(tmp_path):
