@@ -14,7 +14,7 @@ exits non-zero):
 3. Kernels vs plain: each of the ten kernels against its plain PyTorch
    version on the card at the shapes the GPT-2 flagship's and the Llama
    slice's serving, stage-1 and stage-2 paths give it, bf16 and f32, with
-   its time (CUDA events, median of 7 bursts, on input sets that rotate
+   its time (CUDA events, median of 5 bursts, on input sets that rotate
    through more than twice the L2, so they come from HBM; the fused
    linear-CE kernels, tens to hundreds of ms a call over a W larger than the
    L2: median of 5 single calls; the flash decode forward also at the
@@ -135,9 +135,9 @@ exits non-zero):
    each graph holding the int8 kernels, beside the bf16 figures; in phase 8
    a greedy batch-8 request on the Llama slice in bf16 and both modes. 12c,
    inside phase 9 on its JPEGs: the training CLI on configs/lora.yaml at
-   full width (``LORA_REDUCED``): adapters only, the base bit-unchanged,
-   fused-CE dW never launched, the best checkpoint merged at the end and
-   served through predict.main.
+   full width, 4 layers a tower (``LORA_REDUCED``): adapters only, the base
+   bit-unchanged, fused-CE dW never launched, the best checkpoint merged at
+   the end and served through predict.main.
 
 13. The host data path's rest, offline import, fused NT-Xent, cross-attention
    at decode. 13a, inside phase 9 after 12c, on its JPEGs and captions: the
@@ -145,7 +145,8 @@ exits non-zero):
    cache), the native encoder's ids against the Python path's over the
    captions and a non-ASCII set, the grain loader (4 spawned workers)
    against the thread loader over 2 epochs and after ``iter_batches(3)``
-   with one pool, then the training CLI with both (``PHASE13_REDUCED``):
+   with one pool, then the training CLI with both at 4 layers a tower
+   (``PHASE13_REDUCED``):
    finite losses, the backward launches its steps need, ms per micro-step
    and the input-wait share. 13b, after phase 10: seeded HF-layout
    checkpoints of CLIP ViT-B/32's vision tower and GPT-2 Medium (50,257
@@ -172,22 +173,47 @@ exits non-zero):
    count; then ``ntxent_loss_fused`` with global negatives ((128, 512) a
    rank against (256, 512) gathered) against ``ntxent_loss`` with them, and
    the fused-CE kernels timed at that shape. 14b: ``scripts.train.run`` on
-   configs/default.yaml at full depth and vocab, bf16, ``mesh.data: 2``,
+   configs/default.yaml at full width and vocab, 2 layers a tower, bf16,
+   ``mesh.data: 2``,
    ZeRO-1 (stage 1) and ZeRO-3 with ``model.scan_layers`` (stage 2) in one
    pair of ranks (``PHASE14_REDUCED``): step walls, peaks, checkpoint and
    write-call bytes a rank, rank 0's busy share, rank 0's checkpoint
    against the gathered parameters. 14c, beside them: ``python -m
    torch.distributed.run --nproc_per_node=1 -m pgica_tpu_torch.scripts.train``
    on configs/smoke.yaml for 2 steps, the process group NCCL.
+15. Tensor and context parallelism, after phase 14, in two gloo ranks that
+   share the card. 15a: ``ppermute`` (value and the inverse permutation's
+   gradient), ``copy_to``, ``reduce_from`` and ``gather_from`` on CUDA
+   tensors. 15b: configs/scaled_vitl_gpt2large.yaml's towers at full
+   width (ViT-L/14, GPT-2 Large, vocab 50,262), 2 layers a tower, f32, cut
+   over model 2, take two stage-1 and two stage-2 updates of the whole
+   batch (8, and 8 pairs, x 128) held to one process as 14a's are; each
+   rank's heads (8, 10, cross 4), its 25,131 rows of ``wte``, the fused-CE
+   launches of a stage-2 step (2, 1, 1) and half the cut bytes asserted.
+   15c: the fused-CE kernels on a model-2 rank's (25,131, 1,280) block of
+   the vocab and a model-4 rank's padded (12,566, 1,280) block, targets
+   of the whole vocab (most outside the block), the backward on the global
+   lse, against their plain versions, timed. 15d: the flagship (2 layers,
+   f32) sequence-sharded over seq 2, two DPO updates against one process;
+   ``ring_attention`` forward and backward against plain attention. 15e:
+   ``scripts.train.run`` on configs/scaled_vitl_gpt2large.yaml (its own
+   model 2, both stages) and on configs/default.yaml (stage 2, seq 2), 2
+   layers a tower (``PHASE15_REDUCED``): step walls, peaks, rank 0's busy
+   share; the TP run's checkpoint loaded into one process bit-equal to the
+   ranks' gathered parameters.
 
 Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
 tower and 2-row train steps and replays its optimizer without the token
 embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
-phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 7
-bursts (21, then 11 before: phase 14 needs the time; its float32 pass 5 of
-5), phase 14b one stage of each ZeRO mode (``PHASE14_REDUCED``); every profile is read off the
-trace's raw events (``pgica_tpu_torch/utils/trace.py``): ``key_averages``
-took up to 46 s to parse one. Phase 5 no longer profiles a 4-beam request
+phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 5
+bursts (21, 11, then 7 before: phases 14 and 15 need the time; its float32
+pass 5 of 5), phase 12c's and 13a's CLI runs 4 layers a tower
+(``LORA_REDUCED``, ``PHASE13_REDUCED``), phase 14b one stage of each ZeRO
+mode at 2 layers a tower (``PHASE14_REDUCED``: at full depth it took
+137-181 s), phase 15e 2 layers a tower (``PHASE15_REDUCED``); every
+profile is read off the trace's raw events
+(``pgica_tpu_torch/utils/trace.py``): ``key_averages`` took up to 46 s to
+parse one. Phase 5 no longer profiles a 4-beam request
 (phase 11a profiles the same 128 eager steps), phase 10 no longer runs the
 eager chunk under Poisson load (it times the eager chunk against the
 graphed one) nor profiles a Poisson run (one hung), and phase 3 no longer
@@ -197,7 +223,7 @@ stack to stderr.
 
 Launch counts are reset just before the main path of phases 5, 6, 7, 9,
 10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths, of each of
-13d's decode steps and, in each rank, of each of phase 14's paths, and read
+13d's decode steps and, in each rank, of each of phase 14's and 15's paths, and read
 just after; a graph replay
 adds nothing to them (its kernels are counted by the profiler). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
@@ -207,6 +233,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import gc
@@ -255,7 +282,7 @@ def dname(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-BF16_TIMING = {"reps": 20, "trials": 7}  # time_ms's depth (21, then 11 trials before: the limit; phase 14 came)
+BF16_TIMING = {"reps": 20, "trials": 5}  # time_ms's depth (21, 11, then 7 trials before: the limit; phases 14-15)
 TIMING = dict(BF16_TIMING)  # phase 3 times its float32 pass at F32_TIMING
 F32_TIMING = {"reps": 5, "trials": 5}  # no path of the main runs launches those; a shallower timing keeps the limit
 
@@ -697,13 +724,21 @@ def check_scaled(name: str, got: torch.Tensor, want: torch.Tensor, scale: torch.
     return max_err
 
 
-def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, timed=True) -> dict:
+def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, timed=True, shard=None) -> dict:
     """The three fused-CE kernels against their plain versions; one result dict for each.
 
     dh and dW take the kernel forward's lse, as the path does. Each kernel runs
     twice and must give the same bits; with masked
     rows, dh is exactly 0 on them and dW is bit-identical to dW over the
     live rows alone (a row with g = 0 adds exactly nothing).
+
+    ``shard = (offset, full_vocab, zero_rows)``: W is a rank's block of the
+    vocab under vocab parallelism (``fused_token_logprobs_tp``), its last
+    ``zero_rows`` rows the zero padding; the targets are global ids of the
+    full vocab shifted by ``offset`` (most lie outside the block: no
+    target), and dh and dW take the GLOBAL lse, the block's combined with
+    another block's (a second random W of the block's size), as the
+    vocab-parallel backward does.
     """
     from pgica_tpu_torch.ops.fused_ce import (
         _coeff_ref,
@@ -716,10 +751,20 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
     )
 
     h, w, y, g = fused_ce_inputs(rows, vocab, d, h_dtype, w_dtype, gen, valid_rows)
+    if shard is not None:
+        offset, full_vocab, zero_rows = shard
+        y = torch.randint(0, full_vocab, (rows,), device="cuda", generator=gen) - offset
+        if zero_rows:
+            w[-zero_rows:] = 0
     logp, lse = fused_ce_fwd(h, w, y)
     logp2, lse2 = fused_ce_fwd(h, w, y)
-    dh, dh2 = fused_ce_bwd_dh(h, w, y, lse, g), fused_ce_bwd_dh(h, w, y, lse, g)
-    dw, dw2 = fused_ce_bwd_dw(h, w, y, lse, g), fused_ce_bwd_dw(h, w, y, lse, g)
+    lse_bwd = lse  # the lse dh and dW take
+    if shard is not None:  # the global lse: this block's with another block's
+        other = (0.02 * torch.randn(vocab, d, device="cuda", generator=gen)).to(w_dtype)
+        lse_bwd = torch.logaddexp(lse, fused_ce_fwd_ref(h, other, y)[1]).contiguous()
+        del other
+    dh, dh2 = fused_ce_bwd_dh(h, w, y, lse_bwd, g), fused_ce_bwd_dh(h, w, y, lse_bwd, g)
+    dw, dw2 = fused_ce_bwd_dw(h, w, y, lse_bwd, g), fused_ce_bwd_dw(h, w, y, lse_bwd, g)
     torch.cuda.synchronize()
     label = f"fused_ce {name} ({rows}, {d}) x ({vocab}, {d}) h {dname(h_dtype)} W {dname(w_dtype)}"
     rlogp, rlse = fused_ce_fwd_ref(h, w, y)
@@ -728,6 +773,8 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
     if not (torch.equal(logp, logp2) and torch.equal(lse, lse2)):
         raise AssertionError(f"{label}: two runs of fused_ce_fwd differ")
     del rlogp, logp2, lse2
+    if shard is not None:
+        rlse = lse_bwd  # the backward's plain version takes the global lse too
     coeff = _coeff_ref(h, w, y, rlse, g).abs_()
     outs = {}
     for kernel, got, again, ref_fn, scale_of in (
@@ -744,7 +791,7 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
         live = valid_rows != 0
         if bool((dh[~live] != 0).any()):
             raise AssertionError(f"{label}: a row with g = 0 got a nonzero dh")
-        if not torch.equal(dw, fused_ce_bwd_dw(h[live].contiguous(), w, y[live], lse[live], g[live])):
+        if not torch.equal(dw, fused_ce_bwd_dw(h[live].contiguous(), w, y[live], lse_bwd[live], g[live])):
             raise AssertionError(f"{label}: the rows with g = 0 changed dW")
     common = dict(case=name, shape=f"({rows}, {d}) x ({vocab}, {d})", dtype=f"h {dname(h_dtype)}, W {dname(w_dtype)}")
     res = {"fused_ce_fwd": dict(common, max_abs_err=err_fwd, atol=FCE_LOGP_TOL[0], rtol=FCE_LOGP_TOL[1])}
@@ -768,17 +815,18 @@ def fused_ce_case(name, rows, vocab, d, h_dtype, w_dtype, gen, valid_rows=None, 
     }
     times = {
         "fused_ce_fwd": (time_single(fused_ce_fwd, (h, w, y)), time_single(fused_ce_fwd_ref, (h, w, y))),
-        "fused_ce_bwd_dh": (time_single(fused_ce_bwd_dh, (h, w, y, lse, g)),
-                            time_single(fused_ce_bwd_dh_ref, (h, w, y, lse, g))),
-        "fused_ce_bwd_dw": (time_single(fused_ce_bwd_dw, (h, w, y, lse, g)),
-                            time_single(fused_ce_bwd_dw_ref, (h, w, y, lse, g))),
+        "fused_ce_bwd_dh": (time_single(fused_ce_bwd_dh, (h, w, y, lse_bwd, g)),
+                            time_single(fused_ce_bwd_dh_ref, (h, w, y, lse_bwd, g))),
+        "fused_ce_bwd_dw": (time_single(fused_ce_bwd_dw, (h, w, y, lse_bwd, g)),
+                            time_single(fused_ce_bwd_dw_ref, (h, w, y, lse_bwd, g))),
     }
     # the yardstick, two PyTorch calls never used by the port: F.linear then F.cross_entropy on bf16
     # h and W (the logits materialized), and that pair's autograd backward (dh and dW together)
-    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
-    lib_fwd = time_single(lambda: F.cross_entropy(F.linear(hb, wb), y, reduction="none"), ())
+    # (a vocab block's targets clamped into it: F.cross_entropy takes no target outside the logits)
+    hb, wb, y_lib = h.to(torch.bfloat16), w.to(torch.bfloat16), y.clamp(0, vocab - 1)
+    lib_fwd = time_single(lambda: F.cross_entropy(F.linear(hb, wb), y_lib, reduction="none"), ())
     leaves = [hb.detach().clone().requires_grad_(), wb.detach().clone().requires_grad_()]
-    out = F.cross_entropy(F.linear(*leaves), y, reduction="none")
+    out = F.cross_entropy(F.linear(*leaves), y_lib, reduction="none")
     lib_bwd = time_single(lambda: torch.autograd.grad(out, leaves, g.to(out.dtype), retain_graph=True), ())
     del out, leaves
     for kernel, (ms, plain_ms) in times.items():
@@ -2351,22 +2399,20 @@ def phase_train_cli() -> dict:
             shutil.rmtree(PHASE9_DIR / done, ignore_errors=True)
         t = time.perf_counter()
         log("== phase 12c: LoRA through the training entry point (configs/lora.yaml, GPT-2 flagship at full width, "
-            "phase 9's JPEGs)")
+            f"{LORA_LAYERS} layers a tower, phase 9's JPEGs)")
         lora = phase_lora_cli(PHASE9_DIR / "data" / "captions.csv", PHASE9_DIR / "data" / "preferences.json")
         lora["seconds"] = time.perf_counter() - t
-        log(f"  phase 12c: {lora['seconds']:.1f} s; ms per micro-step (median after the first): LoRA stage 1 "
-            f"{lora['stages']['stage1']['ms_per_micro_step']:.1f} against phase 9's full fine-tune "
-            f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {lora['stages']['stage2']['ms_per_micro_step']:.1f} "
-            f"against {stages['stage2']['ms_per_micro_step']:.1f} [{card()}]")
+        log(f"  phase 12c: {lora['seconds']:.1f} s; ms per micro-step (median after the first, {LORA_LAYERS} layers "
+            f"a tower): LoRA stage 1 {lora['stages']['stage1']['ms_per_micro_step']:.1f}, stage 2 "
+            f"{lora['stages']['stage2']['ms_per_micro_step']:.1f} [{card()}]")
         t = time.perf_counter()
         log("== phase 13a: the dataset BPE, the grain loader and the training CLI with both (configs/default.yaml, "
-            "GPT-2 flagship at full width, phase 9's JPEGs)")
+            f"GPT-2 flagship at full width, {PHASE13_LAYERS} layers a tower, phase 9's JPEGs)")
         grain = phase_grain_bpe_cli()
         grain["seconds"] = time.perf_counter() - t
-        log(f"  phase 13a: {grain['seconds']:.1f} s; ms per micro-step (median after the first): stage 1 "
-            f"{grain['stages']['stage1']['ms_per_micro_step']:.1f} against phase 9's "
-            f"{stages['stage1']['ms_per_micro_step']:.1f}, stage 2 {grain['stages']['stage2']['ms_per_micro_step']:.1f} "
-            f"against {stages['stage2']['ms_per_micro_step']:.1f} [{card()}]")
+        log(f"  phase 13a: {grain['seconds']:.1f} s; ms per micro-step (median after the first, {PHASE13_LAYERS} "
+            f"layers a tower): stage 1 {grain['stages']['stage1']['ms_per_micro_step']:.1f}, stage 2 "
+            f"{grain['stages']['stage2']['ms_per_micro_step']:.1f} [{card()}]")
         return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms,
                     clis=clis, lora=lora, grain=grain)
     finally:
@@ -3243,8 +3289,12 @@ def quant_llama(model) -> dict:
 LORA_DIR = ROOT / "build" / "phase12"
 LORA_STEPS = 4
 LORA_ACCUMULATION = 2
-LORA_ADAPTER_VALUES = 58_994_688  # init_lora on the flagship's shapes: 240 (A, B) pairs over the two GPT-2 Medium towers
+LORA_LAYERS = 4  # 12c: each tower's layers (ViT-B/32: 12, GPT-2 Medium: 24)
+LORA_PAIRS = 2 * 5 * LORA_LAYERS  # init_lora on the flagship's shapes: 5 (A, B) pairs a block of the two GPT-2 towers
+LORA_ADAPTER_VALUES = 2 * 1_229_056 * LORA_LAYERS  # 58,994,688 at the full 24 layers
 LORA_REDUCED = (
+    f"each tower runs {LORA_LAYERS} of its layers at full width (the CLI and predict read depth from the presets, "
+    "which are cut for the phase): at full depth 12c took 47-61 s, and phases 14-15 need the time",
     "configs/lora.yaml's width, depth and vocab as phase 9 runs configs/default.yaml's (PHASE9_REDUCED: 1 epoch a "
     "stage, vocab 50,262, phase 9's JPEGs, outputs under build/phase12, deleted at the end)",
     f"--max-steps {LORA_STEPS}: {LORA_STEPS} micro-steps a stage",
@@ -3269,71 +3319,76 @@ def phase_lora_cli(captions: Path, preferences: Path) -> dict:
     shutil.rmtree(LORA_DIR, ignore_errors=True)
     LORA_DIR.mkdir(parents=True)
     try:
-        cfg = yaml.safe_load((ROOT / "configs" / "lora.yaml").read_text())
-        if cfg["model"]["lora_config"] != {"r": 16, "lora_alpha": 32, "target_modules": ["c_attn", "c_proj"],
-                                           "lora_dropout": 0.1} or not cfg["training"]["load_best_model_at_end"]:
-            raise AssertionError(f"configs/lora.yaml changed under phase 12c: {cfg['model']['lora_config']}")
-        for stage in ("stage1", "stage2"):
-            cfg["training"][stage]["num_epochs"] = 1
-            cfg["training"][stage]["gradient_accumulation_steps"] = LORA_ACCUMULATION
-        cfg["data"].update(conceptual_captions_path=str(captions), ultrafeedback_path=str(preferences),
-                           native_decode="fast", device_side_normalization=True)
-        cfg["model"]["vocab_size"] = GPT2_VOCAB
-        cfg["paths"] = {"output_dir": str(LORA_DIR / "run"), "checkpoint_dir": str(LORA_DIR / "run" / "checkpoints"),
-                        "log_dir": str(LORA_DIR / "logs"), "cache_dir": str(LORA_DIR / "cache")}
-        path = LORA_DIR / "lora_phase12.yaml"
-        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
-        log(f"  configs/lora.yaml (GPT-2 flagship, LoRA r 16, alpha 32, c_attn/c_proj, dropout 0.1, bf16, gradient "
-            f"checkpointing) written to {path.relative_to(ROOT)}; changed: " + "; ".join(LORA_REDUCED))
-        _kernels.reset_launch_counts()  # ---- the main path starts here
-        t = time.perf_counter()
-        trainer = train_cli.run(["--config", str(path), "--max-steps", str(LORA_STEPS)])
-        run_s = time.perf_counter() - t
-        counts = _kernels.launch_counts()  # ---- and ends here
-        check_main_path("LoRA training entry point (stages 1 and 2)", counts,
-                        tuple(k for k in TRAIN_KERNELS if k != "fused_ce_bwd_dw"))
-        if counts["fused_ce_bwd_dw"] != 0:
-            raise AssertionError(f"LoRA stage 2 launched fused-CE dW {counts['fused_ce_bwd_dw']} times (the tied "
-                                 "embedding is no target)")
-        stages = {name: show_stage(f"LoRA {name}", trainer.history[name][0], None) for name in ("stage1", "stage2")}
-        ckpts = LORA_DIR / "run" / "checkpoints"
-        payload = torch.load(ckpts / "checkpoint_stage2_epoch0" / "state.pt", map_location="cpu", weights_only=True)
-        opt = payload["opt_state"]
-        moments = sum(opt["mu"][n].numel() + opt["nu"][n].numel() for n in opt["names"])
-        adapters = sum(v.numel() for ab in payload["lora"].values() for v in ab.values())
-        if adapters != LORA_ADAPTER_VALUES or moments != 2 * LORA_ADAPTER_VALUES or len(payload["lora"]) != 240:
-            raise AssertionError(f"LoRA: {len(payload['lora'])} pairs, {adapters} adapter values, {moments} Adam moments")
-        fresh = create_model(Config(str(path)), trainer.model.tokenizer, device="cpu")
-        start = dict(fresh.module.named_parameters())
-        moved_base = [n for n, p in payload["params"].items() if not torch.equal(p, start[n])]
-        if moved_base:
-            raise AssertionError(f"LoRA moved the base masters: {moved_base[:4]}")
-        moved = sum(int((ab["b"] != 0).any()) for ab in payload["lora"].values())
-        if moved == 0:
-            raise AssertionError("no adapter factor B moved from its zero initialization")
-        best = torch.load(ckpts / "best_model_stage2" / "state.pt", map_location="cpu", weights_only=True)
-        merged = effective_params(best)
-        served = {n: p.cpu() for n, p in trainer.model.module.named_parameters()}
-        if trainer.model.lora is not None or any(not torch.equal(merged[n], served[n]) for n in merged):
-            raise AssertionError("the model at the end is not the best checkpoint's merged params")
-        diff = sum(int((merged[n] != start[n]).sum()) for n in merged)
-        log(f"  train_cli.run on configs/lora.yaml in {run_s:.1f} s: {adapters:,} adapter values in 240 (A, B) pairs "
-            f"and {moments:,} Adam moments (= 2 x {LORA_ADAPTER_VALUES:,}) in the optimizer state; the checkpoint's "
-            f"base masters bit-equal to a fresh build's; {moved} of 240 B factors moved from 0; fused-CE launches "
-            f"fwd {counts['fused_ce_fwd']}, dh {counts['fused_ce_bwd_dh']}, dW {counts['fused_ce_bwd_dw']}; at the end "
-            f"the model holds best_model_stage2's merged params ({diff:,} elements off the base)")
-        del trainer, fresh, start, merged, served, payload, best
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        out = LORA_DIR / "predictions.json"
-        if predict.main(["--config", str(path), "--model-path", str(ckpts / "best_model_stage2"),
-                         "--image", str(Path(captions).parent / "images" / "0000.jpg"), "--output", str(out)]) != 0:
-            raise AssertionError("predict.main failed on the LoRA checkpoint")
-        predict_s = time.perf_counter() - t
-        log(f"  predict.main on best_model_stage2 (base + adapters, merged on load): {predict_s:.1f} s, "
-            f"{json.loads(out.read_text())}")
-        return dict(counts=counts, stages=stages, run_s=run_s, predict_s=predict_s)
+        with cut_presets(LORA_LAYERS):  # the CLI and predict read depth from the presets
+            cfg = yaml.safe_load((ROOT / "configs" / "lora.yaml").read_text())
+            if cfg["model"]["lora_config"] != {"r": 16, "lora_alpha": 32, "target_modules": ["c_attn", "c_proj"],
+                                               "lora_dropout": 0.1} or not cfg["training"]["load_best_model_at_end"]:
+                raise AssertionError(f"configs/lora.yaml changed under phase 12c: {cfg['model']['lora_config']}")
+            for stage in ("stage1", "stage2"):
+                cfg["training"][stage]["num_epochs"] = 1
+                cfg["training"][stage]["gradient_accumulation_steps"] = LORA_ACCUMULATION
+            cfg["data"].update(conceptual_captions_path=str(captions), ultrafeedback_path=str(preferences),
+                               native_decode="fast", device_side_normalization=True)
+            cfg["model"]["vocab_size"] = GPT2_VOCAB
+            cfg["paths"] = {"output_dir": str(LORA_DIR / "run"),
+                            "checkpoint_dir": str(LORA_DIR / "run" / "checkpoints"),
+                            "log_dir": str(LORA_DIR / "logs"), "cache_dir": str(LORA_DIR / "cache")}
+            path = LORA_DIR / "lora_phase12.yaml"
+            path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+            log(f"  configs/lora.yaml (GPT-2 flagship, LoRA r 16, alpha 32, c_attn/c_proj, dropout 0.1, bf16, gradient "
+                f"checkpointing) written to {path.relative_to(ROOT)}; changed: " + "; ".join(LORA_REDUCED))
+            _kernels.reset_launch_counts()  # ---- the main path starts here
+            t = time.perf_counter()
+            trainer = train_cli.run(["--config", str(path), "--max-steps", str(LORA_STEPS)])
+            run_s = time.perf_counter() - t
+            counts = _kernels.launch_counts()  # ---- and ends here
+            check_main_path("LoRA training entry point (stages 1 and 2)", counts,
+                            tuple(k for k in TRAIN_KERNELS if k != "fused_ce_bwd_dw"))
+            if counts["fused_ce_bwd_dw"] != 0:
+                raise AssertionError(f"LoRA stage 2 launched fused-CE dW {counts['fused_ce_bwd_dw']} times (the tied "
+                                     "embedding is no target)")
+            stages = {name: show_stage(f"LoRA {name}", trainer.history[name][0], None) for name in ("stage1", "stage2")}
+            ckpts = LORA_DIR / "run" / "checkpoints"
+            payload = torch.load(ckpts / "checkpoint_stage2_epoch0" / "state.pt", map_location="cpu", weights_only=True)
+            opt = payload["opt_state"]
+            moments = sum(opt["mu"][n].numel() + opt["nu"][n].numel() for n in opt["names"])
+            adapters = sum(v.numel() for ab in payload["lora"].values() for v in ab.values())
+            if (adapters != LORA_ADAPTER_VALUES or moments != 2 * LORA_ADAPTER_VALUES
+                    or len(payload["lora"]) != LORA_PAIRS):
+                raise AssertionError(f"LoRA: {len(payload['lora'])} pairs, {adapters} adapter values, "
+                                     f"{moments} Adam moments")
+            fresh = create_model(Config(str(path)), trainer.model.tokenizer, device="cpu")
+            start = dict(fresh.module.named_parameters())
+            moved_base = [n for n, p in payload["params"].items() if not torch.equal(p, start[n])]
+            if moved_base:
+                raise AssertionError(f"LoRA moved the base masters: {moved_base[:4]}")
+            moved = sum(int((ab["b"] != 0).any()) for ab in payload["lora"].values())
+            if moved == 0:
+                raise AssertionError("no adapter factor B moved from its zero initialization")
+            best = torch.load(ckpts / "best_model_stage2" / "state.pt", map_location="cpu", weights_only=True)
+            merged = effective_params(best)
+            served = {n: p.cpu() for n, p in trainer.model.module.named_parameters()}
+            if trainer.model.lora is not None or any(not torch.equal(merged[n], served[n]) for n in merged):
+                raise AssertionError("the model at the end is not the best checkpoint's merged params")
+            diff = sum(int((merged[n] != start[n]).sum()) for n in merged)
+            log(f"  train_cli.run on configs/lora.yaml in {run_s:.1f} s: {adapters:,} adapter values in {LORA_PAIRS} "
+                f"(A, B) pairs and {moments:,} Adam moments (= 2 x {LORA_ADAPTER_VALUES:,}) in the optimizer state; "
+                f"the checkpoint's base masters bit-equal to a fresh build's; {moved} of {LORA_PAIRS} B factors moved "
+                f"from 0; fused-CE launches fwd {counts['fused_ce_fwd']}, dh {counts['fused_ce_bwd_dh']}, dW "
+                f"{counts['fused_ce_bwd_dw']}; at the end the model holds best_model_stage2's merged params ({diff:,} "
+                "elements off the base)")
+            del trainer, fresh, start, merged, served, payload, best
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            out = LORA_DIR / "predictions.json"
+            if predict.main(["--config", str(path), "--model-path", str(ckpts / "best_model_stage2"),
+                             "--image", str(Path(captions).parent / "images" / "0000.jpg"), "--output", str(out)]) != 0:
+                raise AssertionError("predict.main failed on the LoRA checkpoint")
+            predict_s = time.perf_counter() - t
+            log(f"  predict.main on best_model_stage2 (base + adapters, merged on load): {predict_s:.1f} s, "
+                f"{json.loads(out.read_text())}")
+            return dict(counts=counts, stages=stages, run_s=run_s, predict_s=predict_s)
     finally:
         shutil.rmtree(LORA_DIR, ignore_errors=True)
 
@@ -3346,7 +3401,11 @@ BPE_VOCAB = 1024  # data.bpe_vocab_size of 13a: merges stop earlier, once no pai
 GRAIN_WORKERS = 4  # configs/default.yaml's data.num_workers
 GRAIN_STEPS = 4
 GPT2_LAYERS = 24
+PHASE13_LAYERS = 4  # 13a's CLI: each tower's layers (ViT-B/32: 12, GPT-2 Medium: 24)
 PHASE13_REDUCED = (
+    f"the CLI's towers run {PHASE13_LAYERS} of their layers at full width (the CLI reads depth from the presets, "
+    "which are cut for its run): at full depth 13a took 62-74 s, and phases 14-15 need the time; its loaders, BPE and "
+    "steps are the same",
     "configs/default.yaml as phase 9 runs it (PHASE9_REDUCED), with data.workers_mode grain (4 spawned workers "
     f"a loader, the config's num_workers) and data.bpe_vocab_size {BPE_VOCAB}, trained on phase 9's captions",
     f"--max-steps {GRAIN_STEPS}: {GRAIN_STEPS} micro-steps a stage, one update at the config's accumulation of 4",
@@ -3385,7 +3444,7 @@ def same_batches(label: str, got, want) -> int:
 def phase_grain_bpe_cli() -> dict:
     """Phase 13a, inside phase 9 on its JPEGs and captions: the dataset BPE (train, save, the cache), the native
     encoder against the Python path, the grain loader against the thread loader, then the training CLI with
-    both (PHASE13_REDUCED) at the flagship's full width."""
+    both (PHASE13_REDUCED) at the flagship's full width, 4 layers a tower."""
     import yaml
 
     from pgica_tpu_torch.data.loader import ConceptualCaptionsDataset, DataLoader
@@ -3465,11 +3524,13 @@ def phase_grain_bpe_cli() -> dict:
 
         _kernels.reset_launch_counts()  # ---- the main path starts here
         t = time.perf_counter()
-        trainer = train_cli.run(["--config", str(path), "--max-steps", str(GRAIN_STEPS)])
+        with cut_presets(PHASE13_LAYERS):
+            trainer = train_cli.run(["--config", str(path), "--max-steps", str(GRAIN_STEPS)])
         run_s = time.perf_counter() - t
         counts = _kernels.launch_counts()  # ---- and ends here
         check_main_path("training entry point with grain workers and the dataset BPE", counts, TRAIN_KERNELS)
-        want = {"flash_attn_bwd_dq": 2 * GPT2_LAYERS * GRAIN_STEPS, "flash_attn_bwd_dkv": 2 * GPT2_LAYERS * GRAIN_STEPS,
+        layers = PHASE13_LAYERS
+        want = {"flash_attn_bwd_dq": 2 * layers * GRAIN_STEPS, "flash_attn_bwd_dkv": 2 * layers * GRAIN_STEPS,
                 "fused_ce_bwd_dh": GRAIN_STEPS, "fused_ce_bwd_dw": GRAIN_STEPS}
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"13a's CLI launched {counts}; {GRAIN_STEPS} steps a stage need {want}")
@@ -3881,10 +3942,14 @@ PARALLEL_LOOSE_SHARE = 0.02  # parameters beyond PARAM_ATOL, each within Adam's 
 GLOBAL_NEG_ROWS = 256  # 14a's fused NT-Xent: (128, 512) rows a rank against (256, 512) gathered embeddings
 PHASE14_STEPS = 3  # a stage's steps in 14b; rank 0's profiler takes the third (trainer.PROFILE_STEPS)
 PHASE14_STAGES = {"zero1": "1", "zero3": "2"}  # 14b's run of each mode: --stage
+PHASE14_LAYERS = 2  # 14b: each tower's layers (ViT-B/32: 12, GPT-2 Medium: 24)
 PHASE14_REDUCED = (
+    f"each tower runs {PHASE14_LAYERS} of its layers at full width (ViT-B/32 12, GPT-2 Medium 24): at full depth "
+    "each ZeRO step moved ~6.4 GB between the two ranks over gloo's loopback (6.7-11.2 s a step) and 14b took "
+    "137-181 s, which with phase 15 took the run near its limit; the CLI reads depth from the presets, which the "
+    "ranks cut",
     "ZeRO-1 trains stage 1 (--stage 1) and ZeRO-3 stage 2 (--stage 2, its sharded reference the initial policy): "
-    "each step moves ~6.4 GB between the two ranks over gloo's loopback (~5 s), so both stages of both modes "
-    "would take the phase past its time",
+    "both stages of both modes would take the phase past its time",
     "1 epoch (the config: 10 and 5), --max-steps 3: 3 steps",
     "gradient accumulation 1 (the config: 4): ZeRO refuses accumulation, as the JAX package does",
     f"model.vocab_size {GPT2_VOCAB:,} (as phase 9); mesh.data 2 (the config: -1, every rank)",
@@ -3897,9 +3962,9 @@ PHASE14_REDUCED = (
 RANK_TIMEOUT_S = 240
 
 
-def _rank_entry(target: str, rank: int, world: int, store: str, args: tuple) -> None:
+def _rank_entry(target: str, rank: int, world: int, store: str, args: tuple, workdir: str) -> None:
     """A spawned rank: gloo over a file store, the one card (``LOCAL_RANK`` 0 for both), ``target``'s result
-    saved for the parent. A failure leaves its traceback beside it and exits non-zero."""
+    saved for the parent in ``workdir``. A failure leaves its traceback beside it and exits non-zero."""
     import os
     import traceback
 
@@ -3911,31 +3976,31 @@ def _rank_entry(target: str, rank: int, world: int, store: str, args: tuple) -> 
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
         out = globals()[target](rank, world, *args)
-        torch.save(out, PHASE14_DIR / f"{target}-rank{rank}.pt")
+        torch.save(out, Path(workdir) / f"{target}-rank{rank}.pt")
         dist.destroy_process_group()
     except BaseException:
-        (PHASE14_DIR / f"{target}-rank{rank}.err").write_text(traceback.format_exc())
+        (Path(workdir) / f"{target}-rank{rank}.err").write_text(traceback.format_exc())
         raise
 
 
-def start_ranks(target: str, *args) -> tuple:
+def start_ranks(target: str, *args, workdir: Path = PHASE14_DIR) -> tuple:
     """``target(rank, world, *args)`` in PARALLEL_WORLD spawned ranks, started; ``join_ranks`` waits."""
     import multiprocessing
 
-    store = PHASE14_DIR / f"{target}.store"
+    store = workdir / f"{target}.store"
     store.unlink(missing_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_entry, args=(target, r, PARALLEL_WORLD, str(store), args))
+    procs = [ctx.Process(target=_rank_entry, args=(target, r, PARALLEL_WORLD, str(store), args, str(workdir)))
              for r in range(PARALLEL_WORLD)]
     for p in procs:
         p.start()
-    return target, procs
+    return target, procs, workdir
 
 
 def join_ranks(started: tuple, timeout: float = RANK_TIMEOUT_S) -> list:
     """Each rank joined within ``timeout``; a rank that fails or hangs fails the phase (the others are
     killed). The ranks' results."""
-    target, procs = started
+    target, procs, workdir = started
     deadline = time.perf_counter() + timeout
     for p in procs:
         p.join(max(0.0, deadline - time.perf_counter()))
@@ -3944,12 +4009,12 @@ def join_ranks(started: tuple, timeout: float = RANK_TIMEOUT_S) -> list:
         if p.is_alive():
             p.kill()
             p.join()
-    errors = {r: (PHASE14_DIR / f"{target}-rank{r}.err").read_text() for r in range(PARALLEL_WORLD)
-              if (PHASE14_DIR / f"{target}-rank{r}.err").exists()}
+    errors = {r: (workdir / f"{target}-rank{r}.err").read_text() for r in range(PARALLEL_WORLD)
+              if (workdir / f"{target}-rank{r}.err").exists()}
     if hung or errors or any(p.exitcode for p in procs):
-        raise AssertionError(f"phase 14 {target}: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}; "
+        raise AssertionError(f"{workdir.name} {target}: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}; "
                              f"{errors}")
-    return [torch.load(PHASE14_DIR / f"{target}-rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
+    return [torch.load(workdir / f"{target}-rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
 
 
 def parallel_model():
@@ -3970,17 +4035,22 @@ def parallel_model():
     return model, ref
 
 
-def same_on_ranks(tensors, mesh) -> bool:
-    """Whether every rank holds the same bits (True on one process): each rank's digest of its tensors' bits (the
-    int32 words' sum, position-weighted sum and xor-shifted sum, in wrapping int64), gathered and compared."""
-    from pgica_tpu_torch.parallel import collectives
-
-    if not mesh.distributed:
-        return True
+def bits_digest(tensors) -> torch.Tensor:
+    """A digest of the tensors' bits: the int32 words' sum, position-weighted sum and xor-shifted sum, in
+    wrapping int64."""
     words = torch.cat([t.detach().float().reshape(-1).view(torch.int32) for t in tensors]).to(torch.int64)
     pos = torch.arange(1, words.numel() + 1, device=words.device)
-    digest = torch.stack([words.sum(), (words * pos).sum(), (words ^ (words >> 7)).sum()])
-    both = collectives.all_gather(digest[None], "data", mesh)
+    return torch.stack([words.sum(), (words * pos).sum(), (words ^ (words >> 7)).sum()])
+
+
+def same_on_ranks(tensors, mesh, axis: str = "data") -> bool:
+    """Whether every rank of ``axis`` holds the same bits (True on one process): each rank's
+    :func:`bits_digest`, gathered and compared."""
+    from pgica_tpu_torch.parallel import collectives
+
+    if mesh is None or not mesh.distributed:
+        return True
+    both = collectives.all_gather(bits_digest(tensors)[None], axis, mesh)
     return all(torch.equal(both[0], other) for other in both[1:])
 
 
@@ -4129,34 +4199,35 @@ def parallel_cli(rank: int, world: int, runs: list) -> list:
         return int(io["wchar"])
 
     results = []
-    for cfg_path, out_dir, stage in runs:
-        argv = ["--config", cfg_path, "--stage", stage, "--max-steps", str(PHASE14_STEPS), "--output-dir", out_dir]
-        if rank == 0:
-            argv += ["--profile-dir", str(Path(out_dir) / "profile")]
-        w0 = io_writes()
-        _kernels.reset_launch_counts()  # ---- the main path starts here
-        t = time.perf_counter()
-        trainer = train_cli.run(argv)
-        run_s = time.perf_counter() - t
-        counts = _kernels.launch_counts()  # ---- and ends here
-        name = f"stage{stage}"
-        out = dict(counts=counts, run_s=run_s, global_step=trainer.global_step, writes=io_writes() - w0,
-                   stage=name, record={k: trainer.history[name][0][k] for k in
-                                       ("step_seconds", "peak_mem_gib", "train_loss", "val_loss")},
-                   profile=trainer.profiles.get(int(stage)), saves=trainer.checkpoints.saves)
-        if rank == 0:
-            saved = torch.load(Path(out_dir) / "checkpoints" / f"autosave_{name}" / "state.pt", map_location="cpu",
-                               weights_only=True, mmap=True)
-            mine = trainer.model.module.state_dict()
-            out["checkpoint_equal"] = saved["params"].keys() == mine.keys() and all(
-                torch.equal(saved["params"][k], v.cpu()) for k, v in mine.items())
-            out["checkpoint_zero"] = sorted(saved["opt_state"]["zero"])
-            del saved
-            shutil.rmtree(out_dir, ignore_errors=True)  # one run's checkpoints on disk at a time
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-        results.append(out)
+    with cut_presets(PHASE14_LAYERS):  # the CLI reads depth from the presets
+        for cfg_path, out_dir, stage in runs:
+            argv = ["--config", cfg_path, "--stage", stage, "--max-steps", str(PHASE14_STEPS), "--output-dir", out_dir]
+            if rank == 0:
+                argv += ["--profile-dir", str(Path(out_dir) / "profile")]
+            w0 = io_writes()
+            _kernels.reset_launch_counts()  # ---- the main path starts here
+            t = time.perf_counter()
+            trainer = train_cli.run(argv)
+            run_s = time.perf_counter() - t
+            counts = _kernels.launch_counts()  # ---- and ends here
+            name = f"stage{stage}"
+            out = dict(counts=counts, run_s=run_s, global_step=trainer.global_step, writes=io_writes() - w0,
+                       stage=name, record={k: trainer.history[name][0][k] for k in
+                                           ("step_seconds", "peak_mem_gib", "train_loss", "val_loss")},
+                       profile=trainer.profiles.get(int(stage)), saves=trainer.checkpoints.saves)
+            if rank == 0:
+                saved = torch.load(Path(out_dir) / "checkpoints" / f"autosave_{name}" / "state.pt", map_location="cpu",
+                                   weights_only=True, mmap=True)
+                mine = trainer.model.module.state_dict()
+                out["checkpoint_equal"] = saved["params"].keys() == mine.keys() and all(
+                    torch.equal(saved["params"][k], v.cpu()) for k, v in mine.items())
+                out["checkpoint_zero"] = sorted(saved["opt_state"]["zero"])
+                del saved
+                shutil.rmtree(out_dir, ignore_errors=True)  # one run's checkpoints on disk at a time
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            results.append(out)
     return results
 
 
@@ -4215,7 +4286,7 @@ def check_parity(mode: str, got: dict, want: dict, rank: int) -> str:
 def phase_parallel() -> dict:
     """Phase 14: data parallelism on torch.distributed. 14a: the three modes on two gloo ranks sharing the card
     against one process on the whole batch, and fused NT-Xent with global negatives; 14b: the training CLI on
-    configs/default.yaml at full depth in two ranks under ZeRO-1 and ZeRO-3; 14c: the CLI under torchrun,
+    configs/default.yaml at 2 layers a tower in two ranks under ZeRO-1 and ZeRO-3; 14c: the CLI under torchrun,
     one NCCL rank."""
     import os
 
@@ -4312,7 +4383,7 @@ def phase_parallel() -> dict:
         out["a_s"] = time.perf_counter() - t
         log(f"  14a: {out['a_s']:.1f} s")
 
-        # ---- 14b: the training CLI at full depth, ZeRO-1 (stage 1) and ZeRO-3 (stage 2), in one pair of ranks
+        # ---- 14b: the training CLI at 2 layers a tower, ZeRO-1 (stage 1) and ZeRO-3 (stage 2), in one pair of ranks
         t = time.perf_counter()
         out["cli"] = {}
         log("  14b: configs/default.yaml changed: " + "; ".join(PHASE14_REDUCED))
@@ -4364,6 +4435,467 @@ def phase_parallel() -> dict:
             nccl.kill()
             nccl.wait()
         shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 15: tensor and context parallelism
+
+PHASE15_DIR = ROOT / "build" / "phase15"
+SCALED = dict(vision="openai/clip-vit-large-patch14", text="gpt2-large", layers=2)  # configs/scaled_vitl_gpt2large
+TP_BATCH = 8  # 15b and 15d: stage-1 rows and stage-2 pairs of the global batch, each rank on all of them
+TP_SEQ = 128
+FCE_TP_ROWS = 2 * TP_BATCH * (TP_SEQ - 1)  # 2,032: stage 2's rows, 8 pairs x 2 sides x 127 shifted tokens
+TP_SHARD_ROWS = GPT2_VOCAB // PARALLEL_WORLD  # 25,131: a model-2 rank's block of the vocab
+TP4_SHARD_ROWS = -(-GPT2_VOCAB // 4)  # 12,566: a model-4 rank's block, the last one with 2 zero rows
+RING_ATOL, RING_GRAD_ATOL = 2e-5, 5e-5  # 15d's ring attention against plain attention, f32
+PHASE15_LAYERS = 2  # 15e: each tower's layers (ViT-L/14: 24, GPT-2 Large: 36; ViT-B/32: 12, GPT-2 Medium: 24)
+PHASE15_STEPS = 3  # 15e: a stage's steps
+CP_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_attn_fwd") + FCE_KERNELS  # the ring runs no flash kernel
+PHASE15_REDUCED = (
+    f"each tower runs {PHASE15_LAYERS} of its layers at full width (ViT-L/14 24, GPT-2 Large 36; for the CP run "
+    "ViT-B/32 12, GPT-2 Medium 24): the CLI reads depth from the presets, which the ranks and the checking process "
+    "cut; at full depth a rank's tensor-parallel checkpoint alone would write ~22 GB",
+    f"1 epoch a stage (the configs: 10 and 5), --max-steps {PHASE15_STEPS} (the CP run: stage 2 only)",
+    "gradient accumulation 1 (the configs: 4)",
+    f"model.vocab_size {GPT2_VOCAB:,} (the scaled config's own; configs/default.yaml's as phase 9)",
+    "mesh: the scaled config's own model 2 (data -1: 1 on two ranks); configs/default.yaml with seq 2",
+    "the data paths point at no file: the in-memory dummy datasets (64 images and captions a stage) take their "
+    "place; the configs' batches (16 and 8 for the scaled config, 32 and 32 for configs/default.yaml)",
+    f"the TP run saves one checkpoint, the autosave at its last step ({2 * PHASE15_STEPS}), and the stage-2 "
+    "reference; the CP run none; load_best_model_at_end off",
+    "outputs, checkpoints and logs under build/phase15, deleted at the end; wandb disabled",
+)
+
+
+def scaled_model():
+    """configs/scaled_vitl_gpt2large.yaml's towers at full width (ViT-L/14: 1,024 wide, 16 heads; GPT-2 Large:
+    1,280 wide, 20 heads; vocab 50,262), phase 4's 2 layers a tower, f32, dropout 0, seeded, on the card."""
+    from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
+    from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
+    from pgica_tpu_torch.models.presets import get_text_config, get_vision_config
+
+    return PreferenceGuidedCaptioningModel(
+        vision_model=dataclasses.replace(get_vision_config(SCALED["vision"]), num_layers=SCALED["layers"]),
+        text_model=dataclasses.replace(get_text_config(SCALED["text"]), num_layers=SCALED["layers"]),
+        projection_dim=512, tokenizer=CaptionTokenizer(), max_caption_length=TP_SEQ, vocab_size=GPT2_VOCAB,
+        dtype=torch.float32, dropout=0.0, device="cuda", seed=0)
+
+
+def local_heads(module) -> dict:
+    """The heads of one rank's attention (q rows / head_dim), and its rows of the decoder's ``wte``."""
+    def heads(attn):
+        return attn.q_proj.weight.shape[0] // attn.head_dim
+
+    return {"vit": heads(module.vision_encoder.backbone.blocks[0].attn),
+            "text": heads(module.text_encoder.backbone.blocks[0].attn),
+            "decoder": heads(module.caption_decoder.lm.blocks[0].attn),
+            "cross": heads(module.caption_decoder.cross_attention),
+            "wte_rows": module.caption_decoder.lm.wte.weight.shape[0]}
+
+
+def tp_collective_checks(tp, cp) -> dict:
+    """ppermute, copy_to, reduce_from and gather_from on CUDA tensors over gloo: each value and gradient against
+    its transpose's: {check: right}."""
+    from pgica_tpu_torch.parallel import collectives
+
+    n = PARALLEL_WORLD
+    r = cp.axis_index("seq")
+    base = torch.arange(4, dtype=torch.float32, device="cuda")
+    out = {}
+    x = (base + 10 * r).requires_grad_()
+    y = collectives.ppermute(x, "seq", [(i, (i + 1) % n) for i in range(n)], cp)  # from rank r - 1
+    (y * (r + 1)).sum().backward()  # x went to rank r + 1, whose weight is r + 2
+    out["ppermute value"] = torch.equal(y, base + 10 * ((r - 1) % n))
+    out["ppermute gradient (the inverse permutation)"] = torch.equal(x.grad, torch.full_like(base, (r + 1) % n + 1))
+    m = tp.axis_index("model")
+    x = (base + 10 * m).requires_grad_()
+    c = collectives.copy_to(x, "model", tp)
+    (c * (m + 1)).sum().backward()
+    out["copy_to: identity forward, psum backward"] = torch.equal(c, x) and torch.equal(
+        x.grad, torch.full_like(base, sum(k + 1 for k in range(n))))
+    x = (base + 10 * m).requires_grad_()
+    red = collectives.reduce_from(x, "model", tp)
+    (red * (m + 1)).sum().backward()
+    out["reduce_from: psum forward, identity backward"] = torch.equal(
+        red, n * base + 10 * sum(range(n))) and torch.equal(x.grad, torch.full_like(base, m + 1))
+    x = (base + 10 * m)[None].requires_grad_()
+    gat = collectives.gather_from(x, "model", -1, tp)
+    (gat * torch.arange(4 * n, device="cuda")).sum().backward()
+    out["gather_from: gather forward, own block backward"] = torch.equal(
+        gat[0], torch.cat([base + 10 * k for k in range(n)])) and torch.equal(
+        x.grad[0], torch.arange(4 * m, 4 * m + 4, dtype=torch.float32, device="cuda"))
+    return out
+
+
+def tp_steps(module, mesh, batches1, batches2) -> dict:
+    """Two stage-1 and two stage-2 updates under the trainer's partitions (the first at lr 0: warm-up from 0),
+    tensor-parallel on ``mesh`` (the whole batch on each rank) or on one process (``mesh`` None): metrics,
+    whether the replicated masters are bit-identical over the ranks, each step's launches, the parameters
+    (gathered)."""
+    from pgica_tpu_torch.models.model import frozen_copy
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.parallel.sharding import gathered_state_dict, tp_dims
+    from pgica_tpu_torch.training.optim import create_optimizer
+    from pgica_tpu_torch.training.train_step import TrainState, make_stage1_train_step, make_stage2_train_step
+
+    out = {"metrics": [], "identical": [], "counts": {}}
+    cut = tp_dims(module)
+    for stage, batches in ((1, batches1), (2, batches2)):
+        opt = create_optimizer(PARALLEL_LR, 10, 1, freeze_vision_backbone=True,
+                               frozen_prefixes=("caption_decoder",) if stage == 1 else ("text_encoder",))
+        state = TrainState.create(module, opt)
+        ref = frozen_copy(module, torch.float32) if stage == 2 else None
+        step = (make_stage1_train_step(module, opt, 0.5, mesh=mesh) if stage == 1
+                else make_stage2_train_step(module, opt, beta=0.1, mesh=mesh))
+        for i, b in enumerate(batches):
+            _kernels.reset_launch_counts()  # ---- a step of the path starts here
+            state, m = step(state, b, 0) if stage == 1 else step(state, ref, b, 0)
+            torch.cuda.synchronize()
+            out["counts"][f"stage{stage}_step{i}"] = _kernels.launch_counts()  # ---- and ends here
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["identical"].append(same_on_ranks([p for k, p in module.named_parameters() if k not in cut], mesh,
+                                                  "model"))
+        del ref
+    whole = gathered_state_dict(module, mesh) if cut else module.state_dict()
+    out["params"] = {k: v.detach().cpu() for k, v in whole.items()}
+    return out
+
+
+def cp_steps(module, ref, mesh, batches) -> dict:
+    """Two stage-2 updates (the first at lr 0), context-parallel on ``mesh`` (``seq``: each rank holds its half of
+    every caption) or on one process: metrics, masters bit-identical over the ranks, launches, parameters."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.training.cp_step import make_stage2_cp_train_step
+    from pgica_tpu_torch.training.optim import create_optimizer
+    from pgica_tpu_torch.training.train_step import TrainState, make_stage2_train_step
+
+    opt = create_optimizer(PARALLEL_LR, 10, 1, freeze_vision_backbone=True, frozen_prefixes=("text_encoder",))
+    state = TrainState.create(module, opt)
+    step = (make_stage2_cp_train_step(module, opt, mesh, "seq", beta=0.1, use_fused_ce=True) if mesh is not None
+            else make_stage2_train_step(module, opt, beta=0.1))
+    out = {"metrics": [], "identical": [], "counts": {}}
+    for i, b in enumerate(batches):
+        _kernels.reset_launch_counts()  # ---- a step of the path starts here
+        state, m = step(state, ref, b, 0)
+        torch.cuda.synchronize()
+        out["counts"][f"stage2_step{i}"] = _kernels.launch_counts()  # ---- and ends here
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["identical"].append(same_on_ranks(module.parameters(), mesh, "seq"))
+    out["params"] = {k: v.detach().cpu() for k, v in module.named_parameters()}
+    return out
+
+
+def ring_check(mesh) -> dict:
+    """``ring_attention`` over this rank's half of the flagship decoder's causal self-attention with a key
+    padding bias, (16, 16, 128, 64) f32, against plain attention (``xla_attention``) over the whole sequence:
+    the output block and the gradients of sum(out * g) for its q, k and v blocks; both timed, forward and
+    backward."""
+    from pgica_tpu_torch.ops.attention import xla_attention
+    from pgica_tpu_torch.ops.ring_attention import ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, h, s, d = 2 * TP_BATCH, 16, TP_SEQ, 64
+    q, k, v, g = (torch.randn(b, h, s, d, device="cuda", generator=gen) for _ in range(4))
+    lens = torch.randint(s // 3, s + 1, (b,), device="cuda", generator=gen)
+    keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, -1e9)
+    r, n = mesh.axis_index("seq"), mesh.axis_size("seq")
+    blk = slice(r * s // n, (r + 1) * s // n)
+
+    def ring_pass():
+        leaves = [t[:, :, blk].contiguous().requires_grad_() for t in (q, k, v)]
+        with mesh:
+            o = ring_attention(*leaves, "seq", causal=True, kv_bias=bias[:, blk].contiguous())
+        return (o.detach(), *torch.autograd.grad(o, leaves, g[:, :, blk]))
+
+    def plain_pass():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = xla_attention(*leaves, keep[:, None, None, :], True)
+        return (o.detach(), *torch.autograd.grad(o, leaves, g))
+
+    got, want = ring_pass(), plain_pass()
+    errs = {name: float((a - w_[:, :, blk]).abs().max()) for name, a, w_ in zip(("out", "dq", "dk", "dv"), got, want)}
+    times = {}
+    for name, fn in (("ring", ring_pass), ("plain", plain_pass)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) / 10 * 1e3
+    return dict(errs=errs, times=times, shape=f"({b}, {h}, {s // n} of {s}, {d})")
+
+
+def tp_cp_parity(rank: int, world: int, inputs: str) -> dict:
+    """15a, 15b and 15d on one rank: the collectives; the scaled config's towers cut over model 2; the
+    flagship sequence-sharded over seq 2; ring attention against plain attention."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+    from pgica_tpu_torch.parallel.sharding import shard_module, sharded_bytes
+
+    tp, cp = MeshContext(model=world), MeshContext(seq=world)
+    out = {"collectives": tp_collective_checks(tp, cp)}
+    inp = torch.load(inputs, weights_only=False)
+    model = scaled_model()
+    shard_module(model.module, tp)
+    out["bytes"], out["heads"] = sharded_bytes(model.module), local_heads(model.module)
+    out["tp"] = tp_steps(model.module, tp, inp["s1"], inp["s2"])
+    if rank:
+        del out["tp"]["params"]  # rank 0's gathered copy is the ranks' (their replicated masters are checked)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ref = parallel_model()
+    out["cp"] = cp_steps(model.module, ref, cp, inp["cp"])
+    if rank:
+        del out["cp"]["params"]
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ring"] = ring_check(cp)
+    return out
+
+
+@contextlib.contextmanager
+def cut_presets(layers: int):
+    """The presets of 15e's towers cut to ``layers`` layers for the duration (the CLI reads depth from them)."""
+    from pgica_tpu_torch.models import presets
+
+    held = {}
+    for table, names in ((presets.VISION_PRESETS, (SCALED["vision"], "openai/clip-vit-base-patch32")),
+                         (presets.TEXT_PRESETS, (SCALED["text"], "gpt2-medium"))):
+        for name in names:
+            held[(id(table), name)] = (table, table[name])
+            table[name] = dataclasses.replace(table[name], num_layers=layers)
+    try:
+        yield
+    finally:
+        for (_, name), (table, cfg) in held.items():
+            table[name] = cfg
+
+
+def digests(state) -> dict:
+    """{name: bits_digest} of a state dict, on the host."""
+    return {k: bits_digest([v.cuda()]).cpu() for k, v in state.items()}
+
+
+def tp_cp_cli(rank: int, world: int, runs: list) -> list:
+    """15e on one rank: ``scripts.train.run`` for each (config, output dir, stage) of ``runs`` with 15e's cut
+    presets (rank 0 profiles); walls, peak, launches; for a tensor-parallel run the digests of the gathered
+    parameters (rank 0) and this rank's bytes of the cut parameters."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.parallel.sharding import gathered_state_dict, sharded_bytes, tp_dims
+    from pgica_tpu_torch.scripts import train as train_cli
+
+    results = []
+    with cut_presets(PHASE15_LAYERS):
+        for cfg_path, out_dir, stage in runs:
+            argv = ["--config", cfg_path, "--stage", stage, "--max-steps", str(PHASE15_STEPS), "--output-dir", out_dir]
+            if rank == 0:
+                argv += ["--profile-dir", str(Path(out_dir) / "profile")]
+            _kernels.reset_launch_counts()  # ---- the main path starts here
+            t = time.perf_counter()
+            trainer = train_cli.run(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+            counts = _kernels.launch_counts()  # ---- and ends here
+            stages = ("stage1", "stage2") if stage == "all" else (f"stage{stage}",)
+            out = dict(counts=counts, run_s=run_s, global_step=trainer.global_step, mesh=dict(trainer.mesh.shape),
+                       records={s: {k: trainer.history[s][0][k] for k in ("step_seconds", "peak_mem_gib",
+                                                                          "train_loss", "val_loss")} for s in stages},
+                       profiles=trainer.profiles, saves=trainer.checkpoints.saves)
+            module = trainer.model.module
+            if tp_dims(module):
+                out["bytes"] = sharded_bytes(module)
+                whole = gathered_state_dict(module, trainer.mesh)
+                if rank == 0:
+                    out["digests"] = digests(whole)
+                del whole
+            del trainer, module
+            gc.collect()
+            torch.cuda.empty_cache()
+            results.append(out)
+    return results
+
+
+def phase15_config(name: str, base: str, mesh: dict, save_steps: int) -> Path:
+    """``base`` (a config under configs/) with PHASE15_REDUCED's changes and ``mesh``, written to build/phase15."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / base).read_text())
+    run = PHASE15_DIR / name
+    for stage in ("stage1", "stage2"):
+        cfg["training"][stage]["num_epochs"] = 1
+        cfg["training"][stage]["gradient_accumulation_steps"] = 1
+    cfg["training"].update(save_steps=save_steps, save_epoch_checkpoints=False, save_best_checkpoints=False,
+                           load_best_model_at_end=False)
+    cfg["model"]["vocab_size"] = GPT2_VOCAB
+    cfg["mesh"].update(mesh)
+    batch = max(cfg["training"][stage]["batch_size"] for stage in ("stage1", "stage2"))
+    cfg["data"]["dummy_samples"] = max(64, (PHASE15_STEPS + 1) * batch)  # a validation batch and the steps'
+    cfg["data"]["conceptual_captions_path"] = str(PHASE15_DIR / "no-data" / "captions.csv")
+    cfg["data"]["ultrafeedback_path"] = str(PHASE15_DIR / "no-data" / "preferences.json")
+    cfg["paths"] = {"output_dir": str(run), "checkpoint_dir": str(run / "checkpoints"),
+                    "log_dir": str(run / "logs"), "cache_dir": str(run / "cache")}
+    path = PHASE15_DIR / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def phase_tp_cp() -> dict:
+    """Phase 15: tensor and context parallelism on two gloo ranks that share the card. 15a the collectives;
+    15b the scaled config's towers at full width cut over model 2 against one process; 15c the fused-CE kernels
+    on a vocab block; 15d the flagship sequence-sharded over seq 2 against one process, ring attention against
+    plain; 15e the training CLI on configs/scaled_vitl_gpt2large.yaml (model 2) and configs/default.yaml
+    (stage 2, seq 2), its TP checkpoint loaded into one process."""
+    import os
+
+    from pgica_tpu_torch.utils import factories
+    from pgica_tpu_torch.utils.config import Config
+
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    PHASE15_DIR.mkdir(parents=True)
+    os.environ["WANDB_MODE"] = "disabled"
+    out = {"counts": {}}
+    try:
+        # ---- 15a, 15b, 15d: the ranks start; the one process takes the same steps meanwhile
+        t = time.perf_counter()
+        rng = np.random.default_rng(15)
+        inputs = {"s1": [stage1_batch(rng, TP_BATCH, TP_SEQ) for _ in range(2)],
+                  "s2": [stage2_batch(rng, TP_BATCH, TP_SEQ) for _ in range(2)],
+                  "cp": [stage2_batch(rng, TP_BATCH, TP_SEQ) for _ in range(2)]}
+        torch.save(inputs, PHASE15_DIR / "inputs.pt")
+        started = start_ranks("tp_cp_parity", str(PHASE15_DIR / "inputs.pt"), workdir=PHASE15_DIR)
+        model = scaled_model()
+        want = {"tp": tp_steps(model.module, None, inputs["s1"], inputs["s2"])}
+        whole_bytes = {k: v.numel() * v.element_size() for k, v in model.module.named_parameters()}
+        del model
+        model, ref = parallel_model()
+        want["cp"] = cp_steps(model.module, ref, None, inputs["cp"])
+        del model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  15b/15d: the one process's steps on the whole batch in {time.perf_counter() - t:.1f} s, beside the "
+            "ranks")
+        ranks = join_ranks(started)
+        for r, res in enumerate(ranks):
+            if not all(res["collectives"].values()):
+                raise AssertionError(f"15a rank {r}: {res['collectives']}")
+        log(f"  15a on CUDA tensors over gloo, both ranks: {', '.join(ranks[0]['collectives'])}: each value and "
+            "gradient right")
+        heads = ranks[0]["heads"]
+        if heads != {"vit": 8, "text": 10, "decoder": 10, "cross": 4, "wte_rows": TP_SHARD_ROWS} or any(
+                res["heads"] != heads for res in ranks):
+            raise AssertionError(f"15b: a rank's attention heads / wte rows: {[res['heads'] for res in ranks]}")
+        for r, res in enumerate(ranks):
+            local, whole = res["bytes"]
+            if 2 * local != whole:
+                raise AssertionError(f"15b rank {r}: {local} of {whole} bytes of the cut parameters")
+        cut_share = ranks[0]["bytes"][1] / sum(whole_bytes.values())
+        for mode in ("tp", "cp"):
+            res0 = dict(ranks[0][mode])
+            for r, res in enumerate(ranks):
+                verdict = check_parity(mode, {**res[mode], "params": res0["params"]}, want[mode], r)
+                log(f"  15{'b' if mode == 'tp' else 'd'} rank {r}: {len(want[mode]['metrics'])} updates against one "
+                    f"process on the whole batch: {verdict}; the replicated masters bit-identical over the ranks "
+                    "after every step")
+        for r, res in enumerate(ranks):
+            c = res["tp"]["counts"]["stage2_step1"]
+            if {k: c[k] for k in FCE_KERNELS} != {"fused_ce_fwd": 2, "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}:
+                raise AssertionError(f"15b rank {r}: a stage-2 step's fused-CE launches {c}")
+            one = want["tp"]["counts"]["stage2_step1"]
+            if any(c[k] != one[k] for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")):
+                raise AssertionError(f"15b rank {r}: flash launches {c} against one process's {one}")
+            check_main_path(f"15b stage-2 step (rank {r})", c, TRAIN_KERNELS)
+            out["counts"][f"tp_stage1_rank{r}"] = res["tp"]["counts"]["stage1_step1"]
+            out["counts"][f"tp_stage2_rank{r}"] = c
+            cc = res["cp"]["counts"]["stage2_step1"]
+            check_main_path(f"15d CP stage-2 step (rank {r})", cc, CP_KERNELS)
+            out["counts"][f"cp_stage2_rank{r}"] = cc
+        log(f"  15b: a rank's heads ViT-L 8 of 16, GPT-2 Large 10 of 20 (text tower and decoder), cross-attention 4 "
+            f"of 8; its wte {TP_SHARD_ROWS:,} of {GPT2_VOCAB:,} rows; a stage-2 step launches the fused CE forward 2, "
+            f"dh 1 and dW 1 on that block and as many flash kernels as one process, on the local heads; each rank "
+            f"holds {ranks[0]['bytes'][0]:,} of the {ranks[0]['bytes'][1]:,} bytes of the cut parameters (half; the "
+            f"cut ones are {100 * cut_share:.1f}% of the model's bytes)")
+        ring = [res["ring"] for res in ranks]
+        for r, rg in enumerate(ring):
+            e = rg["errs"]
+            if e["out"] > RING_ATOL or max(e["dq"], e["dk"], e["dv"]) > RING_GRAD_ATOL:
+                raise AssertionError(f"15d ring attention rank {r}: {e}")
+        grad_err = max(max(rg["errs"][k] for k in ("dq", "dk", "dv")) for rg in ring)
+        log(f"  15d ring_attention {ring[0]['shape']} causal, key padding, f32, both ranks: output within "
+            f"{max(rg['errs']['out'] for rg in ring):.2e} (atol {RING_ATOL}), dq/dk/dv within "
+            f"{grad_err:.2e} (atol {RING_GRAD_ATOL}) of plain "
+            f"attention over the whole sequence; forward and backward rank 0 {ring[0]['times']['ring']:.3f} ms "
+            f"(ppermutes over gloo included) against plain's {ring[0]['times']['plain']:.3f} ms on the whole "
+            f"sequence [{card()}; two ranks share this card]")
+        out["ring"] = ring[0]
+        out["ab_s"] = time.perf_counter() - t
+        log(f"  15a/15b/15d: {out['ab_s']:.1f} s")
+
+        # ---- 15c: the fused-CE kernels on a vocab block, out-of-shard targets, the global lse
+        t = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        out["fce"] = {}
+        pad = 4 * TP4_SHARD_ROWS - GPT2_VOCAB  # model 4's last block: 2 zero rows
+        for case, rows, shard in (("vocab block", TP_SHARD_ROWS, (TP_SHARD_ROWS, GPT2_VOCAB, 0)),
+                                  ("padded vocab block", TP4_SHARD_ROWS, (3 * TP4_SHARD_ROWS, GPT2_VOCAB, pad))):
+            res = fused_ce_case(case, FCE_TP_ROWS, rows, 1280, torch.bfloat16, torch.float32, gen, shard=shard)
+            for kernel, r in res.items():
+                show_timed(kernel, r)
+            out["fce"][case] = res
+        log(f"  15c: {time.perf_counter() - t:.1f} s")
+
+        # ---- 15e: the training CLI in two ranks: TP on the scaled config, then CP stage 2 on configs/default.yaml
+        t = time.perf_counter()
+        log("  15e: configs changed: " + "; ".join(PHASE15_REDUCED))
+        tp_cfg = phase15_config("tp", "scaled_vitl_gpt2large.yaml", {"model": 2}, 2 * PHASE15_STEPS)
+        cp_cfg = phase15_config("cp", "default.yaml", {"seq": 2}, 0)
+        runs = [(str(tp_cfg), str(PHASE15_DIR / "tp"), "all"), (str(cp_cfg), str(PHASE15_DIR / "cp"), "2")]
+        res = join_ranks(start_ranks("tp_cp_cli", runs, workdir=PHASE15_DIR), timeout=2 * RANK_TIMEOUT_S)
+        out["cli"] = {}
+        for i, (name, axis, kernels) in enumerate((("tp", "model", TRAIN_KERNELS), ("cp", "seq", CP_KERNELS))):
+            for r, rank_runs in enumerate(res):
+                rr = rank_runs[i]
+                steps = PHASE15_STEPS * len(rr["records"])
+                if rr["global_step"] != steps or rr["mesh"][axis] != 2:
+                    raise AssertionError(f"15e {name} rank {r}: global step {rr['global_step']}, mesh {rr['mesh']}")
+                check_main_path(f"15e {name} rank {r}", rr["counts"], kernels)
+                out["counts"][f"cli_{name}_rank{r}"] = rr["counts"]
+                if name == "tp" and 2 * rr["bytes"][0] != rr["bytes"][1]:
+                    raise AssertionError(f"15e tp rank {r}: {rr['bytes']} bytes of the cut parameters")
+                for stage, rec in rr["records"].items():
+                    st = rec["step_seconds"]
+                    prof = rr["profiles"].get(int(stage[-1])) if r == 0 else None
+                    busy = prof["device_ms"] / prof["step_ms"] if prof and prof.get("step_ms") else None
+                    log(f"  15e {name} rank {r} {stage}: steps ms " + ", ".join(f"{x * 1e3:.1f}" for x in st)
+                        + f"; median after the first {statistics.median(st[1:]) * 1e3:.1f} ms; peak "
+                        f"{rec['peak_mem_gib']:.2f} GiB; train loss {rec['train_loss']:.4f}, val loss "
+                        f"{rec['val_loss']:.4f}" + (f"; rank 0's busy share over its profiled step {100 * busy:.1f}% "
+                                                    f"(kernel time {prof['device_ms']:.1f} ms, memory copies "
+                                                    f"{prof['memcpy_ms']:.1f} ms, step {prof['step_ms']:.1f} ms)"
+                                                    if busy is not None else ""))
+                    out["cli"].setdefault(name, {}).setdefault(stage, []).append(
+                        dict(step_seconds=st, peak_mem_gib=rec["peak_mem_gib"], busy=busy))
+                log(f"  15e {name} rank {r}: run {rr['run_s']:.1f} s; checkpoints "
+                    f"{[sv['name'] for sv in rr['saves']]}")
+        # the TP run's checkpoint in one process, against the ranks' gathered parameters
+        with cut_presets(PHASE15_LAYERS):
+            one = factories.create_model(Config(str(tp_cfg)), device="cuda")
+        auto = PHASE15_DIR / "tp" / "checkpoints" / f"autosave_stage2"
+        factories.restore_params(one, auto)
+        got, gathered = digests(one.module.state_dict()), res[0][0]["digests"]
+        if got.keys() != gathered.keys() or any(not torch.equal(got[k], gathered[k]) for k in got):
+            raise AssertionError("15e: the TP checkpoint loaded into one process differs from the ranks' gathered "
+                                 "parameters")
+        log(f"  15e: {auto.relative_to(ROOT)} loaded into one process (factories.restore_params): its "
+            f"{len(got)} tensors bit-equal to the ranks' gathered parameters (digests of their bits)")
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["e_s"] = time.perf_counter() - t
+        log(f"  15e: {out['e_s']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(PHASE15_DIR, ignore_errors=True)
 
 
 FCE_SHAPE = f"({4 * 511}, 4096) x ({LLAMA_VOCAB}, 4096)"
@@ -4471,6 +5003,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase("phase 14: data parallelism on torch.distributed (14a/14b: two gloo ranks sharing the card; "
                      "14c: one NCCL rank under torchrun)", phase_parallel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_cp = phase("phase 15: tensor and context parallelism (two gloo ranks sharing the card: configs/"
+                  "scaled_vitl_gpt2large.yaml over model 2, the flagship over seq 2)", phase_tp_cp)
     serving_summary(served, serving, llama)
     log(f"  total {time.perf_counter() - t_start:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items())
         + ")")
@@ -4480,7 +5016,7 @@ def main() -> int:
              "evaluation": evaluation["counts"], "int8_serving": quant["counts"], "lora_cli": cli["lora"]["counts"],
              "grain_bpe_cli": cli["grain"]["counts"], "pretrained_serving": imported["counts"],
              "ntxent_fused": ntxent["counts"], "cross_attend_decode_step": cross["gpt2"]["counts"],
-             **parallel["counts"]}
+             **parallel["counts"], **tp_cp["counts"]}
     summary = []
     bursts = f"median of {BF16_TIMING['trials']} bursts of {BF16_TIMING['reps']}"
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
@@ -4502,6 +5038,11 @@ def main() -> int:
             g = parallel["fce"][name]
             summary[-1]["global_negatives"] = {k: g[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
                                                                    "bound_ms", "bound_by", "library_ms")}
+        for case, key in (("vocab block", "vocab_block"), ("padded vocab block", "vocab_block_padded")):
+            if name in tp_cp["fce"][case]:  # phase 15c: a model-2 (model-4) rank's block of the vocab
+                g = tp_cp["fce"][case][name]
+                summary[-1][key] = {k: g[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")}
     m, k, n = Q8_SUMMARY_SHAPE
     for name in Q8_KERNELS:
         # no TPU kernel: the JAX package's int8 dot is XLA's; the time at the engine's 16 slots through a

@@ -26,6 +26,12 @@ cross-attention stay in the compute dtype. ``shared_lm`` is the
 reference that is not registered as a child, so its parameters appear once,
 under ``shared_lm``.
 
+Under context parallelism (``ring_axis``, training/cp_step.py) the caption
+ids are this rank's sequence shard: GPT-2's ``wpe`` takes the shard's global
+positions (JAX decoder.py:118-127) and the LM's self-attention runs the
+ring; the vision token is the same on every shard. Under tensor parallelism
+the cross-attention's q/k/v/out are cut like the LM's (parallel/sharding.py).
+
 Llama has no ``wpe``: its positions come from RoPE alone, so caption tokens
 sit at 0..S-1 in training and at 1.. after the vision token at decode. That
 asymmetry is the JAX package's, and the port keeps it.
@@ -44,9 +50,12 @@ from pgica_tpu_torch.models.lm import TransformerLM
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.layernorm import LayerNorm
+from pgica_tpu_torch.parallel import collectives
 
 
 class CaptionDecoder(nn.Module):
+    ring_axis: Optional[str] = None  # the caption sequence is sharded over this mesh axis
+
     def __init__(
         self,
         config: LMConfig,
@@ -102,7 +111,9 @@ class CaptionDecoder(nn.Module):
         token_embeds = self.lm.wte(caption_ids).to(dtype)
         fused = self.fuse(token_embeds, vision_token, generator)
         if self.lm.learned_positions:
-            fused = fused + self.lm.wpe.weight[: caption_ids.shape[1]].to(dtype)[None]
+            s = caption_ids.shape[1]
+            start = 0 if self.ring_axis is None else collectives.axis_index(self.ring_axis) * s
+            fused = fused + self.lm.wpe.weight[start:start + s].to(dtype)[None]
         out = self.lm(inputs_embeds=fused, attention_mask=caption_mask, generator=generator,
                       with_logits=with_logits)
         return {key: out[key] for key in ("hidden_states", "logits") if key in out}

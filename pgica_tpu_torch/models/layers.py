@@ -8,7 +8,23 @@ heads; RoPE), the GELU and SwiGLU MLPs with dropout, and the pre-norm
 block. With ``quant`` (an inference-only twin, models/model.py) the
 attention projections and the MLP's dense layers are int8
 :class:`~pgica_tpu_torch.ops.quant.QuantDense` (JAX layers.py:79-115,
-174-190,203-215). Left out until its slice: ring attention.
+174-190,203-215).
+
+Tensor parallelism (``tp_axis``, set by parallel/sharding.py:shard_module
+on a module whose weights it cut to this rank's block): attention keeps its
+local heads and the MLP its local intermediate columns, the input passing
+through ``collectives.copy_to`` and the output projection summing its
+partial products with ``collectives.reduce_from`` before its replicated
+bias; :class:`Embedding` looks up the ids of its vocab rows and sums the
+ranks' rows. Where grouped-query k/v stay whole (the rules replicate them
+when the axis does not divide the KV heads), a rank's q heads meet their
+own KV heads, and the k/v weights' gradients, partial on each rank, are
+summed over the axis. Context parallelism (``ring_axis``, set by
+training/cp_step.py:ring_mode on the decoder): self-attention without a
+cache runs :func:`~pgica_tpu_torch.ops.ring_attention.ring_attention` over
+the sequence shards, RoPE at the shard's global positions, and the key
+padding mask as the ring's additive ``kv_bias`` (JAX layers.py:125-138,
+166-174); decode and cross-attention stay on the plain path.
 
 Every module takes the compute ``dtype`` at construction, as the Flax
 modules do. :class:`Dense` is Flax's ``Dense(dtype, param_dtype=float32)``:
@@ -40,7 +56,9 @@ from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.flash_attention import flash_attention
 from pgica_tpu_torch.ops.layernorm import LayerNorm
 from pgica_tpu_torch.ops.quant import QuantDense
+from pgica_tpu_torch.ops.ring_attention import ring_attention
 from pgica_tpu_torch.ops.rmsnorm import RMSNorm
+from pgica_tpu_torch.parallel import collectives
 
 # (k, v), each (B, H, max_len, D). Caches are plain lists of these tuples,
 # written IN PLACE at the decode position — unlike the JAX package, whose
@@ -88,6 +106,48 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+def replicated_dense(dense: Dense, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``dense(x)`` for a whole weight used by one rank's share of a tensor-parallel computation: its
+    gradients, partial on each rank, are summed over ``axis`` (``copy_to`` on the weight and bias)."""
+    bias = None if dense.bias is None else collectives.copy_to(dense.bias, axis).to(dense.dtype)
+    return F.linear(x.to(dense.dtype), collectives.copy_to(dense.weight, axis).to(dense.dtype), bias)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """A row-parallel product: this rank's input columns times its weight columns, summed over ``axis``,
+    then the replicated bias added once."""
+    y = collectives.reduce_from(F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)), axis)
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` with the vocab-parallel lookup and head of a tensor-parallel ``wte``.
+
+    With ``tp_axis`` its rows are this rank's block of the vocab: an id
+    outside it gives a zero row, and the ranks' rows are summed
+    (``reduce_from``); :meth:`attend` (the weight-tied head ``h @ W^T``)
+    gathers the ranks' logit columns.
+    """
+
+    tp_axis: Optional[str] = None
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp_axis is None:
+            return super().forward(ids)
+        rows = self.weight.shape[0]
+        local = ids - collectives.axis_index(self.tp_axis) * rows
+        inside = ((local >= 0) & (local < rows))[..., None]
+        out = F.embedding(local.clamp(0, rows - 1), self.weight) * inside.to(self.weight.dtype)
+        return collectives.reduce_from(out, self.tp_axis)
+
+    def attend(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Logits ``x @ W^T`` in ``dtype`` over the whole vocab."""
+        w = self.weight.to(dtype)
+        if self.tp_axis is None:
+            return F.linear(x, w)
+        return collectives.gather_from(F.linear(collectives.copy_to(x, self.tp_axis), w), self.tp_axis, -1)
 
 
 def dense_factory(quant: Optional[str]):
@@ -141,8 +201,13 @@ class MultiHeadAttention(nn.Module):
     position + S - 1`` (each row's own with a tensor ``position``). With
     ``quant`` the four projections are int8; ``out_proj``'s scales are per
     output channel over the flattened heads x head_dim, as the JAX
-    ``axis=(-2, -1)`` contraction gives them.
+    ``axis=(-2, -1)`` contraction gives them. ``tp_axis``, ``kv_sharded``
+    and ``ring_axis``: see the module docstring.
     """
+
+    tp_axis: Optional[str] = None  # q/k/v/out cut to this rank's heads (parallel/sharding.py)
+    kv_sharded: bool = False  # k/v cut too (else whole: grouped-query heads the axis does not divide)
+    ring_axis: Optional[str] = None  # self-attention over sequence shards (training/cp_step.py)
 
     def __init__(
         self,
@@ -209,16 +274,28 @@ class MultiHeadAttention(nn.Module):
         def heads(t: torch.Tensor) -> torch.Tensor:  # (B, S, n*D) -> (B, n, S, D)
             return t.view(b, t.shape[1], -1, self.head_dim).transpose(1, 2)
 
+        tp = self.tp_axis
+        if tp is not None:
+            x = collectives.copy_to(x, tp)
+            kv = None if kv is None else collectives.copy_to(kv, tp)
         src = x if kv is None else kv
-        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(src)), heads(self.v_proj(src))
+        q = heads(self.q_proj(x))
+        if tp is not None and not self.kv_sharded:
+            k, v = heads(replicated_dense(self.k_proj, src, tp)), heads(replicated_dense(self.v_proj, src, tp))
+        else:
+            k, v = heads(self.k_proj(src)), heads(self.v_proj(src))
         if kv is not None:
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous()) if s == 1 else \
                 xla_attention(q, k, v, None, False)
-            return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
+            return self.dropout(self._out(out.transpose(1, 2).reshape(b, s, -1)), generator)
         per_row = isinstance(position, torch.Tensor)
+        ring = self.ring_axis is not None and cache is None
         if self.use_rope:
             if per_row:
                 positions = position[:, None] + torch.arange(s, device=x.device)  # (B, S)
+            elif ring:  # this shard's global positions
+                start = collectives.axis_index(self.ring_axis) * s
+                positions = torch.arange(start, start + s, device=x.device)
             else:
                 positions = torch.arange(position, position + s, device=x.device)
             q = rotary_embedding(q, positions, self.rope_theta)
@@ -233,17 +310,29 @@ class MultiHeadAttention(nn.Module):
                 k_cache[:, :, position:position + s] = k
                 v_cache[:, :, position:position + s] = v
             k, v = k_cache, v_cache
-        if self.num_kv_heads != self.num_heads:
+        if k.shape[1] != q.shape[1]:
             rep = self.num_heads // self.num_kv_heads
             k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+            if k.shape[1] != q.shape[1]:  # whole k/v under cut q: this rank's heads meet their own KV heads
+                start = collectives.axis_index(tp) * q.shape[1]
+                k, v = k[:, start:start + q.shape[1]], v[:, start:start + q.shape[1]]
         causal = self.causal and cache is None  # decode masks through `key_bias`
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_bias, causal)
-        return self.dropout(self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), generator)
+        if ring:
+            out = ring_attention(q, k, v, self.ring_axis, causal, key_bias)
+        else:
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_bias, causal)
+        return self.dropout(self._out(out.transpose(1, 2).reshape(b, s, -1)), generator)
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_proj(x) if self.tp_axis is None else row_parallel(self.out_proj, x, self.tp_axis)
 
 
 class MLP(nn.Module):
     """``gelu`` (GPT-2, SigLIP) or ``quick_gelu`` (CLIP): fc_in, activation, fc_out; ``swiglu``
-    (Llama): down_proj(silu(gate_proj(x)) * up_proj(x)). Dropout on the output (JAX layers.py:196-232)."""
+    (Llama): down_proj(silu(gate_proj(x)) * up_proj(x)). Dropout on the output (JAX layers.py:196-232).
+    With ``tp_axis`` the intermediate columns are this rank's (column- then row-parallel)."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(
         self,
@@ -270,14 +359,20 @@ class MLP(nn.Module):
         self.dropout = FastDropout(dropout)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        tp = self.tp_axis
+        if tp is not None:
+            x = collectives.copy_to(x, tp)
         if self.kind == "swiglu":
-            return self.dropout(self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)), generator)
-        h = self.fc_in(x)
-        if self.kind == "quick_gelu":  # CLIP's activation: x * sigmoid(1.702x)
-            h = h * torch.sigmoid(1.702 * h)
-        else:  # GPT-2: flax nn.gelu(approximate=True)
-            h = F.gelu(h, approximate="tanh")
-        return self.dropout(self.fc_out(h), generator)
+            h = F.silu(self.gate_proj(x)) * self.up_proj(x)
+            out = self.down_proj
+        else:
+            h = self.fc_in(x)
+            if self.kind == "quick_gelu":  # CLIP's activation: x * sigmoid(1.702x)
+                h = h * torch.sigmoid(1.702 * h)
+            else:  # GPT-2: flax nn.gelu(approximate=True)
+                h = F.gelu(h, approximate="tanh")
+            out = self.fc_out
+        return self.dropout(out(h) if tp is None else row_parallel(out, h, tp), generator)
 
 
 class _ReplayDropout:

@@ -7,7 +7,7 @@ pre-norm blocks (GPT-2: LayerNorm, GELU, biases; Llama: RMSNorm, SwiGLU,
 RoPE, grouped-query heads, no biases), ``ln_f`` and, with ``with_lm_head``,
 the weight-tied head ``logits = h @ wte.T``. The head is one large matmul that
 the JAX package leaves to XLA outside any kernel, so it stays ``F.linear``
-here. ``with_logits=False`` skips it for one call: the stage-2 step takes
+here (``Embedding.attend``, models/layers.py). ``with_logits=False`` skips it for one call: the stage-2 step takes
 its log-probs from the hidden states through the fused linear-CE kernels,
 where XLA drops the unused logits from the JAX graph (train_step.py:268-269);
 eager PyTorch would compute and keep them.
@@ -17,6 +17,12 @@ shards over the ranks: each block runs on its weights gathered at its entry
 (a differentiable all-gather whose backward reduce-scatters the gradient)
 and drops them after; with ``remat`` the gather sits inside the
 checkpointed function, so the backward pass gathers again.
+
+Under tensor parallelism (parallel/sharding.py) ``wte`` is vocab-parallel
+(models/layers.py:Embedding): the lookup sums the ranks' rows and the tied
+head gathers their logit columns. Under context parallelism
+(``ring_axis``, training/cp_step.py) the ids are this rank's sequence shard
+and GPT-2's ``wpe`` takes the shard's global positions (JAX lm.py:175-181).
 
 ``quant`` ("int8" / "int8_weight_only") builds the blocks' matmuls as int8
 ``QuantDense`` for an inference-only twin (JAX lm.py:60-70,113); the
@@ -29,12 +35,20 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from pgica_tpu_torch.models.layers import CacheRows, KVCaches, Position, TransformerBlock, checkpointed, make_norm
+from pgica_tpu_torch.models.layers import (
+    CacheRows,
+    Embedding,
+    KVCaches,
+    Position,
+    TransformerBlock,
+    checkpointed,
+    make_norm,
+)
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.attention import key_padding_bias
+from pgica_tpu_torch.parallel import collectives
 
 
 def init_kv_cache(
@@ -55,6 +69,8 @@ def init_kv_cache(
 class TransformerLM(nn.Module):
     """Causal transformer over token ids or input embeddings, with an optional tied LM head."""
 
+    ring_axis: Optional[str] = None  # the sequence is sharded over this mesh axis (training/cp_step.py)
+
     def __init__(self, config: LMConfig, with_lm_head: bool = True, dtype: torch.dtype = torch.float32,
                  quant: Optional[str] = None):
         super().__init__()
@@ -67,7 +83,7 @@ class TransformerLM(nn.Module):
         self.config = cfg
         self.with_lm_head = with_lm_head
         self.dtype = dtype
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size)
         if not llama:  # Llama's positions come from RoPE alone
             self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.blocks = nn.ModuleList(
@@ -115,7 +131,10 @@ class TransformerLM(nn.Module):
                 raise ValueError("Provide input_ids or inputs_embeds")
             x = self.wte(input_ids).to(self.dtype)
             if self.learned_positions:
-                positions = torch.arange(position, position + input_ids.shape[1], device=input_ids.device)
+                start = position
+                if self.ring_axis is not None and caches is None:  # this shard's global positions
+                    start = collectives.axis_index(self.ring_axis) * input_ids.shape[1]
+                positions = torch.arange(start, start + input_ids.shape[1], device=input_ids.device)
                 x = x + self.wpe(positions).to(self.dtype)[None]
         else:
             x = inputs_embeds.to(self.dtype)
@@ -134,5 +153,5 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         out = {"hidden_states": x, "caches": caches}
         if self.with_lm_head and with_logits:
-            out["logits"] = F.linear(x, self.wte.weight.to(self.dtype))
+            out["logits"] = self.wte.attend(x, self.dtype)
         return out

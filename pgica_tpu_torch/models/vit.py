@@ -12,7 +12,11 @@ The patch embedding is a non-overlapping patchify by reshape plus one matmul,
 flattening each patch in (h, w, c) order — exactly the JAX ``nn.Conv`` with
 kernel = stride = patch and VALID padding (which drops the last ``size %
 patch`` rows and columns of pixels: 6 of SigLIP's 384 at patch 14), and it
-keeps cuDNN's default TF32 convolution out of float32 comparisons.
+keeps cuDNN's default TF32 convolution out of float32 comparisons. Under
+tensor parallelism (``tp_axis``, parallel/sharding.py) its output channels
+are this rank's block (the rule ``(None, None, None, "model")``), gathered
+over the axis after the product; the blocks run their tensor-parallel
+attention and MLP (models/layers.py).
 """
 
 from __future__ import annotations
@@ -27,10 +31,13 @@ from pgica_tpu_torch.models.layers import Dense, TransformerBlock, checkpointed
 from pgica_tpu_torch.models.presets import ViTConfig
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.layernorm import LayerNorm
+from pgica_tpu_torch.parallel import collectives
 
 
 class PatchEmbed(nn.Module):
     """(B, H, W, C) -> (B, N, width); ``weight`` is (width, P*P*C), no bias."""
+
+    tp_axis: Optional[str] = None  # the output channels are this rank's block of the width
 
     def __init__(self, patch_size: int, channels: int, width: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -44,7 +51,10 @@ class PatchEmbed(nn.Module):
         images = images[:, : h - h % p, : w - w % p]  # VALID: whole patches only
         x = images.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, (h // p) * (w // p), p * p * c)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.tp_axis is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        x = collectives.copy_to(x.to(self.dtype), self.tp_axis)
+        return collectives.gather_from(F.linear(x, self.weight.to(self.dtype)), self.tp_axis, -1)
 
 
 class VisionTransformer(nn.Module):

@@ -27,6 +27,13 @@ accuracy (the source notes have the error argument). The forward's scores
 take the backward's passes, so its lse is the one the backward's scores
 imply.
 
+Vocab parallelism (:func:`fused_token_logprobs_tp`, JAX :280-395): each
+rank of the ``model`` axis runs the same three kernels on its (V/tp, d)
+block of the vocab, with targets shifted into the block; a target outside
+it is no target in every kernel (it never equals a column index), so the
+kernels need no change. The shards' statistics are combined with one pmax
+and two psums, and the backward runs on each shard with the global lse.
+
 h and W may each be float32 or bf16 (the stage-2 policy passes bf16 hidden
 states with its float32 master W, the reference bf16 with bf16). Rows and
 vocab need no alignment; d must be a multiple of 8 on the card. Dispatch is
@@ -42,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from pgica_tpu_torch.ops import _kernels
+from pgica_tpu_torch.parallel import collectives
 
 GEMM_TILE = 128  # csrc/fce_gemm.cuh: kBM = kBN, the forward's tiles and the unit of the backward's vocab chunks
 MAX_GRID_Y = 65535  # CUDA's limit on a grid's second dimension: the forward's column tiles
@@ -51,10 +59,16 @@ DH_SCRATCH_BYTES = 256 * 2**20  # cap on the backward's coefficient scratch (two
 def fused_ce_fwd_ref(
     hidden: torch.Tensor, embedding: torch.Tensor, targets: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain forward: (logp, lse), both float32 (N,); the logits are computed in float32."""
+    """Plain forward: (logp, lse), both float32 (N,); the logits are computed in float32.
+
+    A target outside [0, V) is no target, as in the kernel: its row's logp is
+    ``-lse`` (a vocab shard's row whose token lies in another shard)."""
     logits = hidden.to(torch.float32) @ embedding.to(torch.float32).T
-    logp = torch.log_softmax(logits, dim=-1).gather(-1, targets.long()[:, None])[:, 0]
-    return logp, torch.logsumexp(logits, dim=-1)
+    lse = torch.logsumexp(logits, dim=-1)
+    y = targets.long()
+    inside = (y >= 0) & (y < logits.shape[-1])
+    logp = torch.log_softmax(logits, dim=-1).gather(-1, torch.where(inside, y, 0)[:, None])[:, 0]
+    return torch.where(inside, logp, -lse), lse
 
 
 def token_logprobs_ref(hidden: torch.Tensor, embedding: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -66,7 +80,7 @@ def _coeff_ref(hidden, embedding, targets, lse, g) -> torch.Tensor:
     """(onehot - p) * g, float32 (N, V), as the JAX fallback writes it (fused_ce.py:345-349)."""
     logits = hidden.to(torch.float32) @ embedding.to(torch.float32).T
     p = torch.exp(logits - lse[:, None])
-    onehot = torch.zeros_like(p).scatter_(-1, targets.long()[:, None], 1.0)
+    onehot = (torch.arange(p.shape[-1], device=p.device) == targets.long()[:, None]).to(p.dtype)  # none outside
     return (onehot - p) * g.to(torch.float32)[:, None]
 
 
@@ -268,3 +282,59 @@ def fused_token_logprobs(hidden: torch.Tensor, embedding: torch.Tensor, targets:
     if torch.is_grad_enabled() and (hidden.requires_grad or embedding.requires_grad):
         return _FusedTokenLogprobs.apply(hidden, embedding, targets)
     return fused_ce_fwd(hidden, embedding, targets)[0]
+
+
+# --------------------------------------------------- vocab-parallel (tensor-parallel) path
+
+NEG_INF = -1.0e30  # an all-padding shard's lse (JAX fused_ce.py:44)
+
+
+class _FusedTokenLogprobsTP(torch.autograd.Function):
+    """The vocab shard's forward kernel, the shards combined; backward on the shard with the global lse."""
+
+    @staticmethod
+    def forward(ctx, hidden, embedding, targets_local, mesh, axis, true_vocab):
+        logp_loc, lse_loc = fused_ce_fwd(hidden, embedding, targets_local)
+        tgt_loc = logp_loc + lse_loc  # the target's score where it lies in this shard, else 0
+        vloc = embedding.shape[0]
+        if true_vocab is not None and true_vocab < vloc * mesh.axis_size(axis):
+            # the zero rows padding the vocab to the axis each added exp(h . 0) = 1 to this shard's sum
+            n_pad = min(max(mesh.axis_index(axis) * vloc + vloc - true_vocab, 0), vloc)
+            if n_pad >= vloc:
+                lse_loc = torch.full_like(lse_loc, NEG_INF)
+            elif n_pad > 0:
+                frac = (n_pad * torch.exp(-lse_loc)).clamp(0.0, 1.0 - 1e-7)
+                lse_loc = lse_loc + torch.log1p(-frac)
+        m = collectives.pmax(lse_loc, axis, mesh)
+        lse = m + torch.log(collectives.psum(torch.exp(lse_loc - m), axis, mesh))
+        out = collectives.psum(tgt_loc, axis, mesh) - lse
+        ctx.save_for_backward(hidden, embedding, targets_local, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the cotangent of the replicated output arrives whole on every rank: no psum (unlike shard_map's
+        # transpose, JAX fused_ce.py:336); the partial dh is summed by the copy_to in front of the call
+        hidden, embedding, targets_local, lse = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        dh = fused_ce_bwd_dh(hidden, embedding, targets_local, lse, g) if ctx.needs_input_grad[0] else None
+        dw = fused_ce_bwd_dw(hidden, embedding, targets_local, lse, g) if ctx.needs_input_grad[1] else None
+        return dh, dw, None, None, None, None
+
+
+def fused_token_logprobs_tp(
+    hidden: torch.Tensor,
+    embedding_local: torch.Tensor,
+    targets: torch.Tensor,
+    axis_name: str,
+    true_vocab: Optional[int] = None,
+) -> torch.Tensor:
+    """Vocab-parallel fused linear-CE: (N, d) rows, replicated over ``axis_name``, against this rank's
+    (V/tp, d) block of the embedding (rows [index * V/tp, (index + 1) * V/tp)), GLOBAL target ids (N,)
+    -> float32 (N,) log-probs, the same on every rank. Differentiable; the embedding's gradient is this
+    rank's block. With a vocab padded by zero rows to a multiple of the axis, ``true_vocab`` is the
+    unpadded size and the pad rows' softmax terms are taken out. Call it with the mesh bound."""
+    mesh = collectives._mesh(axis_name)
+    offset = mesh.axis_index(axis_name) * embedding_local.shape[0]
+    hidden = collectives.copy_to(hidden.contiguous(), axis_name, mesh)
+    return _FusedTokenLogprobsTP.apply(hidden, embedding_local, targets - offset, mesh, axis_name, true_vocab)

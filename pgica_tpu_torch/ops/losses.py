@@ -1,4 +1,4 @@
-"""Training losses (port of pgica_tpu/ops/losses.py:32-217,287-338).
+"""Training losses (port of pgica_tpu/ops/losses.py:32-338).
 
 * ``ntxent_loss``: the symmetric InfoNCE of stage 1. With ``axis_name`` (a
   mesh axis or a tuple of them, bound by the active mesh) the negatives
@@ -13,6 +13,13 @@
 * ``sequence_logprobs`` (from logits) and ``sequence_logprobs_from_hidden``
   (through the fused linear-CE kernels, ops/fused_ce.py: the logits never
   exist): per-sequence log-probabilities under the causal shift.
+  With ``mesh`` (a ``model`` axis of more than one rank) the log-probs go
+  through the vocab-parallel fused CE on this rank's block of the vocab
+  (JAX losses.py:145-205).
+* ``cp_shift_targets``, ``cp_sequence_logprob_partials`` and
+  ``cp_sequence_logprob_partials_from_hidden``: the context-parallel
+  partial sums of one sequence shard, the causal shift crossing to the
+  next shard through ``ppermute`` (JAX losses.py:220-285).
 * ``dpo_loss``: DPO with a frozen reference (or reference-free), label
   smoothing and the four reward metrics; ``caption_cross_entropy``: the
   stage-0 token cross-entropy.
@@ -27,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from pgica_tpu_torch.ops.fused_ce import fused_token_logprobs
+from pgica_tpu_torch.ops.fused_ce import fused_token_logprobs, fused_token_logprobs_tp
 from pgica_tpu_torch.parallel import collectives
 from pgica_tpu_torch.parallel.mesh import AxisName
 
@@ -131,6 +138,36 @@ def sequence_logprobs(
     return _masked_sum(_shifted_token_logprobs(logits, input_ids), attention_mask, length_normalized)
 
 
+def _vocab_block(embedding: torch.Tensor, vocab_size: int, axis: str) -> torch.Tensor:
+    """This rank's (V/tp, d) block of the vocab: the embedding itself if it is the block already (a
+    tensor-parallel ``wte``), else a whole one padded by zero rows to a multiple of the axis and cut
+    (its gradient, partial on each rank, summed over the axis by ``copy_to``)."""
+    n = collectives.axis_size(axis)
+    if embedding.shape[0] * n == vocab_size and embedding.shape[0] != vocab_size:
+        return embedding
+    if embedding.shape[0] != vocab_size:
+        raise ValueError(f"embedding of {embedding.shape[0]} rows is neither the vocab of {vocab_size} nor "
+                         f"a block of it over {n} ranks")
+    vloc = -(-vocab_size // n)
+    whole = collectives.copy_to(embedding, axis)
+    if vloc * n != vocab_size:
+        whole = torch.cat([whole, whole.new_zeros(vloc * n - vocab_size, whole.shape[1])])
+    return whole[collectives.axis_index(axis) * vloc:(collectives.axis_index(axis) + 1) * vloc]
+
+
+def _token_logprobs(rows: torch.Tensor, embedding: torch.Tensor, targets: torch.Tensor, vocab_size: Optional[int],
+                    vocab_axis: Optional[str]) -> torch.Tensor:
+    """Fused log-probs of (N, d) rows; vocab-parallel over ``vocab_axis`` when it is given."""
+    if vocab_axis is None:
+        return fused_token_logprobs(rows, embedding, targets)
+    block = _vocab_block(embedding, vocab_size, vocab_axis)
+    return fused_token_logprobs_tp(rows, block.contiguous(), targets, vocab_axis, true_vocab=vocab_size)
+
+
+def _tp_axis(mesh, vocab_axis: str) -> Optional[str]:
+    return vocab_axis if mesh is not None and mesh.shape[vocab_axis] > 1 else None
+
+
 def sequence_logprobs_from_hidden(
     hidden: torch.Tensor,
     embedding: torch.Tensor,
@@ -138,19 +175,72 @@ def sequence_logprobs_from_hidden(
     attention_mask: torch.Tensor,
     length_normalized: bool = False,
     mesh=None,
+    vocab_size: Optional[int] = None,
+    vocab_axis: str = "model",
 ) -> torch.Tensor:
     """:func:`sequence_logprobs` with logits = hidden @ embedding^T, through the fused
-    linear-CE kernels: hidden (B, S, d), embedding (V, d) -> (B,) float32."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sequence_logprobs_from_hidden: the vocab-parallel path (mesh) waits for the tensor-parallel "
-            "slice (ROADMAP queue 1 item 9b)"
-        )
+    linear-CE kernels: hidden (B, S, d), embedding (V, d) -> (B,) float32.
+
+    With ``mesh`` whose ``vocab_axis`` has more than one rank (bound, ``with
+    mesh:``), the vocab-parallel route: ``embedding`` is this rank's block of
+    the ``vocab_size`` rows (a tensor-parallel ``wte``) or the whole table,
+    which is then padded to a multiple of the axis and cut here; the rows
+    are this rank's, replicated over the axis."""
     b, s, d = hidden.shape
     rows = hidden[:, :-1].reshape(b * (s - 1), d)
     targets = input_ids[:, 1:].reshape(-1)
-    tok_logp = fused_token_logprobs(rows, embedding, targets).reshape(b, s - 1)
+    tok_logp = _token_logprobs(rows, embedding, targets, vocab_size or embedding.shape[0],
+                               _tp_axis(mesh, vocab_axis)).reshape(b, s - 1)
     return _masked_sum(tok_logp, attention_mask, length_normalized)
+
+
+def cp_shift_targets(input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                     axis_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This shard's (targets, float32 target mask), both (B, S_local), of the global causal shift.
+
+    Local position t predicts global position t + 1: the shard's last target
+    is the next shard's first column (``ppermute``); the global final
+    position predicts nothing and is masked on the last shard. A target's
+    validity is its position's attention mask, as in the unsharded shift.
+    """
+    n = collectives.axis_size(axis_name)
+    perm = [((i + 1) % n, i) for i in range(n)]  # the next shard sends to me
+    nxt_ids = collectives.ppermute(input_ids[:, :1].contiguous(), axis_name, perm)
+    nxt_mask = collectives.ppermute(attention_mask[:, :1].contiguous(), axis_name, perm)
+    targets = torch.cat([input_ids[:, 1:], nxt_ids], dim=1)
+    tmask = torch.cat([attention_mask[:, 1:], nxt_mask], dim=1).to(torch.float32)
+    if collectives.axis_index(axis_name) == n - 1:
+        tmask[:, -1] = 0.0
+    return targets, tmask
+
+
+def cp_sequence_logprob_partials(logits: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                                 axis_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This shard's (log-prob sum, target count), both (B,), of the (B, S_local, V) logits; summed over
+    ``axis_name`` they are :func:`sequence_logprobs` of the whole sequences and their token counts."""
+    targets, tmask = cp_shift_targets(input_ids, attention_mask, axis_name)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    tok = logp.gather(-1, targets.long()[..., None])[..., 0]
+    return (tok * tmask).sum(dim=-1), tmask.sum(dim=-1)
+
+
+def cp_sequence_logprob_partials_from_hidden(
+    hidden: torch.Tensor,
+    embedding: torch.Tensor,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    axis_name: str,
+    mesh=None,
+    vocab_size: Optional[int] = None,
+    vocab_axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cp_sequence_logprob_partials` through the fused linear-CE kernels (the logits never exist);
+    with ``mesh`` whose ``vocab_axis`` has more than one rank, vocab-parallel on the shard's rows."""
+    b, s, d = hidden.shape
+    targets, tmask = cp_shift_targets(input_ids, attention_mask, axis_name)
+    tok = _token_logprobs(hidden.reshape(b * s, d), embedding, targets.reshape(-1),
+                          vocab_size or embedding.shape[0], _tp_axis(mesh, vocab_axis)).reshape(b, s)
+    return (tok * tmask).sum(dim=-1), tmask.sum(dim=-1)
 
 
 def dpo_loss(

@@ -1,1 +1,2 @@
-"""Data parallelism on ``torch.distributed``: the device mesh, its collectives, ZeRO-1 and ZeRO-3."""
+"""Parallelism on ``torch.distributed``: the device mesh, its collectives, ZeRO-1 and ZeRO-3, the partition
+rules and tensor parallelism."""

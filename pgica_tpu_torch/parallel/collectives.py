@@ -12,6 +12,21 @@ unbound axis name does. An axis of one rank makes each an identity.
 * ``psum``, ``pmean``, ``pmax``, ``psum_scatter`` (tiled on dim 0):
   forward only (the train steps use them on gradients and metrics).
 * ``axis_index``, ``axis_size``.
+* ``ppermute(x, axis, perm)``: ``lax.ppermute``, differentiable; its
+  backward sends the cotangent back along the inverse permutation (JAX's
+  transpose). A rank that no pair sends to gets zeros. It gathers ``x``
+  over the axis and each rank picks its source's block, which is right for
+  every permutation and takes the same call on NCCL and gloo.
+* The conjugate pair of Megatron's tensor parallelism, for an axis over
+  which a computation is replicated (each rank holds the same loss):
+  ``copy_to`` is the identity forward and a psum of the cotangent backward
+  (in front of a column-parallel product, whose ranks each send back a
+  partial input gradient); ``reduce_from`` is a psum forward and the
+  identity backward (after a row-parallel product, whose partial outputs
+  it sums). ``gather_from(x, axis, dim)`` concatenates the ranks' blocks
+  along ``dim`` forward and keeps this rank's block of the cotangent
+  backward (a column-parallel output needed whole: the vocab-parallel
+  logits, the patch embedding's channels).
 
 Every call into ``torch.distributed`` sits here. NCCL and gloo take the
 same calls: gloo runs ``all_gather_into_tensor``, ``reduce_scatter_tensor``
@@ -115,3 +130,92 @@ def pmax(x: torch.Tensor, axis: AxisName, mesh: Optional[MeshContext] = None) ->
 def pmean(x: torch.Tensor, axis: AxisName, mesh: Optional[MeshContext] = None) -> torch.Tensor:
     mesh = mesh or _mesh(axis)
     return psum(x, axis, mesh) / mesh.axis_size(axis)
+
+
+def _psum_raw(x: torch.Tensor, mesh: MeshContext, axis: AxisName) -> torch.Tensor:
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _permute(x: torch.Tensor, mesh: MeshContext, axis: AxisName, source: dict) -> torch.Tensor:
+    """This rank's block of ``x`` gathered over ``axis`` from ``source[my index]`` (zeros without one)."""
+    gathered = _gather(x.contiguous()[None], mesh, axis)
+    src = source.get(mesh.axis_index(axis))
+    return torch.zeros_like(x) if src is None else gathered[src].clone()
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return _permute(x, mesh, axis, {dst: src for src, dst in perm})
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _permute(grad, ctx.mesh, ctx.axis, {src: dst for src, dst in ctx.perm}), None, None, None
+
+
+def ppermute(x: torch.Tensor, axis: AxisName, perm, mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """``lax.ppermute``: rank ``src`` of ``axis`` sends ``x`` to rank ``dst`` for each (src, dst) in ``perm``."""
+    mesh = mesh or _mesh(axis)
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if mesh.axis_size(axis) == 1:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _Ppermute.apply(x, mesh, axis, perm)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _psum_raw(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _psum_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.size = mesh, axis, dim, x.shape[dim]
+        return _gather(x.movedim(dim, 0), mesh, axis).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.axis_index(ctx.axis) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size).contiguous(), None, None, None
+
+
+def copy_to(x: torch.Tensor, axis: AxisName, mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """Identity forward, psum over ``axis`` backward (Megatron's copy to the tensor-parallel region)."""
+    mesh = mesh or _mesh(axis)
+    return x if mesh.axis_size(axis) == 1 else _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: AxisName, mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """Psum over ``axis`` forward, identity backward (Megatron's reduce from the tensor-parallel region)."""
+    mesh = mesh or _mesh(axis)
+    return x if mesh.axis_size(axis) == 1 else _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, axis: AxisName, dim: int = -1, mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` in axis-index order; backward keeps this rank's block."""
+    mesh = mesh or _mesh(axis)
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim % x.dim())

@@ -7,7 +7,9 @@ JAX package's ``reshape(dcn, data, fsdp, model, seq)``: row-major, ``seq``
 fastest. ``MeshContext`` keeps one process group per axis longer than 1 and
 one for the batch axes ``("dcn", "data", "fsdp")``, over which a batch is
 split (``shard_batch``: the contiguous block of rows at this rank's index,
-as ``NamedSharding(P(("dcn", "data", "fsdp")))`` splits it).
+as ``NamedSharding(P(("dcn", "data", "fsdp")))`` splits it), and one for the
+batch axes with ``seq`` (context parallelism sums its gradients over them).
+The ranks of one batch block along ``model`` and ``seq`` see the same rows.
 
 ``with mesh:`` binds the axis names for the collectives of
 ``parallel/collectives.py``, as ``shard_map`` binds them in the JAX package.
@@ -96,7 +98,7 @@ class MeshContext:
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.distributed = initialized and n > 1
         if self.distributed:
-            for axis in [(a,) for a in AXES] + [BATCH_AXES, ("data", "fsdp")]:
+            for axis in [(a,) for a in AXES] + [BATCH_AXES, ("data", "fsdp"), BATCH_AXES + ("seq",)]:
                 self.group(axis)  # every rank creates every group, in one order
         logger.info("Mesh created: %s over %d ranks (this rank %d at %s)", self.shape, n, self.rank, self.coords)
 

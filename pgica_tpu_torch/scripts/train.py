@@ -13,10 +13,15 @@ On several cards, one process a card:
 The flags are the JAX CLI's, with ``--platform`` replaced by ``--device``
 (``cuda``, the default, or ``cpu``). Under ``torchrun`` (``WORLD_SIZE`` set)
 or in a caller that has initialized ``torch.distributed`` already, the run
-is data-parallel over the config's ``mesh`` (``mesh.zero1`` / ``mesh.zero3``
-pick ZeRO); each rank trains on the card of its ``LOCAL_RANK``, and rank 0
-alone logs and writes. A single process is the one-device path. Missing dataset paths fall back to
-in-memory dummy data, so a smoke run needs no dataset. ``main(argv)``
+is parallel over the config's ``mesh``: data-parallel over its batch axes
+(``mesh.zero1`` / ``mesh.zero3`` pick ZeRO), tensor-parallel over
+``mesh.model`` and context-parallel (stage 2) over ``mesh.seq``; each rank
+trains on the card of its ``LOCAL_RANK``, and rank 0 alone logs and writes.
+A tensor- or context-parallel run on the CPU (``--device cpu``) takes gloo
+ranks: ``torchrun --nproc_per_node=2 -m pgica_tpu_torch.scripts.train
+--config <a config with mesh.model: 2> --device cpu``. A single process is
+the one-device path. Missing dataset paths fall back to in-memory dummy
+data, so a smoke run needs no dataset. ``main(argv)``
 returns the exit code; ``run(argv)`` returns the trainer (None for a dry
 run), for callers in the same process.
 """
@@ -52,7 +57,7 @@ def run(argv: Optional[List[str]] = None):
     import torch
 
     from pgica_tpu_torch.core.device import rank_device
-    from pgica_tpu_torch.training.trainer import PreferenceGuidedTrainer, check_single_device
+    from pgica_tpu_torch.training.trainer import PreferenceGuidedTrainer
     from pgica_tpu_torch.utils.config import Config
     from pgica_tpu_torch.utils.factories import (
         create_loaders_with_fallback,
@@ -70,7 +75,6 @@ def run(argv: Optional[List[str]] = None):
         config.set("paths.checkpoint_dir", str(Path(args.output_dir) / "checkpoints"))
     if args.log_level:
         config.set("logging.level", args.log_level)
-    check_single_device(config)
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -83,8 +87,9 @@ def run(argv: Optional[List[str]] = None):
         setup_logging(None, "WARNING")
     logger = logging.getLogger("train")
     if mesh is not None:
-        logger.info("Data parallel: mesh %s over %d rank(s), this rank %d, process group backend %s", mesh.shape,
-                    mesh.num_devices, mesh.rank, torch.distributed.get_backend())
+        logger.info("Mesh %s over %d rank(s) (batch axes data parallel, model tensor parallel, seq context "
+                    "parallel), this rank %d, process group backend %s", mesh.shape, mesh.num_devices, mesh.rank,
+                    torch.distributed.get_backend())
     set_seed(config.get("training.seed", 42))
 
     tokenizer = create_tokenizer(config)

@@ -17,7 +17,9 @@ training holds the frozen base under ``params``, the factors under ``lora``
 ``meta.lora_config``; :func:`effective_params` merges them. A ZeRO run
 saves its gathered parameters and, under ``opt_state["zero"]``, the Adam
 moments gathered over the ranks (parallel/zero1.py:ZeroState.state_dict);
-only rank 0's manager writes.
+a tensor-parallel run saves its parameters and moments gathered over
+``model`` (parallel/sharding.py), laid out as one process's; only rank 0's
+manager writes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 
@@ -43,23 +45,35 @@ def _host(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def opt_state_dict(state: OptState) -> Dict[str, Any]:
-    """The optimizer state on the host: AdamW's moments and count, MultiSteps' accumulator, by name."""
+Named = Mapping[str, torch.Tensor]
+
+
+def opt_state_dict(state: OptState, whole: Optional[Callable[[Named], Named]] = None) -> Dict[str, Any]:
+    """The optimizer state on the host: AdamW's moments and count, MultiSteps' accumulator, by name;
+    ``whole`` maps each of them to whole tensors (a tensor-parallel state's gather over ``model``)."""
+    whole = whole or dict
+
+    def named(tensors):
+        return _host(whole(dict(zip(state.names, tensors))))
+
     return {
         "names": list(state.names),
         "count": int(state.count),
         "mini_step": int(state.mini_step),
-        "mu": _host(dict(zip(state.names, state.mu))),
-        "nu": _host(dict(zip(state.names, state.nu))),
-        "acc": None if state.acc is None else _host(dict(zip(state.names, state.acc))),
+        "mu": named(state.mu),
+        "nu": named(state.nu),
+        "acc": None if state.acc is None else named(state.acc),
     }
 
 
 @torch.no_grad()
-def load_opt_state(state: OptState, saved: Mapping[str, Any]) -> None:
-    """Copy a saved optimizer state into ``state`` in place; raises if the trained leaves differ."""
+def load_opt_state(state: OptState, saved: Mapping[str, Any], local: Optional[Callable[[Named], Named]] = None) -> None:
+    """Copy a saved optimizer state into ``state`` in place; raises if the trained leaves differ. ``local``
+    cuts the saved whole tensors to this rank's blocks (tensor parallelism)."""
     if list(saved["names"]) != list(state.names):
         raise ValueError("the checkpoint's optimizer trains other parameters")
+    if local is not None:
+        saved = dict(saved, **{k: None if saved[k] is None else local(saved[k]) for k in ("mu", "nu", "acc")})
     for name, p in zip(state.names, state.params):
         if saved["mu"][name].shape != p.shape:
             raise ValueError(f"optimizer state shape changed for {name}")

@@ -60,18 +60,33 @@ def warmup_cosine_schedule(learning_rate: float, warmup_steps: int, total_steps:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None, mesh=None,
+                axis: str = "model") -> torch.Tensor:
     """sqrt of the sum of squares over every element of every tensor (f32, on their device).
 
     On the CPU each tensor's norm is accumulated in float64: PyTorch's float32 CPU norm can lose
     ~2% on a large, mostly zero gradient (the 525 M-element Llama-3-8B embedding, 128 rows of it
     touched), where the card's reduction and optax's do not.
+
+    Under tensor parallelism (``sharded``: which tensors are this rank's block of a leaf cut over
+    ``axis`` of ``mesh``) the blocks' sum of squares is summed over the axis and a replicated tensor
+    counts once, so every rank gets the whole tree's norm (JAX optim.py:63-80).
     """
-    if tensors and tensors[0].device.type == "cpu":
-        norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors]
-        return torch.linalg.vector_norm(torch.stack(norms)).to(torch.float32)
-    norms = torch._foreach_norm([t.to(torch.float32) for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32)
+    cpu = tensors[0].device.type == "cpu"
+    if cpu:
+        norms = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors])
+    else:
+        norms = torch.stack(torch._foreach_norm([t.to(torch.float32) for t in tensors]))
+    if sharded is None or mesh is None or mesh.axis_size(axis) == 1 or not any(sharded):
+        return torch.linalg.vector_norm(norms).to(torch.float32)
+    from pgica_tpu_torch.parallel import collectives
+
+    cut = torch.tensor(list(sharded), device=norms.device)
+    squares = norms.square()
+    total = collectives.psum(squares[cut].sum(), axis, mesh) + squares[~cut].sum()
+    return total.sqrt().to(torch.float32)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], norm: float, max_norm: float) -> List[torch.Tensor]:
@@ -141,10 +156,12 @@ class Optimizer:
         return OptState(names, params, 0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: OptState, grad_norm: Optional[float] = None) -> None:
+    def update(self, grads: List[torch.Tensor], state: OptState, grad_norm: Optional[float] = None,
+               norm_fn: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm) -> None:
         """One micro-step with ``grads`` (aligned with ``state.params``), in place.
 
-        ``grad_norm`` is ``global_norm(grads)`` if the caller has it already.
+        ``grad_norm`` is ``norm_fn(grads)`` if the caller has it already (``norm_fn``: the tree's norm,
+        :func:`global_norm` with the tensor-parallel blocks under tensor parallelism).
         """
         if self.every_k > 1:
             if state.acc is None:
@@ -158,7 +175,7 @@ class Optimizer:
             grads, state.acc, state.mini_step = state.acc, None, 0
             grad_norm = None  # the clip's norm is the mean's
         if grad_norm is None:
-            grad_norm = float(global_norm(grads))
+            grad_norm = float(norm_fn(grads))
         self._adamw(clip_by_global_norm(grads, grad_norm, self.max_grad_norm), state)
 
     def _adamw(self, grads: List[torch.Tensor], state: OptState) -> None:

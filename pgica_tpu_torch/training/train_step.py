@@ -50,7 +50,19 @@ same update. The NaN skip reads the pmean'ed loss and the norm of the
 reduced gradients, so all ranks skip together; the metrics are pmean'ed.
 The dropout, augmentation and LoRA streams fold in the rank's batch-axis
 index (``stream_offset``; rank 0's streams are the one-device streams).
-The vocab-parallel log-probs (tensor parallelism) wait for the next slice.
+
+Tensor parallelism (a module cut over ``model`` by parallel/sharding.py:
+shard_module; JAX's ``mesh=tp_mesh`` route, trainer.py:818-821,880-902):
+the ranks of one batch block along ``model`` take the same rows and the
+same dropout and augmentation streams (the streams fold in the batch-axis
+index only), so their replicated activations are bit-equal; the layers
+make the Megatron collectives; stage 2's log-probs go through the
+vocab-parallel fused CE on this rank's block of ``wte``; the gradients are
+averaged over the batch axes only, never over ``model``, and the gradient
+norm sums the blocks' squares over ``model`` (training/optim.py). A
+``seq`` axis of more than one rank repeats a step on each of its ranks
+(stage 1, as the JAX package's GSPMD step does); stage 2 is then
+training/cp_step.py's.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
 from pgica_tpu_torch.parallel import collectives
 from pgica_tpu_torch.parallel.mesh import BATCH_AXES, AxisName, MeshContext
+from pgica_tpu_torch.parallel.sharding import tp_axis, tp_dims
 from pgica_tpu_torch.training.optim import OptState, Optimizer, global_norm
 
 Batch = Mapping[str, object]
@@ -100,30 +113,45 @@ class TrainState:
         return cls(step=0, module=module, opt_state=opt_state, lora=lora)
 
 
-def all_reduce_mean(grads: List[torch.Tensor], mesh: MeshContext, axis: AxisName = BATCH_AXES) -> List[torch.Tensor]:
-    """The mean over ``axis`` of each gradient: one all-reduce of the flat f32 buffer, then / n."""
+def all_reduce_mean(grads: List[torch.Tensor], mesh: MeshContext, axis: AxisName = BATCH_AXES,
+                    count: Optional[int] = None) -> List[torch.Tensor]:
+    """The sum over ``axis`` of each gradient divided by ``count`` (default: the axis's ranks, the mean):
+    one all-reduce of the flat f32 buffer."""
     if mesh.axis_size(axis) == 1:
         return grads
     flat = collectives.psum(torch.cat([g.reshape(-1).to(torch.float32) for g in grads]), axis, mesh)
-    flat /= mesh.axis_size(axis)
+    flat /= mesh.axis_size(axis) if count is None else count
     return [part.view_as(g).to(g.dtype) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
+def tree_norm(state: TrainState, mesh: Optional[MeshContext]) -> Callable[[List[torch.Tensor]], torch.Tensor]:
+    """The gradient tree's global norm for ``state``'s trained leaves: the tensor-parallel blocks'
+    squares summed over ``model`` (a LoRA state's factors are whole)."""
+    dims = tp_dims(state.module) if state.lora is None else {}
+    if not dims or mesh is None:
+        return global_norm
+    sharded = [name in dims for name in state.opt_state.names]
+    return lambda grads: global_norm(grads, sharded, mesh, tp_axis(state.module))
+
+
 def _apply_update(
-    state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor, mesh: Optional[MeshContext] = None
+    state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor, mesh: Optional[MeshContext] = None,
+    axis: AxisName = BATCH_AXES,
 ) -> Tuple[TrainState, torch.Tensor]:
     """NaN-safe update: skip (no update, state kept) on a non-finite loss or gradient norm.
 
-    On a mesh the gradients are first averaged over the batch ranks, and
+    On a mesh the gradients are first summed over ``axis`` and divided by
+    the batch ranks (with the default axis, averaged over them), and
     ``loss`` is the pmean'ed loss.
     """
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, state.opt_state.params)]
     if mesh is not None:
-        grads = all_reduce_mean(grads, mesh)
-    grad_norm = global_norm(grads)
+        grads = all_reduce_mean(grads, mesh, axis, mesh.data_parallel_size)
+    norm_fn = tree_norm(state, mesh)
+    grad_norm = norm_fn(grads)
     norm = float(grad_norm)  # the step's one host sync (with the loss)
     if math.isfinite(float(loss)) and math.isfinite(norm):
-        optimizer.update(grads, state.opt_state, norm)
+        optimizer.update(grads, state.opt_state, norm, norm_fn)
     else:
         state.skipped += 1
     state.step += 1
@@ -373,12 +401,23 @@ def decoder_embedding(module: nn.Module) -> torch.Tensor:
     return module.caption_decoder.lm.wte.weight
 
 
+def decoder_vocab(module: nn.Module) -> int:
+    """The decoder's whole vocab (its ``wte`` may hold one rank's block of it)."""
+    return module.caption_decoder.lm.config.vocab_size
+
+
+def vocab_mesh(module: nn.Module, mesh: Optional[MeshContext]) -> Optional[MeshContext]:
+    """``mesh`` where the log-probs take the vocab-parallel route: a module cut over its ``model`` axis."""
+    return mesh if mesh is not None and tp_axis(module) is not None else None
+
+
 def _policy_pair_logprobs(
     module: nn.Module,
     images: torch.Tensor,
     batch: Dict[str, torch.Tensor],
     generator: Optional[torch.Generator],
     length_normalized: bool,
+    mesh: Optional[MeshContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One vision encode + ONE decoder pass over [chosen; rejected] -> (chosen, rejected) log-probs (B,)."""
     b = images.shape[0]
@@ -388,7 +427,8 @@ def _policy_pair_logprobs(
     vis2 = torch.cat([vision["embeddings"], vision["embeddings"]], dim=0)
     dec = module.decode_train(ids, mask, vis2, generator, with_logits=False)
     logps = sequence_logprobs_from_hidden(dec["hidden_states"], decoder_embedding(module), ids, mask,
-                                          length_normalized)
+                                          length_normalized, mesh=vocab_mesh(module, mesh),
+                                          vocab_size=decoder_vocab(module))
     return logps[:b], logps[b:]
 
 
@@ -401,14 +441,16 @@ def stage2_loss_fn(
     reference_free: bool,
     length_normalized: bool,
     label_smoothing: float,
+    mesh: Optional[MeshContext] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """DPO of the policy ``module`` (dropout from ``generator``) against ``ref_module`` (no dropout, no grad)."""
+    """DPO of the policy ``module`` (dropout from ``generator``) against ``ref_module`` (no dropout, no grad);
+    ``mesh`` for the vocab-parallel log-probs of a tensor-parallel module."""
     images = prepare_images(batch["image"])
-    pc, pr = _policy_pair_logprobs(module, images, batch, generator, length_normalized)
+    pc, pr = _policy_pair_logprobs(module, images, batch, generator, length_normalized, mesh)
     rc = rr = None
     if not reference_free and ref_module is not None:
         with torch.no_grad():
-            rc, rr = _policy_pair_logprobs(ref_module, images, batch, None, length_normalized)
+            rc, rr = _policy_pair_logprobs(ref_module, images, batch, None, length_normalized, mesh)
     loss, metrics = dpo_loss(pc, pr, rc, rr, beta=beta, label_smoothing=label_smoothing,
                              reference_free=reference_free)
     metrics["loss"] = loss
@@ -447,8 +489,8 @@ def make_stage2_train_step(
         batch = _on_device(batch, state.opt_state.params[0].device, PAIR_KEYS)
         batch = _augmented(batch, augment, seed, state.step, stream_offset(mesh))
         return _grad_step(state, optimizer, seed, lambda gen: stage2_loss_fn(
-            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing), lora,
-            mesh)
+            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing,
+            mesh), lora, mesh)
 
     return step
 
@@ -463,7 +505,7 @@ def make_stage2_loss(module: nn.Module, ref_module: Optional[nn.Module], beta: f
         device, offset = _device(module), stream_offset(mesh)
         batch = _augmented(_on_device(batch, device, PAIR_KEYS), augment, seed, step, offset)
         return stage2_loss_fn(module, ref_module, batch, step_generator(device, seed, step, offset), beta,
-                              reference_free, length_normalized, label_smoothing)
+                              reference_free, length_normalized, label_smoothing, mesh)
 
     return loss_fn
 
@@ -484,9 +526,9 @@ def make_stage2_eval_step(
     @torch.no_grad()
     def step(ref_module: Optional[nn.Module], batch: Batch):
         batch = _on_device(batch, _device(module), PAIR_KEYS)
-        with _adapted(module, adapters, lora):
+        with _bound(mesh), _adapted(module, adapters, lora):
             loss, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free,
-                                           length_normalized, 0.0)
+                                           length_normalized, 0.0, mesh)
         del metrics["policy_chosen_logp"], metrics["policy_rejected_logp"]  # as the JAX eval step
         return reduce_metrics(metrics, mesh, batch["image"].shape[0])
 

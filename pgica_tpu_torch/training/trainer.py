@@ -26,9 +26,21 @@ Differences from the JAX trainer:
   parameters not sharded at rest. Validation reduces over the ranks,
   weighted by rows. Only rank 0 writes checkpoints (gathered parameters;
   the ZeRO Adam state gathered too, so that a resume on as many ranks is
-  bit-identical), ``results.json`` and the logged metrics. Tensor and
-  sequence parallelism (``mesh.model``/``mesh.seq`` > 1) raise: they are
-  the next slice (ROADMAP queue 1 item 9b).
+  bit-identical), ``results.json`` and the logged metrics.
+* Tensor parallelism (``mesh.model`` > 1; JAX trainer.py:815-821): the
+  trainer cuts the model over ``model`` at construction
+  (parallel/sharding.py:shard_module, the layers' Megatron collectives),
+  and stage 2's log-probs take the vocab-parallel fused CE. It is off under
+  LoRA, as in JAX (the ranks of ``model`` then repeat the step). A
+  tensor-parallel checkpoint holds the gathered parameters and Adam
+  moments, laid out as one process's, so a resume cuts them onto any
+  ``model`` degree, one process included.
+* Context parallelism (``mesh.seq`` > 1; JAX trainer.py:822-876): stage 2
+  runs training/cp_step.py's step, the caption columns sharded over
+  ``seq``; stage 0 and 1 repeat on each rank of ``seq``, as JAX's GSPMD
+  step does; the length buckets stay multiples of ``mesh.seq``. It refuses
+  LoRA and a ``data.max_caption_length`` that ``mesh.seq`` does not divide.
+  ZeRO refuses ``model`` or ``seq`` > 1.
 * LoRA (``model.lora_config``; JAX trainer.py:201-260,494-507,612-625,
   686-725,1131-1162,1232-1237): stages 1 and 2 train the model's adapter
   factors only (the optimizer holds nothing else, so no partition
@@ -72,9 +84,11 @@ from pgica_tpu_torch.models.lora import fold_lora, lora_from_tree, lora_to_tree,
 from pgica_tpu_torch.models.model import frozen_copy
 from pgica_tpu_torch.parallel import collectives
 from pgica_tpu_torch.parallel.mesh import BATCH_AXES
+from pgica_tpu_torch.parallel.sharding import gathered_state_dict, local_state, shard_module, sharded_bytes, tp_dims
 from pgica_tpu_torch.parallel.zero1 import ZeroState, make_zero1_train_step
 from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
-from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state
+from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state, opt_state_dict
+from pgica_tpu_torch.training.cp_step import make_stage2_cp_eval_step, make_stage2_cp_train_step
 from pgica_tpu_torch.training.optim import create_optimizer, warmup_cosine_schedule
 from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
 from pgica_tpu_torch.training.train_step import (
@@ -113,15 +127,6 @@ def stage_seed(seed: int, stage: int) -> int:
     return purpose_seed(seed, f"train_stage{stage}")
 
 
-def check_single_device(config, mesh=None) -> None:
-    """Raise on the parallel settings that the port does not run: tensor and context parallelism."""
-    for axis, what in (("seq", "context parallelism"), ("model", "tensor parallelism")):
-        size = mesh.shape[axis] if mesh is not None else int(config.get(f"mesh.{axis}", 1) or 1)
-        if size > 1:
-            raise NotImplementedError(f"mesh.{axis} > 1: {what} is the next slice of the port, with tensor "
-                                      "and context parallelism (ROADMAP queue 1 item 9b)")
-
-
 @contextmanager
 def _without(module: nn.Module, child: str):
     """``module`` with one child taken out for the duration (a copy made inside lacks it)."""
@@ -149,7 +154,6 @@ class PreferenceGuidedTrainer:
         profile_dir: Optional[str] = None,
         max_steps_per_epoch: Optional[int] = None,
     ):
-        check_single_device(config, mesh)
         self.model = model
         self.config = config
         self.mesh = mesh
@@ -166,6 +170,11 @@ class PreferenceGuidedTrainer:
                     raise ValueError("on a device mesh the loaders must yield each rank's rows "
                                      "(data/loader.py:DataLoader.set_shard)")
                 loader.set_shard(mesh)
+        if mesh is not None and mesh.shape["model"] > 1 and self._lora_static is None:  # TP is off under LoRA
+            shard_module(model.module, mesh)
+            local, whole = sharded_bytes(model.module)
+            logger.info("Tensor parallel over model (%d ranks): this rank holds %d of %d bytes of the cut "
+                        "parameters", mesh.shape["model"], local, whole)
 
         self.output_dir = Path(output_dir or config.get("paths.output_dir", "./outputs"))
         self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -195,6 +204,7 @@ class PreferenceGuidedTrainer:
             self._buckets = tuple(config.get("training.length_buckets") or default_buckets(max_len))
         else:
             self._buckets = None
+        self._seq_multiple = mesh.shape["seq"] if mesh is not None else 1  # buckets the seq axis divides
         self.history: Dict[str, List] = {"stage0": [], "stage1": [], "stage2": []}
         self._setup_tracking()
 
@@ -268,7 +278,7 @@ class PreferenceGuidedTrainer:
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         arrays.pop("preference_score", None)
         if self._buckets is not None:
-            arrays = bucket_batch(arrays, self._buckets, global_len=self._global_len)
+            arrays = bucket_batch(arrays, self._buckets, self._seq_multiple, global_len=self._global_len)
         return arrays
 
     def _global_len(self, length: int) -> int:
@@ -419,20 +429,31 @@ class PreferenceGuidedTrainer:
         return min(epoch + 1, num_epochs), 0
 
     def _ckpt_payload(self, state=None) -> Dict[str, Any]:
-        """Checkpoint content: every parameter by name (a dropped tower from host memory; under ZeRO
-        gathered, on every rank); with LoRA the masters are the frozen base, beside the factors and their
-        config."""
+        """Checkpoint content: every parameter by name (a dropped tower from host memory; under ZeRO and
+        tensor parallelism gathered, on every rank); with LoRA the masters are the frozen base, beside the
+        factors and their config."""
         if isinstance(state, ZeroState):
             return {"params": state.params.state_dict()}
-        payload = {"params": self.model.module.state_dict()}
+        payload = {"params": self._whole(self.model.module)}
         if self._lora_static is not None:
             payload.update(lora=lora_to_tree(self.model.lora), lora_config=dict(self.model.lora_config))
         return payload
 
-    @staticmethod
-    def _opt_payload(state):
-        """The state's optimizer state as a checkpoint holds it (under ZeRO gathered: every rank calls it)."""
-        return state.state_dict() if isinstance(state, ZeroState) else state.opt_state
+    def _whole(self, module: nn.Module, tensors=None) -> Dict[str, torch.Tensor]:
+        """``module``'s state (or ``tensors`` by its parameter names) whole: gathered over ``model`` where
+        the module is cut (every rank calls it)."""
+        if tp_dims(module):
+            return gathered_state_dict(module, self.mesh, tensors)
+        return module.state_dict() if tensors is None else dict(tensors)
+
+    def _opt_payload(self, state):
+        """The state's optimizer state as a checkpoint holds it (under ZeRO and tensor parallelism
+        gathered: every rank calls it)."""
+        if isinstance(state, ZeroState):
+            return state.state_dict()
+        if tp_dims(self.model.module):
+            return opt_state_dict(state.opt_state, lambda named: self._whole(self.model.module, named))
+        return state.opt_state
 
     def _maybe_autosave(self, stage: int, epoch: int, step_idx: int, state: TrainState):
         if not self.save_steps or self.global_step % self.save_steps != 0 or stage == 0:
@@ -575,10 +596,10 @@ class PreferenceGuidedTrainer:
                     for n, w in merged_targets(policy, self.model.lora, lora[0], lora[1]).items():
                         ref.get_parameter(n).copy_(w)
         if self._resume is not None and self._resume.get("stage") == 2 and path.exists():
-            ref.load_state_dict(self.checkpoints.restore(name)["params"])
+            ref.load_state_dict(local_state(ref, self.mesh, self.checkpoints.restore(name)["params"]))
             logger.info("Restored stage-2 DPO reference (stage-2 start policy) from %s", path)
         elif self.save_steps or self.save_epoch_checkpoints or self.save_best_checkpoints:
-            self.checkpoints.save(name, ref.state_dict(), stage=2)
+            self.checkpoints.save(name, self._whole(ref), stage=2)
         return ref
 
     def train_stage2(self) -> Dict[str, Any]:
@@ -609,10 +630,22 @@ class PreferenceGuidedTrainer:
         dpo = dict(beta=float(cfg.get("dpo_beta", 0.1)), reference_free=reference_free,
                    length_normalized=bool(cfg.get("length_normalized", False)))
         label_smoothing = float(cfg.get("label_smoothing", 0.0))
-        eval_step = make_stage2_eval_step(module, lora=lora and lora[:2], adapters=self.model.lora, mesh=self.mesh,
-                                          **dpo)
         seed = stage_seed(self.seed, 2)
         ref_shards = None
+        cp = self.mesh is not None and self.mesh.shape["seq"] > 1
+        if cp and not zero:
+            if lora is not None:
+                raise ValueError("mesh.seq context parallelism composes with dcn/data/fsdp and model axes but not "
+                                 "with LoRA")
+            seq_len = int(self.config.get("data.max_caption_length", 128))
+            if seq_len % self.mesh.shape["seq"]:
+                raise ValueError(f"max_caption_length {seq_len} not divisible by mesh.seq {self.mesh.shape['seq']}")
+        if cp and not zero:
+            use_fused = bool(self.config.get("pallas.fused_cross_entropy", True))
+            eval_step = make_stage2_cp_eval_step(module, self.mesh, "seq", use_fused_ce=use_fused, **dpo)
+        else:
+            eval_step = make_stage2_eval_step(module, lora=lora and lora[:2], adapters=self.model.lora,
+                                              mesh=self.mesh, **dpo)
         if zero:
             loss_fn = make_stage2_loss(module, ref, label_smoothing=label_smoothing, augment=True, mesh=self.mesh,
                                        **dpo)
@@ -625,8 +658,12 @@ class PreferenceGuidedTrainer:
             optimizer = self._make_optimizer(2, len(self.preference_train_loader))
             state = self._maybe_resume_opt_state(
                 TrainState.create(module, optimizer, self.model.lora if lora else None))
-            step = make_stage2_train_step(module, optimizer, label_smoothing=label_smoothing, augment=True, lora=lora,
-                                          mesh=self.mesh, **dpo)
+            if cp:
+                step = make_stage2_cp_train_step(module, optimizer, self.mesh, "seq", label_smoothing=label_smoothing,
+                                                 augment=True, use_fused_ce=use_fused, **dpo)
+            else:
+                step = make_stage2_train_step(module, optimizer, label_smoothing=label_smoothing, augment=True,
+                                              lora=lora, mesh=self.mesh, **dpo)
 
             def train_step(st, b):
                 return step(st, ref, b, seed)
@@ -844,8 +881,9 @@ class PreferenceGuidedTrainer:
         logger.info("Folded LoRA adapters into model params for inference")
 
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Copy a checkpoint's parameters into the model's masters, in place."""
-        self.model.module.load_state_dict(params)
+        """Copy a checkpoint's parameters into the model's masters, in place (cut to this rank's blocks
+        under tensor parallelism)."""
+        self.model.module.load_state_dict(local_state(self.model.module, self.mesh, params))
 
     def _load_best_at_end(self) -> bool:
         """Leave the best-val-loss checkpoint on the model (HF Trainer semantics): stage 2's, else 1's.
@@ -936,7 +974,7 @@ class PreferenceGuidedTrainer:
         if restored is None:
             return state
         try:
-            load_opt_state(state.opt_state, restored)
+            load_opt_state(state.opt_state, restored, lambda named: local_state(self.model.module, self.mesh, named))
         except (ValueError, KeyError) as e:
             logger.warning("Could not resume optimizer state (%s); starting fresh", e)
             return state

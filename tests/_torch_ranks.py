@@ -262,15 +262,21 @@ def _port_trainer(cfg_dict, params, mesh):
 
 
 def _params_of(trainer):
-    return {k: v.detach().clone() for k, v in trainer.model.module.named_parameters()}
+    """The trainer's parameters by name, whole (gathered over ``model`` from a tensor-parallel model)."""
+    from pgica_tpu_torch.parallel.sharding import gathered_state_dict, tp_dims
+
+    module = trainer.model.module
+    named = {k: v.detach().clone() for k, v in module.named_parameters()}
+    return gathered_state_dict(module, trainer.mesh, named) if tp_dims(module) else named
 
 
 def trainer_cases(rank: int, world: int, workdir: Path):
-    """The trainer in the three modes (augmentation the identity, as on the JAX side), a ZeRO-1 resume
+    """The trainer in the five modes (augmentation the identity, as on the JAX side), a ZeRO-1 resume
     and the CLI, on this rank."""
     from pgica_tpu_torch.parallel.mesh import MeshContext
     from pgica_tpu_torch.scripts import train as cli
     from pgica_tpu_torch.training import train_step
+    from pgica_tpu_torch.utils.config import Config
 
     inp = torch.load(workdir / "inputs.pt", weights_only=False)
     mesh = MeshContext(data=world)
@@ -279,7 +285,8 @@ def trainer_cases(rank: int, world: int, workdir: Path):
     train_step.augment_batch = _identity_augment
     try:
         for mode, cfg in inp["modes"].items():
-            trainer = _port_trainer(cfg, inp["params_scan" if mode == "zero3" else "params"], mesh)
+            trainer = _port_trainer(cfg, inp["params_scan" if mode == "zero3" else "params"],
+                                    MeshContext.from_config(Config(config_dict=cfg)))
             trainer.train()
             out[mode] = {"history": trainer.history, "global_step": trainer.global_step, "params": _params_of(trainer),
                          "saves": [s["name"] for s in trainer.checkpoints.saves]}
@@ -306,11 +313,13 @@ def trainer_cases(rank: int, world: int, workdir: Path):
         out["resume"]["moments_equal"] = all(torch.equal(x, y) for k in ("mu", "nu") for x, y in zip(a[k], b[k]))
         out["resume"]["count"] = (a["count"], b["count"])
 
-    # the CLI, as torchrun would start it (the group is up already)
-    trainer = cli.run(inp["cli"])
-    out["cli"] = {"global_step": trainer.global_step, "writer": trainer.is_writer,
-                  "results": (Path(inp["cli_out"]) / "results.json").exists(),
-                  "snapshot": (Path(inp["cli_out"]) / "config_snapshot.yaml").exists()}
+    # the CLI, as torchrun would start it (the group is up already): ZeRO-1, then model 2 and seq 2
+    for key in ("cli", "cli_tp", "cli_cp"):
+        trainer = cli.run(inp[key])
+        out_dir = Path(inp[key][inp[key].index("--output-dir") + 1])
+        out[key] = {"global_step": trainer.global_step, "writer": trainer.is_writer, "mesh": trainer.mesh.shape,
+                    "results": (out_dir / "results.json").exists(),
+                    "snapshot": (out_dir / "config_snapshot.yaml").exists()}
     return out
 
 
@@ -328,7 +337,10 @@ def jax_trainer_reference(workdir: Path, mode: str):
     from pgica_tpu.utils import factories as jfactories
     from pgica_tpu.utils.config import Config as JaxConfig
 
+    from pgica_tpu.training import cp_step as jax_cp_step
+
     jax_train_step.augment_batch = lambda key, images, enabled=True: images
+    jax_cp_step.augment_batch = jax_train_step.augment_batch  # the CP step's own import
     inp = torch.load(workdir / "inputs.pt", weights_only=False)
     cfg = JaxConfig(config_dict=inp["modes"][mode])
     tok = jfactories.create_tokenizer(cfg)
@@ -337,7 +349,7 @@ def jax_trainer_reference(workdir: Path, mode: str):
     s1 = jfactories.create_loaders_with_fallback(cfg, *procs, kind="conceptual")
     s2 = jfactories.create_loaders_with_fallback(cfg, *procs, kind="ultrafeedback")
     trainer = JaxTrainer(model, cfg, train_loader=s1[0], val_loader=s1[1], preference_train_loader=s2[0],
-                         preference_val_loader=s2[1], mesh=JaxMesh(data=2, devices=jax.devices()[:2]))
+                         preference_val_loader=s2[1], mesh=JaxMesh.from_config(cfg, devices=jax.devices()[:2]))
     trainer.train()
     params = _port_model_of(cfg, jax.tree.map(np.asarray, trainer.model.params))
     return {"history": trainer.history, "global_step": trainer.global_step, "params": params}

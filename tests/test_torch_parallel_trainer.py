@@ -2,20 +2,26 @@
 
 configs/smoke.yaml's tiny presets with ``mesh.data: 2``, dropout 0, a global
 batch of 4 (2 rows a rank), the same dummy data, stage 1 then stage 2, in
-the three modes (two steps a stage): replicated data parallelism, ZeRO-1 and ZeRO-3
-(``model.scan_layers: true``, which the port reads for the check only).
-The JAX trainer runs each mode on a 2-device CPU mesh, one spawned JAX
-process a mode, while the port's two ranks (tests/_torch_ranks.py; torch
-and the port only) run all three. Augmentation is the identity on both
+five modes (two steps a stage): replicated data parallelism, ZeRO-1 and ZeRO-3
+(``model.scan_layers: true``, which the port reads for the check only),
+tensor parallelism (``mesh.model: 2``, both ranks on the whole batch) and
+context parallelism (``mesh.seq: 2``: stage 1 repeated on both ranks, stage
+2 sequence-sharded). The JAX trainer runs each mode on a 2-device CPU mesh,
+one spawned JAX process a mode, while the port's two ranks
+(tests/_torch_ranks.py; torch and the port only) run all five. Augmentation is the identity on both
 sides, as in tests/test_torch_trainer.py. Tolerances: every epoch's train
 and validation loss rel 1e-5; the final parameters within Adam's bound (2 lr
 an update), all but a share below 2% of the elements (the key biases apart)
 within 1e-6, tests/test_torch_trainer.py's rule.
 
 Then the port alone: a mid-epoch ZeRO-1 autosave resumed ends bit for bit
-where the uninterrupted run ends (dropout and augmentation on); only rank 0
-writes; ``scripts.train.run`` in the two ranks; and JAX's configuration
-errors, each raised by both trainers for the same configuration.
+where the uninterrupted run ends (dropout and augmentation on); the
+tensor-parallel run's last checkpoint, loaded by a trainer in one process,
+holds the ranks' gathered parameters bit for bit and whole Adam moments
+that its optimizer takes; only rank 0 writes; ``scripts.train.run`` in the
+two ranks, under ZeRO-1, ``mesh.model: 2`` and ``mesh.seq: 2``; and JAX's
+configuration errors, each raised by both trainers for the same
+configuration, the tensor- and context-parallel refusals among them.
 """
 
 import math
@@ -33,7 +39,7 @@ from pgica_tpu_torch.utils import factories
 from pgica_tpu_torch.utils.config import Config
 
 LR, LOSS_RTOL, PARAM_ATOL, LOOSE_SHARE = 1e-3, 1e-5, 1e-6, 0.02
-MODES = ("replicated", "zero1", "zero3")
+MODES = ("replicated", "zero1", "zero3", "tp", "cp")
 SMOKE = Path(__file__).resolve().parent.parent / "configs" / "smoke.yaml"
 
 
@@ -77,27 +83,33 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("trainer")
     modes = {"replicated": _config(tmp, "replicated"),
              "zero1": _config(tmp, "zero1", **{"mesh.zero1": True}),
-             "zero3": _config(tmp, "zero3", **{"mesh.zero3": True, "model.scan_layers": True})}
+             "zero3": _config(tmp, "zero3", **{"mesh.zero3": True, "model.scan_layers": True}),
+             "tp": _config(tmp, "tp", **{"mesh.data": 1, "mesh.model": 2}),
+             "cp": _config(tmp, "cp", **{"mesh.data": 1, "mesh.seq": 2})}
     resume = {"training.stage1.num_epochs": 2, "model.dropout": 0.1, "mesh.zero1": True,
               "training.stage2.num_epochs": 0}
-    cli_cfg = _config(tmp, "cli", **{"mesh.zero1": True})
-    (tmp / "cli.yaml").write_text(yaml.safe_dump(cli_cfg))
+    clis = {"cli": {"mesh.zero1": True}, "cli_tp": {"mesh.data": 1, "mesh.model": 2},
+            "cli_cp": {"mesh.data": 1, "mesh.seq": 2}}
+    for name, overrides in clis.items():
+        (tmp / f"{name}.yaml").write_text(yaml.safe_dump(_config(tmp, name, **overrides)))
     inputs = {
         "modes": modes,
         "params": jax.tree.map(np.asarray, _jax_model(modes["replicated"]).params),
         "params_scan": jax.tree.map(np.asarray, _jax_model(modes["zero3"]).params),
         "resume": {"full": _config(tmp, "full", **{**resume, "training.save_steps": 3}),
                    "resumed": _config(tmp, "resumed", **resume)},
-        "cli": ["--config", str(tmp / "cli.yaml"), "--device", "cpu", "--max-steps", "2",
-                "--output-dir", str(tmp / "cli_out")],
-        "cli_out": str(tmp / "cli_out"),
+        **{name: ["--config", str(tmp / f"{name}.yaml"), "--device", "cpu", "--max-steps", "2",
+                  "--output-dir", str(tmp / f"{name}_out")] for name in clis},
     }
     torch.save(inputs, tmp / "inputs.pt")
     ranks = _torch_ranks.start("_torch_ranks.trainer_cases", tmp, 2)
     refs = {}
     for mode in MODES:
         (tmp / f"jax_{mode}").mkdir()
-        torch.save(inputs, tmp / f"jax_{mode}" / "inputs.pt")
+        # the JAX trainer writes its outputs and checkpoints apart: the port's TP checkpoint is read back below
+        jax_inputs = {**inputs, "modes": {**inputs["modes"], mode: {**inputs["modes"][mode], "paths": {
+            key: str(tmp / f"jax_{mode}" / key) for key in inputs["modes"][mode]["paths"]}}}}
+        torch.save(jax_inputs, tmp / f"jax_{mode}" / "inputs.pt")
         refs[mode] = _torch_ranks.start_jax("_torch_ranks.jax_trainer_reference", tmp / f"jax_{mode}", (mode,))
     jax_out = {mode: _torch_ranks.finish(handle, timeout=600)[0] for mode, handle in refs.items()}
     return {"ranks": _torch_ranks.finish(ranks, timeout=600), "jax": jax_out, "inputs": inputs}
@@ -147,6 +159,33 @@ def test_cli_runs_in_two_ranks(runs):
     assert runs["ranks"][0]["cli"]["results"] and runs["ranks"][0]["cli"]["snapshot"]
 
 
+@pytest.mark.parametrize("key, axis", [("cli_tp", "model"), ("cli_cp", "seq")])
+def test_cli_trains_tensor_and_context_parallel_in_two_ranks(runs, key, axis):
+    for out in runs["ranks"]:
+        assert out[key]["global_step"] == 4 and out[key]["mesh"][axis] == 2
+    assert runs["ranks"][0][key]["results"] and not runs["ranks"][1][key]["writer"]
+
+
+def test_tp_checkpoint_resumes_in_one_process(runs):
+    """The tensor-parallel run's last checkpoint holds the gathered parameters and whole Adam moments: a
+    trainer in one process loads them bit for bit, and its optimizer takes the moments."""
+    from pgica_tpu_torch.training.train_step import TrainState
+
+    cfg = runs["inputs"]["modes"]["tp"]
+    trainer = _torch_ranks._port_trainer(cfg, None, None)
+    meta = trainer.load_checkpoint(Path(cfg["paths"]["checkpoint_dir"]) / "checkpoint_stage2_epoch0")
+    assert meta["global_step"] == 4 and trainer.mesh is None
+    got = trainer.model.module.state_dict()
+    want = runs["ranks"][0]["tp"]["params"]
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    saved = trainer._restored_opt_state
+    state = trainer._maybe_resume_opt_state(
+        TrainState.create(trainer.model.module, trainer._make_optimizer(2, len(trainer.preference_train_loader))))
+    assert state.step == 4 and state.opt_state.count == saved["count"] > 0
+    for name, mu in zip(state.opt_state.names, state.opt_state.mu):
+        assert mu.shape == got[name].shape and torch.equal(mu, saved["mu"][name])
+
+
 def test_the_ranks_import_neither_jax_nor_the_jax_package(runs):
     assert all(out["imported_jax"] == [] for out in runs["ranks"])
 
@@ -175,6 +214,41 @@ ERRORS = [  # (stage, mesh, overrides, JAX's message)
     (1, {"data": 2, "dcn": 2}, {"mesh.zero3": True, "model.scan_layers": True}, "runs manual over data/fsdp only"),
     (2, {"data": 2}, {"mesh.zero1": True, "training.stage2.drop_unused_tower": True}, "drop_unused_tower"),
 ]
+
+
+TP_CP_ERRORS = [  # the tensor- and context-parallel refusals: (stage, mesh, overrides, JAX's message)
+    (1, {"data": 1, "model": 2}, {"mesh.zero1": True}, "mesh.zero1 requires a device mesh with data > 1"),
+    (1, {"data": 2, "model": 2}, {"mesh.zero1": True}, "shards the optimizer state over the data axis only"),
+    (1, {"data": 2, "seq": 2}, {"mesh.zero3": True, "model.scan_layers": True}, "runs manual over data/fsdp only"),
+    (2, {"data": 1, "seq": 2}, {"model.lora_config": {"r": 4, "lora_alpha": 8}}, "but not with LoRA"),
+    (2, {"data": 1, "seq": 4}, {"data.max_caption_length": 10}, "not divisible by mesh.seq 4"),
+]
+
+
+@pytest.mark.parametrize("stage, shape, overrides, message", TP_CP_ERRORS)
+def test_tp_cp_refusals_match_jax(tmp_path, stage, shape, overrides, message):
+    """Each on a model of its own: a trainer given a ``model`` axis cuts its model."""
+    jax = _jax()
+    from pgica_tpu.parallel.mesh import MeshContext as JaxMesh
+    from pgica_tpu.training.trainer import PreferenceGuidedTrainer as JaxTrainer
+    from pgica_tpu.utils import factories as jfactories
+    from pgica_tpu.utils.config import Config as JaxConfig
+
+    cfg = _config(tmp_path, "e", **overrides)
+    n = math.prod(shape.values())
+    jcfg, pcfg = JaxConfig(config_dict=cfg), Config(config_dict=cfg)
+    jtok, ptok = jfactories.create_tokenizer(jcfg), factories.create_tokenizer(pcfg)
+    kind = "conceptual" if stage == 1 else "ultrafeedback"
+    jl = jfactories.create_loaders_with_fallback(jcfg, *jfactories.create_processors(jcfg, jtok), kind=kind)
+    pl = factories.create_loaders_with_fallback(pcfg, *factories.create_processors(pcfg, ptok), kind=kind)
+    key = "train_loader" if stage == 1 else "preference_train_loader"
+    jt = JaxTrainer(jfactories.create_model(jcfg, jtok), jcfg, **{key: jl[0]},
+                    mesh=JaxMesh(devices=jax.devices()[:n], **shape))
+    pt = PreferenceGuidedTrainer(factories.create_model(pcfg, ptok, device="cpu"), pcfg, **{key: pl[0]},
+                                 mesh=MeshContext(world_size=n, rank=0, **shape))
+    for trainer in (jt, pt):
+        with pytest.raises(ValueError, match=message):
+            trainer.train_stage1() if stage == 1 else trainer.train_stage2()
 
 
 @pytest.mark.parametrize("stage, shape, overrides, message", ERRORS)

@@ -227,9 +227,21 @@ def test_sequence_logprobs_from_hidden_match_jax(rng, normalized):
 
 
 def test_sequence_logprobs_from_hidden_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        losses.sequence_logprobs_from_hidden(torch.zeros(1, 2, 8), torch.zeros(5, 8), torch.zeros(1, 2, dtype=torch.long),
-                                             torch.ones(1, 2), mesh=object())
+    """The mesh route (vocab parallelism) replaced the refusal: with a ``model`` axis of one rank it is the
+    plain route, bit for bit; a ``model`` axis of two ranks and no process group raises as a collective
+    does (tests/test_torch_tensor_parallel.py holds the route on ranks against JAX)."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+
+    gen = torch.Generator().manual_seed(0)
+    args = (torch.randn(2, 4, 8, generator=gen), torch.randn(5, 8, generator=gen),
+            torch.randint(0, 5, (2, 4), generator=gen), torch.ones(2, 4))
+    want = losses.sequence_logprobs_from_hidden(*args)
+    one = MeshContext(data=1, world_size=1, rank=0)
+    with one:
+        assert torch.equal(losses.sequence_logprobs_from_hidden(*args, mesh=one, vocab_size=5), want)
+    two = MeshContext(data=1, model=2, world_size=2, rank=0)
+    with two, pytest.raises(RuntimeError, match="no process group"):
+        losses.sequence_logprobs_from_hidden(*args, mesh=two, vocab_size=5)
 
 
 @pytest.mark.parametrize("case", ["reference", "reference_free", "label_smoothing", "no_reference"])

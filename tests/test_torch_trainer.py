@@ -244,9 +244,12 @@ def test_drop_unused_tower_is_loss_identical_and_merged_back(tmp_path):
 
 def test_parallel_settings_and_lora_raise(tmp_path):
     """ZeRO without a data axis > 1 raises JAX's ValueError as a stage starts (ZeRO on a mesh:
-    tests/test_torch_parallel_trainer.py); tensor and context parallelism raise, naming their slice;
-    LoRA is ported (tests/test_torch_lora.py): its config builds a trainer."""
+    tests/test_torch_parallel_trainer.py); a config asking for tensor or context parallelism builds a
+    trainer (one process: the mesh is the caller's; the ranks' runs are in
+    tests/test_torch_parallel_trainer.py), and a trainer given a mesh with a ``model`` axis of two ranks cuts
+    its model to this rank's half; LoRA is ported (tests/test_torch_lora.py): its config builds a trainer."""
     from pgica_tpu_torch.parallel.mesh import MeshContext
+    from pgica_tpu_torch.parallel.sharding import sharded_bytes, tp_axis
 
     for key, message in (("mesh.zero1", "mesh.zero1 requires a device mesh with data > 1"),
                          ("mesh.zero3", r"mesh.zero3 requires a device mesh with data\*fsdp > 1")):
@@ -255,15 +258,17 @@ def test_parallel_settings_and_lora_raise(tmp_path):
             trainer.train_stage1()
     for key in ("mesh.seq", "mesh.model"):
         cfg = Config(config_dict=_small(tmp_path, "p", **{key: 2}))
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            PreferenceGuidedTrainer(factories.create_model(Config(config_dict=_small(tmp_path, "m")), device="cpu"),
-                                    cfg)
+        trainer = PreferenceGuidedTrainer(
+            factories.create_model(Config(config_dict=_small(tmp_path, "m")), device="cpu"), cfg)
+        assert trainer.mesh is None and tp_axis(trainer.model.module) is None
     cfg = Config(config_dict=_small(tmp_path, "l", **{"model.lora_config": {"r": 4}}))
     trainer = PreferenceGuidedTrainer(factories.create_model(cfg, device="cpu"), cfg)
     assert trainer._lora_static == (32.0, 4, 0.0)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        PreferenceGuidedTrainer(None, Config(config_dict=_small(tmp_path, "m")),
-                                mesh=MeshContext(data=1, model=2, world_size=2, rank=0))
+    cfg = Config(config_dict=_small(tmp_path, "m"))
+    trainer = PreferenceGuidedTrainer(factories.create_model(cfg, device="cpu"), cfg,
+                                      mesh=MeshContext(data=1, model=2, world_size=2, rank=0))
+    local, whole = sharded_bytes(trainer.model.module)
+    assert tp_axis(trainer.model.module) == "model" and 0 < local and 2 * local == whole
 
 
 def test_nan_skipped_steps_stay_out_of_the_epoch_mean(tmp_path):
