@@ -50,7 +50,7 @@ from pgica_tpu_torch.models.lm import TransformerLM
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops.dropout import FastDropout
 from pgica_tpu_torch.ops.layernorm import LayerNorm
-from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel import collectives, fsdp
 
 
 class CaptionDecoder(nn.Module):
@@ -113,7 +113,7 @@ class CaptionDecoder(nn.Module):
         if self.lm.learned_positions:
             s = caption_ids.shape[1]
             start = 0 if self.ring_axis is None else collectives.axis_index(self.ring_axis) * s
-            fused = fused + self.lm.wpe.weight[start:start + s].to(dtype)[None]
+            fused = fused + fsdp.full(self.lm.wpe, "weight")[start:start + s].to(dtype)[None]
         out = self.lm(inputs_embeds=fused, attention_mask=caption_mask, generator=generator,
                       with_logits=with_logits)
         return {key: out[key] for key in ("hidden_states", "logits") if key in out}

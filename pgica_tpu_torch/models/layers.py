@@ -58,7 +58,7 @@ from pgica_tpu_torch.ops.layernorm import LayerNorm
 from pgica_tpu_torch.ops.quant import QuantDense
 from pgica_tpu_torch.ops.ring_attention import ring_attention
 from pgica_tpu_torch.ops.rmsnorm import RMSNorm
-from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel import collectives, fsdp
 
 # (k, v), each (B, H, max_len, D). Caches are plain lists of these tuples,
 # written IN PLACE at the decode position — unlike the JAX package, whose
@@ -143,8 +143,8 @@ class Embedding(nn.Embedding):
         return collectives.reduce_from(out, self.tp_axis)
 
     def attend(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Logits ``x @ W^T`` in ``dtype`` over the whole vocab."""
-        w = self.weight.to(dtype)
+        """Logits ``x @ W^T`` in ``dtype`` over the whole vocab (``W`` gathered where it is cut over ``fsdp``)."""
+        w = fsdp.full(self, "weight").to(dtype)
         if self.tp_axis is None:
             return F.linear(x, w)
         return collectives.gather_from(F.linear(collectives.copy_to(x, self.tp_axis), w), self.tp_axis, -1)

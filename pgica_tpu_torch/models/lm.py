@@ -12,11 +12,12 @@ its log-probs from the hidden states through the fused linear-CE kernels,
 where XLA drops the unused logits from the JAX graph (train_step.py:268-269);
 eager PyTorch would compute and keep them.
 
-Under ZeRO-3 (parallel/zero3.py) ``sharded`` holds the blocks' weights as
-shards over the ranks: each block runs on its weights gathered at its entry
-(a differentiable all-gather whose backward reduce-scatters the gradient)
-and drops them after; with ``remat`` the gather sits inside the
-checkpointed function, so the backward pass gathers again.
+Under ZeRO-3 (parallel/zero3.py) and FSDP (parallel/fsdp.py) ``sharded``
+holds the blocks' weights as shards over the ranks: each block runs on its
+weights gathered at its entry (a differentiable gather whose backward
+reduce-scatters the gradient) and drops them after; with ``remat`` the
+gather sits inside the checkpointed function, so the backward pass gathers
+again.
 
 Under tensor parallelism (parallel/sharding.py) ``wte`` is vocab-parallel
 (models/layers.py:Embedding): the lookup sums the ranks' rows and the tied
@@ -97,7 +98,7 @@ class TransformerLM(nn.Module):
             for _ in range(cfg.num_layers)
         )
         self.ln_f = make_norm("rmsnorm" if llama else "layernorm", cfg.hidden_size, cfg.norm_eps, dtype)
-        self.sharded = None  # ZeRO-3's block gather (parallel/zero1.py:ShardedParams), else None
+        self.sharded = None  # ZeRO-3's or FSDP's block gather (parallel/zero1.py, parallel/fsdp.py), else None
 
     @property
     def learned_positions(self) -> bool:

@@ -16,7 +16,9 @@ keeps cuDNN's default TF32 convolution out of float32 comparisons. Under
 tensor parallelism (``tp_axis``, parallel/sharding.py) its output channels
 are this rank's block (the rule ``(None, None, None, "model")``), gathered
 over the axis after the product; the blocks run their tensor-parallel
-attention and MLP (models/layers.py).
+attention and MLP (models/layers.py). Under FSDP (parallel/fsdp.py)
+``sharded`` gathers each block's weights at its entry, inside the
+checkpointed function with remat, as the LMs' hook does.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class VisionTransformer(nn.Module):
             for _ in range(cfg.num_layers)
         )
         self.post_ln = LayerNorm(cfg.hidden_size, cfg.norm_eps, dtype)
+        self.sharded = None  # FSDP's block gather (parallel/fsdp.py:BlockGather), else None
 
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> dict:
         b, _, _, c = images.shape
@@ -88,8 +91,9 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         x = self.pre_ln(x)
         remat = self.config.remat and torch.is_grad_enabled()  # a frozen backbone runs without grad
-        for block in self.blocks:
-            x = checkpointed(block, x, None, generator) if remat else block(x, generator=generator)
+        for i, block in enumerate(self.blocks):
+            run = block if self.sharded is None else self.sharded.block(self, i)
+            x = checkpointed(run, x, None, generator) if remat else run(x, generator=generator)
         return {"features": x, "pooled_output": self.post_ln(x[:, 0])}
 
 

@@ -1,2 +1,2 @@
 """Parallelism on ``torch.distributed``: the device mesh, its collectives, ZeRO-1 and ZeRO-3, the partition
-rules and tensor parallelism."""
+rules, tensor parallelism and FSDP at rest."""

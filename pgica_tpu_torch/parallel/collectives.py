@@ -27,6 +27,10 @@ unbound axis name does. An axis of one rank makes each an identity.
   along ``dim`` forward and keeps this rank's block of the cotangent
   backward (a column-parallel output needed whole: the vocab-parallel
   logits, the patch embedding's channels).
+* ``broadcast(x, axis, src, shape)``: rank ``src`` of the axis sends its
+  ``x`` to every rank, differentiable: the backward sums the cotangent over
+  the axis, which rank ``src`` keeps (a layer that one rank of ``fsdp``
+  holds whole, parallel/fsdp.py).
 
 Every call into ``torch.distributed`` sits here. NCCL and gloo take the
 same calls: gloo runs ``all_gather_into_tensor``, ``reduce_scatter_tensor``
@@ -199,6 +203,30 @@ class _GatherFrom(torch.autograd.Function):
     def backward(ctx, grad):
         start = ctx.mesh.axis_index(ctx.axis) * ctx.size
         return grad.narrow(ctx.dim, start, ctx.size).contiguous(), None, None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src, shape):
+        ctx.mesh, ctx.axis, ctx.src, ctx.in_shape = mesh, axis, src, x.shape
+        out = x.detach().clone() if mesh.axis_index(axis) == src else x.new_empty(shape)
+        dist.broadcast(out, group=mesh.group(axis), group_src=src)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _psum_raw(grad, ctx.mesh, ctx.axis)
+        mine = total if ctx.mesh.axis_index(ctx.axis) == ctx.src else grad.new_zeros(ctx.in_shape)
+        return mine, None, None, None, None
+
+
+def broadcast(x: torch.Tensor, axis: AxisName, src: int, shape, mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """Rank ``src`` of ``axis``'s ``x`` (of ``shape``) on every rank; the others' ``x`` gives only the dtype and
+    device. Backward: the cotangent's sum over ``axis``, kept by rank ``src`` (zeros of ``x``'s shape elsewhere)."""
+    mesh = mesh or _mesh(axis)
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _Broadcast.apply(x, mesh, axis, src, tuple(shape))
 
 
 def copy_to(x: torch.Tensor, axis: AxisName, mesh: Optional[MeshContext] = None) -> torch.Tensor:

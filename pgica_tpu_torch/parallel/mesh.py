@@ -98,7 +98,8 @@ class MeshContext:
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.distributed = initialized and n > 1
         if self.distributed:
-            for axis in [(a,) for a in AXES] + [BATCH_AXES, ("data", "fsdp"), BATCH_AXES + ("seq",)]:
+            for axis in [(a,) for a in AXES] + [BATCH_AXES, ("data", "fsdp"), BATCH_AXES + ("seq",), ("dcn", "data"),
+                                                ("dcn", "data", "seq"), ("fsdp", "model")]:
                 self.group(axis)  # every rank creates every group, in one order
         logger.info("Mesh created: %s over %d ranks (this rank %d at %s)", self.shape, n, self.rank, self.coords)
 

@@ -32,9 +32,13 @@ the collectives. The port makes them explicit, in the Megatron way:
   (``collectives.reduce_from``) and adds its replicated bias once, after
   the sum; the vocab-parallel ``wte`` looks up the ids of its rows, gives
   zero rows for the others and sums over ``model``.
-* ``fsdp`` entries of a spec are computed and reported as in JAX, but the
-  parameters stay replicated at rest over ``fsdp`` (replicated data
-  parallelism; ROADMAP queue 1 item 9c).
+* :func:`shard_fsdp` then keeps, of each parameter whose spec splits a
+  dimension over ``fsdp``, this rank's block of the model-local block (the
+  rank's ``fsdp`` index; for a stacked ``scan_layers`` leaf whose layer count
+  the axis divides, whole layers: the layers of this rank's index), so a
+  rank holds JAX's shard on the device at its mesh coordinates, leaf by leaf;
+  parallel/fsdp.py gathers a block's weights at its entry and the other cut
+  leaves where their module runs. A leaf the spec replicates stays whole.
 * :func:`shard_params` / :func:`gather_params` do the same on a JAX tree
   (nested dicts of numpy or torch leaves), by the JAX dims
   (:func:`param_dims`, the column biases included):
@@ -42,23 +46,24 @@ the collectives. The port makes them explicit, in the Megatron way:
   share into a module that :func:`shard_module` has cut.
 * :func:`gathered_state_dict` gathers a sharded module's parameters (or any
   tensors laid out like them, the Adam moments) into whole tensors by name,
-  which is what a tensor-parallel checkpoint holds; :func:`local_state`
-  cuts a whole state dict back to this rank's blocks, for any ``model``
-  degree, one process included.
+  over ``fsdp`` then ``model``, which is what a sharded checkpoint holds;
+  :func:`local_state` cuts a whole state dict back to this rank's blocks, for
+  any ``fsdp`` x ``model`` degree, one process included.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import re
 from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel import collectives, fsdp
 from pgica_tpu_torch.parallel.mesh import MeshContext
-from pgica_tpu_torch.parallel.zero1 import jax_path
+from pgica_tpu_torch.parallel.zero1 import _lms, jax_path
 
 logger = logging.getLogger(__name__)
 
@@ -77,15 +82,18 @@ _RULES: Tuple[Tuple[str, Tuple], ...] = (
     (r".*vision_projection.*kernel$", ("fsdp", None)),
 )
 
-# The torch dimension of each JAX dimension that ``model`` may split, by rule: nn.Linear weights are
-# (out, in), q/k/v rows head-major (models/convert.py), the patch weight (width, P*P*C).
+# The torch dimension of each JAX dimension that ``model`` or ``fsdp`` may split, rule by rule as _RULES:
+# nn.Linear weights are (out, in), q/k/v rows head-major (models/convert.py), the patch weight (width, P*P*C).
 _TORCH_DIM: Tuple[Tuple[str, Dict[int, int]], ...] = (
-    (r".*(q_proj|k_proj|v_proj)/kernel$", {1: 0}),
-    (r".*out_proj/kernel$", {0: 1}),
-    (r".*(fc_in|gate_proj|up_proj)/kernel$", {1: 0}),
-    (r".*(fc_out|down_proj)/kernel$", {0: 1}),
-    (r".*wte/embedding$", {0: 0}),
+    (r".*(q_proj|k_proj|v_proj)/kernel$", {0: 1, 1: 0}),
+    (r".*out_proj/kernel$", {0: 1, 2: 0}),
+    (r".*(fc_in|gate_proj|up_proj)/kernel$", {0: 1, 1: 0}),
+    (r".*(fc_out|down_proj)/kernel$", {0: 1, 1: 0}),
+    (r".*wte/embedding$", {0: 0, 1: 1}),
+    (r".*wpe/embedding$", {1: 1}),
     (r".*patch_embed/kernel$", {3: 0}),
+    (r".*projection/(fc1|fc2)/kernel$", {0: 1}),
+    (r".*vision_projection.*kernel$", {0: 1}),
 )
 _COLUMN = ("q_proj", "k_proj", "v_proj", "fc_in", "gate_proj", "up_proj")  # their biases follow the kernel
 
@@ -234,12 +242,13 @@ def gather_params(tree: Mapping, mesh: MeshContext, dims: Mapping, axis: str = "
 # ------------------------------------------------------------------ the port's modules
 
 
-def jax_leaf(module: nn.Module, name: str, param: torch.Tensor) -> Tuple[str, Tuple[int, ...]]:
-    """The JAX path and shape of the port's parameter ``name`` (the inverse of models/convert.py's layout)."""
+def jax_leaf(module: nn.Module, name: str, param) -> Tuple[str, Tuple[int, ...]]:
+    """The JAX path and shape of the port's parameter ``name`` (the inverse of models/convert.py's layout);
+    ``param`` is the parameter or its shape."""
     path = jax_path(module, name)
     owner_name, _, leaf = name.rpartition(".")
     owner = module.get_submodule(owner_name)
-    shape = tuple(param.shape)
+    shape = tuple(getattr(param, "shape", param))
     proj = owner_name.rsplit(".", 1)[-1]
     if proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
         head_dim = module.get_submodule(owner_name.rsplit(".", 1)[0]).head_dim
@@ -257,6 +266,11 @@ def jax_leaf(module: nn.Module, name: str, param: torch.Tensor) -> Tuple[str, Tu
     return "/".join(path), shape
 
 
+def torch_dim(path: str, jax_dim: int) -> int:
+    """The port's dimension of the JAX leaf ``path``'s dimension ``jax_dim`` (which a rule splits)."""
+    return next(m[jax_dim] for pattern, m in _TORCH_DIM if re.match(pattern, path))
+
+
 def module_tp_dims(module: nn.Module, mesh, axis: str = "model") -> Dict[str, int]:
     """{parameter name: the torch dimension split over ``axis``} of a full module under the rules; the
     column-parallel biases follow their kernels."""
@@ -266,7 +280,7 @@ def module_tp_dims(module: nn.Module, mesh, axis: str = "model") -> Dict[str, in
         jax_dim = split_dim(infer_param_spec(path, shape, mesh), axis)
         if jax_dim is None:
             continue
-        dims[name] = next(m[jax_dim] for pattern, m in _TORCH_DIM if re.match(pattern, path))
+        dims[name] = torch_dim(path, jax_dim)
     for name, _ in module.named_parameters():
         owner, leaf = name.rsplit(".", 1)
         if leaf == "bias" and owner.rsplit(".", 1)[-1] in _COLUMN and dims.get(owner + ".weight") == 0:
@@ -319,30 +333,118 @@ def shard_module(module: nn.Module, mesh: MeshContext, axis: str = "model") -> D
     return dims
 
 
+def module_fsdp_leaves(module: nn.Module, mesh, scanned: bool = False) -> Dict[str, fsdp.Leaf]:
+    """{parameter name: how it is cut over ``fsdp``} under the rules, for ``module`` whole or already cut over
+    ``model`` (the specs come from the whole leaves' shapes). ``scanned``: the LMs' blocks are the JAX
+    package's ``scan_layers`` stacks, whose leaves' layer dimension takes ``fsdp`` where it divides the layer
+    count (each rank then owns whole layers); else, and for the ViT, ``fsdp`` is on an inner dimension."""
+    if _axis_size(mesh, "fsdp") == 1:
+        return {}
+    dims, tp = tp_dims(module), getattr(module, "tp_size", 1)
+    blocks = {f"{prefix}.blocks.{j}.": (j, len(lm.blocks)) for prefix, lm in _lms(module)
+              for j in range(len(lm.blocks))} if scanned else {}
+    cut: Dict[str, fsdp.Leaf] = {}
+    for name, p in module.named_parameters():
+        shape = list(p.shape)
+        if name in dims:
+            shape[dims[name]] *= tp
+        path, jshape = jax_leaf(module, name, shape)
+        layer = next((v for k, v in blocks.items() if name.startswith(k)), None)
+        if layer is None:
+            spec = infer_param_spec(path, jshape, mesh)
+        else:  # the stacked leaf's spec, layer dimension first
+            j, n_layers = layer
+            spec = infer_param_spec(re.sub(r"/block_\d+/", "/blocks/", path, count=1), (n_layers,) + jshape, mesh)
+            if spec[0] == "fsdp":
+                cut[name] = fsdp.Leaf(None, j // (n_layers // _axis_size(mesh, "fsdp")), tuple(p.shape))
+                continue
+            spec = spec[1:]
+        jax_dim = split_dim(spec, "fsdp")
+        if jax_dim is not None:
+            cut[name] = fsdp.Leaf(torch_dim(path, jax_dim), None, tuple(p.shape))
+    return cut
+
+
+def shard_fsdp(module: nn.Module, mesh: MeshContext, scanned: bool = False) -> Dict[str, fsdp.Leaf]:
+    """Cut ``module``'s parameters to this rank's blocks over ``fsdp``, in place (after :func:`shard_module`,
+    if the module is cut over ``model``), and set up their gathers (parallel/fsdp.py); returns
+    :func:`module_fsdp_leaves`. A no-op on an axis of one rank. Build any optimizer state after this."""
+    cut = module_fsdp_leaves(module, mesh, scanned)
+    if not cut:
+        return {}
+    if fsdp.leaves(module):
+        raise ValueError("module is already sharded over fsdp")
+    n, index = mesh.axis_size("fsdp"), mesh.axis_index("fsdp")
+    params = dict(module.named_parameters())
+    for name, leaf in cut.items():
+        owner_name, leaf_name = name.rsplit(".", 1)
+        old = params[name]
+        setattr(module.get_submodule(owner_name), leaf_name,
+                nn.Parameter(fsdp.local(old, leaf, index, n), requires_grad=old.requires_grad))
+    fsdp.install(module, cut)
+    logger.info("Fully sharded over fsdp (%d ranks, this rank %d): %d parameters cut (%d of them whole layers)",
+                n, index, len(cut), sum(leaf.dim is None for leaf in cut.values()))
+    return cut
+
+
+def param_axes(module: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{parameter name: the mesh axes its blocks are cut over} (``fsdp``, the tensor-parallel axis or both)."""
+    axes: Dict[str, Tuple[str, ...]] = {name: ("fsdp",) for name in fsdp.leaves(module)}
+    for name in tp_dims(module):
+        axes[name] = axes.get(name, ()) + (tp_axis(module),)
+    return axes
+
+
+def is_sharded(module: nn.Module) -> bool:
+    """Whether ``module`` holds blocks of its parameters (cut over ``model`` or ``fsdp``)."""
+    return bool(tp_dims(module) or fsdp.leaves(module))
+
+
 def gathered_state_dict(module: nn.Module, mesh: MeshContext, tensors: Optional[Mapping[str, torch.Tensor]] = None,
                         ) -> Dict[str, torch.Tensor]:
     """Whole tensors by name from every rank's blocks (every rank calls it): the module's parameters, or
-    ``tensors`` laid out like them (by parameter name; the Adam moments). Unsharded entries as they are."""
-    dims, axis = tp_dims(module), tp_axis(module)
+    ``tensors`` laid out like them (by parameter name; the Adam moments), gathered over ``fsdp`` and then
+    ``model``. Unsharded entries as they are."""
+    dims, axis, cut = tp_dims(module), tp_axis(module), fsdp.leaves(module)
     if tensors is None:
         tensors = module.state_dict()
-    return {name: t if dims.get(name) is None else collectives.gather_from(t.detach(), axis, dims[name], mesh)
-            for name, t in tensors.items()}
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach()
+        if name in cut:
+            t = fsdp.gather(t, cut[name], mesh)
+        if name in dims:
+            t = collectives.gather_from(t, axis, dims[name], mesh)
+        out[name] = t
+    return out
 
 
 def local_state(module: nn.Module, mesh: Optional[MeshContext], state: Mapping[str, torch.Tensor],
                 ) -> Dict[str, torch.Tensor]:
-    """This rank's blocks of a whole state dict (a tensor-parallel checkpoint's, or one process's) for a
-    module cut by :func:`shard_module`; as it is for an unsharded module."""
-    dims, axis = tp_dims(module), tp_axis(module)
-    if not dims:
+    """This rank's blocks of a whole state dict (a sharded checkpoint's, or one process's) for a module cut by
+    :func:`shard_module` and :func:`shard_fsdp`; as it is for an unsharded module."""
+    dims, axis, cut = tp_dims(module), tp_axis(module), fsdp.leaves(module)
+    if not dims and not cut:
         return dict(state)
-    n, index = mesh.axis_size(axis), mesh.axis_index(axis)
-    return {k: _block(v, dims[k], index, n) if k in dims else v for k, v in state.items()}
+    out = {}
+    for k, v in state.items():
+        if k in dims:
+            v = _block(v, dims[k], mesh.axis_index(axis), mesh.axis_size(axis))
+        if k in cut:
+            v = fsdp.local(v, cut[k], mesh.axis_index("fsdp"), mesh.axis_size("fsdp"))
+        out[k] = v
+    return out
 
 
 def sharded_bytes(module: nn.Module) -> Tuple[int, int]:
-    """(this rank's bytes, the whole model's bytes) of the parameters cut over the tensor-parallel axis."""
+    """(this rank's bytes, the whole model's bytes) of the parameters cut over ``model`` or ``fsdp``."""
     params = dict(module.named_parameters())
-    local = sum(params[k].numel() * params[k].element_size() for k in tp_dims(module) if k in params)
-    return local, local * getattr(module, "tp_size", 1)
+    dims, cut = tp_dims(module), fsdp.leaves(module)
+    local = whole = 0
+    for name in set(dims) | set(cut):
+        if name in params:
+            p = params[name]
+            size = math.prod(cut[name].shape) if name in cut else p.numel()
+            local += p.numel() * p.element_size()
+            whole += size * (module.tp_size if name in dims else 1) * p.element_size()
+    return local, whole

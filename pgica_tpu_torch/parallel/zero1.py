@@ -283,12 +283,15 @@ class ZeroState:
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping[str, object]) -> None:
-        """Take this rank's slices of a saved state; raises where the ranks or the buffers differ."""
+        """Take this rank's slices of a saved state, saved on any number of ranks; raises where the buffers'
+        padded sizes differ from this run's (JAX's resume compares the global shapes: a buffer is padded to a
+        multiple of the rank count, so another count may pad it otherwise)."""
         z = saved["zero"]
         p = self.params
-        if z["n"] != p.n or list(z["padded_sizes"]) != [s.padded_size for s in p.specs]:
-            raise ValueError(f"the checkpoint's ZeRO state is for {z['n']} ranks and buffers {z['padded_sizes']}; "
-                             f"this run has {p.n} ranks and {[s.padded_size for s in p.specs]}")
+        mine = [s.padded_size for s in p.specs]
+        if list(z["padded_sizes"]) != mine:
+            raise ValueError(f"the checkpoint's ZeRO buffers of {list(z['padded_sizes'])} elements ({z['n']} ranks) "
+                             f"are not this run's {mine} ({p.n} ranks)")
         for mine, full in zip(self.mu + self.nu, list(z["mu"]) + list(z["nu"])):
             mine.copy_(p._mine(full.to(mine.device)))
         self.count, self.skipped = int(z["count"]), int(z["skipped"])

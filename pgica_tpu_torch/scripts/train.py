@@ -14,8 +14,10 @@ The flags are the JAX CLI's, with ``--platform`` replaced by ``--device``
 (``cuda``, the default, or ``cpu``). Under ``torchrun`` (``WORLD_SIZE`` set)
 or in a caller that has initialized ``torch.distributed`` already, the run
 is parallel over the config's ``mesh``: data-parallel over its batch axes
-(``mesh.zero1`` / ``mesh.zero3`` pick ZeRO), tensor-parallel over
-``mesh.model`` and context-parallel (stage 2) over ``mesh.seq``; each rank
+(``mesh.zero1`` / ``mesh.zero3`` pick ZeRO; without them ``mesh.fsdp`` > 1
+also cuts the parameters and Adam moments over ``fsdp`` at rest),
+tensor-parallel over ``mesh.model`` and context-parallel (stage 2) over
+``mesh.seq``; each rank
 trains on the card of its ``LOCAL_RANK``, and rank 0 alone logs and writes.
 A tensor- or context-parallel run on the CPU (``--device cpu``) takes gloo
 ranks: ``torchrun --nproc_per_node=2 -m pgica_tpu_torch.scripts.train

@@ -60,17 +60,17 @@ def warmup_cosine_schedule(learning_rate: float, warmup_steps: int, total_steps:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None, mesh=None,
-                axis: str = "model") -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], axes: Optional[Sequence[Tuple[str, ...]]] = None,
+                mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares over every element of every tensor (f32, on their device).
 
     On the CPU each tensor's norm is accumulated in float64: PyTorch's float32 CPU norm can lose
     ~2% on a large, mostly zero gradient (the 525 M-element Llama-3-8B embedding, 128 rows of it
     touched), where the card's reduction and optax's do not.
 
-    Under tensor parallelism (``sharded``: which tensors are this rank's block of a leaf cut over
-    ``axis`` of ``mesh``) the blocks' sum of squares is summed over the axis and a replicated tensor
-    counts once, so every rank gets the whole tree's norm (JAX optim.py:63-80).
+    On a mesh whose ranks hold blocks of leaves (``axes``: the mesh axes each tensor is cut over, ``()``
+    for a whole one; ``fsdp``, ``model`` or both) the blocks' sum of squares is summed over their axes
+    and a replicated tensor counts once, so every rank gets the whole tree's norm (JAX optim.py:63-80).
     """
     if not tensors:
         return torch.zeros((), dtype=torch.float32)
@@ -79,13 +79,15 @@ def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool
         norms = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors])
     else:
         norms = torch.stack(torch._foreach_norm([t.to(torch.float32) for t in tensors]))
-    if sharded is None or mesh is None or mesh.axis_size(axis) == 1 or not any(sharded):
+    if axes is None or mesh is None or not any(axes):
         return torch.linalg.vector_norm(norms).to(torch.float32)
     from pgica_tpu_torch.parallel import collectives
 
-    cut = torch.tensor(list(sharded), device=norms.device)
     squares = norms.square()
-    total = collectives.psum(squares[cut].sum(), axis, mesh) + squares[~cut].sum()
+    total = squares.new_zeros(())
+    for group in sorted(set(axes)):  # one order on every rank
+        part = squares[torch.tensor([a == group for a in axes], device=norms.device)].sum()
+        total = total + (collectives.psum(part, group, mesh) if group else part)
     return total.sqrt().to(torch.float32)
 
 
@@ -161,7 +163,7 @@ class Optimizer:
         """One micro-step with ``grads`` (aligned with ``state.params``), in place.
 
         ``grad_norm`` is ``norm_fn(grads)`` if the caller has it already (``norm_fn``: the tree's norm,
-        :func:`global_norm` with the tensor-parallel blocks under tensor parallelism).
+        :func:`global_norm` over the blocks of a sharded module).
         """
         if self.every_k > 1:
             if state.acc is None:

@@ -63,6 +63,15 @@ norm sums the blocks' squares over ``model`` (training/optim.py). A
 ``seq`` axis of more than one rank repeats a step on each of its ranks
 (stage 1, as the JAX package's GSPMD step does); stage 2 is then
 training/cp_step.py's.
+
+FSDP at rest (a module cut over ``fsdp`` by parallel/sharding.py:shard_fsdp,
+the JAX package's GSPMD parameter shardings): the towers gather the cut
+weights where they run (parallel/fsdp.py), and a cut leaf's gradient comes
+out of the gathers' backward summed over ``fsdp`` and this rank's block; it
+is then summed over the other batch axes only and divided by the batch
+ranks (:func:`reduce_gradients`), while a replicated leaf's is averaged
+over all of them as above. The moments and the update are the shards', and
+the norm sums each cut leaf's squares over the axes that cut it.
 """
 
 from __future__ import annotations
@@ -80,9 +89,9 @@ from pgica_tpu_torch.core.prng import stream_generator
 from pgica_tpu_torch.data.augment import augment_batch, prepare_images
 from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
-from pgica_tpu_torch.parallel import collectives
-from pgica_tpu_torch.parallel.mesh import BATCH_AXES, AxisName, MeshContext
-from pgica_tpu_torch.parallel.sharding import tp_axis, tp_dims
+from pgica_tpu_torch.parallel import collectives, fsdp
+from pgica_tpu_torch.parallel.mesh import BATCH_AXES, AxisName, MeshContext, axis_names
+from pgica_tpu_torch.parallel.sharding import param_axes, tp_axis
 from pgica_tpu_torch.training.optim import OptState, Optimizer, global_norm
 
 Batch = Mapping[str, object]
@@ -117,21 +126,42 @@ def all_reduce_mean(grads: List[torch.Tensor], mesh: MeshContext, axis: AxisName
                     count: Optional[int] = None) -> List[torch.Tensor]:
     """The sum over ``axis`` of each gradient divided by ``count`` (default: the axis's ranks, the mean):
     one all-reduce of the flat f32 buffer."""
-    if mesh.axis_size(axis) == 1:
+    n = mesh.axis_size(axis)
+    count = n if count is None else count
+    if n == 1 and count == 1:
         return grads
     flat = collectives.psum(torch.cat([g.reshape(-1).to(torch.float32) for g in grads]), axis, mesh)
-    flat /= mesh.axis_size(axis) if count is None else count
+    flat /= count
     return [part.view_as(g).to(g.dtype) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def tree_norm(state: TrainState, mesh: Optional[MeshContext]) -> Callable[[List[torch.Tensor]], torch.Tensor]:
-    """The gradient tree's global norm for ``state``'s trained leaves: the tensor-parallel blocks'
-    squares summed over ``model`` (a LoRA state's factors are whole)."""
-    dims = tp_dims(state.module) if state.lora is None else {}
-    if not dims or mesh is None:
+    """The gradient tree's global norm for ``state``'s trained leaves: the blocks' squares of a sharded
+    module summed over the axes that cut them (a LoRA state's factors are whole)."""
+    axes = param_axes(state.module) if state.lora is None and mesh is not None else {}
+    if not axes:
         return global_norm
-    sharded = [name in dims for name in state.opt_state.names]
-    return lambda grads: global_norm(grads, sharded, mesh, tp_axis(state.module))
+    per_leaf = [axes.get(name, ()) for name in state.opt_state.names]
+    return lambda grads: global_norm(grads, per_leaf, mesh)
+
+
+def reduce_gradients(grads: List[torch.Tensor], state: TrainState, mesh: MeshContext,
+                     axis: AxisName = BATCH_AXES) -> List[torch.Tensor]:
+    """The gradients summed over ``axis`` and divided by the batch ranks: a leaf cut over ``fsdp`` came out of
+    its gathers' backward summed over ``fsdp`` already, so it is summed over the rest of ``axis`` only."""
+    cut = set(fsdp.leaves(state.module)) if state.lora is None else set()
+    count = mesh.data_parallel_size
+    if not cut:
+        return all_reduce_mean(grads, mesh, axis, count)
+    rest = tuple(a for a in axis_names(axis) if a != "fsdp")
+    sharded = [name in cut for name in state.opt_state.names]
+    out = list(grads)
+    for keep, over in ((False, axis), (True, rest)):
+        idx = [i for i, s in enumerate(sharded) if s == keep]
+        if idx:
+            for i, g in zip(idx, all_reduce_mean([grads[i] for i in idx], mesh, over, count)):
+                out[i] = g
+    return out
 
 
 def _apply_update(
@@ -141,12 +171,12 @@ def _apply_update(
     """NaN-safe update: skip (no update, state kept) on a non-finite loss or gradient norm.
 
     On a mesh the gradients are first summed over ``axis`` and divided by
-    the batch ranks (with the default axis, averaged over them), and
-    ``loss`` is the pmean'ed loss.
+    the batch ranks (with the default axis, averaged over them;
+    :func:`reduce_gradients`), and ``loss`` is the pmean'ed loss.
     """
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, state.opt_state.params)]
     if mesh is not None:
-        grads = all_reduce_mean(grads, mesh, axis, mesh.data_parallel_size)
+        grads = reduce_gradients(grads, state, mesh, axis)
     norm_fn = tree_norm(state, mesh)
     grad_norm = norm_fn(grads)
     norm = float(grad_norm)  # the step's one host sync (with the loss)
@@ -393,12 +423,13 @@ def make_stage1_eval_step(
 
 
 def decoder_embedding(module: nn.Module) -> torch.Tensor:
-    """The decoder LM's weight-tied embedding: the policy's f32 master, or a frozen copy's cast.
+    """The decoder LM's weight-tied embedding: the policy's f32 master, or a frozen copy's cast; gathered
+    where it is cut over ``fsdp``.
 
     With a shared text tower it is the shared LM's (JAX ``shared_lm``): the
     decoder's ``lm`` is that LM.
     """
-    return module.caption_decoder.lm.wte.weight
+    return fsdp.full(module.caption_decoder.lm.wte, "weight")
 
 
 def decoder_vocab(module: nn.Module) -> int:

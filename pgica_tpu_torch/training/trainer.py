@@ -21,12 +21,23 @@ Differences from the JAX trainer:
   ``mesh.zero3`` through parallel/zero3.py, with the JAX trainer's checks
   (trainer.py:256-437) and its ZeRO partitions: the Adam state (and under
   ZeRO-3 the LM blocks) sharded, freezing by the backbone flags only, no
-  gradient accumulation, no LoRA. ``fsdp > 1`` without a ZeRO flag is
-  replicated data parallelism: the JAX package's GSPMD numbers, with the
-  parameters not sharded at rest. Validation reduces over the ranks,
+  gradient accumulation, no LoRA. Validation reduces over the ranks,
   weighted by rows. Only rank 0 writes checkpoints (gathered parameters;
-  the ZeRO Adam state gathered too, so that a resume on as many ranks is
-  bit-identical), ``results.json`` and the logged metrics.
+  the ZeRO Adam state gathered too: a resume takes this rank's slices of
+  it wherever the saved buffers' sizes are this run's, whatever the rank
+  count, and otherwise starts the optimizer fresh, as JAX's
+  ``_maybe_resume_opt_state``), ``results.json`` and the logged metrics.
+* FSDP at rest (``mesh.fsdp`` > 1 without a ZeRO flag; JAX trainer.py:
+  256-261): the trainer cuts the model over ``fsdp`` at construction, after
+  the ``model`` cut (parallel/sharding.py:shard_fsdp: JAX's shard of every
+  leaf the rules cut, whole layers of the ``scan_layers`` stacks where the
+  axis divides them), so the Adam moments and the stage-2 reference are cut
+  alike; the towers gather a block's weights at its entry
+  (parallel/fsdp.py). Stages 0-2, validation and the CP step run on the cut
+  model; checkpoints hold the gathered parameters and moments, which a
+  resume cuts onto its own mesh; after training the model is gathered back
+  (cut over ``model`` only, if it was). Off under ZeRO (whose steps own the
+  layout) and LoRA (JAX trains the adapters and leaves the base as it is).
 * Tensor parallelism (``mesh.model`` > 1; JAX trainer.py:815-821): the
   trainer cuts the model over ``model`` at construction
   (parallel/sharding.py:shard_module, the layers' Megatron collectives),
@@ -82,9 +93,16 @@ from pgica_tpu_torch.core.precision import compute_dtype
 from pgica_tpu_torch.core.prng import purpose_seed
 from pgica_tpu_torch.models.lora import fold_lora, lora_from_tree, lora_to_tree, merged_targets
 from pgica_tpu_torch.models.model import frozen_copy
-from pgica_tpu_torch.parallel import collectives
+from pgica_tpu_torch.parallel import collectives, fsdp
 from pgica_tpu_torch.parallel.mesh import BATCH_AXES
-from pgica_tpu_torch.parallel.sharding import gathered_state_dict, local_state, shard_module, sharded_bytes, tp_dims
+from pgica_tpu_torch.parallel.sharding import (
+    gathered_state_dict,
+    is_sharded,
+    local_state,
+    shard_fsdp,
+    shard_module,
+    sharded_bytes,
+)
 from pgica_tpu_torch.parallel.zero1 import ZeroState, make_zero1_train_step
 from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state, opt_state_dict
@@ -170,11 +188,14 @@ class PreferenceGuidedTrainer:
                     raise ValueError("on a device mesh the loaders must yield each rank's rows "
                                      "(data/loader.py:DataLoader.set_shard)")
                 loader.set_shard(mesh)
-        if mesh is not None and mesh.shape["model"] > 1 and self._lora_static is None:  # TP is off under LoRA
+        if mesh is not None and self._lora_static is None:  # TP and FSDP are off under LoRA
             shard_module(model.module, mesh)
-            local, whole = sharded_bytes(model.module)
-            logger.info("Tensor parallel over model (%d ranks): this rank holds %d of %d bytes of the cut "
-                        "parameters", mesh.shape["model"], local, whole)
+            if not (config.get("mesh.zero1", False) or config.get("mesh.zero3", False)):
+                shard_fsdp(model.module, mesh, scanned=bool(config.get("model.scan_layers", False)))
+            if is_sharded(model.module):
+                local, whole = sharded_bytes(model.module)
+                logger.info("Sharded over fsdp %d x model %d: this rank holds %d of %d bytes of the cut parameters",
+                            mesh.shape["fsdp"], mesh.shape["model"], local, whole)
 
         self.output_dir = Path(output_dir or config.get("paths.output_dir", "./outputs"))
         self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -390,12 +411,15 @@ class PreferenceGuidedTrainer:
                                 max_grad_norm=float(cfg.get("max_grad_norm", 1.0)), trainable_mask=mask, **kw)
         state = init_fn(self.model.module)
         restored, self._restored_opt_state = self._restored_opt_state, None  # consume once
-        if restored is not None and "zero" in restored:
-            state.load_state_dict(restored)  # another rank count raises
-            state.step = self.global_step
-            logger.info("Resumed the ZeRO optimizer state from checkpoint")
-        elif restored is not None:
-            logger.warning("Could not resume optimizer state (not a ZeRO state); starting fresh")
+        if restored is not None:
+            try:
+                if "zero" not in restored:
+                    raise ValueError("not a ZeRO state")
+                state.load_state_dict(restored)
+                state.step = self.global_step
+                logger.info("Resumed the ZeRO optimizer state from checkpoint")
+            except (ValueError, KeyError) as e:
+                logger.warning("Could not resume optimizer state (%s); starting fresh", e)
         ref_shards = init_fn.shard_ref(ref) if zero == 3 and ref is not None else None
         logger.info("Stage %d under ZeRO-%d over %s (world %d): %s bytes a rank", stage, zero, axis, n,
                     state.nbytes())
@@ -440,18 +464,18 @@ class PreferenceGuidedTrainer:
         return payload
 
     def _whole(self, module: nn.Module, tensors=None) -> Dict[str, torch.Tensor]:
-        """``module``'s state (or ``tensors`` by its parameter names) whole: gathered over ``model`` where
-        the module is cut (every rank calls it)."""
-        if tp_dims(module):
+        """``module``'s state (or ``tensors`` by its parameter names) whole: gathered over ``fsdp`` and
+        ``model`` where the module is cut (every rank calls it)."""
+        if is_sharded(module):
             return gathered_state_dict(module, self.mesh, tensors)
         return module.state_dict() if tensors is None else dict(tensors)
 
     def _opt_payload(self, state):
-        """The state's optimizer state as a checkpoint holds it (under ZeRO and tensor parallelism
+        """The state's optimizer state as a checkpoint holds it (under ZeRO, FSDP and tensor parallelism
         gathered: every rank calls it)."""
         if isinstance(state, ZeroState):
             return state.state_dict()
-        if tp_dims(self.model.module):
+        if is_sharded(self.model.module):
             return opt_state_dict(state.opt_state, lambda named: self._whole(self.model.module, named))
         return state.opt_state
 
@@ -865,6 +889,7 @@ class PreferenceGuidedTrainer:
                 if hasattr(ld, "close"):
                     ld.close()
         if self.mesh is not None:
+            fsdp.uninstall(self.model.module, self.mesh)  # the trained model whole over fsdp again
             self.mesh.barrier()  # rank 0's last checkpoint is on disk before any rank reads it
         loaded = bool(self.config.get("training.load_best_model_at_end", False)) and self._load_best_at_end()
         if not loaded and self._lora_static is not None:
@@ -882,7 +907,7 @@ class PreferenceGuidedTrainer:
 
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy a checkpoint's parameters into the model's masters, in place (cut to this rank's blocks
-        under tensor parallelism)."""
+        under tensor parallelism and FSDP)."""
         self.model.module.load_state_dict(local_state(self.model.module, self.mesh, params))
 
     def _load_best_at_end(self) -> bool:

@@ -244,7 +244,7 @@ def _identity_augment(images, *args, **kwargs):
     return images
 
 
-def _port_trainer(cfg_dict, params, mesh):
+def _port_trainer(cfg_dict, params, mesh, max_steps=None):
     from pgica_tpu_torch.training.trainer import PreferenceGuidedTrainer
     from pgica_tpu_torch.utils import factories
     from pgica_tpu_torch.utils.config import Config
@@ -258,16 +258,16 @@ def _port_trainer(cfg_dict, params, mesh):
     s1 = factories.create_loaders_with_fallback(cfg, *procs, kind="conceptual")
     s2 = factories.create_loaders_with_fallback(cfg, *procs, kind="ultrafeedback")
     return PreferenceGuidedTrainer(model, cfg, train_loader=s1[0], val_loader=s1[1], preference_train_loader=s2[0],
-                                   preference_val_loader=s2[1], mesh=mesh)
+                                   preference_val_loader=s2[1], mesh=mesh, max_steps_per_epoch=max_steps)
 
 
 def _params_of(trainer):
-    """The trainer's parameters by name, whole (gathered over ``model`` from a tensor-parallel model)."""
-    from pgica_tpu_torch.parallel.sharding import gathered_state_dict, tp_dims
+    """The trainer's parameters by name, whole (gathered from a model cut over ``model`` or ``fsdp``)."""
+    from pgica_tpu_torch.parallel.sharding import gathered_state_dict, is_sharded
 
     module = trainer.model.module
     named = {k: v.detach().clone() for k, v in module.named_parameters()}
-    return gathered_state_dict(module, trainer.mesh, named) if tp_dims(module) else named
+    return gathered_state_dict(module, trainer.mesh, named) if is_sharded(module) else named
 
 
 def trainer_cases(rank: int, world: int, workdir: Path):
@@ -313,14 +313,103 @@ def trainer_cases(rank: int, world: int, workdir: Path):
         out["resume"]["moments_equal"] = all(torch.equal(x, y) for k in ("mu", "nu") for x, y in zip(a[k], b[k]))
         out["resume"]["count"] = (a["count"], b["count"])
 
-    # the CLI, as torchrun would start it (the group is up already): ZeRO-1, then model 2 and seq 2
-    for key in ("cli", "cli_tp", "cli_cp"):
+    # the CLI, as torchrun would start it (the group is up already): ZeRO-1, then model 2, seq 2 and fsdp 2
+    for key in ("cli", "cli_tp", "cli_cp", "cli_fsdp"):
         trainer = cli.run(inp[key])
         out_dir = Path(inp[key][inp[key].index("--output-dir") + 1])
         out[key] = {"global_step": trainer.global_step, "writer": trainer.is_writer, "mesh": trainer.mesh.shape,
                     "results": (out_dir / "results.json").exists(),
                     "snapshot": (out_dir / "config_snapshot.yaml").exists()}
     return out
+
+
+class _Resumes:
+    """A logging handler that keeps whether a trainer resumed its optimizer state or started it fresh."""
+
+    def __init__(self, logger_name: str):
+        import logging
+
+        self.said = []
+        self.logger = logging.getLogger(logger_name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.said.append(record.getMessage())
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+
+    def verdict(self) -> str:
+        self.logger.removeHandler(self.handler)
+        if any(m.startswith("Could not resume optimizer state") for m in self.said):
+            return "fresh"
+        return "resumed" if any("optimizer state from checkpoint" in m for m in self.said) else "none"
+
+
+def zero_resume_cases(rank: int, world: int, workdir: Path):
+    """The ZeRO checkpoints of tests/test_torch_parallel_trainer.py: on two ranks each case's first run saves
+    its epoch checkpoint; on four ranks a trainer loads it and takes one more step (augmentation the identity)."""
+    from pgica_tpu_torch.parallel.mesh import MeshContext
+    from pgica_tpu_torch.training import train_step
+    from pgica_tpu_torch.utils.config import Config
+
+    inp = torch.load(workdir / "inputs.pt", weights_only=False)
+    out = {}
+    held = train_step.augment_batch
+    train_step.augment_batch = _identity_augment
+    try:
+        for name, case in inp["zero_resume"].items():
+            if world == 2:
+                trainer = _port_trainer(case["save"], case["params"], MeshContext.from_config(Config(config_dict=case["save"])))
+                trainer.train()
+                out[name] = {"global_step": trainer.global_step}
+                continue
+            trainer = _port_trainer(case["resume"], None, MeshContext.from_config(Config(config_dict=case["resume"])),
+                                    max_steps=1)
+            said = _Resumes("pgica_tpu_torch.training.trainer")
+            trainer.load_checkpoint(case["checkpoint"])
+            trainer.train()
+            out[name] = {"verdict": said.verdict(), "history": trainer.history, "global_step": trainer.global_step,
+                         "params": _params_of(trainer)}
+    finally:
+        train_step.augment_batch = held
+    return out
+
+
+def _jax_trainer(cfg_dict, devices, max_steps=None):
+    from pgica_tpu.parallel.mesh import MeshContext as JaxMesh
+    from pgica_tpu.training.trainer import PreferenceGuidedTrainer as JaxTrainer
+    from pgica_tpu.utils import factories as jfactories
+    from pgica_tpu.utils.config import Config as JaxConfig
+
+    cfg = JaxConfig(config_dict=cfg_dict)
+    tok = jfactories.create_tokenizer(cfg)
+    model = jfactories.create_model(cfg, tok)
+    procs = jfactories.create_processors(cfg, tok)
+    s1 = jfactories.create_loaders_with_fallback(cfg, *procs, kind="conceptual")
+    s2 = jfactories.create_loaders_with_fallback(cfg, *procs, kind="ultrafeedback")
+    return JaxTrainer(model, cfg, train_loader=s1[0], val_loader=s1[1], preference_train_loader=s2[0],
+                      preference_val_loader=s2[1], mesh=JaxMesh.from_config(cfg, devices=devices),
+                      max_steps_per_epoch=max_steps), cfg
+
+
+def jax_zero_resume_reference(workdir: Path, name: str):
+    """The JAX trainer's side of one ZeRO resume case: the first run on two devices, then the resume on four
+    (this process imports JAX: it is no rank)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+
+    from pgica_tpu.training import train_step as jax_train_step
+
+    jax_train_step.augment_batch = lambda key, images, enabled=True: images
+    case = torch.load(workdir / "inputs.pt", weights_only=False)["zero_resume"][name]
+    first, _ = _jax_trainer(case["save"], jax.devices()[:2])
+    first.train()
+    trainer, cfg = _jax_trainer(case["resume"], jax.devices()[:4], max_steps=1)
+    said = _Resumes("pgica_tpu.training.trainer")
+    trainer.load_checkpoint(case["checkpoint"])
+    trainer.train()
+    return {"verdict": said.verdict(), "history": trainer.history, "global_step": trainer.global_step,
+            "params": _port_model_of(cfg, jax.tree.map(np.asarray, trainer.model.params))}
 
 
 def jax_trainer_reference(workdir: Path, mode: str):

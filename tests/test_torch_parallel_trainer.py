@@ -14,14 +14,28 @@ and validation loss rel 1e-5; the final parameters within Adam's bound (2 lr
 an update), all but a share below 2% of the elements (the key biases apart)
 within 1e-6, tests/test_torch_trainer.py's rule.
 
+A sixth mode is FSDP at rest (``mesh.fsdp: 2``, ``mesh.data: 1``: the
+batch split over fsdp, the parameters and Adam moments cut by the rules).
+
 Then the port alone: a mid-epoch ZeRO-1 autosave resumed ends bit for bit
 where the uninterrupted run ends (dropout and augmentation on); the
-tensor-parallel run's last checkpoint, loaded by a trainer in one process,
-holds the ranks' gathered parameters bit for bit and whole Adam moments
-that its optimizer takes; only rank 0 writes; ``scripts.train.run`` in the
-two ranks, under ZeRO-1, ``mesh.model: 2`` and ``mesh.seq: 2``; and JAX's
-configuration errors, each raised by both trainers for the same
-configuration, the tensor- and context-parallel refusals among them.
+tensor-parallel and the FSDP run's last checkpoints, loaded by a trainer in
+one process, hold the ranks' gathered parameters bit for bit and whole Adam
+moments that its optimizer takes; only rank 0 writes; ``scripts.train.run``
+in the two ranks, under ZeRO-1, ``mesh.model: 2``, ``mesh.seq: 2`` and
+``mesh.fsdp: 2``; and JAX's configuration errors, each raised by both
+trainers for the same configuration, the tensor- and context-parallel
+refusals among them.
+
+ZeRO checkpoints on another rank count (``zero_resume``): a ZeRO-1 stage-1
+epoch checkpoint saved on two ranks (data 2) and loaded on four (data 4),
+at projection 16, whose flat buffer (110,496 elements) pads alike at 2 and
+4, and at projection 17 (110,666: 110,666 at 2, 110,668 at 4), and a
+ZeRO-3 stage-2 one at projection 16 (each block's buffer and the rest's
+pad alike). Each side resumes its own checkpoint and takes one more step:
+the port's verdict (moments taken, or JAX's "Could not resume optimizer
+state ...; starting fresh") is the JAX trainer's, and its losses and
+parameters are the JAX trainer's within LOSS_RTOL and the PARAM_ATOL rule.
 """
 
 import math
@@ -39,7 +53,7 @@ from pgica_tpu_torch.utils import factories
 from pgica_tpu_torch.utils.config import Config
 
 LR, LOSS_RTOL, PARAM_ATOL, LOOSE_SHARE = 1e-3, 1e-5, 1e-6, 0.02
-MODES = ("replicated", "zero1", "zero3", "tp", "cp")
+MODES = ("replicated", "zero1", "zero3", "tp", "cp", "fsdp")
 SMOKE = Path(__file__).resolve().parent.parent / "configs" / "smoke.yaml"
 
 
@@ -85,11 +99,12 @@ def runs(tmp_path_factory):
              "zero1": _config(tmp, "zero1", **{"mesh.zero1": True}),
              "zero3": _config(tmp, "zero3", **{"mesh.zero3": True, "model.scan_layers": True}),
              "tp": _config(tmp, "tp", **{"mesh.data": 1, "mesh.model": 2}),
-             "cp": _config(tmp, "cp", **{"mesh.data": 1, "mesh.seq": 2})}
+             "cp": _config(tmp, "cp", **{"mesh.data": 1, "mesh.seq": 2}),
+             "fsdp": _config(tmp, "fsdp", **{"mesh.data": 1, "mesh.fsdp": 2})}
     resume = {"training.stage1.num_epochs": 2, "model.dropout": 0.1, "mesh.zero1": True,
               "training.stage2.num_epochs": 0}
     clis = {"cli": {"mesh.zero1": True}, "cli_tp": {"mesh.data": 1, "mesh.model": 2},
-            "cli_cp": {"mesh.data": 1, "mesh.seq": 2}}
+            "cli_cp": {"mesh.data": 1, "mesh.seq": 2}, "cli_fsdp": {"mesh.data": 1, "mesh.fsdp": 2}}
     for name, overrides in clis.items():
         (tmp / f"{name}.yaml").write_text(yaml.safe_dump(_config(tmp, name, **overrides)))
     inputs = {
@@ -159,24 +174,22 @@ def test_cli_runs_in_two_ranks(runs):
     assert runs["ranks"][0]["cli"]["results"] and runs["ranks"][0]["cli"]["snapshot"]
 
 
-@pytest.mark.parametrize("key, axis", [("cli_tp", "model"), ("cli_cp", "seq")])
+@pytest.mark.parametrize("key, axis", [("cli_tp", "model"), ("cli_cp", "seq"), ("cli_fsdp", "fsdp")])
 def test_cli_trains_tensor_and_context_parallel_in_two_ranks(runs, key, axis):
     for out in runs["ranks"]:
         assert out[key]["global_step"] == 4 and out[key]["mesh"][axis] == 2
     assert runs["ranks"][0][key]["results"] and not runs["ranks"][1][key]["writer"]
 
 
-def test_tp_checkpoint_resumes_in_one_process(runs):
-    """The tensor-parallel run's last checkpoint holds the gathered parameters and whole Adam moments: a
-    trainer in one process loads them bit for bit, and its optimizer takes the moments."""
+def _resumes_in_one_process(runs, mode):
     from pgica_tpu_torch.training.train_step import TrainState
 
-    cfg = runs["inputs"]["modes"]["tp"]
+    cfg = runs["inputs"]["modes"][mode]
     trainer = _torch_ranks._port_trainer(cfg, None, None)
     meta = trainer.load_checkpoint(Path(cfg["paths"]["checkpoint_dir"]) / "checkpoint_stage2_epoch0")
     assert meta["global_step"] == 4 and trainer.mesh is None
     got = trainer.model.module.state_dict()
-    want = runs["ranks"][0]["tp"]["params"]
+    want = runs["ranks"][0][mode]["params"]
     assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
     saved = trainer._restored_opt_state
     state = trainer._maybe_resume_opt_state(
@@ -184,6 +197,25 @@ def test_tp_checkpoint_resumes_in_one_process(runs):
     assert state.step == 4 and state.opt_state.count == saved["count"] > 0
     for name, mu in zip(state.opt_state.names, state.opt_state.mu):
         assert mu.shape == got[name].shape and torch.equal(mu, saved["mu"][name])
+
+
+def test_tp_checkpoint_resumes_in_one_process(runs):
+    """The tensor-parallel run's last checkpoint holds the gathered parameters and whole Adam moments: a
+    trainer in one process loads them bit for bit, and its optimizer takes the moments."""
+    _resumes_in_one_process(runs, "tp")
+
+
+def test_fsdp_checkpoint_resumes_in_one_process(runs):
+    """The same for the FSDP run's (its parameters and moments gathered over fsdp)."""
+    _resumes_in_one_process(runs, "fsdp")
+
+
+def test_siglip_llama8b_mesh_builds():
+    """configs/siglip_llama8b.yaml's own mesh (fsdp 2 x model 4; data -1) on eight ranks."""
+    cfg = Config(str(SMOKE.parent / "siglip_llama8b.yaml"))
+    mesh = MeshContext.from_config(cfg, world_size=8, rank=5)
+    assert mesh.shape == {"dcn": 1, "data": 1, "fsdp": 2, "model": 4, "seq": 1}
+    assert (mesh.coords["fsdp"], mesh.coords["model"]) == (1, 1) and mesh.data_parallel_size == 2
 
 
 def test_the_ranks_import_neither_jax_nor_the_jax_package(runs):
@@ -274,3 +306,67 @@ def test_config_errors_match_jax(models, tmp_path, stage, shape, overrides, mess
     for trainer in (jt, pt):
         with pytest.raises(ValueError, match=message):
             trainer.train_stage1() if stage == 1 else trainer.train_stage2()
+
+
+# ------------------------------------------------------------------ ZeRO checkpoints on another rank count
+
+ZERO_RESUME = {  # case: (overrides of the run that saves, of the resume, the checkpoint, its verdict)
+    "zero1_p16": ({"mesh.zero1": True, "training.stage2.num_epochs": 0},
+                  {"training.stage1.num_epochs": 2}, "checkpoint_stage1_epoch0", "resumed"),
+    "zero1_p17": ({"mesh.zero1": True, "training.stage2.num_epochs": 0, "model.projection_dim": 17},
+                  {"training.stage1.num_epochs": 2}, "checkpoint_stage1_epoch0", "fresh"),
+    "zero3_p16": ({"mesh.zero3": True, "model.scan_layers": True, "training.stage1.num_epochs": 0},
+                  {"training.stage2.num_epochs": 2}, "checkpoint_stage2_epoch0", "resumed"),
+}
+
+
+def _resume_case(tmp, name, side):
+    """(save config, resume config, checkpoint path) of one side ("port" or "jax"): the resume on data 4 reads
+    and writes the first run's checkpoint directory (its stage-2 reference stays the saved one)."""
+    save_over, resume_over, ckpt, _ = ZERO_RESUME[name]
+    save = _config(tmp, f"{side}_{name}", **save_over)
+    resume = _config(tmp, f"{side}_{name}_resumed", **{**save_over, **resume_over, "mesh.data": 4,
+                                                       "paths.checkpoint_dir": save["paths"]["checkpoint_dir"]})
+    return save, resume, str(Path(save["paths"]["checkpoint_dir"]) / ckpt)
+
+
+@pytest.fixture(scope="module")
+def zero_resume(tmp_path_factory):
+    jax = _jax()
+    tmp = tmp_path_factory.mktemp("zero_resume")
+    port, refs = {}, {}
+    for name in ZERO_RESUME:
+        save, resume, ckpt = _resume_case(tmp, name, "port")
+        port[name] = {"save": save, "resume": resume, "checkpoint": ckpt,
+                      "params": jax.tree.map(np.asarray, _jax_model(save).params)}
+        save, resume, ckpt = _resume_case(tmp, name, "jax")
+        (tmp / f"jax_{name}").mkdir()
+        torch.save({"zero_resume": {name: {"save": save, "resume": resume, "checkpoint": ckpt}}},
+                   tmp / f"jax_{name}" / "inputs.pt")
+        refs[name] = _torch_ranks.start_jax("_torch_ranks.jax_zero_resume_reference", tmp / f"jax_{name}", (name,))
+    for world in (2, 4):
+        (tmp / f"world{world}").mkdir()
+        torch.save({"zero_resume": port}, tmp / f"world{world}" / "inputs.pt")
+        ranks = _torch_ranks.finish(_torch_ranks.start("_torch_ranks.zero_resume_cases", tmp / f"world{world}",
+                                                       world), timeout=600)
+    return {"ranks": ranks, "jax": {name: _torch_ranks.finish(h, timeout=600)[0] for name, h in refs.items()}}
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_RESUME))
+def test_zero_checkpoint_resumes_on_four_ranks_as_jax(zero_resume, name):
+    want = zero_resume["jax"][name]
+    assert want["verdict"] == ZERO_RESUME[name][3]
+    stage = "stage2" if name.startswith("zero3") else "stage1"
+    for out in zero_resume["ranks"]:
+        got = out[name]
+        assert got["verdict"] == want["verdict"] and got["global_step"] == want["global_step"]
+        (g,), (w,) = got["history"][stage], want["history"][stage]
+        np.testing.assert_allclose(g["train_loss"], w["train_loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(g["val_loss"], w["val_loss"], rtol=LOSS_RTOL)
+        loose = total = 0
+        for key, exp in want["params"].items():
+            d = np.abs(got["params"][key].numpy() - exp.numpy())
+            assert d.max() <= 2 * LR * 3, key  # Adam's bound over the three updates
+            loose += int((d > PARAM_ATOL).sum())
+            total += d.size
+        assert loose / total < LOOSE_SHARE, f"{loose} of {total} elements beyond {PARAM_ATOL}"

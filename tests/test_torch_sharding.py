@@ -6,7 +6,8 @@
   ``siglip_llama8b`` (SigLIP so400m + Llama-3-8B, vocab 128,256) trees, each
   unrolled and scanned (``blocks/`` leaves with a leading layer dimension),
   their shapes from JAX ``eval_shape``, on the meshes (model 2), (model 4),
-  (fsdp 2 x model 4) and (data 2 x model 2 x seq 2). A JAX spec is compared
+  (fsdp 2 x model 4), (data 2 x model 2 x seq 2), (data 2 x fsdp 4) and
+  (data 2 x fsdp 2 x model 2). A JAX spec is compared
   padded with ``None`` to the leaf's rank.
 * ``jax_leaf`` (the port parameter's JAX path and shape) gives the JAX tree
   exactly, for the unrolled trees (full width on the ``meta`` device).
@@ -15,6 +16,12 @@
   ``shard_module`` holds what ``load_jax_params`` writes from
   ``shard_params`` of the tree, bit for bit, and ``local_state`` of its
   whole state is its state.
+* A module cut over ``model`` then ``fsdp`` (``shard_fsdp``) holds, on each
+  rank of the fsdp meshes, what ``load_jax_params`` writes from the JAX
+  arrays' shards on that rank's device (JAX's ``shard_params``; a column
+  bias of a kernel cut over ``model`` is the rank's slice, as
+  ``shard_module`` keeps it), bit for bit; ``local_state`` of the whole
+  state is its state and ``sharded_bytes`` counts both axes.
 
 Exact comparisons throughout (specs, shapes, bits). No ranks: the meshes are
 ``MeshContext(world_size=n, rank=r)`` without a process group.
@@ -35,6 +42,7 @@ from pgica_tpu_torch.parallel.sharding import (
     local_state,
     module_tp_dims,
     param_dims,
+    shard_fsdp,
     shard_module,
     shard_params,
     sharded_bytes,
@@ -45,6 +53,8 @@ MESHES = {  # name: axis sizes
     "model4": {"model": 4},
     "fsdp2_model4": {"fsdp": 2, "model": 4},
     "data2_model2_seq2": {"data": 2, "model": 2, "seq": 2},
+    "fsdp4": {"data": 2, "fsdp": 4},
+    "data2_fsdp2_model2": {"data": 2, "fsdp": 2, "model": 2},
 }
 TREES = {  # name: (vision, text, vocab, projection_dim)
     "tiny_gpt2": ("tiny-vit", "tiny-gpt2", 261, 16),
@@ -99,13 +109,13 @@ def test_specs_equal_jax(tree_name, scan, mesh_name):
     pmesh = _port_mesh(shape)
     tree = _jax_tree(tree_name, scan)
     assert any("blocks" in p.split("/") for p in tree) == scan
-    split = 0
+    split, cut_by = 0, "model" if "model" in shape else "fsdp"
     for path, leaf_shape in tree.items():
         want = tuple(jax_spec(path, leaf_shape, jmesh))
         want += (None,) * (len(leaf_shape) - len(want))
         got = infer_param_spec(path, leaf_shape, pmesh)
         assert got == want, path
-        split += "model" in got
+        split += cut_by in got
     assert split > 0  # the rules cut something on every mesh
 
 
@@ -206,3 +216,58 @@ def test_shard_module_holds_the_shard_of_the_tree(text, model):
         kv = [k for k in dims if "caption_decoder.lm" in k and "k_proj" in k]
         assert bool(kv) == (text == "tiny-gpt2" or model == 2), kv  # tiny-llama: 2 KV heads
         assert "caption_decoder.lm.wte.weight" not in dims  # 261 rows: no model degree > 1 divides them
+
+
+def _jax_shards(tree, shape, rank):
+    """The JAX arrays' shards of a numpy tree on the device of ``rank`` under JAX's ``shard_params``."""
+    jax = _jax()
+    from pgica_tpu.parallel.mesh import MeshContext as JaxMesh
+    from pgica_tpu.parallel.sharding import shard_params as jax_shard_params
+
+    n = int(np.prod(list(shape.values())))
+    sharded = jax_shard_params(tree, JaxMesh(devices=jax.devices()[:n], **{"data": 1, **shape}).mesh)
+    device = jax.devices()[rank]
+    return _map_tree(sharded, lambda leaf: next(np.asarray(s.data) for s in leaf.addressable_shards
+                                                if s.device == device))
+
+
+@pytest.mark.parametrize("mesh_name", ["fsdp4", "fsdp2_model4", "data2_fsdp2_model2"])
+@pytest.mark.parametrize("text", ["tiny-gpt2", "tiny-llama"])
+def test_fsdp_cut_holds_the_jax_shard(text, mesh_name):
+    from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
+    from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
+
+    tree = _tiny_jax_params(text)
+    shape = MESHES[mesh_name]
+    n = int(np.prod(list(shape.values())))
+
+    def model():
+        return PreferenceGuidedCaptioningModel(vision_model="tiny-vit", text_model=text, projection_dim=16,
+                                               tokenizer=CaptionTokenizer(), max_caption_length=8, device="cpu")
+
+    for rank in range(n):
+        mesh = _port_mesh(shape, rank)
+        full = model()
+        full.load_jax_params(tree)
+        whole = {k: v.clone() for k, v in full.module.state_dict().items()}
+        shard_module(full.module, mesh)
+        cut = shard_fsdp(full.module, mesh)
+        assert cut and all(leaf.dim is not None for leaf in cut.values())
+        shards = _jax_shards(tree, shape, rank)
+        tp = shard_params(tree, mesh)  # the column biases as shard_module keeps them
+        for path, leaf in _leaves(tp):
+            if path[-1] == "bias" and path[-2] in ("q_proj", "k_proj", "v_proj", "fc_in", "gate_proj", "up_proj"):
+                node = shards
+                for key in path[:-1]:
+                    node = node[key]
+                node["bias"] = leaf
+        other = model()
+        shard_module(other.module, mesh)
+        shard_fsdp(other.module, mesh)
+        other.load_jax_params(shards)
+        a, b = full.module.state_dict(), other.module.state_dict()
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        assert all(torch.equal(v, a[k]) for k, v in local_state(full.module, mesh, whole).items())
+        local, total = sharded_bytes(full.module)
+        assert 0 < local < total and total == sum(whole[k].numel() * 4 for k in set(cut) | set(module_tp_dims(
+            model().module, mesh)))
