@@ -299,7 +299,9 @@ def dname(dtype: torch.dtype) -> str:
 
 BF16_TIMING = {"reps": 20, "trials": 5}  # time_ms's depth (21, 11, then 7 trials before: the limit; phases 14-15)
 TIMING = dict(BF16_TIMING)  # phase 3 times its float32 pass at F32_TIMING
-F32_TIMING = {"reps": 5, "trials": 5}  # no path of the main runs launches those; a shallower timing keeps the limit
+# phase 3's float32 pass: a shallower timing keeps the limit. A training step at `mixed_precision: "no"`
+# (configs/smoke.yaml; phases 4, 14a, 15b and 16a) launches those kernels too
+F32_TIMING = {"reps": 5, "trials": 5}
 
 
 def time_ms(fn, arg_sets, reps: int | None = None, trials: int | None = None) -> float:
@@ -870,6 +872,9 @@ TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",),
                                   "fused_ce_dw_product"),
               "q8_matmul.cu": ("gemm_s8", "gemm_w8_bf16")}
 TC_OPS = ("HGMMA", "HMMA", "IMMA")  # bf16 and int8 tensor-core instructions in SASS
+# the float32 backward kernels (CUDA cores, csrc/flash_attn_bwd.cu): their registers and spills are reported
+# too, one instance a head dim, and a spill fails the phase (their accumulators are sized to stay in registers)
+F32_BWD_KERNELS = ("flash_attn_bwd_dq_f32", "flash_attn_bwd_dkv_f32")
 
 
 def _demangle(names: list) -> list:
@@ -882,7 +887,10 @@ def _demangle(names: list) -> list:
 
 def tensor_core_report() -> None:
     """Logs each tensor-core kernel instance's registers and spill bytes (ptxas) and HMMA/HGMMA in its
-    SASS. Raises if an instance has no tensor-core instruction: these kernels exist to use them."""
+    SASS, and each f32 backward instance's registers and spills. Raises if a tensor-core instance has no
+    tensor-core instruction (these kernels exist to use them) or an f32 backward instance spills or is
+    missing."""
+    from pgica_tpu_torch.ops.flash_attention import HEAD_DIMS
     from pgica_tpu_torch.ops import _kernels
 
     from concurrent.futures import ThreadPoolExecutor
@@ -895,9 +903,10 @@ def tensor_core_report() -> None:
     for source, names in TC_KERNELS.items():
         lib = libs[source]
         entries = {}
+        f32_names = F32_BWD_KERNELS if source == "flash_attn_bwd.cu" else ()
         for part in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
             name = part.split("'", 1)[0]
-            if any(n in name for n in names):
+            if any(n in name for n in names + f32_names):
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
                 regs = re.search(r"Used (\d+) registers", part)
                 entries[name] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
@@ -907,10 +916,20 @@ def tensor_core_report() -> None:
             if name in entries:
                 entries[name]["sass"] = sorted({op for op in TC_OPS if op in part})
         for (name, e), pretty in zip(entries.items(), _demangle(list(entries))):
+            if any(n in name for n in f32_names):
+                log(f"  {pretty} (CUDA cores): {e['registers']} registers, spill stores {e['spill_stores']} B, "
+                    f"spill loads {e['spill_loads']} B")
+                if e["spill_stores"] or e["spill_loads"]:
+                    raise AssertionError(f"{pretty}: spills ({lib.name})")
+                continue
             log(f"  {pretty}: {e['registers']} registers, spill stores {e['spill_stores']} B, spill loads "
                 f"{e['spill_loads']} B; tensor-core SASS: {', '.join(e.get('sass', [])) or 'none'}")
             if not e.get("sass"):
                 raise AssertionError(f"{pretty}: no HMMA/HGMMA/IMMA in its SASS ({lib.name})")
+        for n in f32_names:
+            found = sum(n in name for name in entries)
+            if found != len(HEAD_DIMS):
+                raise AssertionError(f"{n}: {found} instances in {lib.name}'s ptxas log, {len(HEAD_DIMS)} expected")
 
 
 # LayerNorm shapes of the main paths, (rows, H, where): phase 3 times each, forward and backward

@@ -53,12 +53,9 @@
 // over its 16.7 M elements the rounding's tail passes the bound, on the
 // card and in the CPU emulation of tests/test_torch_backward.py, which
 // holds the two-part scheme to the bound there and at D = 72 and 128.
-// The f32 instance (flash_attn_bwd_dkv_simt) keeps the first design, which
-// f32 inputs need to hold 2e-5: scalar f32 FMAs, one key per lane with its
-// 2 x D accumulators in registers (they spill at D = 128; f32 runs only in
-// tests and phase 4's f32 parity runs, never on a bf16 training path). The
-// C entry point dispatches by dtype. Both share the prologue (dkv_prologue)
-// and the semantics below.
+// The f32 instance is flash_attn_bwd_dkv_f32 (below); the C entry point
+// dispatches by dtype. Both share the prologue (dkv_prologue) and the
+// semantics above.
 //
 // dQ, bf16 (flash_attn_bwd_dq_tc), the same machinery with the roles
 // turned: a 128-thread block owns 64 q rows of one (batch*head), one warp per
@@ -80,15 +77,49 @@
 // emulates both and one rounding holds phase 3's bf16 bound at the Llama,
 // SigLIP and GPT-2 stage-1 shapes (a dq element's error is dominated by its
 // own rounding to bf16), so dQ takes 3 products where two parts would take 4.
-// The f32 instance (flash_attn_bwd_dq) keeps the first design: scalar f32
-// FMAs, one 128-thread block per (b*h, 16-row q tile; 8 rows at D = 128),
-// each warp four rows (two), interleaved; for one row and a 32-key tile lane
-// j computes s and dp for key j, and dq's columns are summed over the tile's
-// keys with ds_j broadcast by shuffle. Tiles are staged in f32 with 16-byte
-// global loads (common.cuh:stage_rows), K and V rows padded to D + 4 floats,
-// q pre-scaled. It runs only in tests and phase 4's f32 parity runs. Both
-// skip the tiles wholly above the diagonal and the keys after the batch
-// row's last kept key.
+// The f32 instance is flash_attn_bwd_dq_f32 (below). Both skip the key tiles
+// wholly above the diagonal and the keys after the batch row's last kept key.
+//
+// float32 on the CUDA cores (flash_attn_bwd_dkv_f32, flash_attn_bwd_dq_f32):
+// the same FlashAttention-2 layout in full f32 FMAs. f32 inputs are held to
+// 2e-5 (chip_smoke.py:ATTN_BWD_F32_TOL), which bf16 or TF32 products break:
+// a single TF32 rounding of P and dS alone misses it (tests/
+// test_torch_backward.py), and a three-part TF32 scheme would trade three
+// tensor-core passes and the operand splits for a bound that f32 FMAs meet
+// exactly. So the products stay f32 and the design is about feeding the FMA
+// units: 67 TFLOP/s against 32 floats a clock an SM from shared memory, so
+// each float read from shared memory must feed several FMAs (register
+// tiling). A 256-thread block works in two phases on tiles in shared memory
+// (f32 rows padded to D + 4 floats: the 8 lanes of a quarter-warp that read
+// 8 consecutive rows hit 8 different 16-byte bank groups):
+//   A: the scores and dP of a 64 x R tile, register-tiled outer products fed
+//      by float4 reads. The block's two halves split the work: threads 0-127
+//      compute S = Q K^T, threads 128-255 dP = dO V^T, 16 or 32 elements a
+//      thread (keys 4 kg + i x rows rg + 8 j in dK/dV, rows rg + 16 i x keys
+//      kg + 8 j in dQ), each element an FMA chain over the D columns in
+//      order. P (masked, exp(s * scale + bias - lse)) and dP - delta go to
+//      shared memory once.
+//   B: the output products (dV += P^T dO and dK += dS^T Q, dS = P (dP -
+//      delta); dQ += dS K), each thread owning 4 output rows (keys or q rows;
+//      2 at D = 32, 1 at D = 16) x 16-byte column chunks cg, cg + 16, ...
+//      (OutTile), accumulated in registers over every tile: 64 f32 registers
+//      a thread at D = 128 for dK and dV, 32 for dQ. Nothing spills at any D
+//      (phase 3 reports ptxas's count for every instance).
+// dK/dV: a block owns 64 keys with K and V in shared memory and walks the q
+// rows from the tile's diagonal on in tiles of R = 32 rows (48 at D = 128),
+// Q, dO and the rows' lse and delta double-buffered by cp.async (the next
+// tile's copies fly while this one is computed); two barriers a tile. dQ: a
+// block owns 64 q rows (Q, dO in shared memory; delta = rowsum(dO O) from O
+// staged once, written for dK/dV) and walks tiles of 64 keys (32 at D <= 64,
+// for two blocks an SM) of K, V and the bias, double-buffered, up to its
+// last causal column and the batch row's last kept key; dS goes through
+// shared memory in place of dP - delta, three barriers a tile. Warps skip the rows (dK/dV) or keys (dQ) wholly on the
+// masked side of the diagonal, and dK/dV's score warps the 16 keys above
+// every row of a tile: the terms skipped are exact zeros, so the sums are
+// the same bits either way. Every output element has one owner thread and a
+// fixed order (tiles in order, rows or keys in order within a tile): no
+// atomics, the same bits from run to run. The scale multiplies the f32
+// score and the finished dq and dk.
 //
 // Both dK/dV instances: a tile past the batch row's last kept key reads no
 // k or v: its dk is 0 and its dv only the spread of the rows that keep no
@@ -101,169 +132,48 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using pgica::from_float;
-using pgica::stage_rows;
 using pgica::to_float;
 using pgica::warp_sum;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the bf16 kernels' block
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlockK = 32;  // one key per lane
-// Rows of q staged at a time (dQ: per block; dK/dV: per chunk), kept small
-// enough at D = 128 for the 48 KB of static shared memory.
-__host__ __device__ constexpr int rows_staged(int d) { return d >= 128 ? 8 : 16; }
 constexpr float kNegInf = -1.0e9f;
 constexpr float kNoKeyLse = 0.5f * kNegInf;  // a row's lse at or below this: it kept no key
 
-// sum_c a[c] * b[c], sequential in c (the forward's order), float4 reads.
-template <int D>
-__device__ __forceinline__ float dot_row(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c);
-    const float4 y = *reinterpret_cast<const float4*>(b + c);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-  return s;
-}
-
 // The batch row's last key with bias > NEG_INF among [0, n), block-wide
-// (-1 if none); `scratch` holds kWarps ints. All threads must call it.
+// (-1 if none); `scratch` holds THREADS / 32 ints. All threads must call it.
+template <int THREADS = kThreads>
 __device__ __forceinline__ int last_kept_key(const float* bias_row, int n, int* scratch) {
   int last = -1;
-  for (int j = threadIdx.x; j < n; j += kThreads)
+  for (int j = threadIdx.x; j < n; j += THREADS)
     if (bias_row[j] > kNegInf) last = j;
   last = __reduce_max_sync(0xffffffffu, last);
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = last;
   __syncthreads();
   last = scratch[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) last = max(last, scratch[w]);
+  for (int w = 1; w < THREADS / 32; ++w) last = max(last, scratch[w]);
   return last;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ bias, const T* __restrict__ o,
-                      const float* __restrict__ lse, const T* __restrict__ dout,
-                      T* __restrict__ dq, float* __restrict__ delta, int heads, int sq, int sk,
-                      int causal, float sm_scale) {
-  constexpr int kLd = D + 4;
-  constexpr int kColsPerLane = (D + 31) / 32;
-  constexpr int kBlockQ = rows_staged(D);
-  constexpr int kRowsPerWarp = kBlockQ / kWarps;
-  __shared__ __align__(16) float q_s[kBlockQ][D];
-  __shared__ __align__(16) float do_s[kBlockQ][D];
-  __shared__ __align__(16) float k_s[kBlockK][kLd];
-  __shared__ __align__(16) float v_s[kBlockK][kLd];
-  __shared__ float b_s[kBlockK];
-  __shared__ int last_kept_s[kWarps];
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t q_base = static_cast<size_t>(bh) * sq;
-  const T* kg = k + static_cast<size_t>(bh) * sk * D;
-  const T* vg = v + static_cast<size_t>(bh) * sk * D;
-  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
-
-  stage_rows<kThreads, kBlockQ, D, D>(q_s, q + q_base * D, q0, sq, sm_scale);
-  stage_rows<kThreads, kBlockQ, D, D>(do_s, dout + q_base * D, q0, sq, 1.f);
-  const int q_end = min(q0 + kBlockQ, sq);
-  int kv_end = causal ? min(sk, q_end) : sk;  // rows >= cols: cols < q_end suffice
-  if (bias_row != nullptr) kv_end = min(kv_end, last_kept_key(bias_row, sk, last_kept_s) + 1);
-  __syncthreads();  // q_s, do_s
-
-  float row_lse[kRowsPerWarp], row_delta[kRowsPerWarp];
-  float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = rr * kWarps + warp;
-    const int row = q0 + r;
-#pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) acc[rr][i] = 0.f;
-    row_lse[rr] = kNegInf;
-    row_delta[rr] = 0.f;
-    if (row >= sq) continue;
-    const T* orow = o + (q_base + row) * D;
-    float part = 0.f;
-    for (int c = lane; c < D; c += 32) part = fmaf(do_s[r][c], to_float(orow[c]), part);
-    row_delta[rr] = warp_sum(part);
-    row_lse[rr] = lse[q_base + row];
-    if (lane == 0) delta[q_base + row] = row_delta[rr];
-  }
-
-  const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<kThreads, kBlockK, D, kLd>(k_s, kg, k0, kv_end, 1.f);
-    stage_rows<kThreads, kBlockK, D, kLd>(v_s, vg, k0, kv_end, 1.f);
-    if (threadIdx.x < kBlockK)
-      b_s[threadIdx.x] = bias_row != nullptr && k0 + threadIdx.x < kv_end ? bias_row[k0 + threadIdx.x] : 0.f;
-    __syncthreads();
-
-    const int col = k0 + lane;
-    const bool col_kept = col < kv_end && b_s[lane] > kNegInf;
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = rr * kWarps + warp;
-      const int row = q0 + r;
-      if (row >= sq) break;                 // warp-uniform
-      if (row_lse[rr] <= kNoKeyLse) continue;  // a row without a kept key: ds = 0
-      const float s = dot_row<D>(q_s[r], k_s[lane]);
-      const float dp = dot_row<D>(do_s[r], v_s[lane]);
-      const bool keep = col_kept && (!causal || row >= col);
-      const float p = keep ? expf(s + b_s[lane] - row_lse[rr]) : 0.f;
-      const float ds = p * (dp - row_delta[rr]);
-#pragma unroll 8
-      for (int j = 0; j < kBlockK; ++j) {
-        const float dsj = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-        for (int i = 0; i < kColsPerLane; ++i) {
-          const int c = lane + 32 * i;
-          if (D % 32 == 0 || c < D) acc[rr][i] = fmaf(dsj, k_s[j][c], acc[rr][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = q0 + rr * kWarps + warp;
-    if (row >= sq) break;
-    T* dqrow = dq + (q_base + row) * D;
-#pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) dqrow[c] = from_float<T>(acc[rr][i] * sm_scale);
-    }
-  }
 }
 
 // The dK/dV prologue, block-wide (all threads call it; it ends with a
 // barrier): returns the batch row's last kept key (sk - 1 without a bias)
 // and writes spread[c] = sum of dO[i][c] / Sk over the rows i that keep no
-// key. `scratch` holds 2 * kWarps ints.
-template <typename T, int D>
+// key. `scratch` holds 2 * THREADS / 32 ints.
+template <typename T, int D, int THREADS = kThreads>
 __device__ int dkv_prologue(const float* lse_row, const T* dog, const float* bias_row, int sq, int sk,
                             float* spread, int* scratch) {
+  constexpr int kW = THREADS / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int no_key = 0;  // does any row keep no key? (block-uniform)
-  for (int i = threadIdx.x; i < sq; i += kThreads) no_key |= lse_row[i] <= kNoKeyLse;
+  for (int i = threadIdx.x; i < sq; i += THREADS) no_key |= lse_row[i] <= kNoKeyLse;
   no_key = __any_sync(0xffffffffu, no_key);
   if (lane == 0) scratch[warp] = no_key;
-  const int last_kept = bias_row == nullptr ? sk - 1 : last_kept_key(bias_row, sk, scratch + kWarps);
+  const int last_kept = bias_row == nullptr ? sk - 1 : last_kept_key<THREADS>(bias_row, sk, scratch + kW);
   __syncthreads();  // scratch (also when last_kept_key did not run)
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) no_key |= scratch[w];
-  for (int c = threadIdx.x; c < D; c += kThreads) {
+  for (int w = 0; w < kW; ++w) no_key |= scratch[w];
+  for (int c = threadIdx.x; c < D; c += THREADS) {
     float sum = 0.f;
     if (no_key)
       for (int i = 0; i < sq; ++i)
@@ -274,114 +184,419 @@ __device__ int dkv_prologue(const float* lse_row, const T* dog, const float* bia
   return last_kept;
 }
 
-// f32 dK/dV: the first design, kept for f32 inputs (see the note above).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                            const float* __restrict__ bias, const float* __restrict__ lse,
-                            const float* __restrict__ delta, const T* __restrict__ dout,
-                            T* __restrict__ dk, T* __restrict__ dv, int heads, int sq, int sk,
-                            int causal, float sm_scale) {
-  constexpr int kLd = D + 4;
-  constexpr int kChunk = rows_staged(D);
-  // k_s and v_s hold the key tile, then the sums of the warps' dk and dv.
-  __shared__ __align__(16) float k_s[kBlockK][kLd];
-  __shared__ __align__(16) float v_s[kBlockK][kLd];
-  __shared__ __align__(16) float q_s[kChunk][D];
-  __shared__ __align__(16) float do_s[kChunk][D];
-  __shared__ float lse_s[kChunk], delta_s[kChunk], b_s[kBlockK];
-  __shared__ float spread_s[D];  // sum of dO / Sk over the rows that keep no key
-  __shared__ int scratch_s[2 * kWarps];
+// ------------------------------------------------------------ float32, CUDA cores (see the note above)
+constexpr int kF32Threads = 256;
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kF32Tile = 64;           // dK/dV: keys a block; dQ: q rows a block and keys a staged tile
+constexpr int kF32TLd = kF32Tile + 4;  // pitch of the P and dS tiles in shared memory
+__host__ __device__ constexpr int f32_ld(int d) { return d + 4; }  // pitch of a staged row, in floats
+// dK/dV: q rows a staged tile. At D = 128 two buffers of 64 rows of Q and dO besides K and V would pass
+// the 227 KB a block may have; at D <= 64, 32 rows leave room for two blocks an SM.
+__host__ __device__ constexpr int dkv_f32_rows(int d) { return d >= 128 ? 48 : 32; }
+__host__ __device__ constexpr int dkv_f32_smem_bytes(int d) {
+  return 4 * (2 * kF32Tile * f32_ld(d) + 4 * dkv_f32_rows(d) * f32_ld(d) + 2 * dkv_f32_rows(d) * kF32TLd +
+              4 * dkv_f32_rows(d) + kF32Tile + d + 2 * kF32Warps);
+}
+// dQ: keys a staged tile; at D <= 64, 32 leave room for two blocks an SM.
+__host__ __device__ constexpr int dq_f32_keys(int d) { return d <= 64 ? 32 : 64; }
+__host__ __device__ constexpr int dq_f32_smem_bytes(int d) {
+  return 4 * (2 * kF32Tile * f32_ld(d) + 4 * dq_f32_keys(d) * f32_ld(d) + dq_f32_keys(d) * kF32TLd +
+              2 * dq_f32_keys(d) + 2 * kF32Tile + kF32Warps);
+}
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t q_base = static_cast<size_t>(bh) * sq;
-  const size_t k_base = static_cast<size_t>(bh) * sk;
-  const T* qg = q + q_base * D;
-  const T* dog = dout + q_base * D;
-  const float* lse_row = lse + q_base;
-  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
-  const int last_kept = dkv_prologue<T, D>(lse_row, dog, bias_row, sq, sk, spread_s, scratch_s);
+// Phase B's layout: the block's 64 x D outputs (dK and dV: 64 keys; dQ: 64 q rows) over its 256
+// threads. Thread tid owns the kPer consecutive tile rows from (tid / kColGroups) kPer and the 16-byte
+// column chunks cg, cg + kColGroups, ... (cg = tid % kColGroups) below kChunks; at D = 72, 18 chunks
+// over 16 groups, so groups 0 and 1 own two. The 8 lanes of a quarter-warp read one tile row's
+// value (a broadcast) and 8 consecutive chunks of a staged row.
+template <int D>
+struct OutTile {
+  static constexpr int kChunks = D / 4;
+  static constexpr int kPer = D >= 64 ? 4 : D / 16;
+  static constexpr int kColGroups = kF32Threads * kPer / kF32Tile;
+  static constexpr int kCpt = (kChunks + kColGroups - 1) / kColGroups;
+  __host__ __device__ static constexpr bool chunk_ok(int ch) { return kChunks % kColGroups == 0 || ch < kChunks; }
+};
 
-  float dk_acc[D], dv_acc[D];
+// N consecutive floats of shared memory (p 4N-byte aligned)
+template <int N>
+__device__ __forceinline__ void lds(float (&out)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x, out[1] = x.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
+// acc[i][j] = sum over c in order of a[i][c] b[j][c], one FMA chain an element, where a[i] is the row
+// a + i * a_step * LD and b[j] the row b + j * b_step * LD of staged tiles (pitch LD = f32_ld(D)),
+// read as float4.
+template <int D, int NA, int NB>
+__device__ __forceinline__ void tile_dots(float (&acc)[NA][NB], const float* a, int a_step, const float* b,
+                                          int b_step) {
+  constexpr int kLd = f32_ld(D);
 #pragma unroll
-  for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  if (k0 <= last_kept) {  // block-uniform: the tile holds a key some row may keep
-    const int kv_end = min(sk, last_kept + 1);
-    stage_rows<kThreads, kBlockK, D, kLd>(k_s, k + k_base * D, k0, kv_end, 1.f);
-    stage_rows<kThreads, kBlockK, D, kLd>(v_s, v + k_base * D, k0, kv_end, 1.f);
-    if (threadIdx.x < kBlockK)
-      b_s[threadIdx.x] = bias_row != nullptr && k0 + threadIdx.x < kv_end ? bias_row[k0 + threadIdx.x] : 0.f;
-    const int col = k0 + lane;
-    for (int c0 = causal ? k0 : 0; c0 < sq; c0 += kChunk) {
-      __syncthreads();  // the previous chunk is consumed
-      stage_rows<kThreads, kChunk, D, D>(q_s, qg, c0, sq, sm_scale);
-      stage_rows<kThreads, kChunk, D, D>(do_s, dog, c0, sq, 1.f);
-      if (threadIdx.x < kChunk) {
-        const int row = c0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < sq ? lse_row[row] : kNegInf;
-        delta_s[threadIdx.x] = row < sq ? delta[q_base + row] : 0.f;
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 x[NA], y[NB];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * a_step * kLd + c);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) y[j] = *reinterpret_cast<const float4*>(b + j * b_step * kLd + c);
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
       }
-      __syncthreads();  // the chunk (and, the first time, the key tile)
-      const bool col_kept = col < kv_end && b_s[lane] > kNegInf;
+  }
+}
+
+// ROWS rows [r0, r0 + ROWS) of a (n, D) f32 array into a staged tile (pitch f32_ld(D)) by cp.async,
+// 16 bytes a copy; rows at or past n as zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int r0, int n) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = r0 + r < n;
+    pgica::cp_async16(pgica::smem_u32(dst + r * f32_ld(D) + c), ok ? src + static_cast<size_t>(r0 + r) * D + c : src,
+                      ok);
+  }
+}
+
+// f32 dK/dV. Dynamic shared memory (floats): K, V [64][LD]; Q[2], dO[2] [R][LD]; P^T and dP^T - delta
+// as [R][68] (row-major in the q row); the rows' statistics [2][lse R | delta R]; the key bias [64];
+// spread [D]; then 2 * 8 ints of scratch.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
+    flash_attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                           const float* __restrict__ bias, const float* __restrict__ lse,
+                           const float* __restrict__ delta, const float* __restrict__ dout, float* __restrict__ dk,
+                           float* __restrict__ dv, int heads, int sq, int sk, int causal, float sm_scale) {
+  using Out = OutTile<D>;
+  constexpr int kLd = f32_ld(D), kRows = dkv_f32_rows(D), kRowsA = kRows / 8, kRowTile = kRows * kLd;
+  extern __shared__ __align__(16) float smem_f[];
+  float* k_s = smem_f;
+  float* v_s = k_s + kF32Tile * kLd;
+  float* q_s = v_s + kF32Tile * kLd;  // [2][kRowTile]
+  float* do_s = q_s + 2 * kRowTile;   // [2][kRowTile]
+  float* p_s = do_s + 2 * kRowTile;
+  float* dp_s = p_s + kRows * kF32TLd;
+  float* stat_s = dp_s + kRows * kF32TLd;
+  float* b_s = stat_s + 4 * kRows;
+  float* spread_s = b_s + kF32Tile;
+  int* scratch_s = reinterpret_cast<int*>(spread_s + D);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kF32Tile;
+  const size_t q_base = static_cast<size_t>(bh) * sq, k_base = static_cast<size_t>(bh) * sk;
+  const float* qg = q + q_base * D;
+  const float* dog = dout + q_base * D;
+  const float* lse_row = lse + q_base;
+  const float* delta_row = delta + q_base;
+  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
+  const int last_kept = dkv_prologue<float, D, kF32Threads>(lse_row, dog, bias_row, sq, sk, spread_s, scratch_s);
+
+  const int og = tid / Out::kColGroups, cg = tid % Out::kColGroups;  // phase B: keys og kPer + i
+  float dk_acc[Out::kPer][Out::kCpt][4], dv_acc[Out::kPer][Out::kCpt][4];
 #pragma unroll
-      for (int rr = 0; rr < kChunk / kWarps; ++rr) {
-        const int r = rr * kWarps + warp;
-        const int row = c0 + r;
-        if (row >= sq) break;                // warp-uniform
-        if (lse_s[r] <= kNoKeyLse) continue;  // a row without a kept key: the spread
-        const float s = dot_row<D>(q_s[r], k_s[lane]);
-        const float dp = dot_row<D>(do_s[r], v_s[lane]);
-        const bool keep = col_kept && (!causal || row >= col);
-        const float p = keep ? expf(s + b_s[lane] - lse_s[r]) : 0.f;
-        const float ds = p * (dp - delta_s[r]);
+  for (int i = 0; i < Out::kPer; ++i)
 #pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 g = *reinterpret_cast<const float4*>(&do_s[r][c]);
-          const float4 x = *reinterpret_cast<const float4*>(&q_s[r][c]);  // q / sqrt(d)
-          dv_acc[c] = fmaf(p, g.x, dv_acc[c]);
-          dv_acc[c + 1] = fmaf(p, g.y, dv_acc[c + 1]);
-          dv_acc[c + 2] = fmaf(p, g.z, dv_acc[c + 2]);
-          dv_acc[c + 3] = fmaf(p, g.w, dv_acc[c + 3]);
-          dk_acc[c] = fmaf(ds, x.x, dk_acc[c]);
-          dk_acc[c + 1] = fmaf(ds, x.y, dk_acc[c + 1]);
-          dk_acc[c + 2] = fmaf(ds, x.z, dk_acc[c + 2]);
-          dk_acc[c + 3] = fmaf(ds, x.w, dk_acc[c + 3]);
+    for (int j = 0; j < Out::kCpt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[i][j][e] = dv_acc[i][j][e] = 0.f;
+
+  const int q_first = causal ? k0 : 0;  // under `causal` no row above the tile's diagonal keeps a key
+  if (k0 <= last_kept && q_first < sq) {  // block-uniform
+    const int kv_end = min(sk, last_kept + 1);
+    const int n_tiles = (sq - q_first + kRows - 1) / kRows;
+    // thread t < R: lse of the tile's row t (NEG_INF past sq: p = 0); R <= t < 2R: delta of row t - R
+    auto row_stat = [&](int r0) {
+      const int r = r0 + (tid < kRows ? tid : tid - kRows);
+      if (tid < kRows) return r < sq ? lse_row[r] : kNegInf;
+      return r < sq ? delta_row[r] : 0.f;
+    };
+    stage_f32<D, kF32Tile>(k_s, k + k_base * D, k0, kv_end);
+    stage_f32<D, kF32Tile>(v_s, v + k_base * D, k0, kv_end);
+    stage_f32<D, kRows>(q_s, qg, q_first, sq);
+    stage_f32<D, kRows>(do_s, dog, q_first, sq);
+    pgica::cp_async_commit();
+    if (tid < kF32Tile) {
+      const int key = k0 + tid;  // a key past kv_end is masked
+      b_s[tid] = key >= kv_end ? 2.f * kNegInf : bias_row == nullptr ? 0.f : bias_row[key];
+    }
+    if (tid < 2 * kRows) stat_s[tid] = row_stat(q_first);
+
+    // phase A: threads 0-127 S^T = K Q^T, 128-255 dP^T = V dO^T, keys 4 kg + i x rows rg + 8 j
+    const int grp = tid >> 7, kg = (tid & 127) >> 3, rg = tid & 7;
+    const int key_a = k0 + 16 * ((tid & 127) >> 5);  // the first of this warp's 16 keys
+    const float* keys_s = (grp == 0 ? k_s : v_s) + 4 * kg * kLd;
+    float* out_s = (grp == 0 ? p_s : dp_s) + 4 * kg;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t & 1, row0 = q_first + t * kRows;
+      pgica::cp_async_wait<0>();
+      __syncthreads();  // tile t is in place (the first time K, V, b_s, stat_s too); tile t - 1 is consumed
+      float next_stat = 0.f;
+      if (t + 1 < n_tiles) {  // the next tile's copies fly while this one is computed
+        stage_f32<D, kRows>(q_s + (buf ^ 1) * kRowTile, qg, row0 + kRows, sq);
+        stage_f32<D, kRows>(do_s + (buf ^ 1) * kRowTile, dog, row0 + kRows, sq);
+        pgica::cp_async_commit();
+        if (tid < 2 * kRows) next_stat = row_stat(row0 + kRows);
+      }
+      const float* qt = q_s + buf * kRowTile;
+      const float* dot = do_s + buf * kRowTile;
+      const float* lse_t = stat_s + buf * 2 * kRows;
+      const float* delta_t = lse_t + kRows;
+
+      float acc[4][kRowsA];
+      if (causal && row0 + kRows - 1 < key_a) {  // warp-uniform: every row above every key, p = 0
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kRowsA; ++j) acc[i][j] = 0.f;
+      } else {
+        tile_dots<D, 4, kRowsA>(acc, keys_s, 1, (grp == 0 ? qt : dot) + rg * kLd, 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kRowsA; ++j) {
+        const int rl = rg + 8 * j;  // row in the tile
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (grp == 0) {  // P^T, 0 where the key or the causal entry is masked or the row keeps no key
+            const int kl = 4 * kg + i;
+            const float b = b_s[kl], row_lse = lse_t[rl];
+            const bool keep = b > kNegInf && row_lse > kNoKeyLse && (!causal || row0 + rl >= k0 + kl);
+            x[i] = keep ? expf(acc[i][j] * sm_scale + b - row_lse) : 0.f;
+          } else {
+            x[i] = acc[i][j] - delta_t[rl];
+          }
+        }
+        *reinterpret_cast<float4*>(out_s + rl * kF32TLd) = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      if (t + 1 < n_tiles && tid < 2 * kRows) stat_s[(buf ^ 1) * 2 * kRows + tid] = next_stat;  // read last in t - 1
+      __syncthreads();  // P^T and dP^T - delta are in place
+
+      // phase B: dV += P^T dO and dK += dS^T Q over the tile's rows, dS^T = P^T (dP^T - delta); rows
+      // above every key of the warp (its first is k0 + 8 warp) and past sq add nothing
+      const int r_begin = causal ? max(0, k0 + 8 * warp - row0) : 0;
+      const int r_end = min(kRows, sq - row0);
+      for (int r = r_begin; r < r_end; ++r) {
+        float p[Out::kPer], ds[Out::kPer];
+        lds(p, p_s + r * kF32TLd + og * Out::kPer);
+        lds(ds, dp_s + r * kF32TLd + og * Out::kPer);
+#pragma unroll
+        for (int i = 0; i < Out::kPer; ++i) ds[i] *= p[i];
+#pragma unroll
+        for (int j = 0; j < Out::kCpt; ++j) {
+          const int ch = cg + j * Out::kColGroups;
+          if (!Out::chunk_ok(ch)) continue;
+          const float4 g = *reinterpret_cast<const float4*>(dot + r * kLd + 4 * ch);
+          const float4 x = *reinterpret_cast<const float4*>(qt + r * kLd + 4 * ch);
+#pragma unroll
+          for (int i = 0; i < Out::kPer; ++i) {
+            dv_acc[i][j][0] = fmaf(p[i], g.x, dv_acc[i][j][0]);
+            dv_acc[i][j][1] = fmaf(p[i], g.y, dv_acc[i][j][1]);
+            dv_acc[i][j][2] = fmaf(p[i], g.z, dv_acc[i][j][2]);
+            dv_acc[i][j][3] = fmaf(p[i], g.w, dv_acc[i][j][3]);
+            dk_acc[i][j][0] = fmaf(ds[i], x.x, dk_acc[i][j][0]);
+            dk_acc[i][j][1] = fmaf(ds[i], x.y, dk_acc[i][j][1]);
+            dk_acc[i][j][2] = fmaf(ds[i], x.z, dk_acc[i][j][2]);
+            dk_acc[i][j][3] = fmaf(ds[i], x.w, dk_acc[i][j][3]);
+          }
         }
       }
     }
   }
 
-  // The warps' partial sums, added in a fixed order through k_s and v_s.
-#pragma unroll 1
-  for (int w = 0; w < kWarps; ++w) {
-    __syncthreads();  // the tiles are free (w = 0) or the previous warp's adds are done
-    if (warp == w) {
+  // dk = sm_scale * acc, dv = acc + spread
 #pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        float4* kd = reinterpret_cast<float4*>(&k_s[lane][c]);
-        float4* vd = reinterpret_cast<float4*>(&v_s[lane][c]);
-        const float4 ka = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *kd;
-        const float4 va = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *vd;
-        *kd = make_float4(ka.x + dk_acc[c], ka.y + dk_acc[c + 1], ka.z + dk_acc[c + 2],
-                          ka.w + dk_acc[c + 3]);
-        *vd = make_float4(va.x + dv_acc[c], va.y + dv_acc[c + 1], va.z + dv_acc[c + 2],
-                          va.w + dv_acc[c + 3]);
-      }
+  for (int i = 0; i < Out::kPer; ++i) {
+    const int key = k0 + og * Out::kPer + i;
+    if (key >= sk) continue;
+    const size_t row = (k_base + key) * D;
+#pragma unroll
+    for (int j = 0; j < Out::kCpt; ++j) {
+      const int ch = cg + j * Out::kColGroups;
+      if (!Out::chunk_ok(ch)) continue;
+      const int c = 4 * ch;
+      *reinterpret_cast<float4*>(dk + row + c) = make_float4(dk_acc[i][j][0] * sm_scale, dk_acc[i][j][1] * sm_scale,
+                                                             dk_acc[i][j][2] * sm_scale, dk_acc[i][j][3] * sm_scale);
+      *reinterpret_cast<float4*>(dv + row + c) =
+          make_float4(dv_acc[i][j][0] + spread_s[c], dv_acc[i][j][1] + spread_s[c + 1],
+                      dv_acc[i][j][2] + spread_s[c + 2], dv_acc[i][j][3] + spread_s[c + 3]);
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-    const int j = i / D, c = i % D;
-    if (k0 + j >= sk) break;  // i rises with j
-    const size_t g = (k_base + k0 + j) * D + c;
-    dk[g] = from_float<T>(k_s[j][c]);
-    dv[g] = from_float<T>(v_s[j][c] + spread_s[c]);
   }
 }
 
+// f32 dQ. Dynamic shared memory (floats): Q, dO [64][LD]; buffers 0 and 1 of K and V, [KT][LD] each,
+// K then V (O's 64 rows pass through buffer 1 before the walk); dS as [KT keys][68]; the key bias
+// [2][KT]; lse, delta [64]; then 8 ints of scratch. KT = dq_f32_keys(D).
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
+    flash_attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ bias, const float* __restrict__ o, const float* __restrict__ lse,
+                          const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ delta,
+                          int heads, int sq, int sk, int causal, float sm_scale) {
+  using Out = OutTile<D>;
+  constexpr int kLd = f32_ld(D), kTile = kF32Tile * kLd;
+  constexpr int kKeys = dq_f32_keys(D), kKeysA = kKeys / 8, kKTile = kKeys * kLd;
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;
+  float* do_s = q_s + kTile;
+  float* kv_s = do_s + kTile;  // buffer b: K at kv_s + 2 b kKTile, V kKTile after it
+  float* ds_s = kv_s + 4 * kKTile;
+  float* b_s = ds_s + kKeys * kF32TLd;  // [2][kKeys]
+  float* lse_s = b_s + 2 * kKeys;
+  float* delta_s = lse_s + kF32Tile;
+  int* scratch_s = reinterpret_cast<int*>(delta_s + kF32Tile);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Tile;  // under `causal` the longest walks start first
+  const size_t q_base = static_cast<size_t>(bh) * sq;
+  const float* kg = k + static_cast<size_t>(bh) * sk * D;
+  const float* vg = v + static_cast<size_t>(bh) * sk * D;
+  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
+
+  float* o_s = kv_s + 2 * kKTile;  // buffer 1 (2 kKeys >= 64 rows), free until the walk's first prefetch
+  stage_f32<D, kF32Tile>(q_s, q + q_base * D, q0, sq);
+  stage_f32<D, kF32Tile>(do_s, dout + q_base * D, q0, sq);
+  stage_f32<D, kF32Tile>(o_s, o + q_base * D, q0, sq);
+  pgica::cp_async_commit();
+
+  const int q_end = min(q0 + kF32Tile, sq);
+  int kv_end = causal ? min(sk, q_end) : sk;  // rows >= cols: cols < q_end suffice
+  if (bias_row != nullptr) kv_end = min(kv_end, last_kept_key<kF32Threads>(bias_row, sk, scratch_s) + 1);
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  // key tile [k0, k0 + KT) into buffer buf; a key past kv_end is masked, whatever its bias
+  auto stage_keys = [&](int buf, int k0) {
+    stage_f32<D, kKeys>(kv_s + 2 * buf * kKTile, kg, k0, kv_end);
+    stage_f32<D, kKeys>(kv_s + (2 * buf + 1) * kKTile, vg, k0, kv_end);
+    if (tid < kKeys) {
+      const int key = k0 + tid;
+      b_s[buf * kKeys + tid] = key >= kv_end ? 2.f * kNegInf : bias_row == nullptr ? 0.f : bias_row[key];
+    }
+  };
+  if (n_tiles > 0) stage_keys(0, 0);
+  pgica::cp_async_commit();
+  pgica::cp_async_wait<1>();
+  __syncthreads();  // Q, dO and O are in place
+
+  // delta = rowsum(dO O): warp w sums rows w, w + 8, ... (lane-strided partials, then the butterfly)
+  for (int r = warp; r < kF32Tile; r += kF32Warps) {
+    float part = 0.f;
+    for (int c = lane; c < D; c += 32) part = fmaf(do_s[r * kLd + c], o_s[r * kLd + c], part);
+    const float sum = warp_sum(part);
+    if (lane == 0) {
+      delta_s[r] = sum;
+      if (q0 + r < sq) delta[q_base + q0 + r] = sum;
+    }
+  }
+  if (tid < kF32Tile) lse_s[tid] = q0 + tid < sq ? lse[q_base + q0 + tid] : kNegInf;  // past sq: p = 0
+
+  const int og = tid / Out::kColGroups, cg = tid % Out::kColGroups;  // phase B: rows og kPer + i
+  float acc[Out::kPer][Out::kCpt][4];
+#pragma unroll
+  for (int i = 0; i < Out::kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < Out::kCpt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // phase A: threads 0-127 S = Q K^T, 128-255 dP = dO V^T, rows rg + 16 i x keys kg + 8 j
+  const int grp = tid >> 7, kg8 = tid & 7, rg = (tid & 127) >> 3;
+  const float* rows_s = (grp == 0 ? q_s : do_s) + rg * kLd;
+  const int row_w_last = q0 + 8 * warp + 7;  // phase B: the last of this warp's 8 rows
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kKeys;
+    pgica::cp_async_wait<0>();
+    __syncthreads();  // tile t is in place; tile t - 1 (and O, the first time) is consumed
+    if (t + 1 < n_tiles) {  // the next tile's copies fly while this one is computed
+      stage_keys(buf ^ 1, k0 + kKeys);
+      pgica::cp_async_commit();
+    }
+    const float* kt = kv_s + 2 * buf * kKTile;
+    const float* bt = b_s + buf * kKeys;
+
+    float sa[4][kKeysA];
+    tile_dots<D, 4, kKeysA>(sa, rows_s, 16, (grp == 0 ? kt : kt + kKTile) + kg8 * kLd, 8);
+    if (grp == 0) {  // P in place of S, 0 where the key or the causal entry is masked or the row keeps no key
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeysA; ++j) {
+          const int rl = rg + 16 * i, kl = kg8 + 8 * j;
+          const float b = bt[kl], row_lse = lse_s[rl];
+          const bool keep = b > kNegInf && row_lse > kNoKeyLse && (!causal || q0 + rl >= k0 + kl);
+          sa[i][j] = keep ? expf(sa[i][j] * sm_scale + b - row_lse) : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeysA; ++j) ds_s[(kg8 + 8 * j) * kF32TLd + rg + 16 * i] = sa[i][j] - delta_s[rg + 16 * i];
+    }
+    __syncthreads();  // dP - delta is in place
+    if (grp == 0) {  // dS = P (dP - delta)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeysA; ++j) {
+          float& x = ds_s[(kg8 + 8 * j) * kF32TLd + rg + 16 * i];
+          x = sa[i][j] * x;
+        }
+    }
+    __syncthreads();  // dS is in place
+
+    // phase B: dQ += dS K over the tile's keys; keys past kv_end or after every row of the warp add nothing
+    const int kk_end = min(min(kKeys, kv_end - k0), causal ? row_w_last - k0 + 1 : kKeys);
+    for (int kk = 0; kk < kk_end; ++kk) {
+      float ds[Out::kPer];
+      lds(ds, ds_s + kk * kF32TLd + og * Out::kPer);
+#pragma unroll
+      for (int j = 0; j < Out::kCpt; ++j) {
+        const int ch = cg + j * Out::kColGroups;
+        if (!Out::chunk_ok(ch)) continue;
+        const float4 x = *reinterpret_cast<const float4*>(kt + kk * kLd + 4 * ch);
+#pragma unroll
+        for (int i = 0; i < Out::kPer; ++i) {
+          acc[i][j][0] = fmaf(ds[i], x.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(ds[i], x.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(ds[i], x.z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(ds[i], x.w, acc[i][j][3]);
+        }
+      }
+    }
+  }
+  pgica::cp_async_wait<0>();
+
+  // dq = sm_scale * acc
+#pragma unroll
+  for (int i = 0; i < Out::kPer; ++i) {
+    const int row = q0 + og * Out::kPer + i;
+    if (row >= sq) continue;
+    float* dqrow = dq + (q_base + row) * D;
+#pragma unroll
+    for (int j = 0; j < Out::kCpt; ++j) {
+      const int ch = cg + j * Out::kColGroups;
+      if (!Out::chunk_ok(ch)) continue;
+      *reinterpret_cast<float4*>(dqrow + 4 * ch) = make_float4(acc[i][j][0] * sm_scale, acc[i][j][1] * sm_scale,
+                                                               acc[i][j][2] * sm_scale, acc[i][j][3] * sm_scale);
+    }
+  }
+}
 
 // bf16 dK/dV on the tensor cores (see the note above). Dynamic shared
 // memory: K, V, Q[2], dO[2] tiles of 64 x (DP + 8) bf16, then f32 row
@@ -740,28 +955,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int D>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
-                  const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int head_dim, int causal,
+                  const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int causal,
                   float sm_scale, cudaStream_t stream) {
-  switch (head_dim) {
-#define PGICA_DQ_CASE(DIM)                                                                                    \
-  case DIM:                                                                                                   \
-    flash_attn_bwd_dq<float, DIM><<<dim3(bh, (sq + rows_staged(DIM) - 1) / rows_staged(DIM)), kThreads, 0,    \
-                                    stream>>>(                                                                \
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),              \
-        static_cast<const float*>(bias), static_cast<const float*>(o), static_cast<const float*>(lse),         \
-        static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(delta), heads, sq, sk,    \
-        causal, sm_scale);                                                                                    \
-    break;
-    PGICA_DQ_CASE(16)
-    PGICA_DQ_CASE(32)
-    PGICA_DQ_CASE(64)
-    PGICA_DQ_CASE(72)
-    PGICA_DQ_CASE(128)
-#undef PGICA_DQ_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  constexpr int kSmem = dq_f32_smem_bytes(D);
+  static const cudaError_t attr =  // once per instance: above 48 KB, dynamic shared memory must be asked for
+      cudaFuncSetAttribute(flash_attn_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sq + kF32Tile - 1) / kF32Tile);
+  flash_attn_bwd_dq_f32<D><<<grid, kF32Threads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(delta), heads, sq, sk, causal,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -782,13 +989,17 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* bias, 
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dq_bf16(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
-                   const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int head_dim, int causal,
-                   float sm_scale, cudaStream_t stream) {
+int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* o, const void* lse,
+              const void* dout, void* dq, void* delta, int bh, int heads, int sq, int sk, int head_dim, int causal,
+              float sm_scale, int dtype, cudaStream_t stream) {
+  const bool f32 = dtype == pgica::kFloat32;
   switch (head_dim) {
-#define PGICA_DQ_CASE(DIM) \
-  case DIM:                \
-    return launch_dq_tc<DIM>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, causal, sm_scale, stream);
+#define PGICA_DQ_CASE(DIM)                                                                                   \
+  case DIM:                                                                                                  \
+    return f32 ? launch_dq_f32<DIM>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, causal, sm_scale, \
+                                    stream)                                                                  \
+               : launch_dq_tc<DIM>(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, causal, sm_scale,  \
+                                   stream);
     PGICA_DQ_CASE(16)
     PGICA_DQ_CASE(32)
     PGICA_DQ_CASE(64)
@@ -800,28 +1011,20 @@ int launch_dq_bf16(const void* q, const void* k, const void* v, const void* bias
   }
 }
 
+template <int D>
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* bias, const void* lse,
                    const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk,
-                   int head_dim, int causal, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(bh, (sk + kBlockK - 1) / kBlockK);
-  switch (head_dim) {
-#define PGICA_DKV_CASE(DIM)                                                                     \
-  case DIM:                                                                                     \
-    flash_attn_bwd_dkv_simt<float, DIM><<<grid, kThreads, 0, stream>>>(                         \
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), \
-        static_cast<const float*>(bias), static_cast<const float*>(lse),                        \
-        static_cast<const float*>(delta), static_cast<const float*>(dout),                      \
-        static_cast<float*>(dk), static_cast<float*>(dv), heads, sq, sk, causal, sm_scale);     \
-    break;
-    PGICA_DKV_CASE(16)
-    PGICA_DKV_CASE(32)
-    PGICA_DKV_CASE(64)
-    PGICA_DKV_CASE(72)
-    PGICA_DKV_CASE(128)
-#undef PGICA_DKV_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                   int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int kSmem = dkv_f32_smem_bytes(D);
+  static const cudaError_t attr =  // once per instance: above 48 KB, dynamic shared memory must be asked for
+      cudaFuncSetAttribute(flash_attn_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sk + kF32Tile - 1) / kF32Tile);
+  flash_attn_bwd_dkv_f32<D><<<grid, kF32Threads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), heads, sq, sk, causal,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -842,13 +1045,17 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* bias, const void* lse,
-                    const void* delta, const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk,
-                    int head_dim, int causal, float sm_scale, cudaStream_t stream) {
+int launch_dkv(const void* q, const void* k, const void* v, const void* bias, const void* lse, const void* delta,
+               const void* dout, void* dk, void* dv, int bh, int heads, int sq, int sk, int head_dim, int causal,
+               float sm_scale, int dtype, cudaStream_t stream) {
+  const bool f32 = dtype == pgica::kFloat32;
   switch (head_dim) {
-#define PGICA_DKV_CASE(DIM) \
-  case DIM:                 \
-    return launch_dkv_tc<DIM>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, causal, sm_scale, stream);
+#define PGICA_DKV_CASE(DIM)                                                                                      \
+  case DIM:                                                                                                      \
+    return f32 ? launch_dkv_f32<DIM>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, causal, sm_scale, \
+                                     stream)                                                                     \
+               : launch_dkv_tc<DIM>(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, causal, sm_scale,  \
+                                    stream);
     PGICA_DKV_CASE(16)
     PGICA_DKV_CASE(32)
     PGICA_DKV_CASE(64)
@@ -862,7 +1069,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* bia
 
 bool bad_shape(int bh, int heads, int sq, int sk) {
   return bh <= 0 || heads <= 0 || bh % heads != 0 || sq <= 0 || sk <= 0 ||
-         sq > 65535 * rows_staged(128) || sk > 65535 * kBlockK;
+         sq > 65535 * kTcRows || sk > 65535 * kTcKeys;  // grid.y: 64 rows or keys a block
 }
 
 }  // namespace
@@ -870,38 +1077,30 @@ bool bad_shape(int bh, int heads, int sq, int sk) {
 // q, o, dout, dq: (bh, sq, head_dim); k, v: (bh, sk, head_dim), contiguous in
 // `dtype`; bias: (bh / heads, sk) f32 or NULL; lse, delta: (bh, sq) f32.
 // Writes dq and delta = rowsum(dout * o): bf16 on the tensor cores
-// (flash_attn_bwd_dq_tc), f32 on the CUDA cores (flash_attn_bwd_dq).
+// (flash_attn_bwd_dq_tc), f32 on the CUDA cores (flash_attn_bwd_dq_f32).
 // Returns a cudaError_t code.
 extern "C" int pgica_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* bias, const void* o, const void* lse,
                                        const void* dout, void* dq, void* delta, int bh, int heads,
                                        int sq, int sk, int head_dim, int causal, float sm_scale,
                                        int dtype, void* stream) {
-  if (bad_shape(bh, heads, sq, sk)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == pgica::kFloat32)
-    return launch_dq_f32(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
-  if (dtype == pgica::kBFloat16)
-    return launch_dq_bf16(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh, heads, sq, sk) || (dtype != pgica::kFloat32 && dtype != pgica::kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq(q, k, v, bias, o, lse, dout, dq, delta, bh, heads, sq, sk, head_dim, causal, sm_scale, dtype,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // As above, with delta from pgica_flash_attn_bwd_dq; writes dk and dv
 // (bh, sk, head_dim) in `dtype`: bf16 on the tensor cores
-// (flash_attn_bwd_dkv_tc), f32 on the CUDA cores (flash_attn_bwd_dkv_simt).
+// (flash_attn_bwd_dkv_tc), f32 on the CUDA cores (flash_attn_bwd_dkv_f32).
 // Returns a cudaError_t code.
 extern "C" int pgica_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* bias, const void* lse, const void* delta,
                                         const void* dout, void* dk, void* dv, int bh, int heads,
                                         int sq, int sk, int head_dim, int causal, float sm_scale,
                                         int dtype, void* stream) {
-  if (bad_shape(bh, heads, sq, sk)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == pgica::kFloat32)
-    return launch_dkv_f32(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim, causal,
-                          sm_scale, s);
-  if (dtype == pgica::kBFloat16)
-    return launch_dkv_bf16(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim, causal,
-                           sm_scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh, heads, sq, sk) || (dtype != pgica::kFloat32 && dtype != pgica::kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv(q, k, v, bias, lse, delta, dout, dk, dv, bh, heads, sq, sk, head_dim, causal, sm_scale, dtype,
+                    static_cast<cudaStream_t>(stream));
 }

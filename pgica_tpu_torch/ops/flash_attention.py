@@ -18,8 +18,9 @@ Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
   package, so neither needs atomics. Both dispatch by dtype: bf16 runs on
   the tensor cores (``flash_attn_bwd_dkv_tc``, P and dS as two bf16 parts
   each in their products; ``flash_attn_bwd_dq_tc``, dS rounded once to bf16
-  in dS K), float32 on the CUDA cores in f32 (``flash_attn_bwd_dkv_simt``,
-  ``flash_attn_bwd_dq``).
+  in dS K), float32 on the CUDA cores in full f32 FMAs
+  (``flash_attn_bwd_dkv_f32``, ``flash_attn_bwd_dq_f32``: the same
+  FlashAttention-2 layout, register-tiled).
 
 Masking follows the plain JAX path (attention.py:_xla_attention), which is
 what the JAX package runs at these shapes: a masked key (bias <= NEG_INF, or

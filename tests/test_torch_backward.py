@@ -301,3 +301,150 @@ def test_flash_dq_on_the_tensor_cores_holds_the_bf16_bound(shape, parts):
     assert _worst_over_bound(got_dq, want_dq) <= 1.0
     if shape[4] is not None:  # batch row 0 keeps no key
         assert not got_dq[0].any() and got_dq[1].abs().max() > 0
+
+
+# The float32 kernels (csrc/flash_attn_bwd.cu: flash_attn_bwd_dq_f32, flash_attn_bwd_dkv_f32) form every
+# product in full f32 FMAs on the CUDA cores; only the order of the sums is theirs. chip_smoke.py holds
+# them to the plain version within ATTN_BWD_F32_TOL. The emulations below repeat that arithmetic on the
+# CPU: the scores s and dP each one FMA chain over the D columns in order, p = exp(s * scale + bias -
+# lse) with the scale fused, dS = p (dP - delta), delta = rowsum(dO O) as lane-strided partials summed
+# by the warp's butterfly; dV and dK one FMA chain over the q rows in order (the tiles from the key
+# tile's diagonal on, each in row order), dQ over the keys in order. A fused multiply-add is emulated
+# in float64 (the f32 product is exact there) with one rounding to f32. They are held to the same
+# bound against the backward computed in float64 from the same f32 inputs, at GPT-2 stage 1's shape
+# (D = 64, causal, ragged keys) at reduced batch, and at D = 128 and 72 (causal, batch row 0 keeping no
+# key: its dq and dk are 0, its dv the spread of dO). P and dS rounded once to TF32 (10 mantissa bits)
+# before their products miss the bound: why the kernels take no single-pass TF32 tensor-core product.
+F32_TOL = (2e-5, 1e-5)  # chip_smoke.py: ATTN_BWD_F32_TOL
+DELTA_TOL = (1e-4, 1e-5)  # chip_smoke.py's bound on delta
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero (cvt.rna.tf32.f32)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32_p_ds(q, k, v, bias, causal, lse, delta, do):
+    from pgica_tpu_torch.ops.flash_attention import NEG_INF
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = torch.tensor(1.0 / d**0.5, dtype=torch.float32)
+    s, dp = torch.zeros(b, h, sq, sk), torch.zeros(b, h, sq, sk)
+    for c in range(d):
+        s = _fma(q[..., c, None], k[..., None, :, c], s)
+        dp = _fma(do[..., c, None], v[..., None, :, c], dp)
+    keep = (lse > 0.5 * NEG_INF)[..., None].expand(b, h, sq, sk)
+    b_row = torch.zeros(sk) if bias is None else bias[:, None, None, :]
+    if bias is not None:
+        keep = keep & (bias > NEG_INF)[:, None, None, :]
+    if causal:
+        keep = keep & (torch.arange(sq)[:, None] >= torch.arange(sk)[None, :])
+    p = torch.where(keep, torch.exp(_fma(s, scale, b_row) - lse[..., None]), 0.0)
+    return p, p * (dp - delta[..., None])
+
+
+def _dq_f32_scheme(q, k, v, bias, causal, o, lse, do):
+    """(dq, delta) as flash_attn_bwd_dq_f32 forms them."""
+    d = q.shape[3]
+    part = torch.zeros(*q.shape[:3], 32)
+    for c0 in range(0, d, 32):
+        cols = torch.arange(c0, c0 + 32)
+        live = cols < d
+        cols = cols.clamp(max=d - 1)
+        part = torch.where(live, _fma(do[..., cols], o[..., cols], part), part)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., torch.arange(32) ^ off]
+    delta = part[..., 0]
+    _, ds = _f32_p_ds(q, k, v, bias, causal, lse, delta, do)
+    dq = torch.zeros_like(q)
+    for key in range(k.shape[2]):
+        dq = _fma(ds[..., key, None], k[..., key, None, :], dq)
+    return dq * torch.tensor(1.0 / d**0.5, dtype=torch.float32), delta
+
+
+def _dkv_f32_scheme(q, k, v, bias, causal, lse, delta, do, cut=lambda x: x):
+    """(dk, dv) as flash_attn_bwd_dkv_f32 forms them; ``cut`` rounds P and dS before their products."""
+    from pgica_tpu_torch.ops.flash_attention import NEG_INF
+
+    sq, d, sk = q.shape[2], q.shape[3], k.shape[2]
+    p, ds = (cut(x) for x in _f32_p_ds(q, k, v, bias, causal, lse, delta, do))
+    dk, dv, spread = torch.zeros_like(k), torch.zeros_like(v), torch.zeros(*do.shape[:2], 1, d)
+    without_key = (lse <= 0.5 * NEG_INF).float()
+    for r in range(sq):
+        dv = _fma(p[..., r, :, None], do[..., r, None, :], dv)
+        dk = _fma(ds[..., r, :, None], q[..., r, None, :], dk)
+        spread = spread + do[..., r, None, :] * without_key[..., r, None, None]
+    return dk * torch.tensor(1.0 / d**0.5, dtype=torch.float32), dv + spread / sk
+
+
+def _bwd_f64(q, k, v, bias, causal, do):
+    """(dq, dk, dv, delta) of the plain backward in float64 from the same f32 inputs."""
+    from pgica_tpu_torch.ops.flash_attention import NEG_INF
+
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = (q / d**0.5) @ k.transpose(-1, -2)
+    keep = torch.ones(1, 1, 1, sk, dtype=torch.bool)
+    if bias is not None:
+        s = s + bias.double()[:, None, None, :]
+        keep = (bias > NEG_INF)[:, None, None, :]
+    if causal:
+        keep = keep & (torch.arange(sq)[:, None] >= torch.arange(sk)[None, :])
+    s = torch.where(keep, s, NEG_INF)
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    delta = (do * (p @ v)).sum(-1)
+    ds = torch.where(keep & (lse > 0.5 * NEG_INF), p * (do @ v.transpose(-1, -2) - delta[..., None]), 0.0) / d**0.5
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do, delta
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_case(b, h, s, d, valid):
+    """f32 inputs, causal, the key bias from ``valid`` (None: random lengths 1..s); the float64 backward
+    and both kernels' emulated outputs (dq, delta, dk, dv)."""
+    rng = np.random.default_rng(17)
+    q, k, v, do = (torch.from_numpy(_np(rng, b, h, s, d)) for _ in range(4))
+    lengths = rng.integers(1, s + 1, size=b) if valid is None else np.asarray(valid)
+    bias = key_padding_bias(torch.from_numpy((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)))
+    o, lse = flash_attention_fwd(q, k, v, bias, True)  # the plain f32 forward
+    dq, delta = _dq_f32_scheme(q, k, v, bias, True, o, lse, do)
+    dk, dv = _dkv_f32_scheme(q, k, v, bias, True, lse, delta, do)
+    return (q, k, v, bias, lse, do), _bwd_f64(q, k, v, bias, True, do), (dq, delta, dk, dv)
+
+
+def _f32_worst_over_bound(got, want, tol=F32_TOL):
+    return float(((got.double() - want).abs() / (tol[0] + tol[1] * want.abs())).max())
+
+
+F32_SHAPES = dict(argvalues=[(8, 4, 128, 64, None), (2, 2, 512, 128, (0, 300)), (2, 2, 512, 72, (0, 300))],
+                  ids=["gpt2_stage1", "llama_d128", "siglip_d72"])
+
+
+@pytest.mark.parametrize("shape", **F32_SHAPES)
+def test_flash_dq_f32_scheme_holds_the_f32_bound(shape):
+    _, (want_dq, _, _, want_delta), (dq, delta, _, _) = _f32_case(*shape)
+    assert _f32_worst_over_bound(delta, want_delta, DELTA_TOL) <= 1.0
+    assert _f32_worst_over_bound(dq, want_dq) <= 1.0
+    if shape[4] is not None:  # batch row 0 keeps no key
+        assert not dq[0].any() and dq[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("shape", **F32_SHAPES)
+def test_flash_dkv_f32_scheme_holds_the_f32_bound(shape):
+    _, (_, want_dk, want_dv, _), (_, _, dk, dv) = _f32_case(*shape)
+    assert _f32_worst_over_bound(dk, want_dk) <= 1.0 and _f32_worst_over_bound(dv, want_dv) <= 1.0
+    if shape[4] is not None:  # batch row 0 keeps no key: dk 0, dv the spread of dO / Sk
+        assert not dk[0].any() and dv[0].abs().max() > 0 and dk[1].abs().max() > 0
+
+
+def test_flash_dkv_with_p_and_ds_rounded_once_to_tf32_misses_the_f32_bound():
+    (q, k, v, bias, lse, do), (_, want_dk, want_dv, _), (_, delta, _, _) = _f32_case(8, 4, 128, 64, None)
+    dk, dv = _dkv_f32_scheme(q, k, v, bias, True, lse, delta, do, cut=_tf32)
+    assert _f32_worst_over_bound(dv, want_dv) > 1.0 and _f32_worst_over_bound(dk, want_dk) > 1.0
+    assert torch.equal(_tf32(torch.tensor([1.0 + 2.0**-11, 1.0 + 2.0**-12, -3.0])),
+                       torch.tensor([1.0 + 2.0**-10, 1.0, -3.0]))  # ties away from zero, 10 bits kept
