@@ -119,14 +119,15 @@ exits non-zero):
    and ``predict.main`` (one JPEG, then a folder of 16), each's wall time.
 
 12. Int8 decode and LoRA. 12a, right after phase 3: both int8 entry points
-   of csrc/q8_matmul.cu (W8A8: the row quantizer and the int8 tensor-core
-   product; weight-only: bf16 dequantized in registers, tensor cores, and
-   f32 on CUDA cores) against their plain versions at the decode paths'
-   shapes (GPT-2 Medium at 1, 8, 16, 32 and 128 rows, Llama-3-8B at 8) and
-   ragged tails: the row quantizer and the f32 W8A8 output bit-equal (its
-   epilogue is exact arithmetic on the int32 sums), the bf16 output within
-   1 ulp, weight-only within the bf16 tolerance; each bf16 shape timed with
-   its bound, at 16 and 128 rows and Llama's also the plain version,
+   of csrc/q8_matmul.cu (W8A8: one launch, the row quantizer fused into the
+   int8 tensor-core product; weight-only: bf16 dequantized in registers,
+   tensor cores, and f32 on CUDA cores) against their plain versions at the
+   decode paths' shapes (GPT-2 Medium at 1, 8, 16, 32 and 128 rows,
+   Llama-3-8B at 8) and ragged tails: the row scales and the f32 W8A8 output
+   bit-equal (its epilogue is exact arithmetic on the int32 sums), the bf16
+   output 0 ulp from the plain one, weight-only within the bf16 tolerance; each bf16
+   shape timed with its bound and tiling, at 16, 32 and 128 rows and Llama's
+   also the plain version,
    torch._int_mm (where its shape rules allow it) and F.linear on the bf16
    dequantized weight. 12b: the int8 twin of phase 4's 2-layer f32 GPT-2
    flagship, card against CPU (1e-4, inside phase 4); after 11a, on the
@@ -870,8 +871,11 @@ TC_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_tc",),
               "fused_ce.cu": ("fused_ce_fwd_tiles",),
               "fused_ce_bwd.cu": ("fused_ce_dh_coeff", "fused_ce_dh_product", "fused_ce_dw_coeff",
                                   "fused_ce_dw_product"),
-              "q8_matmul.cu": ("gemm_s8", "gemm_w8_bf16")}
+              "q8_matmul.cu": ("gemm_w8a8_fused", "gemm_w8_bf16_tiled")}
 TC_OPS = ("HGMMA", "HMMA", "IMMA")  # bf16 and int8 tensor-core instructions in SASS
+# the int8 decode kernels: the instruction each must hold (int8 products; bf16 after the dequantization), and a
+# spill fails the phase (their accumulators, up to 64 a thread, are sized to stay in registers)
+TC_REQUIRED_OP = {"gemm_w8a8_fused": "IMMA", "gemm_w8_bf16_tiled": "HMMA"}
 # the float32 backward kernels (CUDA cores, csrc/flash_attn_bwd.cu): their registers and spills are reported
 # too, one instance a head dim, and a spill fails the phase (their accumulators are sized to stay in registers)
 F32_BWD_KERNELS = ("flash_attn_bwd_dq_f32", "flash_attn_bwd_dkv_f32")
@@ -886,10 +890,10 @@ def _demangle(names: list) -> list:
 
 
 def tensor_core_report() -> None:
-    """Logs each tensor-core kernel instance's registers and spill bytes (ptxas) and HMMA/HGMMA in its
-    SASS, and each f32 backward instance's registers and spills. Raises if a tensor-core instance has no
-    tensor-core instruction (these kernels exist to use them) or an f32 backward instance spills or is
-    missing."""
+    """Logs each tensor-core kernel instance's registers, shared memory and spill bytes (ptxas) and
+    HMMA/HGMMA/IMMA in its SASS, and each f32 backward instance's registers and spills. Raises if a
+    tensor-core instance has no tensor-core instruction (these kernels exist to use them), an int8 decode
+    instance lacks its own (TC_REQUIRED_OP) or spills, or an f32 backward instance spills or is missing."""
     from pgica_tpu_torch.ops.flash_attention import HEAD_DIMS
     from pgica_tpu_torch.ops import _kernels
 
@@ -909,8 +913,9 @@ def tensor_core_report() -> None:
             if any(n in name for n in names + f32_names):
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
                 regs = re.search(r"Used (\d+) registers", part)
+                smem = re.search(r"(\d+) bytes smem", part)
                 entries[name] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
-                                     spill_loads=int(spill.group(2)))
+                                     spill_loads=int(spill.group(2)), smem=int(smem.group(1)) if smem else 0)
         for part in dumps[source].split("Function : ")[1:]:
             name = part.split(None, 1)[0]
             if name in entries:
@@ -922,10 +927,17 @@ def tensor_core_report() -> None:
                 if e["spill_stores"] or e["spill_loads"]:
                     raise AssertionError(f"{pretty}: spills ({lib.name})")
                 continue
-            log(f"  {pretty}: {e['registers']} registers, spill stores {e['spill_stores']} B, spill loads "
-                f"{e['spill_loads']} B; tensor-core SASS: {', '.join(e.get('sass', [])) or 'none'}")
+            log(f"  {pretty}: {e['registers']} registers, {e['smem']} B static shared memory, spill stores "
+                f"{e['spill_stores']} B, spill loads {e['spill_loads']} B; tensor-core SASS: "
+                f"{', '.join(e.get('sass', [])) or 'none'}")
             if not e.get("sass"):
                 raise AssertionError(f"{pretty}: no HMMA/HGMMA/IMMA in its SASS ({lib.name})")
+            for kernel, op in TC_REQUIRED_OP.items():
+                if kernel in name and (op not in e["sass"] or e["spill_stores"] or e["spill_loads"]):
+                    raise AssertionError(f"{pretty}: no {op} in its SASS, or it spills ({lib.name})")
+        for kernel in TC_REQUIRED_OP if source == "q8_matmul.cu" else ():
+            if not any(kernel in name for name in entries):
+                raise AssertionError(f"{kernel}: no instance in {lib.name}'s ptxas log")
         for n in f32_names:
             found = sum(n in name for name in entries)
             if found != len(HEAD_DIMS):
@@ -3060,9 +3072,11 @@ Q8_SHAPES = tuple((m, k, n, where) for k, n, where in ((1024, 1024, "GPT-2 Mediu
                   for m in (1, 8, 16, 32, 128)) + (
     (8, 4096, 4096, "Llama-3-8B q/o_proj"), (8, 4096, 1024, "Llama-3-8B k/v_proj"),
     (8, 4096, 14336, "Llama-3-8B gate/up_proj"), (8, 14336, 4096, "Llama-3-8B down_proj"))
-Q8_LIBRARY_M = (16, 128)  # GPT-2 rows also timed with the plain version and the library yardsticks (and Llama's)
+Q8_LIBRARY_M = (16, 32, 128)  # GPT-2 rows also timed with the plain version and the library yardsticks (and Llama's)
 Q8_RAGGED = ((5, 1000, 1001), (33, 777, 100), (1, 16, 3), (70, 4104, 24), (129, 64, 8))  # tails of M, N and K
 Q8_SUMMARY_SHAPE = (16, 1024, 1024)  # the engine's 16 slots through q/k/v/out_proj: most of a step's launches
+# W8A8's bf16 output: the f32 value (exact arithmetic on the int32 sums) rounded once, as the plain version rounds it
+Q8_W8A8_BF16_ULPS = 0
 Q8_W8_F32_TOL = (1e-4, 1e-5)  # f32 weight-only on CUDA cores: K products summed in another order (K up to 14,336)
 QUANT_LOGIT_ATOL = 1e-4  # the quantized 2-layer f32 flagship's logits, card against CPU
 
@@ -3075,27 +3089,44 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((ordered(got) - ordered(want)).abs().max())
 
 
+def q8_launch(weight_only: bool, x, q, s, b, out, sx=None) -> None:
+    """One launch of an int8 entry point on explicit buffers (W8A8 writes the row scales to ``sx``)."""
+    from pgica_tpu_torch.ops import _kernels
+
+    m, k = x.shape
+    n = q.shape[0]
+    bias = None if b is None else b.data_ptr()
+    tail = (m, n, k, _kernels.DTYPE_CODES[x.dtype], _kernels.stream_handle(x))
+    if weight_only:
+        _kernels.launch("q8_matmul_w8", x.data_ptr(), q.data_ptr(), s.data_ptr(), bias, out.data_ptr(), *tail)
+    else:
+        _kernels.launch("q8_matmul_w8a8", x.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(), bias,
+                        out.data_ptr(), *tail)
+
+
+def q8_inputs(m: int, k: int, n: int, dtype: torch.dtype, gen: torch.Generator):
+    from pgica_tpu_torch.ops.quant import quantize_weight
+
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    q, s = quantize_weight(torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k))
+    return x, q, s, 0.1 * torch.randn(n, device="cuda", generator=gen)
+
+
 def q8_case(m: int, k: int, n: int, weight_only: bool, dtype: torch.dtype, gen: torch.Generator,
             timed: bool = True, library: bool = False, where: str = "") -> dict:
     """One int8 entry point against its plain version at (M, K) x (N, K).
 
-    W8A8: the row quantizer's int8 and scales bit-equal (the kernel's own scratch, launched here
-    directly), the f32 output bit-equal (its epilogue is exact arithmetic on the int32 sums, so the
-    sums are equal), the bf16 output within 1 ulp. Weight-only: bf16 within TOL, f32 within
-    Q8_W8_F32_TOL. Timed on rotating input sets > 2x L2 (the weight arrives cold, as in a decode step
-    over 24 layers); the bound counts the int8 weight, its scales and bias, x and y once, and 2 M N K
-    operations at the int8 (W8A8) or bf16 (weight-only) dense peak; the library yardsticks are
-    torch._int_mm (the int8 product alone, where its shape rules allow it) and F.linear on a bf16
-    dequantized weight (which reads 2 bytes a weight)."""
-    from pgica_tpu_torch.ops import _kernels
-    from pgica_tpu_torch.ops.quant import q8_matmul, q8_matmul_ref, quantize_rows, quantize_weight
+    W8A8 (one launch, the row quantizer fused): the row scales that the instance of x's dtype writes, and those
+    of the f32 instance run on the same values, bit-equal to quantize_rows'; the f32 output bit-equal to the
+    plain version's (exact arithmetic on the int32 sums), the bf16 output Q8_W8A8_BF16_ULPS from it.
+    Weight-only: bf16 within TOL, f32 within Q8_W8_F32_TOL. Both: two runs bit-equal. Timed on rotating
+    input sets > 2x L2 (the weight arrives cold, as in a decode step over 24 layers); the bound counts the
+    int8 weight, its scales and bias, x and y once, and 2 M N K operations at the int8 (W8A8) or bf16
+    (weight-only) dense peak; the library yardsticks are torch._int_mm (the int8 product alone, where its
+    shape rules allow it) and F.linear on a bf16 dequantized weight (which reads 2 bytes a weight)."""
+    from pgica_tpu_torch.ops.quant import q8_matmul, q8_matmul_ref, q8_plan, quantize_rows
 
-    def inputs():
-        x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-        q, s = quantize_weight(torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k))
-        return x, q, s, 0.1 * torch.randn(n, device="cuda", generator=gen)
-
-    x, q, s, b = inputs()
+    x, q, s, b = q8_inputs(m, k, n, dtype, gen)
     got, again = q8_matmul(x, q, s, b, weight_only), q8_matmul(x, q, s, b, weight_only)
     torch.cuda.synchronize()
     want = q8_matmul_ref(x, q, s, b, weight_only)
@@ -3107,26 +3138,34 @@ def q8_case(m: int, k: int, n: int, weight_only: bool, dtype: torch.dtype, gen: 
         atol, rtol = Q8_W8_F32_TOL if dtype == torch.float32 else TOL[dtype]
         r.update(max_abs_err=check_close(label, got, want, atol, rtol), atol=atol, rtol=rtol)
     else:
-        xq, sx = torch.empty(m, k, dtype=torch.int8, device="cuda"), torch.empty(m, device="cuda")
-        _kernels.launch("q8_matmul_w8a8", x.data_ptr(), xq.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
-                        b.data_ptr(), torch.empty_like(got).data_ptr(), m, n, k, _kernels.DTYPE_CODES[dtype],
-                        _kernels.stream_handle(x))
-        rq, rs = quantize_rows(x)
+        # the row scales of this dtype's own instance, then (for a bf16 shape) of the f32 one on the same values
+        want_sx = quantize_rows(x)[1]
+        sx, out = torch.full((m,), float("nan"), device="cuda"), torch.empty_like(got)
+        q8_launch(False, x, q, s, b, out, sx)
         torch.cuda.synchronize()
-        if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
-            raise AssertionError(f"{label}: the row quantizer's int8 or scales differ from the plain version's")
+        if not torch.equal(sx, want_sx) or not torch.equal(out, got):
+            raise AssertionError(f"{label}: the fused row quantizer's scales differ from quantize_rows'")
+        xf = x.float()
+        sx32, got32 = torch.full((m,), float("nan"), device="cuda"), torch.empty(m, n, device="cuda")
+        q8_launch(False, xf, q, s, b, got32, sx32)
+        torch.cuda.synchronize()
+        if not torch.equal(sx32, want_sx):
+            raise AssertionError(f"{label}: the f32 instance's row scales differ from quantize_rows'")
+        if not torch.equal(got32, q8_matmul_ref(xf, q, s, b)):
+            raise AssertionError(f"{label}: the f32 output (exact on the int32 sums) differs from the plain one")
+        if dtype == torch.float32 and not torch.equal(got, want):
+            raise AssertionError(f"{label}: the f32 output differs from the plain version's")
         ulps = 0
-        if dtype == torch.float32:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{label}: the f32 output (exact on the int32 sums) differs from the plain one")
-        elif (ulps := bf16_ulps(got, want)) > 1:
+        if dtype == torch.bfloat16 and (ulps := bf16_ulps(got, want)) > Q8_W8A8_BF16_ULPS:
             raise AssertionError(f"{label}: {ulps} bf16 ulps from the plain version")
         r.update(max_abs_err=float((got.float() - want.float()).abs().max()), ulps=ulps, atol=0.0, rtol=0.0)
     if not timed:
         return r
+    if dtype == torch.bfloat16 or not weight_only:
+        r["plan"] = q8_plan(m, n, k, dtype, weight_only)
     nbytes = n * k + 8 * n + (m * k + m * n) * x.element_size()
     n_sets = max(1, math.ceil(100e6 / nbytes))
-    sets = [(x, q, s, b, weight_only)] + [(*inputs(), weight_only) for _ in range(n_sets - 1)]
+    sets = [(x, q, s, b, weight_only)] + [(*q8_inputs(m, k, n, dtype, gen), weight_only) for _ in range(n_sets - 1)]
     r.update(ms=time_ms(q8_matmul, sets), input_sets=n_sets,
              **bound(nbytes, 2 * m * n * k, dtype if weight_only else torch.int8))
     if library:
@@ -3146,8 +3185,11 @@ def show_q8(kernel: str, r: dict) -> None:
     if "plain_ms" in r:
         lib = "refused" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.5f}"
         extra = f" plain_ms {r['plain_ms']:.5f} torch._int_mm {lib} F.linear(bf16 dequantized) {r['linear_ms']:.5f}"
+    plan = r.get("plan")
+    tiling = (f"; {plan['rows']}-row x {plan['cols']}-column blocks, split {plan['split']}, {plan['blocks']} blocks"
+              if plan else "")
     log(f"  {kernel} {r['where']} {r['shape']} {r['dtype']}: {err}; kernel_ms {r['ms']:.5f}{extra} bound_ms "
-        f"{r['bound_ms']:.6f} ({r['bound_by']}; {r['input_sets']} input sets)")
+        f"{r['bound_ms']:.6f} ({r['bound_by']}; {r['input_sets']} input sets{tiling})")
 
 
 def phase_int8_kernels() -> dict:

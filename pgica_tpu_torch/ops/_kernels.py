@@ -84,7 +84,7 @@ KERNELS = {
     ),
     "q8_matmul_w8a8": (
         "q8_matmul.cu", "pgica_q8_matmul_w8a8",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "q8_matmul_w8": (
         "q8_matmul.cu", "pgica_q8_matmul_w8",
@@ -154,16 +154,21 @@ def build() -> Dict[str, float]:
     return seconds
 
 
+def c_function(source: str, symbol: str, argtypes) -> Callable[..., int]:
+    """A C function of ``source``'s library (built if it is not yet), returning an int; not counted as a launch."""
+    build()
+    fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _entry_point(name: str):
     fn = _entry_points.get(name)
     if fn is None:
-        build()
-        lib = ctypes.CDLL(str(library_path(KERNELS[name][0])))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = list(KERNELS[name][2])
-        fn.restype = ctypes.c_int
-        err = lib.pgica_error_string
-        err.argtypes = [ctypes.c_int]
+        source, symbol, argtypes = KERNELS[name]
+        fn = c_function(source, symbol, argtypes)
+        err = c_function(source, "pgica_error_string", (ctypes.c_int,))
         err.restype = ctypes.c_char_p
         _entry_points[name], _error_strings[name] = fn, err
     return fn

@@ -27,6 +27,7 @@ devices.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -101,9 +102,9 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opti
               weight_only: bool = False) -> torch.Tensor:
     """Kernel wrapper: what :func:`q8_matmul_ref` gives, through ``csrc/q8_matmul.cu`` on the card.
 
-    W8A8 quantizes x's rows into scratch that this wrapper allocates (int8
-    (M, K) and float32 (M,)), then runs the int8 product; weight-only reads x
-    as it is. Both capture into a CUDA graph.
+    One launch either way. W8A8 quantizes x's rows inside the product and
+    writes their float32 scales to a (M,) buffer this wrapper allocates;
+    weight-only reads x as it is. Both capture into a CUDA graph.
     """
     if x.device.type == "cpu":
         return q8_matmul_ref(x, wq, scale, bias, weight_only)
@@ -121,11 +122,25 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opti
         _kernels.launch("q8_matmul_w8", x.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias_ptr, out.data_ptr(),
                         m, n, k, code, stream)
         return out
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty(m, dtype=torch.float32, device=x.device)
-    _kernels.launch("q8_matmul_w8a8", x.data_ptr(), xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                    bias_ptr, out.data_ptr(), m, n, k, code, stream)
+    _kernels.launch("q8_matmul_w8a8", x.data_ptr(), sx.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias_ptr,
+                    out.data_ptr(), m, n, k, code, stream)
     return out
+
+
+PLAN_KEYS = ("rows", "cols", "split", "chunks_per_rank", "smem", "blocks", "clusters")
+
+
+def q8_plan(m: int, n: int, k: int, dtype: torch.dtype, weight_only: bool) -> dict:
+    """The tiling ``csrc/q8_matmul.cu`` launches at (M, K) x (N, K) (needs the built kernels): x rows a block
+    holds, its output columns, the cluster's split of K, 128-wide k chunks a block takes, dynamic shared memory,
+    blocks and the clusters the card holds at once."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = _kernels.c_function("q8_matmul.cu", "pgica_q8_matmul_plan", (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    rc = fn(m, n, k, _kernels.DTYPE_CODES[dtype], int(weight_only), ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"q8_plan: no tiling for ({m}, {k}) x ({n}, {k}) (error {rc})")
+    return dict(zip(PLAN_KEYS, out))
 
 
 class QuantDense(nn.Module):

@@ -15,9 +15,14 @@ kernel (int32) and XLA's int8 dot do. Tolerances and why:
   as tests/test_torch_models.py), greedy captions token-identical;
 * against full precision, the JAX package's own bounds (tests/test_quant.py).
 
-The kernel's fragment layouts (csrc/q8_matmul.cu: each lane's 16 contiguous
-bytes split over the mma fragments) are emulated here with numpy and must
-give the exact product.
+The kernel (csrc/q8_matmul.cu) is emulated here with numpy: its fragment
+layouts (the weight as mma.sync's A operand by ldmatrix, x's rows as B; the
+weight-only route's permuted k) must give the exact product; its quantizer
+(a reciprocal multiply, the division near half-integers) must equal
+rint(x / s) on every bf16 value; the fused W8A8 path with K split over a
+cluster (each rank's amax, the cluster's max, rank-order int32 sums) must give
+JAX's scales, int8 x and int32 sums exactly and its f32 output bit for bit; the
+weight-only split's rank-order f32 sums stay within the weight-only tolerance.
 """
 
 import flax.linen as nn
@@ -158,54 +163,227 @@ def test_quant_dense_matches_jax_quant_dense_general(rng, pattern):
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
-# ------------------------------------------------------------------ the kernel's fragment layouts
+# ------------------------------------------------------------------ the kernel's layouts and sums
+
+# csrc/q8_matmul.cu, emulated with numpy: the weight is the 16-row A operand of mma.sync and x's rows the n8 B
+# operand; a block stages 128-wide k chunks; K is split over a cluster of `split` blocks whose partial tiles
+# are summed in rank order.
+KBK = 128
+ROUND_MAGIC = np.float32(12582912.0)
 
 
-def _emulate_gemm_s8(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
-    """csrc/q8_matmul.cu gemm_s8 at one 16 x 8 tile: lane (g, t) holds the 16 bytes k0 + 16t .. of its rows;
-    bytes 8j..8j+3 and 8j+4..8j+7 are the m16n8k32 fragment columns 4t.. and 16 + 4t.. of product j."""
-    m, k = xq.shape
-    acc = np.zeros((16, 8), np.int64)
-    for k0 in range(0, k, 64):
-        for j in range(2):
-            a = np.zeros((16, 32), np.int64)
-            b = np.zeros((32, 8), np.int64)
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                for e in range(4):
-                    phys = k0 + 16 * t + 8 * j
-                    a[g, 4 * t + e], a[g + 8, 4 * t + e] = xq[g, phys + e], xq[g + 8, phys + e]
-                    a[g, 16 + 4 * t + e], a[g + 8, 16 + 4 * t + e] = xq[g, phys + 4 + e], xq[g + 8, phys + 4 + e]
-                    b[4 * t + e, g], b[16 + 4 * t + e, g] = wq[g, phys + e], wq[g, phys + 4 + e]
-            acc += a @ b
-    return acc
+def _ldmatrix(smem: np.ndarray, addrs) -> np.ndarray:
+    """ldmatrix .b16 on an int8 array: lanes 8i..8i+7 give (row, byte column) of matrix i's rows; lane (g, t)
+    receives bytes 4t..4t+3 of row g of each matrix (its b16 elements 2t, 2t + 1). Returns (32, matrices, 4)."""
+    mats = len(addrs) // 8
+    regs = np.zeros((32, mats, 4), np.int64)
+    for i in range(mats):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            row, col = addrs[8 * i + g]
+            regs[lane, i] = smem[row, col + 4 * t:col + 4 * t + 4]
+    return regs
 
 
-def _emulate_gemm_w8_bf16(x: np.ndarray, w: np.ndarray) -> np.ndarray:
-    """gemm_w8_bf16 at one tile: product j (0-3) of m16n8k16 takes the lane's values 4j, 4j + 1 as the
-    fragment columns 2t, 2t + 1 and 4j + 2, 4j + 3 as 2t + 8, 2t + 9."""
-    acc = np.zeros((16, 8))
-    for k0 in range(0, x.shape[1], 64):
-        for j in range(4):
-            a = np.zeros((16, 16))
-            b = np.zeros((16, 8))
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                phys = k0 + 16 * t + 4 * j
-                for e in range(2):
-                    a[g, 2 * t + e], a[g + 8, 2 * t + e] = x[g, phys + e], x[g + 8, phys + e]
-                    a[g, 2 * t + 8 + e], a[g + 8, 2 * t + 8 + e] = x[g, phys + 2 + e], x[g + 8, phys + 2 + e]
-                    b[2 * t + e, g], b[2 * t + 8 + e, g] = w[g, phys + e], w[g, phys + 2 + e]
-            acc += a @ b
-    return acc
+def _a_addrs(ks):  # chunk_s8 / chunk_bf16: the weight's A fragments
+    return [(lane & 15, ks * 32 + (lane >> 4) * 16) for lane in range(32)]
 
 
-def test_kernel_fragment_layouts_give_the_product(rng):
-    xq = rng.integers(-127, 128, size=(16, 128))
-    wq = rng.integers(-127, 128, size=(8, 128))
-    np.testing.assert_array_equal(_emulate_gemm_s8(xq, wq), xq @ wq.T)
-    x, w = rng.normal(size=(16, 128)), rng.normal(size=(8, 128))
-    np.testing.assert_allclose(_emulate_gemm_w8_bf16(x, w), x @ w.T, rtol=1e-12, atol=1e-12)
+def _b_addrs(ks, j, tiles):  # chunk_s8: x's B fragments of tiles j, j + 1 (ldmatrix .x4) or of one tile (.x2)
+    if tiles == 1:
+        return [(lane & 7, ks * 32 + ((lane >> 3) & 1) * 16) for lane in range(16)]
+    return [((j + (lane >> 4)) * 8 + (lane & 7), ks * 32 + ((lane >> 3) & 1) * 16) for lane in range(32)]
+
+
+def _mma(a_frag, b_frag, kdim):
+    """A (16, kdim) and B (kdim, 8) from mma.sync's fragments (per lane: a 4 regs, b 2 regs, each kdim / 8
+    values): a0 = (g, t-th group), a1 = (g + 8, ...), a2 = (g, second half), a3 = (g + 8, second half); b0 = (t-th
+    group, g), b1 = (second half, g). Returns the C tile (16, 8) = A @ B."""
+    per = kdim // 8
+    a = np.zeros((16, kdim))
+    b = np.zeros((kdim, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, (row, half) in enumerate(((g, 0), (g + 8, 0), (g, 1), (g + 8, 1))):
+            a[row, half * kdim // 2 + per * t:half * kdim // 2 + per * t + per] = a_frag[lane][i]
+        for i in range(2):
+            b[i * kdim // 2 + per * t:i * kdim // 2 + per * t + per, g] = b_frag[lane][i]
+    return a @ b
+
+
+def _emulate_chunk_s8(wq: np.ndarray, xq: np.ndarray, tiles: int) -> np.ndarray:
+    """gemm_w8a8_fused's products of one 128-wide chunk for one warp: wq (16, 128) weight rows, xq (8 * tiles,
+    128) x rows, both int8 in shared memory; returns C as (x row, weight row), as push_partials writes it."""
+    out = np.zeros((8 * tiles, 16))
+    for ks in range(KBK // 32):
+        a = _ldmatrix(wq, _a_addrs(ks)).reshape(32, 4, 4)
+        for j in range(0, tiles, 2):
+            b = _ldmatrix(xq, _b_addrs(ks, j, tiles)).reshape(32, -1, 4)
+            for h in range(min(2, tiles)):
+                c = _mma(a, b[:, 2 * h:2 * h + 2], 32)
+                out[(j + h) * 8:(j + h) * 8 + 8] += c.T
+    return out
+
+
+def _dequant2(word4, h, s):
+    """dequant2: bytes 2h, 2h + 1 of a lane's 4 int8 values, as bf16(float(q) * s)."""
+    q = np.asarray(word4[2 * h:2 * h + 2], np.float32)
+    return _t(q * np.float32(s)).to(torch.bfloat16).float().numpy()
+
+
+def _emulate_chunk_bf16(wq: np.ndarray, scale_bf16: np.ndarray, x: np.ndarray, tiles: int) -> np.ndarray:
+    """gemm_w8_bf16_tiled's products of one chunk for one warp: the int8 A fragments by ldmatrix, dequantized in
+    registers; x's B fragments by 8-byte reads of k 4t..4t+3 and 16 + 4t..; two m16n8k16 products per 32 k."""
+    out = np.zeros((8 * tiles, 16))
+    for ks in range(KBK // 32):
+        a = _ldmatrix(wq, _a_addrs(ks))
+        for j in range(tiles):
+            for step in range(2):
+                a_frag, b_frag = [], []
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    lo, hi = a[lane, 2 * step], a[lane, 2 * step + 1]  # rows g and g + 8
+                    a_frag.append([_dequant2(lo, 0, scale_bf16[g]), _dequant2(hi, 0, scale_bf16[g + 8]),
+                                   _dequant2(lo, 1, scale_bf16[g]), _dequant2(hi, 1, scale_bf16[g + 8])])
+                    k0 = ks * 32 + 16 * step + 4 * t
+                    row = x[j * 8 + g]
+                    b_frag.append([row[k0:k0 + 2], row[k0 + 2:k0 + 4]])
+                out[j * 8:j * 8 + 8] += _mma(a_frag, b_frag, 16).T
+    return out
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 8])
+def test_kernel_fragment_layouts_give_the_product(rng, tiles):
+    wq = rng.integers(-127, 128, size=(16, KBK))
+    xq = rng.integers(-127, 128, size=(8 * tiles, KBK))
+    np.testing.assert_array_equal(_emulate_chunk_s8(wq, xq, tiles), xq @ wq.T)
+    scale = rng.uniform(0.001, 0.1, size=16).astype(np.float32)
+    s_bf16 = _t(scale).to(torch.bfloat16).float().numpy()
+    x = _t(rng.normal(size=(8 * tiles, KBK)).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    deq = (_t(wq.astype(np.float32)).to(torch.bfloat16) * _t(scale).to(torch.bfloat16)[:, None]).float().numpy()
+    np.testing.assert_allclose(_emulate_chunk_bf16(wq, s_bf16, x, tiles), x.astype(np.float64) @ deq.T.astype(np.float64),
+                               rtol=1e-12, atol=1e-12)
+
+
+def _quantize_like_kernel(x: np.ndarray, s: np.ndarray) -> np.ndarray:
+    """quantize_piece: t = x * (1 / s) + 1.5 * 2^23 in one FMA (the product exact, one rounding), whose low byte
+    is the int8; the division itself where x * r lies within 4e-5 of a half-integer. s broadcasts against x.
+    The FMAs are taken in float64, where x * r is exact (and t's double rounding can only differ next to a
+    half-integer, which takes the division)."""
+    x = np.asarray(x, np.float32)
+    s = np.broadcast_to(np.asarray(s, np.float32), x.shape)
+    prod = x.astype(np.float64) * (np.float32(1) / s).astype(np.float64)
+    t = (prod + np.float64(ROUND_MAGIC)).astype(np.float32)
+    near_half = np.abs((prod - (t - ROUND_MAGIC).astype(np.float64)).astype(np.float32)) > np.float32(0.49996)
+    t[near_half] = (x[near_half] / s[near_half]) + ROUND_MAGIC
+    low = (t.view(np.int32) & 0xFF).astype(np.int16)
+    return np.where(low > 127, low - 256, low).astype(np.int8)
+
+
+def test_kernel_quantizer_is_the_division(rng):
+    """Every finite bf16 value within a row's amax, against 200 row scales (ties at amax 127 among them), and 2M
+    random float32 values: the kernel's quantizer equals rint(x / s) clamped, IEEE division."""
+    bits = np.arange(65536, dtype=np.uint32) << 16
+    every = bits.view(np.float32)
+    every = every[np.isfinite(every)]
+    amaxes = np.concatenate([[127.0, 63.5, 1.0, 1e-13], rng.uniform(0, 8, 196) ** 3]).astype(np.float32)
+    slow = 0
+    for amax in amaxes:
+        s = np.float32(max(amax, np.float32(1e-12))) / np.float32(127)
+        x = every[np.abs(every) <= amax]
+        want = np.clip(np.rint(x / s), -127, 127).astype(np.int8)
+        np.testing.assert_array_equal(_quantize_like_kernel(x, s), want, err_msg=f"amax {amax}")
+        prod = x.astype(np.float64) * np.float64(np.float32(1) / s)
+        slow += int((np.abs(prod - np.rint(prod)) > 0.49996).sum())
+    x = rng.normal(size=(2000, 1000)).astype(np.float32) * rng.uniform(0.01, 100, size=(2000, 1)).astype(np.float32)
+    s = np.maximum(np.abs(x).max(axis=1, keepdims=True), np.float32(1e-12)) / np.float32(127)
+    np.testing.assert_array_equal(_quantize_like_kernel(x, s), np.clip(np.rint(x / s), -127, 127).astype(np.int8))
+    assert 0 < slow < 1e-3 * len(every) * len(amaxes)
+
+
+def _slices(k: int, split: int):
+    """Each rank's run of 128-wide chunks (as k_slice: ceil(chunks / split) a rank, the last ones short)."""
+    chunks = -(-k // KBK)
+    per = -(-chunks // split)
+    return [(min(r * per * KBK, k), min((r + 1) * per * KBK, k)) for r in range(split)]
+
+
+def _emulate_fused_w8a8(x32: np.ndarray, wq: np.ndarray, scale: np.ndarray, bias: np.ndarray, split: int):
+    """gemm_w8a8_fused on float32 x (the compute dtype's values): each rank's amax over its k slice, the
+    cluster's max, sx = max(amax, 1e-12) / 127; each rank quantizes its slice (quantize1) and sums its int8
+    products in int32; the ranks' partial tiles added in rank order; y = (float(acc) * sx) * scale + bias, f32."""
+    slices = _slices(x32.shape[1], split)
+    amax = np.max([np.abs(x32[:, a:b]).max(axis=1) if b > a else np.zeros(len(x32), np.float32)
+                   for a, b in slices], axis=0).astype(np.float32)
+    sx = np.maximum(amax, np.float32(1e-12)) / np.float32(127)
+    acc = np.zeros((x32.shape[0], wq.shape[0]), np.int64)
+    xq = np.zeros(x32.shape, np.int8)
+    for a, b in slices:  # rank order
+        if b > a:
+            xq[:, a:b] = _quantize_like_kernel(x32[:, a:b], sx[:, None])
+            acc += (xq[:, a:b].astype(np.float64) @ wq[:, a:b].T.astype(np.float64)).astype(np.int64)
+    y = (acc.astype(np.float32) * sx[:, None]) * scale[None, :]
+    return sx, xq, acc, y + bias[None, :]
+
+
+# GPT-2 Medium fc_in at 32 x 4 beams, and ragged tails of chip_smoke.py's Q8_RAGGED (M, K, N)
+FUSED_SHAPES = [(128, 1024, 4096), (70, 4104, 24), (129, 64, 8), (5, 1000, 1001)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("split", [1, 8])
+def test_fused_w8a8_emulation_matches_jax(rng, shape, split):
+    """The fused path's scales, int8 x, int32 sums and f32 output against the JAX package's q8_matmul."""
+    m, k, n = shape
+    x = rng.normal(size=(m, k)).astype(np.float32) * rng.uniform(0.05, 20, size=(m, 1)).astype(np.float32)
+    x[0, : min(k, 4)] = [127.0, 2.5, -3.5, 0.5][: min(k, 4)]  # ties at the row's scale of 1
+    w = rng.normal(size=(k, n)).astype(np.float32)  # JAX (in, out)
+    bias = rng.normal(size=n).astype(np.float32)
+    jqw, jscale = jq.quantize_weight(jnp.asarray(w), 1)
+    jxq, jsx = jq._quantize_rows(jnp.asarray(x))
+    jacc = jax.lax.dot_general(jxq, jqw, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
+    want = np.asarray(jq.q8_matmul(jnp.asarray(x), jqw, jscale, out_dtype=jnp.float32)) + bias[None, :]
+    sx, xq, acc, y = _emulate_fused_w8a8(x, np.asarray(jqw).T.copy(), np.asarray(jscale), bias, split)
+    np.testing.assert_array_equal(sx, np.asarray(jsx)[:, 0])
+    np.testing.assert_array_equal(xq, np.asarray(jxq))
+    np.testing.assert_array_equal(acc, np.asarray(jacc))
+    np.testing.assert_array_equal(y, want)
+
+
+def _emulate_w8_split(x_bf16: np.ndarray, wq: np.ndarray, scale: np.ndarray, split: int, tile: int = 0) -> np.ndarray:
+    """gemm_w8_bf16_tiled's sums: the weight dequantized as bf16(float(q) * float(bf16(scale))); each rank's
+    f32 partial over its slice, its chunks taken from chunk `tile % chunks` on (the k loop's rotation), each
+    chunk's products rounded once to f32; the partials added in rank order (__fadd_rn)."""
+    deq = (_t(wq.astype(np.float32)).to(torch.bfloat16) * _t(scale).to(torch.bfloat16)[:, None]).float().numpy()
+    total = None
+    for a, b in _slices(x_bf16.shape[1], split):
+        part = np.zeros((x_bf16.shape[0], wq.shape[0]), np.float32)
+        chunks = list(range(a, b, KBK))
+        for c in chunks[tile % len(chunks):] + chunks[:tile % len(chunks)] if chunks else []:
+            prod = x_bf16[:, c:c + KBK].astype(np.float64) @ deq[:, c:c + KBK].T.astype(np.float64)
+            part = (part + prod.astype(np.float32)).astype(np.float32)
+        total = part if total is None else (total + part).astype(np.float32)
+    return total
+
+
+@pytest.mark.parametrize("shape", [(128, 1024, 4096), (70, 4104, 24)])
+@pytest.mark.parametrize("split", [1, 8])
+def test_weight_only_split_emulation_matches_jax(rng, shape, split):
+    """The weight-only K split with its rank-order sum: the f32 sums within test_weight_only_matches_jax's
+    tolerance of JAX's product on the same bf16 dequantized weight, and bf16 outputs within a bf16 ulp or two of
+    JAX's bf16 q8_matmul. The weight is drawn at a layer's 1 / sqrt(K) scale (as chip_smoke.py's q8 inputs), so
+    the outputs are O(1) like test_weight_only_matches_jax's and the same absolute tolerance reads the same."""
+    m, k, n = shape
+    x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    jqw, jscale = jq.quantize_weight(jnp.asarray(w), 1)
+    jdeq = (jqw.astype(jnp.bfloat16) * jscale.astype(jnp.bfloat16)[None, :]).astype(jnp.float32)
+    want = np.asarray(jnp.dot(jnp.asarray(x), jdeq, precision=jax.lax.Precision.HIGHEST))
+    got = _emulate_w8_split(x, np.asarray(jqw).T.copy(), np.asarray(jscale), split, tile=3)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    jbf16 = jq.q8_matmul(jnp.asarray(x).astype(jnp.bfloat16), jqw, jscale, weight_only=True, out_dtype=jnp.bfloat16)
+    np.testing.assert_allclose(_t(got).to(torch.bfloat16).float().numpy(), np.asarray(jbf16.astype(jnp.float32)),
+                               atol=2e-2, rtol=1e-2)
 
 
 # ------------------------------------------------------------------ the twin against JAX's
