@@ -25,8 +25,13 @@ exits non-zero):
    one pass per product, for every type pair), and the launches one
    LayerNorm call makes with the gaps between them. It first reports the
    tensor-core kernels' registers and spills (ptxas) and their HMMA/HGMMA/
-   IMMA, and times both flash forward kernels either side of the dispatch
-   threshold; its float32 pass times 5 bursts of 5 (bf16: 7 of 20).
+   IMMA, and the f32 register-tiled instances' (flash_attn_fwd_f32 and the
+   f32 backward; a spill fails), and times the flash forward kernels either
+   side of each dispatch threshold; its float32 pass times 5 bursts of 5
+   (bf16: 7 of 20), the f32 forward's register-tiled kernel in turns with
+   the CUDA-core kernel it replaced (CUDA cores, tiled, tiled, CUDA cores),
+   and checks both at every head dim with a batch row that keeps no key.
+   Each flash forward is held bit-equal over two runs.
 4. Full path vs plain, for each architecture at full width, f32 — 2 layers
    a tower for ViT-B/32 + GPT-2 Medium, then 1 for SigLIP so400m + Llama-3-8B
    (RoPE, GQA, SwiGLU, RMSNorm; vocab 128,256): the same seeded model on
@@ -422,19 +427,26 @@ def sdpa_mask(bias, b, sq, sk, causal, dtype):
     return mask.to(dtype)
 
 
-def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True) -> dict:
-    from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref
+def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True, route=None) -> dict:
+    """The forward kernel that ``route`` names (None: the dispatch's) against the plain version, the same
+    bits over two runs; timed, with the f32 register-tiled kernel in turns with the CUDA-core one
+    (``cuda_cores_ms``: turns CUDA cores, tiled, tiled, CUDA cores)."""
+    from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref, fwd_route
 
+    route = route or fwd_route(dtype, sq)
     q, k, v, bias = attention_inputs(b, h, sq, sk, d, dtype, valid, gen)
-    o, lse = flash_attention_fwd(q, k, v, bias, causal)
+    o, lse = flash_attention_fwd(q, k, v, bias, causal, route)
+    o2, lse2 = flash_attention_fwd(q, k, v, bias, causal, route)
     torch.cuda.synchronize()
     ro, rlse = flash_attention_ref(q, k, v, bias, causal)
     atol, rtol = (ATTN_F32_ATOL, 0.0) if dtype == torch.float32 else TOL[dtype]
-    label = f"flash {name} ({b * h}, {sq}, {sk}, {d}) {dname(dtype)}"
+    label = f"flash {name} ({b * h}, {sq}, {sk}, {d}) {dname(dtype)} [{route}]"
     err = check_close(label + " o", o, ro, atol, rtol)
     check_close(label + " lse", lse, rlse, 1e-4, 1e-6)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
     out = dict(case=name, shape=f"({b * h}, {sq}, {sk}, {d})", dtype=dname(dtype), causal=causal,
-               max_abs_err=err, atol=atol, rtol=rtol)
+               max_abs_err=err, atol=atol, rtol=rtol, route=route)
     if not timed:
         return out
     # What this data needs: the (row, key) pairs it keeps, and the K/V rows of
@@ -451,8 +463,14 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
     sets = [attention_inputs(b, h, sq, sk, d, dtype, valid, gen) for _ in range(n_sets)]
     # the yardstick: one SDPA call with the same key bias (+ causal) as a float mask
     lib_sets = [(sq_, sk_, sv_, sdpa_mask(sb_, b, sq, sk, causal, dtype)) for sq_, sk_, sv_, sb_ in sets]
+    fwd = lambda *a: flash_attention_fwd(*a, causal, route)  # noqa: E731
+    if route == "f32_tiled":  # in turns with the kernel it replaced: CUDA cores, tiled, tiled, CUDA cores
+        old = lambda *a: flash_attention_fwd(*a, causal, "cuda_cores")  # noqa: E731
+        turns = [time_ms(fn, sets) for fn in (old, fwd, fwd, old)]
+        out.update(ms=(turns[1] + turns[2]) / 2, cuda_cores_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    else:
+        out.update(ms=time_ms(fwd, sets))
     out.update(
-        ms=time_ms(lambda *a: flash_attention_fwd(*a, causal), sets),
         plain_ms=time_ms(lambda *a: flash_attention_ref(*a, causal), sets),
         library_ms=time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_), lib_sets),
         input_sets=n_sets,
@@ -461,22 +479,36 @@ def attention_case(name, b, h, sq, sk, d, causal, valid, dtype, gen, timed=True)
     return out
 
 
-def flash_crossover(gen: torch.Generator) -> None:
-    """Both bf16 forward kernels (CUDA cores, tensor cores) at small Sq, where the dispatch threshold
-    TC_MIN_SQ lies: GPT-2's decoder heads (32 x 16, D 64) and Llama's (8 x 32, D 128) over a cache of
-    129 slots with ragged kept keys. Logs the times; the threshold in ops/flash_attention.py was set
-    from them. Not part of the run (phase 3 times the rows either side of the threshold): call it
-    from a script to measure the sweep again."""
+def flash_crossover(gen: torch.Generator) -> dict:
+    """Each pair of forward kernels at small Sq, where a dispatch threshold lies. bf16, CUDA cores
+    against tensor cores (TC_MIN_SQ): GPT-2's decoder heads (32 x 16, D 64) and Llama's (8 x 32, D 128)
+    over a cache of 129 slots with ragged kept keys. f32, CUDA cores against register-tiled
+    (F32_TILED_MIN_SQ): the same caches, and causal self-attention over Sq keys at GPT-2's stage-1 heads
+    (128 x 16, D 64) with ragged kept keys. Logs the times and returns them by (dtype, shape); the
+    thresholds in ops/flash_attention.py were set from them. Not part of the run (phase 3 times the rows
+    either side of each threshold): call it from a script to measure the sweep again."""
     from pgica_tpu_torch.ops.flash_attention import flash_attention_fwd
 
-    for b, h, d in ((32, 16, 64), (8, 32, 128)):
-        valid = torch.randint(1, 130, (b,), device="cuda", generator=gen)
-        row = []
-        for sq in (1, 2, 3, 4, 8, 16, 32, 64):
-            sets = [attention_inputs(b, h, sq, 129, d, torch.bfloat16, valid, gen) for _ in range(8)]
-            ms = [time_ms(lambda *a: flash_attention_fwd(*a, tensor_cores=tc), sets) for tc in (False, True)]
-            row.append(f"Sq {sq}: {ms[0]:.5f} / {ms[1]:.5f}")
-        log(f"  flash forward crossover ({b * h}, Sq, 129, {d}) bf16, ms CUDA cores / tensor cores: " + "; ".join(row))
+    pairs = {torch.bfloat16: ("cuda_cores", "tensor_cores"), torch.float32: ("cuda_cores", "f32_tiled")}
+    out = {}
+    for dtype, routes in pairs.items():
+        shapes = [(32, 16, 64, None, False), (8, 32, 128, None, False)]
+        if dtype == torch.float32:
+            shapes.append((128, 16, 64, "self", True))
+        for b, h, d, sk, causal in shapes:
+            row, times = [], {}
+            for sq in (1, 2, 3, 4, 8, 16, 24, 32, 40, 48, 64):
+                keys = sq if sk == "self" else 129
+                valid = torch.randint(1, keys + 1, (b,), device="cuda", generator=gen)
+                sets = [attention_inputs(b, h, sq, keys, d, dtype, valid, gen) for _ in range(8)]
+                ms = [time_ms(lambda *a, r=r: flash_attention_fwd(*a, causal, r), sets) for r in routes]
+                times[sq] = ms
+                row.append(f"Sq {sq}: {ms[0]:.5f} / {ms[1]:.5f}")
+            where = "Sq" if sk == "self" else "129"
+            key = f"{dname(dtype)} ({b * h}, Sq, {where}, {d}){' causal' if causal else ''}"
+            out[key] = times
+            log(f"  flash forward crossover {key}, ms {' / '.join(routes)}: " + "; ".join(row))
+    return out
 
 
 def library_time(fn, arg_sets) -> float | None:
@@ -876,9 +908,10 @@ TC_OPS = ("HGMMA", "HMMA", "IMMA")  # bf16 and int8 tensor-core instructions in 
 # the int8 decode kernels: the instruction each must hold (int8 products; bf16 after the dequantization), and a
 # spill fails the phase (their accumulators, up to 64 a thread, are sized to stay in registers)
 TC_REQUIRED_OP = {"gemm_w8a8_fused": "IMMA", "gemm_w8_bf16_tiled": "HMMA"}
-# the float32 backward kernels (CUDA cores, csrc/flash_attn_bwd.cu): their registers and spills are reported
-# too, one instance a head dim, and a spill fails the phase (their accumulators are sized to stay in registers)
-F32_BWD_KERNELS = ("flash_attn_bwd_dq_f32", "flash_attn_bwd_dkv_f32")
+# the float32 register-tiled kernels (CUDA cores): their registers and spills are reported too, one instance a
+# head dim, and a spill fails the phase (their accumulators are sized to stay in registers)
+F32_KERNELS = {"flash_attn_fwd.cu": ("flash_attn_fwd_f32",),
+               "flash_attn_bwd.cu": ("flash_attn_bwd_dq_f32", "flash_attn_bwd_dkv_f32")}
 
 
 def _demangle(names: list) -> list:
@@ -891,9 +924,10 @@ def _demangle(names: list) -> list:
 
 def tensor_core_report() -> None:
     """Logs each tensor-core kernel instance's registers, shared memory and spill bytes (ptxas) and
-    HMMA/HGMMA/IMMA in its SASS, and each f32 backward instance's registers and spills. Raises if a
+    HMMA/HGMMA/IMMA in its SASS, and each f32 register-tiled instance's registers and spills. Raises if a
     tensor-core instance has no tensor-core instruction (these kernels exist to use them), an int8 decode
-    instance lacks its own (TC_REQUIRED_OP) or spills, or an f32 backward instance spills or is missing."""
+    instance lacks its own (TC_REQUIRED_OP) or spills, or an f32 instance (F32_KERNELS) spills or is
+    missing."""
     from pgica_tpu_torch.ops.flash_attention import HEAD_DIMS
     from pgica_tpu_torch.ops import _kernels
 
@@ -907,7 +941,7 @@ def tensor_core_report() -> None:
     for source, names in TC_KERNELS.items():
         lib = libs[source]
         entries = {}
-        f32_names = F32_BWD_KERNELS if source == "flash_attn_bwd.cu" else ()
+        f32_names = F32_KERNELS.get(source, ())
         for part in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
             name = part.split("'", 1)[0]
             if any(n in name for n in names + f32_names):
@@ -1081,7 +1115,7 @@ def norm_kernel_times() -> None:
 
 
 def phase_kernels() -> dict:
-    from pgica_tpu_torch.ops.flash_attention import TC_MIN_SQ
+    from pgica_tpu_torch.ops.flash_attention import F32_TILED_MIN_SQ, TC_MIN_SQ
 
     tensor_core_report()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1105,9 +1139,7 @@ def phase_kernels() -> dict:
             ("stage2", (64, 16, 128, 128, 64), True, stage2_valid[128]),
             ("stage2_bucketed", (64, 16, 32, 32, 64), True, stage2_valid[32]),
         ):
-            r = attention_case(name, *shape, causal, valid, dtype, gen)
-            results["flash_attn_fwd"].append(r)
-            show_timed("flash", r)
+            flash_case(attention_case(name, *shape, causal, valid, dtype, gen), results)
         # the Llama slice (phase 8): SigLIP's 730 tokens at D = 72 (batch 2 in stage 2, 8 serving), the
         # Llama towers' 4 x 32 heads of 128 over 512 tokens, every one kept, and decode at batch 8 over a
         # cache of max_length 128 + 1 slots, step 64 (keys 0..64 kept)
@@ -1120,20 +1152,22 @@ def phase_kernels() -> dict:
             ("beam_decode", (128, 16, 1, 129, 64), False, torch.full((128,), 65, device="cuda")),
             ("llama_beam_decode", (32, 32, 1, 129, 128), False, torch.full((32,), 65, device="cuda")),
         ):
-            r = attention_case(name, *shape, causal, valid, dtype, gen)
-            results["flash_attn_fwd"].append(r)
-            show_timed("flash", r)
+            flash_case(attention_case(name, *shape, causal, valid, dtype, gen), results)
         for d in (16, 32, 72, 128):  # the other head dims, a fully masked batch row, ragged edges
-            r = attention_case(f"d{d}", 2, 2, 33, 40, d, d == 32, torch.tensor([0, 29], device="cuda"),
-                               dtype, gen, timed=False)
-            log(f"  flash d={d} (4, 33, 40, {d}) {dname(dtype)} masked row: max_abs_err {r['max_abs_err']:.3e}")
+            # f32: both kernels, the register-tiled one and the CUDA-core one that shorter Sq takes
+            for route in ("f32_tiled", "cuda_cores") if dtype == torch.float32 else (None,):
+                r = attention_case(f"d{d}", 2, 2, 33, 40, d, d == 32, torch.tensor([0, 29], device="cuda"),
+                                   dtype, gen, timed=False, route=route)
+                log(f"  flash d={d} (4, 33, 40, {d}) {dname(dtype)} [{r['route']}] masked row: max_abs_err "
+                    f"{r['max_abs_err']:.3e}; identical over two runs")
         # either side of the Sq at which bf16 moves to the tensor-core kernel (ops/flash_attention.py:
-        # TC_MIN_SQ), ragged keys over a cache of 129
-        for name, sq_ in (("below_tc_min_sq", TC_MIN_SQ - 1), ("at_tc_min_sq", TC_MIN_SQ)):
-            r = attention_case(name, 32, 16, sq_, 129, 64, False,
-                               torch.randint(1, 130, (32,), device="cuda", generator=gen), dtype, gen)
-            results["flash_attn_fwd"].append(r)
-            show_timed("flash", r)
+        # TC_MIN_SQ) and f32 to the register-tiled one (F32_TILED_MIN_SQ), ragged keys over a cache of 129
+        edges = (("below_tc_min_sq", TC_MIN_SQ - 1), ("at_tc_min_sq", TC_MIN_SQ))
+        if dtype == torch.float32:
+            edges += (("below_f32_tiled_min_sq", F32_TILED_MIN_SQ - 1), ("at_f32_tiled_min_sq", F32_TILED_MIN_SQ))
+        for name, sq_ in edges:
+            flash_case(attention_case(name, 32, 16, sq_, 129, 64, False,
+                                      torch.randint(1, 130, (32,), device="cuda", generator=gen), dtype, gen), results)
         layernorm_cases(LN_FWD_LLAMA_SHAPES, (), dtype, gen, results)
         rmsnorm_cases(dtype, gen, results)
         layernorm_cases((), LN_BWD_SHAPES, dtype, gen, results, untimed=True)
@@ -1202,6 +1236,16 @@ def phase_kernels() -> dict:
     log("  fused_ce: the forward, dh and dW identical over two runs everywhere; rows with g = 0 give dh 0 and "
         "leave dW bit-identical")
     return results
+
+
+def flash_case(r: dict, results: dict) -> None:
+    """A timed flash forward row into ``results`` (the f32 register-tiled route's also under its own name)."""
+    results["flash_attn_fwd"].append(r)
+    if r["route"] == "f32_tiled":
+        results["flash_attn_fwd_f32"].append(r)
+        log(f"  flash {r['case']} {r['shape']} float32 [f32_tiled]: kernel_ms {r['ms']:.5f} against the CUDA-core "
+            f"kernel's {r['cuda_cores_ms']:.5f} in turns (" + ", ".join(f"{t:.5f}" for t in r["turns_ms"]) + ")")
+    show_timed("flash", r)
 
 
 def fce_errs(res: dict) -> str:
@@ -1334,6 +1378,9 @@ def full_width_metrics(cuda, cpu) -> None:
         + ", ".join(f"{k} {v:.6f} (err {errs[k]:.1e})" for k, v in out[0].items()) + f" (atol {METRIC_ATOL})")
 
 
+PHASE4_SEQ = 32  # phase 4's train steps: captions of 5-32 tokens in rows of 32
+
+
 def stage1_batch(rng, batch: int, seq: int, lengths=None, image: int = 224, vocab: int = GPT2_VOCAB) -> dict:
     """bench.py's stage-1 batch: normalized float images, random ids; every token kept, or
     lengths drawn from ``lengths`` and the columns cut to their bucket by ``bucket_batch``."""
@@ -1400,6 +1447,7 @@ def train_on_both(cuda, cpu, make, batches, loss_of) -> dict:
             metrics.append({k: float(v) for k, v in m.items()})
         if name == "card":
             counts = _kernels.launch_counts()
+            check_f32_route("phase 4 train steps and gradients (f32)", counts, PHASE4_SEQ - 1)
         runs[name] = (metrics, state, grads)
         log(f"  {len(batches)} gradients and steps on the {name}: {time.perf_counter() - t0:.1f} s")
     return dict(runs=runs, initial=initial, opt=opt, counts=counts)
@@ -1517,7 +1565,7 @@ def full_width_train(cuda, cpu, spec: dict) -> None:
 
     rng = np.random.default_rng(2)
     n = spec["stage1_batch"]
-    batches = [stage1_batch(rng, n, 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
+    batches = [stage1_batch(rng, n, PHASE4_SEQ, (5, PHASE4_SEQ), cuda.image_size, spec["vocab"]) for _ in range(2)]
     run = train_on_both(cuda, cpu, make, batches, loss_of)
     run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage1"]}
     log(f"  stage 1, batch {n} x 32 (ragged):")
@@ -1647,7 +1695,8 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
                               0.1, False, False, 0.0)[0]
 
     rng = np.random.default_rng(3)
-    batches = [stage2_batch(rng, spec["stage2_batch"], 32, (5, 32), cuda.image_size, spec["vocab"]) for _ in range(2)]
+    batches = [stage2_batch(rng, spec["stage2_batch"], PHASE4_SEQ, (5, PHASE4_SEQ), cuda.image_size, spec["vocab"])
+               for _ in range(2)]
     run = train_on_both(cuda, cpu, lambda m: stage2_trainer(m, refs[m], frozen=spec["stage2_frozen"]), batches,
                         loss_of)
     run["counts"] = {k: v for k, v in run["counts"].items() if k in spec["stage2"]}
@@ -1959,6 +2008,19 @@ def check_main_path(label: str, counts: dict, kernels) -> None:
     if missing:
         raise AssertionError(f"the {label} path did not launch {missing}: {counts}")
     log(f"  {label} main-path launch counts: {counts}")
+
+
+def check_f32_route(label: str, counts: dict, min_sq: int) -> None:
+    """A float32 path's flash forwards went through the register-tiled kernel (flash_attn_fwd_f32, counted
+    beside flash_attn_fwd): all of them where the path's shortest attention, ``min_sq`` rows, reaches
+    F32_TILED_MIN_SQ, else at least one."""
+    from pgica_tpu_torch.ops.flash_attention import F32_TILED_MIN_SQ
+
+    every = min_sq >= F32_TILED_MIN_SQ
+    tiled, launched = counts["flash_attn_fwd_f32"], counts["flash_attn_fwd"]
+    if tiled == 0 or tiled > launched or (every and tiled != launched):
+        raise AssertionError(f"{label}: {tiled} of {launched} f32 flash forwards took flash_attn_fwd_f32")
+    log(f"  {label}: {tiled} of {launched} flash forwards took flash_attn_fwd_f32")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -4439,6 +4501,8 @@ def phase_parallel() -> dict:
                              f"of Adam moments (reckoned from the parameter count: equal)")
                 log(line)
             check_main_path(f"14a {mode} (rank 0)", ranks[0][mode]["counts"], TRAIN_KERNELS)
+            for r, res in enumerate(ranks):
+                check_f32_route(f"14a {mode} (rank {r})", res[mode]["counts"], PARALLEL_SEQ - 1)
         nt = [res["ntxent"] for res in ranks]
         for r, n in enumerate(nt):
             if abs(n["loss"] - n["plain_loss"]) > NTXENT_LOSS_RTOL * abs(n["plain_loss"]) or \
@@ -4910,6 +4974,8 @@ def phase_tp_cp() -> dict:
             if any(c[k] != one[k] for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")):
                 raise AssertionError(f"15b rank {r}: flash launches {c} against one process's {one}")
             check_main_path(f"15b stage-2 step (rank {r})", c, TRAIN_KERNELS)
+            for step, cnt in res["tp"]["counts"].items():
+                check_f32_route(f"15b {step} (rank {r})", cnt, TP_SEQ - 1)
             out["counts"][f"tp_stage1_rank{r}"] = res["tp"]["counts"]["stage1_step1"]
             out["counts"][f"tp_stage2_rank{r}"] = c
             cc = res["cp"]["counts"]["stage2_step1"]
@@ -5115,6 +5181,7 @@ def phase_fsdp(one: dict) -> dict:
                     raise AssertionError(f"16a rank {r} {step}: launches {c} against one process's {o}")
                 check_main_path(f"16a {step} (rank {r})", c, TRAIN_KERNELS if step.startswith("stage2") else
                                 [k for k in TRAIN_KERNELS if not k.startswith("fused_ce")])
+                check_f32_route(f"16a {step} (rank {r})", c, TP_SEQ - 1)
             out["counts"][f"fsdp_stage1_rank{r}"] = res["counts"]["stage1_step1"]
             out["counts"][f"fsdp_stage2_rank{r}"] = res["counts"]["stage2_step1"]
             log(f"  16a rank {r}: steps ms " + ", ".join(f"{k} {v:.1f}" for k, v in res["ms"].items())
@@ -5198,6 +5265,9 @@ KERNEL_META = {
                       "bfloat16"),
     "flash_attn_fwd": ("pgica_tpu_torch/csrc/flash_attn_fwd.cu", "pgica_tpu/ops/flash_attention.py:34",
                        "(32, 730, 730, 72)", "bfloat16"),
+    # the f32 route of the same entry point at Sq >= F32_TILED_MIN_SQ: flash_attn_fwd_f32, register-tiled
+    "flash_attn_fwd_f32": ("pgica_tpu_torch/csrc/flash_attn_fwd.cu", "pgica_tpu/ops/flash_attention.py:34",
+                           "(32, 730, 730, 72)", "float32"),
     "layernorm_bwd": ("pgica_tpu_torch/csrc/layernorm_bwd.cu", "pgica_tpu/ops/layernorm.py:88", "(2048, 4096)",
                       "bfloat16"),
     "flash_attn_bwd_dq": ("pgica_tpu_torch/csrc/flash_attn_bwd.cu", "pgica_tpu/ops/flash_attention.py:130",
@@ -5315,21 +5385,27 @@ def main() -> int:
              **parallel["counts"], **tp_cp["counts"], **fsdp["counts"]}
     summary = []
     bursts = f"median of {BF16_TIMING['trials']} bursts of {BF16_TIMING['reps']}"
+    # the path whose launches a kernel's line gives: the Llama slice's stage 2 (bf16), and for the f32
+    # forward route 14a's replicated f32 steps (rank 0)
+    main_path = {"flash_attn_fwd_f32": "parallel_replicated_rank0"}
     for name, (source, replaces, shape, dtype) in KERNEL_META.items():
         # times at the Llama stage-2 shape in the type the path gives it; the error is the worst over
-        # the bf16 shapes timed
+        # the shapes timed in that type
         bf16 = [r for r in kernels[name] if r["dtype"].startswith(dtype.split(",")[0]) and "ms" in r]
         at = next(r for r in bf16 if r["shape"] == shape and r["dtype"] == dtype)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": llama["counts"]["llama_stage2"][name],
+            "launches": paths[main_path.get(name, "llama_stage2")][name],
             "launches_by_path": {path: counts.get(name, 0) for path, counts in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"], "shape": shape, "dtype": dtype,
             "inputs": at["input_sets"] if isinstance(at["input_sets"], str)
-            else f"{at['input_sets']} input sets rotating through > 2x L2 (cold), {bursts}",
+            else f"{at['input_sets']} input sets rotating through > 2x L2 (cold), "
+            + (f"median of {F32_TIMING['trials']} bursts of {F32_TIMING['reps']}" if dtype == "float32" else bursts),
         })
+        if "cuda_cores_ms" in at:  # the f32 route: the CUDA-core kernel it replaced, timed in turns with it
+            summary[-1]["cuda_cores_ms"] = at["cuda_cores_ms"]
         if name in parallel["fce"]:  # phase 14a's shape: a rank's rows against the gathered global negatives
             g = parallel["fce"][name]
             summary[-1]["global_negatives"] = {k: g[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",

@@ -127,6 +127,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "f32_tiles.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -185,22 +186,22 @@ __device__ int dkv_prologue(const float* lse_row, const T* dog, const float* bia
 }
 
 // ------------------------------------------------------------ float32, CUDA cores (see the note above)
-constexpr int kF32Threads = 256;
-constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kF32Tile = 64;           // dK/dV: keys a block; dQ: q rows a block and keys a staged tile
-constexpr int kF32TLd = kF32Tile + 4;  // pitch of the P and dS tiles in shared memory
-__host__ __device__ constexpr int f32_ld(int d) { return d + 4; }  // pitch of a staged row, in floats
+namespace f32 = pgica::f32;  // f32_tiles.cuh
+constexpr int kF32Threads = f32::kThreads;
+constexpr int kF32Warps = f32::kWarps;
+constexpr int kF32Tile = f32::kTile;  // dK/dV: keys a block; dQ: q rows a block
+constexpr int kF32TLd = f32::kTLd;    // pitch of the P and dS tiles in shared memory
 // dK/dV: q rows a staged tile. At D = 128 two buffers of 64 rows of Q and dO besides K and V would pass
 // the 227 KB a block may have; at D <= 64, 32 rows leave room for two blocks an SM.
 __host__ __device__ constexpr int dkv_f32_rows(int d) { return d >= 128 ? 48 : 32; }
 __host__ __device__ constexpr int dkv_f32_smem_bytes(int d) {
-  return 4 * (2 * kF32Tile * f32_ld(d) + 4 * dkv_f32_rows(d) * f32_ld(d) + 2 * dkv_f32_rows(d) * kF32TLd +
+  return 4 * (2 * kF32Tile * f32::ld(d) + 4 * dkv_f32_rows(d) * f32::ld(d) + 2 * dkv_f32_rows(d) * kF32TLd +
               4 * dkv_f32_rows(d) + kF32Tile + d + 2 * kF32Warps);
 }
 // dQ: keys a staged tile; at D <= 64, 32 leave room for two blocks an SM.
 __host__ __device__ constexpr int dq_f32_keys(int d) { return d <= 64 ? 32 : 64; }
 __host__ __device__ constexpr int dq_f32_smem_bytes(int d) {
-  return 4 * (2 * kF32Tile * f32_ld(d) + 4 * dq_f32_keys(d) * f32_ld(d) + dq_f32_keys(d) * kF32TLd +
+  return 4 * (2 * kF32Tile * f32::ld(d) + 4 * dq_f32_keys(d) * f32::ld(d) + dq_f32_keys(d) * kF32TLd +
               2 * dq_f32_keys(d) + 2 * kF32Tile + kF32Warps);
 }
 
@@ -218,63 +219,6 @@ struct OutTile {
   __host__ __device__ static constexpr bool chunk_ok(int ch) { return kChunks % kColGroups == 0 || ch < kChunks; }
 };
 
-// N consecutive floats of shared memory (p 4N-byte aligned)
-template <int N>
-__device__ __forceinline__ void lds(float (&out)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x, out[1] = x.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-// acc[i][j] = sum over c in order of a[i][c] b[j][c], one FMA chain an element, where a[i] is the row
-// a + i * a_step * LD and b[j] the row b + j * b_step * LD of staged tiles (pitch LD = f32_ld(D)),
-// read as float4.
-template <int D, int NA, int NB>
-__device__ __forceinline__ void tile_dots(float (&acc)[NA][NB], const float* a, int a_step, const float* b,
-                                          int b_step) {
-  constexpr int kLd = f32_ld(D);
-#pragma unroll
-  for (int i = 0; i < NA; ++i)
-#pragma unroll
-    for (int j = 0; j < NB; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 x[NA], y[NB];
-#pragma unroll
-    for (int i = 0; i < NA; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * a_step * kLd + c);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) y[j] = *reinterpret_cast<const float4*>(b + j * b_step * kLd + c);
-#pragma unroll
-    for (int i = 0; i < NA; ++i)
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
-  }
-}
-
-// ROWS rows [r0, r0 + ROWS) of a (n, D) f32 array into a staged tile (pitch f32_ld(D)) by cp.async,
-// 16 bytes a copy; rows at or past n as zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int r0, int n) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kF32Threads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r0 + r < n;
-    pgica::cp_async16(pgica::smem_u32(dst + r * f32_ld(D) + c), ok ? src + static_cast<size_t>(r0 + r) * D + c : src,
-                      ok);
-  }
-}
-
 // f32 dK/dV. Dynamic shared memory (floats): K, V [64][LD]; Q[2], dO[2] [R][LD]; P^T and dP^T - delta
 // as [R][68] (row-major in the q row); the rows' statistics [2][lse R | delta R]; the key bias [64];
 // spread [D]; then 2 * 8 ints of scratch.
@@ -285,7 +229,7 @@ __global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
                            const float* __restrict__ delta, const float* __restrict__ dout, float* __restrict__ dk,
                            float* __restrict__ dv, int heads, int sq, int sk, int causal, float sm_scale) {
   using Out = OutTile<D>;
-  constexpr int kLd = f32_ld(D), kRows = dkv_f32_rows(D), kRowsA = kRows / 8, kRowTile = kRows * kLd;
+  constexpr int kLd = f32::ld(D), kRows = dkv_f32_rows(D), kRowsA = kRows / 8, kRowTile = kRows * kLd;
   extern __shared__ __align__(16) float smem_f[];
   float* k_s = smem_f;
   float* v_s = k_s + kF32Tile * kLd;
@@ -327,10 +271,10 @@ __global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
       if (tid < kRows) return r < sq ? lse_row[r] : kNegInf;
       return r < sq ? delta_row[r] : 0.f;
     };
-    stage_f32<D, kF32Tile>(k_s, k + k_base * D, k0, kv_end);
-    stage_f32<D, kF32Tile>(v_s, v + k_base * D, k0, kv_end);
-    stage_f32<D, kRows>(q_s, qg, q_first, sq);
-    stage_f32<D, kRows>(do_s, dog, q_first, sq);
+    f32::stage<D, kF32Tile>(k_s, k + k_base * D, k0, kv_end);
+    f32::stage<D, kF32Tile>(v_s, v + k_base * D, k0, kv_end);
+    f32::stage<D, kRows>(q_s, qg, q_first, sq);
+    f32::stage<D, kRows>(do_s, dog, q_first, sq);
     pgica::cp_async_commit();
     if (tid < kF32Tile) {
       const int key = k0 + tid;  // a key past kv_end is masked
@@ -349,8 +293,8 @@ __global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
       __syncthreads();  // tile t is in place (the first time K, V, b_s, stat_s too); tile t - 1 is consumed
       float next_stat = 0.f;
       if (t + 1 < n_tiles) {  // the next tile's copies fly while this one is computed
-        stage_f32<D, kRows>(q_s + (buf ^ 1) * kRowTile, qg, row0 + kRows, sq);
-        stage_f32<D, kRows>(do_s + (buf ^ 1) * kRowTile, dog, row0 + kRows, sq);
+        f32::stage<D, kRows>(q_s + (buf ^ 1) * kRowTile, qg, row0 + kRows, sq);
+        f32::stage<D, kRows>(do_s + (buf ^ 1) * kRowTile, dog, row0 + kRows, sq);
         pgica::cp_async_commit();
         if (tid < 2 * kRows) next_stat = row_stat(row0 + kRows);
       }
@@ -366,7 +310,7 @@ __global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
 #pragma unroll
           for (int j = 0; j < kRowsA; ++j) acc[i][j] = 0.f;
       } else {
-        tile_dots<D, 4, kRowsA>(acc, keys_s, 1, (grp == 0 ? qt : dot) + rg * kLd, 8);
+        f32::tile_dots<D, 4, kRowsA>(acc, keys_s, 1, (grp == 0 ? qt : dot) + rg * kLd, 8);
       }
 #pragma unroll
       for (int j = 0; j < kRowsA; ++j) {
@@ -394,8 +338,8 @@ __global__ void __launch_bounds__(kF32Threads, D >= 72 ? 1 : 2)
       const int r_end = min(kRows, sq - row0);
       for (int r = r_begin; r < r_end; ++r) {
         float p[Out::kPer], ds[Out::kPer];
-        lds(p, p_s + r * kF32TLd + og * Out::kPer);
-        lds(ds, dp_s + r * kF32TLd + og * Out::kPer);
+        f32::lds(p, p_s + r * kF32TLd + og * Out::kPer);
+        f32::lds(ds, dp_s + r * kF32TLd + og * Out::kPer);
 #pragma unroll
         for (int i = 0; i < Out::kPer; ++i) ds[i] *= p[i];
 #pragma unroll
@@ -450,7 +394,7 @@ __global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
                           const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ delta,
                           int heads, int sq, int sk, int causal, float sm_scale) {
   using Out = OutTile<D>;
-  constexpr int kLd = f32_ld(D), kTile = kF32Tile * kLd;
+  constexpr int kLd = f32::ld(D), kTile = kF32Tile * kLd;
   constexpr int kKeys = dq_f32_keys(D), kKeysA = kKeys / 8, kKTile = kKeys * kLd;
   extern __shared__ __align__(16) float smem_f[];
   float* q_s = smem_f;
@@ -471,9 +415,9 @@ __global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
   const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
 
   float* o_s = kv_s + 2 * kKTile;  // buffer 1 (2 kKeys >= 64 rows), free until the walk's first prefetch
-  stage_f32<D, kF32Tile>(q_s, q + q_base * D, q0, sq);
-  stage_f32<D, kF32Tile>(do_s, dout + q_base * D, q0, sq);
-  stage_f32<D, kF32Tile>(o_s, o + q_base * D, q0, sq);
+  f32::stage<D, kF32Tile>(q_s, q + q_base * D, q0, sq);
+  f32::stage<D, kF32Tile>(do_s, dout + q_base * D, q0, sq);
+  f32::stage<D, kF32Tile>(o_s, o + q_base * D, q0, sq);
   pgica::cp_async_commit();
 
   const int q_end = min(q0 + kF32Tile, sq);
@@ -482,8 +426,8 @@ __global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   // key tile [k0, k0 + KT) into buffer buf; a key past kv_end is masked, whatever its bias
   auto stage_keys = [&](int buf, int k0) {
-    stage_f32<D, kKeys>(kv_s + 2 * buf * kKTile, kg, k0, kv_end);
-    stage_f32<D, kKeys>(kv_s + (2 * buf + 1) * kKTile, vg, k0, kv_end);
+    f32::stage<D, kKeys>(kv_s + 2 * buf * kKTile, kg, k0, kv_end);
+    f32::stage<D, kKeys>(kv_s + (2 * buf + 1) * kKTile, vg, k0, kv_end);
     if (tid < kKeys) {
       const int key = k0 + tid;
       b_s[buf * kKeys + tid] = key >= kv_end ? 2.f * kNegInf : bias_row == nullptr ? 0.f : bias_row[key];
@@ -531,7 +475,7 @@ __global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
     const float* bt = b_s + buf * kKeys;
 
     float sa[4][kKeysA];
-    tile_dots<D, 4, kKeysA>(sa, rows_s, 16, (grp == 0 ? kt : kt + kKTile) + kg8 * kLd, 8);
+    f32::tile_dots<D, 4, kKeysA>(sa, rows_s, 16, (grp == 0 ? kt : kt + kKTile) + kg8 * kLd, 8);
     if (grp == 0) {  // P in place of S, 0 where the key or the causal entry is masked or the row keeps no key
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -564,7 +508,7 @@ __global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
     const int kk_end = min(min(kKeys, kv_end - k0), causal ? row_w_last - k0 + 1 : kKeys);
     for (int kk = 0; kk < kk_end; ++kk) {
       float ds[Out::kPer];
-      lds(ds, ds_s + kk * kF32TLd + og * Out::kPer);
+      f32::lds(ds, ds_s + kk * kF32TLd + og * Out::kPer);
 #pragma unroll
       for (int j = 0; j < Out::kCpt; ++j) {
         const int ch = cg + j * Out::kColGroups;

@@ -21,11 +21,13 @@
 // So does the stage-1 text tower: (B*H, S, D) = (2048, 128, 64) bf16 moves
 // ~134 MB of q, k, v and o for ~4.3 GFLOP of the causal half.
 //
-// Two kernels, chosen by the wrapper (ops/flash_attention.py:
-// fwd_on_tensor_cores) from the dtype and Sq, never by a failure: bf16 at Sq
-// >= its threshold runs flash_attn_fwd_tc on the tensor cores (below);
-// decode (Sq = 1), short Sq and f32 run flash_attn_fwd on the CUDA cores.
-// Both keep the semantics above and below exactly.
+// Three routes, chosen by the wrapper (ops/flash_attention.py: fwd_route)
+// from the dtype and Sq, never by a failure, and passed to the C entry point:
+// bf16 at Sq >= TC_MIN_SQ (3) runs flash_attn_fwd_tc on the tensor cores;
+// f32 at Sq >= F32_TILED_MIN_SQ (33) runs flash_attn_fwd_f32, register-tiled
+// on the CUDA cores; decode (Sq = 1) and short Sq in either type run
+// flash_attn_fwd on the CUDA cores. All keep the semantics above exactly.
+// The thresholds are the H100's crossovers (chip_smoke.py: flash_crossover).
 //
 // flash_attn_fwd (CUDA cores; simple and correct first, and faster than the
 // tensor-core kernel at decode, where one q row cannot fill an mma tile):
@@ -75,9 +77,44 @@
 // dV; tests/test_torch_ops.py emulates it at the main path's shapes), and
 // the sum l stays f32. The tile skipping above (causal, trailing padding,
 // a row without a kept key) is the same, per 64-row q tile.
+//
+// flash_attn_fwd_f32 (f32, CUDA cores). f32 inputs are held to 2e-5 on o
+// (chip_smoke.py: ATTN_F32_ATOL), and the f32 backward (flash_attn_bwd.cu)
+// forms p = exp(s - lse) from the forward's lse, so the products stay f32
+// FMAs (no TF32 tensor-core passes, no operand splits) and the score is the
+// backward's to the bit: one FMA chain over the D columns in order from the
+// unscaled q and k, then fmaf(s, scale, bias). What bounds it on the H100:
+// operations, 4 D flops a kept (row, key) pair (8.6 GFLOP at Llama's
+// (128, 512, 512, 128) causal: 0.128 ms at 67 TFLOP/s), against ~135 MB of
+// bytes (0.040 ms). Its FMAs are fed from shared memory at 32 floats a clock
+// an SM against 128 FMAs a clock, so each float read must feed several FMAs,
+// and the registers that register tiling takes decide how many blocks an SM
+// holds to hide the latencies. The design (the f32 backward's layout,
+// f32_tiles.cuh): a 256-thread block owns 64 q rows of one (batch*head), Q
+// staged once, rows padded to D + 4 floats; it walks key tiles of 64 up to
+// its last causal column and the batch row's last kept key, K, V and the
+// bias single-buffered by cp.async (two buffers took the shared memory of a
+// third block, which was worth more). Per tile:
+//   A: S = Q K^T, register-tiled: the 16 lanes of a row group (8 at D = 72)
+//      each hold 4 rows x 4 keys (2 x 8), every element an FMA chain fed by
+//      float2 reads (float4 held 16 registers more: a spill at 80); then the
+//      mask, the row's tile max (shuffles), alpha = exp(m - m_new) and p =
+//      exp(x - m_new) in f32, each lane's share of the row's sum l. P^T goes
+//      to shared memory once, in place of K (D >= 64), and alpha beside it.
+//   B: O = O alpha + P V: each thread owns 4 rows x 16-byte column chunks
+//      (FwdOut; at D = 72 the 2 chunks left over go one (row, chunk) to 16
+//      lanes of each warp), accumulated in registers over every tile, one FMA
+//      chain over the keys in order; keys after every row of a warp (causal)
+//      are skipped: their p is exactly 0.
+// Three blocks an SM at D = 16, 64 and 72 (80 registers a thread), two at D = 32 and
+// 128; no instance spills (chip_smoke.py phase 3 fails on a spill). Each
+// element has one owner thread and a fixed order, with no atomics: two runs
+// give the same bits. The CPU emulation is tests/test_torch_ops.py's
+// _fwd_f32_scheme.
 #include <math.h>
 
 #include "common.cuh"
+#include "f32_tiles.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -504,6 +541,312 @@ int launch_tc_dim(const void* q, const void* k, const void* v, const void* bias,
   }
 }
 
+// ------------------------------------------------------------------ float32, register-tiled
+
+namespace f32 = pgica::f32;
+constexpr int kF32Rows = f32::kTile;  // q rows a block
+constexpr int kF32Keys = 64;          // keys a staged tile
+constexpr int kPLd = f32::kTLd;       // pitch of the transposed P tile, [key][row]
+// Per head dim, chosen on the H100 (chip sweeps, PERF.md §6): the blocks an SM (the registers a thread
+// are held to 65,536 / (256 x blocks): 80 at 3, 128 at 2; at 80 the lanes-16 layout spills at D = 32
+// and 72), the lanes that share a row's scores in phase A (16: each lane 4 rows x 4 keys; 8: 2 rows x
+// 8 keys and fewer registers), the steps of 2 columns its product loop unrolls, and whether each row's
+// running max lives in shared memory (4 registers fewer).
+__host__ __device__ constexpr int fwd_f32_min_blocks(int d) { return d == 32 || d == 128 ? 2 : 3; }
+__host__ __device__ constexpr int fwd_f32_row_lanes(int d) { return d == 72 ? 8 : 16; }
+__host__ __device__ constexpr int fwd_f32_unroll(int d) { return d == 128 ? 4 : 2; }
+__host__ __device__ constexpr bool fwd_f32_m_in_smem(int d) { return d == 72 || d == 128; }
+// P^T takes the place of the tile's K once the scores are formed where it fits there (D >= 64).
+__host__ __device__ constexpr bool fwd_f32_p_in_k(int d) { return f32::ld(d) >= kPLd; }
+// Dynamic shared memory (floats): Q [64][LD]; K and V [64][LD] each; P^T [64][68] where it is not in
+// K's buffer; the key bias [64]; alpha, l and m [64] each; 16 ints.
+__host__ __device__ constexpr int fwd_f32_smem_bytes(int d) {
+  return 4 * (3 * kF32Rows * f32::ld(d) + (fwd_f32_p_in_k(d) ? 0 : kF32Keys * kPLd) + kF32Keys + 3 * kF32Rows +
+              2 * f32::kWarps);
+}
+
+// Phase B's layout: the block's 64 x D outputs over its 256 threads. Thread tid owns the kPer
+// consecutive rows from og kPer (og = tid / kColGroups) and the 16-byte column chunks cg, cg +
+// kColGroups, ... (cg = tid % kColGroups); warp w owns rows 8w .. 8w + 7. Where the chunks are no
+// multiple of the groups (D = 72: 18 chunks, 16 groups), the kExtra chunks left over go one (row,
+// chunk) a lane to the lanes (lane % 16) < kPer kExtra, each on one of its own rows: every warp
+// then does 5 chunk-rows of work a lane where a second chunk for groups 0 and 1 would make it 8.
+template <int D>
+struct FwdOut {
+  static constexpr int kChunks = D / 4;
+  static constexpr int kPer = D >= 64 ? 4 : D / 16;
+  static constexpr int kColGroups = f32::kThreads * kPer / kF32Rows;
+  static constexpr int kCpt = kChunks / kColGroups;
+  static constexpr int kExtra = kChunks % kColGroups;
+  static_assert(kExtra == 0 || (kColGroups == 16 && kPer * kExtra <= 16), "extra chunks: lanes 0-15 share og");
+};
+
+template <int D>
+__global__ void __launch_bounds__(f32::kThreads, fwd_f32_min_blocks(D))
+    flash_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const float* __restrict__ bias, float* __restrict__ o, float* __restrict__ lse, int heads,
+                       int sq, int sk, int causal, float sm_scale) {
+  using Out = FwdOut<D>;
+  constexpr int kLd = f32::ld(D), kKTile = kF32Keys * kLd;
+  // phase A: rows rg + kRowStep i (i < kRowsA) x keys kgl + kLanes j (j < kKeysA)
+  constexpr int kLanes = fwd_f32_row_lanes(D), kRowStep = f32::kThreads / kLanes;
+  constexpr int kRowsA = kF32Rows / kRowStep, kKeysA = kF32Keys / kLanes;
+  constexpr bool kPInK = fwd_f32_p_in_k(D), kMS = fwd_f32_m_in_smem(D);
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;
+  float* k_s = q_s + kF32Rows * kLd;
+  float* v_s = k_s + kKTile;
+  float* p_s = kPInK ? k_s : v_s + kKTile;
+  float* b_s = v_s + kKTile + (kPInK ? 0 : kF32Keys * kPLd);
+  float* alpha_s = b_s + kF32Keys;
+  float* l_s = alpha_s + kF32Rows;
+  float* m_s = l_s + kF32Rows;
+  int* scratch_s = reinterpret_cast<int*>(m_s + kF32Rows);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // under `causal` the longest walks start first
+  const size_t q_base = static_cast<size_t>(bh) * sq;
+  const float* kg = k + static_cast<size_t>(bh) * sk * D;
+  const float* vg = v + static_cast<size_t>(bh) * sk * D;
+  const float* bias_row = bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * sk;
+
+  f32::stage<D, kF32Rows>(q_s, q + q_base * D, q0, sq);
+
+  const int q_end = min(q0 + kF32Rows, sq);
+  int kv_end = causal ? min(sk, q_end) : sk;  // rows >= cols: cols < q_end suffice
+  bool every_row_keeps = true;                // block-uniform: each row of the tile keeps a key
+  if (bias_row != nullptr) {  // the q copies fly meanwhile
+    int first_kept = sk, last_kept = -1;
+    for (int j = tid; j < kv_end; j += f32::kThreads) {
+      if (bias_row[j] > kNegInf) {
+        first_kept = min(first_kept, j);
+        last_kept = j;
+      }
+    }
+    first_kept = __reduce_min_sync(0xffffffffu, first_kept);
+    last_kept = __reduce_max_sync(0xffffffffu, last_kept);
+    if (lane == 0) {
+      scratch_s[warp] = first_kept;
+      scratch_s[f32::kWarps + warp] = last_kept;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < f32::kWarps; ++w) {
+      first_kept = min(first_kept, scratch_s[w]);
+      last_kept = max(last_kept, scratch_s[f32::kWarps + w]);
+    }
+    // Row q0, the tile's first, keeps no key: it averages V over all Sk keys.
+    every_row_keeps = last_kept >= 0 && !(causal && first_kept > q0);
+    kv_end = every_row_keeps ? last_kept + 1 : sk;  // trailing padding adds p = 0 only
+  }
+  const int n_tiles = (kv_end + kF32Keys - 1) / kF32Keys;
+  // key tile [k0, k0 + 64); a key past kv_end is cut below, whatever its bias
+  auto stage_keys = [&](int k0) {
+    f32::stage<D, kF32Keys>(k_s, kg, k0, kv_end);
+    f32::stage<D, kF32Keys>(v_s, vg, k0, kv_end);
+    if (tid < kF32Keys) b_s[tid] = bias_row != nullptr && k0 + tid < kv_end ? bias_row[k0 + tid] : 0.f;
+  };
+  stage_keys(0);
+  pgica::cp_async_commit();
+
+  // phase A: the kLanes lanes of a row group hold its statistics
+  const int rg = tid / kLanes, kgl = tid % kLanes;
+  float m[kRowsA], l[kRowsA];  // l: this lane's share of the row's sum
+#pragma unroll
+  for (int i = 0; i < kRowsA; ++i) m[i] = kNegInf, l[i] = 0.f;
+  if (kMS && tid < kF32Rows) m_s[tid] = kNegInf;  // in place at the walk's first barrier
+  // phase B: rows og kPer + i, chunks cg + kColGroups j; the extra chunk xch of row og kPer + xi
+  const int og = tid / Out::kColGroups, cg = tid % Out::kColGroups;
+  constexpr int kX = Out::kExtra > 0 ? Out::kExtra : 1;
+  const bool x_own = Out::kExtra > 0 && (lane & 15) < Out::kPer * Out::kExtra;
+  const int xi = (lane & 15) / kX, xch = Out::kCpt * Out::kColGroups + (lane & 15) % kX;
+  const int row_w_last = q0 + 8 * warp + 7;  // the last of this warp's phase-B rows
+  float acc[Out::kPer][Out::kCpt][4], accx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < Out::kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < Out::kCpt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kF32Keys;
+    if (t > 0) {
+      __syncthreads();  // tile t - 1's P and V are consumed
+      stage_keys(k0);
+      pgica::cp_async_commit();
+    }
+    pgica::cp_async_wait<0>();
+    __syncthreads();  // tile t (the first time also Q) is in place
+
+    // phase A: S = Q K^T, masked, each row's max, alpha = exp(m - m_new) and p = exp(x - m_new) in f32
+    float s[kRowsA][kKeysA];
+    f32::tile_dots<D, kRowsA, kKeysA, fwd_f32_unroll(D), 2>(s, q_s + rg * kLd, kRowStep, k_s + kgl * kLd, kLanes);
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i) {
+      const int rl = rg + kRowStep * i, row = q0 + rl;
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeysA; ++j) {
+        const int kl = kgl + kLanes * j, col = k0 + kl;
+        const float b = b_s[kl];
+        // a masked key scores NEG_INF exactly, as the reference's fill; one past kv_end -inf (out of the
+        // max and the sum). The score is the backward's: fmaf(q . k, scale, bias)
+        float x = -INFINITY;
+        if (col < kv_end) x = b > kNegInf && (!causal || row >= col) ? fmaf(s[i][j], sm_scale, b) : kNegInf;
+        s[i][j] = x;
+        tile_max = fmaxf(tile_max, x);
+      }
+#pragma unroll
+      for (int off = 1; off < kLanes; off *= 2) tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      const float m_old = kMS ? m_s[rl] : m[i];
+      const float m_new = fmaxf(m_old, tile_max);  // finite: key k0 < kv_end scores at least NEG_INF
+      const float alpha = expf(m_old - m_new);
+      if constexpr (kMS) {
+        __syncwarp();  // the row's lanes have read m_old
+        if (kgl == 0) m_s[rl] = m_new;
+      } else {
+        m[i] = m_new;
+      }
+      float sum = __fmul_rn(l[i], alpha);
+#pragma unroll
+      for (int j = 0; j < kKeysA; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum = __fadd_rn(sum, s[i][j]);
+      }
+      l[i] = sum;
+      if (kgl == 0) alpha_s[rl] = alpha;
+    }
+    if constexpr (kPInK) __syncthreads();  // every warp has read the tile's K: P^T takes its place
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeysA; ++j) p_s[(kgl + kLanes * j) * kPLd + rg + kRowStep * i] = s[i][j];
+    __syncthreads();  // P^T and alpha are in place
+
+    // phase B: O = O alpha + P V over the tile's keys in order; keys past kv_end, or after every row of
+    // the warp when each row keeps a key (p = 0 exactly), add nothing
+    float a[Out::kPer];
+    f32::lds(a, alpha_s + og * Out::kPer);
+#pragma unroll
+    for (int i = 0; i < Out::kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < Out::kCpt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fmul_rn(acc[i][j][e], a[i]);
+    if constexpr (Out::kExtra > 0) {
+      float ax = a[0];
+#pragma unroll
+      for (int i = 1; i < Out::kPer; ++i) ax = xi == i ? a[i] : ax;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accx[e] = __fmul_rn(accx[e], ax);
+    }
+    int kk_end = min(kF32Keys, kv_end - k0);
+    if (causal && every_row_keeps) kk_end = min(kk_end, row_w_last - k0 + 1);
+    for (int kk = 0; kk < kk_end; ++kk) {
+      float p[Out::kPer];
+      f32::lds(p, p_s + kk * kPLd + og * Out::kPer);
+#pragma unroll
+      for (int j = 0; j < Out::kCpt; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(v_s + kk * kLd + 4 * (cg + j * Out::kColGroups));
+#pragma unroll
+        for (int i = 0; i < Out::kPer; ++i) {
+          acc[i][j][0] = fmaf(p[i], x.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(p[i], x.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(p[i], x.z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(p[i], x.w, acc[i][j][3]);
+        }
+      }
+      if constexpr (Out::kExtra > 0) {
+        if (x_own) {
+          float px = p[0];
+#pragma unroll
+          for (int i = 1; i < Out::kPer; ++i) px = xi == i ? p[i] : px;
+          const float4 x = *reinterpret_cast<const float4*>(v_s + kk * kLd + 4 * xch);
+          accx[0] = fmaf(px, x.x, accx[0]);
+          accx[1] = fmaf(px, x.y, accx[1]);
+          accx[2] = fmaf(px, x.z, accx[2]);
+          accx[3] = fmaf(px, x.w, accx[3]);
+        }
+      }
+    }
+  }
+
+  // l: the row's sum over its kLanes lanes (a butterfly, the same bits on every lane); lse = m + log(l)
+#pragma unroll
+  for (int i = 0; i < kRowsA; ++i) {
+#pragma unroll
+    for (int off = 1; off < kLanes; off *= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int rl = rg + kRowStep * i;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    if (kgl == 0) {
+      l_s[rl] = l_safe;
+      if (q0 + rl < sq) lse[q_base + q0 + rl] = (kMS ? m_s[rl] : m[i]) + logf(l_safe);
+    }
+  }
+  __syncthreads();  // l_s
+  // o = acc / l
+#pragma unroll
+  for (int i = 0; i < Out::kPer; ++i) {
+    const int rl = og * Out::kPer + i;
+    if (q0 + rl >= sq) continue;
+    const float li = l_s[rl];
+    float* orow = o + (q_base + q0 + rl) * D;
+#pragma unroll
+    for (int j = 0; j < Out::kCpt; ++j)
+      *reinterpret_cast<float4*>(orow + 4 * (cg + j * Out::kColGroups)) =
+          make_float4(acc[i][j][0] / li, acc[i][j][1] / li, acc[i][j][2] / li, acc[i][j][3] / li);
+  }
+  if (Out::kExtra > 0 && x_own) {
+    const int rl = og * Out::kPer + xi;
+    if (q0 + rl < sq) {
+      const float li = l_s[rl];
+      *reinterpret_cast<float4*>(o + (q_base + q0 + rl) * D + 4 * xch) =
+          make_float4(accx[0] / li, accx[1] / li, accx[2] / li, accx[3] / li);
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse, int bh, int heads,
+               int sq, int sk, int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int kSmem = fwd_f32_smem_bytes(D);
+  // once per instance: above 48 KB, dynamic shared memory must be asked for, and the SM's whole carveout
+  // holds fwd_f32_min_blocks(D) blocks
+  static const cudaError_t attr = [] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_attn_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(flash_attn_fwd_f32<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                   cudaSharedmemCarveoutMaxShared);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(bh, (sq + kF32Rows - 1) / kF32Rows);
+  flash_attn_fwd_f32<D><<<grid, f32::kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(o), static_cast<float*>(lse), heads, sq, sk, causal,
+      sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32_dim(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse, int bh,
+                   int heads, int sq, int sk, int head_dim, int causal, float sm_scale, cudaStream_t stream) {
+  switch (head_dim) {
+#define PGICA_FA_F32_CASE(DIM) \
+  case DIM:                    \
+    return launch_f32<DIM>(q, k, v, bias, o, lse, bh, heads, sq, sk, causal, sm_scale, stream);
+    PGICA_FA_F32_CASE(16)
+    PGICA_FA_F32_CASE(32)
+    PGICA_FA_F32_CASE(64)
+    PGICA_FA_F32_CASE(72)
+    PGICA_FA_F32_CASE(128)
+#undef PGICA_FA_F32_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // ------------------------------------------------------------------ dispatch
 
 template <typename T>
@@ -538,24 +881,31 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 }  // namespace
 
 // q, o: (bh, sq, head_dim); k, v: (bh, sk, head_dim), contiguous in `dtype`;
-// bias: (bh / heads, sk) f32 or NULL; lse: (bh, sq) f32. tensor_cores != 0
-// runs flash_attn_fwd_tc (bf16 only), else flash_attn_fwd.
-// Returns a cudaError_t code (0 = launched).
+// bias: (bh / heads, sk) f32 or NULL; lse: (bh, sq) f32. `route` picks the
+// kernel (ops/flash_attention.py:FWD_ROUTES): 0 flash_attn_fwd (CUDA cores,
+// f32 or bf16), 1 flash_attn_fwd_tc (bf16 only), 2 flash_attn_fwd_f32 (f32
+// only). Returns a cudaError_t code (0 = launched).
 extern "C" int pgica_flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                                     void* o, void* lse, int bh, int heads, int sq, int sk,
                                     int head_dim, int causal, float sm_scale, int dtype,
-                                    int tensor_cores, void* stream) {
+                                    int route, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || sq <= 0 || sk <= 0 || sq > 65535 * kBlockQ)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores)
-    return dtype == pgica::kBFloat16
-               ? launch_tc_dim(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s)
-               : static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == pgica::kFloat32)
-    return launch<float>(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
-  if (dtype == pgica::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal,
-                                 sm_scale, s);
+  const bool is_f32 = dtype == pgica::kFloat32, is_bf16 = dtype == pgica::kBFloat16;
+  switch (route) {
+    case 0:
+      if (is_f32) return launch<float>(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
+      if (is_bf16) return launch<bf16>(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
+      break;
+    case 1:
+      if (is_bf16) return launch_tc_dim(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
+      break;
+    case 2:
+      if (is_f32) return launch_f32_dim(q, k, v, bias, o, lse, bh, heads, sq, sk, head_dim, causal, sm_scale, s);
+      break;
+    default:
+      break;
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

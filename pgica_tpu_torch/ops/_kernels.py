@@ -12,7 +12,10 @@ an unchanged one is loaded as it is.
 
 Every wrapper calls :func:`launch`, which raises if the C entry point returns a
 CUDA error and otherwise adds one to the kernel's launch count; the counts
-show that a run really went through the kernels.
+show that a run really went through the kernels. An entry point that holds
+several kernels may count the one it took as well (``ROUTES``): the f32
+flash forward's register-tiled instance counts as ``flash_attn_fwd`` and as
+``flash_attn_fwd_f32``.
 
 Nothing here runs at import: the CPU tests import every module, and this host
 may have no ``nvcc``.
@@ -27,7 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -92,8 +95,10 @@ KERNELS = {
     ),
 }
 SOURCES = sorted({source for source, _, _ in KERNELS.values()})
+# counts of a kernel inside an entry point, beside the entry point's own
+ROUTES = ("flash_attn_fwd_f32",)
 
-_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches: Dict[str, int] = {name: 0 for name in (*KERNELS, *ROUTES)}
 _entry_points: Dict[str, Callable[..., int]] = {}
 _error_strings: Dict[str, Callable[[int], bytes]] = {}
 
@@ -174,13 +179,16 @@ def _entry_point(name: str):
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point; raise on a CUDA error, count on success."""
+def launch(name: str, *args, route: Optional[str] = None) -> None:
+    """Call kernel ``name``'s C entry point; raise on a CUDA error, count on success (``route``, one of
+    ``ROUTES``: the kernel the entry point takes for these arguments, counted besides)."""
     rc = _entry_point(name)(*args)
     if rc != 0:
         msg = _error_strings[name](rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
     _launches[name] += 1
+    if route is not None:
+        _launches[route] += 1
 
 
 def stream_handle(t: torch.Tensor) -> int:

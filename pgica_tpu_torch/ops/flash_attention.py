@@ -6,11 +6,15 @@ Mirrors pgica_tpu/ops/flash_attention.py:34-167,183-292,295-326. Layout is
 * ``csrc/flash_attn_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (:34):
   online softmax in float32, a per-key additive bias (B, Sk) in float32
   shared across heads, an optional causal mask ``rows >= cols``; it returns
-  O in the input dtype and the row logsumexp in float32. Two kernels, chosen
-  by :func:`fwd_on_tensor_cores` from the dtype and Sq: bf16 at Sq >=
+  O in the input dtype and the row logsumexp in float32. Three kernels,
+  chosen by :func:`fwd_route` from the dtype and Sq: bf16 at Sq >=
   ``TC_MIN_SQ`` runs on the tensor cores (``flash_attn_fwd_tc``, P rounded
-  once to bf16 for PV); decode, short Sq and float32 run on the CUDA cores
-  in f32 (``flash_attn_fwd``).
+  once to bf16 for PV); float32 at Sq >= ``F32_TILED_MIN_SQ`` runs
+  register-tiled in full f32 FMAs (``flash_attn_fwd_f32``, the f32
+  backward's layout and its scores bit for bit); decode and short Sq run on
+  the CUDA cores in f32 (``flash_attn_fwd``). The launch count of
+  ``flash_attn_fwd`` counts all three; ``flash_attn_fwd_f32`` counts the
+  f32 route besides.
 * ``csrc/flash_attn_bwd.cu`` replaces ``_bwd_dq_kernel`` (:130) and
   ``_bwd_dkv_kernel`` (:81). ``delta = rowsum(dO * O)``, which the JAX
   wrapper computes apart (:233), is folded into the dQ kernel: it runs first
@@ -54,11 +58,24 @@ HEAD_DIMS = (16, 32, 64, 72, 128)  # the kernels are templated on these (72: Sig
 # (chip_smoke.py phase 3, PERF.md §6): at Sq 1 and 2 the CUDA-core kernel is as fast or faster (a few
 # q rows fill little of a 16-row mma tile), from Sq 3 the tensor cores win at D 64 and 128.
 TC_MIN_SQ = 3
+# Sq from which an f32 forward runs register-tiled (flash_attn_fwd_f32, 64 q rows a block). Measured on
+# the H100 (chip_smoke.flash_crossover, PERF.md §6): causal self-attention at GPT-2's stage-1 heads, Sq = Sk,
+# is faster on the CUDA-core kernel's 16-row blocks at Sq 32 (the bucketed training rows) and on the tiled
+# kernel from Sq 40; over a cache of 129 keys the tiled kernel wins from Sq 24.
+F32_TILED_MIN_SQ = 33
+# the C entry point's route codes (csrc/flash_attn_fwd.cu: pgica_flash_attn_fwd)
+FWD_ROUTES = {"cuda_cores": 0, "tensor_cores": 1, "f32_tiled": 2}
+_ROUTE_DTYPE = {"tensor_cores": torch.bfloat16, "f32_tiled": torch.float32}
 
 
-def fwd_on_tensor_cores(dtype: torch.dtype, sq: int) -> bool:
-    """Whether the forward runs on the tensor cores: bf16 at Sq >= ``TC_MIN_SQ``; f32 never."""
-    return dtype == torch.bfloat16 and sq >= TC_MIN_SQ
+def fwd_route(dtype: torch.dtype, sq: int) -> str:
+    """The forward's kernel on the card: bf16 at Sq >= ``TC_MIN_SQ`` on the tensor cores, f32 at Sq >=
+    ``F32_TILED_MIN_SQ`` register-tiled, decode and short Sq on the CUDA cores."""
+    if dtype == torch.bfloat16 and sq >= TC_MIN_SQ:
+        return "tensor_cores"
+    if dtype == torch.float32 and sq >= F32_TILED_MIN_SQ:
+        return "f32_tiled"
+    return "cuda_cores"
 
 
 def _scores(q, k, bias, causal):
@@ -163,12 +180,12 @@ def flash_attention_fwd(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
-    tensor_cores: Optional[bool] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel wrapper: q (B, H, Sq, D), k and v (B, H, Sk, D), bias None or (B, Sk) f32.
 
-    ``tensor_cores`` picks the kernel on the card; None takes :func:`fwd_on_tensor_cores`
-    (True or False only to measure one kernel against the other).
+    ``route`` (a key of ``FWD_ROUTES``) picks the kernel on the card; None takes :func:`fwd_route`
+    (a route only to measure one kernel against another).
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, bias, causal)
@@ -179,10 +196,12 @@ def flash_attention_fwd(
         _check_operand("flash_attention_fwd", t, q, name)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if tensor_cores is None:
-        tensor_cores = fwd_on_tensor_cores(q.dtype, sq)
-    elif tensor_cores and q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_fwd: the tensor-core kernel takes bfloat16, got {q.dtype}")
+    if route is None:
+        route = fwd_route(q.dtype, sq)
+    elif route not in FWD_ROUTES:
+        raise ValueError(f"flash_attention_fwd: route {route!r} not in {tuple(FWD_ROUTES)}")
+    elif _ROUTE_DTYPE.get(route, q.dtype) != q.dtype:
+        raise TypeError(f"flash_attention_fwd: route {route} takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
@@ -191,7 +210,8 @@ def flash_attention_fwd(
         "flash_attn_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
         o.data_ptr(), lse.data_ptr(), b * h, h, sq, sk, d, int(causal), 1.0 / d**0.5,
-        _kernels.DTYPE_CODES[q.dtype], int(tensor_cores), _kernels.stream_handle(q),
+        _kernels.DTYPE_CODES[q.dtype], FWD_ROUTES[route], _kernels.stream_handle(q),
+        route="flash_attn_fwd_f32" if route == "f32_tiled" else None,
     )
     return o, lse
 

@@ -10,6 +10,7 @@ in another order, nothing more.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,12 +35,14 @@ from pgica_tpu_torch.generation.decode import _apply_repetition_penalty, _top_p_
 from pgica_tpu_torch.models import presets
 from pgica_tpu_torch.ops.attention import dot_product_attention, key_padding_bias, xla_attention
 from pgica_tpu_torch.ops.flash_attention import (
+    F32_TILED_MIN_SQ,
     NEG_INF,
     TC_MIN_SQ,
     flash_attention_fwd,
     flash_attention_ref,
-    fwd_on_tensor_cores,
+    fwd_route,
 )
+from test_torch_backward import _f32_p_ds, _fma
 from pgica_tpu_torch.ops.layernorm import LayerNorm, layer_norm_fwd
 
 LN_ATOL = 1e-5
@@ -273,12 +276,158 @@ def test_flash_fwd_tensor_core_scheme_holds_the_bf16_bound(case):
                                    rtol=rtol)
 
 
-@pytest.mark.parametrize("sq", [1, TC_MIN_SQ - 1, TC_MIN_SQ, 730])
+@pytest.mark.parametrize("sq", sorted({1, TC_MIN_SQ - 1, TC_MIN_SQ, F32_TILED_MIN_SQ - 1, F32_TILED_MIN_SQ, 730}))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_fwd_kernel_is_chosen_by_dtype_and_sq(sq, dtype):
-    """bf16 from TC_MIN_SQ rows on runs on the tensor cores; decode, short Sq and f32 on the CUDA cores."""
-    assert fwd_on_tensor_cores(dtype, sq) == (dtype == torch.bfloat16 and sq >= TC_MIN_SQ)
-    assert not fwd_on_tensor_cores(dtype, 1)
+    """bf16 from TC_MIN_SQ rows on runs on the tensor cores, f32 from F32_TILED_MIN_SQ rows on
+    register-tiled; decode and short Sq on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        want = "tensor_cores" if sq >= TC_MIN_SQ else "cuda_cores"
+    else:
+        want = "f32_tiled" if sq >= F32_TILED_MIN_SQ else "cuda_cores"
+    assert fwd_route(dtype, sq) == want
+    assert fwd_route(dtype, 1) == "cuda_cores"
+
+
+# The f32 forward at Sq >= F32_TILED_MIN_SQ (csrc/flash_attn_fwd.cu, flash_attn_fwd_f32) forms every
+# product in full f32 FMAs on the CUDA cores; chip_smoke.py holds it to the plain version within
+# ATTN_F32_ATOL on o and LSE_TOL on lse. The emulation below repeats its arithmetic on the CPU: the score
+# one FMA chain over the D columns in order from the unscaled q and k, then fmaf(s, scale, bias) (the
+# backward's score, tests/test_torch_backward.py:_f32_p_ds); the kernel's key tiles of 64 and skips (a
+# q tile of 64 rows reads keys up to its last causal column and its batch row's last kept key, or all
+# Sk keys where its first row keeps none; keys past that neither in the max nor in the sum); per tile
+# the max, alpha = exp(m - m_new) and p = exp(x - m_new) in f32, each row's sum kept as the shares of the
+# lanes that hold its scores (16, at D = 72 8; lane g: keys g, g + lanes, ... of a tile, l alpha then + p
+# in key order) summed by a butterfly at the end; O = O alpha, then one FMA chain over the tile's keys
+# in order; o = O / l, lse = m + log(l). The keys a warp skips past its rows add fma(0, v, acc) = acc:
+# the same bits. An FMA is emulated in float64 (the f32 product is exact there) with one rounding to f32.
+F32_TILE = 64  # csrc/flash_attn_fwd.cu: kF32Rows, kF32Keys
+
+
+def _row_lanes(d):
+    return 8 if d == 72 else 16  # csrc/flash_attn_fwd.cu: fwd_f32_row_lanes
+
+
+def _kv_end_rows(sq, sk, bias, causal):
+    """(B, Sq): the kv_end of each row's 64-row q tile, as the block computes it."""
+    b = 1 if bias is None else bias.shape[0]
+    kept = torch.ones(b, sk, dtype=torch.bool) if bias is None else bias > NEG_INF
+    out = torch.empty(b, sq, dtype=torch.long)
+    for q0 in range(0, sq, F32_TILE):
+        q_end = min(q0 + F32_TILE, sq)
+        for i in range(b):
+            kv_end = min(sk, q_end) if causal else sk
+            idx = torch.nonzero(kept[i, :kv_end]).flatten()
+            if bias is not None:
+                every_row_keeps = len(idx) > 0 and not (causal and int(idx[0]) > q0)
+                kv_end = int(idx[-1]) + 1 if every_row_keeps else sk
+            out[i, q0:q_end] = kv_end
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_f32_case(b, h, s, d, valid, causal):
+    """f32 inputs (key lengths: None, a tuple, or "random" 1..s), the kernel's emulated (o, lse, x) (x
+    the masked scores) and the forward computed in float64 from the same f32 inputs."""
+    rng = np.random.default_rng(19)
+    q, k, v = (torch.from_numpy(_np(rng, b, h, s, d)) for _ in range(3))
+    bias = None
+    if valid is not None:
+        lengths = rng.integers(1, s + 1, size=b) if valid == "random" else np.asarray(valid)
+        bias = key_padding_bias(torch.from_numpy((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)))
+    return (q, k, v, bias), _fwd_f32_scheme(q, k, v, bias, causal), _fwd_f64(q, k, v, bias, causal)
+
+
+def _fwd_f32_scheme(q, k, v, bias, causal):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = torch.tensor(1.0 / d**0.5, dtype=torch.float32)
+    s = torch.zeros(b, h, sq, sk)
+    for c in range(d):
+        s = _fma(q[..., c, None], k[..., None, :, c], s)
+    keep = torch.ones(1, 1, 1, sk, dtype=torch.bool)
+    b_row = torch.zeros(1, 1, 1, sk)
+    if bias is not None:
+        keep, b_row = (bias > NEG_INF)[:, None, None, :], bias[:, None, None, :]
+    if causal:
+        keep = keep & (torch.arange(sq)[:, None] >= torch.arange(sk)[None, :])
+    x = torch.where(keep, _fma(s, scale, b_row), NEG_INF)
+    n_tiles = -(-sk // F32_TILE)
+    pad = n_tiles * F32_TILE - sk
+    cut = torch.arange(sk + pad)[None, None, :] >= _kv_end_rows(sq, sk, bias, causal)[:, :, None]
+    x_tiles = torch.nn.functional.pad(x, (0, pad), value=-torch.inf).masked_fill(cut[:, None], -torch.inf)
+    v_tiles = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    n_lanes = _row_lanes(d)
+    m = torch.full((b, h, sq), NEG_INF)
+    lanes = torch.zeros(b, h, sq, n_lanes)
+    acc = torch.zeros(b, h, sq, d)
+    for k0 in range(0, sk + pad, F32_TILE):
+        xt = x_tiles[..., k0:k0 + F32_TILE]
+        m_new = torch.maximum(m, xt.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(xt - m_new[..., None])
+        lanes = lanes * alpha[..., None]
+        for j in range(F32_TILE // n_lanes):  # lane g adds keys g + lanes j in order of j
+            lanes = lanes + p[..., n_lanes * j:n_lanes * (j + 1)]
+        acc = acc * alpha[..., None]
+        for kk in range(F32_TILE):
+            acc = _fma(p[..., kk, None], v_tiles[:, :, None, k0 + kk, :], acc)
+        m = m_new
+    l = lanes
+    while l.shape[-1] > 1:  # the butterfly: xor 1, 2, 4, ...
+        l = l[..., 0::2] + l[..., 1::2]
+    l = l[..., 0]
+    return acc / l[..., None], m + torch.log(l), x
+
+
+def _fwd_f64(q, k, v, bias, causal):
+    """(o, lse) of the plain forward in float64 from the same f32 inputs."""
+    q, k, v = (t.double() for t in (q, k, v))
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = (q / d**0.5) @ k.transpose(-1, -2)
+    keep = torch.ones(1, 1, 1, sk, dtype=torch.bool)
+    if bias is not None:
+        s = s + bias.double()[:, None, None, :]
+        keep = (bias > NEG_INF)[:, None, None, :]
+    if causal:
+        keep = keep & (torch.arange(sq)[:, None] >= torch.arange(sk)[None, :])
+    s = torch.where(keep, s, NEG_INF)
+    lse = torch.logsumexp(s, -1)
+    return torch.exp(s - lse[..., None]) @ v, lse
+
+
+# (B, H, S, D, key lengths, causal): GPT-2 stage 1 at reduced batch (causal, ragged keys); SigLIP's heads
+# of 72 over 730 keys; Llama's 128, causal, batch row 0 keeping no key
+FWD_F32_CASES = {
+    "gpt2_stage1": (8, 4, 128, 64, "random", True),
+    "siglip_d72": (2, 2, 730, 72, None, False),
+    "llama_d128_row_without_keys": (2, 2, 256, 128, (0, 150), True),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_F32_CASES))
+def test_flash_fwd_f32_scheme_holds_the_f32_bound(case):
+    (_, _, v, bias), (o, lse, _), (want_o, want_lse) = _fwd_f32_case(*FWD_F32_CASES[case])
+    np.testing.assert_allclose(o.double().numpy(), want_o.numpy(), atol=ATTN_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.double().numpy(), want_lse.numpy(), atol=LSE_TOL[0], rtol=LSE_TOL[1])
+    if bias is not None and not bool((bias > NEG_INF).any(-1).all()):  # a batch row without keys: mean of V
+        np.testing.assert_allclose(o[0].numpy(), v[0].mean(1, keepdim=True).expand_as(o[0]).numpy(),
+                                   atol=ATTN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", list(FWD_F32_CASES))
+def test_flash_fwd_f32_scores_are_the_backwards_bit_for_bit(case):
+    """The f32 backward's p = exp(s - lse) (flash_attn_bwd_dq_f32, flash_attn_bwd_dkv_f32) comes from the
+    very scores whose lse the forward summed: from the same lse, both give the same p bits."""
+    (q, k, v, bias), (_, lse, x), _ = _fwd_f32_case(*FWD_F32_CASES[case])
+    causal = FWD_F32_CASES[case][5]
+    keep = x > NEG_INF
+    if not causal and bias is None:
+        assert bool(keep.all())
+    zeros = torch.zeros_like(q)
+    want_p, _ = _f32_p_ds(q, k, v, bias, causal, lse, torch.zeros_like(lse), zeros)
+    got_p = torch.where(keep & (lse > 0.5 * NEG_INF)[..., None], torch.exp(x - lse[..., None]), 0.0)
+    assert torch.equal(got_p, want_p)
 
 
 # ---------------------------------------------------------------- decode helpers
