@@ -978,6 +978,32 @@ def tensor_core_report() -> None:
                 raise AssertionError(f"{n}: {found} instances in {lib.name}'s ptxas log, {len(HEAD_DIMS)} expected")
 
 
+# the RMSNorm kernels (CUDA cores): phase 3 reports every instance's registers and spills from the build's
+# -Xptxas -v log, and a spill fails the phase (each instance keeps a thread's slots in registers)
+RMS_SOURCES = ("rmsnorm_fwd.cu", "rmsnorm_bwd.cu")
+
+
+def rmsnorm_register_report() -> None:
+    from pgica_tpu_torch.ops import _kernels
+
+    for source in RMS_SOURCES:
+        lib = _kernels.library_path(source)
+        names, counts = [], []
+        for part in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+            names.append(part.split("'", 1)[0])
+            counts.append((int(re.search(r"Used (\d+) registers", part).group(1)),
+                           int(spill.group(1)) + int(spill.group(2))))
+        if not names:
+            raise AssertionError(f"{source}: no kernel in {lib.name}'s ptxas log")
+        short = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$|__nv_", "", n) for n in _demangle(names)]
+        log(f"  {source}: {len(names)} instances, registers (spill bytes): "
+            + ", ".join(f"{n} {r} ({b})" for n, (r, b) in zip(short, counts)))
+        spilled = [n for n, (_, b) in zip(short, counts) if b]
+        if spilled:
+            raise AssertionError(f"{source}: {', '.join(spilled)} spill ({lib.name})")
+
+
 # LayerNorm shapes of the main paths, (rows, H, where): phase 3 times each, forward and backward
 LN_FWD_SHAPES = ((32 * 50, 768, "ViT blocks"), (32, 512, "projection ln"), (32, 1024, "decoder, per step"),
                  (128 * 50, 768, "ViT blocks, stage 1"), (128, 768, "ViT post_ln, stage 1"),
@@ -998,7 +1024,15 @@ LN_BWD_UNTIMED = ((7, 2000), (37, 768), (5, 1001), (4099, 1024))
 # (kernel, rows, H): the launches one call makes on the card, with the gaps between them
 LN_BREAKDOWN = (("layernorm_bwd", 128, 512), ("layernorm_bwd", 2048, 4096), ("layernorm_bwd", 16384, 1024),
                 ("layernorm_fwd", 32, 1024))
-RMS_SHAPES = ((2048, 4096, "Llama blocks, stage 1 and 2"), (8, 4096, "Llama decode, batch 8"))
+# RMSNorm shapes of the Llama paths (rows, H, where, the forward's launches there): phase 3 times both kernels at
+# each; the decode rows are a decoder forward's (9 RMSNorms at LLAMA_LAYERS = 4; a request of max_length 128 runs
+# at most 128 forwards), the backward runs at none of them
+RMS_SHAPES = ((2048, 4096, "Llama blocks, stage 1 and 2", "9 / stage-1, 18 / stage-2 step (backward 9 / step)"),
+              (32, 4096, "Llama 4-beam decode, batch 8", "9 a decoder forward, <= 1,152 / request"),
+              (8, 4096, "Llama engine decode, 8 slots", "9 a decoder forward (graph replays)"),
+              (4, 4096, "Llama 4-beam decode, batch 1", "9 a decoder forward, <= 1,152 / request"))
+RMS_FLOOR = (1, 8)  # rms_norm_fwd on one row of one 16-byte slot: what a launch costs, the decode rows' yardstick
+RMS_FLOOR_SETS = 64  # warm: the floor is a launch, not a read from memory
 
 
 def layernorm_cases(fwd_shapes, bwd_shapes, dtype: torch.dtype, gen: torch.Generator, results: dict,
@@ -1027,12 +1061,32 @@ def layernorm_cases(fwd_shapes, bwd_shapes, dtype: torch.dtype, gen: torch.Gener
             f"sums {r['sum_max_abs_err']:.3e}, identical over two runs")
 
 
+def rmsnorm_floor(dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """rms_norm_fwd at RMS_FLOOR, checked against its plain version, then timed through time_ms's burst on
+    RMS_FLOOR_SETS input sets (warm in the L2)."""
+    from pgica_tpu_torch.ops.rmsnorm import rms_norm_fwd, rms_norm_ref
+
+    rows, hidden = RMS_FLOOR
+    sets = [((3 * torch.randn(rows, hidden, device="cuda", generator=gen)).to(dtype),
+             1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen), 1e-5) for _ in range(RMS_FLOOR_SETS)]
+    err = check_close(f"rmsnorm {RMS_FLOOR} {dname(dtype)} y", rms_norm_fwd(*sets[0])[0], rms_norm_ref(*sets[0])[0],
+                      *TOL[dtype])
+    return dict(shape=str(RMS_FLOOR), dtype=dname(dtype), where="launch floor", max_abs_err=err,
+                ms=time_ms(rms_norm_fwd, sets), input_sets=RMS_FLOOR_SETS)
+
+
 def rmsnorm_cases(dtype: torch.dtype, gen: torch.Generator, results: dict) -> None:
-    for rows, hidden, where in RMS_SHAPES:
+    floor = rmsnorm_floor(dtype, gen)
+    log(f"  rmsnorm launch floor {RMS_FLOOR} {dname(dtype)}: max_abs_err {floor['max_abs_err']:.3e}; kernel_ms "
+        f"{floor['ms']:.5f} ({RMS_FLOOR_SETS} input sets, warm)")
+    results["rmsnorm_fwd"].append(floor)
+    floor = floor["ms"]
+    for rows, hidden, where, launches in RMS_SHAPES:
         r = rmsnorm_case(rows, hidden, dtype, gen)
-        r["where"] = where
+        r.update(where=where, launches=launches, floor_ms=floor)
         results["rmsnorm_fwd"].append(r)
         show_timed("rmsnorm", r)
+        log(f"    {launches}; {r['ms'] / floor:.2f}x the launch floor")
         r = rmsnorm_bwd_case(rows, hidden, dtype, gen)
         r["where"] = where
         results["rmsnorm_bwd"].append(r)
@@ -1095,29 +1149,61 @@ def launch_breakdown(kernel: str, rows: int, hidden: int, calls: int = 10) -> di
     return dict(kernel=kernel, shape=f"({rows}, {hidden})", launches=names, us=us, gaps_us=gaps, span_us=span)
 
 
-def norm_kernel_times() -> None:
-    """Phase 3's LayerNorm and RMSNorm timings and the LayerNorm launch breakdowns alone, one JSON line
-    each (``NORM {...}``), through whichever ``pgica_tpu_torch`` is first on ``sys.path``: run once per
-    checkout, in turns, in one call, it compares two trees on one card."""
+def norm_kernel_times(layernorm: bool = True) -> None:
+    """Phase 3's LayerNorm and RMSNorm timings and the LayerNorm launch breakdowns alone (``layernorm=False``:
+    the RMSNorm rows alone), one JSON line each (``NORM {...}``), through whichever ``pgica_tpu_torch`` is first
+    on ``sys.path``: run once per checkout, in turns, in one call, it compares two trees on one card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: [] for name in KERNEL_META}
     for dtype in (torch.bfloat16, torch.float32):
-        layernorm_cases(LN_FWD_SHAPES + LN_FWD_LLAMA_SHAPES, LN_BWD_SHAPES + LN_BWD_LLAMA_SHAPES, dtype, gen,
-                        results)
+        if layernorm:
+            layernorm_cases(LN_FWD_SHAPES + LN_FWD_LLAMA_SHAPES, LN_BWD_SHAPES + LN_BWD_LLAMA_SHAPES, dtype, gen,
+                            results)
         rmsnorm_cases(dtype, gen, results)
     for kernel, rows in results.items():
         for r in rows:
-            print("NORM " + json.dumps(dict(kernel=kernel, **{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
-                                                                              "library_ms", "bound_ms")})))
-    for kernel, rows, hidden in LN_BREAKDOWN:
+            print("NORM " + json.dumps(dict(kernel=kernel, **{k: r.get(k) for k in ("shape", "dtype", "where", "ms",
+                                                                                  "plain_ms", "library_ms",
+                                                                                  "bound_ms")})))
+    for kernel, rows, hidden in LN_BREAKDOWN if layernorm else ():
         print("NORM " + json.dumps(launch_breakdown(kernel, rows, hidden)))
+
+
+def norm_kernel_turns(other: str, layernorm: bool = True) -> None:
+    """norm_kernel_times for the checkout at ``other`` (the root of a tree with a ``pgica_tpu_torch``) and
+    this one in turns, other, this, this, other, each in a process of its own with its tree first on
+    ``sys.path`` (each tree builds its kernels into its own build/). Prints every turn's ``NORM`` lines
+    prefixed by the turn and its tree, then ``NORM_TURNS {...}``: each row's two times a tree and their
+    means. Not part of the run: call it to compare two trees on one card."""
+    code = ("import sys; sys.path.insert(0, {tree!r}); import importlib.util; "
+            "spec = importlib.util.spec_from_file_location('chip_smoke', {me!r}); "
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+            "m.norm_kernel_times(layernorm={ln!r})")
+    times: dict = {}
+    for turn, tree in enumerate((other, str(ROOT), str(ROOT), other)):
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code.format(tree=str(Path(tree).resolve()), me=__file__,
+                                                                   ln=layernorm)],
+                             capture_output=True, text=True, check=True).stdout
+        log(f"  turn {turn} ({tree}): {time.perf_counter() - t:.1f} s")
+        side = "this" if tree == str(ROOT) else "other"
+        for line in out.splitlines():
+            if line.startswith("NORM {"):
+                print(f"TURN {turn} {side} {line}", flush=True)
+                r = json.loads(line[len("NORM "):])
+                if r.get("ms") is not None:
+                    times.setdefault(f"{r['kernel']} {r['shape']} {r['dtype']}", {}).setdefault(side, []).append(
+                        r["ms"])
+    print("NORM_TURNS " + json.dumps({k: dict(v, **{f"{s}_mean": statistics.mean(v[s]) for s in v})
+                                      for k, v in times.items()}), flush=True)
 
 
 def phase_kernels() -> dict:
     from pgica_tpu_torch.ops.flash_attention import F32_TILED_MIN_SQ, TC_MIN_SQ
 
     tensor_core_report()
+    rmsnorm_register_report()
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: [] for name in KERNEL_META}
     stage1_valid = {s: torch.randint(1, s + 1, (128,), device="cuda", generator=gen) for s in (128, 32)}

@@ -83,7 +83,7 @@ KERNELS = {
     ),
     "rmsnorm_bwd": (
         "rmsnorm_bwd.cu", "pgica_rmsnorm_bwd",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "q8_matmul_w8a8": (
         "q8_matmul.cu", "pgica_q8_matmul_w8a8",

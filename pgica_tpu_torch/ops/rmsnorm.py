@@ -7,9 +7,11 @@ with one float32 ``weight`` (the JAX ``scale``). Two kernels:
 * ``csrc/rmsnorm_fwd.cu`` replaces the Pallas ``_rms_fwd_kernel`` (:119) and
   also writes rstd in float32 for the backward pass.
 * ``csrc/rmsnorm_bwd.cu`` replaces ``_rms_bwd_kernel`` (:127): dx in x's
-  dtype, and dweight in float32 summed over all rows — per-block partial
-  sums added by a second pass in a fixed order, so the sum does not vary
-  from run to run, and a row whose dy is 0 adds exactly 0.
+  dtype, and dweight in float32 summed over all rows in one cooperative
+  launch — each block's partial sum over the rows :func:`bwd_partition`
+  gives it, then, after a grid-wide barrier, the partials added in a fixed
+  order, so the sum does not vary from run to run, and a row whose dy is 0
+  adds exactly 0.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or raises), a
 CPU tensor runs the plain version. The JAX package's TPU-tuned thresholds
@@ -26,7 +28,23 @@ from torch import nn
 
 from pgica_tpu_torch.ops import _kernels
 
-ROWS_PER_PARTIAL = 8  # csrc/rmsnorm_bwd.cu: kRowsPerBlock
+MAX_PARTS = 114  # csrc/rmsnorm_bwd.cu kMaxParts: co-resident on any H100, one block on each of 114 SMs (PCIe)
+
+
+def bwd_partition(rows: int) -> int:
+    """The backward kernel's blocks G, and the rows of its ``partials`` scratch (each ``H`` wide).
+
+    Block b takes the rows b, b + G, b + 2G, ... in order and writes one partial
+    row of dweight. G depends on the row count alone, never on the card, so the
+    sums' order, and so their bits, are the same on every H100; and rows added
+    after the last ones keep every earlier row's place in that order.
+    """
+    return min(rows, MAX_PARTS)
+
+
+def bwd_scratch(rows: int, hidden: int, device) -> torch.Tensor:
+    """The backward kernel's ``partials``: block b writes its float32 dweight row at ``[b]``."""
+    return torch.empty((bwd_partition(rows), hidden), dtype=torch.float32, device=device)
 
 
 def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,11 +125,11 @@ def rms_norm_bwd(
     dweight = torch.empty(hidden, dtype=torch.float32, device=x.device)
     if rows == 0:
         return dx, dweight.zero_()
-    partials = torch.empty((-(-rows // ROWS_PER_PARTIAL), hidden), dtype=torch.float32, device=x.device)
+    partials = bwd_scratch(rows, hidden, x.device)
     _kernels.launch(
         "rmsnorm_bwd",
         x.data_ptr(), weight.data_ptr(), dy.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dweight.data_ptr(),
-        partials.data_ptr(), rows, hidden, _kernels.DTYPE_CODES[x.dtype], _kernels.stream_handle(x),
+        partials.data_ptr(), rows, hidden, partials.shape[0], _kernels.DTYPE_CODES[x.dtype], _kernels.stream_handle(x),
     )
     return dx, dweight
 

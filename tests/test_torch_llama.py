@@ -67,7 +67,15 @@ from pgica_tpu_torch.models.vit import VisionEncoder
 from pgica_tpu_torch.ops import _kernels
 from pgica_tpu_torch.ops.attention import key_padding_bias
 from pgica_tpu_torch.ops.flash_attention import HEAD_DIMS
-from pgica_tpu_torch.ops.rmsnorm import RMSNorm, rms_norm, rms_norm_bwd, rms_norm_fwd
+from pgica_tpu_torch.ops.rmsnorm import (
+    MAX_PARTS,
+    RMSNorm,
+    bwd_partition,
+    bwd_scratch,
+    rms_norm,
+    rms_norm_bwd,
+    rms_norm_fwd,
+)
 from pgica_tpu_torch.training.optim import create_optimizer
 from pgica_tpu_torch.training.train_step import (
     TrainState,
@@ -122,7 +130,12 @@ def _numpy_tree(params):
 # ---------------------------------------------------------------- RMSNorm against the Pallas kernels
 
 
-@pytest.mark.parametrize("shape", [(37, 32), (70, 64), (3, 5, 48)])
+# decode-like and odd row counts at Llama-3-8B's width: the 4-beam requests' 4 rows, the engine's 8 slots, one
+# row, and 33 (one past the Pallas kernel's row block)
+LLAMA_ROWS = [(1, 4096), (4, 4096), (8, 4096), (33, 4096)]
+
+
+@pytest.mark.parametrize("shape", [(37, 32), (70, 64), (3, 5, 48)] + LLAMA_ROWS)
 def test_rms_norm_forward_matches_the_pallas_kernel(shape):
     rng = np.random.default_rng(sum(shape))
     x, scale = _f32(rng, *shape, scale=2.0), 1 + _f32(rng, shape[-1], scale=0.1)
@@ -135,7 +148,7 @@ def test_rms_norm_forward_matches_the_pallas_kernel(shape):
     np.testing.assert_allclose(rstd.numpy(), np.asarray(want_rstd)[0, :rows], rtol=RMS_GRAD_RTOL)
 
 
-@pytest.mark.parametrize("shape", [(37, 32), (70, 64)])
+@pytest.mark.parametrize("shape", [(37, 32), (70, 64)] + LLAMA_ROWS)
 def test_rms_norm_gradients_match_the_pallas_kernel(shape):
     rng = np.random.default_rng(7 + shape[0])
     x, scale, dy = _f32(rng, *shape, scale=2.0), 1 + _f32(rng, shape[-1], scale=0.1), _f32(rng, *shape)
@@ -171,6 +184,78 @@ def test_rms_norm_module_rounds_to_bf16_and_zero_cotangents_add_zero():
     assert not dg_zero.any()
     live = torch.cat([torch.arange(3), torch.arange(9, 14)])
     np.testing.assert_allclose(dg.numpy(), rms_norm_bwd(x2[live], w, dy[live], rstd[live])[1].numpy(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------- the backward kernel's partition and dg order
+
+# (rows, H): Llama's stage-1 and stage-2 blocks (2048), the decode rows, and ragged counts either side of one
+# row a block (MAX_PARTS = 114) and of several
+PARTITION_SHAPES = [(2048, 4096), (1, 4096), (4, 4096), (8, 4096), (32, 4096), (33, 32), (113, 64), (114, 4096),
+                    (115, 4096), (229, 1024), (4099, 4096)]
+SUM_TOL = (1e-3, 1e-4)  # chip_smoke.py's (atol, rtol) on dweight
+KERNEL_WARPS = 8  # csrc/rmsnorm_bwd.cu: 256 threads a block, the instance every width up to 8,192 bf16 takes
+
+
+def _kernel_rows(rows):
+    """csrc/rmsnorm_bwd.cu's rows of each block, in the order it adds them: b, b + G, b + 2G, ..."""
+    n_parts = bwd_partition(rows)
+    return [list(range(b, rows, n_parts)) for b in range(n_parts)]
+
+
+@pytest.mark.parametrize("rows,hidden", PARTITION_SHAPES)
+def test_rms_norm_bwd_partition_covers_each_row_once_in_order(rows, hidden):
+    blocks = _kernel_rows(rows)
+    assert sorted(r for b in blocks for r in b) == list(range(rows))
+    assert all(b and b == sorted(b) for b in blocks)  # in order, and no block without a row
+    assert len(blocks) <= MAX_PARTS <= 114  # co-resident on an H100 PCIe (114 SMs) at one block an SM
+    assert max(len(b) for b in blocks) - min(len(b) for b in blocks) <= 1  # balanced
+    # the scratch holds what the kernel writes: one float32 row of H for each block
+    scratch = bwd_scratch(rows, hidden, "cpu")
+    assert scratch.shape == (len(blocks), hidden) and scratch.dtype == torch.float32 and scratch.is_contiguous()
+
+
+def _dg_kernel_order(terms):
+    """csrc/rmsnorm_bwd.cu's order for dg = sum over rows of ``terms`` (f32): block b adds its rows b, b + G,
+    ... in order; then warp w sums the partials w, w + warps, ... and the warps meet in warp order."""
+    rows, hidden = terms.shape
+    n_parts = bwd_partition(rows)
+    partials = torch.zeros(n_parts, hidden)
+    for k in range(0, rows, n_parts):  # every block's next row at once
+        step = terms[k:k + n_parts]
+        partials[:step.shape[0]] += step
+    total = torch.zeros(hidden)
+    for w in range(KERNEL_WARPS):
+        acc = torch.zeros(hidden)
+        for p in range(w, n_parts, KERNEL_WARPS):
+            acc = acc + partials[p]
+        total = total + acc
+    return total
+
+
+def _dg_terms(rng, rows, hidden):
+    x, dy = torch.from_numpy(_f32(rng, rows, hidden, scale=3.0)), torch.from_numpy(_f32(rng, rows, hidden))
+    _, rstd = rms_norm_fwd(x, torch.ones(hidden), 1e-5)
+    return dy, x * rstd[:, None]
+
+
+def test_rms_norm_dg_in_the_kernels_order_holds_the_sum_bound():
+    """At Llama's (2048, 4096), the kernel's order of the dg sum stays within chip_smoke.py's SUM_TOL of the
+    float64 sum."""
+    dy, xhat = _dg_terms(np.random.default_rng(20), 2048, 4096)
+    terms = dy * xhat
+    want = terms.double().sum(dim=0)
+    np.testing.assert_allclose(_dg_kernel_order(terms).numpy(), want.numpy(), atol=SUM_TOL[0], rtol=SUM_TOL[1])
+
+
+@pytest.mark.parametrize("rows", [2048, 4, 8, 32, 37, 229])
+def test_rms_norm_dg_of_dead_trailing_rows_is_the_dg_without_them(rows):
+    """chip_smoke.py's check in the kernel's order: with dy = 0 on the second half of the rows, dg is the bits
+    of the call over the first half alone (the partition keeps every live row's place, the dead rows add 0)."""
+    dy, xhat = _dg_terms(np.random.default_rng(rows), rows, 64)
+    live = rows // 2  # as chip_smoke.py: rows from rows // 2 on are dead
+    dead = dy.clone()
+    dead[live:] = 0.0
+    assert torch.equal(_dg_kernel_order(dead * xhat), _dg_kernel_order(dy[:live] * xhat[:live]))
 
 
 # ---------------------------------------------------------------- RoPE, GQA attention, SwiGLU
