@@ -51,10 +51,14 @@ exits non-zero):
    generate_config (4 beams, length penalty 1, repetition penalty 1.1,
    max_length 128, early_stop) at batch 8 and 32, then the batch 32 x 64
    fixed-length greedy decode of the eval benchmark (median of 5 after a
-   warm-up). Greedy steps replay a CUDA graph, so the host counts the
-   encode and the prefix (plus a warm-up step and the capture at a shape's
-   first call), and the profiler counts the replays' kernels; the eager
-   step times the same eval call beside it, with the same ids.
+   warm-up). Every step replays a CUDA graph, so the host counts the
+   encode and the prefix (plus, at a shape's first call, a warm-up step and
+   the capture, or for beams two of each: the odd- and the even-step graph),
+   and the profiler counts the replays' kernels; the eager step times the
+   same eval call beside it, with the same ids. Each 4-beam batch is also
+   searched eagerly (``graphs=None``), timed beside a graphed search, with
+   the same ids, and the first replayed beam step's logits are held
+   bit-equal to the eager step's.
 6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
    ViT, dropout 0.1) takes stage-1 steps through ``make_stage1_train_step``
    at bench.py's shapes: batch 128 x seq 128 with every token kept, and
@@ -72,7 +76,8 @@ exits non-zero):
    layers (``LLAMA_REDUCED`` says why) and random seeded weights. It serves
    caption requests through ``generate_captions`` at batch 1 and 8 with the
    config's generate_config (4 beams, max_length 128, repetition penalty
-   1.1), takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
+   1.1; the beam graphs checked against the eager search as in phase 5),
+   takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
    under the JAX trainer's partitions, timed and profiled as in phase 6,
    with every request's and step's launches asserted.
 9. The training entry point: ``pgica_tpu_torch.scripts.train.run`` on
@@ -104,7 +109,11 @@ exits non-zero):
    127.0.0.1, and a seeded Poisson arrival of 128 requests at 100/s runs
    through the continuous (graphed) and the batch schedulers: latency
    p50/p95, captions/s (not profiled: one profiled run hung), each
-   graph's capture time and pool. For GPT-2 also: ``CapturedSteps``
+   graph's capture time and pool. Each engine's admission buckets are
+   graphs too: each is held against the eager admission (every state
+   tensor's first S rows bit-equal, padding ids in the bucket), and for
+   GPT-2 sampled requests sent one at a time through a graphed and an eager
+   engine under one seed give the same token ids. For GPT-2 also: ``CapturedSteps``
    captures while the cyclic collector, set to run inside the capture,
    frees a dead graph (a bare ``torch.cuda.graph`` there, in a process of
    its own, is voided: information).
@@ -113,12 +122,12 @@ exits non-zero):
    ``EvaluationRunner`` with configs/default.yaml's evaluation section (4
    beams, max_length 128, no early_stop) and targets over 256 dummy
    captioned images at batch 32 (8 timed requests after an untimed
-   warm-up): every metric finite, the captions equal ``generate_captions``'
-   own on the same batches, the launches equal those reckoned from the
-   requests, BERTScore's text-tower forwards and CLIP-Score's (no backward
+   warm-up, which captures the beam graphs): every metric finite, the
+   captions equal ``generate_captions``' own on the same batches, the
+   launches equal those reckoned from the requests, BERTScore's text-tower forwards and CLIP-Score's (no backward
    kernel); captions/s, latency, generation against metric seconds, the
-   busy share of one profiled request, and which optional packages the
-   metrics found. 11b, inside phase 9: ``run_evaluation.main`` (both
+   busy share of one profiled request (whose 127 steps the profiler
+   counts as graph replays), and which optional packages the metrics found. 11b, inside phase 9: ``run_evaluation.main`` (both
    datasets, phase 9's stage-1 best model as the CLIP judge, the restored
    masters bit-equal to the checkpoint), ``evaluate.main`` (test split)
    and ``predict.main`` (one JPEG, then a folder of 16), each's wall time.
@@ -138,7 +147,9 @@ exits non-zero):
    flagship, card against CPU (1e-4, inside phase 4); after 11a, on the
    trained flagship in both modes, greedy requests at batch 1, 8 and 32 and
    a 4-beam batch 8 through generate_captions, the engine's chunk replay,
-   each graph holding the int8 kernels, beside the bf16 figures; in phase 8
+   each graph holding the int8 kernels (the beam and admission graphs too;
+   each admission bucket held against the eager one), beside the bf16
+   figures; in phase 8
    a greedy batch-8 request on the Llama slice in bf16 and both modes. 12c,
    inside phase 9 on its JPEGs: the training CLI on configs/lora.yaml at
    full width, 4 layers a tower (``LORA_REDUCED``): adapters only, the base
@@ -225,7 +236,9 @@ exits non-zero):
 Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
 tower and 2-row train steps and replays its optimizer without the token
 embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
-phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``), phase 3 times 5
+phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``) and, with 11b, 6
+of GPT-2 Medium's 24 layers (``PHASE9_LAYERS``; 12 before), 13a 2 grain
+workers a loader (``GRAIN_WORKERS``; the config's 4), phase 3 times 5
 bursts (21, 11, then 7 before: phases 14 and 15 need the time; its float32
 pass 5 of 5), phase 12c's and 13a's CLI runs 4 layers a tower
 (``LORA_REDUCED``, ``PHASE13_REDUCED``), phase 14b one stage of each ZeRO
@@ -235,12 +248,14 @@ only (``PHASE15_REDUCED``; 16b runs the scaled config's CLI); every
 profile is read off the trace's raw events
 (``pgica_tpu_torch/utils/trace.py``): ``key_averages`` took up to 46 s to
 parse one. Phase 5 no longer profiles a 4-beam request
-(phase 11a profiles the same 128 eager steps), phase 10 no longer runs the
+(phase 11a profiles the same 127 replayed steps), phase 10 no longer runs the
 eager chunk under Poisson load (it times the eager chunk against the
 graphed one) nor profiles a Poisson run (one hung), and phase 3 no longer
 sweeps the flash crossover (``flash_crossover`` stays, to call from a
-script). A run still going after ``STACKS_AFTER_S`` dumps every thread's
-stack to stderr.
+script). Phases 14, 15 and 16 each spawn their ranks once and run the
+parity checks and then the CLI in them (``chain``): a spawned rank's start,
+imports and first model took 8-30 s. A run still going after
+``STACKS_AFTER_S`` dumps every thread's stack to stderr.
 
 Launch counts are reset just before the main path of phases 5, 6, 7, 9,
 10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths, of each of
@@ -1420,8 +1435,12 @@ def phase_full_width(tokenizer, arch: str) -> dict | None:
                               pad_token_id=tokenizer.pad_token_id, max_length=16, **BEAMS).cpu())
     if not torch.equal(beams[0], beams[1]):
         raise AssertionError(f"full width: 4-beam tokens differ:\n{beams[0]}\n{beams[1]}")
-    log(f"  4-beam tokens ({BEAMS}), 16 steps: identical on card and CPU ({beams[0].tolist()}); "
-        f"{time.perf_counter() - t0:.1f} s")
+    graphed = generate(cuda.module, emb_g.cuda(), eos_token_id=tokenizer.eos_token_id,
+                       pad_token_id=tokenizer.pad_token_id, max_length=16, graphs=graphs, **BEAMS).cpu()
+    if not torch.equal(graphed, beams[1]):
+        raise AssertionError(f"full width: the graphed 4-beam tokens differ from the CPU's:\n{graphed}\n{beams[1]}")
+    log(f"  4-beam tokens ({BEAMS}), 16 steps: identical on card (eager, and steps 3-15 replays of the two beam "
+        f"graphs) and CPU ({beams[0].tolist()}); {time.perf_counter() - t0:.1f} s")
     if arch == "gpt2":
         full_width_metrics(cuda, cpu)
         log(f"  model-route metrics checked; {time.perf_counter() - t0:.1f} s")
@@ -1801,6 +1820,116 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
 # ------------------------------------------------------------------ phase 5
 
 
+# a beam shape's first search runs steps 1 and 2 eagerly, each as the warm-up of its graph's capture, and the
+# wrappers count the capture's launches too: 4 decoder forwards from the host besides the prefix
+BEAM_CAPTURE_FORWARDS = 4
+
+
+def beam_key(tok, batch: int, max_length: int = 128) -> tuple:
+    """The key of ``DecodeGraphs.beams`` for a BEAMS request."""
+    return (batch, max_length, BEAMS["num_beams"], BEAMS["length_penalty"], BEAMS["repetition_penalty"],
+            tok.eos_token_id, tok.pad_token_id)
+
+
+def beam_graph_checks(model, images, per_forward: dict, label: str, max_length: int = 128) -> dict:
+    """For the 4-beam shape (BEAMS, batch len(images)) whose two step graphs generate_captions already
+    captured on ``model``'s decode module: one graphed and one eager search (``graphs=None``: the same
+    step, launched op by op), each timed from the encode to the ids on the host, must give the same ids;
+    from the same initial beams, the odd-step graph's first replay gives the eager step's logits bit for
+    bit; each graph holds ``per_forward`` (its wrappers' launches under capture). The graphs' capture
+    seconds and pools."""
+    from pgica_tpu_torch.generation.decode import _beam_init, beam_step, generate, init_beam_state
+
+    tok, module, batch = model.tokenizer, model._decode_module(), len(images)
+    kw = dict(eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, max_length=max_length, early_stop=True,
+              **BEAMS)
+    captured = model._decode_graphs.beams[beam_key(tok, batch, max_length)]
+    ms, ids = {}, {}
+    with torch.inference_mode():
+        for name, graphs in (("graphed", model._decode_graphs), ("eager", None)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            emb = model.encode_image(images)["embeddings"]
+            ids[name] = generate(module, emb, graphs=graphs, **kw).cpu()
+            ms[name] = (time.perf_counter() - t) * 1e3
+        if not torch.equal(ids["graphed"], ids["eager"]):
+            raise AssertionError(f"{label}: the graphed beam search's ids differ from the eager one's")
+        state = init_beam_state(module.decoder_config, batch, BEAMS["num_beams"], max_length, module.compute_dtype,
+                                model.device, length_penalty=BEAMS["length_penalty"],
+                                repetition_penalty=BEAMS["repetition_penalty"], eos_token_id=tok.eos_token_id,
+                                pad_token_id=tok.pad_token_id)
+        _beam_init(module, state, emb)
+        eager_logits = beam_step(module, state, True)
+        _beam_init(module, captured.state, emb)
+        captured.graphs[0].replay()
+        if not torch.equal(captured.graphs[0].out, eager_logits):
+            raise AssertionError(f"{label}: the first replayed beam step's logits differ from the eager step's")
+    del state, eager_logits
+    want = {k: v for k, v in per_forward.items() if v}
+    held = [g.kernels for g in captured.graphs]
+    if held != [want, want]:
+        raise AssertionError(f"{label}: the beam graphs hold {held}, expected {want} each")
+    r = dict(ms=ms, capture_s=[g.capture_s for g in captured.graphs], pool_bytes=[g.pool_bytes for g in captured.graphs])
+    log(f"  {label}, 4 beams x {max_length} (early_stop): graphed {ms['graphed']:.1f} ms, eager {ms['eager']:.1f} ms "
+        f"(one call each, encode to ids on the host), the same ids; the first replayed step's logits bit-equal to the "
+        f"eager step's; the odd- and even-step graphs each hold {want}, captured in "
+        + " and ".join(f"{c * 1e3:.1f}" for c in r["capture_s"]) + " ms, pools "
+        + " and ".join(f"{b / 2**20:.1f}" for b in r["pool_bytes"]) + f" MiB (one pool, shared) [{card()}]")
+    return r
+
+
+def beam_memory_checks(model, images, label: str) -> dict:
+    """The beam graphs' memory on ``model``'s decode module, whose graphs hold the 4-beam shapes of batch 8
+    and 32: a second scoring of batch 8 (repetition penalty 1, which makes batch 8 the most recently used)
+    shares that shape's caches, presence and beams, and adds no more than its scoring and its graphs'
+    outputs (a tenth of the shape's caches at most); a
+    third shape (batch 1) drops the least recently used one (batch 32, DecodeGraphs.beam_shapes 2), and
+    the memory allocated falls by at least 90% of that shape's caches. The new scoring's ids equal the
+    eager search's."""
+    from pgica_tpu_torch.generation.decode import generate
+
+    tok, module, graphs = model.tokenizer, model._decode_module(), model._decode_graphs
+    kw = dict(max_length=128, early_stop=True, **BEAMS)
+    other = {**kw, "repetition_penalty": 1.0}
+    shared = graphs.beams[beam_key(tok, 8)].state
+    shape_bytes = {b: sum(x.numel() * x.element_size() for x in graphs.beams[beam_key(tok, b)].state.cache_buffers)
+                   for b in (8, 32)}
+    kw_ids = dict(eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, **other)
+    with torch.inference_mode():
+        emb = model.encode_image(images[:8])["embeddings"]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        graphed = generate(module, emb, graphs=graphs, **kw_ids).cpu()
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - before
+        eager = generate(module, emb, **kw_ids).cpu()
+    new = graphs.beams[(8, 128, BEAMS["num_beams"], BEAMS["length_penalty"], 1.0, tok.eos_token_id, tok.pad_token_id)]
+    if new.state.cache_buffers[0] is not shared.cache_buffers[0] or new.state.presence[1] is not shared.presence[1]:
+        raise AssertionError(f"{label}: a second scoring of batch 8 did not share the shape's buffers")
+    if added > shape_bytes[8] / 10:
+        raise AssertionError(f"{label}: a second scoring of batch 8 added {added} bytes (its shape's caches: "
+                             f"{shape_bytes[8]})")
+    if not torch.equal(graphed, eager):
+        raise AssertionError(f"{label}: the second scoring's graphed ids differ from the eager search's")
+    del shared, new, emb
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model.generate_captions(images[:1], **kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    shapes = sorted({k[0] for k in graphs.beams})
+    if shapes != [1, 8] or freed < shape_bytes[32] * 0.9:
+        raise AssertionError(f"{label}: after a batch-1 beam request the graphs hold beam batches {shapes} "
+                             f"(expected [1, 8]) and {freed} bytes were freed (batch 32's caches: {shape_bytes[32]})")
+    log(f"  {label}, the beam graphs' memory: a second scoring of the batch-8 shape (repetition penalty 1) shares "
+        f"its caches ({shape_bytes[8] / 2**30:.3f} GiB) and added {added / 2**20:.1f} MiB, its ids equal to the "
+        f"eager search's; a third shape (batch 1) dropped batch 32's graphs and state, and the memory allocated "
+        f"fell by {freed / 2**30:.3f} GiB (its caches {shape_bytes[32] / 2**30:.3f} GiB) [{card()}]")
+    return dict(added_bytes=added, freed_bytes=freed, cache_bytes=shape_bytes)
+
+
 def phase_slice(tokenizer) -> dict:
     from pgica_tpu_torch.generation.slots import Sampler
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
@@ -1831,10 +1960,10 @@ def phase_slice(tokenizer) -> dict:
         launches = {k: after[k] - before[k] for k in SERVING_KERNELS}
         forwards = (launches["flash_attn_fwd"] - 12) // 24  # decoder forwards launched from the host
         want = {"layernorm_fwd": 27 + 49 * forwards, "flash_attn_fwd": 12 + 24 * forwards}
-        # greedy steps replay a CUDA graph (no host launch): the host runs the prefix, plus a warm-up
-        # step and the capture at a shape's first call; beam steps run eagerly
-        graphed = "num_beams" not in kw
-        if launches != want or not (forwards in (1, 3) if graphed else 1 <= forwards <= max_length):
+        # every step replays a CUDA graph (no host launch): the host runs the prefix, plus at a shape's
+        # first call a warm-up step and the capture (greedy) or two of each (beams: their two graphs)
+        first = 1 + (BEAM_CAPTURE_FORWARDS if "num_beams" in kw else 2)
+        if launches != want or forwards not in (1, first):
             raise AssertionError(f"request batch {batch} {kw}: launched {launches}, expected {want}")
         return dict(batch=batch, max_length=max_length, early_stop=early_stop, seconds=seconds,
                     captions_per_s=batch / seconds, launches=launches, decoder_forwards=forwards,
@@ -1877,6 +2006,9 @@ def phase_slice(tokenizer) -> dict:
         f"{32 / median_s:.1f} captions/s (median of 5 after one warm-up); host launches per call "
         f"{bench[0]['launches']} (expected {want})")
     log(f"  main-path launch counts (all requests above): {main_counts}")
+    beam_checks = {batch: beam_graph_checks(model, images[:batch], DECODER_FORWARD, f"GPT-2 flagship, batch {batch}")
+                   for batch in (8, 32)}
+    beam_memory = beam_memory_checks(model, images, "GPT-2 flagship")
     eager = eager_eval(model, images, max_length=64)
     log(f"  eval greedy 32 x 64 with the eager step (the same kernels, launched one by one): median "
         f"{eager['median_s'] * 1e3:.1f} ms (of 3 after one warm-up) against {median_s * 1e3:.1f} graphed; "
@@ -1925,8 +2057,10 @@ def phase_slice(tokenizer) -> dict:
                              "the profiled 32 x 64 call")["counts"]
     log(f"  one 32 x 64 call launches {want} on the card: the step graph holds {step.kernels}, replayed 63 times; "
         f"the profiler's device kernels (graph replays included): {seen}")
-    # the busy share of a batch-32 4-beam request is phase 11a's profile (the same 128 eager steps)
-    return dict(main_counts=main_counts, served=served, beamed=beamed, bench=bench, median_s=median_s,
+    # the busy share of a batch-32 4-beam request is phase 11a's profile (the same 127 step replays)
+    return dict(main_counts=main_counts, served=served, beamed=beamed, beam_checks=beam_checks,
+                beam_memory=beam_memory, bench=bench,
+                median_s=median_s,
                 eager_median_s=eager["median_s"], sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile,
                 model=model)
 
@@ -2274,19 +2408,22 @@ def phase_llama(tokenizer) -> dict:
         want = {"layernorm_fwd": SIGLIP_ENCODE["layernorm_fwd"],
                 "flash_attn_fwd": SIGLIP_ENCODE["flash_attn_fwd"] + LLAMA_FORWARD["flash_attn_fwd"] * forwards,
                 "rmsnorm_fwd": LLAMA_FORWARD["rmsnorm_fwd"] * forwards}
-        if launches != want or not 1 <= forwards <= sample["max_length"]:
+        # the prefix from the host, the steps replays of the two beam graphs (captured at a shape's first call)
+        if launches != want or forwards not in (1, 1 + BEAM_CAPTURE_FORWARDS):
             raise AssertionError(f"llama request, batch {batch}: launched {launches}, expected {want}")
-        r = dict(batch=batch, seconds=seconds, decoder_forwards=forwards, ms_per_forward=seconds * 1e3 / forwards,
-                 launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        r = dict(batch=batch, seconds=seconds, decoder_forwards=forwards, launches=launches,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         log(f"  request batch {batch} x max_length {sample['max_length']} (4 beams, early_stop): {seconds * 1e3:.1f} ms, "
-            f"{batch / seconds:.2f} captions/s, {forwards} decoder forwards ({r['ms_per_forward']:.2f} ms each "
-            f"with the encode spread over them), launches {launches} (as expected), peak {r['peak_mem_gib']:.2f} GiB")
+            f"{batch / seconds:.2f} captions/s, decoder forwards from the host {forwards}, launches {launches} (as "
+            f"expected), peak {r['peak_mem_gib']:.2f} GiB")
         return r
 
     _kernels.reset_launch_counts()  # ---- the serving path starts here
     served = [request(batch, seed) for seed, batch in enumerate((1, 8, 1, 8))]  # the second of each is warm
     serving_counts = _kernels.launch_counts()  # ---- and ends here
     check_main_path("Llama serving", serving_counts, LLAMA_SERVING_KERNELS)
+    beam_checks = {batch: beam_graph_checks(model, images[:batch], LLAMA_FORWARD, f"Llama slice, batch {batch}")
+                   for batch in (1, 8)}
     module = model._inference_module()
     with torch.inference_mode():  # outputs: finite first-token logits of the expected shape
         emb = model.encode_image(images)["embeddings"]
@@ -2304,7 +2441,7 @@ def phase_llama(tokenizer) -> dict:
     eng = ContinuousDecodeEngine(model, slots=LLAMA_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
     eng.warmup()
     engine_images = np.random.default_rng(14).integers(0, 256, size=(2 * LLAMA_SLOTS, size, size, 3), dtype=np.uint8)
-    engine = graph_checks(model, eng, engine_images, LLAMA_DECODE, "Llama slice")
+    engine = graph_checks(model, eng, engine_images, LLAMA_DECODE, "Llama slice", SIGLIP_ENCODE)
     eng.start()
     _kernels.reset_launch_counts()  # ---- the Llama engine path starts here
     engine_against_batch(eng.submit, model, engine_images, 2, "Llama engine against the batch path")
@@ -2340,8 +2477,8 @@ def phase_llama(tokenizer) -> dict:
     check_main_path("Llama stage-2 (2 + 1 + 15 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
     stage2["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), "Llama stage-2 step",
                                  stage2["ms_per_step"])
-    return dict(served=served, serving_profile=serving_profile, engine=engine, stage1=stage1, stage2=stage2,
-                quant=quant, counts={"llama_serving": serving_counts, "llama_engine": engine_counts,
+    return dict(served=served, serving_profile=serving_profile, beam_checks=beam_checks, engine=engine, stage1=stage1,
+                stage2=stage2, quant=quant, counts={"llama_serving": serving_counts, "llama_engine": engine_counts,
                                      "llama_stage1": stage1_counts, "llama_stage2": stage2_counts,
                                      "llama_int8": quant["counts"]})
 
@@ -2351,14 +2488,14 @@ def phase_llama(tokenizer) -> dict:
 ROOT = Path(__file__).resolve().parent
 PHASE9_DIR = ROOT / "build" / "phase9"
 PHASE9_STEPS = 8
-PHASE9_LAYERS = 12  # phases 9 and 11b: the towers' layers (ViT-B/32: 12, all; GPT-2 Medium: 24)
+PHASE9_LAYERS = 6  # phases 9 and 11b: the towers' layers (ViT-B/32: 12, all; GPT-2 Medium: 24)
 PHASE9_SAVE_STEPS = 7  # one autosave a stage (5 wrote three of 7.5 GB: the run's disk is limited)
 # What phase 9 changes in configs/default.yaml, and why; width and depth are the config's
 PHASE9_SAMPLES = 80  # the config's 80/10/10 split: 64 to train, 8 to validate, 8 to test
 PHASE9_REDUCED = (
     f"the GPT-2 Medium towers run {PHASE9_LAYERS} of their 24 layers at full width (the ViT-B/32 all 12): at full "
-    "depth phase 9 and 11b took ~175 s of a run that phase 16 took past ~1,100 s on a slow host; the CLIs read "
-    "depth from the presets, which the phase cuts",
+    "depth phase 9 and 11b took ~175 s of a run that phase 16 took past ~1,100 s on a slow host, and at 12 layers "
+    "116 s of a 1,005 s run on another; the CLIs read depth from the presets, which the phase cuts",
     "stage 1 and stage 2 run 1 epoch each (the config: 10 and 5)",
     f"model.vocab_size {GPT2_VOCAB:,}, GPT-2's BPE vocab and the five specials (as phases 5-7): the config leaves "
     "the vocab to the tokenizer, and offline, without GPT-2's vocab.json, that is the byte tokenizer's 261",
@@ -2780,11 +2917,22 @@ def dead_graph_capture(bare: bool) -> str:
         gc.set_threshold(700, 10, 10)
 
 
-def capture_under_collection() -> None:
-    """A collection inside a capture that frees a dead graph voids the capture (the bare case, in a
-    process of its own); CapturedSteps turns the collector off while it captures, so it must capture."""
-    bare = subprocess.run([sys.executable, "-c", "import chip_smoke; print(chip_smoke.dead_graph_capture(True))"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=300).stdout.strip().splitlines()
+def start_bare_capture() -> subprocess.Popen:
+    """``dead_graph_capture(True)`` in a process of its own (its voided capture leaves that process's CUDA
+    context in error), started early so that it runs beside other work."""
+    return subprocess.Popen([sys.executable, "-c", "import chip_smoke; print(chip_smoke.dead_graph_capture(True))"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def capture_under_collection(bare_process: subprocess.Popen) -> None:
+    """A collection inside a capture that frees a dead graph voids the capture (the bare case, in
+    ``bare_process``); CapturedSteps turns the collector off while it captures, so it must capture."""
+    try:
+        bare = bare_process.communicate(timeout=300)[0].strip().splitlines()
+    finally:
+        if bare_process.poll() is None:
+            bare_process.kill()
+            bare_process.wait()
     ours = dead_graph_capture(False)
     if ours != "captured":
         raise AssertionError(f"CapturedSteps under a collection that frees a dead graph: {ours}")
@@ -2792,13 +2940,66 @@ def capture_under_collection() -> None:
         f"{(bare or ['no answer'])[-1]!r} (information); CapturedSteps captured")
 
 
-def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
+def admission_checks(eng, eager, images, per_encode: dict, per_forward: dict, label: str) -> dict:
+    """Each admission bucket of ``eng`` (graphed, warmed) against ``eager`` (``cuda_graph=False``): the same
+    images into the same slot ids, the last slots in reverse order for half the bucket's rows (at least one)
+    and padding (>= S) for the rest, into a free pool; every state tensor's first S rows must be bit-equal
+    (the caches, seqs, pos, tok, presence, active), and each graph must hold the encode's and the prefix's
+    launches (``per_encode`` + ``per_forward``). Times the widest bucket's admission both ways (host wall,
+    pinned copies included, to a synchronize); both pools are free again after. Capture seconds and pools."""
+    slots = eng.slots
+    want = {k: per_encode.get(k, 0) + per_forward.get(k, 0) for k in {**per_encode, **per_forward}}
+    want = {k: v for k, v in want.items() if v}
+
+    def admit(e, ids, reps: int = 1) -> float:
+        with e._on_stream():
+            e._state.reset()
+            e._sync()
+            t = time.perf_counter()
+            for _ in range(reps):
+                e._admit(e._state, images[:len(ids)], ids)
+            e._sync()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    out = {}
+    for b in eng.buckets:
+        ids = np.full(b, slots, np.int64)
+        real = max(1, b // 2)
+        ids[:real] = np.arange(slots - 1, slots - 1 - real, -1)
+        for e in (eng, eager):
+            admit(e, ids)
+        got, ref = eng._state, eager._state
+        differ = [name for name in got.padded if not torch.equal(getattr(got, name), getattr(ref, name))]
+        if not torch.equal(got.cache_buffer[:, :, :slots], ref.cache_buffer[:, :, :slots]):
+            differ.append("caches")
+        graph = eng.admissions[b][2]
+        if differ or graph.kernels != want:
+            raise AssertionError(f"{label}: bucket {b}'s admission graph differs from the eager admission in {differ}, "
+                                 f"or holds {graph.kernels} (expected {want})")
+        out[b] = dict(capture_s=graph.capture_s, pool_bytes=graph.pool_bytes)
+    widest = np.arange(slots)
+    ms = {"graphed": admit(eng, widest, 5), "eager": admit(eager, widest, 5)}
+    for e in (eng, eager):
+        with e._on_stream():
+            e._state.reset()
+            e._sync()
+    log(f"  {label}: each admission bucket's graph ({', '.join(str(b) for b in eng.buckets)}; padding ids in every "
+        f"bucket from 2) against the eager admission: every state tensor's first {slots} rows bit-equal; each graph "
+        f"holds {want}; captured in " + ", ".join(f"{r['capture_s'] * 1e3:.1f}" for r in out.values()) + " ms, pools "
+        + ", ".join(f"{r['pool_bytes'] / 2**20:.1f}" for r in out.values()) + f" MiB; bucket {slots}: "
+        f"{ms['graphed']:.3f} ms a graphed admission against {ms['eager']:.3f} eager (5 each, host wall to a "
+        f"synchronize) [{card()}]")
+    return dict(buckets=out, ms=ms)
+
+
+def graph_checks(model, eng, images, per_forward: dict, label: str, per_encode: dict) -> dict:
     """Phase 10's checks of one model's graphs: ``eng`` (graphed, warmed, not started) against an
-    eager-chunk engine on the same first requests (the first chunk's last-step logits bit-equal,
-    the captions equal); the kernels each graph holds (its wrappers' launches under capture) and
-    those one replay runs (the profiler's device kernel names); the batch path's graphed step
-    against the eager one (first-step logits bit-equal, sampled ids equal, greedy ids equal to the
-    engine's)."""
+    eager engine: each admission bucket's graph against the eager admission (``admission_checks``:
+    ``per_encode`` and ``per_forward`` give what its graph holds), then the same first requests (the
+    first chunk's last-step logits bit-equal, the captions equal); the kernels each graph holds (its
+    wrappers' launches under capture) and those one replay runs (the profiler's device kernel names);
+    the batch path's graphed step against the eager one (first-step logits bit-equal, sampled ids
+    equal, greedy ids equal to the engine's)."""
     from pgica_tpu_torch.generation.decode import generate
     from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
     from pgica_tpu_torch.generation.slots import Sampler, admit, decode_steps, init_slot_state
@@ -2806,6 +3007,7 @@ def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
     slots, tok = eng.slots, model.tokenizer
     eager = ContinuousDecodeEngine(model, slots=slots, chunk=eng.chunk, max_length=eng.max_length, cuda_graph=False)
     eager.warmup()
+    admissions = admission_checks(eng, eager, images, per_encode, per_forward, label)
     first = images[:slots]
     logits_g, seqs_g, chunks = run_engine_to_end(eng, first)
     logits_e, seqs_e, chunks_e = run_engine_to_end(eager, first)
@@ -2836,11 +3038,11 @@ def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
                          max_length=eng.max_length)
         state = init_slot_state(module.decoder_config, slots, eng.max_length, module.compute_dtype, model.device,
                                 eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
-        admit(module, state, emb, range(slots), pick)
+        admit(module, state, emb, torch.arange(slots, device=model.device), pick)
         step_e = decode_steps(module, state, 1, pick)
         graphed_state, step = model._decode_graphs.get(slots, eng.max_length, pick, tok.eos_token_id,
                                                        tok.pad_token_id)
-        admit(module, graphed_state, emb, range(slots), pick)
+        admit(module, graphed_state, emb, torch.arange(slots, device=model.device), pick)
         step.replay()
         if not torch.equal(step.out, step_e):
             raise AssertionError(f"{label}: the graphed batch step's first logits differ from the eager step's")
@@ -2862,7 +3064,7 @@ def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
                "eager": timed_replays(lambda: decode_steps(module, state, 1, pick), torch.cuda.current_stream(),
                                       reps=5)}
     eager.stop()
-    r = dict(chunk_ms=chunk_ms, step_ms=step_ms, chunk_kernels=want, step_kernels=per_forward,
+    r = dict(admissions=admissions, chunk_ms=chunk_ms, step_ms=step_ms, chunk_kernels=want, step_kernels=per_forward,
              chunk_profiled=chunk_seen, step_profiled=step_seen,
              chunks=chunks, chunk_capture_s=eng.graph.capture_s, chunk_pool_mib=eng.graph.pool_bytes / 2**20,
              step_capture_s=step.capture_s, step_pool_mib=step.pool_bytes / 2**20)
@@ -2878,6 +3080,39 @@ def graph_checks(model, eng, images, per_forward: dict, label: str) -> dict:
         f"step replay against {step_ms['eager']:.3f} eager; the graph holds and one replay launches {per_forward} "
         f"(the profiler saw {step_seen['counts']})")
     return r
+
+
+class IdsAsText:
+    """Stands in for an engine's tokenizer: a caption as its token ids. The flagship's ids run past the
+    built-in tokenizer's 261, whose decode drops them, so decoded captions hide most of the draws."""
+
+    @staticmethod
+    def decode(row) -> str:
+        return " ".join(str(int(t)) for t in row)
+
+
+def sampled_engines(model, images, label: str) -> None:
+    """Sampled token ids (temperature 1.5, no nucleus cut, repetition penalty 1.1, seed 3) of ``images`` sent one
+    at a time through a graphed engine (each admission and chunk a replay, the generator registered with every
+    graph) and an eager one: each admission reseeds the generator, so both must give the same ids."""
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
+
+    ids = {}
+    for graphed in (True, False):
+        eng = ContinuousDecodeEngine(model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH,
+                                     do_sample=True, temperature=1.5, top_p=1.0, repetition_penalty=1.1, seed=3,
+                                     cuda_graph=graphed)
+        eng.tokenizer = IdsAsText()
+        eng.warmup()
+        eng.start()
+        try:
+            ids[graphed] = [eng.submit(image, timeout=300)["caption"] for image in images]
+        finally:
+            eng.stop()
+    if ids[True] != ids[False]:
+        raise AssertionError(f"{label}: the graphed engine's sampled ids differ from the eager engine's")
+    log(f"  {label}: {len(images)} sampled requests one at a time (seed 3, temperature 1.5): the graphed engine's "
+        f"token ids equal the eager engine's ({len(set(ids[True]))} distinct of {len(images)})")
 
 
 def staggered_bursts(submit, images, bursts: int, gap_s: float) -> list:
@@ -3065,6 +3300,11 @@ def phase_evaluation(model) -> dict:
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     runner = EvaluationRunner(model, config, metrics, EVAL_DIR)
     kwargs = generate_kwargs(config)
+    key = beam_key(model.tokenizer, EVAL_BATCH, kwargs["max_length"])
+    graphs = model._decode_graphs
+    # the warm-up request captures the beam graphs unless this copy's graphs hold them already
+    captures = 0 if graphs is not None and graphs.module is model._decode_module() and key in graphs.beams \
+        else BEAM_CAPTURE_FORWARDS
     try:
         _kernels.reset_launch_counts()  # ---- the main path starts here
         t = time.perf_counter()
@@ -3084,21 +3324,29 @@ def phase_evaluation(model) -> dict:
         raise AssertionError(f"phase 11a: {result['num_samples']} samples, metrics not finite {bad}, {saved.keys()}")
     log("  metrics (all finite): " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
 
-    # the launches reckoned from what ran: each request encodes the batch and runs one decoder forward per
-    # position (4 beams without early_stop: the prefix and max_length - 1 steps); BERTScore embeds each distinct
-    # text once, EVAL_BATCH texts a text-tower forward; CLIP-Score encodes the first batch's images and captions
+    # the launches reckoned from what ran: each request encodes the batch and runs the prefix from the host,
+    # its max_length - 1 steps replays of the two beam graphs, which the warm-up request captured (4 decoder
+    # forwards more; after phases 6-7 the recast copy has none yet); BERTScore embeds each distinct text once,
+    # EVAL_BATCH texts a text-tower forward; CLIP-Score encodes the first batch's images and captions
     requests = EVAL_SAMPLES // EVAL_BATCH + 1
     texts = len(dict.fromkeys(predictions + [r for rec in records for r in rec["references"]]))
     bert_forwards = -(-texts // metrics.BERT_SCORE_BATCH)
-    want = {k: requests * (VIT_ENCODE[k] + kwargs["max_length"] * DECODER_FORWARD[k]) + VIT_ENCODE[k]
-            + (bert_forwards + 1) * TEXT_TOWER[k] for k in SERVING_KERNELS}
+    want = {k: requests * (VIT_ENCODE[k] + DECODER_FORWARD[k]) + captures * DECODER_FORWARD[k]
+            + VIT_ENCODE[k] + (bert_forwards + 1) * TEXT_TOWER[k] for k in SERVING_KERNELS}
     got = {k: counts[k] for k in SERVING_KERNELS}
     backward = {k: counts.get(k, 0) for k in BACKWARD_KERNELS}
     if got != want or any(backward.values()):
         raise AssertionError(f"phase 11a launched {got} (backward {backward}), reckoned {want}")
-    log(f"  launches {got} = reckoned from {requests} requests x (encode + {kwargs['max_length']} decoder forwards), "
-        f"{bert_forwards} BERTScore text-tower forwards ({texts} distinct texts) and CLIP-Score's image and text "
-        f"forwards; no backward kernel ran {backward}")
+    log(f"  launches from the host {got} = reckoned from {requests} requests x (encode + prefix), the beam graphs' "
+        f"capture ({captures} decoder forwards), {bert_forwards} BERTScore text-tower forwards ({texts} distinct "
+        f"texts) and CLIP-Score's image and text forwards; no backward kernel ran {backward}")
+    captured = model._decode_graphs.beams[key]
+    if [g.kernels for g in captured.graphs] != [DECODER_FORWARD, DECODER_FORWARD]:
+        raise AssertionError(f"phase 11a: the beam graphs hold {[g.kernels for g in captured.graphs]}")
+    log(f"  the runner's warm-up captured the beam graphs (batch {EVAL_BATCH} x 4 beams x {kwargs['max_length']}): "
+        "each holds " f"{DECODER_FORWARD}, captured in "
+        + " and ".join(f"{g.capture_s * 1e3:.1f}" for g in captured.graphs) + " ms, pools "
+        + " and ".join(f"{g.pool_bytes / 2**20:.1f}" for g in captured.graphs) + " MiB (shared)")
 
     direct = []
     for batch in loader:
@@ -3114,6 +3362,14 @@ def phase_evaluation(model) -> dict:
     first = next(iter(loader))["image"]
     profile = profiled(lambda: model.generate_captions(first, **kwargs), "batch-32 4-beam eval request (128 steps)",
                        m["latency_ms_median"])
+    # on the card: the encode and the prefix, then 127 replays of a graph that holds one decoder forward
+    replayed = {k: VIT_ENCODE.get(k, 0) + kwargs["max_length"] * DECODER_FORWARD.get(k, 0) for k in DEVICE_KERNELS}
+    seen = profile["kernels"]
+    if seen != replayed:
+        seen = device_counts(lambda: model.generate_captions(first, **kwargs), replayed,
+                             "the profiled eval request")["counts"]
+    log(f"  the profiled request ran {replayed} on the card (the profiler saw {seen}): its 127 steps replayed the beam "
+        "graphs")
     r = dict(counts=counts, captions_per_s=EVAL_SAMPLES / latencies_s, latency_ms_mean=m["latency_ms_mean"],
              latency_ms_median=m["latency_ms_median"], warmup_ms=m["decode_warmup_ms"], generation_s=generation_s,
              metrics_s=spent["compute_all_metrics"], bert_s=spent["_text_tower_tokens"],
@@ -3150,6 +3406,16 @@ def serving_summary(served: dict, serving: dict, llama: dict) -> None:
             f"{c['chunk_pool_mib']:.1f} MiB, replay {c['chunk_ms']['graphed']:.3f} ms (eager {c['chunk_ms']['eager']:.3f}); "
             f"step graph {c['step_capture_s'] * 1e3:.1f} ms, pool {c['step_pool_mib']:.1f} MiB, replay "
             f"{c['step_ms']['graphed']:.3f} ms (eager {c['step_ms']['eager']:.3f}) {tag}")
+        a = c["admissions"]
+        log(f"  serving, {label}: admission graphs by bucket (capture ms / pool MiB) "
+            + ", ".join(f"{b}: {r['capture_s'] * 1e3:.1f} / {r['pool_bytes'] / 2**20:.1f}" for b, r in a["buckets"].items())
+            + f"; the widest bucket {a['ms']['graphed']:.3f} ms graphed, {a['ms']['eager']:.3f} eager {tag}")
+    for label, checks in (("GPT-2 flagship", served["beam_checks"]), ("Llama slice", llama["beam_checks"])):
+        for batch, c in checks.items():
+            log(f"  serving, {label}, 4 beams x 128 at batch {batch}: graphed {c['ms']['graphed']:.1f} ms, eager "
+                f"{c['ms']['eager']:.1f} ms; beam graphs captured in "
+                + " and ".join(f"{x * 1e3:.1f}" for x in c["capture_s"]) + " ms, pools "
+                + " and ".join(f"{x / 2**20:.1f}" for x in c["pool_bytes"]) + f" MiB {tag}")
 
 
 def card() -> str:
@@ -3167,6 +3433,7 @@ def phase_serving() -> dict:
 
     config = Config(ROOT / "configs" / "default.yaml")
     config.set("model.vocab_size", GPT2_VOCAB)  # the flagship's vocab, as phases 5-9
+    bare_capture = start_bare_capture()  # beside the services' build
     t = time.perf_counter()
     cont = ContinuousCaptionService(config, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
     warm = cont.warmup(start_worker=False)
@@ -3174,8 +3441,9 @@ def phase_serving() -> dict:
         f"{SERVE_CHUNK}, max_length {SERVE_MAX_LENGTH}) built and warmed in {time.perf_counter() - t:.1f} s: "
         + ", ".join(f"{b} {s * 1e3:.0f} ms" for b, s in warm))
     images = np.random.default_rng(13).integers(0, 256, size=(48, 224, 224, 3), dtype=np.uint8)
-    checks = graph_checks(cont.model, cont.engine, images, GPT2_FORWARD, "GPT-2 flagship")
-    capture_under_collection()
+    checks = graph_checks(cont.model, cont.engine, images, GPT2_FORWARD, "GPT-2 flagship", VIT_ENCODE)
+    sampled_engines(cont.model, images[:4], "GPT-2 flagship")
+    capture_under_collection(bare_capture)
     cont.engine.start()
     t = time.perf_counter()
     batch = CaptionService(config, max_batch=32, max_length=SERVE_MAX_LENGTH)
@@ -3202,10 +3470,11 @@ def phase_serving() -> dict:
     # no profiled Poisson run: one under torch.profiler (the continuous engine's, 128 threads submitting,
     # graph replays on the dispatch thread) never returned in one of three runs, its submit timeouts
     # unfired, and the run met its limit; the busy share of serving is phase 5's and the replays'
-    log(f"  engine stats: {cont.engine.stats()}")
+    stats = cont.engine.stats()
+    log(f"  engine stats: {stats}")
     cont.shutdown()
     batch.shutdown()
-    return dict(checks=checks, runs=runs, main_counts=main_counts)
+    return dict(checks=checks, runs=runs, main_counts=main_counts, stats=stats)
 
 
 # ------------------------------------------------------------------ phase 12
@@ -3431,7 +3700,7 @@ def phase_quant_serving(model, served: dict) -> dict:
         captions = model.generate_captions(images[:batch], early_stop=True, **kw)
         return dict(seconds=time.perf_counter() - t, captions=captions)
 
-    runs = {}
+    runs, engines = {}, {}
     _kernels.reset_launch_counts()  # ---- the main path starts here
     for mode in Q8_MODE_KERNEL:
         set_quantization(model, mode)
@@ -3445,6 +3714,9 @@ def phase_quant_serving(model, served: dict) -> dict:
                 raise AssertionError(f"{mode}: the batch-{batch} step graph holds {held}")
         request(8, max_length=128, **BEAMS)
         r["4 beams 8"] = request(8, max_length=128, **BEAMS)
+        held = [g.kernels for g in model._decode_graphs.beams[beam_key(tok, 8)].graphs]
+        if held != [{**DECODER_FORWARD, kernel: 24 * 6}] * 2:
+            raise AssertionError(f"{mode}: the batch-8 beam graphs hold {held}")
         eng = ContinuousDecodeEngine(model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
         eng.warmup()
         if eng.module is not model._decode_module():
@@ -3456,7 +3728,7 @@ def phase_quant_serving(model, served: dict) -> dict:
         _, seqs, _ = run_engine_to_end(eng, images[:SERVE_SLOTS])
         engine_captions = [tok.decode(s) for s in seqs.cpu().numpy()]
         eng.stop()
-        del eng
+        engines[mode] = eng  # its admission graphs are held against the eager admission after the path
         batch16 = model.generate_captions(images[:SERVE_SLOTS], max_length=SERVE_MAX_LENGTH)
         if engine_captions != batch16:
             raise AssertionError(f"{mode}: the engine's captions differ from generate_captions'")
@@ -3472,6 +3744,14 @@ def phase_quant_serving(model, served: dict) -> dict:
         r["agreement"] = agree
     counts = _kernels.launch_counts()  # ---- and ends here
     check_main_path("int8 serving (phase 12b)", counts, Q8_KERNELS + SERVING_KERNELS)
+    for mode, eng in engines.items():  # an eager engine on the same twin's bits (set_quantization rebuilds it)
+        set_quantization(model, mode)
+        eager = ContinuousDecodeEngine(model, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH,
+                                       cuda_graph=False)
+        runs[mode]["admissions"] = admission_checks(eng, eager, images, VIT_ENCODE,
+                                                    {**DECODER_FORWARD, Q8_MODE_KERNEL[mode]: 24 * 6}, f"{mode} twin")
+        eager.stop()
+    del eng, eager, engines
     set_quantization(model, None)
     bf16_ms = {f"greedy {r['batch']}": r["seconds"] * 1e3 for r in served["served"]}
     log(f"  bf16 on this card (phase 5, random weights): greedy batch 1 / 8 / 32 "
@@ -3483,7 +3763,9 @@ def phase_quant_serving(model, served: dict) -> dict:
 
 def quant_llama(model) -> dict:
     """Phase 12b on the Llama slice (LLAMA_REDUCED): a greedy request at batch 8 x 32 in bf16 and through the int8
-    twin in both modes, each step a graph replay; the step graph holds the int8 kernels."""
+    twin in both modes, each step a graph replay; the step graph holds the int8 kernels. Then the engine's
+    admission graphs through each twin against the eager admission (``admission_checks``)."""
+    from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
     from pgica_tpu_torch.generation.slots import Sampler
     from pgica_tpu_torch.ops import _kernels
 
@@ -3505,6 +3787,19 @@ def quant_llama(model) -> dict:
             raise AssertionError(f"Llama {mode}: the step graph holds {held}, expected {want}")
     counts = _kernels.launch_counts()  # ---- and ends here
     check_main_path("Llama int8 serving (phase 12b)", counts, Q8_KERNELS)
+    admissions = {}
+    for mode in Q8_MODE_KERNEL:  # the engine's admission graphs through the twin, against the eager admission
+        set_quantization(model, mode)
+        eng = ContinuousDecodeEngine(model, slots=LLAMA_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH)
+        eng.warmup()
+        eager = ContinuousDecodeEngine(model, slots=LLAMA_SLOTS, chunk=SERVE_CHUNK, max_length=SERVE_MAX_LENGTH,
+                                       cuda_graph=False)
+        admissions[mode] = admission_checks(eng, eager, images, SIGLIP_ENCODE,
+                                            {**LLAMA_FORWARD, Q8_MODE_KERNEL[mode]: 7 * LLAMA_LAYERS},
+                                            f"Llama slice, {mode} twin")
+        eng.stop()
+        eager.stop()
+        del eng, eager
     set_quantization(model, None)
     log("  phase 12b on the Llama slice, greedy batch 8 x 32, each step a graph replay: "
         + "; ".join(f"{name} {r['ms']:.1f} ms" + (f" (captions equal to bf16's: "
@@ -3512,7 +3807,7 @@ def quant_llama(model) -> dict:
                     else "") for name, r in out.items())
         + f"; the step graph holds {7 * LLAMA_LAYERS} int8 launches ({LLAMA_LAYERS} layers x 7 projections) "
         f"[{card()}]")
-    return dict(counts=counts, ms={k: v["ms"] for k, v in out.items()})
+    return dict(counts=counts, ms={k: v["ms"] for k, v in out.items()}, admissions=admissions)
 
 
 LORA_DIR = ROOT / "build" / "phase12"
@@ -3627,7 +3922,7 @@ def phase_lora_cli(captions: Path, preferences: Path) -> dict:
 PHASE13_DIR = ROOT / "build" / "phase13"
 GPT2_HF_VOCAB = 50_257  # GPT-2's own rows: the checkpoint's wte (the module adds the five specials)
 BPE_VOCAB = 1024  # data.bpe_vocab_size of 13a: merges stop earlier, once no pair occurs twice in the captions
-GRAIN_WORKERS = 4  # configs/default.yaml's data.num_workers
+GRAIN_WORKERS = 2  # configs/default.yaml's data.num_workers is 4 (PHASE13_REDUCED)
 GRAIN_STEPS = 4
 GPT2_LAYERS = 24
 PHASE13_LAYERS = 4  # 13a's CLI: each tower's layers (ViT-B/32: 12, GPT-2 Medium: 24)
@@ -3635,8 +3930,10 @@ PHASE13_REDUCED = (
     f"the CLI's towers run {PHASE13_LAYERS} of their layers at full width (the CLI reads depth from the presets, "
     "which are cut for its run): at full depth 13a took 62-74 s, and phases 14-15 need the time; its loaders, BPE and "
     "steps are the same",
-    "configs/default.yaml as phase 9 runs it (PHASE9_REDUCED), with data.workers_mode grain (4 spawned workers "
-    f"a loader, the config's num_workers) and data.bpe_vocab_size {BPE_VOCAB}, trained on phase 9's captions",
+    f"configs/default.yaml as phase 9 runs it (PHASE9_REDUCED), with data.workers_mode grain ({GRAIN_WORKERS} "
+    "spawned workers a loader, the config's num_workers 4: each worker is a process that imports torch, and on a "
+    "slow host the CLI's four pools of 4 took 79 s of 13a's 124) and data.bpe_vocab_size "
+    f"{BPE_VOCAB}, trained on phase 9's captions",
     f"--max-steps {GRAIN_STEPS}: {GRAIN_STEPS} micro-steps a stage, one update at the config's accumulation of 4",
     "no checkpoints (save_steps 0, no epoch or best checkpoint): phase 9 holds the CLI's checkpoints, and the "
     "run's disk writes are limited",
@@ -4212,6 +4509,18 @@ def _rank_entry(target: str, rank: int, world: int, store: str, args: tuple, wor
         raise
 
 
+def chain(rank: int, world: int, steps: list) -> list:
+    """Several rank targets, ``(name, args)`` each, one after another in the same ranks: one spawn, one process
+    group and one CUDA context for all of them (a spawned rank's start, its imports and first model took 8-30 s
+    on the card's host). Each target's result; what one held is freed before the next starts."""
+    out = []
+    for target, args in steps:
+        out.append(globals()[target](rank, world, *args))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def start_ranks(target: str, *args, workdir: Path = PHASE14_DIR, world: int = PARALLEL_WORLD) -> tuple:
     """``target(rank, world, *args)`` in ``world`` spawned ranks, started; ``join_ranks`` waits."""
     import multiprocessing
@@ -4546,13 +4855,16 @@ def phase_parallel() -> dict:
             nccl = subprocess.Popen(cmd, cwd=ROOT, stdout=sink, stderr=subprocess.STDOUT,
                                     env={**os.environ, "WANDB_MODE": "disabled"})
 
-        # ---- 14a: the ranks start; the one process takes the same steps on the whole batch meanwhile
+        # ---- 14a, then 14b in the same ranks: they start; the one process takes 14a's steps on the whole batch
         t = time.perf_counter()
         rng = np.random.default_rng(14)
         inputs = {"s1": [stage1_batch(rng, PARALLEL_BATCH, PARALLEL_SEQ) for _ in range(2)],
                   "s2": [stage2_batch(rng, PARALLEL_BATCH, PARALLEL_SEQ) for _ in range(2)]}
         torch.save(inputs, PHASE14_DIR / "inputs.pt")
-        started = start_ranks("parallel_parity", str(PHASE14_DIR / "inputs.pt"))
+        log("  14b: configs/default.yaml changed: " + "; ".join(PHASE14_REDUCED))
+        runs = [(str(phase14_config(zero)), str(PHASE14_DIR / zero), stage) for zero, stage in PHASE14_STAGES.items()]
+        started = start_ranks("chain", [("parallel_parity", (str(PHASE14_DIR / "inputs.pt"),)),
+                                        ("parallel_cli", (runs,))])
         model, ref = parallel_model()
         initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
         one = MeshContext(data=1)
@@ -4565,7 +4877,10 @@ def phase_parallel() -> dict:
         torch.cuda.empty_cache()
         log(f"  14a: the one process's steps on the whole batch ({PARALLEL_BATCH} x {PARALLEL_SEQ}) in "
             f"{time.perf_counter() - t:.1f} s, beside the ranks")
-        ranks = join_ranks(started)
+        chained = join_ranks(started, timeout=3 * RANK_TIMEOUT_S)
+        out["ranks_s"] = time.perf_counter() - t
+        log(f"  14a and 14b ranks: {out['ranks_s']:.1f} s")
+        ranks = [parity for parity, _ in chained]
         for r, res in enumerate(ranks):
             if not all(res["collectives"].values()):
                 raise AssertionError(f"14a rank {r}: a collective over gloo gave a wrong result: {res['collectives']}")
@@ -4613,15 +4928,10 @@ def phase_parallel() -> dict:
             r.update({k: checked[kernel][k] for k in ("max_abs_err", "atol", "rtol")})
             show_timed(kernel, r)
         out["ntxent"] = nt[0]
-        out["a_s"] = time.perf_counter() - t
-        log(f"  14a: {out['a_s']:.1f} s")
 
-        # ---- 14b: the training CLI at 2 layers a tower, ZeRO-1 (stage 1) and ZeRO-3 (stage 2), in one pair of ranks
-        t = time.perf_counter()
+        # ---- 14b: the training CLI at 2 layers a tower, ZeRO-1 (stage 1) and ZeRO-3 (stage 2), in the same ranks
         out["cli"] = {}
-        log("  14b: configs/default.yaml changed: " + "; ".join(PHASE14_REDUCED))
-        runs = [(str(phase14_config(zero)), str(PHASE14_DIR / zero), stage) for zero, stage in PHASE14_STAGES.items()]
-        res = join_ranks(start_ranks("parallel_cli", runs), timeout=2 * RANK_TIMEOUT_S)
+        res = [cli for _, cli in chained]
         for i, zero in enumerate(PHASE14_STAGES):
             for r, rank_runs in enumerate(res):
                 rr = rank_runs[i]
@@ -4649,8 +4959,6 @@ def phase_parallel() -> dict:
                 f"{first['checkpoint_zero']} [{card()}; two ranks share this card]")
             out["cli"][zero] = dict(ranks=[{k: rank_runs[i][k] for k in ("record", "run_s", "writes", "stage")}
                                            for rank_runs in res], busy=busy)
-        out["b_s"] = time.perf_counter() - t
-        log(f"  14b: {out['b_s']:.1f} s")
 
         # ---- 14c: collect the NCCL rank
         nccl.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t_c)))
@@ -5017,7 +5325,12 @@ def phase_tp_cp() -> dict:
                   "s2": [stage2_batch(rng, TP_BATCH, TP_SEQ) for _ in range(2)],
                   "cp": [stage2_batch(rng, TP_BATCH, TP_SEQ) for _ in range(2)]}
         torch.save(inputs, PHASE15_DIR / "inputs.pt")
-        started = start_ranks("tp_cp_parity", str(PHASE15_DIR / "inputs.pt"), workdir=PHASE15_DIR)
+        log("  15e: configs changed: " + "; ".join(PHASE15_REDUCED))
+        cp_cfg = phase15_config("cp", "default.yaml", {"seq": 2}, 0)
+        # 15a/15b/15d, then 15e's CLI, in the same ranks
+        started = start_ranks("chain", [("tp_cp_parity", (str(PHASE15_DIR / "inputs.pt"),)),
+                                        ("tp_cp_cli", ([(str(cp_cfg), str(PHASE15_DIR / "cp"), "2")],))],
+                              workdir=PHASE15_DIR)
         model = scaled_model()
         want = {"tp": tp_steps(model.module, None, inputs["s1"], inputs["s2"])}
         out["one_process"] = dict(want["tp"], inputs={k: inputs[k] for k in ("s1", "s2")})  # 16a's reference
@@ -5030,7 +5343,10 @@ def phase_tp_cp() -> dict:
         torch.cuda.empty_cache()
         log(f"  15b/15d: the one process's steps on the whole batch in {time.perf_counter() - t:.1f} s, beside the "
             "ranks")
-        ranks = join_ranks(started)
+        chained = join_ranks(started, timeout=3 * RANK_TIMEOUT_S)
+        out["ranks_s"] = time.perf_counter() - t
+        log(f"  15a/15b/15d and 15e ranks: {out['ranks_s']:.1f} s")
+        ranks = [parity for parity, _ in chained]
         for r, res in enumerate(ranks):
             if not all(res["collectives"].values()):
                 raise AssertionError(f"15a rank {r}: {res['collectives']}")
@@ -5085,8 +5401,6 @@ def phase_tp_cp() -> dict:
             f"(ppermutes over gloo included) against plain's {ring[0]['times']['plain']:.3f} ms on the whole "
             f"sequence [{card()}; two ranks share this card]")
         out["ring"] = ring[0]
-        out["ab_s"] = time.perf_counter() - t
-        log(f"  15a/15b/15d: {out['ab_s']:.1f} s")
 
         # ---- 15c: the fused-CE kernels on a vocab block, out-of-shard targets, the global lse
         t = time.perf_counter()
@@ -5101,17 +5415,10 @@ def phase_tp_cp() -> dict:
             out["fce"][case] = res
         log(f"  15c: {time.perf_counter() - t:.1f} s")
 
-        # ---- 15e: the training CLI in two ranks: CP stage 2 on configs/default.yaml (16b runs the scaled config's
-        # tensor-parallel CLI, over fsdp too)
-        t = time.perf_counter()
-        log("  15e: configs changed: " + "; ".join(PHASE15_REDUCED))
-        cp_cfg = phase15_config("cp", "default.yaml", {"seq": 2}, 0)
-        res = join_ranks(start_ranks("tp_cp_cli", [(str(cp_cfg), str(PHASE15_DIR / "cp"), "2")],
-                                     workdir=PHASE15_DIR), timeout=2 * RANK_TIMEOUT_S)
+        # ---- 15e: the training CLI in the same two ranks: CP stage 2 on configs/default.yaml (16b runs the scaled
+        # config's tensor-parallel CLI, over fsdp too)
         out["cli"] = {}
-        show_cli_runs("15e", "cp", "seq", CP_KERNELS, [rank_runs[0] for rank_runs in res], out)
-        out["e_s"] = time.perf_counter() - t
-        log(f"  15e: {out['e_s']:.1f} s")
+        show_cli_runs("15e", "cp", "seq", CP_KERNELS, [cli[0] for _, cli in chained], out)
         return out
     finally:
         shutil.rmtree(PHASE15_DIR, ignore_errors=True)
@@ -5242,11 +5549,17 @@ def phase_fsdp(one: dict) -> dict:
     os.environ["WANDB_MODE"] = "disabled"
     out = {"counts": {}, "cli": {}}
     try:
-        # ---- 16a: four ranks against the one process of 15b
+        # ---- 16a: four ranks against the one process of 15b, then 16b's CLI in the same ranks
         t = time.perf_counter()
         torch.save(one["inputs"], PHASE16_DIR / "inputs.pt")
-        ranks = join_ranks(start_ranks("fsdp_parity", str(PHASE16_DIR / "inputs.pt"), workdir=PHASE16_DIR,
-                                       world=FSDP_WORLD), timeout=2 * RANK_TIMEOUT_S)
+        log("  16b: configs changed: " + "; ".join(PHASE16_REDUCED))
+        cfg = phase15_config("fsdp", "scaled_vitl_gpt2large.yaml", {"fsdp": 2}, 2 * PHASE15_STEPS, root=PHASE16_DIR)
+        chained = join_ranks(start_ranks("chain", [("fsdp_parity", (str(PHASE16_DIR / "inputs.pt"),)),
+                                                   ("tp_cp_cli", ([(str(cfg), str(PHASE16_DIR / "fsdp"), "all")],))],
+                                         workdir=PHASE16_DIR, world=FSDP_WORLD), timeout=5 * RANK_TIMEOUT_S)
+        out["ranks_s"] = time.perf_counter() - t
+        log(f"  16a and 16b ranks: {out['ranks_s']:.1f} s")
+        ranks = [parity for parity, _ in chained]
         with torch.device("meta"):
             whole = scaled_model_meta()
         frozen = {1: ("vision_encoder.backbone.", "caption_decoder."), 2: ("vision_encoder.backbone.", "text_encoder.")}
@@ -5280,16 +5593,10 @@ def phase_fsdp(one: dict) -> dict:
             f"{busy['step_ms']:.1f} ms)")
         out["a"] = {"ms": [res["ms"] for res in ranks], "peak_gib": [res["peak_gib"] for res in ranks],
                     "busy": busy, "bytes": want_bytes}
-        out["a_s"] = time.perf_counter() - t
-        log(f"  16a: {out['a_s']:.1f} s")
 
-        # ---- 16b: the training CLI in four ranks on the scaled config over fsdp 2 x model 2
+        # ---- 16b: the training CLI in the four ranks on the scaled config over fsdp 2 x model 2
         t = time.perf_counter()
-        log("  16b: configs changed: " + "; ".join(PHASE16_REDUCED))
-        cfg = phase15_config("fsdp", "scaled_vitl_gpt2large.yaml", {"fsdp": 2}, 2 * PHASE15_STEPS, root=PHASE16_DIR)
-        res = join_ranks(start_ranks("tp_cp_cli", [(str(cfg), str(PHASE16_DIR / "fsdp"), "all")],
-                                     workdir=PHASE16_DIR, world=FSDP_WORLD), timeout=3 * RANK_TIMEOUT_S)
-        runs = [rank_runs[0] for rank_runs in res]
+        runs = [cli[0] for _, cli in chained]
         if any(rr["mesh"]["fsdp"] != 2 for rr in runs):
             raise AssertionError(f"16b: meshes {[rr['mesh'] for rr in runs]}")
         show_cli_runs("16b", "fsdp", "model", TRAIN_KERNELS, runs, out)
@@ -5306,8 +5613,7 @@ def phase_fsdp(one: dict) -> dict:
         del one_process
         gc.collect()
         torch.cuda.empty_cache()
-        out["b_s"] = time.perf_counter() - t
-        log(f"  16b: {out['b_s']:.1f} s")
+        log(f"  16b: the checkpoint's check {time.perf_counter() - t:.1f} s")
 
         # ---- configs/siglip_llama8b.yaml at its own mesh and full depth: a rank's bytes from the rule table
         with torch.device("meta"):

@@ -30,6 +30,7 @@ the jitter works in de-normalized [0, 1] space.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -43,9 +44,14 @@ JITTER = (0.2, 0.2, 0.2, 0.1)  # brightness, contrast, saturation, hue
 ROTATION_DEGREES = 5.0
 
 
+@functools.lru_cache(maxsize=None)
 def _stats(device: torch.device):
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+    """ImageNet's (mean, std) on ``device``, made once a device: the copy from the host that makes
+    them would be refused inside a CUDA-graph capture (the engine's admission graphs), and a
+    caller's eager run before the capture fills this cache. Normal tensors, never written."""
+    with torch.inference_mode(False):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
     return mean, std
 
 

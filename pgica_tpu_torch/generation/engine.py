@@ -13,8 +13,12 @@ JAX engine does:
   graph, captured once (``warmup``) and replayed: its shapes never change,
   the counterpart of the JAX engine's one jitted ``lax.scan``;
 * between chunks the dispatch thread admits new requests into free slots:
-  the vision encode and the prefix of an admission bucket, eagerly, then an
-  ``index_copy_`` of the rows into their slots;
+  the vision encode and the prefix of an admission bucket, then an
+  ``index_copy_`` of the rows into their slots (padding rows into the
+  state's scratch row). On the card each bucket's admission is one CUDA
+  graph (captured by ``warmup``), as the JAX engine jits ``admit_fn`` once
+  per bucket: its images and slot ids reach static device buffers by
+  non-blocking copies from pinned host memory on the dispatch stream;
 * the device never waits for the host: the dispatch thread owns one CUDA
   stream, on which it runs admissions and queues up to ``max_inflight``
   chunks, and never waits on a result; each chunk's [seqs | active]
@@ -46,7 +50,7 @@ import logging
 import queue
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +79,10 @@ def make_engine_fns(encode_module, decode_module, *, slots: int, chunk: int, max
     the steps (the int8 twin with quantization; else the same module).
 
     ``init_state(seed)`` makes the pool, every slot free; ``admit_fn(state,
-    images, slot_ids)`` encodes a uint8 NHWC admission bucket through the
-    vision tower and admits its rows, ids >= ``slots`` being padding;
+    images, slot_ids)`` encodes a uint8 NHWC admission bucket (a tensor on
+    the device) through the vision tower and admits its rows into
+    ``slot_ids`` (int64 on the device, ids >= ``slots`` padding), reading
+    nothing back to the host, so that a CUDA graph captures it;
     ``chunk_fn(state)`` advances every slot by up to ``chunk`` tokens in
     place and returns the (S, max_length + 1) [seqs | active] snapshot and
     the last step's logits, fresh tensors (under capture: the graph's, which
@@ -87,8 +93,8 @@ def make_engine_fns(encode_module, decode_module, *, slots: int, chunk: int, max
         return init_slot_state(decode_module.decoder_config, slots, max_length, decode_module.compute_dtype, device,
                                eos_token_id=eos_token_id, pad_token_id=pad_token_id, generator=generator)
 
-    def admit_fn(state: SlotState, images: np.ndarray, slot_ids: np.ndarray) -> None:
-        pixels = prepare_images(to_device(torch.from_numpy(np.ascontiguousarray(images)), device))
+    def admit_fn(state: SlotState, images: torch.Tensor, slot_ids: torch.Tensor) -> None:
+        pixels = prepare_images(images)
         admit(decode_module, state, encode_module.encode_image(pixels)["embeddings"], slot_ids, pick)
 
     def chunk_fn(state: SlotState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,8 +109,9 @@ class ContinuousDecodeEngine:
 
     Public surface, as the JAX engine's: ``warmup()``, ``start()``, blocking
     ``submit(image) -> {"caption", "latency_ms"}``, ``stats()``, ``stop()``.
-    ``cuda_graph`` (the card only) replays each chunk as a CUDA graph; False
-    runs it eagerly, as on the CPU (to measure what the graph saves).
+    ``cuda_graph`` (the card only) replays each chunk and each admission
+    bucket as a CUDA graph; False runs them eagerly, as on the CPU (to
+    measure what the graphs save).
     """
 
     def __init__(
@@ -134,7 +141,7 @@ class ContinuousDecodeEngine:
         # the float32 inference module is the masters themselves: serve a copy of them
         self.encode_module = frozen_copy(module, torch.float32) if module is model.module else module
         self.module = model._decode_module() if model.quantization else self.encode_module  # what decodes
-        self._init_state, self._admit, self._chunk = make_engine_fns(
+        self._init_state, self._admit_fn, self._chunk = make_engine_fns(
             self.encode_module, self.module, slots=self.slots, chunk=self.chunk, max_length=self.max_length,
             eos_token_id=self.tokenizer.eos_token_id, pad_token_id=self.tokenizer.pad_token_id,
             pick=self.pick, device=self.device,
@@ -145,6 +152,8 @@ class ContinuousDecodeEngine:
         on_card = self.device.type == "cuda"
         self.cuda_graph = bool(cuda_graph) and on_card
         self.graph: Optional[CapturedSteps] = None  # the captured chunk, once warmed
+        # bucket -> (image buffer, slot-id buffer, the captured admission), once warmed
+        self.admissions: Dict[int, Tuple[torch.Tensor, torch.Tensor, CapturedSteps]] = {}
         self._stream = torch.cuda.Stream(self.device) if on_card else None
         self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64) if b <= self.slots]
         # Non-power-of-two slot pools (e.g. --slots 24) must still be able to
@@ -201,10 +210,11 @@ class ContinuousDecodeEngine:
             self._stream.synchronize()
 
     def warmup(self) -> List:
-        """Run every admission bucket once and capture the chunk graph (the card) or run one chunk.
+        """Run every admission bucket once and one chunk: on the card each is captured as a graph first.
 
-        Returns (bucket or "chunk", seconds) timings; the capture's seconds
-        and pool bytes are in ``self.graph``. Every slot stays free.
+        Returns (bucket or "chunk", seconds) timings; the captures' seconds
+        and pool bytes are in ``self.graph``, ``self.admissions`` and
+        ``stats()``. Every slot stays free.
         """
         size = self.model.image_size
         timings = []
@@ -248,6 +258,12 @@ class ContinuousDecodeEngine:
                 "fetch_ms": list(self.counters["fetch_ms"][-200:]),
             }
         out = {"chunks_dispatched": counters["chunks"], "admits_by_bucket": counters["admits"]}
+        graphs = {f"admit {b}": graph for b, (_, _, graph) in self.admissions.items()}
+        if self.graph is not None:
+            graphs["chunk"] = self.graph
+        if graphs:
+            out["graphs"] = {name: {"capture_s": round(g.capture_s, 4), "pool_bytes": g.pool_bytes}
+                             for name, g in graphs.items()}
         if counters["fetch_ms"]:
             out["fetch_wait_p50_ms"] = round(float(np.percentile(counters["fetch_ms"], 50)), 1)
         if phases:
@@ -346,6 +362,39 @@ class ContinuousDecodeEngine:
                 except Exception as exc:  # noqa: BLE001 — daemon must survive
                     logger.exception("engine dispatch error; failing outstanding requests")
                     self._fail_outstanding(exc)
+
+    def _admit(self, state: SlotState, images: np.ndarray, slot_ids: np.ndarray) -> None:
+        """Admit a bucket of uint8 NHWC images into ``slot_ids`` (ids >= slots are padding) on the
+        current stream: a replay of the bucket's graph (captured at first use), or eagerly."""
+        images = torch.from_numpy(np.ascontiguousarray(images))
+        ids = torch.from_numpy(np.ascontiguousarray(slot_ids, dtype=np.int64))
+        if not self.cuda_graph:
+            self._admit_fn(state, to_device(images, self.device), to_device(ids, self.device))
+            return
+        if state is not self._state:
+            raise ValueError("the admission graphs write the engine's own slot state")
+        image_buffer, id_buffer, graph = self._admission(len(ids))
+        # pinned blocks from the caching host allocator: not reused before these copies end
+        image_buffer.copy_(images.pin_memory(), non_blocking=True)
+        id_buffer.copy_(ids.pin_memory(), non_blocking=True)
+        graph.replay()
+
+    def _admission(self, bucket: int) -> Tuple[torch.Tensor, torch.Tensor, CapturedSteps]:
+        """The bucket's static input buffers and captured admission, captured at first use. The
+        capture's eager run admits blank images into padding ids (the scratch row only), and hands
+        the sampling generator back as it found it."""
+        if bucket not in self.admissions:
+            size = self.model.image_size
+            images = torch.zeros((bucket, size, size, 3), dtype=torch.uint8, device=self.device)
+            ids = torch.full((bucket,), self.slots, dtype=torch.int64, device=self.device)
+            generator = self._state.generator
+            before = None if generator is None else generator.get_state()
+            graph = CapturedSteps(lambda: self._admit_fn(self._state, images, ids), self.device, self._stream,
+                                  generator)
+            if before is not None:
+                generator.set_state(before)
+            self.admissions[bucket] = (images, ids, graph)
+        return self.admissions[bucket]
 
     def _run_chunk(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """One chunk on the current stream, a graph replay (captured at first use) or eager steps:

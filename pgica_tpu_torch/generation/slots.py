@@ -15,7 +15,10 @@ The state's tensors are allocated once and updated in place, so on the card
 a run of steps is captured once as a CUDA graph (:class:`CapturedSteps`) and
 replayed; the graph stands in for the JAX package's jitted ``lax.scan`` /
 ``while_loop``. Its kernels are the eager step's, on the same inputs, so a
-replay gives the eager step's bits.
+replay gives the eager step's bits. The admission (:func:`admit`) reads
+nothing back to the host either: its slot ids are a device tensor, and a
+padding id writes the state's scratch row, so the engine captures it too,
+one graph per admission bucket (the JAX engine jits ``admit_fn`` per bucket).
 
 Sampling draws Gumbel noise and takes the argmax (Gumbel-max), as
 ``jax.random.categorical`` does; ``torch.multinomial`` checks its input on
@@ -31,12 +34,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from pgica_tpu_torch.models.layers import KVCaches
-from pgica_tpu_torch.models.lm import init_kv_cache
+from pgica_tpu_torch.models.lm import kv_cache_buffer
 from pgica_tpu_torch.models.presets import LMConfig
 from pgica_tpu_torch.ops import _kernels
 
@@ -90,16 +93,18 @@ class SlotState:
 
     ``pos`` is the cache slot of the token in ``tok``, the next step's input
     (the vision token sits at slot 0, caption token t-1 at slot t);
-    ``seqs`` holds the caption so far, PAD after its end.
+    ``seqs`` holds the caption so far, PAD after its end. Every tensor has
+    one row more, row S, the scratch row: an admission writes its padding
+    rows there (JAX's ``mode="drop"`` scatter drops them), and nothing reads
+    it. ``padded`` and ``cache_buffer`` own the tensors, scratch row
+    included; the step and every reader see rows [:S] through the
+    properties and ``caches``. A slice of the leading dim stays contiguous,
+    so ``CacheRows.write``'s flat view still holds.
     """
 
-    caches: KVCaches
-    cache_buffer: torch.Tensor  # every layer's k and v, one buffer (reset is one memset)
-    seqs: torch.Tensor  # (S, max_length) int64
-    pos: torch.Tensor  # (S,) int64
-    tok: torch.Tensor  # (S,) int64
-    presence: torch.Tensor  # (S, V) int32
-    active: torch.Tensor  # (S,) bool
+    caches: KVCaches  # per-layer (k, v) views of cache_buffer's rows [:S]
+    cache_buffer: torch.Tensor  # (layers, 2, S + 1, H_kv, max_length + 1, D): every layer's k and v
+    padded: Dict[str, torch.Tensor]  # seqs, pos, tok, presence, active, each with the scratch row
     cache_slots: torch.Tensor  # arange(max_length + 1): the key mask's columns
     columns: torch.Tensor  # arange(max_length): the caption's columns
     generator: Optional[torch.Generator]
@@ -108,41 +113,61 @@ class SlotState:
 
     @property
     def slots(self) -> int:
-        return self.seqs.shape[0]
+        return self.padded["seqs"].shape[0] - 1
 
     @property
     def max_length(self) -> int:
-        return self.seqs.shape[1]
+        return self.padded["seqs"].shape[1]
+
+    @property
+    def seqs(self) -> torch.Tensor:  # (S, max_length) int64
+        return self.padded["seqs"][:self.slots]
+
+    @property
+    def pos(self) -> torch.Tensor:  # (S,) int64
+        return self.padded["pos"][:self.slots]
+
+    @property
+    def tok(self) -> torch.Tensor:  # (S,) int64
+        return self.padded["tok"][:self.slots]
+
+    @property
+    def presence(self) -> torch.Tensor:  # (S, V) int32
+        return self.padded["presence"][:self.slots]
+
+    @property
+    def active(self) -> torch.Tensor:  # (S,) bool
+        return self.padded["active"][:self.slots]
 
     def reset(self) -> None:
         """Every slot free, in place (a captured graph keeps the tensors' addresses)."""
         self.cache_buffer.zero_()
-        self.seqs.fill_(self.pad_token_id)
-        self.pos.zero_()
-        self.tok.fill_(self.pad_token_id)
-        self.presence.zero_()
-        self.active.zero_()
+        self.padded["seqs"].fill_(self.pad_token_id)
+        self.padded["pos"].zero_()
+        self.padded["tok"].fill_(self.pad_token_id)
+        self.padded["presence"].zero_()
+        self.padded["active"].zero_()
 
 
 def init_slot_state(cfg: LMConfig, slots: int, max_length: int, dtype: torch.dtype, device: torch.device, *,
                     eos_token_id: int, pad_token_id: int,
                     generator: Optional[torch.Generator] = None) -> SlotState:
     """``slots`` free slots for captions of up to ``max_length`` tokens (the cache holds one more
-    slot, the vision token's). A slot rests at position ``max_length`` once its caption is full,
-    and GPT-2 gathers that position's ``wpe`` row: it must exist (a device-side index fault
-    would end the process's CUDA context)."""
+    slot, the vision token's), and the scratch row. A slot rests at position ``max_length`` once its
+    caption is full, and GPT-2 gathers that position's ``wpe`` row: it must exist (a device-side
+    index fault would end the process's CUDA context)."""
     if cfg.arch == "gpt2" and max_length >= cfg.max_position_embeddings:
         raise ValueError(f"max_length {max_length} needs {max_length + 1} learned positions; the decoder has "
                          f"{cfg.max_position_embeddings}")
-    shape = (slots, cfg.kv_heads, max_length + 1, cfg.head_dim)
-    buffer = torch.zeros((cfg.num_layers, 2) + shape, dtype=dtype, device=device)
+    rows = slots + 1
+    buffer, _ = kv_cache_buffer(cfg, rows, max_length + 1, dtype, device)
+    padded = dict(seqs=torch.empty((rows, max_length), dtype=torch.int64, device=device),
+                  pos=torch.empty(rows, dtype=torch.int64, device=device),
+                  tok=torch.empty(rows, dtype=torch.int64, device=device),
+                  presence=torch.empty((rows, cfg.vocab_size), dtype=torch.int32, device=device),
+                  active=torch.empty(rows, dtype=torch.bool, device=device))
     state = SlotState(
-        caches=[(layer[0], layer[1]) for layer in buffer], cache_buffer=buffer,
-        seqs=torch.empty((slots, max_length), dtype=torch.int64, device=device),
-        pos=torch.empty(slots, dtype=torch.int64, device=device),
-        tok=torch.empty(slots, dtype=torch.int64, device=device),
-        presence=torch.empty((slots, cfg.vocab_size), dtype=torch.int32, device=device),
-        active=torch.empty(slots, dtype=torch.bool, device=device),
+        caches=[(layer[0, :slots], layer[1, :slots]) for layer in buffer], cache_buffer=buffer, padded=padded,
         cache_slots=torch.arange(max_length + 1, device=device), columns=torch.arange(max_length, device=device),
         generator=generator, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
     )
@@ -159,39 +184,36 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def admit(module, state: SlotState, vision_embeddings: torch.Tensor, slot_ids: Sequence[int],
+def admit(module, state: SlotState, vision_embeddings: torch.Tensor, slot_ids: torch.Tensor,
           pick: Sampler) -> None:
     """Prefix a bucket of vision embeddings and move row i into slot ``slot_ids[i]`` (JAX engine.py:98-134).
 
-    The prefix runs on caches of the bucket's own, its first tokens are
-    picked (a first token may be EOS), and the rows are copied into their
-    slots with ``index_copy_``. Ids outside [0, S) are padding and are
-    dropped, as JAX's ``mode="drop"`` scatter drops them; the ids come from
-    the host, so the drop costs no synchronisation.
+    ``slot_ids`` is an int64 tensor on the state's device. The prefix runs
+    on caches of the bucket's own, its first tokens are picked (a first
+    token may be EOS), and the rows are scattered into their slots with
+    ``index_copy_``. Ids outside [0, S) are padding: their rows go to the
+    scratch row S, as JAX's ``mode="drop"`` scatter drops them. Several
+    padding rows write that row in no defined order, which is harmless:
+    nothing reads it. Nothing is read back to the host, so the same call
+    runs eagerly or under CUDA-graph capture.
     """
     a, device = vision_embeddings.shape[0], vision_embeddings.device
     cache_len = state.max_length + 1
-    caches = init_kv_cache(module.decoder_config, a, cache_len, module.compute_dtype, device)
+    buffer, caches = kv_cache_buffer(module.decoder_config, a, cache_len, module.compute_dtype, device)
     mask = (state.cache_slots == 0).to(torch.int32).expand(a, cache_len)  # the prefix sees slot 0 only
-    logits, _ = module.decode_prefix(vision_embeddings, caches, mask)
+    logits, _ = module.decode_prefix(vision_embeddings, caches, mask)  # writes slot 0 of the buffer in place
     presence = torch.zeros((a, state.presence.shape[1]), dtype=torch.int32, device=device)
     tok0 = pick(logits, presence, state.generator)
-    keep = [i for i, slot in enumerate(slot_ids) if 0 <= int(slot) < state.slots]
-    if not keep:
-        return
-    src = to_device(torch.tensor(keep), device)
-    dst = to_device(torch.tensor([int(slot_ids[i]) for i in keep]), device)
-    tok0 = tok0.index_select(0, src)
-    for (k, v), (new_k, new_v) in zip(state.caches, caches):
-        k.index_copy_(0, dst, new_k.index_select(0, src))
-        v.index_copy_(0, dst, new_v.index_select(0, src))
-    row = torch.full((len(keep), state.max_length), state.pad_token_id, dtype=torch.int64, device=device)
+    dst = torch.where((slot_ids >= 0) & (slot_ids < state.slots), slot_ids, state.slots)
+    state.cache_buffer.index_copy_(2, dst, buffer)
+    row = torch.full((a, state.max_length), state.pad_token_id, dtype=torch.int64, device=device)
     row[:, 0] = tok0
-    state.seqs.index_copy_(0, dst, row)
-    state.pos.index_fill_(0, dst, 1)
-    state.tok.index_copy_(0, dst, tok0)
-    state.presence.index_copy_(0, dst, presence.index_select(0, src).scatter_(1, tok0[:, None], 1))
-    state.active.index_copy_(0, dst, (tok0 != state.eos_token_id) & (state.max_length > 1))
+    padded = state.padded
+    padded["seqs"].index_copy_(0, dst, row)
+    padded["pos"].index_fill_(0, dst, 1)
+    padded["tok"].index_copy_(0, dst, tok0)
+    padded["presence"].index_copy_(0, dst, presence.scatter_(1, tok0[:, None], 1))
+    padded["active"].index_copy_(0, dst, (tok0 != state.eos_token_id) & (state.max_length > 1))
 
 
 def decode_steps(module, state: SlotState, steps: int, pick: Sampler) -> torch.Tensor:
@@ -232,12 +254,14 @@ class CapturedSteps:
     them); ``kernels`` counts the port's kernels the graph holds (their
     wrappers' launches under capture; a replay adds nothing to those
     counts), and ``capture_s`` and ``pool_bytes`` time and size the
-    capture. Call
-    under the same grad mode as the replays' callers (inference mode).
+    capture. ``pool`` (another graph's ``graph.pool()``) shares that graph's
+    memory pool: safe for graphs that replay one after another on one
+    stream. Call under the same grad mode as the replays' callers
+    (inference mode).
     """
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, stream: torch.cuda.Stream,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, pool: Optional[Tuple[int, int]] = None):
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs capture CUDA work, got device {device}")
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -254,7 +278,7 @@ class CapturedSteps:
         collecting = gc.isenabled()
         gc.disable()  # a collection inside the capture could free a dead graph's memory: a call that voids it
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 self.out = fn()
         finally:
             if collecting:
@@ -264,7 +288,7 @@ class CapturedSteps:
         # a wrapper called under capture records its kernel into the graph: every replay launches these
         self.kernels = {name: after[name] - before[name] for name in after if after[name] != before[name]}
         self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved  # the graph's private pool
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved  # what the capture added to its pool
 
     def replay(self) -> None:
         self.graph.replay()
@@ -272,7 +296,11 @@ class CapturedSteps:
 
 class DecodeGraphs:
     """The batch path's captured decode steps of one module: one graph of one step per (batch,
-    max_length, sampler, EOS, PAD), with its slot state.
+    max_length, sampler, EOS, PAD), with its slot state; and in ``beams`` beam search's
+    (generation/decode.py:BeamGraphs, by beam shape and scoring), two step graphs with their state,
+    the least recently used first, for at most ``beam_shapes`` shapes (a runner's full
+    batch and its last, partial one: at the GPT-2 flagship a batch of 32 x 4 beams x 128 holds
+    3.24 GB of caches), and ``beam_pools``, each beam shape's graph pool.
 
     The graphs hold the module's weights by address: the owner drops this
     object when the module is replaced (models/model.py keys it on the
@@ -280,11 +308,14 @@ class DecodeGraphs:
     would share a state.
     """
 
-    def __init__(self, module, device: torch.device):
+    def __init__(self, module, device: torch.device, beam_shapes: int = 2):
         self.module = module
         self.device = device
-        self.stream = torch.cuda.Stream(device)
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None  # captures need the card
         self.captured: Dict[Tuple, Tuple[SlotState, CapturedSteps]] = {}
+        self.beams: Dict[Tuple, Any] = {}  # decode.py:beam_graphs fills it: a BeamGraphs per beam key
+        self.beam_pools: Dict[Tuple, Any] = {}
+        self.beam_shapes = int(beam_shapes)
 
     def get(self, batch: int, max_length: int, pick: Sampler, eos_token_id: int,
             pad_token_id: int) -> Tuple[SlotState, CapturedSteps]:

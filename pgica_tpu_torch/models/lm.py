@@ -33,7 +33,7 @@ with ``remat``, a training-time transform.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,19 +52,23 @@ from pgica_tpu_torch.ops.attention import key_padding_bias
 from pgica_tpu_torch.parallel import collectives
 
 
+def kv_cache_buffer(cfg: LMConfig, rows: int, length: int, dtype: torch.dtype,
+                    device: torch.device) -> Tuple[torch.Tensor, KVCaches]:
+    """Zeroed k and v caches of every layer in one buffer (layers, 2, rows, H_kv, length, D), and the
+    per-layer (k, v) views of it that the decoder writes (a reset or a scatter of rows is one call)."""
+    buffer = torch.zeros((cfg.num_layers, 2, rows, cfg.kv_heads, length, cfg.head_dim), dtype=dtype, device=device)
+    return buffer, [(layer[0], layer[1]) for layer in buffer]
+
+
 def init_kv_cache(
     cfg: LMConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
 ) -> KVCaches:
-    """All-zeros per-layer (k, v) caches, each (B, H_kv, max_len, D).
+    """All-zeros per-layer (k, v) caches, each (B, H_kv, max_len, D): the views of :func:`kv_cache_buffer`.
 
     Slots past the current position stay zero; the decode key mask keeps
     them out of attention (JAX lm.py:185-192).
     """
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
-    return [
-        (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
-        for _ in range(cfg.num_layers)
-    ]
+    return kv_cache_buffer(cfg, batch, max_len, dtype, device)[1]
 
 
 class TransformerLM(nn.Module):

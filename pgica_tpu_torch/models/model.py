@@ -499,11 +499,13 @@ class PreferenceGuidedCaptioningModel:
         ignored) with ``length_penalty``. ``early_stop=True`` ends the loop
         once every caption in the batch emitted EOS, or, with beams, once no
         live beam can beat the finished ones (result-identical for
-        ``length_penalty >= 0``; the serving default). On the card, greedy
-        and sampled decoding replay each step as a CUDA graph, captured at
-        the first call of each (batch, max_length, sampling flags) and kept
-        with the inference module (not safe for two threads at once); beam
-        search runs eagerly.
+        ``length_penalty >= 0``; the serving default). On the card every
+        decode step is a replayed CUDA graph, kept with the inference module
+        (not safe for two threads at once): greedy and sampled decoding's,
+        captured at the first call of each (batch, max_length, sampling
+        flags); beam search's two (generation/decode.py:BeamGraphs), at the
+        first call of each (batch, max_length, num_beams, length and
+        repetition penalties), for the two beam shapes last used.
         """
         from pgica_tpu_torch.generation.decode import generate  # decode imports models: no cycle at import
         from pgica_tpu_torch.generation.slots import DecodeGraphs

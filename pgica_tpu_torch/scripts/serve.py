@@ -16,9 +16,10 @@ GET  /healthz   -> {"status": "ok", "p50_ms": ..., "p95_ms": ..., "served": N}
 
 The flags are the JAX CLI's, with ``--platform`` replaced by ``--device``
 (``cuda``, the default, or ``cpu``). On the card every decode step is a
-replayed CUDA graph: one per batch bucket on the batch scheduler, one per
-chunk on the continuous one, captured by ``warmup`` (``--prejit`` builds
-the kernels and captures them, then exits). ``--quant int8`` or
+replayed CUDA graph: one per batch bucket on the batch scheduler; on the
+continuous one, one per chunk and one per admission bucket (the vision
+encode, the prefix and the slot scatter), captured by ``warmup``
+(``--prejit`` builds the kernels and captures them, then exits). ``--quant int8`` or
 ``--quant int8_weight_only`` decodes through the model's int8 twin (the
 hand-written ``csrc/q8_matmul.cu`` on the card), the vision encode staying
 in the compute dtype. Images travel as uint8 and are normalized on the

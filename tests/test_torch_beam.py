@@ -9,20 +9,42 @@ at length 1 and their beams may continue with PAD only), and EOS a copy of a
 common token (so many candidates finish and the live set fills with
 ``NEG_INF`` ties). Tolerance: none, the ids must be equal. Mirrors
 tests/test_generation.py:95-160, including beam 1 through the forced
-``_beam_search`` equal to greedy.
+``_beam_search`` equal to greedy. The port's step swaps its cache and
+presence buffers each step (A to B at odd t, B to A at even t): searches of
+6 and 7 steps end in either buffer, and equal JAX's too. The beam step
+reads nothing back to the host (the card replays it as a CUDA graph): it
+runs under ``FakeTensorMode``, where a data-dependent read raises, and a
+step with such a read put back fails there. The beam keys of one shape
+share its buffers, each with its own scoring, and each key's search on them
+still equals JAX's; shapes past ``DecodeGraphs.beam_shapes`` are dropped,
+the least recently used first, and their buffers freed.
 """
+
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import DataDependentOutputException, FakeTensorMode
 
 from pgica_tpu.data.augment import prepare_images as jax_prepare_images
 from pgica_tpu.generation.decode import _beam_search as jax_beam_search
 from pgica_tpu.generation.decode import generate as jax_generate
 from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
-from pgica_tpu_torch.generation.decode import _beam_search, _top_k, generate
+from pgica_tpu_torch.generation.decode import (
+    _beam_finalize,
+    _beam_init,
+    _beam_search,
+    _top_k,
+    beam_graphs,
+    beam_step,
+    generate,
+    init_beam_state,
+)
+from pgica_tpu_torch.generation.slots import DecodeGraphs
 from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel
 
 MAX_LENGTH = 10
@@ -40,11 +62,11 @@ def _embeddings(jm, params, images):
                            jax_prepare_images(jnp.asarray(images)), method=jm.module.encode_image)["embeddings"]
 
 
-def _jax_ids(jm, params, emb, **kw):
+def _jax_ids(jm, params, emb, max_length=MAX_LENGTH, **kw):
     tok = jm.tokenizer
     return np.asarray(jax_generate(
         jm.module, jax.tree.map(jnp.asarray, params), emb, bos_token_id=tok.bos_token_id,
-        eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, max_length=MAX_LENGTH, **kw))
+        eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, max_length=max_length, **kw))
 
 
 def _port(params):
@@ -53,10 +75,10 @@ def _port(params):
     return port
 
 
-def _port_ids(port, emb, **kw):
+def _port_ids(port, emb, max_length=MAX_LENGTH, **kw):
     tok = port.tokenizer
     return generate(port.module, torch.from_numpy(np.array(emb)), eos_token_id=tok.eos_token_id,
-                    pad_token_id=tok.pad_token_id, max_length=MAX_LENGTH, **kw).numpy()
+                    pad_token_id=tok.pad_token_id, max_length=max_length, **kw).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +116,98 @@ def test_beam_search_is_token_identical_to_jax(tiny_model, weights, images, whic
         np.testing.assert_array_equal(_port_ids(port, emb, **kw), want, err_msg=str(kw))
         if which != "random":
             assert (want == eos).any(), "no caption ended on EOS; the weights do not force it"
+
+
+@pytest.mark.parametrize("max_length", [7, 8], ids=["6 steps, ends in A", "7 steps, ends in B"])
+@pytest.mark.parametrize("which", ["random", "eos_common"])
+def test_beam_search_ends_in_either_buffer_as_jax(tiny_model, weights, images, which, max_length):
+    """The last step writes buffer A (an even count of steps) or B (odd): ids equal JAX's either way."""
+    params, port = weights[which]
+    emb = _embeddings(tiny_model, params, images)
+    kw = dict(num_beams=3, length_penalty=1.0, repetition_penalty=1.1, max_length=max_length)
+    np.testing.assert_array_equal(_port_ids(port, emb, **kw), _jax_ids(tiny_model, params, emb, **kw), err_msg=str(kw))
+
+
+def _fake_beam_steps(module, tok, steps: int = 2) -> None:
+    """The prefix, then ``steps`` beam steps (both buffer directions) under FakeTensorMode: every tensor
+    made inside is fake, and reading one's value on the host raises DataDependentOutputException."""
+    with torch.inference_mode(), FakeTensorMode(allow_non_fake_inputs=True):
+        state = init_beam_state(module.decoder_config, 2, 3, MAX_LENGTH, torch.float32, torch.device("cpu"),
+                                length_penalty=1.0, repetition_penalty=1.1, eos_token_id=tok.eos_token_id,
+                                pad_token_id=tok.pad_token_id)
+        _beam_init(module, state, torch.zeros(2, 16))
+        for t in range(1, steps + 1):
+            beam_step(module, state, t % 2 == 1)
+
+
+def test_beam_step_reads_nothing_back_to_the_host(weights):
+    _, port = weights["random"]
+    _fake_beam_steps(port.module, port.tokenizer)
+
+
+def test_a_host_read_in_the_beam_step_fails_the_check(weights, monkeypatch):
+    """The check catches a read: the step's position turned back into a host int (``int(t)``)."""
+    _, port = weights["random"]
+    module = port.module
+    decode_step = module.decode_step
+    monkeypatch.setattr(module, "decode_step",
+                        lambda tokens, position, *rest: decode_step(tokens, int(position[0]), *rest))
+    with pytest.raises(DataDependentOutputException):
+        _fake_beam_steps(module, port.tokenizer)
+
+
+def _search_on(module, state, emb) -> np.ndarray:
+    """A whole eager search on a given state (a key's of ``DecodeGraphs.beams``)."""
+    with torch.inference_mode():
+        _beam_init(module, state, torch.from_numpy(np.array(emb)))
+        for t in range(1, state.live_seqs.shape[2]):
+            beam_step(module, state, t % 2 == 1)
+        return _beam_finalize(state).numpy()
+
+
+def test_beam_keys_of_one_shape_share_its_buffers(tiny_model, weights, images):
+    """Two scorings of one beam shape: one set of buffers (caches, presence, beams), each key its own
+    length-penalty table and penalties; a search on either key's state equals JAX's, the second
+    running after the first on the same buffers."""
+    params, port = weights["eos_common"]
+    emb = _embeddings(tiny_model, params, images)
+    tok = port.tokenizer
+    graphs = DecodeGraphs(port.module, torch.device("cpu"))
+    scorings = [(1.0, 1.0), (-0.5, 1.1)]
+    keys = [beam_graphs(graphs, 3, MAX_LENGTH, 3, lp, rp, tok.eos_token_id, tok.pad_token_id) for lp, rp in scorings]
+    a, b = (k.state for k in keys)
+    assert len(graphs.beams) == 2
+    for name in ("cache_buffers", "presence"):
+        for x, y in zip(getattr(a, name), getattr(b, name)):
+            assert x is y, name
+    assert a.live_seqs is b.live_seqs and a.t is b.t
+    assert not torch.equal(a.lp_table, b.lp_table) and (a.repetition_penalty, b.repetition_penalty) == (1.0, 1.1)
+    for (lp, rp), key in zip(scorings * 2, keys * 2):
+        want = _jax_ids(tiny_model, params, emb, num_beams=3, length_penalty=lp, repetition_penalty=rp)
+        np.testing.assert_array_equal(_search_on(port.module, key.state, emb), want, err_msg=str((lp, rp)))
+
+
+def test_beam_shapes_past_the_bound_are_dropped(weights):
+    """``beam_shapes`` 2: a third shape drops the least recently used one, every key of it, and frees
+    its buffers; a key used again counts as recent."""
+    _, port = weights["random"]
+    tok = port.tokenizer
+    graphs = DecodeGraphs(port.module, torch.device("cpu"), beam_shapes=2)
+
+    def key(batch: int, lp: float = 1.0) -> object:
+        return beam_graphs(graphs, batch, MAX_LENGTH, 2, lp, 1.0, tok.eos_token_id, tok.pad_token_id)
+
+    key(1)
+    dropped = weakref.ref(key(2).state.cache_buffers[0])
+    key(2, 0.5)
+    key(1)  # shape 1 is now the most recent
+    key(3)
+    gc.collect()
+    assert sorted(k[0] for k in graphs.beams) == [1, 3]
+    assert dropped() is None, "the dropped shape's caches are still held"
+    key(1, 0.5)
+    key(2)
+    assert sorted({k[0] for k in graphs.beams}) == [1, 2]
 
 
 def test_first_token_eos_enters_the_pool_at_length_one(tiny_model, weights, images):

@@ -11,7 +11,12 @@ and tiny Llama; ``decode_step`` at per-row positions (GPT-2's per-row
 ``wpe`` gather, Llama's per-row RoPE) gives JAX's logits and caches within
 1e-5 (float32, sums in another order); a row whose position lies outside
 the cache writes nothing. Sampling is held to reproducibility under a seed
-and to the top-p nucleus, not to JAX's stream.
+and to the top-p nucleus, not to JAX's stream. An admission bucket with
+padding slot ids (>= S) leaves the first S rows of every state tensor as
+JAX's ``admit_fn`` leaves them (its ``mode="drop"`` scatter); the padding
+rows land in the port's scratch row S, which no chunk shows. The admission
+reads nothing back to the host (the card captures it as a CUDA graph per
+bucket): it runs under ``FakeTensorMode``, and one with a host read fails.
 """
 
 import threading
@@ -22,15 +27,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import DataDependentOutputException, FakeTensorMode
 
 from pgica_tpu.data.augment import prepare_images as jax_prepare_images
 from pgica_tpu.data.tokenizer import CaptionTokenizer as JaxTokenizer
 from pgica_tpu.generation.engine import ContinuousDecodeEngine as JaxEngine
+from pgica_tpu.generation.engine import make_engine_fns as jax_make_engine_fns
 from pgica_tpu.models import PreferenceGuidedCaptioningModel as JaxModel
 from pgica_tpu.models.lm import init_kv_cache as jax_init_kv_cache
+from pgica_tpu_torch.data.augment import prepare_images
 from pgica_tpu_torch.data.tokenizer import CaptionTokenizer
 from pgica_tpu_torch.generation.decode import generate
-from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
+from pgica_tpu_torch.generation import slots as port_slots
+from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine, make_engine_fns
 from pgica_tpu_torch.generation.slots import CapturedSteps, Sampler, _top_p_filter, init_slot_state
 from pgica_tpu_torch.models.layers import MultiHeadAttention
 from pgica_tpu_torch.models.lm import init_kv_cache
@@ -386,3 +395,77 @@ def test_slot_state_refuses_unreachable_positions_and_graphs_refuse_the_cpu(port
                     eos_token_id=1, pad_token_id=0)
     with pytest.raises(ValueError, match="CUDA graphs"):
         CapturedSteps(lambda: None, torch.device("cpu"), None)
+
+
+ADMIT_SLOTS = 4
+# two admission buckets of 4: slots 2 and 0, then 3, the rest padding (>= S)
+ADMISSIONS = ([2, ADMIT_SLOTS, 0, ADMIT_SLOTS + 3], [ADMIT_SLOTS, 3, ADMIT_SLOTS + 1, ADMIT_SLOTS])
+
+
+def _port_engine_fns(module, tok, chunk: int = 2):
+    return make_engine_fns(module, module, slots=ADMIT_SLOTS, chunk=chunk, max_length=MAX_LENGTH,
+                           eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, pick=Sampler(),
+                           device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch", ["gpt2", "llama"])
+def test_admission_with_padding_ids_equals_jax_admit_fn(jax_models, engine_images, arch):
+    """Two admission buckets with padding ids, then a chunk: after each admission every state
+    tensor's first S rows equal JAX ``admit_fn``'s (ids exactly, caches within 1e-5); the padding
+    rows went to the scratch row; the chunk's [seqs | active] snapshot has S rows and equals JAX's."""
+    jm = jax_models[arch]
+    port = _port(jm, arch)
+    tok = port.tokenizer
+    init_j, admit_j, chunk_j = jax_make_engine_fns(jm.module, jm.module, slots=ADMIT_SLOTS, chunk=2,
+                                                   max_length=MAX_LENGTH, eos_token_id=tok.eos_token_id,
+                                                   pad_token_id=tok.pad_token_id)
+    state_j = init_j(jax.random.PRNGKey(0))
+    init_p, admit_p, chunk_p = _port_engine_fns(port.module, tok)
+    state_p = init_p(0)
+    for i, ids in enumerate(ADMISSIONS):
+        images = engine_images[2 * i:2 * i + 4]
+        state_j = admit_j(jm.params, jm.params, state_j, jnp.asarray(images), jnp.asarray(ids, jnp.int32),
+                          1.0, 1.0, 1.0)
+        with torch.inference_mode():
+            admit_p(state_p, torch.from_numpy(images), torch.tensor(ids))
+        for name in state_p.padded:
+            got = getattr(state_p, name)
+            assert got.shape[0] == ADMIT_SLOTS
+            np.testing.assert_array_equal(got.numpy(), np.asarray(state_j[name]), err_msg=f"{name}, admission {i}")
+        for layer, ((kj, vj), (kp, vp)) in enumerate(zip(state_j["caches"], state_p.caches)):
+            np.testing.assert_allclose(kp.numpy(), np.asarray(kj), atol=ATOL, err_msg=f"k{layer}, admission {i}")
+            np.testing.assert_allclose(vp.numpy(), np.asarray(vj), atol=ATOL, err_msg=f"v{layer}, admission {i}")
+        assert int(state_p.padded["pos"][ADMIT_SLOTS]) == 1, "no padding row reached the scratch row"
+    state_j, snap_j = chunk_j(jm.params, state_j, 1.0, 1.0, 1.0)
+    with torch.inference_mode():
+        snap_p, _ = chunk_p(state_p)
+    assert snap_p.shape == (ADMIT_SLOTS, MAX_LENGTH + 1)
+    np.testing.assert_array_equal(snap_p.numpy(), np.asarray(snap_j))
+
+
+def _fake_admission(module, tok, ids) -> None:
+    """An admission bucket of 4 with padding ids, then a chunk, under FakeTensorMode: a host read of a
+    fake tensor's value raises DataDependentOutputException."""
+    init_state, admit_fn, chunk_fn = _port_engine_fns(module, tok)
+    prepare_images(torch.zeros(1, 1, 1, 3, dtype=torch.uint8))  # makes the ImageNet stats, as an eager run before a capture
+    with torch.inference_mode(), FakeTensorMode(allow_non_fake_inputs=True):
+        state = init_state(0)
+        admit_fn(state, torch.zeros(4, 32, 32, 3, dtype=torch.uint8), torch.tensor(ids))
+        chunk_fn(state)
+
+
+def test_admission_reads_nothing_back_to_the_host(port_model):
+    _fake_admission(port_model.module, port_model.tokenizer, ADMISSIONS[0])
+
+
+def test_a_host_read_in_the_admission_fails_the_check(port_model, monkeypatch):
+    """The check catches a read: the padding ids dropped through a host list, as the port once did."""
+    admit = port_slots.admit
+
+    def admit_with_host_ids(module, state, embeddings, slot_ids, pick):
+        keep = [i for i, slot in enumerate(slot_ids) if 0 <= int(slot) < state.slots]
+        admit(module, state, embeddings[keep], slot_ids[keep], pick)
+
+    monkeypatch.setattr("pgica_tpu_torch.generation.engine.admit", admit_with_host_ids)
+    with pytest.raises(DataDependentOutputException):
+        _fake_admission(port_model.module, port_model.tokenizer, ADMISSIONS[0])
