@@ -62,14 +62,25 @@ exits non-zero):
 6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
    ViT, dropout 0.1) takes stage-1 steps through ``make_stage1_train_step``
    at bench.py's shapes: batch 128 x seq 128 with every token kept, and
-   caption lengths 8-28 cut to bucket 32 by ``bucket_batch``. Two warm-up
-   steps, then the median of three 5-step windows; one profiled step.
+   caption lengths 8-28 cut to bucket 32 by ``bucket_batch``. For each
+   shape, three steps of the eager step and three of its CUDA graphs
+   (``training/graphs.py:GraphedTrainStep``, the trainer's route on the
+   card: the first step eager and captured, then replays) from one
+   starting state must leave every trained leaf, Adam moment and counter
+   with the same bits; then ms a step graphed (the median of three 5-step
+   windows) and eager (of two 3-step windows), each graph's capture
+   seconds and pool, and the busy share of one profiled step of each. A
+   NaN batch through a replay must add one to ``skipped`` and keep every
+   other bit; gradient accumulation 4 with a NaN batch at micro-step 2
+   must give the eager step's bits through both graphs (accumulate,
+   update).
 7. Stage 2, the slice: the same flagship takes DPO steps through
    ``make_stage2_train_step`` against a frozen bf16 copy of itself (the
    trainer's reference), with bench.py's stage-2 optimizer, at batch 32
    pairs x 128 with every token kept, and with chosen and rejected lengths
-   8-28 cut to bucket 32; the chosen and rejected captions differ. Timing
-   and profile as in phase 6, and the launches of one step are asserted.
+   8-28 cut to bucket 32; the chosen and rejected captions differ. Graphed
+   against eager, timing and profiles as in phase 6; the launches of one
+   eager step and the kernels each graph holds are asserted.
 8. The Llama slice: the GPT-2 flagship is freed, then the SigLIP so400m +
    Llama-3-8B configuration of configs/siglip_llama8b.yaml is built once at
    full width in bf16 over f32 masters, with 4 of each Llama tower's 32
@@ -78,20 +89,26 @@ exits non-zero):
    config's generate_config (4 beams, max_length 128, repetition penalty
    1.1; the beam graphs checked against the eager search as in phase 5),
    takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
-   under the JAX trainer's partitions, timed and profiled as in phase 6,
-   with every request's and step's launches asserted.
+   under the JAX trainer's partitions, graphed against eager, timed and
+   profiled as in phase 6 (the graphs hold the RMSNorm backward), with
+   every request's and step's launches asserted.
 9. The training entry point: ``pgica_tpu_torch.scripts.train.run`` on
    configs/default.yaml (the GPT-2 flagship at full width and vocab, bf16,
    activation checkpointing, gradient accumulation 4, augmentation), on
    seeded JPEG files read through the config's datasets (uint8 batches,
    normalized on the card), changed as ``PHASE9_REDUCED`` says: stage 1,
    stage 2 with its bf16 reference, validation, checkpoints and the best
-   model's reload; a second trainer resumes stage 1 from its mid-epoch
-   autosave through ``run`` and must end bit-identical to the uninterrupted
-   run; then ``generate_captions`` must serve the trained masters. Per
-   stage: ms per micro-step and per update, device busy share, peak memory,
-   the host's time inside the profiled steps by operator; per checkpoint
-   bytes and seconds. Phase 11b runs on its files before they are deleted.
+   model's reload; every train step runs as CUDA graphs (the trainer's
+   route on the card), an eager step only at each key's first sighting
+   and at least one replay a stage; a second trainer resumes stage 1 from
+   its mid-epoch autosave through ``run`` and must end bit-identical to the
+   uninterrupted run; then ``generate_captions`` must serve the trained
+   masters. Per stage: ms per micro-step (CUDA events around each step) and
+   per update, device busy share (kernel time over the profiled window's
+   wall, synchronized at both ends, the autosave left out), peak memory,
+   the host's time inside the profiled steps by operator, the graphs'
+   captures and pool; per checkpoint bytes and seconds. Phase 11b runs on
+   its files before they are deleted.
 
 10. Serving with CUDA graphs. 10a, right after phase 7: generate_captions
    on the trained flagship recasts the bf16 copy, captures its graph anew
@@ -261,7 +278,9 @@ Launch counts are reset just before the main path of phases 5, 6, 7, 9,
 10, 11a, 12b, 12c, 13a, 13b, 13c, of each of phase 8's paths, of each of
 13d's decode steps and, in each rank, of each of phase 14's, 15's and 16's paths, and read
 just after; a graph replay
-adds nothing to them (its kernels are counted by the profiler). The second-to-last line
+adds nothing to them (serving's are counted by the profiler; a training path's
+launches are its host counts less each capture's recording plus each graph's
+kernels times its replays, ``executed_launches``). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
 exits non-zero and prints no result.
@@ -2184,43 +2203,267 @@ def on_card(batch: dict, label: str) -> dict:
     return out
 
 
-def timed_steps(step, state, expected: dict, label: str, rows: int, seq: int):
-    """Two warm-up steps, one step whose launches must be ``expected`` (every other kernel 0), then
-    three windows of 5 steps with a host sync per step, as bench.py. ``step(state) -> (state,
-    metrics)``. Returns the state and the result: the median ms per step and pairs/s (``rows``
-    pairs a step), the windows, losses, the last step's metrics, the launches per step and the
-    peak memory over all of it."""
-    from pgica_tpu_torch.ops import _kernels
+GRAPH_CHECK_STEPS = 3  # steps a shape takes from one starting state, graphed and eager, to be held bit for bit
+GRAPH_WINDOWS = (3, 3)  # (windows, steps a window) of the graphed step's timing: the median window, as bench.py
 
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        state, m = step(state)
-    before = _kernels.launch_counts()
-    state, m = step(state)
-    after = _kernels.launch_counts()
-    per_step = {k: after[k] - before[k] for k in after}
-    if per_step != {**dict.fromkeys(per_step, 0), **expected}:
-        raise AssertionError(f"{label}: one step launched {per_step}, expected {expected}")
-    losses, windows = [], []
-    for _ in range(3):
+
+def tensor_digest(t: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
+    """:func:`bits_digest` of one 4-byte tensor, a chunk of its words at a time (its memory stays a chunk's)."""
+    words = t.detach().reshape(-1).view(torch.int32)
+    out = torch.zeros(3, dtype=torch.int64, device=t.device)
+    for at in range(0, words.numel(), chunk):
+        w = words[at:at + chunk].to(torch.int64)
+        pos = torch.arange(at + 1, at + 1 + w.numel(), device=w.device)
+        out += torch.stack([w.sum(), (w * pos).sum(), (w ^ (w >> 7)).sum()])
+    return out
+
+
+def trained_tensors(state) -> list:
+    o = state.opt_state
+    return o.params + o.mu + o.nu + (o.acc or [])
+
+
+def state_digest(state) -> torch.Tensor:
+    """The bits of a train state: one :func:`tensor_digest` row for each trained leaf, Adam moment and
+    accumulator tensor, and a last row of the update count, the micro-step and the skip counter."""
+    o = state.opt_state
+    rows = [tensor_digest(t) for t in trained_tensors(state)]
+    rows.append(torch.stack([o.count_t, o.mini_step_t, state.skipped_t]).to(torch.int64))
+    return torch.stack(rows)
+
+
+def digest_diffs(state, got: torch.Tensor, want: torch.Tensor) -> list:
+    """The names of the tensors (and counters) whose digests differ."""
+    o = state.opt_state
+    names = [f"{kind}:{n}" for kind in ("param", "mu", "nu") + (("acc",) if o.acc else ()) for n in o.names]
+    names.append("counters")
+    return [names[i] for i in torch.nonzero((got != want).any(dim=1)).flatten().tolist()]
+
+
+SNAPSHOT_SHARE = 0.25  # a snapshot stays on the card while it takes at most this share of the free memory
+
+
+def snapshot(state) -> dict:
+    """The train state, to start another run from (:func:`restore`): on the card where it fits well (a
+    restore is then a copy on the card), else on the host."""
+    o = state.opt_state
+    tensors = trained_tensors(state)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    device = "cuda" if nbytes <= SNAPSHOT_SHARE * torch.cuda.mem_get_info()[0] else "cpu"
+    return dict(tensors=[t.detach().to(device, copy=True) for t in tensors], device=device, bytes=nbytes,
+                counters=(o.count, o.mini_step, state.skipped), step=state.step)
+
+
+@torch.no_grad()
+def restore(state, snap: dict) -> None:
+    """Put a :func:`snapshot` back into the state's tensors, in place (a graph holds them by address)."""
+    for t, saved in zip(trained_tensors(state), snap["tensors"]):
+        t.copy_(saved)
+    state.opt_state.count, state.opt_state.mini_step = snap["counters"][:2]
+    state.skipped_t.fill_(snap["counters"][2])
+    state.step = snap["step"]
+
+
+def step_windows(fn, windows: int, steps: int) -> list:
+    """ms a step over ``windows`` windows of ``steps`` calls of ``fn``, each ending in a host sync."""
+    out = []
+    for _ in range(windows):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for _ in range(5):
-            state, m = step(state)
-            losses.append(float(m["loss"]))
-        windows.append((time.perf_counter() - t) / 5)
-    last = {k: float(v) for k, v in m.items()}
-    if not all(math.isfinite(x) for x in losses + list(last.values())) or state.skipped:
-        raise AssertionError(f"{label}: losses {losses}, last metrics {last}, skipped {state.skipped}")
-    step_s = statistics.median(windows)
-    r = dict(batch=rows, seq=seq, ms_per_step=step_s * 1e3, pairs_per_s=rows / step_s,
-             windows_ms=[w * 1e3 for w in windows], losses=losses, metrics=last, launches_per_step=per_step,
-             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"  {label} {rows} x {seq}: median {r['ms_per_step']:.1f} ms/step -> {r['pairs_per_s']:.1f} pairs/s (windows "
-        f"of 5 steps: {', '.join(f'{w:.1f}' for w in r['windows_ms'])} ms/step); losses {losses[0]:.4f} .. "
-        f"{losses[-1]:.4f} (all finite, 0 skipped); last step: " + ", ".join(f"{k} {v:.4g}" for k, v in last.items())
-        + f"; peak {r['peak_mem_gib']:.2f} GiB; launches per step {per_step}")
-    return state, r
+        for _ in range(steps):
+            fn()
+        out.append((time.perf_counter() - t) / steps * 1e3)
+    return out
+
+
+def executed_launches(host: dict, graphs) -> dict:
+    """The port's kernel launches that ran on the card: the host's counts (eager steps, and each capture's
+    recording) less the recordings, plus each graph's kernels times its replays; ``graphs``: (kernels a
+    graph holds, its replays) pairs."""
+    out = dict(host)
+    for kernels, replays in graphs:
+        for k, n in kernels.items():
+            out[k] += n * (replays - 1)
+    return out
+
+
+def run_sequence(fn, state, batches: list, call, walls: list | None = None) -> list:
+    """The losses of ``fn``'s steps on ``batches`` (each read on the host); with ``walls``, each step's ms."""
+    losses = []
+    for b in batches:
+        t = time.perf_counter()
+        losses.append(float(call(fn, state, b)[1]["loss"]))
+        if walls is not None:
+            walls.append((time.perf_counter() - t) * 1e3)
+    return losses
+
+
+def graphed_path(step, state, runs: dict, call, expected: dict, label: str):
+    """Phases 6-8's main path: each run of ``runs`` (name -> the batches of one run, ``GRAPH_CHECK_STEPS``
+    of one shape) through ``GraphedTrainStep`` from one starting state (the first step of a shape eager
+    on the capture stream and captured, the others replays), then its timing; each graph must hold
+    ``expected``; then one profiled step of each shape. ``call(fn, state, batch) -> (state, metrics)``.
+    Returns (the graphed step, the results by name, the launches the path ran on the card, the
+    starting state's snapshot); :func:`eager_reference` then holds the runs to the eager step."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.training.graphs import GraphedTrainStep
+
+    start = snapshot(state)
+    graphed = GraphedTrainStep(step)
+    results = {}
+    _kernels.reset_launch_counts()  # ---- the main path starts here
+    for i, (name, batches) in enumerate(runs.items()):
+        if i:
+            restore(state, start)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        losses = run_sequence(graphed, state, batches[:1], call)
+        first_s = time.perf_counter() - t
+        losses += run_sequence(graphed, state, batches[1:], call)
+        digest = state_digest(state)
+        ms = step_windows(lambda: run_sequence(graphed, state, batches[-1:], call), *GRAPH_WINDOWS)
+        _, metrics = call(graphed, state, batches[-1])
+        results[name] = dict(losses=losses, digest=digest, ms_per_step=statistics.median(ms), windows_ms=ms,
+                             first_step_s=first_s, metrics={k: float(v) for k, v in metrics.items()},
+                             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    counts = executed_launches(_kernels.launch_counts(),  # ---- and ends here
+                               [(g.captured.kernels, g.replays) for g in graphed.graphs.values()])
+    if state.skipped or not all(math.isfinite(x) for r in results.values() for x in r["losses"]):
+        raise AssertionError(f"{label}: skipped {state.skipped}, losses {[r['losses'] for r in results.values()]}")
+    for name, batches in runs.items():
+        key, g = next((key, g) for key, g in graphed.graphs.items()
+                      if all(g.static[k].shape == v.shape for k, v in batches[0].items()))
+        c = g.captured
+        if c.kernels != expected:
+            raise AssertionError(f"{label}: the graph of {key} holds {c.kernels}, expected {expected}")
+        r = results[name]
+        r.update(capture_s=c.capture_s, pool_mib=c.pool_bytes / 2**20, replays=g.replays,
+                 rows_seq=tuple(batches[0][k].shape for k in batches[0] if k.endswith("ids"))[0], kernels=c.kernels)
+        r["profile"] = profiled(lambda: run_sequence(graphed, state, batches[-1:], call), f"{label} {name} graphed step",
+                                r["ms_per_step"])
+    return graphed, results, counts, start
+
+
+def eager_reference(step, state, runs: dict, call, expected: dict, label: str, start: dict, results: dict,
+                    profile: bool = False) -> None:
+    """Each run of :func:`graphed_path` again through the eager step (the plain version; one step must launch
+    ``expected``) from the same starting state: every trained leaf, Adam moment and counter must end with
+    the graphed run's bits (:func:`state_digest`) and the losses must be the same. The eager step's ms
+    (the median of its steps after the first) and, with ``profile``, one profiled step's busy share are
+    logged beside the graphed step's, with each graph's capture and pool."""
+    from pgica_tpu_torch.ops import _kernels
+
+    for name, batches in runs.items():
+        restore(state, start)
+        r = results[name]
+        torch.cuda.reset_peak_memory_stats()
+        before = _kernels.launch_counts()
+        walls = []
+        losses = run_sequence(step, state, batches[:1], call, walls)
+        after = _kernels.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if per_step != expected:
+            raise AssertionError(f"{label} {name}: one eager step launched {per_step}, expected {expected}")
+        losses += run_sequence(step, state, batches[1:], call, walls)
+        diffs = digest_diffs(state, state_digest(state), r.pop("digest"))
+        if diffs or losses != r["losses"]:
+            raise AssertionError(f"{label} {name}: after {len(batches)} steps the graphed run differs from the eager "
+                                 f"one in {len(diffs)} tensors {diffs[:4]}; losses {r['losses']} against {losses}")
+        eager = dict(ms_per_step=statistics.median(walls[1:]), step_ms=walls,
+                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if profile:
+            eager["profile"] = profiled(lambda: run_sequence(step, state, batches[-1:], call),
+                                        f"{label} {name} eager step", eager["ms_per_step"])
+        r["eager"] = eager
+
+        def busy(p):
+            return f"{100 * p['busy']:.1f}%" if p and p.get("busy") else "not measured"
+
+        log(f"  {label} {name} {r['rows_seq']}: {len(batches)} steps graphed (the first eager, then captured in "
+            f"{r['capture_s']:.3f} s, pool {r['pool_mib']:.1f} MiB; the others replays) bit-equal to {len(batches)} "
+            f"eager steps from the same state (every trained leaf, Adam moment and counter; the state restored from "
+            f"the {start['device']}), losses {', '.join(f'{x:.6f}' for x in losses)}; ms a step graphed "
+            f"{r['ms_per_step']:.1f} (windows {', '.join(f'{w:.1f}' for w in r['windows_ms'])}) against eager "
+            f"{eager['ms_per_step']:.1f} (steps {', '.join(f'{w:.1f}' for w in walls)}); busy graphed "
+            f"{busy(r['profile'])}" + (f", eager {busy(eager.get('profile'))}" if profile else "")
+            + f"; peak {r['peak_mem_gib']:.2f} GiB graphed, {eager['peak_mem_gib']:.2f} eager; the graph holds "
+            f"{r['kernels']} [{card()}]")
+
+
+def skip_checks(graphed, state, batch: dict, call, label: str) -> dict:
+    """A NaN batch through a replay of ``batch``'s graph: ``skipped`` +1, every other bit kept."""
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0] = float("nan")
+    before, replays = state_digest(state), graphed.replays
+    _, m = call(graphed, state, bad)
+    after = state_digest(state)
+    kept = torch.equal(after[:-1], before[:-1]) and torch.equal(after[-1, :2], before[-1, :2])
+    if graphed.replays != replays + 1 or not kept or int(after[-1, 2]) != int(before[-1, 2]) + 1 or math.isfinite(
+            float(m["loss"])):
+        raise AssertionError(f"{label}: a NaN batch through a replay: replays {replays} -> {graphed.replays}, "
+                             f"kept {kept}, skipped {int(before[-1, 2])} -> {int(after[-1, 2])}, loss {float(m['loss'])}")
+    log(f"  {label}: a NaN batch through a replay: skipped {int(before[-1, 2])} -> {int(after[-1, 2])}, every trained "
+        f"leaf, Adam moment and the update count bit-equal to before (loss {float(m['loss'])})")
+    return dict(skipped=int(after[-1, 2]))
+
+
+ACCUMULATION_STEPS = 9  # 12c's and phase 9's accumulation of 4: a NaN at micro-step 2 delays the first update to
+# micro-step 4; the second, at 8, replays the update's graph
+
+
+def accumulation_check(module, batch: dict, trainer_route: bool = False) -> dict:
+    """Gradient accumulation 4 on the flagship's stage 1 (configs/default.yaml's), ACCUMULATION_STEPS micro-steps
+    on ``batch`` with a NaN batch at micro-step 2, through the eager step and through the graphs from one
+    starting state: the same bits, both graphs (accumulate, update) replayed. With ``trainer_route``, as
+    phase 9's trainer runs it: every block checkpointed and the images augmented, with the model's dropout
+    (0.1 in the text tower that trains), so that the captured recomputes (their dropout drawn from
+    ReplayStreams' generators) are held to the eager step's."""
+    from pgica_tpu_torch.ops.dropout import FastDropout
+    from pgica_tpu_torch.training.graphs import GraphedTrainStep
+    from pgica_tpu_torch.training.optim import create_optimizer
+    from pgica_tpu_torch.training.train_step import TrainState, make_stage1_train_step
+
+    opt = create_optimizer(5e-5, 1000, 10, gradient_accumulation_steps=4, freeze_vision_backbone=True,
+                           frozen_prefixes=("caption_decoder",))
+    state = TrainState.create(module, opt)
+    step = make_stage1_train_step(module, opt, temperature=0.5, augment=trainer_route)
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0] = float("nan")
+    batches = [bad if i == 2 else batch for i in range(ACCUMULATION_STEPS)]
+    rates = sorted({m.rate for m in module.text_encoder.modules() if isinstance(m, FastDropout)})
+    label = "accumulation 4" + (f", checkpointing, augmentation and the text tower's dropout {rates}"
+                                if trainer_route else "")
+
+    def call(fn, st, b):
+        return fn(st, b, 0)
+
+    configs = {m: m.config for m in module.modules() if hasattr(getattr(m, "config", None), "remat")}
+    set_remat(module, trainer_route)
+    try:
+        start = snapshot(state)
+        eager = run_sequence(step, state, batches, call)
+        want = state_digest(state)
+        restore(state, start)
+        graphed = GraphedTrainStep(step)
+        losses = run_sequence(graphed, state, batches, call)
+        diffs = digest_diffs(state, state_digest(state), want)
+        replays = {"update" if key[0] else "accumulate": g.replays for key, g in graphed.graphs.items()}
+        blocks = [len(g.streams.generators) for g in graphed.graphs.values()]
+        counters = (state.opt_state.count, state.opt_state.mini_step, state.skipped)
+        graphed.close()
+    finally:
+        for m, config in configs.items():
+            m.config = config
+    if diffs or str(losses) != str(eager) or counters != (2, 0, 1) or min(replays.values()) == 0 or len(replays) != 2 \
+            or (trainer_route and (min(blocks) == 0 or max(rates) == 0)):
+        raise AssertionError(f"{label} with a NaN at micro-step 2: the graphs differ from the eager step in "
+                             f"{diffs[:4]}, losses {losses} against {eager}, counters {counters}, replays {replays}, "
+                             f"recomputed blocks a graph {blocks}")
+    log(f"  {label}, {ACCUMULATION_STEPS} micro-steps at {tuple(batch['caption_ids'].shape)} with a NaN batch at "
+        f"micro-step 2: the graphs (replays {replays}; blocks recomputed under their own generators {blocks}) "
+        f"bit-equal to the eager step from the same state (every trained leaf, Adam moment, accumulator and "
+        f"counter; losses {', '.join(f'{x:.6f}' for x in losses)}); update count, micro-step, skipped {counters}")
+    return dict(replays=replays, counters=counters, recomputed_blocks=blocks)
 
 
 def check_main_path(label: str, counts: dict, kernels) -> None:
@@ -2253,8 +2496,6 @@ STAGE1_STEP_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "la
 
 
 def phase_stage1(model) -> dict:
-    from pgica_tpu_torch.ops import _kernels
-
     model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
     # training (a later request would recast and capture them again)
     torch.cuda.empty_cache()
@@ -2262,17 +2503,23 @@ def phase_stage1(model) -> dict:
     rng = np.random.default_rng(0)
     batches = {name: on_card(b, name) for name, b in (("full-pad", stage1_batch(rng, 128, 128)),
                                                       ("bucketed", stage1_batch(rng, 128, 128, (8, 28))))}
-    results = {}
-    _kernels.reset_launch_counts()  # ---- the main path starts here
-    for name, batch in batches.items():
-        state, results[name] = timed_steps(lambda st: step(st, batch, 0), state, STAGE1_STEP_LAUNCHES,
-                                           f"stage 1 {name}", *batch["caption_ids"].shape)
-    main_counts = _kernels.launch_counts()  # ---- and ends here
-    check_main_path("stage-1 (2 x (2 + 1 + 15) steps)", main_counts, STAGE1_STEP_LAUNCHES)
-    for name, batch in batches.items():
-        results[name]["profile"] = profiled(lambda: float(step(state, batch, 0)[1]["loss"]), f"stage-1 step {name}",
-                                            results[name]["ms_per_step"])
-    return dict(main_counts=main_counts, shapes=results)
+
+    def call(fn, st, b):
+        return fn(st, b, 0)
+
+    runs = {name: [b] * GRAPH_CHECK_STEPS for name, b in batches.items()}
+    graphed, results, main_counts, start = graphed_path(step, state, runs, call, STAGE1_STEP_LAUNCHES, "stage 1")
+    check_main_path("stage-1, graphed (2 x (3 + 10) steps)", main_counts, STAGE1_STEP_LAUNCHES)
+    nan = skip_checks(graphed, state, batches["bucketed"], call, "stage 1 bucketed")
+    graphed.close()
+    eager_reference(step, state, runs, call, STAGE1_STEP_LAUNCHES, "stage 1", start, results, profile=True)
+    del state, step, graphed, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    accumulation = accumulation_check(model.module, batches["bucketed"])
+    trainer_route = accumulation_check(model.module, batches["bucketed"], trainer_route=True)
+    return dict(main_counts=main_counts, shapes=results, nan=nan, accumulation=accumulation,
+                trainer_route=trainer_route)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2294,25 +2541,26 @@ def check_dpo(label: str, r: dict) -> None:
 
 def phase_stage2(model) -> dict:
     from pgica_tpu_torch.models.model import frozen_copy
-    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.training.train_step import make_stage2_train_step
 
     torch.cuda.empty_cache()
     ref = frozen_copy(model.module, torch.bfloat16)  # the trainer's default: the policy at stage-2 start, bf16
-    state, step, _, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=10, total=1000)  # bench.py's optimizer
+    state, _, opt, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=10, total=1000)  # bench.py's optimizer
+    step = make_stage2_train_step(model.module, opt, beta=0.1)
     rng = np.random.default_rng(0)
     batches = {name: on_card(b, name) for name, b in (("full-pad", stage2_batch(rng, 32, 128)),
                                                       ("bucketed", stage2_batch(rng, 32, 128, (8, 28))))}
-    results = {}
-    _kernels.reset_launch_counts()  # ---- the main path starts here
-    for name, batch in batches.items():
-        state, results[name] = timed_steps(lambda st: step(st, ref, batch), state, STAGE2_STEP_LAUNCHES,
-                                           f"stage 2 {name}", *batch["preferred_ids"].shape)
-        check_dpo(f"stage 2 {name}", results[name])
-    main_counts = _kernels.launch_counts()  # ---- and ends here
-    check_main_path("stage-2 (2 x (2 + 1 + 15) steps)", main_counts, STAGE2_STEP_LAUNCHES)
-    for name, batch in batches.items():
-        results[name]["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), f"stage-2 step {name}",
-                                            results[name]["ms_per_step"])
+
+    def call(fn, st, b):
+        return fn(st, ref, b, 0)
+
+    runs = {name: [b] * GRAPH_CHECK_STEPS for name, b in batches.items()}
+    graphed, results, main_counts, start = graphed_path(step, state, runs, call, STAGE2_STEP_LAUNCHES, "stage 2")
+    for name, r in results.items():
+        check_dpo(f"stage 2 {name}", r)
+    check_main_path("stage-2, graphed (2 x (3 + 10) steps)", main_counts, STAGE2_STEP_LAUNCHES)
+    graphed.close()
+    eager_reference(step, state, runs, call, STAGE2_STEP_LAUNCHES, "stage 2", start, results, profile=True)
     return dict(main_counts=main_counts, shapes=results)
 
 
@@ -2371,6 +2619,7 @@ FULL_WIDTH = {
 
 
 def phase_llama(tokenizer) -> dict:
+    from pgica_tpu_torch.training.train_step import make_stage2_train_step
     from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
     from pgica_tpu_torch.models.lm import init_kv_cache
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
@@ -2457,26 +2706,30 @@ def phase_llama(tokenizer) -> dict:
     rng = np.random.default_rng(1)
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=500, total=1000)
     batch = on_card(stage1_batch(rng, 4, 512, image=size, vocab=LLAMA_VOCAB), "Llama stage-1")
-    _kernels.reset_launch_counts()  # ---- the stage-1 path starts here
-    state, stage1 = timed_steps(lambda st: step(st, batch, 0), state, LLAMA_STAGE1_LAUNCHES, "Llama stage 1", 4, 512)
-    stage1_counts = _kernels.launch_counts()  # ---- and ends here
-    check_main_path("Llama stage-1 (2 + 1 + 15 steps)", stage1_counts, LLAMA_STAGE1_LAUNCHES)
-    stage1["profile"] = profiled(lambda: float(step(state, batch, 0)[1]["loss"]), "Llama stage-1 step",
-                                 stage1["ms_per_step"])
-    del state, step
+    runs, call = {"4 x 512": [batch] * GRAPH_CHECK_STEPS}, (lambda fn, st, b: fn(st, b, 0))
+    graphed, results, stage1_counts, start = graphed_path(step, state, runs, call, LLAMA_STAGE1_LAUNCHES,
+                                                          "Llama stage 1")
+    check_main_path("Llama stage-1, graphed (3 + 10 steps)", stage1_counts, LLAMA_STAGE1_LAUNCHES)
+    graphed.close()
+    eager_reference(step, state, runs, call, LLAMA_STAGE1_LAUNCHES, "Llama stage 1", start, results)
+    stage1 = results["4 x 512"]
+    del state, step, graphed, start
     gc.collect()
     torch.cuda.empty_cache()
 
     ref = frozen_copy(model.module, torch.bfloat16)  # the trainer's reference: the policy at stage-2 start, bf16
-    state, step, _, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=500, total=1000, frozen="text_encoder")
+    state, _, opt, _ = stage2_trainer(model.module, ref, lr=1e-5, warmup=500, total=1000, frozen="text_encoder")
+    step = make_stage2_train_step(model.module, opt, beta=0.1)
     batch = on_card(stage2_batch(rng, 2, 512, image=size, vocab=LLAMA_VOCAB), "Llama stage-2")
-    _kernels.reset_launch_counts()  # ---- the stage-2 path starts here
-    state, stage2 = timed_steps(lambda st: step(st, ref, batch), state, LLAMA_STAGE2_LAUNCHES, "Llama stage 2", 2, 512)
-    stage2_counts = _kernels.launch_counts()  # ---- and ends here
+    runs, call = {"2 pairs x 512": [batch] * GRAPH_CHECK_STEPS}, (lambda fn, st, b: fn(st, ref, b, 0))
+    graphed, results, stage2_counts, start = graphed_path(step, state, runs, call, LLAMA_STAGE2_LAUNCHES,
+                                                          "Llama stage 2")
+    stage2 = results["2 pairs x 512"]
     check_dpo("Llama stage 2", stage2)
-    check_main_path("Llama stage-2 (2 + 1 + 15 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
-    stage2["profile"] = profiled(lambda: float(step(state, ref, batch)[1]["loss"]), "Llama stage-2 step",
-                                 stage2["ms_per_step"])
+    check_main_path("Llama stage-2, graphed (3 + 10 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
+    graphed.close()
+    eager_reference(step, state, runs, call, LLAMA_STAGE2_LAUNCHES, "Llama stage 2", start, results)
+    del start
     return dict(served=served, serving_profile=serving_profile, beam_checks=beam_checks, engine=engine, stage1=stage1,
                 stage2=stage2, quant=quant, counts={"llama_serving": serving_counts, "llama_engine": engine_counts,
                                      "llama_stage1": stage1_counts, "llama_stage2": stage2_counts,
@@ -2573,18 +2826,43 @@ def phase9_config() -> Path:
     return path
 
 
+def graph_report(trainer, label: str, replayed: bool = True) -> dict:
+    """Hold a CLI run's graphed train steps (``trainer.graphs``) to the trainer's rule: an eager step only at
+    each key's first sighting, then replays (at least one a stage where ``replayed``); log each stage's keys,
+    replays, capture seconds and pool."""
+    out = {}
+    for stage, g in sorted(trainer.graphs.items()):
+        if g["eager_steps"] != g["keys"] or (replayed and g["replays"] == 0):
+            raise AssertionError(f"{label} stage {stage}: {g['keys']} graph keys, {g['eager_steps']} eager steps, "
+                                 f"{g['replays']} replays")
+        log(f"  {label} stage {stage}: {g['keys']} graphs (one eager step each, at the key's first sighting), "
+            f"{g['replays']} replays; captures " + ", ".join(f"{x:.3f}" for x in g["capture_s"])
+            + f" s; pool {g['pool_bytes'] / 2**20:.1f} MiB")
+        out[stage] = {k: g[k] for k in ("keys", "eager_steps", "replays", "capture_s", "pool_bytes")}
+    if not out:
+        raise AssertionError(f"{label}: the trainer took no graphed step")
+    return out
+
+
+def cli_executed(host: dict, trainer) -> dict:
+    """A CLI run's launches that ran on the card (:func:`executed_launches` over the trainer's graphs)."""
+    return executed_launches(host, [pair for g in trainer.graphs.values()
+                                    for pair in zip(g["kernels"], g["replays_by_key"])])
+
+
 def show_stage(stage: str, record: dict, profile: dict | None, first_step: int = 0) -> dict:
-    """A stage's train-step walls (each ends in a host sync), the ms per update of an accumulation of 4
-    (micro-steps 4-7, ending in an update), the device busy share over the profiled window (kernel
-    time over the window's step walls) and the peak."""
+    """A stage's train-step walls (the device time between CUDA events around each step: the graphed steps
+    end in no host sync), the ms per update of an accumulation of 4 (micro-steps 4-7, ending in an
+    update), the device busy share over the profiled window (kernel time over the window's wall,
+    synchronized at both ends, its autosave left out) and the peak."""
     steps = record["step_seconds"]
     r = dict(step_ms=[x * 1e3 for x in steps], first_ms=steps[0] * 1e3,
              ms_per_micro_step=statistics.median(steps[1:]) * 1e3 if len(steps) > 1 else steps[0] * 1e3,
              peak_mem_gib=record["peak_mem_gib"], train_loss=record["train_loss"], val_loss=record["val_loss"])
     if len(steps) >= 8:
         r["ms_per_update"] = sum(steps[4:8]) * 1e3
-    if profile and profile["step_ms"] > 0 and profile["device_ms"] > 0:
-        r.update(busy=profile["device_ms"] / profile["step_ms"], profile=profile)
+    if profile and profile.get("busy"):
+        r.update(busy=profile["busy"], profile=profile)
         r["host_top"] = [dict(name=n, ms=ms, calls=c) for n, ms, c in profile["host_top"]]
     log(f"  {stage}: micro-steps {first_step}.. ms " + ", ".join(f"{x:.1f}" for x in r["step_ms"])
         + f"; median after the first {r['ms_per_micro_step']:.1f} ms"
@@ -2592,14 +2870,13 @@ def show_stage(stage: str, record: dict, profile: dict | None, first_step: int =
         + (f"; peak {r['peak_mem_gib']:.2f} GiB" if r["peak_mem_gib"] is not None else "")
         + f"; train loss {r['train_loss']:.4f}, val loss {r['val_loss']:.4f}" + (
             f"; profiled micro-steps 2-7 (host and CUDA activity): kernel time {profile['device_ms']:.1f} ms "
-            f"({profile['device_ms'] / profile['steps']:.1f} a micro-step) over {profile['launches']} launches in "
-            f"steps of {profile['step_ms']:.1f} ms (the host tracing's cost included) -> device busy "
-            f"{100 * r['busy']:.1f}%; memory copies {profile['memcpy_ms']:.1f} ms (checkpoints); window "
-            f"{profile['wall_ms']:.1f} ms with data and checkpoints" if "busy" in r else ""))
+            f"({profile['device_ms'] / profile['steps']:.1f} a micro-step) over {profile['launches']} launches in a "
+            f"window of {profile['wall_ms']:.1f} ms (data included, {profile['autosave_ms']:.1f} ms of autosave left "
+            f"out; the host tracing's cost included) -> device busy {100 * r['busy']:.1f}%; the steps' walls "
+            f"{profile['step_ms']:.1f} ms; memory copies {profile['memcpy_ms']:.1f} ms" if "busy" in r else ""))
     if "host_top" in r:
         log(f"    host, inside the profiled steps: operators, autograd nodes and CUDA runtime calls "
-            f"{profile['host_ms']:.1f} ms of self time, Python between them {profile['step_ms'] - profile['host_ms']:.1f} "
-            f"ms; largest: " + "; ".join(f"{h['name']} {h['ms']:.1f} ms / {h['calls']}" for h in r["host_top"]))
+            f"{profile['host_ms']:.1f} ms of self time; largest: " + "; ".join(f"{h['name']} {h['ms']:.1f} ms / {h['calls']}" for h in r["host_top"]))
     return r
 
 
@@ -2671,8 +2948,9 @@ def phase_train_cli() -> dict:
             trainer = train_cli.run(["--config", str(cfg_path), "--max-steps", str(PHASE9_STEPS),
                                      "--profile-dir", str(PHASE9_DIR / "profile")])
             run_s = time.perf_counter() - t
-            counts = _kernels.launch_counts()  # ---- and ends here
+            counts = cli_executed(_kernels.launch_counts(), trainer)  # ---- and ends here
             check_main_path("training entry point (stages 1 and 2)", counts, TRAIN_KERNELS)
+            graphs = graph_report(trainer, "phase 9")
             log(f"  train_cli.run: stage 1, stage 2 (bf16 reference), validation, checkpoints and the best model's "
                 f"reload in {run_s:.1f} s; global step {trainer.global_step}")
             log("  " + phase9_data_path(trainer))
@@ -2695,6 +2973,7 @@ def phase_train_cli() -> dict:
             resume_s = time.perf_counter() - t
             stages["stage1_resumed"] = show_stage("stage 1 resumed (no profiler, no autosave)",
                                                   resumed.history["stage1"][0], None, first_step=PHASE9_SAVE_STEPS)
+            graph_report(resumed, "phase 9 resumed", replayed=False)
             del resumed
             verdict = same_checkpoint(PHASE9_DIR / "run" / "checkpoints" / "checkpoint_stage1_epoch0",
                                       PHASE9_DIR / "resumed" / "checkpoints" / "checkpoint_stage1_epoch0")
@@ -2750,7 +3029,7 @@ def phase_train_cli() -> dict:
             f"layers a tower): stage 1 {grain['stages']['stage1']['ms_per_micro_step']:.1f}, stage 2 "
             f"{grain['stages']['stage2']['ms_per_micro_step']:.1f} [{card()}]")
         return dict(counts=counts, stages=stages, saves=saves, run_s=run_s, resume_s=resume_s, serve_ms=serve_ms,
-                    clis=clis, lora=lora, grain=grain)
+                    clis=clis, lora=lora, grain=grain, graphs=graphs)
     finally:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
 
@@ -3865,7 +4144,8 @@ def phase_lora_cli(captions: Path, preferences: Path) -> dict:
             t = time.perf_counter()
             trainer = train_cli.run(["--config", str(path), "--max-steps", str(LORA_STEPS)])
             run_s = time.perf_counter() - t
-            counts = _kernels.launch_counts()  # ---- and ends here
+            counts = cli_executed(_kernels.launch_counts(), trainer)  # ---- and ends here
+            graph_report(trainer, "12c (LoRA)")
             check_main_path("LoRA training entry point (stages 1 and 2)", counts,
                             tuple(k for k in TRAIN_KERNELS if k != "fused_ce_bwd_dw"))
             if counts["fused_ce_bwd_dw"] != 0:
@@ -4053,8 +4333,9 @@ def phase_grain_bpe_cli() -> dict:
         with cut_presets(PHASE13_LAYERS):
             trainer = train_cli.run(["--config", str(path), "--max-steps", str(GRAIN_STEPS)])
         run_s = time.perf_counter() - t
-        counts = _kernels.launch_counts()  # ---- and ends here
+        counts = cli_executed(_kernels.launch_counts(), trainer)  # ---- and ends here
         check_main_path("training entry point with grain workers and the dataset BPE", counts, TRAIN_KERNELS)
+        graph_report(trainer, "13a", replayed=False)
         layers = PHASE13_LAYERS
         want = {"flash_attn_bwd_dq": 2 * layers * GRAIN_STEPS, "flash_attn_bwd_dkv": 2 * layers * GRAIN_STEPS,
                 "fused_ce_bwd_dh": GRAIN_STEPS, "fused_ce_bwd_dw": GRAIN_STEPS}
@@ -4949,12 +5230,12 @@ def phase_parallel() -> dict:
                     f"on disk; {rr['writes'] / 2**30:.2f} GiB through write calls (gloo's sockets included)")
             first = res[0][i]
             prof = first["profile"]
-            busy = prof["device_ms"] / prof["step_ms"] if prof and prof.get("step_ms") else None
+            busy = prof.get("busy") if prof else None
             if not first.get("checkpoint_equal"):
                 raise AssertionError(f"14b {zero}: rank 0's checkpoint differs from the gathered parameters")
             log(f"  14b {zero}: rank 0's busy share over its profiled step "
                 + (f"{100 * busy:.1f}% (kernel time {prof['device_ms']:.1f} ms, memory copies {prof['memcpy_ms']:.1f} "
-                   f"ms, step {prof['step_ms']:.1f} ms; host top {prof['host_top'][:3]})" if busy else "not measured")
+                   f"ms, window {prof['wall_ms']:.1f} ms; host top {prof['host_top'][:3]})" if busy else "not measured")
                 + f"; rank 0's autosave holds the gathered parameters bit for bit and the ZeRO state "
                 f"{first['checkpoint_zero']} [{card()}; two ranks share this card]")
             out["cli"][zero] = dict(ranks=[{k: rank_runs[i][k] for k in ("record", "run_s", "writes", "stage")}
@@ -5265,13 +5546,13 @@ def show_cli_runs(label: str, name: str, axis: str, kernels, runs: list, out: di
         for stage, rec in rr["records"].items():
             st = rec["step_seconds"]
             prof = rr["profiles"].get(int(stage[-1])) if r == 0 else None
-            busy = prof["device_ms"] / prof["step_ms"] if prof and prof.get("step_ms") else None
+            busy = prof.get("busy") if prof else None
             log(f"  {label} {name} rank {r} {stage}: steps ms " + ", ".join(f"{x * 1e3:.1f}" for x in st)
                 + f"; median after the first {statistics.median(st[1:]) * 1e3:.1f} ms; peak "
                 f"{rec['peak_mem_gib']:.2f} GiB; train loss {rec['train_loss']:.4f}, val loss "
                 f"{rec['val_loss']:.4f}" + (f"; rank 0's busy share over its profiled step {100 * busy:.1f}% "
                                             f"(kernel time {prof['device_ms']:.1f} ms, memory copies "
-                                            f"{prof['memcpy_ms']:.1f} ms, step {prof['step_ms']:.1f} ms)"
+                                            f"{prof['memcpy_ms']:.1f} ms, window {prof['wall_ms']:.1f} ms)"
                                             if busy is not None else ""))
             out["cli"].setdefault(name, {}).setdefault(stage, []).append(
                 dict(step_seconds=st, peak_mem_gib=rec["peak_mem_gib"], busy=busy))

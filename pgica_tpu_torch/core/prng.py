@@ -44,10 +44,15 @@ def purpose_seed(seed: int, purpose: str) -> int:
     return int.from_bytes(hashlib.sha1(f"{seed}/{purpose}".encode()).digest()[:4], "little")
 
 
+def stream_seed(seed: int, step: int, offset: int = 0) -> int:
+    """The seed of step ``step`` of the stream of ``seed`` (``offset`` parts streams)."""
+    return seed * STEP_STRIDE + int(step) + offset
+
+
 def stream_generator(seed: int, step: int, device: Union[str, torch.device] = "cpu",
                      offset: int = 0) -> torch.Generator:
-    """A generator on ``device`` for step ``step`` of the stream of ``seed`` (``offset`` parts streams)."""
-    return torch.Generator(device=device).manual_seed(seed * STEP_STRIDE + int(step) + offset)
+    """A generator on ``device`` seeded with :func:`stream_seed` (a captured train step re-seeds its own)."""
+    return torch.Generator(device=device).manual_seed(stream_seed(seed, step, offset))
 
 
 def step_generator(seed: int, purpose: str, step: int, device: Union[str, torch.device] = "cpu") -> torch.Generator:

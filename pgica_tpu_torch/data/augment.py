@@ -45,14 +45,13 @@ ROTATION_DEGREES = 5.0
 
 
 @functools.lru_cache(maxsize=None)
-def _stats(device: torch.device):
-    """ImageNet's (mean, std) on ``device``, made once a device: the copy from the host that makes
-    them would be refused inside a CUDA-graph capture (the engine's admission graphs), and a
-    caller's eager run before the capture fills this cache. Normal tensors, never written."""
+def _constants(device: torch.device):
+    """ImageNet's (mean, std) and the BT.601 luma weights on ``device``, made once a device: the copy
+    from the host that makes them would be refused inside a CUDA-graph capture (the engine's admission
+    graphs, the captured train steps), and a caller's eager run before the capture fills this cache.
+    Normal tensors, never written."""
     with torch.inference_mode(False):
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
-    return mean, std
+        return tuple(torch.tensor(v, dtype=torch.float32, device=device) for v in (IMAGENET_MEAN, IMAGENET_STD, LUMA))
 
 
 def prepare_images(images: torch.Tensor) -> torch.Tensor:
@@ -63,7 +62,7 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     """
     if images.is_floating_point():
         return images
-    mean, std = _stats(images.device)
+    mean, std = _constants(images.device)[:2]
     return (images.to(torch.float32) / 255.0 - mean) / std
 
 
@@ -219,7 +218,7 @@ def _color_jitter(img01: torch.Tensor, jitter: torch.Tensor) -> torch.Tensor:
     documented deviation from torchvision's random order per image).
     """
     fb, fc, fs, shift = (jitter[:, i].reshape(-1, 1, 1, 1) for i in range(4))
-    luma = torch.tensor(LUMA, dtype=img01.dtype, device=img01.device)
+    luma = _constants(img01.device)[2].to(img01.dtype)
     img01 = torch.clamp(img01 * fb, 0.0, 1.0)
     gray_mean = (img01 @ luma).mean(dim=(1, 2)).reshape(-1, 1, 1, 1)
     img01 = torch.clamp(img01 * fc + gray_mean * (1 - fc), 0.0, 1.0)
@@ -237,7 +236,7 @@ def _augment_images(images: torch.Tensor, p: AugmentParams) -> torch.Tensor:
     cols = _resample_index(w, p.col_scale, p.col_offset, p.col_flip)
     batch = torch.arange(n, device=images.device)[:, None, None]
     img = images[batch, rows[:, :, None], cols[:, None, :]]
-    mean, std = _stats(images.device)
+    mean, std = _constants(images.device)[:2]
     img01 = torch.clamp(img * std + mean, 0.0, 1.0)
     return (_color_jitter(img01, p.jitter) - mean) / std
 
@@ -256,7 +255,7 @@ def _rotate_batch(images: torch.Tensor, theta: torch.Tensor, positive: torch.Ten
     sign = positive[:, None, None, None]
     rot = _rot3_batch(torch.where(sign, stacked, stacked.flip(2)), theta)
     out = torch.where(sign, rot, rot.flip(2))
-    mean, std = _stats(images.device)
+    mean, std = _constants(images.device)[:2]
     return torch.where(out[..., -1:] > 0.5, out[..., :-1], (0.0 - mean) / std)
 
 
@@ -265,7 +264,10 @@ def augment_batch(images: torch.Tensor, generator: Optional[torch.Generator] = N
     """Augment a normalized NHWC float32 batch on its device; the identity when not ``enabled``.
 
     The parameters are ``params`` if given, else drawn from ``generator``
-    (a CPU generator) by :func:`sample_augment_params`.
+    (a CPU generator) by :func:`sample_augment_params`. Given ``params`` on
+    the images' device, every operation is a kernel there: no host copy, no
+    sync, so a CUDA graph can hold the call (training/graphs.py draws on the
+    host and copies the draws into the graph's static ``params``).
     """
     if not enabled:
         return images

@@ -390,7 +390,7 @@ class ContinuousDecodeEngine:
             generator = self._state.generator
             before = None if generator is None else generator.get_state()
             graph = CapturedSteps(lambda: self._admit_fn(self._state, images, ids), self.device, self._stream,
-                                  generator)
+                                  (generator,))
             if before is not None:
                 generator.set_state(before)
             self.admissions[bucket] = (images, ids, graph)
@@ -403,7 +403,7 @@ class ContinuousDecodeEngine:
             return self._chunk(self._state)
         if self.graph is None:
             self.graph = CapturedSteps(lambda: self._chunk(self._state), self.device, self._stream,
-                                       self._state.generator)
+                                       (self._state.generator,))
         self.graph.replay()
         return self.graph.out
 

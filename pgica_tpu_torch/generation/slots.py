@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -243,37 +243,41 @@ def decode_steps(module, state: SlotState, steps: int, pick: Sampler) -> torch.T
 class CapturedSteps:
     """``fn`` (a run of steps on tensors that never move) captured as one CUDA graph on ``stream``.
 
-    ``fn`` first runs once eagerly on that stream, so that the kernel
-    libraries build and load and cuBLAS makes its handle and workspace
-    outside the capture; the capture then records its launches, the port's
-    kernels included (their wrappers launch on the current stream, the
-    capture stream). A failed capture raises: there is no eager fall-back.
-    ``generator``, the one ``fn`` draws from, is registered with the graph,
-    so that every replay takes the next draws. ``out`` is ``fn``'s return
-    value (tensors in the graph's memory pool: every replay overwrites
-    them); ``kernels`` counts the port's kernels the graph holds (their
-    wrappers' launches under capture; a replay adds nothing to those
+    ``warmup`` (by default ``fn``) first runs once eagerly on that stream,
+    so that the kernel libraries build and load and cuBLAS makes its handle
+    and workspace outside the capture; ``first`` is what it returned. The
+    capture then records ``fn``'s launches, the port's kernels included
+    (their wrappers launch on the current stream, the capture stream). A
+    failed capture raises: there is no eager fall-back. ``generators``, the
+    ones ``fn`` draws from (None entries skipped), are registered with the
+    graph after the warm-up (an iterable that the warm-up extends counts its
+    new ones), so that every replay takes the next draws. ``out`` is
+    ``fn``'s return value (tensors in the graph's memory pool: every replay
+    overwrites them); ``kernels`` counts the port's kernels the graph holds
+    (their wrappers' launches under capture; a replay adds nothing to those
     counts), and ``capture_s`` and ``pool_bytes`` time and size the
     capture. ``pool`` (another graph's ``graph.pool()``) shares that graph's
     memory pool: safe for graphs that replay one after another on one
     stream. Call under the same grad mode as the replays' callers
-    (inference mode).
+    (inference mode when serving).
     """
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, stream: torch.cuda.Stream,
-                 generator: Optional[torch.Generator] = None, pool: Optional[Tuple[int, int]] = None):
+                 generators: Iterable[Optional[torch.Generator]] = (), pool: Optional[Tuple[int, int]] = None,
+                 warmup: Optional[Callable[[], Any]] = None):
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs capture CUDA work, got device {device}")
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            fn()
+            self.first = (warmup or fn)()
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
+        for generator in generators:
+            if generator is not None:
+                self.graph.register_generator_state(generator)
         before = _kernels.launch_counts()
         collecting = gc.isenabled()
         gc.disable()  # a collection inside the capture could free a dead graph's memory: a call that voids it
@@ -327,7 +331,7 @@ class DecodeGraphs:
                                     self.device, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
                                     generator=generator)
             step = CapturedSteps(lambda: decode_steps(self.module, state, 1, pick), self.device, self.stream,
-                                 generator)
+                                 (generator,))
             self.captured[key] = (state, step)
         state, step = self.captured[key]
         state.reset()

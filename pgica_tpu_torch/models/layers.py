@@ -44,6 +44,8 @@ models/convert.py maps the JAX tree onto them.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
@@ -375,6 +377,68 @@ class MLP(nn.Module):
         return self.dropout(out(h) if tp is None else row_parallel(out, h, tp), generator)
 
 
+class ReplayStreams:
+    """The recompute generators of the checkpointed blocks of a train step captured as a CUDA graph.
+
+    Under capture a generator's state can be neither read nor set (its
+    draws take their seed and offset from the device), so
+    ``_ReplayDropout`` cannot rewind the step's generator for a recompute.
+    Instead, the eager run of the step that precedes its capture records,
+    under :meth:`recording`, where the step's generator stood as each
+    checkpointed block started; under :meth:`capturing` the blocks, in the
+    same order, each take a generator of their own (``generators``, which
+    the graph registers) for the recompute; and before every replay
+    :meth:`seed` puts each one at the step's seed and its block's offset,
+    so that it draws the block's masks again, bit for bit.
+    """
+
+    def __init__(self):
+        self.offsets: List[int] = []
+        self.generators: List[torch.Generator] = []
+        self._mode: Optional[str] = None
+        self._taken = 0
+
+    @contextlib.contextmanager
+    def _active(self, mode: str):
+        self._mode, self._taken = mode, 0
+        token = _REPLAY_STREAMS.set(self)
+        try:
+            yield self
+        finally:
+            _REPLAY_STREAMS.reset(token)
+            self._mode = None
+
+    def recording(self):
+        """Record the offsets of one eager step (and make one generator for each block that drew)."""
+        self.offsets = []
+        return self._active("record")
+
+    def capturing(self):
+        """Hand the recorded blocks their generators, in order, while the step is captured."""
+        return self._active("capture")
+
+    def _enter_block(self, generator: torch.Generator) -> Optional[torch.Generator]:
+        if self._mode == "record":
+            self.offsets.append(generator.get_offset())
+            if len(self.generators) < len(self.offsets):
+                self.generators.append(torch.Generator(generator.device))
+            return None
+        if self._taken >= len(self.offsets):
+            raise RuntimeError("the captured step checkpointed more blocks than its recorded eager run")
+        self._taken += 1
+        return self.generators[self._taken - 1]
+
+    def seed(self, seed: int) -> None:
+        """Before a replay: each block's generator at ``seed`` (the step generator's) and its block's offset."""
+        for generator, offset in zip(self.generators, self.offsets):
+            generator.manual_seed(seed)
+            generator.set_offset(offset)
+
+
+_REPLAY_STREAMS: contextvars.ContextVar[Optional[ReplayStreams]] = contextvars.ContextVar("replay_streams",
+                                                                                         default=None)
+
+
 class _ReplayDropout:
     """Calls a block, replaying its dropout draws when ``torch.utils.checkpoint`` recomputes it.
 
@@ -382,20 +446,26 @@ class _ReplayDropout:
     explicit generator the blocks draw their dropout masks from; a recompute
     would draw new masks and give wrong gradients. So the generator's state
     is taken before the first call, set back for each recompute, and the
-    state that the recompute found is restored after it. The JAX package's
+    state that the recompute found is restored after it; while a train step
+    is captured as a CUDA graph the recompute draws from the block's own
+    generator of :class:`ReplayStreams` instead. The JAX package's
     ``nn.remat`` replays the same key, so neither package's gradients
     depend on the flag.
     """
 
     def __init__(self, generator: Optional[torch.Generator]):
         self.generator = generator
-        self.state = None if generator is None else generator.get_state()
+        streams = _REPLAY_STREAMS.get()
+        self.replay = None if generator is None or streams is None else streams._enter_block(generator)
+        self.state = None if generator is None or self.replay is not None else generator.get_state()
         self.calls = 0
 
     def __call__(self, block: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
         self.calls += 1
         if self.generator is None or self.calls == 1:
             return block(x, *args, self.generator)
+        if self.replay is not None:
+            return block(x, *args, self.replay)
         resume = self.generator.get_state()
         self.generator.set_state(self.state)
         try:

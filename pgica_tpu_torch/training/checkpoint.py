@@ -56,13 +56,14 @@ def opt_state_dict(state: OptState, whole: Optional[Callable[[Named], Named]] = 
     def named(tensors):
         return _host(whole(dict(zip(state.names, tensors))))
 
+    mini_step = state.mini_step
     return {
         "names": list(state.names),
-        "count": int(state.count),
-        "mini_step": int(state.mini_step),
+        "count": state.count,
+        "mini_step": mini_step,
         "mu": named(state.mu),
         "nu": named(state.nu),
-        "acc": None if state.acc is None else named(state.acc),
+        "acc": None if state.acc is None or mini_step == 0 else named(state.acc),  # zero at mini-step 0
     }
 
 
@@ -82,8 +83,14 @@ def load_opt_state(state: OptState, saved: Mapping[str, Any], local: Optional[Ca
             t.copy_(saved[key][name])
     state.count = int(saved["count"])
     state.mini_step = int(saved["mini_step"])
-    state.acc = None if saved["acc"] is None else [
-        saved["acc"][n].to(p.device, copy=True) for n, p in zip(state.names, state.params)]
+    if saved["acc"] is None:
+        for a in state.acc or ():
+            a.zero_()
+    elif state.acc is None:
+        state.acc = [saved["acc"][n].to(p.device, copy=True) for n, p in zip(state.names, state.params)]
+    else:  # in place: a captured train step holds the accumulator by address
+        for name, a in zip(state.names, state.acc):
+            a.copy_(saved["acc"][name])
 
 
 def effective_params(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:

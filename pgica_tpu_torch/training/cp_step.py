@@ -45,9 +45,9 @@ from pgica_tpu_torch.training.optim import Optimizer
 from pgica_tpu_torch.training.train_step import (
     PAIR_KEYS,
     TrainState,
-    _apply_update,
     _augmented,
     _on_device,
+    _update,
     decoder_embedding,
     decoder_vocab,
     reduce_metrics,
@@ -180,8 +180,9 @@ def make_stage2_cp_train_step(
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
         with mesh:  # the shards' terms summed over the sequence, averaged over the batch ranks
-            state, grad_norm = _apply_update(state, grads, optimizer, metrics["loss"], mesh,
-                                             BATCH_AXES + (axis_name,))
+            grad_norm = _update(state, grads, optimizer, metrics["loss"], optimizer.due(state.opt_state), mesh,
+                                BATCH_AXES + (axis_name,))
+        state.step += 1
         metrics["grad_norm"] = grad_norm
         metrics["skipped"] = state.skipped
         return state, metrics

@@ -26,8 +26,17 @@ reference sees the same augmented images as the policy.
 Every step keeps the JAX package's NaN-safe update: the gradient norm is
 taken before clipping; a non-finite loss or gradient norm applies no update,
 keeps the old optimizer and accumulator state, and adds one to ``skipped``.
-The JAX step does that on the device; here one host sync per step reads the
-loss and the norm (the loss is read anyway).
+As in the JAX step, that happens on the device (``where(ok, new, old)``,
+training/optim.py), so a step ends in no host sync; ``skipped`` is a device
+counter that :attr:`TrainState.skipped` reads.
+
+A step is a :class:`TrainStep`, split where a CUDA graph needs it: a host
+part (the batch to the device, the augmentation's draws, the generators'
+seeds, and whether this micro-step applies the accumulated update) and a
+body that does everything else on the device. Called, it runs both: the
+eager step, on any device and mesh. Without a mesh, training/graphs.py
+captures the body as one CUDA graph per batch shape (the trainer's route on
+the card); the eager step is the plain version the graphs are held to.
 
 LoRA (JAX train_step.py:39-60): with ``lora=(alpha, rank[, dropout])`` the
 stage-1 and stage-2 steps train the state's adapter factors only
@@ -78,15 +87,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from pgica_tpu_torch.core.prng import stream_generator
-from pgica_tpu_torch.data.augment import augment_batch, prepare_images
+from pgica_tpu_torch.core.prng import stream_generator, stream_seed
+from pgica_tpu_torch.data.augment import AugmentParams, augment_batch, prepare_images, sample_augment_params
 from pgica_tpu_torch.models.lora import Adapters, merged_targets, swapped
 from pgica_tpu_torch.ops.losses import dpo_loss, ntxent_loss, sequence_logprobs_from_hidden
 from pgica_tpu_torch.parallel import collectives, fsdp
@@ -107,14 +115,26 @@ class TrainState:
     """The module (its float32 masters are the params), the optimizer state and the counters.
 
     Steps update the module's parameters (or, with ``lora``, the adapter
-    factors) and ``opt_state`` in place and return the same object.
+    factors) and ``opt_state`` in place and return the same object. ``step``
+    counts the calls on the host (it seeds the generators); ``skipped_t``,
+    the NaN-skipped updates, is an int32 tensor on the parameters' device.
     """
 
     step: int
     module: nn.Module
     opt_state: OptState
-    skipped: int = 0  # count of NaN-skipped updates
+    skipped_t: Optional[torch.Tensor] = None
     lora: Optional[Adapters] = None  # the trained factors in LoRA mode (the masters then stay frozen)
+
+    def __post_init__(self):
+        if self.skipped_t is None:
+            device = self.opt_state.params[0].device if self.opt_state.params else torch.device("cpu")
+            self.skipped_t = torch.zeros((), dtype=torch.int32, device=device)
+
+    @property
+    def skipped(self) -> int:
+        """The count of NaN-skipped updates (a host sync)."""
+        return int(self.skipped_t)
 
     @classmethod
     def create(cls, module: nn.Module, optimizer: Optimizer, lora: Optional[Adapters] = None) -> "TrainState":
@@ -164,11 +184,11 @@ def reduce_gradients(grads: List[torch.Tensor], state: TrainState, mesh: MeshCon
     return out
 
 
-def _apply_update(
-    state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor, mesh: Optional[MeshContext] = None,
-    axis: AxisName = BATCH_AXES,
-) -> Tuple[TrainState, torch.Tensor]:
-    """NaN-safe update: skip (no update, state kept) on a non-finite loss or gradient norm.
+def _update(state: TrainState, grads, optimizer: Optimizer, loss: torch.Tensor, due: bool,
+            mesh: Optional[MeshContext] = None, axis: AxisName = BATCH_AXES) -> torch.Tensor:
+    """NaN-safe update on the device: nothing changes on a non-finite loss or gradient norm, and ``skipped``
+    adds one; returns the gradient norm. ``due``: whether this micro-step applies the accumulated update
+    (:meth:`Optimizer.due`).
 
     On a mesh the gradients are first summed over ``axis`` and divided by
     the batch ranks (with the default axis, averaged over them;
@@ -179,13 +199,10 @@ def _apply_update(
         grads = reduce_gradients(grads, state, mesh, axis)
     norm_fn = tree_norm(state, mesh)
     grad_norm = norm_fn(grads)
-    norm = float(grad_norm)  # the step's one host sync (with the loss)
-    if math.isfinite(float(loss)) and math.isfinite(norm):
-        optimizer.update(grads, state.opt_state, norm, norm_fn)
-    else:
-        state.skipped += 1
-    state.step += 1
-    return state, grad_norm
+    ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+    optimizer.step(grads, state.opt_state, ok, grad_norm, due, norm_fn)
+    state.skipped_t.add_((~ok).to(torch.int32))
+    return grad_norm
 
 
 def _on_device(batch: Batch, device: torch.device, keys=CAPTION_KEYS) -> Dict[str, torch.Tensor]:
@@ -224,11 +241,6 @@ def augment_generator(seed: int, step: int, offset: int = 0) -> torch.Generator:
 
 
 LORA_STREAM = 2 << 40  # the adapter DropConnect's seeds (the JAX step's fold_in(rng, 7))
-
-
-def lora_generator(device: torch.device, seed: int, step: int, offset: int = 0) -> torch.Generator:
-    """The DropConnect generator of one LoRA train step: a stream apart from dropout and augmentation."""
-    return stream_generator(seed, step, device, offset=LORA_STREAM + offset)
 
 
 def _adapted(module: nn.Module, adapters: Optional[Adapters], lora: Optional[LoraSpec],
@@ -270,33 +282,81 @@ def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[MeshContext]
     return dict(zip(names, reduced.unbind()))
 
 
-def _grad_step(
-    state: TrainState,
-    optimizer: Optimizer,
-    seed: int,
-    loss_fn: Callable[[torch.Generator], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
-    lora: Optional[LoraSpec] = None,
-    mesh: Optional[MeshContext] = None,
-) -> Tuple[TrainState, Dict[str, object]]:
-    """Loss and gradients of the trained parameters (with ``lora``: the factors), then the NaN-safe update.
+LossFn = Callable[[nn.Module, Optional[nn.Module], Dict[str, torch.Tensor], Optional[torch.Generator]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
-    The merged LoRA weights stay in place through the backward, where
-    activation checkpointing recomputes the blocks. On a mesh the gradients
-    and the metrics are reduced over the batch ranks.
+
+class TrainStep:
+    """One stage's train step: ``step(state, batch, seed)`` (``step(state, ref, batch, seed)`` for a stage
+    that takes a reference) -> ``(state, metrics)``, eager.
+
+    :meth:`host_inputs` is the part that needs the host (the batch moved to
+    the device, the augmentation's draws from their CPU generator, the seeds
+    of the dropout and LoRA generators) and :meth:`body` the rest: the
+    forward, the gradients, the norm, the NaN skip, the accumulation and the
+    update, every operation on the device with no host sync, so that without
+    a mesh one CUDA graph can hold it (training/graphs.py). The merged LoRA
+    weights stay in place through the backward, where activation
+    checkpointing recomputes the blocks. On a mesh the gradients and the
+    metrics are reduced over the batch ranks.
     """
-    params = state.opt_state.params
-    device = params[0].device
-    offset = stream_offset(mesh)
-    generator = step_generator(device, seed, state.step, offset)
-    lora_gen = lora_generator(device, seed, state.step, offset) if lora is not None else None
-    with torch.enable_grad(), _bound(mesh), _adapted(state.module, state.lora, lora, lora_gen):
-        loss, metrics = loss_fn(generator)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
-    state, grad_norm = _apply_update(state, grads, optimizer, metrics["loss"], mesh)
-    metrics["grad_norm"] = grad_norm
-    metrics["skipped"] = state.skipped
-    return state, metrics
+
+    def __init__(self, optimizer: Optimizer, loss_fn: LossFn, keys: Tuple[str, ...], augment: bool,
+                 lora: Optional[LoraSpec], mesh: Optional[MeshContext], takes_ref: bool):
+        self.optimizer, self.loss_fn, self.keys = optimizer, loss_fn, keys
+        self.augment, self.lora, self.mesh, self.takes_ref = augment, lora, mesh, takes_ref
+
+    def split_args(self, args) -> Tuple[Optional[nn.Module], Batch, int]:
+        """(ref, batch, seed) of a call's arguments after the state."""
+        if self.takes_ref:
+            ref, batch, *rest = args
+        else:
+            ref, (batch, *rest) = None, args
+        return ref, batch, int(rest[0]) if rest else 0
+
+    def seeds(self, seed: int, step: int) -> Tuple[int, Optional[int]]:
+        """The step's dropout and LoRA DropConnect seeds (None: no LoRA)."""
+        offset = stream_offset(self.mesh)
+        lora = None if self.lora is None else stream_seed(seed, step, LORA_STREAM + offset)
+        return stream_seed(seed, step, offset), lora
+
+    def augment_draws(self, rows: int, seed: int, step: int) -> Optional[AugmentParams]:
+        """The augmentation's parameters for ``rows`` images, on the CPU (None without augmentation)."""
+        if not self.augment:
+            return None
+        return sample_augment_params(rows, augment_generator(seed, step, stream_offset(self.mesh)))
+
+    def host_inputs(self, state: TrainState, batch: Batch, seed: int):
+        """(batch on the device, augmentation draws there or None, dropout generator, LoRA generator or None)."""
+        device = state.opt_state.params[0].device
+        batch = _on_device(batch, device, self.keys)
+        draws = self.augment_draws(batch["image"].shape[0], seed, state.step)
+        dropout_seed, lora_seed = self.seeds(seed, state.step)
+        generator = torch.Generator(device).manual_seed(dropout_seed)
+        lora_gen = None if lora_seed is None else torch.Generator(device).manual_seed(lora_seed)
+        return batch, None if draws is None else draws.to(device), generator, lora_gen
+
+    def body(self, state: TrainState, ref: Optional[nn.Module], batch: Dict[str, torch.Tensor],
+             draws: Optional[AugmentParams], generator: Optional[torch.Generator],
+             lora_gen: Optional[torch.Generator], due: bool) -> Dict[str, torch.Tensor]:
+        """The step's device work on its inputs; the metrics as 0-dim tensors (``skipped`` the counter's value)."""
+        if draws is not None:
+            batch = dict(batch, image=augment_batch(prepare_images(batch["image"]), params=draws))
+        params = state.opt_state.params
+        with torch.enable_grad(), _bound(self.mesh), _adapted(state.module, state.lora, self.lora, lora_gen):
+            loss, metrics = self.loss_fn(state.module, ref, batch, generator)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.mesh)
+        metrics["grad_norm"] = _update(state, grads, self.optimizer, metrics["loss"], due, self.mesh)
+        metrics["skipped"] = state.skipped_t.clone()
+        return metrics
+
+    def __call__(self, state: TrainState, *args) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        ref, batch, seed = self.split_args(args)
+        batch, draws, generator, lora_gen = self.host_inputs(state, batch, seed)
+        metrics = self.body(state, ref, batch, draws, generator, lora_gen, self.optimizer.due(state.opt_state))
+        state.step += 1
+        return state, metrics
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -317,19 +377,15 @@ def stage0_loss_fn(
 
 def make_stage0_train_step(
     module: nn.Module, optimizer: Optimizer, augment: bool = False, mesh: Optional[MeshContext] = None,
-) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, object]]]:
+) -> TrainStep:
     """Returns ``step(state, batch, seed) -> (state, metrics)``: ``loss``, ``grad_norm``, ``skipped``.
 
     ``batch`` is a stage-1 batch (``image``, ``caption_ids``, ``caption_mask``);
     on a ``mesh``, this rank's rows of it.
     """
 
-    def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step,
-                           stream_offset(mesh))
-        return _grad_step(state, optimizer, seed, lambda gen: stage0_loss_fn(state.module, batch, gen), mesh=mesh)
-
-    return step
+    return TrainStep(optimizer, lambda module, _, batch, gen: stage0_loss_fn(module, batch, gen), CAPTION_KEYS,
+                     augment, None, mesh, takes_ref=False)
 
 
 # --------------------------------------------------------------------- stage 1
@@ -358,7 +414,7 @@ def make_stage1_train_step(
     augment: bool = False,
     lora: Optional[LoraSpec] = None,
     mesh: Optional[MeshContext] = None,
-) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, object]]]:
+) -> TrainStep:
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
     ``batch`` (on a ``mesh``: this rank's rows, the negatives gathered over
@@ -366,20 +422,14 @@ def make_stage1_train_step(
     and ``caption_mask`` as tensors or numpy arrays; they are moved to the
     module's device. ``seed`` and the state's step count seed the dropout
     generator. Metrics: ``loss``, ``loss_i2t``, ``loss_t2i``,
-    ``contrastive_accuracy``, ``grad_norm`` (tensors) and ``skipped`` (int).
+    ``contrastive_accuracy``, ``grad_norm`` and ``skipped`` (0-dim tensors on the device).
     ``augment`` augments the images first (see the module docstring).
     ``lora`` trains the state's adapters (see the module docstring).
     """
 
     axis = None if mesh is None else BATCH_AXES
-
-    def step(state: TrainState, batch: Batch, seed: int = 0):
-        batch = _augmented(_on_device(batch, state.opt_state.params[0].device), augment, seed, state.step,
-                           stream_offset(mesh))
-        return _grad_step(state, optimizer, seed,
-                          lambda gen: stage1_loss_fn(state.module, batch, gen, temperature, axis), lora, mesh)
-
-    return step
+    return TrainStep(optimizer, lambda module, _, batch, gen: stage1_loss_fn(module, batch, gen, temperature, axis),
+                     CAPTION_KEYS, augment, lora, mesh, takes_ref=False)
 
 
 def make_stage1_loss(module: nn.Module, temperature: float, augment: bool = False,
@@ -500,7 +550,7 @@ def make_stage2_train_step(
     augment: bool = False,
     lora: Optional[LoraSpec] = None,
     mesh: Optional[MeshContext] = None,
-) -> Callable[[TrainState, Optional[nn.Module], Batch, int], Tuple[TrainState, Dict[str, object]]]:
+) -> TrainStep:
     """Returns ``step(state, ref_module, batch, seed) -> (state, metrics)``.
 
     ``batch`` holds ``image`` and ``preferred_ids``/``preferred_mask``/
@@ -509,21 +559,18 @@ def make_stage2_train_step(
     :func:`~pgica_tpu_torch.models.model.frozen_copy`), or None with
     ``reference_free``. Metrics: ``loss``, ``reward_margin``,
     ``reward_accuracy``, ``chosen_reward``, ``rejected_reward``,
-    ``policy_chosen_logp``, ``policy_rejected_logp``, ``grad_norm``
-    (tensors) and ``skipped`` (int). ``augment`` augments the images first.
+    ``policy_chosen_logp``, ``policy_rejected_logp``, ``grad_norm`` and
+    ``skipped`` (0-dim tensors on the device). ``augment`` augments the images first.
     ``lora`` trains the state's adapters; the reference is then the frozen
     merged policy at stage-2 start (the trainer's). On a ``mesh``, ``batch``
     is this rank's rows.
     """
 
-    def step(state: TrainState, ref_module: Optional[nn.Module], batch: Batch, seed: int = 0):
-        batch = _on_device(batch, state.opt_state.params[0].device, PAIR_KEYS)
-        batch = _augmented(batch, augment, seed, state.step, stream_offset(mesh))
-        return _grad_step(state, optimizer, seed, lambda gen: stage2_loss_fn(
-            state.module, ref_module, batch, gen, beta, reference_free, length_normalized, label_smoothing,
-            mesh), lora, mesh)
+    def loss_fn(module, ref_module, batch, gen):
+        return stage2_loss_fn(module, ref_module, batch, gen, beta, reference_free, length_normalized,
+                              label_smoothing, mesh)
 
-    return step
+    return TrainStep(optimizer, loss_fn, PAIR_KEYS, augment, lora, mesh, takes_ref=True)
 
 
 def make_stage2_loss(module: nn.Module, ref_module: Optional[nn.Module], beta: float, reference_free: bool = False,

@@ -61,16 +61,21 @@ Differences from the JAX trainer:
   the adapted model. The stage-2 reference is a frozen copy, in
   ``reference_dtype``, of the merged policy at stage-2 start. Checkpoints
   hold the base, the factors and the config.
-* The NaN skip is the train steps' (one host sync a step, where the loss
-  and the gradient norm are read); the trainer reads the skip counter, a
-  Python int, at logging boundaries and at the end of each epoch.
+* On the card without a mesh every train step of stages 0-2 (LoRA too) runs
+  as CUDA graphs (training/graphs.py:GraphedTrainStep: one per batch shape,
+  captured after the shape's first, eager step), as the JAX trainer jits
+  them; the mesh routes run eagerly. A step ends in no host sync: the NaN
+  skip happens on the device, and the trainer reads the skip counter at
+  logging boundaries and at the end of each epoch. The steps' walls come
+  from CUDA events around each step, read at the epoch's end.
 * The stage-2 reference never holds the text tower, which stage 2 does not
   run; ``drop_unused_tower`` moves the policy's text tower to host memory
   for the stage and back at its end (checkpoints hold it throughout).
 * ``profile_dir`` traces the 3rd to 8th step that this trainer runs in each
   stage with ``torch.profiler`` (host and, on the card, CUDA activity), one
   trace per stage, and keeps each window's kernel and copy time, its host
-  operators' time and the steps' wall time in ``profiles``.
+  operators' time, the steps' walls and the window's wall (synchronized at
+  both ends, the autosaves' time taken out) in ``profiles``.
 * Checkpoints are ``torch.save`` payloads (``training/checkpoint.py``).
 """
 
@@ -107,6 +112,7 @@ from pgica_tpu_torch.parallel.zero1 import ZeroState, make_zero1_train_step
 from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state, opt_state_dict
 from pgica_tpu_torch.training.cp_step import make_stage2_cp_eval_step, make_stage2_cp_train_step
+from pgica_tpu_torch.training.graphs import GraphedTrainStep
 from pgica_tpu_torch.training.optim import create_optimizer, warmup_cosine_schedule
 from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
 from pgica_tpu_torch.training.train_step import (
@@ -154,6 +160,36 @@ def _without(module: nn.Module, child: str):
         yield module
     finally:
         module._modules[child] = held
+
+
+class _StepWalls:
+    """Each train step's wall: on the card the device time between CUDA events recorded on the stream
+    around the step (the steps end in no host sync), read once they are done; on the CPU the host clock."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.marks: List[Any] = []
+
+    def start(self) -> None:
+        self.marks.append([self._mark(), None])
+
+    def end(self) -> None:
+        self.marks[-1][1] = self._mark()
+
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def seconds(self) -> List[float]:
+        """The walls so far (on the card this waits for the steps recorded)."""
+        if not self.cuda:
+            return [b - a for a, b in self.marks]
+        if self.marks:
+            self.marks[-1][1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in self.marks]
 
 
 class PreferenceGuidedTrainer:
@@ -205,6 +241,8 @@ class PreferenceGuidedTrainer:
         self.profile_dir = profile_dir
         self.profiles: Dict[int, Dict[str, float]] = {}
         self._profiler = None
+        self._profile_excluded_s = 0.0  # autosave time inside the profiled window, left out of its wall
+        self.graphs: Dict[int, Dict[str, Any]] = {}  # per stage: what its graphed train step captured and replayed
         self.max_steps_per_epoch = max_steps_per_epoch  # debug cap (--max-steps)
         self.global_step = 0
         self.current_epoch = 0
@@ -487,6 +525,25 @@ class PreferenceGuidedTrainer:
             step_in_epoch=step_idx + 1, config=self.config.to_dict(), **self._ckpt_payload(state),
         )
 
+    def _graphed(self, step):
+        """The stage's train step as CUDA graphs on the card without a mesh (the JAX trainer jits every
+        step), else the eager step."""
+        return GraphedTrainStep(step) if self.mesh is None and self.device.type == "cuda" else step
+
+    def _end_graphs(self, stage: int, step) -> None:
+        """Keep what the stage's graphed step did in ``graphs`` and drop its graphs and their pool."""
+        if not isinstance(step, GraphedTrainStep):
+            return
+        keys = list(step.graphs.values())
+        self.graphs[stage] = {
+            "keys": len(keys), "eager_steps": step.eager_steps, "replays": step.replays,
+            "capture_s": [g.captured.capture_s for g in keys], "pool_bytes": sum(g.captured.pool_bytes for g in keys),
+            "kernels": [g.captured.kernels for g in keys], "replays_by_key": [g.replays for g in keys],
+        }
+        logger.info("Stage %d: %d graphed keys (%d eager first steps), %d replays, pool %.2f GiB", stage, len(keys),
+                    step.eager_steps, step.replays, self.graphs[stage]["pool_bytes"] / 2**30)
+        step.close()
+
     def _sync_model(self) -> None:
         """Put a tower held out by ``drop_unused_tower`` back on the device.
 
@@ -539,15 +596,18 @@ class PreferenceGuidedTrainer:
         module = self.model.module
         optimizer = self._make_optimizer(0, len(self.train_loader))
         state = self._maybe_resume_opt_state(TrainState.create(module, optimizer))
-        step = make_stage0_train_step(module, optimizer, augment=True, mesh=self.mesh)
+        step = self._graphed(make_stage0_train_step(module, optimizer, augment=True, mesh=self.mesh))
         seed = stage_seed(self.seed, 0)
         logger.info("Stage 0 (caption-CE warmup): %d epochs x %d steps", num_epochs, len(self.train_loader))
         start_epoch, skip_steps = self._resume_window(0, num_epochs)
-        for epoch in range(start_epoch, num_epochs):
-            state, m = self._run_epoch(state, self.train_loader, lambda st, b: step(st, b, seed), 0, epoch,
-                                       skip_steps if epoch == start_epoch else 0)
-            self.history["stage0"].append(
-                {"epoch": epoch, "train_loss": m["loss"], "input_wait_fraction": m["input_wait_fraction"]})
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                state, m = self._run_epoch(state, self.train_loader, lambda st, b: step(st, b, seed), 0, epoch,
+                                           skip_steps if epoch == start_epoch else 0)
+                self.history["stage0"].append(
+                    {"epoch": epoch, "train_loss": m["loss"], "input_wait_fraction": m["input_wait_fraction"]})
+        finally:
+            self._end_graphs(0, step)
         return {"history": self.history["stage0"]}
 
     # ------------------------------------------------------------- stage 1
@@ -575,7 +635,8 @@ class PreferenceGuidedTrainer:
             optimizer = self._make_optimizer(1, len(self.train_loader))
             state = self._maybe_resume_opt_state(
                 TrainState.create(module, optimizer, self.model.lora if lora else None))
-            step = make_stage1_train_step(module, optimizer, temperature, augment=True, lora=lora, mesh=self.mesh)
+            step = self._graphed(make_stage1_train_step(module, optimizer, temperature, augment=True, lora=lora,
+                                                        mesh=self.mesh))
 
             def train_step(st, b):
                 return step(st, b, seed)
@@ -597,6 +658,7 @@ class PreferenceGuidedTrainer:
                     break
         finally:
             self._end_zero(state)
+            self._end_graphs(1, None if zero else step)
         return {"best_val_loss": self.best_val_loss[1], "history": self.history["stage1"]}
 
     # ------------------------------------------------------------- stage 2
@@ -686,8 +748,8 @@ class PreferenceGuidedTrainer:
                 step = make_stage2_cp_train_step(module, optimizer, self.mesh, "seq", label_smoothing=label_smoothing,
                                                  augment=True, use_fused_ce=use_fused, **dpo)
             else:
-                step = make_stage2_train_step(module, optimizer, label_smoothing=label_smoothing, augment=True,
-                                              lora=lora, mesh=self.mesh, **dpo)
+                step = self._graphed(make_stage2_train_step(module, optimizer, label_smoothing=label_smoothing,
+                                                            augment=True, lora=lora, mesh=self.mesh, **dpo))
 
             def train_step(st, b):
                 return step(st, ref, b, seed)
@@ -710,12 +772,13 @@ class PreferenceGuidedTrainer:
                     break
         finally:
             self._end_zero(state)
+            self._end_graphs(2, None if zero else step)
             self._sync_model()
         return {"best_val_loss": self.best_val_loss[2], "history": self.history["stage2"]}
 
     # ------------------------------------------------------------- loops
 
-    def _maybe_profile(self, stage: int, stage_step: int, step_seconds: List[float]) -> None:
+    def _maybe_profile(self, stage: int, stage_step: int, walls: "_StepWalls") -> None:
         """torch.profiler over this stage's steps PROFILE_STEPS[0] .. PROFILE_STEPS[1] - 1."""
         if self.profile_dir is None:
             return
@@ -727,29 +790,30 @@ class PreferenceGuidedTrainer:
                 torch.cuda.synchronize()
             self._profiler = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
             self._profiler.__enter__()
+            self._profile_excluded_s = 0.0
             self._profile_t0 = (stage, stage_step, time.perf_counter())
             logger.info("Started torch.profiler trace of stage %d -> %s", stage, self.profile_dir)
         elif stage_step >= PROFILE_STEPS[1]:
-            self._stop_profile(stage_step, step_seconds)
+            self._stop_profile(stage_step, walls)
 
-    def _stop_profile(self, stage_step: int, step_seconds: List[float]) -> None:
-        """Close the trace; keep the window's kernel time (memory copies apart), host time and step walls.
+    def _stop_profile(self, stage_step: int, walls: "_StepWalls") -> None:
+        """Close the trace; keep the window's kernel time (memory copies apart), host time and walls.
 
-        ``step_ms`` sums the train steps' own walls (each ends in a host
-        sync), ``wall_ms`` spans the window with its data loading and
-        checkpoint copies; the device's busy share is ``device_ms / step_ms``.
-        ``host_ms`` is the self time of the host events (operators, autograd
-        nodes, CUDA runtime calls; on any thread) inside the steps' ranges,
-        ``host_top`` the ten largest by name as (name, ms, calls); the rest of
-        ``step_ms`` is Python between them. Data loading and checkpoint
-        copies, outside the ranges, are left out.
+        ``wall_ms`` spans the window, synchronized at both ends, with its data
+        loading and without its autosaves (synchronized around them and left
+        out: ``autosave_ms``); the device's busy share ``busy`` is
+        ``device_ms / wall_ms``. ``step_ms`` sums the train steps' own walls
+        (CUDA events around each step on the card). ``host_ms`` is the self
+        time of the host events (operators, autograd nodes, CUDA runtime
+        calls; on any thread) inside the steps' ranges, ``host_top`` the ten
+        largest by name as (name, ms, calls).
         """
         if self._profiler is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         stage, first, t0 = self._profile_t0
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0 - self._profile_excluded_s) * 1e3
         self._profiler.__exit__(None, None, None)
         prof, self._profiler = self._profiler, None
         events = trace.raw_events(prof)
@@ -757,11 +821,14 @@ class PreferenceGuidedTrainer:
         device = {k: v for k, v in trace.device_totals(events).items() if k != STEP_RANGE}
         copies = {k for k in device if k.startswith(("Memcpy", "Memset"))}
         host = trace.host_self_times(events, within=STEP_RANGE)
+        device_ms = sum(us for k, (us, _) in device.items() if k not in copies) / 1e3
         self.profiles[stage] = {
             "steps": stage_step - first,
-            "step_ms": sum(step_seconds[first:stage_step]) * 1e3,
+            "step_ms": sum(walls.seconds()[first:stage_step]) * 1e3,
             "wall_ms": wall_ms,
-            "device_ms": sum(us for k, (us, _) in device.items() if k not in copies) / 1e3,
+            "autosave_ms": self._profile_excluded_s * 1e3,
+            "device_ms": device_ms,
+            "busy": device_ms / wall_ms if wall_ms > 0 else None,
             "memcpy_ms": sum(us for k, (us, _) in device.items() if k in copies) / 1e3,
             "launches": sum(n for k, (_, n) in device.items() if k not in copies),
             "host_ms": sum(us for us, _ in host.values()) / 1e3,
@@ -771,11 +838,26 @@ class PreferenceGuidedTrainer:
         prof.export_chrome_trace(str(Path(self.profile_dir) / f"stage{stage}.json"))
         logger.info("Stopped torch.profiler trace of stage %d: %s", stage, self.profiles[stage])
 
+    def _autosave_outside_profile(self, stage: int, epoch: int, step_idx: int, state) -> None:
+        """``_maybe_autosave``; inside a profiled window, synchronized around and its time left out of the
+        window's wall (its copies are memory copies, not kernels)."""
+        if self._profiler is None or not self.save_steps or self.global_step % self.save_steps:
+            self._maybe_autosave(stage, epoch, step_idx, state)
+            return
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        self._maybe_autosave(stage, epoch, step_idx, state)
+        if cuda:
+            torch.cuda.synchronize()
+        self._profile_excluded_s += time.perf_counter() - t
+
     def _run_epoch(self, state, loader, train_step, stage: int, epoch: int, skip_steps: int = 0):
         """One epoch of ``train_step(state, batch) -> (state, metrics)``."""
         losses = []
-        step_seconds = []
         cuda = self.device.type == "cuda"
+        walls = _StepWalls(cuda)
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
@@ -812,20 +894,20 @@ class PreferenceGuidedTrainer:
                 break
             if step_idx < skip_steps:
                 continue  # consumed before the mid-epoch checkpoint
-            self._maybe_profile(stage, run, step_seconds)
+            self._maybe_profile(stage, run, walls)
             arrays = self._device_batch(batch)
             n_items += arrays["image"].shape[0]
-            t_step = time.perf_counter()
+            walls.start()
             with torch.profiler.record_function(STEP_RANGE):
-                state, metrics = train_step(state, arrays)  # ends in a host sync (the NaN skip)
-            step_seconds.append(time.perf_counter() - t_step)
+                state, metrics = train_step(state, arrays)
+            walls.end()
             run += 1
             self.global_step += 1
-            self._maybe_autosave(stage, epoch, step_idx, state)
+            self._autosave_outside_profile(stage, epoch, step_idx, state)
             if self.global_step % self.logging_steps == 0:
                 self._log_metrics(metrics, self.global_step, prefix=f"stage{stage}/train")
             losses.append(metrics["loss"])
-        self._stop_profile(run, step_seconds)  # close the trace even for short epochs
+        self._stop_profile(run, walls)  # close the trace even for short epochs
         if losses:
             stacked = torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in losses])
             finite = torch.isfinite(stacked)
@@ -847,7 +929,7 @@ class PreferenceGuidedTrainer:
             "pairs_per_sec": n_items / max(dt, 1e-6),
             "skipped": skipped,
             "input_wait_fraction": round(input_wait_fraction, 4),
-            "step_seconds": step_seconds,
+            "step_seconds": walls.seconds(),
             "peak_mem_gib": torch.cuda.max_memory_allocated(self.device) / 2**30 if cuda else None,
         }
 
