@@ -44,6 +44,9 @@ exits non-zero):
    checkpointing off against on (bit for bit). For GPT-2 also the two
    metrics that run the model, on 8 seeded images and caption pairs:
    BERTScore's text-tower route and CLIP-Score (card vs CPU, 1e-4).
+   Beside phase 4 a process of its own shows that a graphed eval step
+   whose body reads a value back to the host raises at its capture, at
+   each call, with no eager fall-back (``failed_capture``).
 5. Serving: the flagship (ViT-B/32 + GPT-2 Medium, 24 layers, vocab 50,262)
    in bf16 with random seeded weights answers caption requests through
    ``generate_captions`` — batch 1, 8 and 32 with max_length 32 and
@@ -58,7 +61,13 @@ exits non-zero):
    same eval call beside it, with the same ids. Each 4-beam batch is also
    searched eagerly (``graphs=None``), timed beside a graphed search, with
    the same ids, and the first replayed beam step's logits are held
-   bit-equal to the eager step's.
+   bit-equal to the eager step's. The encode of a request replays its batch
+   shape's graph (captured at the shape's first call). Then the wrapper's
+   three entry points at batch 16 (x 32 tokens), each a CUDA graph per
+   shape as JAX jits them: ``__call__`` in each mode (generation with
+   labels), ``encode_image`` and ``compute_similarity``, a new key's first
+   call and a replay bit-equal to the same function run eagerly, the graph
+   holding the eager run's launches, ms graphed and eager.
 6. Stage 1, the slice: the same flagship (bf16 over f32 masters, frozen
    ViT, dropout 0.1) takes stage-1 steps through ``make_stage1_train_step``
    at bench.py's shapes: batch 128 x seq 128 with every token kept, and
@@ -73,14 +82,21 @@ exits non-zero):
    NaN batch through a replay must add one to ``skipped`` and keep every
    other bit; gradient accumulation 4 with a NaN batch at micro-step 2
    must give the eager step's bits through both graphs (accumulate,
-   update).
+   update). At each shape the stage's eval step through ``GraphedEvalStep``
+   (the trainer's validation: its graphs in the train graphs' pool) gives
+   the eager eval step's metrics bit for bit, its graph holding the eager
+   step's forward launches; ms an eval call graphed and eager and the busy
+   share of each; then a train replay after the eval replays is bit-equal
+   to the eager step (the eval graphs overwrote nothing it keeps).
 7. Stage 2, the slice: the same flagship takes DPO steps through
    ``make_stage2_train_step`` against a frozen bf16 copy of itself (the
    trainer's reference), with bench.py's stage-2 optimizer, at batch 32
    pairs x 128 with every token kept, and with chosen and rejected lengths
    8-28 cut to bucket 32; the chosen and rejected captions differ. Graphed
    against eager, timing and profiles as in phase 6; the launches of one
-   eager step and the kernels each graph holds are asserted.
+   eager step and the kernels each graph holds are asserted. The eval
+   steps as in phase 6 (2 fused-CE forwards a call), and a reference-free
+   one (1).
 8. The Llama slice: the GPT-2 flagship is freed, then the SigLIP so400m +
    Llama-3-8B configuration of configs/siglip_llama8b.yaml is built once at
    full width in bf16 over f32 masters, with 4 of each Llama tower's 32
@@ -91,7 +107,8 @@ exits non-zero):
    takes stage-1 steps at 4 x 512 and DPO steps at 2 pairs x 512
    under the JAX trainer's partitions, graphed against eager, timed and
    profiled as in phase 6 (the graphs hold the RMSNorm backward), with
-   every request's and step's launches asserted.
+   every request's and step's launches asserted, and each stage's eval step
+   graphed against eager as in phase 6.
 9. The training entry point: ``pgica_tpu_torch.scripts.train.run`` on
    configs/default.yaml (the GPT-2 flagship at full width and vocab, bf16,
    activation checkpointing, gradient accumulation 4, augmentation), on
@@ -100,7 +117,9 @@ exits non-zero):
    stage 2 with its bf16 reference, validation, checkpoints and the best
    model's reload; every train step runs as CUDA graphs (the trainer's
    route on the card), an eager step only at each key's first sighting
-   and at least one replay a stage; a second trainer resumes stage 1 from
+   and at least one replay a stage, and so does each stage's validation
+   (its eval graphs in the train graphs' pool; 16 validation images, two
+   batches of one key); a second trainer resumes stage 1 from
    its mid-epoch autosave through ``run`` and must end bit-identical to the
    uninterrupted run; then ``generate_captions`` must serve the trained
    masters. Per stage: ms per micro-step (CUDA events around each step) and
@@ -141,8 +160,9 @@ exits non-zero):
    captioned images at batch 32 (8 timed requests after an untimed
    warm-up, which captures the beam graphs): every metric finite, the
    captions equal ``generate_captions``' own on the same batches, the
-   launches equal those reckoned from the requests, BERTScore's text-tower forwards and CLIP-Score's (no backward
-   kernel); captions/s, latency, generation against metric seconds, the
+   launches equal those reckoned from the requests (each encode after the
+   batch shape's first a graph replay), BERTScore's eager text-tower
+   forwards and CLIP-Score's similarity graph (no backward kernel); captions/s, latency, generation against metric seconds, the
    busy share of one profiled request (whose 127 steps the profiler
    counts as graph replays), and which optional packages the metrics found. 11b, inside phase 9: ``run_evaluation.main`` (both
    datasets, phase 9's stage-1 best model as the CLIP judge, the restored
@@ -251,10 +271,11 @@ exits non-zero):
    the card's 80 GB.
 
 Cut to keep the run inside its limit: phase 4's Llama slice runs 1 layer a
-tower and 2-row train steps and replays its optimizer without the token
-embedding (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
-phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``) and, with 11b, 6
-of GPT-2 Medium's 24 layers (``PHASE9_LAYERS``; 12 before), 13a 2 grain
+tower, 2-row stage-1 and 1-pair stage-2 steps against a rolled copy of the
+CPU model as the reference, and replays its optimizer without the token
+embedding and the MLP matrices (``PHASE4_REDUCED``), phase 11a 4 timed requests (8 before),
+phase 9 one autosave a stage (``PHASE9_SAVE_STEPS``) and, with 11b, 4
+layers a tower (``PHASE9_LAYERS``; 12, then 6 before), 13a 2 grain
 workers a loader (``GRAIN_WORKERS``; the config's 4), phase 3 times 5
 bursts (21, 11, then 7 before: phases 14 and 15 need the time; its float32
 pass 5 of 5), phase 12c's and 13a's CLI runs 4 layers a tower
@@ -280,7 +301,8 @@ Launch counts are reset just before the main path of phases 5, 6, 7, 9,
 just after; a graph replay
 adds nothing to them (serving's are counted by the profiler; a training path's
 launches are its host counts less each capture's recording plus each graph's
-kernels times its replays, ``executed_launches``). The second-to-last line
+kernels times its replays, ``executed_launches``, and so are the Llama
+engine path's, whose batch-path encodes replay the wrapper's graphs). The second-to-last line
 is the kernel summary as JSON; the last line is ``{"ok": true, "device":
 {...}}``. Without a card, or without the package beside it, the script
 exits non-zero and prints no result.
@@ -1396,6 +1418,8 @@ def decode_logits(model, images, steps: int = 3):
 
 def phase_full_width(tokenizer, arch: str) -> dict | None:
     """Phase 4 for one architecture of ``FULL_WIDTH``; for GPT-2, phase 13d's launches a decode step."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pgica_tpu_torch.generation.decode import generate
     from pgica_tpu_torch.generation.slots import DecodeGraphs
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
@@ -1412,8 +1436,10 @@ def phase_full_width(tokenizer, arch: str) -> dict | None:
         projection_dim=512, tokenizer=tokenizer, max_caption_length=128, vocab_size=spec["vocab"],
         dtype=torch.float32, seed=0, dropout=0.0,  # dropout 0: the card's and the CPU's streams differ
     )
-    cuda, cpu = (PreferenceGuidedCaptioningModel(device=dev, **kwargs) for dev in ("cuda", "cpu"))
-    log(f"  the card's and the CPU's models built in {time.perf_counter() - t0:.1f} s")
+    # both draw the same seeded weights on the host, one sample at a time: built side by side
+    with ThreadPoolExecutor(2) as pool:
+        cuda, cpu = pool.map(lambda dev: PreferenceGuidedCaptioningModel(device=dev, **kwargs), ("cuda", "cpu"))
+    log(f"  the card's and the CPU's models built side by side in {time.perf_counter() - t0:.1f} s")
     size = cuda.image_size
     images = np.random.default_rng(1).integers(0, 256, size=(2, size, size, 3), dtype=np.uint8)
     _kernels.reset_launch_counts()
@@ -1467,11 +1493,14 @@ def phase_full_width(tokenizer, arch: str) -> dict | None:
     log(f"  stage 1 checked; {time.perf_counter() - t0:.1f} s")
     full_width_augmented_remat(cuda, cpu, spec)
     log(f"  stage 1 with augmentation and activation checkpointing checked; {time.perf_counter() - t0:.1f} s")
-    # the stage-2 check's reference: a frozen f32 model of another seed, so that the rewards are
-    # far from 0 (a copy of the policy would make them exactly 0 at the first step)
-    other = PreferenceGuidedCaptioningModel(device="cpu", **{**kwargs, "seed": 1})
-    ref = frozen_copy(other.module, torch.float32)
-    del other
+    # the stage-2 check's reference: a frozen f32 copy of the CPU model with the rows of every matrix rolled
+    # by one, another model, so that the rewards are far from 0 (a copy of the policy would make them exactly
+    # 0 at the first step); PHASE4_REDUCED says why not a model of another seed
+    ref = frozen_copy(cpu.module, torch.float32)
+    with torch.no_grad():
+        for p in ref.parameters():
+            if p.dim() > 1:
+                p.copy_(p.roll(1, 0))
     log(f"  reference built; {time.perf_counter() - t0:.1f} s")
     full_width_stage2(cuda, cpu, ref, spec)
     log(f"  stage 2 checked; {time.perf_counter() - t0:.1f} s")
@@ -1842,6 +1871,46 @@ def full_width_stage2(cuda, cpu, ref, spec: dict) -> None:
 # a beam shape's first search runs steps 1 and 2 eagerly, each as the warm-up of its graph's capture, and the
 # wrappers count the capture's launches too: 4 decoder forwards from the host besides the prefix
 BEAM_CAPTURE_FORWARDS = 4
+ENTRY_CAPTURE_CALLS = 2  # a wrapper entry's new key runs its function eagerly, then records it in the capture
+ENTRY_BATCH, ENTRY_SEQ = 16, 32  # phase 5's wrapper entries: 16 images (a batch no request encodes), captions of 4-32 tokens
+
+
+def entry_state(model) -> dict:
+    """The wrapper entries' graphs (models/model.py, training/graphs.py:GraphedCalls) with each one's replays,
+    to diff a call against (the graphs held, so that none is freed meanwhile)."""
+    graphs = model._entry_graphs
+    return {} if graphs is None else {id(g): (g, g.replays) for g in graphs.graphs.values()}
+
+
+def entry_launches(model, before: dict, per_graph: dict, label: str) -> dict:
+    """The host launches of the one entry graph that a call since ``before`` (:func:`entry_state`) went
+    through: a graph it captured launched ENTRY_CAPTURE_CALLS times what it holds (``per_graph``, checked),
+    a replay nothing."""
+    now = entry_state(model)
+    new = [g for k, (g, _) in now.items() if k not in before or before[k][0] is not g]
+    replays = sum(g.replays - before[k][1] for k, (g, _) in now.items() if k in before and before[k][0] is g)
+    held = [g.captured.kernels for g in new]
+    if any(h != per_graph for h in held) or len(new) + replays != 1:
+        raise AssertionError(f"{label}: {len(new)} entry graphs captured (holding {held}, expected {per_graph}) and "
+                             f"{replays} replayed, expected one call")
+    return {k: ENTRY_CAPTURE_CALLS * len(new) * v for k, v in per_graph.items()}
+
+
+def entry_executed(model, host: dict, before: dict) -> dict:
+    """A path's launches that ran on the card, the wrapper's entry graphs included (:func:`executed_launches`):
+    the host's counts less each entry graph's recording at its capture in the path, plus each graph's
+    kernels times its replays in the path (``before``: :func:`entry_state` at the path's start)."""
+    pairs = [(g.captured.kernels, g.replays - before[k][1] + 1 if k in before and before[k][0] is g else g.replays)
+             for k, (g, _) in entry_state(model).items()]
+    return executed_launches(host, pairs)
+
+
+def eager_encode(model, images) -> dict:
+    """``encode_image``'s function run eagerly on the inference module (the plain version of its graph)."""
+    from pgica_tpu_torch.data.augment import prepare_images
+
+    with torch.inference_mode():
+        return model._inference_module().encode_image(prepare_images(torch.from_numpy(images).to(model.device)))
 
 
 def beam_key(tok, batch: int, max_length: int = 128) -> tuple:
@@ -1853,7 +1922,8 @@ def beam_key(tok, batch: int, max_length: int = 128) -> tuple:
 def beam_graph_checks(model, images, per_forward: dict, label: str, max_length: int = 128) -> dict:
     """For the 4-beam shape (BEAMS, batch len(images)) whose two step graphs generate_captions already
     captured on ``model``'s decode module: one graphed and one eager search (``graphs=None``: the same
-    step, launched op by op), each timed from the encode to the ids on the host, must give the same ids;
+    step, launched op by op, after the eager encode), each timed from the encode to the ids on the host, must
+    give the same ids;
     from the same initial beams, the odd-step graph's first replay gives the eager step's logits bit for
     bit; each graph holds ``per_forward`` (its wrappers' launches under capture). The graphs' capture
     seconds and pools."""
@@ -1868,7 +1938,7 @@ def beam_graph_checks(model, images, per_forward: dict, label: str, max_length: 
         for name, graphs in (("graphed", model._decode_graphs), ("eager", None)):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            emb = model.encode_image(images)["embeddings"]
+            emb = (model.encode_image(images) if graphs else eager_encode(model, images))["embeddings"]
             ids[name] = generate(module, emb, graphs=graphs, **kw).cpu()
             ms[name] = (time.perf_counter() - t) * 1e3
         if not torch.equal(ids["graphed"], ids["eager"]):
@@ -1967,7 +2037,7 @@ def phase_slice(tokenizer) -> dict:
         f"params {sum(p.numel() for p in model.module.parameters()):,}")
 
     def request(batch: int, max_length: int, early_stop: bool, **kw) -> dict:
-        before = _kernels.launch_counts()
+        before, entries = _kernels.launch_counts(), entry_state(model)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1977,15 +2047,18 @@ def phase_slice(tokenizer) -> dict:
             raise AssertionError(f"generate_captions returned {captions!r}")
         after = _kernels.launch_counts()
         launches = {k: after[k] - before[k] for k in SERVING_KERNELS}
-        forwards = (launches["flash_attn_fwd"] - 12) // 24  # decoder forwards launched from the host
-        want = {"layernorm_fwd": 27 + 49 * forwards, "flash_attn_fwd": 12 + 24 * forwards}
-        # every step replays a CUDA graph (no host launch): the host runs the prefix, plus at a shape's
-        # first call a warm-up step and the capture (greedy) or two of each (beams: their two graphs)
+        encode = entry_launches(model, entries, VIT_ENCODE, f"request batch {batch}")
+        forwards = (launches["flash_attn_fwd"] - encode["flash_attn_fwd"]) // 24  # decoder forwards from the host
+        want = {k: encode[k] + DECODER_FORWARD[k] * forwards for k in SERVING_KERNELS}
+        # every step replays a CUDA graph (no host launch), and so does the encode once its shape was seen:
+        # the host runs the prefix, plus at a shape's first call a warm-up step and the capture (greedy) or
+        # two of each (beams: their two graphs), and the encode's warm-up and capture
         first = 1 + (BEAM_CAPTURE_FORWARDS if "num_beams" in kw else 2)
         if launches != want or forwards not in (1, first):
             raise AssertionError(f"request batch {batch} {kw}: launched {launches}, expected {want}")
         return dict(batch=batch, max_length=max_length, early_stop=early_stop, seconds=seconds,
                     captions_per_s=batch / seconds, launches=launches, decoder_forwards=forwards,
+                    encode_captured=bool(encode["flash_attn_fwd"]),
                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **kw)
 
     def show(tag: str, r: dict) -> None:
@@ -1993,7 +2066,8 @@ def phase_slice(tokenizer) -> dict:
             f"{r['repetition_penalty']})" if "num_beams" in r else ""
         log(f"  {tag} batch {r['batch']} x max_length {r['max_length']} early_stop={r['early_stop']}{beams}: "
             f"{r['seconds'] * 1e3:.1f} ms, {r['captions_per_s']:.1f} captions/s, decoder forwards from the host "
-            f"{r['decoder_forwards']}, host launches {r['launches']}, peak {r['peak_mem_gib']:.2f} GiB")
+            f"{r['decoder_forwards']}, encode {'captured' if r['encode_captured'] else 'replayed'}, host launches "
+            f"{r['launches']}, peak {r['peak_mem_gib']:.2f} GiB")
 
     _kernels.reset_launch_counts()  # ---- the main path starts here
     served = []
@@ -2017,7 +2091,7 @@ def phase_slice(tokenizer) -> dict:
     main_counts = {k: v for k, v in _kernels.launch_counts().items() if k in SERVING_KERNELS}  # ---- and ends here
     if min(main_counts.values()) == 0:
         raise AssertionError(f"the serving path did not launch every kernel: {main_counts}")
-    want = {"layernorm_fwd": 27 + 49, "flash_attn_fwd": 12 + 24}  # the encode and the prefix; 63 steps replay
+    want = DECODER_FORWARD  # the prefix; the encode and 63 steps replay
     if bench[0]["launches"] != want:
         raise AssertionError(f"one 32 x 64 greedy call launched {bench[0]['launches']}, expected {want}")
     median_s = statistics.median(r["seconds"] for r in bench)
@@ -2025,6 +2099,7 @@ def phase_slice(tokenizer) -> dict:
         f"{32 / median_s:.1f} captions/s (median of 5 after one warm-up); host launches per call "
         f"{bench[0]['launches']} (expected {want})")
     log(f"  main-path launch counts (all requests above): {main_counts}")
+    entries = entry_checks(model, images)
     beam_checks = {batch: beam_graph_checks(model, images[:batch], DECODER_FORWARD, f"GPT-2 flagship, batch {batch}")
                    for batch in (8, 32)}
     beam_memory = beam_memory_checks(model, images, "GPT-2 flagship")
@@ -2064,8 +2139,8 @@ def phase_slice(tokenizer) -> dict:
 
     profile = profiled(lambda: model.generate_captions(images, max_length=64), "32 x 64 greedy call",
                        median_s * 1e3)
-    # what one 32 x 64 call launches: the encode and the prefix from the host (counted above), then
-    # 63 replays of the step graph, which holds 49 LN and 24 flash launches (counted at its capture)
+    # what one 32 x 64 call launches: the encode's graph replayed, the prefix from the host (counted above),
+    # then 63 replays of the step graph, which holds 49 LN and 24 flash launches (counted at its capture)
     step = model._decode_graphs.captured[(32, 64, Sampler(), tokenizer.eos_token_id, tokenizer.pad_token_id)][1]
     if step.kernels != {"layernorm_fwd": 49, "flash_attn_fwd": 24}:
         raise AssertionError(f"the 32 x 64 step graph holds {step.kernels}")
@@ -2078,7 +2153,7 @@ def phase_slice(tokenizer) -> dict:
         f"the profiler's device kernels (graph replays included): {seen}")
     # the busy share of a batch-32 4-beam request is phase 11a's profile (the same 127 step replays)
     return dict(main_counts=main_counts, served=served, beamed=beamed, beam_checks=beam_checks,
-                beam_memory=beam_memory, bench=bench,
+                beam_memory=beam_memory, bench=bench, entries=entries,
                 median_s=median_s,
                 eager_median_s=eager["median_s"], sync_ms_per_step=(es - fl) / 31 * 1e3, profile=profile,
                 model=model)
@@ -2171,15 +2246,15 @@ def device_counts(fn, want: dict, label: str) -> dict:
 
 
 def eager_eval(model, images, max_length: int) -> dict:
-    """The batch path with the eager step (``graphs=None``): the median of 3 calls after a warm-up,
-    each ending in a device->host copy; its ids must equal ``generate_captions``' graphed ones."""
+    """The batch path with the eager encode and step (``graphs=None``): the median of 3 calls after a
+    warm-up, each ending in a device->host copy; its ids must equal ``generate_captions``' graphed ones."""
     from pgica_tpu_torch.generation.decode import generate
 
     tok = model.tokenizer
 
     def call():
         with torch.inference_mode():
-            emb = model.encode_image(images)["embeddings"]
+            emb = eager_encode(model, images)["embeddings"]
             return generate(model._inference_module(), emb, eos_token_id=tok.eos_token_id,
                             pad_token_id=tok.pad_token_id, max_length=max_length).cpu().numpy()
 
@@ -2194,6 +2269,88 @@ def eager_eval(model, images, max_length: int) -> dict:
     if [tok.decode(r) for r in ids] != graphed:
         raise AssertionError("the eager step's captions differ from the CUDA-graph step's")
     return dict(median_s=statistics.median(seconds), seconds=seconds)
+
+
+def same_bits(got, want) -> bool:
+    """Whether two entry outputs (tensors, host arrays, or dicts of them) hold the same bits."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(same_bits(got[k], want[k]) for k in want)
+    if isinstance(want, torch.Tensor):
+        return isinstance(got, torch.Tensor) and got.dtype == want.dtype and torch.equal(got, want)
+    return got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def entry_checks(model, images) -> dict:
+    """Phase 5: the wrapper's three entry points (models/model.py; JAX jits them, model.py:324-340) at the
+    flagship's full width: ``__call__`` in each mode (generation with labels), ``encode_image`` and
+    ``compute_similarity``, each through its CUDA graph against the same function run eagerly on the same
+    module (``__call__`` on the f32 masters through the bf16 compute dtype, as JAX's; the other two on the
+    bf16 serving copy): a new key's first call (eager on the capture stream) and a replay bit-equal to the
+    eager run, the graph holding the eager run's launches; ms a call graphed and eager (the mean of 5, each
+    ending in a host sync) and the busy share of one profiled graphed call."""
+    from pgica_tpu_torch.data.augment import prepare_images
+    from pgica_tpu_torch.models.model import _host
+    from pgica_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(5)
+    imgs = images[:ENTRY_BATCH]
+    ids = rng.integers(0, model.tokenizer.vocab_size, (ENTRY_BATCH, ENTRY_SEQ)).astype(np.int32)
+    mask = (np.arange(ENTRY_SEQ)[None, :] < rng.integers(4, ENTRY_SEQ + 1, ENTRY_BATCH)[:, None]).astype(np.int32)
+    t_ids, t_mask = (torch.from_numpy(a).cuda() for a in (ids, mask))
+    served = model._inference_module()
+
+    def pixels():
+        return prepare_images(torch.from_numpy(imgs).cuda())
+
+    def forward(mode: str, labels: bool):
+        out = model.module(pixels(), t_ids, t_mask, t_ids if labels else None, mode=mode)
+        return {k: _host(v) for k, v in out.items()}
+
+    entries = {
+        "encode_image": (lambda: model.encode_image(imgs),
+                         lambda: {k: v.clone() for k, v in served.encode_image(pixels()).items()}),
+        "compute_similarity": (lambda: model.compute_similarity(imgs, ids, mask),
+                               lambda: served.compute_similarity(pixels(), t_ids, t_mask).cpu().numpy()),
+        **{f"__call__ {mode}" + (" with labels" if labels else ""):
+           (lambda mode=mode, labels=labels: model(imgs, ids, mask, labels=ids if labels else None, mode=mode),
+            lambda mode=mode, labels=labels: forward(mode, labels))
+           for mode, labels in (("contrastive", False), ("generation", True), ("dual", False))},
+    }
+
+    def synced(fn):
+        def call():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return call
+
+    out = {}
+    with torch.inference_mode():
+        for name, (graphed, eager) in entries.items():
+            before = _kernels.launch_counts()
+            want = eager()
+            after = _kernels.launch_counts()
+            launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            known = entry_state(model)
+            first, replay = graphed(), graphed()
+            new = [g for k, (g, _) in entry_state(model).items() if k not in known]
+            if len(new) != 1 or new[0].replays != 1 or new[0].captured.kernels != launched or not launched:
+                raise AssertionError(f"{name}: {len(new)} new graphs, holding {[g.captured.kernels for g in new]}, "
+                                     f"replayed {[g.replays for g in new]}; the eager run launched {launched}")
+            if not same_bits(first, want) or not same_bits(replay, want):
+                raise AssertionError(f"{name}: the graphed entry's first call or replay differs from the eager run")
+            ms = {"graphed": statistics.median(step_windows(synced(graphed), 1, 5)),
+                  "eager": statistics.median(step_windows(synced(eager), 1, 5))}
+            busy = profiled(synced(graphed), f"{name} graphed call", ms["graphed"]).get("busy")
+            g = new[0].captured
+            out[name] = dict(ms=ms, busy=busy, capture_s=g.capture_s, pool_bytes=g.pool_bytes, kernels=g.kernels)
+            log(f"  {name}, batch {ENTRY_BATCH}" + ("" if name == "encode_image" else f" x {ENTRY_SEQ} tokens")
+                + f": graphed first call and replay bit-equal to the eager run; {ms['graphed']:.2f} ms a call "
+                f"graphed (busy {f'{100 * busy:.1f}%' if busy else 'not measured'}) against {ms['eager']:.2f} eager "
+                f"(the mean of 5 calls, each from host arrays to its outputs, synchronized); the graph holds the "
+                f"eager run's {g.kernels}, captured in {g.capture_s * 1e3:.1f} ms, pool +{g.pool_bytes / 2**20:.1f} "
+                f"MiB [{card()}]")
+    return out
 
 
 def on_card(batch: dict, label: str) -> dict:
@@ -2407,6 +2564,80 @@ def skip_checks(graphed, state, batch: dict, call, label: str) -> dict:
     return dict(skipped=int(after[-1, 2]))
 
 
+FORWARD_KERNELS = ("layernorm_fwd", "flash_attn_fwd", "rmsnorm_fwd", "fused_ce_fwd")
+EVAL_WINDOWS = (3, 3)  # (windows, calls a window) of an eval step's timing, graphed and eager: the median window
+
+
+def forward_launches(step_launches: dict) -> dict:
+    """What a stage's eval step launches: its train step's forward kernels (the same forward, no backward)."""
+    return {k: v for k, v in step_launches.items() if k in FORWARD_KERNELS}
+
+
+def eval_checks(eval_step, train_graphed, batches: dict, ref, expected: dict, label: str, profile: bool = True):
+    """Phases 6-8: the stage's eval step through ``GraphedEvalStep`` (the trainer's route on the card), its graphs
+    in ``train_graphed``'s pool as the trainer shares it, against the eager eval step on each batch of
+    ``batches``: the eager step launches ``expected``, the key's graph holds as many, and its first call (eager
+    on the capture stream) and a replay give the eager step's metrics bit for bit; then ms a call graphed and
+    eager (the median of EVAL_WINDOWS, each call ending in a read of the loss) and, with ``profile``, the busy
+    share of one profiled call of each. Returns (the graphed eval step, the results by batch)."""
+    from pgica_tpu_torch.ops import _kernels
+    from pgica_tpu_torch.training.graphs import GraphedEvalStep
+
+    graphed = GraphedEvalStep(eval_step, pool_of=train_graphed)
+    out = {}
+    for name, batch in batches.items():
+        args = (ref, batch) if eval_step.takes_ref else (batch,)
+        before = _kernels.launch_counts()
+        want = {k: v.clone() for k, v in eval_step(*args).items()}
+        after = _kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        first = graphed(*args)
+        replay = graphed(*args)
+        g = next(g for g in graphed.graphs.values() if all(g.static[k].shape == v.shape for k, v in batch.items()))
+        if launched != expected or g.captured.kernels != expected or g.replays != 1:
+            raise AssertionError(f"{label} eval {name}: the eager step launched {launched}, the graph holds "
+                                 f"{g.captured.kernels} ({g.replays} replays), expected {expected}")
+        bad = [k for k in want for got in (first, replay) if not torch.equal(got[k], want[k])]
+        if bad or first.keys() != want.keys() or not all(math.isfinite(float(v)) for v in want.values()):
+            raise AssertionError(f"{label} eval {name}: the graphed metrics differ from the eager step's in {bad}")
+
+        def call(fn):
+            return lambda: float(fn(*args)["loss"])
+
+        ms = {"graphed": statistics.median(step_windows(call(graphed), *EVAL_WINDOWS)),
+              "eager": statistics.median(step_windows(call(eval_step), *EVAL_WINDOWS))}
+        busy = {how: profiled(call(fn), f"{label} {name} {how} eval step", ms[how]).get("busy") if profile else None
+                for how, fn in (("graphed", graphed), ("eager", eval_step))}
+        out[name] = dict(ms=ms, busy=busy, capture_s=g.captured.capture_s, pool_bytes=g.captured.pool_bytes,
+                         kernels=g.captured.kernels, metrics={k: float(v) for k, v in want.items()},
+                         shares_pool=graphed.shares_pool)
+        shares = ", ".join(f"{how} {100 * b:.1f}%" if b else f"{how} not measured" for how, b in busy.items())
+        log(f"  {label} eval step, {name}: graphed (first call eager, captured in {g.captured.capture_s:.3f} s into "
+            f"{'the train graphs' if graphed.shares_pool else 'its own'} pool (+{g.captured.pool_bytes / 2**20:.1f} "
+            f"MiB), then a replay) bit-equal to the "
+            f"eager step in all {len(want)} metrics (loss {float(want['loss']):.6f}); the graph holds the eager "
+            f"step's {g.captured.kernels}; ms a call graphed {ms['graphed']:.2f} against eager {ms['eager']:.2f}; "
+            f"busy {shares} [{card()}]")
+    return graphed, out
+
+
+def train_after_eval(graphed, step, state, batch: dict, call, start: dict, label: str) -> None:
+    """After the eval graphs replayed in the train graphs' pool: one train replay from ``start`` bit-equal to one
+    eager step from it (the eval graphs overwrote nothing the train graph keeps)."""
+    restore(state, start)
+    replays = graphed.replays
+    call(graphed, state, batch)
+    got = state_digest(state)
+    restore(state, start)
+    call(step, state, batch)
+    diffs = digest_diffs(state, got, state_digest(state))
+    if graphed.replays != replays + 1 or diffs:
+        raise AssertionError(f"{label}: the train replay after the eval replays differs from the eager step in "
+                             f"{diffs[:4]} (replays {replays} -> {graphed.replays})")
+    log(f"  {label}: a train replay after the eval graphs replayed in its pool is bit-equal to the eager step from "
+        "the same state (every trained leaf, Adam moment and counter)")
+
+
 ACCUMULATION_STEPS = 9  # 12c's and phase 9's accumulation of 4: a NaN at micro-step 2 delays the first update to
 # micro-step 4; the second, at 8, replays the update's graph
 
@@ -2496,8 +2727,10 @@ STAGE1_STEP_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "la
 
 
 def phase_stage1(model) -> dict:
-    model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
-    # training (a later request would recast and capture them again)
+    from pgica_tpu_torch.training.train_step import make_stage1_eval_step
+
+    model._inference_cache = model._decode_graphs = model._entry_graphs = None  # frees serving's bf16 copy and
+    # its graphs for training (a later request would recast and capture them again)
     torch.cuda.empty_cache()
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=10, total=1000)  # bench.py's optimizer
     rng = np.random.default_rng(0)
@@ -2510,7 +2743,11 @@ def phase_stage1(model) -> dict:
     runs = {name: [b] * GRAPH_CHECK_STEPS for name, b in batches.items()}
     graphed, results, main_counts, start = graphed_path(step, state, runs, call, STAGE1_STEP_LAUNCHES, "stage 1")
     check_main_path("stage-1, graphed (2 x (3 + 10) steps)", main_counts, STAGE1_STEP_LAUNCHES)
+    eval_graphed, evals = eval_checks(make_stage1_eval_step(model.module, 0.5), graphed, batches, None,
+                                      forward_launches(STAGE1_STEP_LAUNCHES), "stage 1")
+    train_after_eval(graphed, step, state, batches["bucketed"], call, start, "stage 1 bucketed")
     nan = skip_checks(graphed, state, batches["bucketed"], call, "stage 1 bucketed")
+    eval_graphed.close()
     graphed.close()
     eager_reference(step, state, runs, call, STAGE1_STEP_LAUNCHES, "stage 1", start, results, profile=True)
     del state, step, graphed, start
@@ -2519,7 +2756,7 @@ def phase_stage1(model) -> dict:
     accumulation = accumulation_check(model.module, batches["bucketed"])
     trainer_route = accumulation_check(model.module, batches["bucketed"], trainer_route=True)
     return dict(main_counts=main_counts, shapes=results, nan=nan, accumulation=accumulation,
-                trainer_route=trainer_route)
+                trainer_route=trainer_route, evals=evals)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2534,6 +2771,9 @@ STAGE2_STEP_LAUNCHES = {"layernorm_fwd": 2 * (27 + 50), "flash_attn_fwd": 2 * (1
                         "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
 
 
+STAGE2_FREE_EVAL_LAUNCHES = {"layernorm_fwd": 27 + 50, "flash_attn_fwd": 12 + 24, "fused_ce_fwd": 1}
+
+
 def check_dpo(label: str, r: dict) -> None:
     if not all(x > 0 for x in r["losses"]) or not r["metrics"]["policy_chosen_logp"] < 0:
         raise AssertionError(f"{label}: losses {r['losses']}, metrics {r['metrics']}")
@@ -2541,7 +2781,7 @@ def check_dpo(label: str, r: dict) -> None:
 
 def phase_stage2(model) -> dict:
     from pgica_tpu_torch.models.model import frozen_copy
-    from pgica_tpu_torch.training.train_step import make_stage2_train_step
+    from pgica_tpu_torch.training.train_step import make_stage2_eval_step, make_stage2_train_step
 
     torch.cuda.empty_cache()
     ref = frozen_copy(model.module, torch.bfloat16)  # the trainer's default: the policy at stage-2 start, bf16
@@ -2559,9 +2799,18 @@ def phase_stage2(model) -> dict:
     for name, r in results.items():
         check_dpo(f"stage 2 {name}", r)
     check_main_path("stage-2, graphed (2 x (3 + 10) steps)", main_counts, STAGE2_STEP_LAUNCHES)
+    eval_graphed, evals = eval_checks(make_stage2_eval_step(model.module, 0.1), graphed, batches, ref,
+                                      forward_launches(STAGE2_STEP_LAUNCHES), "stage 2")
+    # reference-free: the policy's forward only, one fused-CE forward
+    free_graphed, free = eval_checks(make_stage2_eval_step(model.module, 0.1, reference_free=True), graphed,
+                                     {"bucketed": batches["bucketed"]}, None, STAGE2_FREE_EVAL_LAUNCHES,
+                                     "stage 2 reference-free", profile=False)
+    train_after_eval(graphed, step, state, batches["full-pad"], call, start, "stage 2 full-pad")
+    free_graphed.close()
+    eval_graphed.close()
     graphed.close()
     eager_reference(step, state, runs, call, STAGE2_STEP_LAUNCHES, "stage 2", start, results, profile=True)
-    return dict(main_counts=main_counts, shapes=results)
+    return dict(main_counts=main_counts, shapes=results, evals=evals, reference_free_eval=free)
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2597,21 +2846,25 @@ LLAMA_STAGE2_LAUNCHES = {"layernorm_fwd": 2 * (SIGLIP_ENCODE["layernorm_fwd"] + 
                          "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1, "rmsnorm_fwd": 2 * LLAMA_FORWARD["rmsnorm_fwd"],
                          "rmsnorm_bwd": LLAMA_FORWARD["rmsnorm_fwd"]}
 # phase 4's optimizer replay at Llama width skips the leaves larger than this: the 128,256 x 4,096 token
-# embedding (PHASE4_REDUCED)
-REPLAY_MAX = 100_000_000
+# embedding and the three 4,096 x 14,336 MLP matrices (PHASE4_REDUCED)
+REPLAY_MAX = 20_000_000
 # phase 4's two architectures: 2 layers a tower for GPT-2, 1 for SigLIP + Llama (PHASE4_REDUCED)
 PHASE4_REDUCED = ("SigLIP + Llama-3-8B runs 1 layer a tower (2 before: its CPU reference took 142.5-178.2 s of "
                   "the run; one layer still runs every kernel and path of the architecture)",
-                  "its train steps take 2 captions and 2 pairs (4 and 4 before): the CPU's steps over the 128,256-row "
-                  "vocab set the phase's time",
+                  "its train steps take 2 captions and 1 pair (4 and 4 at first, then 2 and 2): the CPU's steps over "
+                  "the 128,256-row vocab set the phase's time",
+                  "the stage-2 reference of both architectures is the CPU model's frozen copy with every matrix's rows "
+                  "rolled by one (a model built from another seed before: 12.7 s of the Llama run's CPU time)",
                   f"the CPU replay of its card optimizer leaves out the leaves of more than {REPLAY_MAX:,} elements (the "
-                  "token embedding; 35 s of CPU Adam over it before; GPT-2's replay keeps every leaf)")
+                  "token embedding, 35 s of CPU Adam over it at first; then the MLP matrices, ~10 s a stage at a "
+                  "100,000,000 limit; the replay keeps the attention, norm and projection leaves; GPT-2's keeps every "
+                  "leaf)")
 FULL_WIDTH = {
     "gpt2": dict(vision="openai/clip-vit-base-patch32", text="gpt2-medium", vocab=GPT2_VOCAB, stage1_batch=8,
                  stage2_batch=4, layers=2,
                  serving=SERVING_KERNELS, stage1=STAGE1_STEP_LAUNCHES, stage2=STAGE2_STEP_LAUNCHES,
                  stage2_frozen=None),
-    "llama": dict(vision=SIGLIP, text=LLAMA, vocab=LLAMA_VOCAB, stage1_batch=2, stage2_batch=2, layers=1,
+    "llama": dict(vision=SIGLIP, text=LLAMA, vocab=LLAMA_VOCAB, stage1_batch=2, stage2_batch=1, layers=1,
                   serving=LLAMA_SERVING_KERNELS,
                   stage1=LLAMA_STAGE1_LAUNCHES, stage2=LLAMA_STAGE2_LAUNCHES, stage2_frozen="text_encoder",
                   replay_max=REPLAY_MAX),
@@ -2619,7 +2872,7 @@ FULL_WIDTH = {
 
 
 def phase_llama(tokenizer) -> dict:
-    from pgica_tpu_torch.training.train_step import make_stage2_train_step
+    from pgica_tpu_torch.training.train_step import make_stage1_eval_step, make_stage2_eval_step, make_stage2_train_step
     from pgica_tpu_torch.generation.engine import ContinuousDecodeEngine
     from pgica_tpu_torch.models.lm import init_kv_cache
     from pgica_tpu_torch.models.model import PreferenceGuidedCaptioningModel, frozen_copy
@@ -2643,7 +2896,7 @@ def phase_llama(tokenizer) -> dict:
         + "; ".join(LLAMA_REDUCED))
 
     def request(batch: int, seed: int) -> dict:
-        before = _kernels.launch_counts()
+        before, entries = _kernels.launch_counts(), entry_state(model)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2653,11 +2906,14 @@ def phase_llama(tokenizer) -> dict:
             raise AssertionError(f"generate_captions returned {captions!r}")
         after = _kernels.launch_counts()
         launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        forwards = (launches.get("flash_attn_fwd", 0) - SIGLIP_ENCODE["flash_attn_fwd"]) // LLAMA_LAYERS
-        want = {"layernorm_fwd": SIGLIP_ENCODE["layernorm_fwd"],
-                "flash_attn_fwd": SIGLIP_ENCODE["flash_attn_fwd"] + LLAMA_FORWARD["flash_attn_fwd"] * forwards,
+        encode = entry_launches(model, entries, SIGLIP_ENCODE, f"llama request, batch {batch}")
+        forwards = (launches.get("flash_attn_fwd", 0) - encode["flash_attn_fwd"]) // LLAMA_LAYERS
+        want = {"layernorm_fwd": encode["layernorm_fwd"],
+                "flash_attn_fwd": encode["flash_attn_fwd"] + LLAMA_FORWARD["flash_attn_fwd"] * forwards,
                 "rmsnorm_fwd": LLAMA_FORWARD["rmsnorm_fwd"] * forwards}
-        # the prefix from the host, the steps replays of the two beam graphs (captured at a shape's first call)
+        want = {k: v for k, v in want.items() if v}
+        # the prefix from the host, the steps replays of the two beam graphs (captured at a shape's first call),
+        # the encode a replay of its graph (captured at the shape's first call)
         if launches != want or forwards not in (1, 1 + BEAM_CAPTURE_FORWARDS):
             raise AssertionError(f"llama request, batch {batch}: launched {launches}, expected {want}")
         r = dict(batch=batch, seconds=seconds, decoder_forwards=forwards, launches=launches,
@@ -2692,16 +2948,19 @@ def phase_llama(tokenizer) -> dict:
     engine_images = np.random.default_rng(14).integers(0, 256, size=(2 * LLAMA_SLOTS, size, size, 3), dtype=np.uint8)
     engine = graph_checks(model, eng, engine_images, LLAMA_DECODE, "Llama slice", SIGLIP_ENCODE)
     eng.start()
+    entries = entry_state(model)
     _kernels.reset_launch_counts()  # ---- the Llama engine path starts here
     engine_against_batch(eng.submit, model, engine_images, 2, "Llama engine against the batch path")
-    engine_counts = _kernels.launch_counts()  # ---- and ends here
+    # the batch path's encodes replay their graphs: SigLIP's LayerNorms run only there and in the engine's
+    # admission graphs, so the path's counts take the entry graphs' replays in
+    engine_counts = entry_executed(model, _kernels.launch_counts(), entries)  # ---- and ends here
     check_main_path("Llama engine", engine_counts, LLAMA_SERVING_KERNELS)
     eng.stop()
     del eng  # it holds the bf16 copy, which training frees
     quant = quant_llama(model)
 
-    model._inference_cache = model._decode_graphs = None  # frees serving's bf16 copy and its graphs for
-    # training (a later request would recast and capture them again)
+    model._inference_cache = model._decode_graphs = model._entry_graphs = None  # frees serving's bf16 copy and
+    # its graphs for training (a later request would recast and capture them again)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(1)
     state, step, _ = stage1_trainer(model.module, lr=5e-5, warmup=500, total=1000)
@@ -2710,6 +2969,9 @@ def phase_llama(tokenizer) -> dict:
     graphed, results, stage1_counts, start = graphed_path(step, state, runs, call, LLAMA_STAGE1_LAUNCHES,
                                                           "Llama stage 1")
     check_main_path("Llama stage-1, graphed (3 + 10 steps)", stage1_counts, LLAMA_STAGE1_LAUNCHES)
+    eval_graphed, eval1 = eval_checks(make_stage1_eval_step(model.module, 0.5), graphed, {"4 x 512": batch}, None,
+                                      forward_launches(LLAMA_STAGE1_LAUNCHES), "Llama stage 1")
+    eval_graphed.close()
     graphed.close()
     eager_reference(step, state, runs, call, LLAMA_STAGE1_LAUNCHES, "Llama stage 1", start, results)
     stage1 = results["4 x 512"]
@@ -2727,13 +2989,16 @@ def phase_llama(tokenizer) -> dict:
     stage2 = results["2 pairs x 512"]
     check_dpo("Llama stage 2", stage2)
     check_main_path("Llama stage-2, graphed (3 + 10 steps)", stage2_counts, LLAMA_STAGE2_LAUNCHES)
+    eval_graphed, eval2 = eval_checks(make_stage2_eval_step(model.module, 0.1), graphed, {"2 pairs x 512": batch},
+                                      ref, forward_launches(LLAMA_STAGE2_LAUNCHES), "Llama stage 2")
+    eval_graphed.close()
     graphed.close()
     eager_reference(step, state, runs, call, LLAMA_STAGE2_LAUNCHES, "Llama stage 2", start, results)
     del start
     return dict(served=served, serving_profile=serving_profile, beam_checks=beam_checks, engine=engine, stage1=stage1,
-                stage2=stage2, quant=quant, counts={"llama_serving": serving_counts, "llama_engine": engine_counts,
-                                     "llama_stage1": stage1_counts, "llama_stage2": stage2_counts,
-                                     "llama_int8": quant["counts"]})
+                stage2=stage2, quant=quant, evals={"stage1": eval1, "stage2": eval2},
+                counts={"llama_serving": serving_counts, "llama_engine": engine_counts, "llama_stage1": stage1_counts,
+                        "llama_stage2": stage2_counts, "llama_int8": quant["counts"]})
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2741,20 +3006,24 @@ def phase_llama(tokenizer) -> dict:
 ROOT = Path(__file__).resolve().parent
 PHASE9_DIR = ROOT / "build" / "phase9"
 PHASE9_STEPS = 8
-PHASE9_LAYERS = 6  # phases 9 and 11b: the towers' layers (ViT-B/32: 12, all; GPT-2 Medium: 24)
+PHASE9_LAYERS = 4  # phases 9 and 11b: each tower's layers (ViT-B/32: 12, GPT-2 Medium: 24)
 PHASE9_SAVE_STEPS = 7  # one autosave a stage (5 wrote three of 7.5 GB: the run's disk is limited)
 # What phase 9 changes in configs/default.yaml, and why; width and depth are the config's
-PHASE9_SAMPLES = 80  # the config's 80/10/10 split: 64 to train, 8 to validate, 8 to test
+PHASE9_SAMPLES = 88  # split 73/19/8: 64 to train (8 batches), 16 to validate (2 batches), 8 to test
+PHASE9_SPLITS = {"train_split": 0.73, "val_split": 0.19, "test_split": 0.08}
 PHASE9_REDUCED = (
-    f"the GPT-2 Medium towers run {PHASE9_LAYERS} of their 24 layers at full width (the ViT-B/32 all 12): at full "
-    "depth phase 9 and 11b took ~175 s of a run that phase 16 took past ~1,100 s on a slow host, and at 12 layers "
-    "116 s of a 1,005 s run on another; the CLIs read depth from the presets, which the phase cuts",
+    f"each tower runs {PHASE9_LAYERS} of its layers at full width (ViT-B/32 12, GPT-2 Medium 24): at full depth "
+    "phase 9 and 11b took ~175 s of a run that phase 16 took past ~1,100 s on a slow host, at 12 layers 116 s of a "
+    "1,005 s run on another, and at 6 layers 76.8 s of a 934.1 s run, past the run's budget on a third; the CLIs "
+    "read depth from the presets, which the phase cuts",
     "stage 1 and stage 2 run 1 epoch each (the config: 10 and 5)",
     f"model.vocab_size {GPT2_VOCAB:,}, GPT-2's BPE vocab and the five specials (as phases 5-7): the config leaves "
     "the vocab to the tokenizer, and offline, without GPT-2's vocab.json, that is the byte tokenizer's 261",
     f"the data paths point at {PHASE9_SAMPLES} synthetic JPEGs (256-480 px a side) with captions, written to "
     "build/phase9/data as a CSV (Conceptual Captions) and a preference JSON (UltraFeedback): the datasets are "
     "not in the repository",
+    f"data splits {PHASE9_SPLITS} (the config: 0.8/0.1/0.1 of 80 before): 64 to train as before, 16 to validate, "
+    "so that each stage's validation runs two batches of one shape and replays its eval graph, 8 to test",
     f"--max-steps {PHASE9_STEPS}: {PHASE9_STEPS} micro-steps a stage, 2 updates at the config's gradient "
     "accumulation of 4",
     f"training.save_steps {PHASE9_SAVE_STEPS} (the config: 1000), so that stage 1 leaves a mid-epoch, "
@@ -2810,6 +3079,7 @@ def phase9_config() -> Path:
     cfg["training"]["stage1"]["num_epochs"] = 1
     cfg["training"]["stage2"]["num_epochs"] = 1
     cfg["training"]["save_steps"] = PHASE9_SAVE_STEPS
+    cfg["data"].update(PHASE9_SPLITS)
     cfg["data"]["conceptual_captions_path"] = str(captions)
     cfg["data"]["ultrafeedback_path"] = str(preferences)
     # the flagship's vocab, as phases 5-7 (bench.py): the offline byte tokenizer's ids are a subset
@@ -2827,18 +3097,22 @@ def phase9_config() -> Path:
 
 
 def graph_report(trainer, label: str, replayed: bool = True) -> dict:
-    """Hold a CLI run's graphed train steps (``trainer.graphs``) to the trainer's rule: an eager step only at
-    each key's first sighting, then replays (at least one a stage where ``replayed``); log each stage's keys,
+    """Hold a CLI run's graphed train and eval steps (``trainer.graphs``, each stage's validation under
+    ``eval``) to the trainer's rule: an eager step only at each key's first sighting, then replays (at least
+    one a stage where ``replayed``), the eval graphs in the train graphs' pool; log each stage's keys,
     replays, capture seconds and pool."""
     out = {}
     for stage, g in sorted(trainer.graphs.items()):
-        if g["eager_steps"] != g["keys"] or (replayed and g["replays"] == 0):
-            raise AssertionError(f"{label} stage {stage}: {g['keys']} graph keys, {g['eager_steps']} eager steps, "
-                                 f"{g['replays']} replays")
-        log(f"  {label} stage {stage}: {g['keys']} graphs (one eager step each, at the key's first sighting), "
-            f"{g['replays']} replays; captures " + ", ".join(f"{x:.3f}" for x in g["capture_s"])
-            + f" s; pool {g['pool_bytes'] / 2**20:.1f} MiB")
-        out[stage] = {k: g[k] for k in ("keys", "eager_steps", "replays", "capture_s", "pool_bytes")}
+        e = g.get("eval")
+        for what, r in (("train", g), ("eval", e)):
+            if r is None or r["keys"] == 0 or r["eager_steps"] != r["keys"] or (replayed and r["replays"] == 0) or (
+                    what == "eval" and not r["shares_pool"]):
+                raise AssertionError(f"{label} stage {stage} {what}: {r}")
+            log(f"  {label} stage {stage} {what}: {r['keys']} graphs (one eager step each, at the key's first "
+                f"sighting), {r['replays']} replays; captures " + ", ".join(f"{x:.3f}" for x in r["capture_s"])
+                + f" s; pool {r['pool_bytes'] / 2**20:.1f} MiB" + (" (the train graphs')" if what == "eval" else ""))
+        keep = ("keys", "eager_steps", "replays", "capture_s", "pool_bytes")
+        out[stage] = {**{k: g[k] for k in keep}, **({"eval": {k: e[k] for k in keep}} if e else {})}
     if not out:
         raise AssertionError(f"{label}: the trainer took no graphed step")
     return out
@@ -3194,6 +3468,55 @@ def dead_graph_capture(bare: bool) -> str:
         return f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
     finally:
         gc.set_threshold(700, 10, 10)
+
+
+def failed_capture() -> str:
+    """A graphed eval step (training/graphs.py:GraphedEvalStep, the trainer's route on the card) whose body
+    reads a value back to the host: its first call runs eagerly, then its capture must raise, with no eager
+    fall-back, at that call and at the next. "raised <error>" twice, or what happened instead."""
+    from pgica_tpu_torch.training.graphs import GraphedEvalStep
+    from pgica_tpu_torch.training.train_step import EvalStep
+
+    linear = torch.nn.Linear(8, 8).cuda()
+
+    def metrics(module, _, batch):
+        y = module(batch["image"])
+        return {"loss": y.sum() * float(y.abs().max())}  # float(): a device->host read, refused under capture
+
+    step = GraphedEvalStep(EvalStep(linear, metrics, ("image",), None, None, None, takes_ref=False))
+    out = []
+    for _ in range(2):
+        try:
+            step({"image": np.ones((4, 8), np.float32)})
+            out.append("returned")
+        except Exception as exc:  # noqa: BLE001 — the answer is the error
+            out.append(f"raised {type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''}")
+    return " | ".join(out)
+
+
+def start_failed_capture() -> subprocess.Popen:
+    """``failed_capture()`` in a process of its own (a refused capture may leave the process's CUDA context in
+    error), started so that it runs beside other work."""
+    return subprocess.Popen([sys.executable, "-c", "import chip_smoke; print(chip_smoke.failed_capture())"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def check_failed_capture(process: subprocess.Popen) -> str:
+    """A graphed eval step whose capture fails raises at each call (``failed_capture``, in ``process``)."""
+    try:
+        out, err = process.communicate(timeout=300)
+    finally:
+        if process.poll() is None:
+            process.kill()
+            process.wait()
+    answer = (out.strip().splitlines() or ["no answer"])[-1]
+    calls = answer.split(" | ")
+    if len(calls) != 2 or not all(c.startswith("raised") for c in calls):
+        raise AssertionError(f"a graphed eval step whose body reads to the host: {answer!r} (exit "
+                             f"{process.returncode}; {err.strip().splitlines()[-3:]})")
+    log(f"  a graphed eval step whose body reads a value to the host: its capture raised at both calls, no eager "
+        f"fall-back ({calls[0][:160]}; the process exited {process.returncode})")
+    return answer
 
 
 def start_bare_capture() -> subprocess.Popen:
@@ -3585,6 +3908,7 @@ def phase_evaluation(model) -> dict:
     captures = 0 if graphs is not None and graphs.module is model._decode_module() and key in graphs.beams \
         else BEAM_CAPTURE_FORWARDS
     try:
+        entries = entry_state(model)
         _kernels.reset_launch_counts()  # ---- the main path starts here
         t = time.perf_counter()
         result = runner.run_evaluation(loader)
@@ -3603,22 +3927,35 @@ def phase_evaluation(model) -> dict:
         raise AssertionError(f"phase 11a: {result['num_samples']} samples, metrics not finite {bad}, {saved.keys()}")
     log("  metrics (all finite): " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
 
-    # the launches reckoned from what ran: each request encodes the batch and runs the prefix from the host,
-    # its max_length - 1 steps replays of the two beam graphs, which the warm-up request captured (4 decoder
-    # forwards more; after phases 6-7 the recast copy has none yet); BERTScore embeds each distinct text once,
-    # EVAL_BATCH texts a text-tower forward; CLIP-Score encodes the first batch's images and captions
+    # the launches reckoned from what ran: each request runs the prefix from the host, its encode a replay of
+    # the batch shape's graph (captured at the shape's first call: the warm-up request's, after phases 6-7
+    # recast the copy) and its max_length - 1 steps replays of the two beam graphs, which the warm-up request
+    # captured (4 decoder forwards more; the recast copy has none yet); BERTScore embeds each distinct text
+    # once, EVAL_BATCH texts an eager text-tower forward (JAX does not jit it either); CLIP-Score's similarity
+    # of the first batch's images and captions is a graph too, captured at its shape's first call
     requests = EVAL_SAMPLES // EVAL_BATCH + 1
     texts = len(dict.fromkeys(predictions + [r for rec in records for r in rec["references"]]))
     bert_forwards = -(-texts // metrics.BERT_SCORE_BATCH)
-    want = {k: requests * (VIT_ENCODE[k] + DECODER_FORWARD[k]) + captures * DECODER_FORWARD[k]
-            + VIT_ENCODE[k] + (bert_forwards + 1) * TEXT_TOWER[k] for k in SERVING_KERNELS}
+    now = entry_state(model)
+    new = [g for k, (g, _) in now.items() if k not in entries or entries[k][0] is not g]
+    held = [g.captured.kernels for g in new]  # at most the batch's encode and CLIP-Score's similarity, once each
+    similarity = {k: VIT_ENCODE[k] + TEXT_TOWER[k] for k in SERVING_KERNELS}
+    if len(held) > 2 or any(h not in (VIT_ENCODE, similarity) for h in held) or held.count(VIT_ENCODE) > 1:
+        raise AssertionError(f"phase 11a: the run captured entry graphs holding {held}")
+    captured_entries = {k: ENTRY_CAPTURE_CALLS * sum(h[k] for h in held) for k in SERVING_KERNELS}
+    want = {k: requests * DECODER_FORWARD[k] + captures * DECODER_FORWARD[k] + captured_entries[k]
+            + bert_forwards * TEXT_TOWER[k] for k in SERVING_KERNELS}
     got = {k: counts[k] for k in SERVING_KERNELS}
     backward = {k: counts.get(k, 0) for k in BACKWARD_KERNELS}
     if got != want or any(backward.values()):
         raise AssertionError(f"phase 11a launched {got} (backward {backward}), reckoned {want}")
-    log(f"  launches from the host {got} = reckoned from {requests} requests x (encode + prefix), the beam graphs' "
+    replays = sum(g.replays for g in new) + sum(g.replays - entries[k][1] for k, (g, _) in now.items()
+                                                 if k in entries and entries[k][0] is g)
+    log(f"  launches from the host {got} = reckoned from {requests} requests x the prefix, the beam graphs' "
         f"capture ({captures} decoder forwards), {bert_forwards} BERTScore text-tower forwards ({texts} distinct "
-        f"texts) and CLIP-Score's image and text forwards; no backward kernel ran {backward}")
+        f"texts), and the entry graphs the run captured (the encode and CLIP-Score's similarity: {held}, each "
+        f"launched twice, its first call and its capture); {replays} entry-graph replays (every later encode); "
+        f"no backward kernel ran {backward}")
     captured = model._decode_graphs.beams[key]
     if [g.kernels for g in captured.graphs] != [DECODER_FORWARD, DECODER_FORWARD]:
         raise AssertionError(f"phase 11a: the beam graphs hold {[g.kernels for g in captured.graphs]}")
@@ -4099,7 +4436,7 @@ LORA_REDUCED = (
     f"each tower runs {LORA_LAYERS} of its layers at full width (the CLI and predict read depth from the presets, "
     "which are cut for the phase): at full depth 12c took 47-61 s, and phases 14-15 need the time",
     "configs/lora.yaml's width, depth and vocab as phase 9 runs configs/default.yaml's (PHASE9_REDUCED: 1 epoch a "
-    "stage, vocab 50,262, phase 9's JPEGs, outputs under build/phase12, deleted at the end)",
+    "stage, vocab 50,262, phase 9's JPEGs and splits, outputs under build/phase12, deleted at the end)",
     f"--max-steps {LORA_STEPS}: {LORA_STEPS} micro-steps a stage",
     f"gradient accumulation {LORA_ACCUMULATION} (the config: 4), so that a stage takes 2 updates: the schedule's first "
     "has lr 0, and with one update the adapters would not move",
@@ -4131,7 +4468,7 @@ def phase_lora_cli(captions: Path, preferences: Path) -> dict:
                 cfg["training"][stage]["num_epochs"] = 1
                 cfg["training"][stage]["gradient_accumulation_steps"] = LORA_ACCUMULATION
             cfg["data"].update(conceptual_captions_path=str(captions), ultrafeedback_path=str(preferences),
-                               native_decode="fast", device_side_normalization=True)
+                               native_decode="fast", device_side_normalization=True, **PHASE9_SPLITS)
             cfg["model"]["vocab_size"] = GPT2_VOCAB
             cfg["paths"] = {"output_dir": str(LORA_DIR / "run"),
                             "checkpoint_dir": str(LORA_DIR / "run" / "checkpoints"),
@@ -5999,10 +6336,12 @@ def main() -> int:
     kernels = phase("phase 3: kernels vs plain on the card", phase_kernels)
     int8 = phase("phase 12a: the int8 decode kernels vs plain on the card", phase_int8_kernels)
     cross = {}
+    refused = start_failed_capture()  # beside phase 4, whose CPU references leave the card idle
     for arch in FULL_WIDTH:
         cross[arch] = phase(f"phase 4 ({arch}): full width, {FULL_WIDTH[arch]['layers']} layer(s) a tower, f32: card "
                             "(kernels) vs CPU (plain)", phase_full_width, tokenizer, arch)
         gc.collect()
+    check_failed_capture(refused)
     served = phase("phase 5: serving (flagship, bf16, caption requests)", phase_slice, tokenizer)
     model = served.pop("model")
     trained = phase("phase 6: the slice, stage-1 training (flagship, bf16 over f32 masters)", phase_stage1, model)

@@ -556,7 +556,8 @@ class CaptioningMetrics:
 
     def _text_tower_tokens(self, texts: List[str]) -> Dict[str, np.ndarray]:
         """Each distinct text -> its kept tokens' unit-length hidden states (float32, on the host),
-        from the inference module's text tower on the model's device."""
+        from the inference module's text tower on the model's device, run eagerly (the JAX package
+        does not jit it either, pgica_tpu/evaluation/metrics.py:548-566)."""
         import torch
 
         module = self.model._inference_module()
@@ -613,7 +614,9 @@ class CaptioningMetrics:
         evaluation scores itself — a circular metric that cannot detect
         contrastive-head collapse — and the output carries
         ``clip_score_self_judged: 1.0`` so reports can't be misread as
-        independent judgments.
+        independent judgments. The similarity is the scorer's
+        ``compute_similarity``: on the card one CUDA graph per input shape
+        (models/model.py), read back once.
         """
         scorer = self.clip_judge or self.model
         if scorer is None:

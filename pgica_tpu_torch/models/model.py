@@ -11,8 +11,10 @@ Mirrors pgica_tpu/models/model.py:43-231,234-476:
   copy and the stage-2 DPO reference.
 * :class:`PreferenceGuidedCaptioningModel` — the runtime wrapper owning the
   module, its float32 masters, the tokenizer and, with ``lora_config``, the
-  LoRA factors (models/lora.py), with the JAX package's
-  ``generate_captions`` signature and return type. With ``quantization``
+  LoRA factors (models/lora.py), with the JAX package's ``__call__``,
+  ``encode_image``, ``compute_similarity`` and ``generate_captions``
+  signatures and return types; on the card the first three run as one CUDA
+  graph per input shape, as JAX jits them (model.py:324-340). With ``quantization``
   its decode runs through an int8 twin of the module (JAX model.py:389-412),
   and ``load_pretrained_towers`` imports local HF checkpoints into the
   towers (models/convert.py).
@@ -47,6 +49,7 @@ from pgica_tpu_torch.ops.quant import INT8_MODES, cast_for_twin, quantize_like
 from pgica_tpu_torch.ops.rmsnorm import RMSNorm
 
 NORMS = (LayerNorm, RMSNorm)  # modules whose float32 parameters the kernels read as they are
+MODES = ("contrastive", "generation", "dual")
 
 logger = logging.getLogger(__name__)
 
@@ -141,7 +144,7 @@ class PreferenceGuidedCaptioningModule(nn.Module):
         ``vision_embeddings``. ``generator`` drives dropout (None:
         deterministic, as JAX's ``deterministic=True``).
         """
-        if mode not in ("contrastive", "generation", "dual"):
+        if mode not in MODES:
             raise ValueError(f"Unknown mode: {mode!r}")
         if caption_ids is None:
             raise ValueError(f"{mode} mode requires caption_ids")
@@ -251,8 +254,15 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host, bf16 and f16 widened to float32."""
+    return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).cpu().numpy()
+
+
 class PreferenceGuidedCaptioningModel:
-    """Runtime wrapper with the JAX package's serving API."""
+    """Runtime wrapper with the JAX package's API: ``__call__``, ``encode_image``, ``compute_similarity``,
+    ``generate_captions``. Its graphs (the entries' and the decode steps') are not safe for two threads at
+    once."""
 
     def __init__(
         self,
@@ -313,6 +323,8 @@ class PreferenceGuidedCaptioningModel:
         self._quant_cache: Optional[nn.Module] = None  # the int8 decode twin
         self._quant_key: List[Tuple[nn.Parameter, int]] = []
         self._decode_graphs = None  # generation/slots.py:DecodeGraphs of the decode module, on the card
+        self._entry_graphs = None  # training/graphs.py:GraphedCalls of __call__, encode_image, compute_similarity
+        self._entry_layouts: Dict[str, Tuple[int, ...]] = {}  # each entry's weights' addresses at its captures
         # LoRA (JAX model.py:302-320): factors outside the module, models/lora.py; the normalized
         # schema of lora.normalize_lora_config
         self.lora_config = lora_config
@@ -407,14 +419,14 @@ class PreferenceGuidedCaptioningModel:
         version (the JAX package keys its cast on the identity of
         ``self.params``, which its trainer replaces: model.py:370-387).
         Setting ``_inference_cache`` to None releases the copy's memory. A
-        new copy drops the decode graphs captured on the old one (they hold
-        its weights by address); the float32 masters change in place, so
-        their graphs stay valid.
+        new copy drops the decode graphs and the entry points' graphs captured
+        on the old one (they hold its weights by address); the float32
+        masters change in place, so their graphs stay valid.
         """
         if self.dtype == torch.float32:
             return self.module
         if self._inference_cache is None or not self._fresh(self._inference_key):
-            self._inference_cache = None  # free the old copy before casting the new one
+            self._inference_cache = self._entry_graphs = None  # free the old copy and its graphs before the new
             if not self.quantization:
                 self._decode_graphs = None
             self._inference_cache = frozen_copy(self.module, self.dtype)
@@ -443,7 +455,7 @@ class PreferenceGuidedCaptioningModel:
         if not self.quantization:
             return self._inference_module()
         if self._quant_cache is None or not self._fresh(self._quant_key):
-            self._quant_cache = self._decode_graphs = None  # free the old twin and its graphs first
+            self._quant_cache = self._decode_graphs = self._entry_graphs = None  # free the old twin and graphs
             with torch.device("meta"):
                 twin = build_module(**{**self._build_kwargs, "decoder_quant": self.quantization})
             twin = cast_for_twin(twin.to_empty(device=self.device), self.dtype)
@@ -453,15 +465,72 @@ class PreferenceGuidedCaptioningModel:
             logger.info("Quantized decoder params (%s) for decode", self.quantization)
         return self._quant_cache
 
-    def _images(self, images) -> torch.Tensor:
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        return prepare_images(images.to(self.device))
+    def _entry(self, name: str, module: nn.Module, key: Tuple, inputs: Dict[str, torch.Tensor], fn, finish):
+        """``finish(fn(static inputs))`` of an entry point running on ``module``, through the entries' CUDA
+        graphs (training/graphs.py:GraphedCalls; on the CPU ``fn`` runs over the static buffers): one graph
+        per entry, ``key``, and input shapes and dtypes, captured at its first call.
+
+        The graphs hold ``module``'s weights by address: they are dropped
+        with the bf16 copy or the int8 twin (:meth:`_inference_module`,
+        :meth:`_decode_module`), and whenever a weight of ``module`` moved
+        since the entry's captures (a tower moved to the host and back).
+        """
+        from pgica_tpu_torch.training.graphs import GraphedCalls  # training imports models: no cycle at import
+
+        layout = tuple(p.data_ptr() for p in module.parameters())
+        if self._entry_graphs is not None and self._entry_layouts.get(name, layout) != layout:
+            self._entry_graphs = None
+        if self._entry_graphs is None:
+            self._entry_graphs, self._entry_layouts = GraphedCalls(self.device), {}
+        self._entry_layouts[name] = layout
+        return self._entry_graphs((name,) + key, inputs, fn, finish)
+
+    def _tensor(self, value) -> torch.Tensor:
+        return value if isinstance(value, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(value))
+
+    @torch.inference_mode()
+    def __call__(self, images, caption_ids=None, caption_mask=None, labels=None,
+                 mode: str = "contrastive") -> Dict[str, np.ndarray]:
+        """The module's forward in ``mode`` on host arrays (JAX model.py:352-364, the reference-parity API).
+
+        ``images`` uint8 (or normalized float) NHWC, normalized inside the
+        forward; ``caption_ids``, ``caption_mask`` and ``labels`` (B, S)
+        integer arrays or tensors. Returns numpy arrays under JAX's keys:
+        ``image_embeddings`` and ``text_embeddings`` (contrastive, dual),
+        ``logits`` and, with ``labels``, ``loss`` (generation, dual), and
+        ``vision_embeddings``; bf16 values come back as float32 (numpy has no
+        bf16). As JAX's, it runs on the float32 masters through the module's
+        compute dtype, without dropout. On the card each (mode, input shapes
+        and dtypes, labels or not) is one CUDA graph, as JAX jits it.
+        """
+        if mode not in MODES:
+            raise ValueError(f"Unknown mode: {mode!r}")
+        if caption_ids is None:
+            raise ValueError(f"{mode} mode requires caption_ids")
+        inputs = {"images": self._tensor(images), "caption_ids": self._tensor(caption_ids)}
+        inputs.update({k: self._tensor(v) for k, v in (("caption_mask", caption_mask), ("labels", labels))
+                       if v is not None})
+        module = self.module
+
+        def fn(static):
+            return module(prepare_images(static["images"]), static["caption_ids"], static.get("caption_mask"),
+                          static.get("labels"), mode=mode)
+
+        return self._entry("call", module, (mode,), inputs, fn, lambda out: {k: _host(v) for k, v in out.items()})
 
     @torch.inference_mode()
     def encode_image(self, images) -> dict:
-        """uint8 (or normalized float) NHWC images -> dict of tensors on the device."""
-        return self._inference_module().encode_image(self._images(images))
+        """uint8 (or normalized float) NHWC images -> ``features``, ``embeddings`` and ``pooled_output`` on the
+        device, from the inference module (JAX's ``_jit_encode_image`` on the inference params).
+
+        On the card each input shape and dtype is one CUDA graph; its outputs
+        are cloned, since the caller keeps them (``generate_captions`` hands
+        them to the decode graphs) past the next replay.
+        """
+        module = self._inference_module()
+        return self._entry("encode_image", module, (), {"images": self._tensor(images)},
+                           lambda static: module.encode_image(prepare_images(static["images"])),
+                           lambda out: {k: v.clone() for k, v in out.items()})
 
     @property
     def temperature(self) -> float:
@@ -474,11 +543,19 @@ class PreferenceGuidedCaptioningModel:
 
         ``images`` as ``encode_image`` takes them; ``caption_ids`` and
         ``caption_mask`` are (B_txt, S) integer arrays or tensors, the mask
-        ones by default.
+        ones by default. It runs on the inference module; on the card each
+        input shape and dtype is one CUDA graph, read back once at the end.
         """
-        ids = torch.as_tensor(caption_ids, device=self.device)
-        mask = torch.ones_like(ids) if caption_mask is None else torch.as_tensor(caption_mask, device=self.device)
-        return self._inference_module().compute_similarity(self._images(images), ids, mask).cpu().numpy()
+        module = self._inference_module()
+        ids = self._tensor(caption_ids)
+        mask = torch.ones_like(ids) if caption_mask is None else self._tensor(caption_mask)
+        inputs = {"images": self._tensor(images), "caption_ids": ids, "caption_mask": mask}
+
+        def fn(static):
+            return module.compute_similarity(prepare_images(static["images"]), static["caption_ids"],
+                                             static["caption_mask"])
+
+        return self._entry("compute_similarity", module, (), inputs, fn, lambda out: out.cpu().numpy())
 
     def generate_captions(
         self,

@@ -200,7 +200,8 @@ def make_stage2_cp_eval_step(
     use_fused_ce: bool = False,
 ) -> Callable:
     """``step(ref_module, batch) -> metrics``: the deterministic context-parallel DPO metrics of the global
-    batch from this rank's rows (the JAX ``make_stage2_cp_eval_step``)."""
+    batch from this rank's rows (the JAX ``make_stage2_cp_eval_step``). It runs eagerly, as every mesh
+    route does: capturing its collectives needs NCCL on several cards (ROADMAP queue 1, item 12)."""
     loss_fn = make_stage2_cp_loss_fn(module, mesh, axis_name, beta, reference_free, length_normalized,
                                      use_fused_ce=use_fused_ce)
 

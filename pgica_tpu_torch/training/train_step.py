@@ -36,7 +36,9 @@ seeds, and whether this micro-step applies the accumulated update) and a
 body that does everything else on the device. Called, it runs both: the
 eager step, on any device and mesh. Without a mesh, training/graphs.py
 captures the body as one CUDA graph per batch shape (the trainer's route on
-the card); the eager step is the plain version the graphs are held to.
+the card); the eager step is the plain version the graphs are held to. The
+eval steps are split the same way (:class:`EvalStep`: the batch to the
+device, then a forward-only body) and graphed alike (``GraphedEvalStep``).
 
 LoRA (JAX train_step.py:39-60): with ``lora=(alpha, rank[, dropout])`` the
 stage-1 and stage-2 steps train the state's adapter factors only
@@ -363,6 +365,43 @@ def _device(module: nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
+class EvalStep:
+    """One stage's eval step: ``step(batch)`` (``step(ref, batch)`` for a stage that takes a reference) ->
+    metrics, eager: the forward without dropout or gradients, on the base merged with ``adapters`` under
+    ``lora``.
+
+    :meth:`body` is the device part (everything after the batch reaches the
+    device: the LoRA merge, the forward, the metrics), with no host sync, so
+    that without a mesh one CUDA graph can hold it (training/graphs.py:
+    GraphedEvalStep, the trainer's route on the card); called, the step
+    moves the batch to the module's device and runs the body.
+    """
+
+    def __init__(self, module: nn.Module, metrics_fn, keys: Tuple[str, ...], lora: Optional[LoraSpec],
+                 adapters: Optional[Adapters], mesh: Optional[MeshContext], takes_ref: bool):
+        self.module, self.metrics_fn, self.keys = module, metrics_fn, keys
+        self.lora, self.adapters, self.mesh, self.takes_ref = lora, adapters, mesh, takes_ref
+
+    @property
+    def device(self) -> torch.device:
+        return _device(self.module)
+
+    def split_args(self, args) -> Tuple[Optional[nn.Module], Batch]:
+        """(ref, batch) of a call's arguments."""
+        return tuple(args) if self.takes_ref else (None, args[0])
+
+    @torch.no_grad()
+    def body(self, ref: Optional[nn.Module], batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The metrics (0-dim tensors) of ``batch``, already on the device; on a mesh, the global batch's."""
+        with _bound(self.mesh), _adapted(self.module, self.adapters, self.lora):
+            metrics = self.metrics_fn(self.module, ref, batch)
+        return reduce_metrics(metrics, self.mesh, batch["image"].shape[0])
+
+    def __call__(self, *args) -> Dict[str, torch.Tensor]:
+        ref, batch = self.split_args(args)
+        return self.body(ref, _on_device(batch, self.device, self.keys))
+
+
 # --------------------------------------------------------------------- stage 0
 
 
@@ -449,7 +488,7 @@ def make_stage1_loss(module: nn.Module, temperature: float, augment: bool = Fals
 def make_stage1_eval_step(
     module: nn.Module, temperature: float, lora: Optional[LoraSpec] = None, adapters: Optional[Adapters] = None,
     mesh: Optional[MeshContext] = None,
-) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+) -> EvalStep:
     """Returns ``step(batch) -> metrics``: the contrastive forward without dropout or gradients.
 
     With ``lora`` it runs on the base merged with ``adapters`` (read at each
@@ -459,14 +498,10 @@ def make_stage1_eval_step(
     """
     axis = None if mesh is None else BATCH_AXES
 
-    @torch.no_grad()
-    def step(batch: Batch):
-        batch = _on_device(batch, _device(module))
-        with _bound(mesh), _adapted(module, adapters, lora):
-            _, metrics = stage1_loss_fn(module, batch, None, temperature, axis)
-        return reduce_metrics(metrics, mesh, batch["image"].shape[0])
+    def metrics_fn(module, _, batch):
+        return stage1_loss_fn(module, batch, None, temperature, axis)[1]
 
-    return step
+    return EvalStep(module, metrics_fn, CAPTION_KEYS, lora, adapters, mesh, takes_ref=False)
 
 
 # --------------------------------------------------------------------- stage 2
@@ -596,18 +631,15 @@ def make_stage2_eval_step(
     lora: Optional[LoraSpec] = None,
     adapters: Optional[Adapters] = None,
     mesh: Optional[MeshContext] = None,
-) -> Callable[[Optional[nn.Module], Batch], Dict[str, torch.Tensor]]:
+) -> EvalStep:
     """Returns ``step(ref_module, batch) -> metrics``: DPO loss and rewards without dropout or gradients
     (with ``lora``, the policy merged with ``adapters``, as :func:`make_stage1_eval_step`; on a ``mesh``,
     the global batch's metrics from this rank's rows)."""
 
-    @torch.no_grad()
-    def step(ref_module: Optional[nn.Module], batch: Batch):
-        batch = _on_device(batch, _device(module), PAIR_KEYS)
-        with _bound(mesh), _adapted(module, adapters, lora):
-            loss, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free,
-                                           length_normalized, 0.0, mesh)
+    def metrics_fn(module, ref_module, batch):
+        _, metrics = stage2_loss_fn(module, ref_module, batch, None, beta, reference_free, length_normalized, 0.0,
+                                    mesh)
         del metrics["policy_chosen_logp"], metrics["policy_rejected_logp"]  # as the JAX eval step
-        return reduce_metrics(metrics, mesh, batch["image"].shape[0])
+        return metrics
 
-    return step
+    return EvalStep(module, metrics_fn, PAIR_KEYS, lora, adapters, mesh, takes_ref=True)

@@ -64,7 +64,12 @@ Differences from the JAX trainer:
 * On the card without a mesh every train step of stages 0-2 (LoRA too) runs
   as CUDA graphs (training/graphs.py:GraphedTrainStep: one per batch shape,
   captured after the shape's first, eager step), as the JAX trainer jits
-  them; the mesh routes run eagerly. A step ends in no host sync: the NaN
+  them, and so does every eval step of stages 1 and 2 (GraphedEvalStep, its
+  graphs in the stage's train-graph pool); the mesh routes, the CP eval
+  step among them, run eagerly (capturing their collectives needs NCCL on
+  several cards: ROADMAP queue 1, item 12). ``graphs[stage]`` keeps each
+  stage's keys, first steps, replays, captures and pool (the eval step's
+  under ``eval``). A step ends in no host sync: the NaN
   skip happens on the device, and the trainer reads the skip counter at
   logging boundaries and at the end of each epoch. The steps' walls come
   from CUDA events around each step, read at the epoch's end.
@@ -112,10 +117,11 @@ from pgica_tpu_torch.parallel.zero1 import ZeroState, make_zero1_train_step
 from pgica_tpu_torch.parallel.zero3 import make_zero3_train_step
 from pgica_tpu_torch.training.checkpoint import CheckpointManager, effective_params, load_opt_state, opt_state_dict
 from pgica_tpu_torch.training.cp_step import make_stage2_cp_eval_step, make_stage2_cp_train_step
-from pgica_tpu_torch.training.graphs import GraphedTrainStep
+from pgica_tpu_torch.training.graphs import GraphedEvalStep, GraphedTrainStep
 from pgica_tpu_torch.training.optim import create_optimizer, warmup_cosine_schedule
 from pgica_tpu_torch.training.packing import bucket_batch, default_buckets
 from pgica_tpu_torch.training.train_step import (
+    EvalStep,
     TrainState,
     make_stage0_train_step,
     make_stage1_eval_step,
@@ -528,21 +534,40 @@ class PreferenceGuidedTrainer:
     def _graphed(self, step):
         """The stage's train step as CUDA graphs on the card without a mesh (the JAX trainer jits every
         step), else the eager step."""
-        return GraphedTrainStep(step) if self.mesh is None and self.device.type == "cuda" else step
+        return GraphedTrainStep(step) if self._graphs_on() else step
 
-    def _end_graphs(self, stage: int, step) -> None:
-        """Keep what the stage's graphed step did in ``graphs`` and drop its graphs and their pool."""
-        if not isinstance(step, GraphedTrainStep):
-            return
-        keys = list(step.graphs.values())
-        self.graphs[stage] = {
-            "keys": len(keys), "eager_steps": step.eager_steps, "replays": step.replays,
-            "capture_s": [g.captured.capture_s for g in keys], "pool_bytes": sum(g.captured.pool_bytes for g in keys),
-            "kernels": [g.captured.kernels for g in keys], "replays_by_key": [g.replays for g in keys],
-        }
-        logger.info("Stage %d: %d graphed keys (%d eager first steps), %d replays, pool %.2f GiB", stage, len(keys),
-                    step.eager_steps, step.replays, self.graphs[stage]["pool_bytes"] / 2**30)
-        step.close()
+    def _graphed_eval(self, eval_step, train_step=None):
+        """The stage's eval step as CUDA graphs on the card without a mesh (the JAX trainer jits it too),
+        sharing the graphed train step's pool, else the eager step."""
+        if not self._graphs_on() or not isinstance(eval_step, EvalStep):
+            return eval_step
+        return GraphedEvalStep(eval_step, pool_of=train_step if isinstance(train_step, GraphedTrainStep) else None)
+
+    def _graphs_on(self) -> bool:
+        return self.mesh is None and self.device.type == "cuda"
+
+    def _end_graphs(self, stage: int, step, eval_step=None) -> None:
+        """Keep what the stage's graphed steps did in ``graphs`` (the train step's keys, first steps, replays,
+        captures and pool; the eval step's the same under ``eval``, with whether it shared the train step's
+        pool) and drop their graphs and pools."""
+        record = {}
+        for name, graphed in (("eval", eval_step), ("train", step)):  # eval first: it may share train's pool
+            if not isinstance(graphed, (GraphedTrainStep, GraphedEvalStep)):
+                continue
+            keys = list(graphed.graphs.values())
+            captured = [g.captured for g in keys if g.captured is not None]  # none on the CPU
+            record[name] = {
+                "keys": len(keys), "eager_steps": graphed.eager_steps, "replays": graphed.replays,
+                "capture_s": [c.capture_s for c in captured], "pool_bytes": graphed.pool_bytes,
+                "kernels": [c.kernels for c in captured], "replays_by_key": [g.replays for g in keys],
+            }
+            logger.info("Stage %d %s: %d graphed keys (%d eager first steps), %d replays, pool %.2f GiB", stage,
+                        name, len(keys), graphed.eager_steps, graphed.replays, graphed.pool_bytes / 2**30)
+            if name == "eval":
+                record[name]["shares_pool"] = graphed.shares_pool
+            graphed.close()
+        if record:
+            self.graphs[stage] = {**record.pop("train", {}), **record}
 
     def _sync_model(self) -> None:
         """Put a tower held out by ``drop_unused_tower`` back on the device.
@@ -641,6 +666,7 @@ class PreferenceGuidedTrainer:
             def train_step(st, b):
                 return step(st, b, seed)
 
+        eval_step = self._graphed_eval(eval_step, None if zero else step)
         logger.info("Stage 1: %d epochs x %d steps", num_epochs, len(self.train_loader))
         patience_counter = 0
         start_epoch, skip_steps = self._resume_window(1, num_epochs)
@@ -658,7 +684,7 @@ class PreferenceGuidedTrainer:
                     break
         finally:
             self._end_zero(state)
-            self._end_graphs(1, None if zero else step)
+            self._end_graphs(1, None if zero else step, eval_step)
         return {"best_val_loss": self.best_val_loss[1], "history": self.history["stage1"]}
 
     # ------------------------------------------------------------- stage 2
@@ -754,6 +780,7 @@ class PreferenceGuidedTrainer:
             def train_step(st, b):
                 return step(st, ref, b, seed)
 
+        eval_step = self._graphed_eval(eval_step, None if zero else step)
         logger.info("Stage 2: %d epochs x %d steps", num_epochs, len(self.preference_train_loader))
         patience_counter = 0
         start_epoch, skip_steps = self._resume_window(2, num_epochs)
@@ -772,7 +799,7 @@ class PreferenceGuidedTrainer:
                     break
         finally:
             self._end_zero(state)
-            self._end_graphs(2, None if zero else step)
+            self._end_graphs(2, None if zero else step, eval_step)
             self._sync_model()
         return {"best_val_loss": self.best_val_loss[2], "history": self.history["stage2"]}
 
@@ -935,7 +962,9 @@ class PreferenceGuidedTrainer:
 
     def _validate(self, loader, eval_step, stage: int, state=None, ref_shards=None) -> Optional[float]:
         """The mean over the loader's batches of the eval loss (on a mesh each batch's over the ranks);
-        ZeRO's sharded parameters (and reference) are gathered for it."""
+        ZeRO's sharded parameters (and reference) are gathered for it. The losses stay on the device until
+        the one read at the end (JAX trainer.py:1085-1099); on the card without a mesh each batch replays
+        its shape's eval graph."""
         if loader is None or len(loader) == 0:
             return None
         with contextlib.ExitStack() as gathered:
